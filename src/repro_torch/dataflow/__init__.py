@@ -5,7 +5,10 @@ Layout:
                  pops; phi metric source)
   exchange.py    fused one-pass exchange: partition→rank→scatter per edge
                  via ScatterPlan, pluggable torch (CUDA kernel) / numpy
-                 backend
+                 backend; DeviceExchange stages for the resident plane
+  device.py      device-resident exchange plane: one dispatch per edge
+                 per super-tick (partition→rank→scatter→pop→fold/map)
+                 through the K2 kernel, boundary-only host readback
   state.py       array-backed keyed-state containers (AggStore/ScopeRows)
   operators.py   Filter/Project/HashJoin/GroupBy/RangeSort/Sink workers
   engine.py      tick-based pipelined executor (optionally batching K
@@ -16,12 +19,14 @@ Layout:
   workflows.py   the paper's W1-W4 experiment graphs
   resilience.py  incident log and retry/backoff policy
 
-Not ported yet from ``repro.dataflow``: device.py (the device-resident
-plane), reference.py, metrics.py, checkpoint.py, spill.py and the chaos
-harness of resilience.py.
+Not ported yet from ``repro.dataflow``: the probe, chain-fusion, spill,
+restore and in-dispatch controller parts of device.py, reference.py,
+metrics.py, checkpoint.py, spill.py and the chaos harness of resilience.py.
 """
+from .device import DeviceChunk, DeviceOpRuntime
 from .engine import Edge, Engine, EngineAdapter, Source
 from .exchange import (
+    DeviceExchange,
     Exchange,
     NumpyPartitionBackend,
     PartitionBackend,
@@ -48,6 +53,9 @@ from .workflows import Workflow, build_w1, build_w2, build_w3, build_w4
 
 __all__ = [
     "AggStore",
+    "DeviceChunk",
+    "DeviceExchange",
+    "DeviceOpRuntime",
     "Edge",
     "Engine",
     "EngineAdapter",

@@ -35,9 +35,15 @@ partition backend — ``"torch"`` (default: the CUDA exchange kernel on the
 engine's ``device``) or ``"numpy"`` (the host plane; bit-identical
 destinations) — is chosen per engine via ``Engine(partition_backend=...)``
 or globally via the ``REPRO_PARTITION_BACKEND`` environment variable.
-Operators keep ``device = None``: the device-resident plane of the JAX
-package (``repro.dataflow.device``) and its ``reference=True`` oracle are
-not ported yet, so the ``op.device`` branches below stay inert.
+Under the torch backend, ``Engine(device_executor="jit")`` promotes every
+eligible edge (a single-upstream Filter / Project / GroupByAgg / Sink /
+HashJoinBuild / RangeSort destination) into the device-resident plane
+(:mod:`repro_torch.dataflow.device`): chunks, ring queues, split counters
+and keyed folds / row stores stay on the device for a whole super-tick, one
+dispatch per edge, and the host materializes state only at the boundaries
+``_fusible_ticks`` computes.  The default, ``device_executor="host"``,
+keeps the per-chunk torch exchange on every edge.  The JAX package's
+``reference=True`` oracle is not ported.
 
 Batched tick scheduler
 ----------------------
@@ -68,7 +74,9 @@ from ..core.partitioner import RoutingTable
 from ..core.state_migration import choose_strategy
 from ..core.types import MigrationStrategy, ReshapeConfig, StateMutability, TransferMode
 from ..devices import DeviceSpec, resolve_device
-from .exchange import BackendSpec, Exchange, get_backend
+from .device import DeviceChunk
+from .exchange import (BackendSpec, DeviceExchange, Exchange,
+                       TorchPartitionBackend, get_backend)
 from .operators import Operator, Sink
 from .resilience import IncidentLog, RetryPolicy
 from .tuples import Chunk, concat
@@ -115,6 +123,11 @@ class Edge:
     def __init__(self, dst: Operator, num_keys: int, *, init: str = "hash",
                  backend: BackendSpec = None, device: DeviceSpec = "cuda"):
         self.dst = dst
+        #: which plane carries this edge: "jit" (the device-resident
+        #: runtime; the JAX package's name, run eagerly here),
+        #: "demoted(<reason>)", or None (the per-chunk backend exchange);
+        #: set by Engine._wire_device.
+        self.device_plane: Optional[str] = None
         self.routing = RoutingTable(num_keys, dst.num_workers, init=init)
         dst.ensure_key_stats(num_keys)
         dst.owner_of = self.routing.owner           # shared view
@@ -140,18 +153,15 @@ class Edge:
         return self.exchange.sent_per_worker
 
     def send(self, chunk) -> None:
+        if (isinstance(chunk, DeviceChunk)
+                and not isinstance(self.exchange, DeviceExchange)):
+            # Device -> host plane boundary: materialize + compact.
+            chunk = chunk.to_host()
         self.exchange.send(chunk)
 
     # ---- state-migration synchronization (paper §5, Fig. 10) ---------- #
     def _on_rewrite(self, keys: List[int], old_rows: np.ndarray, new_rows: np.ndarray) -> None:
         op = self.dst
-        # A rewrite is a materialization boundary for the device plane:
-        # migrations below read/write host keyed state, and the new table
-        # (+ may_scatter arming) re-uploads before the next dispatch.
-        op._device_sync()
-        # From now on arrivals may land off-owner: stateful operators must
-        # run the owned/scattered mask (skipped pre-rewrite, hash init).
-        op.may_scatter = True
         strategy = self.strategy
         if strategy is None:
             # No controller: infer from mutability (Fig. 10 defaults).
@@ -160,6 +170,17 @@ class Edge:
                 if op.traits.mutability is StateMutability.IMMUTABLE
                 else MigrationStrategy.SCATTERED
             )
+        # A rewrite that moves or copies state is a materialization boundary
+        # for the device plane: the migrations below read/write host keyed
+        # state.  A SCATTERED rewrite touches no state, so it is not one:
+        # the resident runtime picks the new table (and may_scatter) up at
+        # its next dispatch, and chunks staged before the rewrite still
+        # route under the table they were sent under.
+        if strategy is not MigrationStrategy.SCATTERED:
+            op._device_sync()
+        # From now on arrivals may land off-owner: stateful operators must
+        # run the owned/scattered mask (skipped pre-rewrite, hash init).
+        op.may_scatter = True
         if strategy in (MigrationStrategy.MARKERS, MigrationStrategy.PAUSE_RESUME):
             # Fold stray fragments to owners before any whole-key move, so
             # the moved scope is complete (the marker-synchronized point).
@@ -256,12 +277,27 @@ class Engine:
     tick scheduler (see module docstring) — ``run`` fuses up to K ticks per
     super-chunk pass, never crossing a sink-snapshot or controller
     boundary.
+
+    ``device_executor`` picks the plane of eligible edges under the torch
+    backend, with the JAX package's names: ``"host"`` (the default) keeps
+    the per-chunk torch exchange on every edge, and ``"jit"`` promotes them
+    to the device-resident runtime on ``device``, which the port runs
+    eagerly, without tracing.  The default is the per-chunk plane because
+    it is the faster one on the card so far: an eager resident dispatch
+    costs more than the per-chunk round trip it saves (``PERF.md``).
+    Ineligible edges (HashJoinProbe destinations, 2-D payloads, a second
+    upstream) always use the per-chunk exchange.
     """
 
     def __init__(self, *, partition_backend: BackendSpec = None,
-                 batch_ticks: int = 1, device: DeviceSpec = "cuda"):
+                 batch_ticks: int = 1, device: DeviceSpec = "cuda",
+                 device_executor: str = "host"):
+        if device_executor not in ("jit", "host"):
+            raise ValueError(f"unknown device executor {device_executor!r}; "
+                             f"choose from 'jit' and 'host'")
         self.device = resolve_device(device)
         self.partition_backend = get_backend(partition_backend, self.device)
+        self.device_executor = device_executor
         self.batch_ticks = max(1, int(batch_ticks))
         self.sources: List[Source] = []
         self.ops: List[Operator] = []                 # topological order
@@ -308,7 +344,35 @@ class Engine:
         producer.out_edge = edge
         self.edges.append(edge)
         self.upstreams.setdefault(consumer.name, []).append(producer)
+        self._wire_device(edge, consumer)
         return edge
+
+    def _wire_device(self, edge: Edge, consumer: Operator) -> None:
+        """Promote an eligible torch edge into the device-resident plane.
+
+        Eligible: the engine runs the torch backend, ``device_executor`` is
+        not ``"host"``, and the destination is a single-upstream Filter /
+        Project / GroupByAgg / Sink / HashJoinBuild / RangeSort with a
+        bounded (worker x key) dense structure
+        (:func:`repro_torch.dataflow.device.wireable`).  A second upstream
+        demotes an already promoted destination.  Ineligible edges keep
+        the per-chunk exchange.
+        """
+        if (self.device_executor == "host"
+                or not isinstance(self.partition_backend,
+                                  TorchPartitionBackend)):
+            return
+        from . import device as dev
+        multi = len(self.upstreams[consumer.name]) > 1
+        if multi and consumer.device is not None:
+            consumer.device.demote("multiple upstreams")
+            return
+        if multi or not dev.wireable(consumer, edge.routing.num_keys):
+            return
+        runtime = dev.DeviceOpRuntime(consumer, edge, self)
+        consumer.device = runtime
+        edge.exchange = DeviceExchange(edge.routing, consumer, runtime)
+        edge.device_plane = "jit"
 
     def attach_controller(
         self,
@@ -408,9 +472,10 @@ class Engine:
         # per-key arrival stats for monitored operators so the metric
         # rounds read exactly what the host plane would have folded.
         # A runtime with an armed device-resident controller (the JAX
-        # package's ``device_controller``; not ported yet) instead runs
-        # every covered metric round *in-dispatch*; its host twin is
-        # skipped below and reconciled at the next boundary.
+        # package's ``device_controller``; not ported yet, so ``dev.ctrl``
+        # is None) instead runs every covered metric round *in-dispatch*;
+        # its host twin is skipped below and reconciled at the next
+        # boundary.
         for att in self.controllers:
             dev = att.op.device
             if dev is None:

@@ -55,6 +55,9 @@ for record — without perturbing the low-discrepancy sequence.
 
 Select a backend per engine (``Engine(partition_backend=...)``), per edge,
 or globally via the ``REPRO_PARTITION_BACKEND`` environment variable.
+Under the torch backend the engine promotes eligible edges to a
+:class:`DeviceExchange`, whose ``send`` only stages the chunk for the
+destination's device-resident runtime (:mod:`repro_torch.dataflow.device`).
 """
 from __future__ import annotations
 
@@ -327,3 +330,37 @@ class Exchange:
         else:  # minimal receive_sorted-only targets (test doubles)
             self.dst.receive_sorted(plan.take(keys), plan.take(vals),
                                     plan.bounds)
+
+
+class DeviceExchange:
+    """Device-plane edge: ``send`` stages the chunk on the device.
+
+    The work happens in the destination operator's dispatch
+    (:class:`repro_torch.dataflow.device.DeviceOpRuntime`): one dispatch
+    per super-tick performs partition → rank → ring scatter → budgeted pop
+    → fold for this edge.  ``send`` only stages — a host chunk is uploaded
+    once (padded + masked), a :class:`~repro_torch.dataflow.device.DeviceChunk`
+    from an upstream device operator is adopted as is, so consecutive
+    device edges never round-trip through the host.  ``account`` is fed by
+    the runtime's O(num_workers) per-dispatch metric readback, keeping
+    ``tuples_sent`` / ``sent_per_worker`` exact.
+    """
+
+    def __init__(self, routing: RoutingTable, dst, runtime):
+        self.routing = routing
+        self.dst = dst
+        self.runtime = runtime
+        self.tuples_sent = 0
+        self.sent_per_worker = np.zeros(routing.num_workers, dtype=np.int64)
+
+    @property
+    def placements(self):
+        """Placement executions on this edge: one per ingested chunk."""
+        return self.runtime.placements
+
+    def account(self, hist: np.ndarray) -> None:
+        self.tuples_sent += int(hist.sum())
+        self.sent_per_worker += hist
+
+    def send(self, chunk) -> None:
+        self.runtime.stage(chunk)

@@ -355,6 +355,9 @@ class _RowStateOp(Operator):
         return 1
 
     def state_units(self, wid: int, mode: TransferMode) -> float:
+        rows = self.device.owned_rows(wid) if self.device is not None else None
+        if rows is not None:
+            return float(rows)          # the resident row log's mirror
         self._device_sync()
         st = self.workers[wid].state
         if isinstance(st, ScopeRows):

@@ -8,7 +8,10 @@
 ``strategy`` selects the skew handler on the monitored operator(s):
 ``"none" | "flux" | "flowjoin" | "reshape"``.  ``device`` (default
 ``"cuda"``) is where the default ``"torch"`` exchange backend runs;
-``partition_backend="numpy"`` selects the host plane.
+``partition_backend="numpy"`` selects the host plane.  Under the torch
+backend ``device_executor`` (see :class:`~repro_torch.dataflow.engine.Engine`)
+keeps the per-chunk exchange on every edge (``"host"``, the default) or
+puts every eligible edge on the device-resident plane (``"jit"``).
 """
 from __future__ import annotations
 
@@ -25,9 +28,11 @@ from .engine import Edge, Engine, Source
 from .operators import Filter, GroupByAgg, HashJoinProbe, Operator, Project, RangeSort, Sink
 
 
-def _engine(partition_backend, batch_ticks: int, device) -> Engine:
+def _engine(partition_backend, batch_ticks: int, device,
+            device_executor) -> Engine:
     return Engine(partition_backend=partition_backend,
-                  batch_ticks=batch_ticks, device=device)
+                  batch_ticks=batch_ticks, device=device,
+                  device_executor=device_executor)
 
 
 @dataclasses.dataclass
@@ -72,12 +77,13 @@ def build_w1(
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
+    device_executor="host",
 ) -> Workflow:
     keys, vals = datasets.tweets_stream(scale, seed)
     nkeys = datasets.NUM_LOCATIONS
     emit_rate = num_workers * service_rate          # join is the bottleneck
 
-    eng = _engine(partition_backend, batch_ticks, device)
+    eng = _engine(partition_backend, batch_ticks, device, device_executor)
     src = eng.add_source(Source("tweets", keys, vals, emit_rate))
     filt = eng.add_op(Filter("filter", num_workers, emit_rate,
                              predicate=lambda k, v: np.ones(k.shape, dtype=bool)))
@@ -131,12 +137,13 @@ def build_w2(
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
+    device_executor="host",
 ) -> Workflow:
     spec = datasets.DsbSpec()
     dates, items, custs, vals = datasets.dsb_sales(n_tuples, spec, seed)
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device)
+    eng = _engine(partition_backend, batch_ticks, device, device_executor)
     # vals columns: [item, customer, amount] so downstream re-keys by item.
     payload = np.stack([items.astype(np.float64), custs.astype(np.float64), vals], axis=1)
     src = eng.add_source(Source("sales", dates, payload, emit_rate))
@@ -189,6 +196,7 @@ def build_w3(
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
+    device_executor="host",
 ) -> Workflow:
     prices = datasets.tpch_orders(n_tuples, seed)
     bounds = datasets.price_ranges(num_workers * 2)   # 2 ranges per worker
@@ -196,7 +204,7 @@ def build_w3(
     nranges = num_workers * 2
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device)
+    eng = _engine(partition_backend, batch_ticks, device, device_executor)
     src = eng.add_source(Source("orders", rids, prices, emit_rate))
     sort = eng.add_op(RangeSort("sort", num_workers, service_rate))
     sink = eng.add_op(Sink("out", nranges, snapshot_every=snapshot_every))
@@ -227,12 +235,13 @@ def build_w4(
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
+    device_executor="host",
 ) -> Workflow:
     num_keys = 42
     keys, vals = datasets.synthetic_changing(n_tuples, num_keys, seed)
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device)
+    eng = _engine(partition_backend, batch_ticks, device, device_executor)
     src = eng.add_source(Source("synthetic", keys, vals, emit_rate))
     join = eng.add_op(HashJoinProbe("join", num_workers, service_rate))
     sink = eng.add_op(Sink("viz", num_keys, snapshot_every=snapshot_every))

@@ -6,8 +6,8 @@
                       tensor runs the plain version; launch counters
   ref.py              plain PyTorch versions (the comparison targets)
 
-Still to port from ``repro.kernels``: ``partition_scatter_fold``,
-``segment_matmul``, ``flash_attention`` and ``rwkv_scan``.
+Still to port from ``repro.kernels``: ``segment_matmul``,
+``flash_attention`` and ``rwkv_scan``.
 """
 from . import partition, ref
 

@@ -4,6 +4,11 @@
 //   K1 partition_scatter (wrapper :226, kernel _partition_scatter_kernel :137)
 //      -> repro_partition_scatter: dest [N], within-destination rank [N],
 //         histogram [W];
+//   K2 partition_scatter_fold (wrapper :286, kernel
+//      _partition_scatter_fold_kernel :174)
+//      -> repro_partition_scatter_fold: K1 over the live lanes of a 1-byte
+//         mask, plus the per-key count [K] int32 and sum [K] float32 of the
+//         live lanes whose key lies in [0, K);
 //   K3 partition (wrapper :81, kernel _partition_kernel :53)
 //      -> repro_partition: dest [N], histogram [W].
 //
@@ -22,6 +27,8 @@
 // Bound on an H100 (3.35 TB/s, NVIDIA data sheet): memory.  Each input is
 // read once and each output written once:
 //   K1: 16 N + 4 K W bytes (keys, counters, dest, rank + the cdf table)
+//   K2: 21 N + 4 K W + 8 K + 4 W bytes (K1's, plus vals and the 1-byte mask
+//       in, the two [K] folds and the histogram out)
 //   K3: 12 N + 4 K W bytes
 // The compares, N * W of them, are far below the card's operation rate.
 //
@@ -45,6 +52,22 @@
 // histogram and one global atomicAdd per worker per block folds it into
 // hist.  Integer atomics keep the result exact.
 //
+// K2 is K1 with a lane mask, plus a fold pass.  The TPU kernel carries the
+// histogram and the [1, K] folds in VMEM across its ordered grid and builds
+// a [block, K] one-hot for the fold; neither carries over.  Here a dead lane
+// takes the group -1 in pass A's __match_any_sync (as a lane past the end
+// does), so it is in no live lane's peer set, never touches the per-warp
+// counters or the tile histogram, and gets rank 0; its destination is still
+// computed and written.  Pass C skips dead lanes.  The mask may have holes
+// anywhere (a Filter upstream kills lanes in the middle of a chunk).  The
+// fold pass F walks the chunk grid-stride with at most kFoldBlocks blocks;
+// when K <= kMaxSharedFoldKeys each block folds into a private [K] count and
+// sum in shared memory (8 K bytes) and adds its nonzero entries to the
+// global folds once, otherwise it adds to the global folds directly.  Counts
+// are integer atomics, exact; sums are float32 atomics, whose order (and so
+// the last bits of each sum) varies from run to run.  Hot keys contend on
+// the same addresses, so F is far from the memory bound on skewed keys.
+//
 // Shared memory: pass A holds 8 x kMaxWorkers int32 (32 KB), so W is at
 // most kMaxWorkers = 1024; the wrapper raises above it, and the entry
 // points return cudaErrorInvalidValue.
@@ -61,6 +84,8 @@ constexpr int kTile = kThreads * kPerThread;         // 4096 records a block
 constexpr int kWarpSlice = kTile / kWarps;           // 512 records a warp
 constexpr int kMaxWorkers = 1024;
 constexpr uint32_t kGolden = 2654435769u;            // frac(phi) * 2^32
+constexpr int kFoldBlocks = 264;                     // 2 per SM of an H100
+constexpr int kMaxSharedFoldKeys = 24576;            // 8 K = 192 KB shared
 
 __device__ __forceinline__ float ld_threshold(int32_t counter) {
   const uint32_t bits = ((uint32_t)counter + 1u) * kGolden;   // wraps
@@ -88,10 +113,12 @@ __device__ __forceinline__ int route(int32_t key, int32_t counter,
   return min(d, num_workers - 1);
 }
 
-// Pass A of K1.
+// Pass A of K1 (kMasked false: every lane live, valid unread) and K2.
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 scatter_tile_kernel(const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ counters,
+                    const uint8_t* __restrict__ valid,
                     const float* __restrict__ cdf, int n, int num_keys,
                     int num_workers, int num_tiles, bool vec4,
                     int32_t* __restrict__ dest, int32_t* __restrict__ rank,
@@ -114,12 +141,17 @@ scatter_tile_kernel(const int32_t* __restrict__ keys,
     int d = -1;                                  // -1: lane past the end
     if (i < n) d = route(keys[i], counters[i], cdf, num_keys, num_workers,
                          vec4);
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    int r = 0;
-    if (d >= 0) r = warp_count[warp][d] + __popc(peers & below);
+    // The counted group: K1 counts every lane it routes; K2 gives a dead
+    // lane the group -1 and (in my_rank) the mark -1, for rank 0.  K1's
+    // instantiation compiles to the unmasked code, with no extra register.
+    int c = d;
+    if constexpr (kMasked) c = (i < n && valid[i] != 0) ? d : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    int r = kMasked ? -1 : 0;
+    if (c >= 0) r = warp_count[warp][c] + __popc(peers & below);
     __syncwarp();
-    if (d >= 0 && (peers & below) == 0)          // lowest lane of the group
-      warp_count[warp][d] += __popc(peers);
+    if (c >= 0 && (peers & below) == 0)          // lowest lane of the group
+      warp_count[warp][c] += __popc(peers);
     __syncwarp();
     my_dest[g] = d;
     my_rank[g] = r;
@@ -144,7 +176,11 @@ scatter_tile_kernel(const int32_t* __restrict__ keys,
     const int64_t i = warp_start + g * 32 + lane;
     if (i < n) {
       dest[i] = my_dest[g];
-      rank[i] = my_rank[g] + warp_count[warp][my_dest[g]];
+      if constexpr (kMasked)
+        rank[i] = my_rank[g] < 0 ? 0
+                                 : my_rank[g] + warp_count[warp][my_dest[g]];
+      else
+        rank[i] = my_rank[g] + warp_count[warp][my_dest[g]];
     }
   }
 }
@@ -196,15 +232,59 @@ tile_offsets_kernel(int32_t* __restrict__ tile_hist, int num_tiles,
   if (threadIdx.x == 0) hist[blockIdx.x] = run;
 }
 
-// Pass C of K1.
+// Pass C of K1 and K2 (dead lanes keep rank 0).
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 add_tile_offsets_kernel(const int32_t* __restrict__ dest,
+                        const uint8_t* __restrict__ valid,
                         int32_t* __restrict__ rank,
                         const int32_t* __restrict__ tile_off, int n,
                         int num_tiles) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i < n)
+  if (i < n && (!kMasked || valid[i] != 0))
     rank[i] += tile_off[(size_t)dest[i] * num_tiles + i / kTile];
+}
+
+// Pass F of K2: per-key count and sum of the live lanes with a key in
+// [0, K), privatised in shared memory when `priv` (K <= kMaxSharedFoldKeys).
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const int32_t* __restrict__ keys, const float* __restrict__ vals,
+            const uint8_t* __restrict__ valid, int n, int num_keys,
+            bool priv, int32_t* __restrict__ fold_counts,
+            float* __restrict__ fold_sums) {
+  extern __shared__ int fold_smem[];
+  int* s_cnt = fold_smem;
+  float* s_sum = reinterpret_cast<float*>(fold_smem + num_keys);
+  if (priv) {
+    for (int k = threadIdx.x; k < num_keys; k += kThreads) {
+      s_cnt[k] = 0;
+      s_sum[k] = 0.0f;
+    }
+    __syncthreads();
+  }
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const int k = keys[i];
+    if (valid[i] == 0 || k < 0 || k >= num_keys) continue;
+    const float v = vals[i];
+    if (priv) {
+      atomicAdd(s_cnt + k, 1);
+      atomicAdd(s_sum + k, v);
+    } else {
+      atomicAdd(fold_counts + k, 1);
+      atomicAdd(fold_sums + k, v);
+    }
+  }
+  if (priv) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < num_keys; k += kThreads) {
+      if (s_cnt[k] != 0) {
+        atomicAdd(fold_counts + k, s_cnt[k]);
+        atomicAdd(fold_sums + k, s_sum[k]);
+      }
+    }
+  }
 }
 
 // K3: dest and histogram.
@@ -242,6 +322,31 @@ bool vec4_rows(const float* cdf, int num_workers) {
   return num_workers % 4 == 0 && reinterpret_cast<uintptr_t>(cdf) % 16 == 0;
 }
 
+// Passes A, B and C of K1 (kMasked false) and K2 on stream s.
+template <bool kMasked>
+cudaError_t scatter_passes(const int32_t* keys, const int32_t* counters,
+                           const uint8_t* valid, const float* cdf,
+                           int32_t* dest, int32_t* rank, int32_t* hist,
+                           int32_t* tile_scratch, int n, int num_keys,
+                           int num_workers, cudaStream_t s) {
+  const int num_tiles = (n + kTile - 1) / kTile;
+  scatter_tile_kernel<kMasked><<<num_tiles, kThreads, 0, s>>>(
+      keys, counters, valid, cdf, n, num_keys, num_workers, num_tiles,
+      vec4_rows(cdf, num_workers), dest, rank, tile_scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tile_offsets_kernel<<<num_workers, kThreads, 0, s>>>(tile_scratch,
+                                                       num_tiles, hist);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (num_tiles > 1) {
+    add_tile_offsets_kernel<kMasked>
+        <<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+            dest, valid, rank, tile_scratch, n, num_tiles);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -265,21 +370,47 @@ int repro_partition_scatter(const int32_t* keys, const int32_t* counters,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  return scatter_passes<false>(keys, counters, nullptr, cdf, dest, rank,
+                               hist, tile_scratch, n, num_keys, num_workers,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K2.  valid is one byte a lane (0 = dead); tile_scratch as for K1.
+// Returns a cudaError_t (0 on success); launches asynchronously.
+int repro_partition_scatter_fold(const int32_t* keys, const int32_t* counters,
+                                 const float* vals, const uint8_t* valid,
+                                 const float* cdf, int32_t* dest,
+                                 int32_t* rank, int32_t* hist,
+                                 int32_t* fold_counts, float* fold_sums,
+                                 int32_t* tile_scratch, int n, int num_keys,
+                                 int num_workers, int device, void* stream) {
+  if (bad_shape(n, num_keys, num_workers) || n == 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int num_tiles = (n + kTile - 1) / kTile;
-  scatter_tile_kernel<<<num_tiles, kThreads, 0, s>>>(
-      keys, counters, cdf, n, num_keys, num_workers, num_tiles,
-      vec4_rows(cdf, num_workers), dest, rank, tile_scratch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  tile_offsets_kernel<<<num_workers, kThreads, 0, s>>>(tile_scratch,
-                                                       num_tiles, hist);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (num_tiles > 1) {
-    add_tile_offsets_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                              s>>>(dest, rank, tile_scratch, n, num_tiles);
-    err = cudaGetLastError();
+  if ((err = cudaMemsetAsync(fold_counts, 0, sizeof(int32_t) * num_keys,
+                             s)) != cudaSuccess)
+    return err;
+  if ((err = cudaMemsetAsync(fold_sums, 0, sizeof(float) * num_keys, s)) !=
+      cudaSuccess)
+    return err;
+  err = scatter_passes<true>(keys, counters, valid, cdf, dest, rank, hist,
+                             tile_scratch, n, num_keys, num_workers, s);
+  if (err != cudaSuccess) return err;
+  const bool priv = num_keys <= kMaxSharedFoldKeys;
+  const size_t smem = priv ? sizeof(int32_t) * 2 * (size_t)num_keys : 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fold_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  return err;
+  const int num_tiles = (n + kTile - 1) / kTile;
+  const int blocks = num_tiles < kFoldBlocks ? num_tiles : kFoldBlocks;
+  fold_kernel<<<blocks, kThreads, smem, s>>>(keys, vals, valid, n, num_keys,
+                                             priv, fold_counts, fold_sums);
+  return cudaGetLastError();
 }
 
 // K3.  Returns a cudaError_t (0 on success); launches asynchronously.

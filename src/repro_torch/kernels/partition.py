@@ -5,6 +5,9 @@ Counterparts of the Pallas kernels in ``repro.kernels.partition``:
 * :func:`partition_scatter` (K1): destination, within-destination rank and
   per-worker histogram of a chunk, so the exchange places record ``i`` at
   ``exclusive_cumsum(hist)[dest[i]] + rank[i]`` with no sort;
+* :func:`partition_scatter_fold` (K2): K1 over the live lanes of a masked
+  chunk plus its per-key count and sum (the device-resident plane's ingest
+  and sink fold);
 * :func:`partition` (K3): destination and histogram.
 
 The device of the tensors decides the path.  For CUDA tensors a wrapper
@@ -44,6 +47,9 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_partition_scatter.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.repro_partition_scatter.restype = i32
+        lib.repro_partition_scatter_fold.argtypes = ([ptr] * 11 + [i32] * 4
+                                                     + [ptr])
+        lib.repro_partition_scatter_fold.restype = i32
         lib.repro_partition.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         lib.repro_partition.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
@@ -132,6 +138,62 @@ def partition_scatter(keys: torch.Tensor, counters: torch.Tensor,
     return dest, rank, hist
 
 
+def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
+                           vals: torch.Tensor, valid: torch.Tensor,
+                           cdf: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """(dest [N] i32, rank [N] i32, hist [W] i32, fold_counts [K] i32,
+    fold_sums [K] f32) of one masked chunk.
+
+    ``vals`` is float32 ``[N]``; ``valid`` is the lane mask, ``[N]`` bool or
+    uint8 (one byte a lane, nonzero = live).  ``dest`` is computed for every
+    lane; ``rank`` and ``hist`` count live lanes only (a dead lane's rank is
+    0); the folds sum the live lanes whose key lies in ``[0, K)``.  The
+    kernel adds the sums with float32 atomics, so their last bits vary from
+    run to run; the counts are exact.
+    """
+    _check(keys, counters, cdf)
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    if valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"valid must be bool or uint8, got {valid.dtype}")
+    if vals.shape != keys.shape or valid.shape != keys.shape:
+        raise ValueError(f"vals and valid must be [N] like keys, got "
+                         f"{tuple(vals.shape)} and {tuple(valid.shape)}")
+    if not (vals.device == valid.device == keys.device):
+        raise ValueError("vals and valid must share the keys' device")
+    if not (vals.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("vals and valid must be contiguous")
+    if keys.device.type == "cpu":
+        return ref.partition_scatter_fold(keys, counters, vals, valid, cdf)
+    n = keys.numel()
+    num_keys, num_workers = cdf.shape
+    dev = keys.device
+    fold_counts = torch.empty(num_keys, dtype=torch.int32, device=dev)
+    fold_sums = torch.empty(num_keys, dtype=torch.float32, device=dev)
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return (empty, empty.clone(),
+                torch.zeros(num_workers, dtype=torch.int32, device=dev),
+                fold_counts.zero_(), fold_sums.zero_())
+    lib = _library()
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty(num_workers, dtype=torch.int32, device=dev)
+    scratch = torch.empty(num_workers * -(-n // TILE_RECORDS),
+                          dtype=torch.int32, device=dev)
+    code = lib.repro_partition_scatter_fold(
+        keys.data_ptr(), counters.data_ptr(), vals.data_ptr(),
+        valid.view(torch.uint8).data_ptr(), cdf.data_ptr(), dest.data_ptr(),
+        rank.data_ptr(), hist.data_ptr(), fold_counts.data_ptr(),
+        fold_sums.data_ptr(), scratch.data_ptr(), n, num_keys, num_workers,
+        *_device_and_stream(dev))
+    _raise_on(code, "partition_scatter_fold")
+    partition_scatter_fold.launches += 1
+    return dest, rank, hist, fold_counts, fold_sums
+
+
 def partition(keys: torch.Tensor, counters: torch.Tensor,
               cdf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dest [N] int32, hist [W] int32) of one chunk."""
@@ -157,4 +219,5 @@ def partition(keys: torch.Tensor, counters: torch.Tensor,
 
 
 partition_scatter.launches = 0
+partition_scatter_fold.launches = 0
 partition.launches = 0

@@ -41,3 +41,34 @@ def partition_scatter(keys: torch.Tensor, counters: torch.Tensor,
     """
     dest, hist = partition(keys, counters, cdf)
     return dest, within_dest_ranks(dest, cdf.shape[1]), hist
+
+
+def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
+                           vals: torch.Tensor, valid: torch.Tensor,
+                           cdf: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """Fused exchange + per-key fold over the live lanes of a masked chunk:
+    (dest [N], rank [N], hist [W], fold_counts [K] int32, fold_sums [K]
+    float32).
+
+    ``dest`` by :func:`partition` for every lane; ``rank`` and ``hist``
+    count live lanes only (dead lanes get rank 0); the folds count and sum
+    (in float32, with ``index_add_``) the live lanes whose key lies in
+    ``[0, K)``.
+    """
+    num_keys, num_workers = cdf.shape
+    dest, _ = partition(keys, counters, cdf)
+    live = valid.to(torch.bool)
+    lanes = live.to(torch.int32)
+    hist = torch.zeros(num_workers, dtype=torch.int32, device=keys.device)
+    hist.index_add_(0, dest.to(torch.int64), lanes)
+    rank = within_dest_ranks(dest, num_workers, valid=lanes) * lanes
+    k64 = keys.to(torch.int64)
+    inr = live & (k64 >= 0) & (k64 < num_keys)
+    slot = torch.where(inr, k64, 0)
+    cnt = torch.zeros(num_keys, dtype=torch.int32, device=keys.device)
+    cnt.index_add_(0, slot, inr.to(torch.int32))
+    sums = torch.zeros(num_keys, dtype=torch.float32, device=keys.device)
+    sums.index_add_(0, slot, torch.where(inr, vals, 0.0))
+    return dest, rank, hist, cnt, sums
