@@ -38,11 +38,43 @@ Phases, in order; any failure exits non-zero before the last line:
            (W3's ingest and its one sink call of the whole sorted output,
            W1's filter ingest and sink calls), checked as in phase 3 and
            timed;
-6. report  one JSON line of kernels, the card line, and the ``{"ok": ...}``
-           line last.
+6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
+           float32; odd shapes and OLMoE-1B-7B's expert products at C = 4
+           and C = 2048) and K5 ``flash_attention`` (bf16, float32 at one
+           length; causal and full; 1 and 3 query heads per KV head; S in
+           {1, 63, 512, 4096}) against their plain versions within bounds
+           stated in ``check_segment_matmul`` and ``check_flash``;
+7. serve   OLMoE-1B-7B at full width (16 layers, ~6.9e9 float32 weights
+           from seed 0, bf16 compute) behind ``ServeEngine`` on the card:
+           batch 4, 8 requests with prompts of 64-512 tokens, 16 new tokens
+           each, every kernel's count set to 0 just before and read just
+           after; K4 and K5 must have launched, every token must lie in the
+           vocabulary and every logit be finite.  Prefill seconds, ms per
+           decode step and tokens/s, beside the ``nvidia-smi`` line.  Then
+           K4 and K5 are replayed against their plain versions on the
+           serve's own inputs (the first call at each shape) and timed
+           beside the plain version, ``torch.bmm`` /
+           ``scaled_dot_product_attention`` and the bound; K5 also at
+           OLMoE's 4096-token context;
+8. slice   OLMoE-1B-7B at full width and 2 layers with the same weights on
+           the card (K4, K5) and on the host (their plain versions): a
+           2 x 64 prefill and 4 teacher-forced decode steps: at the
+           tokens whose experts stayed on both sides, logits within
+           ``SLICE_TOL`` and greedy tokens equal wherever the top-2 margin
+           exceeds it; at most ``SLICE_MOVED`` tokens with moved experts,
+           their logits within ``SLICE_CAP``;
+9. report  one JSON line of kernels (K1-K5), the card line, and the
+           ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
 non-zero and prints no result.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --readings   # not part of the smoke
+
+builds the kernels and prints the readings behind ``SLICE_TOL`` (the slice
+check at three seeds, sound and with planted kernel faults) and one decode
+step of the full-width serve taken apart (K4's calls, the weight casts,
+the device's busy share under the profiler).
 """
 from __future__ import annotations
 
@@ -56,10 +88,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-#: tensor cores (the kernels' compares are float32).
+#: NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+#: cores (the partition kernels' compares, K5's P V and its float32 path,
+#: K4's float32 path) and dense bf16 tensor-core rate (K4's bf16 path,
+#: K5's bf16 Q K^T).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 #: The real exchange shape of the kernel phase.
 REAL_N, REAL_K, REAL_W = 2**24, 65_536, 64
@@ -71,6 +106,25 @@ REAL_DEAD = 0.1
 W1_SCALE, W2_TUPLES, W3_TUPLES = 2.0, 60_000, 1_500_000
 
 SOURCE = "src/repro_torch/kernels/csrc/partition.cu"
+
+#: The serve: OLMoE-1B-7B at full width, batch 4, 8 requests with prompts
+#: of 64-512 tokens drawn from seed 0, 16 new tokens each.
+SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, (64, 512), 16
+#: The slice check: a SLICE_B x SLICE_S prompt and SLICE_STEPS decode
+#: steps after it.  Both sides round every matmul output to bf16 after
+#: float32 sums in other orders, and a rounding that lands on the other
+#: side of a near-tie of router logits moves a token's experts.  So: the
+#: largest |logit difference| allowed at a token whose experts stayed in
+#: every layer (SLICE_TOL), how many tokens may have moved experts
+#: (SLICE_MOVED) and the largest difference allowed at those (SLICE_CAP).
+#: Each is set from ``python3 chip_smoke.py --readings`` (``PERF.md``),
+#: near the geometric mean of what sound runs at three seeds reached and
+#: what the nearest planted kernel fault gave (H100): stayed tokens 0.148
+#: against 0.258 (K4 dropping the last of D's terms), 11 moved tokens
+#: against 18 (the same fault; K5's faults move 134-136 of 136), moved
+#: tokens 0.646 against 4.05 (K5's q scaled twice).
+SLICE_B, SLICE_S, SLICE_STEPS = 2, 64, 4
+SLICE_TOL, SLICE_MOVED, SLICE_CAP = 0.2, 14, 1.6
 
 
 class SmokeFailure(RuntimeError):
@@ -328,19 +382,17 @@ EXPECT = {
 PER_CHUNK = dict(partition_scatter=True, partition_scatter_fold=False)
 
 
-class FoldRecorder:
-    """Stands in for K2's wrapper during the card paths and calls it.
+class Recorder:
+    """Stands in for a kernel's wrapper in its module and calls it, keeping
+    the inputs of the first call at each key (by default the label of the
+    path and the inputs' shapes and dtypes), for the replay against the
+    plain version.  The wrapped function still counts its own launches."""
 
-    Keeps the inputs of the first call at each (path, N, K, W), for the
-    replay against the plain version, and every sink call's (keys, vals,
-    valid), for the bound on the sink's float sums.  The wrapped function
-    still counts its own launches."""
-
-    def __init__(self, kpart):
-        self.kernel = kpart.partition_scatter_fold
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.kernel = getattr(module, name)
         self.label = ""
         self.first = {}
-        self.sink_calls = []
 
     # The wrapper counts its launches on the name it has in its module,
     # which is this recorder while it stands in: forward the count.
@@ -352,15 +404,40 @@ class FoldRecorder:
     def launches(self, n: int) -> None:
         self.kernel.launches = n
 
-    def __call__(self, keys, counters, vals, valid, cdf):
-        num_keys, num_workers = cdf.shape
-        key = (self.label, keys.numel(), num_keys, num_workers)
+    def key(self, *args):
+        return (self.label,) + tuple((tuple(a.shape), str(a.dtype))
+                                     for a in args)
+
+    def __call__(self, *args, **kw):
+        key = self.key(*args)
         if key not in self.first:
-            self.first[key] = tuple(t.clone() for t in
-                                    (keys, counters, vals, valid, cdf))
-        if num_workers == 1:
+            self.first[key] = (tuple(t.clone() for t in args), kw)
+        return self.kernel(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.kernel)
+
+
+class FoldRecorder(Recorder):
+    """The recorder of K2 (``partition_scatter_fold``): keyed by (path, N,
+    K, W), and it also keeps every sink call's (keys, vals, valid), for the
+    bound on the sink's float sums."""
+
+    def __init__(self, kpart):
+        super().__init__(kpart, "partition_scatter_fold")
+        self.sink_calls = []
+
+    def key(self, keys, counters, vals, valid, cdf):
+        return (self.label, keys.numel()) + tuple(cdf.shape)
+
+    def __call__(self, keys, counters, vals, valid, cdf):
+        if cdf.shape[1] == 1:
             self.sink_calls.append((keys, vals, valid))
-        return self.kernel(keys, counters, vals, valid, cdf)
+        return super().__call__(keys, counters, vals, valid, cdf)
 
     def sink_abs_sums(self, torch, num_keys: int):
         """Per key, the sum of |v| over the live lanes of the sink calls
@@ -474,10 +551,8 @@ def main_path(torch, kpart):
     from repro_torch.dataflow import datasets
 
     kernels = {name: getattr(kpart, name) for name in KERNELS}
-    rec = FoldRecorder(kpart)
-    kpart.partition_scatter_fold = rec
     cards = {}
-    try:
+    with FoldRecorder(kpart) as rec:
         for label, factory, kw, executor in PATHS:
             for fn in kernels.values():
                 fn.launches = 0
@@ -488,8 +563,6 @@ def main_path(torch, kpart):
             absum = (rec.sink_abs_sums(torch, run[0].sink.counts.size)
                      if executor == "jit" else None)
             cards[label] = run + (counts, absum)
-    finally:
-        kpart.partition_scatter_fold = rec.kernel
     launches = {name: sum(c[4][name] for c in cards.values())
                 for name in KERNELS}
     for label in EXPECT:
@@ -574,7 +647,7 @@ def replay_phase(torch, kpart, ref, first) -> float:
     kernel's max |fold_sums - float64 sum|."""
     k2 = "partition_scatter_fold"
     err = 0.0
-    for (label, n, num_keys, num_workers), args in first.items():
+    for (label, n, num_keys, num_workers), (args, _) in first.items():
         what = f"{label} N={n} K={num_keys} W={num_workers}"
         err = max(err, check_fold(torch, f"{k2} on {what}",
                                   kpart.partition_scatter_fold(*args),
@@ -593,6 +666,669 @@ def replay_phase(torch, kpart, ref, first) -> float:
 
 
 # --------------------------------------------------------------------- #
+# 6. model kernels: K4 segment_matmul, K5 flash_attention                #
+# --------------------------------------------------------------------- #
+def check_segment_matmul(torch, what: str, got, x, w) -> float:
+    """K4 against its plain version (float32 sums of bf16 x bf16 products,
+    which are exact, or of float32 products): each float32 sum of D terms,
+    in any order, is within D * 2^-24 * sum|x w| of the exact one (first
+    order), so the two versions within twice that; a bf16 output adds one
+    rounding of each, within 2^-8 (bf16's unit roundoff) relative apiece,
+    so 2^-7 of the larger for the two.  Returns max |got - plain|."""
+    from repro_torch.kernels import ref
+    want = ref.segment_matmul(x, w)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs plain "
+          f"{tuple(want.shape)} {want.dtype}")
+    D = x.shape[2]
+    absum = torch.bmm(x.float().abs(), w.float().abs())
+    tol = 2 * D * 2.0**-24 * absum
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2.0**-7 * torch.maximum(got.float().abs(),
+                                            want.float().abs())
+    err = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(bool((err <= tol).all()),
+          f"{what}: beyond the stated bound of the plain version (max |err| "
+          f"{float(err.max()):.3g})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_flash(torch, what: str, got, q, k, v, causal: bool,
+                scale: float) -> float:
+    """K5 against its plain version: both are float32 arithmetic on the
+    same inputs; l and acc are float32 sums of up to T terms, each within
+    T * 2^-24 of its exact value relative to the sum of magnitudes, so the
+    outputs lie within 2 * T * 2^-24 * max|v| of each other, plus 3e-5 for
+    the exponentials (``tests/test_kernels.py``'s absolute tolerance).
+    Returns max |got - plain|."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    check(got.shape == want.shape and got.dtype == torch.float32,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs plain "
+          f"{tuple(want.shape)}")
+    T = k.shape[2]
+    tol = 3e-5 + 2 * T * 2.0**-24 * float(v.float().abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(err <= tol, f"{what}: max |err| {err:.3g} against the plain "
+                      f"version, beyond {tol:.3g}")
+    return err
+
+
+def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int):
+    """Least time: 2 E C D F operations at the bf16 tensor-core rate (the
+    float32 CUDA-core rate for float32) vs x, w and out moved once."""
+    ops = 2.0 * E * C * D * F
+    t_ops = ops / (BF16_TC_OPS_PER_S if dtype_bytes == 2
+                   else FP32_OPS_PER_S) * 1e3
+    t_bytes = (dtype_bytes * (E * C * D + E * D * F + E * C * F)
+               / HBM_BYTES_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_bound(B: int, H: int, KV: int, S: int, T: int, hd: int, causal: bool,
+             dtype_bytes: int):
+    """Least time: 2 hd operations per visible (query, key) pair for Q K^T
+    and 2 hd for P V, vs q, k, v read once and the float32 output written
+    once.  With bf16 inputs Q K^T runs at the bf16 tensor-core rate (bf16 x
+    bf16 products are exact in float32, and the main path calls K5 with
+    scale 1); P is float32, so P V runs at the float32 CUDA-core rate, as
+    do both products with float32 inputs."""
+    pairs = S * (S + 1) // 2 if causal else S * T
+    ops = 2.0 * hd * pairs * B * H
+    qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+    t_ops = (ops / qk_rate + ops / FP32_OPS_PER_S) * 1e3
+    t_bytes = (dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
+               + 4 * B * H * S * hd) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(torch, seed: int, shape, dtype, scale: float = 1.0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def model_kernel_phase(torch, k4, k5):
+    """K4 and K5 against their plain versions at odd shapes and at the
+    serving shapes.  Returns the largest error of each."""
+    errs = {"segment_matmul": 0.0, "flash_attention": 0.0}
+    seed = 0
+    # Odd shapes, and OLMoE-1B-7B's expert products (E = 64, D = 2048,
+    # F = 1024 and back) at a decode batch (C = 4) and a prefill of
+    # 4 x 512 tokens (C = 2048).
+    shapes = [(1, 1, 1, 1), (3, 67, 33, 130), (2, 300, 1000, 96),
+              (64, 4, 2048, 1024), (64, 4, 1024, 2048),
+              (64, 2048, 2048, 1024), (64, 2048, 1024, 2048)]
+    for E, C, D, F in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            seed += 1
+            x = randn(torch, seed, (E, C, D), dtype, 0.5)
+            w = randn(torch, seed + 1000, (E, D, F), dtype, D ** -0.5)
+            what = f"segment_matmul E={E} C={C} D={D} F={F} {dtype}"
+            errs["segment_matmul"] = max(errs["segment_matmul"],
+                                         check_segment_matmul(
+                                             torch, what,
+                                             k4.segment_matmul(x, w), x, w))
+            del x, w
+    torch.cuda.synchronize()
+    log("model kernels: segment_matmul within the stated bound of its plain "
+        f"version at {len(shapes)} shapes x {{bf16, float32}} (max |err| "
+        f"{errs['segment_matmul']:.3g})")
+
+    for S in (1, 63, 512, 4096):
+        for H, KV in ((6, 6), (6, 2)):
+            for causal in (True, False):
+                for dtype in ((torch.bfloat16, torch.float32) if S == 512
+                              else (torch.bfloat16,)):
+                    seed += 1
+                    q = randn(torch, seed, (2, H, S, 128), dtype)
+                    k = randn(torch, seed + 1, (2, KV, S, 128), dtype)
+                    v = randn(torch, seed + 2, (2, KV, S, 128), dtype)
+                    what = (f"flash_attention S={S} rep={H // KV} "
+                            f"causal={causal} {dtype}")
+                    errs["flash_attention"] = max(
+                        errs["flash_attention"],
+                        check_flash(torch, what,
+                                    k5.flash_attention(q, k, v, causal=causal),
+                                    q, k, v, causal, 128 ** -0.5))
+    torch.cuda.synchronize()
+    log("model kernels: flash_attention within the stated bound of its plain "
+        "version at B=2 hd=128 S in {1, 63, 512, 4096} x rep in {1, 3} x "
+        "{causal, full} (bf16; float32 too at S=512) (max |err| "
+        f"{errs['flash_attention']:.3g})")
+    return errs
+
+
+def time_k4(torch, k4, x, w, reps: int):
+    """(kernel ms, plain ms, torch.bmm ms, bound ms, bound_by)."""
+    from repro_torch.kernels import ref
+    E, C, D = x.shape
+    F = w.shape[2]
+    ms = time_ms(torch, k4.segment_matmul, (x, w), reps)
+    plain_ms = time_ms(torch, ref.segment_matmul, (x, w), max(reps // 4, 3))
+    lib_ms = time_ms(torch, torch.bmm, (x, w), reps)
+    return (ms, plain_ms, lib_ms) + k4_bound(E, C, D, F, x.element_size())
+
+
+def time_k5(torch, k5, q, k, v, reps: int):
+    """(kernel ms, plain ms, scaled_dot_product_attention ms, bound ms,
+    bound_by), causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    ms = time_ms(torch, lambda *a: k5.flash_attention(*a, causal=True),
+                 (q, k, v), reps)
+    plain_ms = time_ms(torch, lambda *a: ref.flash_attention(*a, causal=True),
+                       (q, k, v), max(reps // 4, 3))
+    kw = dict(is_causal=True)
+    if KV != H:
+        kw["enable_gqa"] = True
+    lib_ms = time_ms(torch, lambda *a: F.scaled_dot_product_attention(*a, **kw),
+                     (q, k, v), reps)
+    return (ms, plain_ms, lib_ms) + k5_bound(B, H, KV, S, T, hd, True,
+                                             q.element_size())
+
+
+# --------------------------------------------------------------------- #
+# 7. serve: OLMoE-1B-7B at full width                                    #
+# --------------------------------------------------------------------- #
+def serve_phase(torch, kernel_mods):
+    """Serve SERVE_REQUESTS requests through the full-width OLMoE-1B-7B
+    (all 16 layers, float32 weights from seed 0, bf16 compute) with
+    ``ServeEngine`` on the card, every kernel's count set to 0 just before
+    and read just after.  K4's and K5's inputs are recorded (the first call
+    at each shape).  Returns (launches per kernel, K4 records, K5 records,
+    a summary dict)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("olmoe-1b-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    eng = ServeEngine(params, cfg, batch_size=SERVE_BATCH,
+                      max_len=SERVE_NEW + 8, eos_id=-1, device="cuda")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                           SERVE_REQUESTS)
+    for i, n in enumerate(lengths):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+            np.int32), max_new_tokens=SERVE_NEW))
+    spent = {"prefill": [0.0, 0], "decode": [0.0, 0]}
+    recs = (Recorder(ksm, "segment_matmul"), Recorder(kfa, "flash_attention"))
+
+    def timed(fn, what):
+        def wrapper(tokens, *args):
+            for r in recs:
+                r.label = what
+            start = time.perf_counter()
+            logits, cache = fn(tokens, *args)
+            check(bool(torch.isfinite(logits).all()),
+                  f"serve: non-finite logits in a {what} call")
+            spent[what][0] += time.perf_counter() - start
+            spent[what][1] += 1
+            return logits, cache
+        return wrapper
+
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._step = timed(eng._step, "decode")
+    for mod, name in kernel_mods:
+        getattr(mod, name).launches = 0
+    with recs[0], recs[1]:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, name).launches for mod, name in kernel_mods}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    check(len(done) == SERVE_REQUESTS, f"serve: {len(done)} of "
+                                       f"{SERVE_REQUESTS} requests completed")
+    for r in done:
+        check(len(r.out_tokens) == SERVE_NEW and all(
+            0 <= t < cfg.vocab for t in r.out_tokens),
+            f"serve: request {r.uid} gave {r.out_tokens}")
+    for name in ("segment_matmul", "flash_attention"):
+        check(launches[name] > 0, f"serve: {name} never launched")
+    generated = sum(len(r.out_tokens) for r in done)
+    summary = dict(init_s=init_s, n_params=n_params, wall=wall,
+                   generated=generated, prefill=spent["prefill"],
+                   decode=spent["decode"], peak_gb=peak_gb,
+                   prompts=[int(n) for n in lengths],
+                   tokens_decoded=eng.tokens_decoded)
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, recs[0].first, recs[1].first, summary
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def model_replay_phase(torch, k4, k5, k4_first, k5_first):
+    """K4 and K5 against their plain versions on the inputs the serve gave
+    them, timed beside the plain versions, one library call each and the
+    bound.  Returns (max errors, the JSON records' numbers per kernel)."""
+    errs = {"segment_matmul": 0.0, "flash_attention": 0.0}
+    main = {}
+    for (label, xs, ws), ((x, w), _) in k4_first.items():
+        what = f"segment_matmul on the serve's {label} x {xs[0]} w {ws[0]}"
+        errs["segment_matmul"] = max(errs["segment_matmul"], check_segment_matmul(
+            torch, what, k4.segment_matmul(x, w), x, w))
+        E, C, D = x.shape
+        F = w.shape[2]
+        t = time_k4(torch, k4, x, w, 20 if C > 64 else 100)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, torch.bmm "
+            f"{t[2]:.5f} ms, bound {t[3]:.5f} ms by {t[4]}, "
+            f"{100 * t[3] / t[0]:.1f}% of bound; {E * C} rows, of which the "
+            f"live share is k/E)")
+        if label == "prefill" and D > F and "segment_matmul" not in main:
+            main["segment_matmul"] = t
+    for (label, qs, ks, vs), ((q, k, v), kw) in k5_first.items():
+        what = f"flash_attention on the serve's {label} q {qs[0]} k {ks[0]}"
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, k5.flash_attention(q, k, v, **kw), q, k, v,
+            kw.get("causal", True), kw.get("scale") or q.shape[-1] ** -0.5))
+        t = time_k5(torch, k5, q, k, v, 50)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
+            f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms "
+            f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+        main.setdefault("flash_attention", t)
+    # OLMoE's context, 4096 tokens, at the serve's batch and heads.
+    q, k, v = (randn(torch, 70 + i, (SERVE_BATCH, 16, 4096, 128),
+                     torch.bfloat16) for i in range(3))
+    errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+        torch, "flash_attention B=4 H=16 S=4096", k5.flash_attention(q, k, v),
+        q, k, v, True, 128 ** -0.5))
+    t = time_k5(torch, k5, q, k, v, 10)
+    log(f"replay: flash_attention B={SERVE_BATCH} H=16 S=4096 hd=128 causal "
+        f"bf16 (OLMoE's context): {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
+        f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms by "
+        f"{t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return errs, main
+
+
+# --------------------------------------------------------------------- #
+# 8. the slice as a whole: 2 layers at full width, card vs host          #
+# --------------------------------------------------------------------- #
+class StandIn:
+    """Puts ``fn`` in ``module`` under ``name`` for the with-block.  A
+    kernel's wrapper counts its launches on that name, so ``fn`` carries
+    the count while it stands in for one."""
+
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self.kept = getattr(self.module, self.name)
+        self.count = hasattr(self.kept, "launches")
+        if self.count:
+            self.fn.launches = self.kept.launches
+        setattr(self.module, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.kept)
+        if self.count:
+            self.kept.launches = self.fn.launches
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def slice_model(torch, seed: int):
+    """OLMoE-1B-7B at full width and 2 layers with weights from ``seed`` on
+    the card and a copy on the host, and SLICE_B x (SLICE_S + SLICE_STEPS)
+    tokens from ``seed + 1``.  Returns (cfg, card params, host params,
+    tokens)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2)
+    gpu = init_params(cfg, seed, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (SLICE_B, SLICE_S + SLICE_STEPS)))
+    return cfg, gpu, _to_cpu(gpu), toks
+
+
+def slice_logits(torch, cfg, params, toks, dev: str):
+    """The prefill of the first SLICE_S tokens at every position, then
+    SLICE_STEPS decode steps fed the next tokens (teacher forcing).
+    Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]`` and each
+    token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]`` (sorted
+    within a layer), on the host."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import moe as moe_lib
+
+    topk, calls = moe_lib.router_topk, []
+
+    def routed(logits, top_k, **kw):
+        weights, idx = topk(logits, top_k, **kw)
+        calls.append(idx.sort(dim=-1).values.cpu())
+        return weights, idx
+
+    def take(logits, n):
+        out.append(logits.float().cpu())
+        routes.append(torch.cat([c.reshape(SLICE_B, n, -1) for c in calls],
+                                dim=-1))
+        calls.clear()
+
+    out, routes = [], []
+    with StandIn(moe_lib, "router_topk", routed):
+        cache = init_cache(cfg, SLICE_B, SLICE_S + SLICE_STEPS, dev)
+        logits, cache = prefill(params, cfg,
+                                {"tokens": toks[:, :SLICE_S].to(dev)}, cache,
+                                all_positions=True)
+        take(logits, SLICE_S)
+        for i in range(SLICE_S, SLICE_S + SLICE_STEPS):
+            logits, cache = decode_step(params, cfg, toks[:, i:i + 1].to(dev),
+                                        cache, i)
+            take(logits, 1)
+    return torch.cat(out, dim=1), torch.cat(routes, dim=1)
+
+
+def slice_compare(card, host):
+    """Card against host, token by token (each position of each row):
+    which tokens' experts moved in some layer (a bf16 rounding on the other
+    side of a near-tie moves them), the largest |logit difference| at the
+    tokens whose experts did not move and at those whose did, and the
+    greedy tokens, compared where the experts did not move and the card's
+    top-2 margin exceeds SLICE_TOL."""
+    (lc, rc), (lh, rh) = card, host
+    err = (lc - lh).abs().amax(dim=-1)                  # [B, P]
+    moved = (rc != rh).any(dim=-1)
+    stayed = ~moved
+    top2 = lc.topk(2, dim=-1).values
+    sure = stayed & ((top2[..., 0] - top2[..., 1]) > SLICE_TOL)
+    same = lc.argmax(-1) == lh.argmax(-1)
+    return dict(stayed_err=(float(err[stayed].max()) if bool(stayed.any())
+                            else 0.0),
+                moved_err=(float(err[moved].max()) if bool(moved.any())
+                           else 0.0),
+                moved=int(moved.sum()),
+                steps=[float(e) for e in err[:, SLICE_S:].amax(dim=0)],
+                decided=int(sure.sum()), agree=int((same & sure).sum()),
+                equal=int(same.sum()), tokens=int(err.numel()))
+
+
+def slice_phase(torch):
+    """OLMoE-1B-7B at full width and 2 layers, the same weights (seed 0) on
+    the card (K4, K5) and on the host (their plain versions), over every
+    token of a SLICE_B x SLICE_S prefill and SLICE_STEPS decode steps.
+    Where a token's experts are the same on both sides in every layer, its
+    logits must agree within SLICE_TOL, and its greedy token must agree
+    where the card's top-2 margin exceeds SLICE_TOL; at most SLICE_MOVED
+    tokens may have moved experts, and their logits must agree within
+    SLICE_CAP.  Returns a summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    cfg, gpu, cpu, toks = slice_model(torch, 0)
+    launches = (ksm.segment_matmul.launches, kfa.flash_attention.launches)
+    card = slice_logits(torch, cfg, gpu, toks, "cuda")
+    check(ksm.segment_matmul.launches > launches[0]
+          and kfa.flash_attention.launches > launches[1],
+          "slice: the card side did not launch K4 and K5")
+    t0 = time.perf_counter()
+    host = slice_logits(torch, cfg, cpu, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card[0]).all()
+               and torch.isfinite(host[0]).all()),
+          "slice: non-finite logits")
+    r = slice_compare(card, host)
+    check(r["stayed_err"] <= SLICE_TOL,
+          f"slice: card and host logits differ by {r['stayed_err']:.4g} "
+          f"(> {SLICE_TOL}) at a token whose experts did not move")
+    check(r["agree"] == r["decided"],
+          f"slice: greedy tokens differ at {r['decided'] - r['agree']} of "
+          f"the {r['decided']} tokens whose experts did not move and whose "
+          f"top-2 margin exceeds {SLICE_TOL}")
+    check(r["moved"] <= SLICE_MOVED,
+          f"slice: the experts of {r['moved']} of {r['tokens']} tokens "
+          f"moved (> {SLICE_MOVED})")
+    check(r["moved_err"] <= SLICE_CAP,
+          f"slice: card and host logits differ by {r['moved_err']:.4g} "
+          f"(> {SLICE_CAP}) at a token whose experts moved")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+# --------------------------------------------------------------------- #
+# Readings: ``python3 chip_smoke.py --readings``                          #
+# --------------------------------------------------------------------- #
+def planted_faults(ksm, kfa):
+    """Faults planted in the card's side of the slice, each a stand-in for
+    a kernel's wrapper that still launches the kernel: (name, module,
+    wrapper name, stand-in)."""
+    k4, k5 = ksm.segment_matmul, kfa.flash_attention
+
+    def mask_off(q, k, v, causal=True, scale=None):
+        return k5(q, k, v, causal=False, scale=scale)
+
+    def scaled_twice(q, k, v, causal=True, scale=None):
+        return k5(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
+
+    def bf16_accumulator(x, w):
+        out = None
+        for d in range(0, x.shape[2], 64):
+            part = k4(x[:, :, d:d + 64].contiguous(),
+                      w[:, d:d + 64].contiguous())
+            out = part if out is None else out + part
+        return out
+
+    def last_d_dropped(x, w):
+        return k4(x[:, :, :-1].contiguous(), w[:, :-1].contiguous())
+
+    return [("K5 causal mask off", kfa, "flash_attention", mask_off),
+            ("K5 q scaled twice", kfa, "flash_attention", scaled_twice),
+            ("K4 sums 64-deep D tiles in bf16", ksm, "segment_matmul",
+             bf16_accumulator),
+            ("K4 drops the last of D's terms", ksm, "segment_matmul",
+             last_d_dropped)]
+
+
+def slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings that SLICE_TOL, SLICE_MOVED and SLICE_CAP are set from:
+    at each seed, the card against the host as the check compares them,
+    sound and with each planted fault on the card's side.  Returns the
+    readings by run name ("sound" or the fault's), a list per seed."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    runs = {}
+    for seed in seeds:
+        cfg, gpu, cpu, toks = slice_model(torch, seed)
+        host = slice_logits(torch, cfg, cpu, toks, "cpu")
+        stand_ins = [("sound", None)] + [
+            (name, StandIn(mod, attr, fn))
+            for name, mod, attr, fn in planted_faults(ksm, kfa)]
+        for name, stand_in in stand_ins:
+            if stand_in is None:
+                card = slice_logits(torch, cfg, gpu, toks, "cuda")
+            else:
+                with stand_in:
+                    card = slice_logits(torch, cfg, gpu, toks, "cuda")
+            r = slice_compare(card, host)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: slice seed {seed}: {name}: max |card - host| "
+                f"{r['stayed_err']:.6f} at the tokens whose experts stayed, "
+                f"{r['moved_err']:.6f} at the {r['moved']} of {r['tokens']} "
+                f"whose experts moved; per decode step "
+                f"{[round(e, 6) for e in r['steps']]}; greedy equal at "
+                f"{r['equal']} of {r['tokens']}, and at {r['agree']} of the "
+                f"{r['decided']} stayed tokens with a top-2 margin above "
+                f"{SLICE_TOL}")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: slice {name} over seeds {list(seeds)}: stayed-token "
+            f"max |diff| {min(r['stayed_err'] for r in rs):.6f} to "
+            f"{max(r['stayed_err'] for r in rs):.6f}; tokens moved "
+            f"{min(r['moved'] for r in rs)} to {max(r['moved'] for r in rs)}"
+            f"; moved-token max |diff| up to "
+            f"{max(r['moved_err'] for r in rs):.6f}")
+    log(f"readings: slice limits: SLICE_TOL {SLICE_TOL}, SLICE_MOVED "
+        f"{SLICE_MOVED}, SLICE_CAP {SLICE_CAP}")
+    return runs
+
+
+def decode_readings(torch):
+    """One decode step of the full-width serve (batch SERVE_BATCH, a
+    257-token context) taken apart on the card: the step (CUDA events over
+    10 steps), K4's calls inside it (CUDA events around each call), the
+    step's float32 -> bf16 weight casts timed alone (CUDA events), and a
+    profiler trace of one step (device busy time, the expert-weight
+    casts), where the profiler sees the card.  Returns the times."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import segment_matmul as ksm
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    cfg = get_config("olmoe-1b-7b")
+    params = init_params(cfg, 0, "cuda")
+    B, S = SERVE_BATCH, 256
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, S + 1))).cuda()
+    cache = init_cache(cfg, B, S + 1, "cuda")
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :S]}, cache)
+
+    def step():
+        return decode_step(params, cfg, toks[:, S:], cache, S)[0]
+
+    step_ms = time_ms(torch, step, (), 10)
+
+    k4, k4_events = ksm.segment_matmul, []
+
+    def k4_timed(x, w):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k4(x, w)
+        ev[1].record()
+        k4_events.append(ev)
+        return out
+
+    with StandIn(ksm, "segment_matmul", k4_timed):
+        step()
+        torch.cuda.synchronize()
+    k4_ms = sum(a.elapsed_time(b) for a, b in k4_events)
+
+    experts = [bp["moe"][n] for bp in params["blocks"]
+               for n in ("w_gate", "w_up", "w_down")]
+    others = [t for bp in params["blocks"] for t in _leaves(bp)
+              if t.dtype == torch.float32 and all(t is not e for e in experts)]
+    others.append(params["embed"].T if cfg.tie_embeddings
+                  else params["lm_head"])
+    experts_ms = time_ms(
+        torch, lambda: [t.to(torch.bfloat16) for t in experts], (), 5)
+    others_ms = time_ms(
+        torch, lambda: [t.to(torch.bfloat16) for t in others], (), 5)
+    log(f"readings: decode step (batch {B}, context {S + 1}): "
+        f"{step_ms:.4f} ms (CUDA events, 10 steps); K4's {len(k4_events)} "
+        f"calls inside one step {k4_ms:.4f} ms (CUDA events around each); "
+        f"the step's float32 -> bf16 weight casts timed alone: the expert "
+        f"weights {experts_ms:.4f} ms ({len(experts)} tensors, "
+        f"{sum(t.numel() for t in experts) * 6 / 1e9:.2f} GB moved), the "
+        f"other weights {others_ms:.4f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us, end = busy_us + b - a, b
+        elif b > end:
+            busy_us, end = busy_us + b - end, b
+
+    def device_us(e):
+        for attr in ("device_time_total", "cuda_time_total"):
+            if hasattr(e, attr):
+                return float(getattr(e, attr))
+        return 0.0
+
+    casts_us, casts_n = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = getattr(e, "input_shapes", None) or []
+        if (e.key == "aten::_to_copy" and shapes and len(shapes[0]) == 3
+                and shapes[0][0] == cfg.n_experts):
+            casts_us += device_us(e)
+            casts_n += e.count
+    if spans:
+        wall_us = spans[-1][1] - spans[0][0]
+        log(f"readings: decode step under the profiler: {len(spans)} device "
+            f"spans, busy {busy_us / 1e3:.4f} ms of the {wall_us / 1e3:.4f} "
+            f"ms from the first to the last ({100 * busy_us / wall_us:.1f}%)"
+            f"; expert-weight casts {casts_us / 1e3:.4f} ms of device time "
+            f"({casts_n} calls)")
+    else:
+        log("readings: decode step under the profiler: no device spans "
+            "(the profiler does not see the card): not measured")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, k4_ms=k4_ms, experts_ms=experts_ms,
+                others_ms=others_ms)
+
+
+def readings() -> int:
+    """``--readings``: build, then the slice check's readings and the
+    decode step taken apart (``PERF.md``).  Not part of the smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    _build.build()
+    t0 = time.perf_counter()
+    slice_readings(torch)
+    decode_readings(torch)
+    log(f"readings: done in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
 
@@ -602,9 +1338,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import partition as kpart
     from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as kseg
 
+    # Float32 products in full float32 (the plain versions' bmm too).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -624,6 +1365,7 @@ def main() -> int:
                 log(f"build: {name}: {line.strip()}")
 
     records, small_ms = kernel_phase(torch, kpart, ref)
+    model_errs = model_kernel_phase(torch, kseg, kfa)
     t0 = time.perf_counter()
     launches, first = main_path(torch, kpart)
     log(f"main: all workflows in {time.perf_counter() - t0:.1f} s; "
@@ -633,6 +1375,49 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] == "partition_scatter_fold":
             rec["max_abs_err"] = max(rec["max_abs_err"], replay_err)
+    del first
+    torch.cuda.empty_cache()
+
+    kernel_mods = [(kpart, name) for name in KERNELS] + [
+        (kseg, "segment_matmul"), (kfa, "flash_attention")]
+    serve_launches, k4_first, k5_first, sv = serve_phase(torch, kernel_mods)
+    pre_s, pre_n = sv["prefill"]
+    dec_s, dec_n = sv["decode"]
+    log(f"serve: OLMoE-1B-7B, {sv['n_params']:,} float32 parameters from "
+        f"seed 0 in {sv['init_s']:.2f} s; {SERVE_REQUESTS} requests (prompts "
+        f"{sv['prompts']}), batch {SERVE_BATCH}, {SERVE_NEW} new tokens each: "
+        f"{pre_n} prefills in {pre_s:.4f} s ({pre_s / pre_n:.4f} s each), "
+        f"{dec_n} decode steps at {1e3 * dec_s / dec_n:.3f} ms a step; "
+        f"launches {serve_launches}; peak memory {sv['peak_gb']:.2f} GiB")
+    log(f"serve: {sv['generated']} tokens in {sv['wall']:.4f} s = "
+        f"{sv['generated'] / sv['wall']:.2f} tokens/s "
+        f"({sv['tokens_decoded']} decoded) on {smi}")
+    errs, main = model_replay_phase(torch, kseg, kfa, k4_first, k5_first)
+    del k4_first, k5_first
+    torch.cuda.empty_cache()
+    sl = slice_phase(torch)
+    log(f"slice: OLMoE-1B-7B at 2 layers, card vs host over {sl['tokens']} "
+        f"tokens ({SLICE_B} x {SLICE_S} prompt positions, {SLICE_STEPS} "
+        f"decode steps): experts moved at {sl['moved']} (allowed "
+        f"{SLICE_MOVED}); max |logit diff| {sl['stayed_err']:.5f} at the "
+        f"others (allowed {SLICE_TOL}), {sl['moved_err']:.5f} at the moved "
+        f"(allowed {SLICE_CAP}); per decode step "
+        f"{[round(e, 5) for e in sl['steps']]}; greedy tokens equal at "
+        f"{sl['agree']} of the {sl['decided']} stayed tokens whose top-2 "
+        f"margin exceeds {SLICE_TOL}, and at {sl['equal']} of all "
+        f"{sl['tokens']}; host side {sl['cpu_s']:.2f} s")
+    for name, replaces in (("segment_matmul",
+                            "src/repro/kernels/segment_matmul.py:35"),
+                           ("flash_attention",
+                            "src/repro/kernels/flash_attention.py:72")):
+        ms, plain_ms, lib_ms, b_ms, b_by = main[name]
+        records.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=serve_launches[name],
+            max_abs_err=max(model_errs[name], errs[name]), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -642,4 +1427,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(readings() if sys.argv[1:] == ["--readings"] else main())

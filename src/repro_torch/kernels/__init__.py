@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels for the hot spots (+ plain PyTorch versions).
 
-  csrc/partition.cu   routing-table exchange kernels (sm_90a, C interface)
-  _build.py           nvcc build at first use, ctypes loading
-  partition.py        wrappers: a CUDA tensor launches the kernel, a CPU
-                      tensor runs the plain version; launch counters
-  ref.py              plain PyTorch versions (the comparison targets)
+  csrc/partition.cu        routing-table exchange kernels K1-K3
+  csrc/segment_matmul.cu   grouped expert matmul K4
+  csrc/flash_attention.cu  prefill attention K5
+  _build.py                nvcc build at first use (sm_90a, plain C
+                           interface), ctypes loading, launch helpers
+  partition.py, segment_matmul.py, flash_attention.py
+                           wrappers: a CUDA tensor launches the kernel, a
+                           CPU tensor runs the plain version; launch counters
+  ref.py                   plain PyTorch versions (the comparison targets)
 
-Still to port from ``repro.kernels``: ``segment_matmul``,
-``flash_attention`` and ``rwkv_scan``.
+Still to port from ``repro.kernels``: ``rwkv_scan`` (K6).
 """
-from . import partition, ref
+from . import flash_attention, partition, ref, segment_matmul
 
-__all__ = ["partition", "ref"]
+__all__ = ["flash_attention", "partition", "ref", "segment_matmul"]

@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them by ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
+Each ``csrc/<name>.cu`` has a plain C interface (every one exports
+``repro_cuda_error_string``) and is compiled at first
 use into ``build/repro_torch/lib<name>-<digest>.so`` at the root of the
 checkout (listed in ``.gitignore``); the digest covers the source and the
 flags, so an edited source is rebuilt.  :func:`build` starts one nvcc per
@@ -18,11 +19,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("partition",)
+SOURCES = ("partition", "segment_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,5 +96,22 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def device_and_stream(dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
+    """The last two arguments of every entry point: the card's index and
+    PyTorch's current stream on it."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, ctypes.c_void_p(torch.cuda.current_stream(index).cuda_stream)
+
+
+def raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if an entry point returned a CUDA error (a refused launch)."""
+    if code != 0:
+        msg = lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {code} "
+                           f"({msg})")

@@ -1,0 +1,107 @@
+"""Flash attention K5: wrapper over the hand-written CUDA kernel.
+
+Counterpart of the Pallas kernel ``repro.kernels.flash_attention``
+(``flash_attention.py:72``) and of the prefill attention of
+``repro.models.attention`` (``flash_attention_ref``, called at
+``attention.py:174`` and ``:180``).  The JAX layout is kept: q
+``[B, H, S, hd]``, k and v ``[B, KV, T, hd]`` with ``H`` a multiple of
+``KV``; query head ``h`` reads KV head ``h // (H // KV)``, so the KV heads
+are never repeated in memory.  The output is float32 ``[B, H, S, hd]``;
+the model casts it, as the JAX model does.
+
+Causal attention needs ``S == T`` (query ``i`` sees keys ``j <= i``): the
+JAX package's two forms align a causal mask with ``S != T`` differently
+(``repro.kernels.ref`` bottom-right, the Pallas kernel top-left), and the
+model only ever calls it with ``S == T``, so the wrapper refuses it.
+
+For CUDA tensors the wrapper launches the kernel of
+``csrc/flash_attention.cu`` (built at first use) on the current stream, or
+raises; for CPU tensors it runs the plain version in
+:mod:`repro_torch.kernels.ref`.  ``.launches`` counts the calls that
+launched the kernel.
+
+Bound on an H100: ``2 hd`` operations per visible (query, key) pair for
+``Q K^T``, at the bf16 tensor-core rate for bf16 inputs (their products
+are exact in float32; the model passes ``scale=1``) and the CUDA-core
+float32 rate for float32 ones, plus ``2 hd`` for ``P V`` at the float32
+rate (``P`` is float32, as in the reference); or q, k, v and the output
+moved once against the memory rate.  Design: one block per (b, h, 64-query tile),
+K/V tiles staged in shared memory as float32, online softmax in
+registers; the source note in the ``.cu`` file has the details.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Head widths the kernel is compiled for.
+HEAD_DIMS = (16, 32, 64, 128)
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_flash_attention.argtypes = ([ptr] * 4 + [i32] * 6
+                                              + [ctypes.c_float] + [i32] * 3
+                                              + [ptr])
+        lib.repro_flash_attention.restype = i32
+        _lib = lib
+    return _lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
+    the float32 q (default ``hd ** -0.5``)."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must all be bfloat16 or all float32, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q [B, H, S, hd] and k, v [B, KV, T, hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV < 1 or H % KV:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (H must be a multiple of KV)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if causal and S != T:
+        raise ValueError(f"causal attention needs S == T, got S={S} T={T}")
+    if not (q.device == k.device == v.device) or q.device.type not in (
+            "cpu", "cuda"):
+        raise ValueError("q, k and v must share one cpu or cuda device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    scale = float(scale) if scale is not None else hd ** -0.5
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    if T == 0:
+        return out.zero_()
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} is past the kernel's grid")
+    lib = _library()
+    code = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
+        S, T, hd, scale, int(causal), _DTYPES[q.dtype],
+        *_build.device_and_stream(q.device))
+    _build.raise_on(lib, code, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

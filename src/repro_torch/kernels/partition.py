@@ -52,8 +52,6 @@ def _library() -> ctypes.CDLL:
         lib.repro_partition_scatter_fold.restype = i32
         lib.repro_partition.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         lib.repro_partition.restype = i32
-        lib.repro_cuda_error_string.argtypes = [i32]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
         for fn in ("repro_partition_max_workers",
                    "repro_partition_tile_records"):
             getattr(lib, fn).argtypes = []
@@ -93,18 +91,6 @@ def _check(keys: torch.Tensor, counters: torch.Tensor,
         raise ValueError("keys, counters and cdf must be contiguous")
 
 
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        msg = _library().repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} failed to launch: CUDA error {code} "
-                           f"({msg})")
-
-
-def _device_and_stream(dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, ctypes.c_void_p(torch.cuda.current_stream(index).cuda_stream)
-
-
 def partition_scatter(keys: torch.Tensor, counters: torch.Tensor,
                       cdf: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -132,8 +118,8 @@ def partition_scatter(keys: torch.Tensor, counters: torch.Tensor,
     code = lib.repro_partition_scatter(
         keys.data_ptr(), counters.data_ptr(), cdf.data_ptr(),
         dest.data_ptr(), rank.data_ptr(), hist.data_ptr(), scratch.data_ptr(),
-        n, num_keys, num_workers, *_device_and_stream(dev))
-    _raise_on(code, "partition_scatter")
+        n, num_keys, num_workers, *_build.device_and_stream(dev))
+    _build.raise_on(lib, code, "partition_scatter")
     partition_scatter.launches += 1
     return dest, rank, hist
 
@@ -188,8 +174,8 @@ def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
         valid.view(torch.uint8).data_ptr(), cdf.data_ptr(), dest.data_ptr(),
         rank.data_ptr(), hist.data_ptr(), fold_counts.data_ptr(),
         fold_sums.data_ptr(), scratch.data_ptr(), n, num_keys, num_workers,
-        *_device_and_stream(dev))
-    _raise_on(code, "partition_scatter_fold")
+        *_build.device_and_stream(dev))
+    _build.raise_on(lib, code, "partition_scatter_fold")
     partition_scatter_fold.launches += 1
     return dest, rank, hist, fold_counts, fold_sums
 
@@ -212,8 +198,8 @@ def partition(keys: torch.Tensor, counters: torch.Tensor,
     code = lib.repro_partition(
         keys.data_ptr(), counters.data_ptr(), cdf.data_ptr(),
         dest.data_ptr(), hist.data_ptr(), n, num_keys, num_workers,
-        *_device_and_stream(dev))
-    _raise_on(code, "partition")
+        *_build.device_and_stream(dev))
+    _build.raise_on(lib, code, "partition")
     partition.launches += 1
     return dest, hist
 

@@ -4,11 +4,13 @@ The counterpart of ``repro.kernels.ref`` for the kernels ported so far.
 :mod:`repro_torch.kernels.partition` runs these for CPU tensors (the tests)
 and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 They repeat the kernels' arithmetic and are no yardstick of speed: the
-row gather materializes ``[N, W]``.
+row gather materializes ``[N, W]``, the grouped matmul upcasts its inputs
+to float32, and attention materializes a ``[S, block]`` score tile per
+head.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +74,58 @@ def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
     sums = torch.zeros(num_keys, dtype=torch.float32, device=keys.device)
     sums.index_add_(0, slot, torch.where(inr, vals, 0.0))
     return dest, rank, hist, cnt, sums
+
+
+def segment_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped expert matmul ``x [E, C, D] @ w [E, D, F] -> [E, C, F]``,
+    accumulated in float32 and rounded once to ``x.dtype``."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+#: The mask value of the reference's attention (not -inf).
+NEG_INF = -2.0 ** 30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV blocks, float32 ``[B, H, S, dv]``.
+
+    q ``[B, H, S, hd]``; k ``[B, KV, T, hd]`` and v ``[B, KV, T, dv]`` with
+    ``H`` a multiple of ``KV`` (query head ``h`` reads KV head
+    ``h // (H // KV)``).  q is cast to float32 and then scaled (``scale``
+    defaults to ``hd ** -0.5``); when causal, query ``i`` sees keys
+    ``j <= i``.
+    Masked scores take :data:`NEG_INF`; the output is
+    ``acc / max(l, 1e-20)``, as in ``repro.models.attention`` and the
+    Pallas kernel.  Blocks wholly above the diagonal change nothing and
+    are skipped.
+    """
+    B, H, S, hd = q.shape
+    KV, T, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=1)
+        vf = vf.repeat_interleave(rep, dim=1)
+    q_pos = torch.arange(S, device=q.device)
+    acc = torch.zeros((B, H, S, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    for start in range(0, T, block):
+        if causal and start > S - 1:
+            break
+        kb, vb = kf[:, :, start:start + block], vf[:, :, start:start + block]
+        s = torch.einsum("bhsd,bhtd->bhst", qf, kb)
+        if causal:
+            kv_pos = torch.arange(start, start + kb.shape[2], device=q.device)
+            s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bhtd->bhsd", p, vb)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-20)[..., None]

@@ -1,0 +1,51 @@
+"""Carry the JAX model's weights into the port.
+
+:func:`params_from_jax` takes the JAX params pytree as nested dicts (and
+lists) of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``, and
+returns the port's params: the scan-stacked ``blocks`` (a leading layer
+axis on every leaf, ``repro/models/model.py:109``) become a list of
+per-layer dicts, and every array a tensor on ``device``.  It imports no
+JAX; the tests use it to feed both packages one set of weights.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..devices import DeviceSpec, resolve_device
+from .model import check_supported
+
+
+def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
+    a = np.array(a)                         # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _convert(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, dev) for v in tree]
+    return _tensor(tree, dev)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_from_jax(tree: Any, cfg: ModelConfig,
+                    device: DeviceSpec = "cuda") -> Any:
+    """The port's params holding the JAX params' values."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    out = {k: _convert(v, dev) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [_convert(_layer(tree["blocks"], i), dev)
+                     for i in range(cfg.n_layers)]
+    return out

@@ -1,0 +1,116 @@
+"""Core neural layers in PyTorch (params = nested dicts of tensors).
+
+The port of ``repro.models.layers`` for the serving path.  The same
+conventions: parameters are stored in ``param_dtype`` (float32 by default)
+and cast to ``compute_dtype`` (bf16) inside the forward pass; every
+``apply``-style function is pure and shape-polymorphic over batch and
+sequence.  Layers are not stacked for a scan: the model keeps a list of
+per-layer dicts and loops over it.
+
+Initializers draw from an explicit ``torch.Generator`` with the JAX
+package's distributions.  The two frameworks give different numbers from
+the same seed; tests carry weights across with
+:func:`repro_torch.models.convert.params_from_jax`.
+
+A Python float times a tensor is computed by PyTorch in float32 and then
+rounded, where JAX first rounds the float to the tensor's dtype;
+:func:`scalar_mul` does the JAX thing, so bf16 results match.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+_SQRT2 = math.sqrt(2.0)
+
+
+def truncated_normal(shape, gen: torch.Generator, *, std: float = 1.0,
+                     dtype=torch.float32) -> torch.Tensor:
+    """``std`` times a standard normal truncated to [-3, 3]
+    (``jax.random.truncated_normal(key, -3, 3, shape) * std``), by inverse
+    CDF sampling on the generator's device."""
+    lo, hi = math.erf(-3.0 / _SQRT2), math.erf(3.0 / _SQRT2)
+    u = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    u.uniform_(lo, hi, generator=gen)
+    return (u.erfinv_().mul_(_SQRT2).clamp_(-3.0, 3.0)
+            .mul_(std).to(dtype))
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """Truncated-normal fan-in init (llama-style), ``[d_in, d_out]``."""
+    std = scale if scale is not None else d_in ** -0.5
+    return truncated_normal((d_in, d_out), gen, std=std, dtype=dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    out = torch.empty((vocab, d), dtype=torch.float32, device=gen.device)
+    return out.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def scalar_mul(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` with ``c`` first rounded to ``x.dtype``, as JAX does with a
+    Python scalar."""
+    return x * torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+# --------------------------------------------------------------------- #
+# Rotary position embeddings                                             #
+# --------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    expo = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), expo)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)          # [hd/2]
+    angles = positions[..., :, None].float() * freqs             # [..., seq, hd/2]
+    cos = torch.cos(angles)[..., None, :]                        # [..., seq, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# Feed-forward block                                                     #
+# --------------------------------------------------------------------- #
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.float32) -> Params:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype),
+        "w_up": dense_init(gen, d_model, d_ff, dtype),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, scale=d_ff ** -0.5),
+    }
+
+
+def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
+    dt = x.dtype
+    g = x @ p["w_gate"].to(dt)
+    u = x @ p["w_up"].to(dt)
+    return (F.silu(g) * u) @ p["w_down"].to(dt)

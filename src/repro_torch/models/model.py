@@ -1,0 +1,215 @@
+"""The model of the ported architectures, in PyTorch.
+
+The port of ``repro.models.model`` for the decoder-only GQA families:
+
+    params = init_params(cfg, seed, device)
+    logits, stats = forward(params, cfg, batch)            # train / prefill
+    cache  = init_cache(cfg, batch_size, max_len, device)
+    logits, cache = prefill(params, cfg, batch, cache)
+    logits, cache = decode_step(params, cfg, tokens, cache, cache_len)
+
+``family`` is ``"dense"`` (SwiGLU) or ``"moe"``, with ``attn="gqa"`` and RMS
+norms.  The other families (ssm, hybrid, encdec, vlm), MLA, first-k-dense
+prefixes and shared experts are not ported yet and raise
+(:func:`check_supported`); nor is the balancer's routing table
+(``moe_routing`` in JAX).
+
+Where JAX stacks the per-layer params for ``lax.scan``, the port keeps
+``params["blocks"]`` as a list of per-layer dicts and loops over it in
+Python (:func:`repro_torch.models.convert.params_from_jax` unstacks a JAX
+tree); there is no remat, since nothing here takes gradients.  Entry points
+take ``device`` (default ``"cuda"``), resolved by
+:func:`repro_torch.devices.resolve_device`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig, dtype_of
+from ..devices import DeviceSpec, resolve_device
+from . import attention as attn_lib
+from . import moe as moe_lib
+from .layers import (
+    Params,
+    dense_init,
+    embed_init,
+    rmsnorm,
+    rmsnorm_init,
+    swiglu,
+    swiglu_init,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not serve yet."""
+    missing = []
+    if cfg.family not in ("dense", "moe"):
+        missing.append(f"family {cfg.family!r}")
+    if cfg.attn != "gqa":
+        missing.append(f"attn {cfg.attn!r}")
+    if cfg.norm != "rms" or cfg.act != "swiglu":
+        missing.append(f"norm {cfg.norm!r} / act {cfg.act!r}")
+    if cfg.first_k_dense:
+        missing.append("first_k_dense layers")
+    if cfg.n_shared or cfg.moe_replica_slots:
+        missing.append("shared experts / replica slots")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
+            "(ROADMAP.md)")
+
+
+# ===================================================================== #
+# Parameter initialization                                               #
+# ===================================================================== #
+def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = dtype_of(cfg.param_dtype)
+    dev = gen.device
+    p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, dev)}
+    p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, dt)
+    p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
+    if cfg.n_experts:
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_expert,
+                                    cfg.n_experts, dtype=dt)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceSpec = "cuda") -> Params:
+    """Random weights from ``seed``, drawn on ``device`` (JAX's
+    distributions; other numbers than JAX's from the same seed)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = dtype_of(cfg.param_dtype)
+    p: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt)}
+    p["blocks"] = [_block_init(cfg, gen) for _ in range(cfg.n_layers)]
+    p["ln_f"] = rmsnorm_init(cfg.d_model, dt, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt,
+                                  scale=cfg.d_model ** -0.5)
+    return p
+
+
+# ===================================================================== #
+# Block forward                                                          #
+# ===================================================================== #
+def _block_apply(
+    cfg: ModelConfig,
+    bp: Params,
+    x: torch.Tensor,
+    *,
+    cache: Optional[Params] = None,
+    cache_len: int = 0,
+) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
+    """One decoder block (GQA attention + MoE or SwiGLU).  Returns (x, the
+    cache, moe_stats)."""
+    stats: Dict[str, torch.Tensor] = {}
+    h = rmsnorm(x, bp["ln1"])
+    attn_cache = None if cache is None else cache["attn"]
+    a_out, new_attn = attn_lib.gqa_apply(
+        bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta, cache=attn_cache,
+        cache_len=cache_len)
+    new_cache = None if cache is None else {"attn": new_attn}
+    x = x + a_out
+
+    h2 = rmsnorm(x, bp["ln2"])
+    if "moe" in bp:
+        # Serving is drop-free: cap >= N (cf = E/k makes cap = N exactly).
+        # The forward without a cache keeps the configured capacity factor.
+        cf = (max(cfg.capacity_factor, cfg.n_experts / cfg.top_k)
+              if cache is not None else cfg.capacity_factor)
+        f_out, mstats = moe_lib.moe_apply(
+            bp["moe"], h2, top_k=cfg.top_k, capacity_factor=cf,
+            return_stats=True, token_groups=cfg.moe_token_groups)
+        stats.update(mstats)
+    else:
+        f_out = swiglu(h2, bp["mlp"])
+    x = x + f_out
+    return x, new_cache, stats
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["ln_f"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def forward(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence logits ``[B, S, V]`` and aux stats (the train /
+    prefill forward, without a cache)."""
+    check_supported(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    x = params["embed"][batch["tokens"]].to(cdt)
+    dev = x.device
+    n_e = max(cfg.n_experts, 1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    aux: List[Tuple[torch.Tensor, ...]] = []
+    for bp in params["blocks"]:
+        x, _, st = _block_apply(cfg, bp, x)
+        aux.append((
+            st.get("aux_loss", zero),
+            st.get("dropped_frac", zero),
+            st.get("tokens_per_expert_router",
+                   torch.zeros((n_e,), dtype=torch.float32, device=dev)),
+            st.get("tokens_per_expert",
+                   torch.zeros((n_e,), dtype=torch.float32, device=dev)),
+        ))
+    aux_l, drop_f, tpe_router, tpe_slot = (torch.stack(t) for t in zip(*aux))
+    logits = _logits(params, cfg, x)
+    stats = {
+        "aux_loss": aux_l.mean(),
+        "dropped_frac": drop_f.mean(),
+        "tokens_per_expert": tpe_router.sum(0),
+        "tokens_per_expert_layers": tpe_router,   # [L, E] router demand
+        "tokens_per_slot_layers": tpe_slot,       # [L, P] post-routing
+    }
+    return logits, stats
+
+
+# ===================================================================== #
+# KV caches & decode                                                     #
+# ===================================================================== #
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceSpec = "cuda") -> Params:
+    """One ``{"attn": {"k", "v"}}`` per layer, ``[batch, max_len, KV,
+    hd]`` in the compute dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    cdt = dtype_of(cfg.compute_dtype)
+    return {"blocks": [
+        {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
+                                         cfg.hd, cdt, dev)}
+        for _ in range(cfg.n_layers)]}
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Params, cache_len: int, *,
+                all_positions: bool = False) -> Tuple[torch.Tensor, Params]:
+    """One serve step: append ``tokens [B, S_new]`` at ``cache_len`` and
+    return the last position's logits ``[B, 1, V]`` (every new position's,
+    ``[B, S_new, V]``, with ``all_positions``) and the cache (updated in
+    place)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cdt)
+    cache_len = int(cache_len)
+    for bp, bc in zip(params["blocks"], cache["blocks"]):
+        x, _, _ = _block_apply(cfg, bp, x, cache=bc, cache_len=cache_len)
+    return _logits(params, cfg, x if all_positions else x[:, -1:]), cache
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            cache: Params, *,
+            all_positions: bool = False) -> Tuple[torch.Tensor, Params]:
+    """Prompt ingestion: the decode path with the whole prompt at 0."""
+    return decode_step(params, cfg, batch["tokens"], cache, 0,
+                       all_positions=all_positions)

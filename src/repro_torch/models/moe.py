@@ -1,0 +1,161 @@
+"""Mixture-of-Experts layer with capacity-bounded gather dispatch, in PyTorch.
+
+The port of ``repro.models.moe`` for serving.  Token->expert routing is the
+paper's partitioning skew (tuples->keys): a hot expert is a heavy-hitter
+key.  The three expert products go through K4
+(:func:`repro_torch.kernels.segment_matmul.segment_matmul`), exactly where
+the JAX layer computes them (``moe.py:161-164``).
+
+Not ported yet (they raise): the Reshape balancer's ``expert_routing``
+table and the DP-local dispatch (``token_groups > 1``), both for the
+training slice.  Shared experts and spare replica slots are not ported
+either: no ported configuration has them, so physical slots are the
+logical experts.
+
+Two choices keep the bits of the JAX layer:
+
+* top-k ties: ``lax.top_k`` keeps the lower expert index among equal
+  gates, ``torch.topk`` promises no order; :func:`router_topk` takes the
+  first k of a stable descending sort;
+* the combine: JAX scatter-adds each token's expert outputs in the working
+  dtype in slot order, i.e. by ascending expert.  A scatter-add on the card
+  adds with atomics in no fixed order, so each token gathers its kept slots
+  in ascending order and adds them one by one.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import segment_matmul as k4
+from .layers import Params, dense_init, truncated_normal
+
+
+def moe_init(gen: torch.Generator, d_model: int, d_expert: int,
+             n_experts: int, *, dtype=torch.float32) -> Params:
+    """The router ``[D, E]`` and the expert weights stacked on a leading
+    expert axis."""
+    return {
+        "router": dense_init(gen, d_model, n_experts, dtype, scale=0.02),
+        "w_gate": truncated_normal((n_experts, d_model, d_expert), gen,
+                                   std=d_model ** -0.5, dtype=dtype),
+        "w_up": truncated_normal((n_experts, d_model, d_expert), gen,
+                                 std=d_model ** -0.5, dtype=dtype),
+        "w_down": truncated_normal((n_experts, d_expert, d_model), gen,
+                                   std=d_expert ** -0.5, dtype=dtype),
+    }
+
+
+def router_topk(logits: torch.Tensor, top_k: int, *,
+                renormalize: bool = True):
+    """Top-k gating: (weights ``[N, k]`` float32, indices ``[N, k]``).
+
+    Among equal gates the lower expert index comes first, as with
+    ``lax.top_k``."""
+    gates = torch.softmax(logits.float(), dim=-1)
+    weights, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    weights, idx = weights[:, :top_k], idx[:, :top_k]
+    if renormalize:
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return weights, idx
+
+
+def moe_apply(
+    p: Params,
+    x: torch.Tensor,                        # [B, S, D] or [N, D]
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    expert_routing: Optional[torch.Tensor] = None,
+    return_stats: bool = False,
+    token_groups: int = 1,
+):
+    """Capacity-bounded top-k MoE (``repro.models.moe.moe_apply`` with
+    ``token_groups = 1`` and no balancer table)."""
+    if expert_routing is not None:
+        raise NotImplementedError(
+            "the Reshape balancer's expert_routing comes with the training "
+            "slice (ROADMAP.md)")
+    if token_groups != 1:
+        raise NotImplementedError(
+            "the DP-local dispatch (token_groups > 1) is not ported "
+            "(ROADMAP.md)")
+    orig_shape = x.shape
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    N = xf.shape[0]
+    P = E = p["router"].shape[1]                       # experts = slots
+    dt = x.dtype
+    dev = x.device
+
+    logits = xf @ p["router"].to(dt)                   # [N, E]
+    weights, idx = router_topk(logits, top_k)          # [N, k]
+    gates_full = torch.zeros((N, E), dtype=torch.float32, device=dev)
+    gates_full.scatter_(1, idx, weights)               # [N, E]
+    combine = gates_full
+
+    # Capacity per physical slot; each token's position in its slot queue
+    # by arrival order.
+    cap = int(max(1, round(capacity_factor * N * top_k / E)))
+    dispatch = (combine > 0).to(torch.int32)
+    pos = torch.cumsum(dispatch, dim=0, dtype=torch.int32) - dispatch
+    keep = dispatch.bool() & (pos < cap)
+    combine_c = combine * keep
+    dropped = (combine > 0) & ~keep
+
+    # [P, cap] token of each slot (N = empty) and its gate; the sentinel
+    # cell P * cap takes the writes of dropped (token, slot) pairs, as
+    # JAX's mode="drop".
+    arange_p = torch.arange(P, device=dev, dtype=torch.int64)
+    flat_slot = torch.where(keep, arange_p[None, :] * cap + pos, P * cap)
+    token_ids = torch.arange(N, device=dev, dtype=torch.int64)[:, None]
+    token_for_slot = torch.full((P * cap + 1,), N, dtype=torch.int64,
+                                device=dev)
+    token_for_slot[flat_slot.reshape(-1)] = token_ids.expand(N, P).reshape(-1)
+    token_for_slot = token_for_slot[:P * cap].reshape(P, cap)
+    gate_for_slot = torch.zeros((P * cap + 1,), dtype=torch.float32,
+                                device=dev)
+    gate_for_slot[flat_slot.reshape(-1)] = combine_c.reshape(-1)
+    gate_for_slot = gate_for_slot[:P * cap].reshape(P, cap)
+
+    xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
+    h_in = xf_pad[token_for_slot].to(dt)               # [P, cap, D]
+    gate = k4.segment_matmul(h_in, p["w_gate"].to(dt))
+    up = k4.segment_matmul(h_in, p["w_up"].to(dt))
+    act = F.silu(gate) * up                            # [P, cap, F]
+    out_e = k4.segment_matmul(act, p["w_down"].to(dt))    # [P, cap, D]
+    out_e = out_e * gate_for_slot[..., None].to(dt)
+
+    # Combine: each token adds its kept slots by ascending expert, in dt.
+    experts = torch.sort(idx, dim=1).values            # [N, k] ascending
+    kept = torch.gather(keep, 1, experts)
+    slots = torch.where(kept, experts * cap + torch.gather(pos, 1, experts),
+                        P * cap)
+    rows = torch.cat([out_e.reshape(P * cap, D), out_e.new_zeros((1, D))])
+    out = torch.zeros((N, D), dtype=dt, device=dev)
+    for j in range(slots.shape[1]):
+        out = out + rows[slots[:, j]]
+
+    out = out.reshape(orig_shape)
+    if not return_stats:
+        return out
+    stats = {
+        "tokens_per_expert": combine_c.sum(0),                 # post-mitigation
+        "tokens_per_expert_router": gates_full.sum(0),         # router's truth
+        "dropped_frac": dropped.float().mean(),
+        "load_std": combine.sum(0).std(unbiased=False),
+        "aux_loss": load_balance_aux_loss(logits, idx, E),
+    }
+    return out, stats
+
+
+def load_balance_aux_loss(logits: torch.Tensor, idx: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e."""
+    gates = torch.softmax(logits.float(), dim=-1)
+    pe = gates.mean(0)
+    fe = F.one_hot(idx[:, 0], n_experts).float().mean(0)
+    return n_experts * torch.sum(fe * pe)

@@ -1,0 +1,260 @@
+"""Model-side kernels K4 (``segment_matmul``) and K5 (``flash_attention``).
+
+On the CPU the port's wrappers run their plain PyTorch versions, held
+against the JAX package on the same numpy inputs: ``repro.kernels.ref``,
+the Pallas kernels of ``repro.kernels.ops`` in interpret mode and, for K5,
+the model's chunked flash (``repro.models.attention.flash_attention_ref``).
+Tolerances are those of ``tests/test_kernels.py``: float32 K4
+``atol = rtol = 1e-4`` and bf16 ``atol = 0.5, rtol = 0.05``; float32 K5
+``atol = 3e-5, rtol = 1e-4`` and bf16 ``atol = 0.06, rtol = 0.05`` (the
+port returns float32 where the JAX forms round to bf16).  GQA: the JAX
+kernels take pre-repeated KV heads, the port reads head ``h // rep``.
+The ``gpu`` tests hold each CUDA kernel against its plain version on the
+card; they skip without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.attention import flash_attention_ref as jmodel_flash
+from repro_torch.kernels import flash_attention as k5
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import segment_matmul as k4
+from repro_torch.models.attention import flash_attention_ref as tmodel_flash
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+def _bf16(a):
+    """numpy float32 -> (jnp bf16, torch bf16) holding the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    t = torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+    return j, t
+
+
+# --------------------------------------------------------------------- #
+# K4 segment_matmul                                                      #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("E,C,D,F,bm,bn,bk", [
+    (2, 128, 128, 128, 128, 128, 128),
+    (4, 256, 128, 256, 128, 128, 128),
+    (3, 128, 256, 128, 64, 128, 128),
+    (1, 256, 384, 128, 128, 64, 128),
+])
+def test_plain_segment_matmul_matches_pallas_and_ref(E, C, D, F, bm, bn, bk):
+    x = _normal(1, (E, C, D), 0.5)
+    w = _normal(2, (E, D, F), 0.05)
+    got = k4.segment_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (E, C, F)
+    pallas = jops.segment_matmul(jnp.asarray(x), jnp.asarray(w), block_m=bm,
+                                 block_n=bn, block_k=bk)
+    for want in (pallas, jref.segment_matmul(jnp.asarray(x), jnp.asarray(w))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_plain_segment_matmul_bf16():
+    jx, tx = _bf16(_normal(1, (2, 128, 128)))
+    jw, tw = _bf16(_normal(2, (2, 128, 128), 0.1))
+    got = k4.segment_matmul(tx, tw)
+    assert got.dtype == torch.bfloat16
+    for want in (jops.segment_matmul(jx, jw), jref.segment_matmul(jx, jw)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=0.5, rtol=0.05)
+
+
+@pytest.mark.parametrize("E,C,D,F", [(3, 1, 7, 5), (2, 67, 33, 130),
+                                     (1, 4, 2048, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_segment_matmul_ragged_shapes(E, C, D, F, dtype):
+    """Shapes no 128-tile divides (the Pallas kernel asserts it; the port
+    takes them): against ``repro.kernels.ref``."""
+    x, w = _normal(3, (E, C, D), 0.5), _normal(4, (E, D, F), 0.05)
+    if dtype == "bfloat16":
+        (jx, tx), (jw, tw) = _bf16(x), _bf16(w)
+        atol, rtol = 0.5, 0.05
+    else:
+        jx, tx, jw, tw = (jnp.asarray(x), torch.from_numpy(x),
+                          jnp.asarray(w), torch.from_numpy(w))
+        atol = rtol = 1e-4
+    got = k4.segment_matmul(tx, tw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jref.segment_matmul(jx, jw),
+                                          np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("bad", ["mixed dtypes", "float64", "short w",
+                                 "strided x", "2-d x"])
+def test_segment_matmul_rejects_bad_inputs(bad):
+    x, w = torch.zeros(2, 8, 16), torch.zeros(2, 16, 4)
+    err = ValueError
+    if bad == "mixed dtypes":
+        w, err = w.to(torch.bfloat16), TypeError
+    elif bad == "float64":
+        x, w, err = x.double(), w.double(), TypeError
+    elif bad == "short w":
+        w = torch.zeros(2, 15, 4)
+    elif bad == "strided x":
+        x = torch.zeros(2, 16, 8).transpose(1, 2)
+    else:
+        x = x[0]
+    with pytest.raises(err):
+        k4.segment_matmul(x, w)
+
+
+# --------------------------------------------------------------------- #
+# K5 flash_attention                                                     #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("B,H,KV,S,hd", [
+    (1, 1, 1, 128, 64),
+    (2, 3, 3, 256, 64),
+    (1, 2, 2, 384, 128),
+    (2, 4, 2, 256, 32),          # GQA, rep 2
+    (1, 6, 2, 128, 16),          # GQA, rep 3
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_matches_pallas_and_ref(B, H, KV, S, hd, causal):
+    q = _normal(0, (B, H, S, hd))
+    k = _normal(1, (B, KV, S, hd))
+    v = _normal(2, (B, KV, S, hd))
+    got = k5.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S, hd)
+    rep = H // KV
+    jq, jk, jv = (jnp.asarray(a) for a in (q, np.repeat(k, rep, axis=1),
+                                            np.repeat(v, rep, axis=1)))
+    for want in (jops.flash_attention(jq, jk, jv, causal=causal),
+                 jref.flash_attention(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=3e-5, rtol=1e-4)
+
+
+def test_plain_flash_bf16():
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(_normal(i, (2, 2, 256, 64)))
+                                    for i in range(3))
+    got = k5.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.float32
+    for want in (jops.flash_attention(jq, jk, jv),
+                 jref.flash_attention(jq, jk, jv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   atol=0.06, rtol=0.05)
+
+
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("S", [1, 63, 256])
+def test_flash_matches_model_reference(H, KV, S):
+    """K5 (scale applied to q beforehand, as the port's model does) and the
+    port's ``flash_attention_ref`` against the JAX model's chunked flash, in
+    the model's ``[B, S, H, hd]`` layout, with a block smaller than S."""
+    B, hd = 2, 64
+    q = _normal(5, (B, S, H, hd))
+    k = _normal(6, (B, S, KV, hd))
+    v = _normal(7, (B, S, KV, hd))
+    want = np.asarray(jmodel_flash(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True, block=128))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    model_form = tmodel_flash(tq, tk, tv, causal=True, block=128)
+    kernel = k5.flash_attention(
+        (tq * hd ** -0.5).transpose(1, 2).contiguous(),
+        tk.transpose(1, 2).contiguous(), tv.transpose(1, 2).contiguous(),
+        causal=True, scale=1.0).transpose(1, 2)
+    for got in (model_form, kernel):
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["causal S != T", "head_dim 48",
+                                 "H not a multiple of KV", "mixed dtypes",
+                                 "strided q"])
+def test_flash_rejects_bad_inputs(bad):
+    q, k = torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16)
+    v, causal, err = k.clone(), True, ValueError
+    if bad == "causal S != T":
+        k, v = torch.zeros(1, 2, 9, 16), torch.zeros(1, 2, 9, 16)
+    elif bad == "head_dim 48":
+        q, k, v = (torch.zeros(*t.shape[:3], 48) for t in (q, k, v))
+    elif bad == "H not a multiple of KV":
+        k, v = torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16)
+    elif bad == "mixed dtypes":
+        v, err = v.to(torch.bfloat16), TypeError
+    else:
+        q = torch.zeros(1, 8, 4, 16).transpose(1, 2)
+    with pytest.raises(err):
+        k5.flash_attention(q, k, v, causal=causal)
+
+
+def test_full_attention_takes_s_other_than_t():
+    q, k, v = (torch.from_numpy(_normal(i, s)) for i, s in
+               enumerate([(1, 2, 5, 32), (1, 2, 9, 32), (1, 2, 9, 32)]))
+    got = k5.flash_attention(q, k, v, causal=False)
+    want = jref.flash_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                jnp.asarray(v.numpy()), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5,
+                               rtol=1e-4)
+
+
+def test_cpu_tensors_never_count_launches():
+    before = (k4.segment_matmul.launches, k5.flash_attention.launches)
+    k4.segment_matmul(torch.ones(1, 2, 3), torch.ones(1, 3, 4))
+    k5.flash_attention(torch.ones(1, 1, 4, 16), torch.ones(1, 1, 4, 16),
+                       torch.ones(1, 1, 4, 16))
+    assert (k4.segment_matmul.launches, k5.flash_attention.launches) == before
+
+
+# --------------------------------------------------------------------- #
+# On the card                                                            #
+# --------------------------------------------------------------------- #
+@pytest.mark.gpu
+def test_cuda_segment_matmul_matches_plain_version():
+    """K4 on the card against its plain version: float32 within
+    ``1e-5 * sqrt(D) * max|x| * max|w|``-scale tolerance (another order of
+    float32 sums), bf16 within one bf16 rounding of the output (the
+    products are exact, the float32 sums differ in order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for E, C, D, F in ((1, 1, 1, 1), (3, 67, 33, 130), (8, 4, 2048, 1024),
+                       (4, 300, 256, 96)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(_normal(E + C, (E, C, D), 0.5)).to(
+                "cuda", dtype)
+            w = torch.from_numpy(_normal(D + F, (E, D, F), 0.05)).to(
+                "cuda", dtype)
+            launches = k4.segment_matmul.launches
+            got = k4.segment_matmul(x, w)
+            assert k4.segment_matmul.launches == launches + 1
+            want = tref.segment_matmul(x, w)
+            assert got.dtype == dtype and got.shape == want.shape
+            tol = (1e-4 if dtype == torch.float32 else 2.0**-7)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= tol * (1 + want.float().abs())).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_matches_plain_version():
+    """K5 on the card against its plain version (float32 arithmetic in both,
+    sums in another order): ``atol = 3e-5, rtol = 1e-4`` from float32 and
+    bf16 inputs alike, causal and full, rep 1 and 3, ragged S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for B, H, KV, S, hd in ((1, 1, 1, 1, 16), (2, 3, 1, 63, 64),
+                            (1, 6, 2, 130, 128), (2, 4, 4, 512, 32)):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.from_numpy(_normal(i, s)).to("cuda", dtype)
+                           for i, s in enumerate([(B, H, S, hd),
+                                                  (B, KV, S, hd),
+                                                  (B, KV, S, hd)]))
+                launches = k5.flash_attention.launches
+                got = k5.flash_attention(q, k, v, causal=causal)
+                assert k5.flash_attention.launches == launches + 1
+                want = tref.flash_attention(q, k, v, causal=causal,
+                                            scale=hd ** -0.5)
+                torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    torch.cuda.synchronize()

@@ -32,5 +32,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     imported = set(report["imported"])
     for name in ("repro_torch.core.ops", "repro_torch.kernels.partition",
                  "repro_torch.kernels._build", "repro_torch.dataflow.exchange",
-                 "repro_torch.dataflow.workflows"):
+                 "repro_torch.dataflow.workflows", "repro_torch.models.model",
+                 "repro_torch.serve.engine",
+                 "repro_torch.kernels.segment_matmul",
+                 "repro_torch.kernels.flash_attention"):
         assert name in imported
