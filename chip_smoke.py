@@ -43,7 +43,12 @@ Phases, in order; any failure exits non-zero before the last line:
            and C = 2048) and K5 ``flash_attention`` (bf16, float32 at one
            length; causal and full; 1 and 3 query heads per KV head; S in
            {1, 63, 512, 4096}) against their plain versions within bounds
-           stated in ``check_segment_matmul`` and ``check_flash``;
+           stated in ``check_segment_matmul`` and ``check_flash``; and K6
+           ``rwkv_scan`` (hd in {16, 32, 64}, T in {1, 63, 445, 4096}, with
+           and without state0; views in the model's layout and odd hd at
+           one length)
+           within the bound stated in ``check_rwkv``, timed at the serve's
+           shape;
 7. serve   OLMoE-1B-7B at full width (16 layers, ~6.9e9 float32 weights
            from seed 0, bf16 compute) behind ``ServeEngine`` on the card:
            batch 4, 8 requests with prompts of 64-512 tokens, 16 new tokens
@@ -63,7 +68,18 @@ Phases, in order; any failure exits non-zero before the last line:
            ``SLICE_TOL`` and greedy tokens equal wherever the top-2 margin
            exceeds it; at most ``SLICE_MOVED`` tokens with moved experts,
            their logits within ``SLICE_CAP``;
-9. report  one JSON line of kernels (K1-K5), the card line, and the
+9. rwkv    RWKV6-1.6B at full width (24 layers, ~1.48e9 float32 weights
+           from seed 0, bf16 compute) behind ``ServeEngine`` with the serve's
+           constants, every kernel's count set to 0 just before and read
+           just after: K6 must launch once a layer a model call, every token
+           lie in the vocabulary and every logit be finite; K6 replayed
+           against its plain version on the serve's own prefill and decode
+           inputs, timed beside the plain version and the bound; then the slice
+           check at 2 layers, card (K6) against host (its plain version),
+           every position of a 2 x 64 prompt and 4 teacher-forced decode
+           steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
+           the card's top-2 margin exceeds it;
+10. report one JSON line of kernels (K1-K6), the card line, and the
            ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
@@ -71,13 +87,16 @@ non-zero and prints no result.  It imports nothing of JAX.
 
     python3 chip_smoke.py --readings   # not part of the smoke
 
-builds the kernels and prints the readings behind ``SLICE_TOL`` (the slice
-check at three seeds, sound and with planted kernel faults) and one decode
-step of the full-width serve taken apart (K4's calls, the weight casts,
-the device's busy share under the profiler).
+builds the kernels and prints the readings behind ``SLICE_TOL`` and
+``RWKV_SLICE_TOL`` (each slice check at three seeds, sound and with planted
+kernel faults, the RWKV6 one sound at seven more) and one decode step of
+each full-width serve taken apart (the kernels' calls, the weight casts,
+the device's busy share under the profiler; the RWKV6 step also with the
+layout copies K6 does without and with ``F.silu`` for the gate's silu).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import json
@@ -125,6 +144,14 @@ SERVE_BATCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, (64, 512), 16
 #: tokens 0.646 against 4.05 (K5's q scaled twice).
 SLICE_B, SLICE_S, SLICE_STEPS = 2, 64, 4
 SLICE_TOL, SLICE_MOVED, SLICE_CAP = 0.2, 14, 1.6
+#: The RWKV6 slice check (same prompt and steps, no experts to move): the
+#: largest |logit difference| allowed at any token, set from
+#: ``python3 chip_smoke.py --readings`` like SLICE_TOL (H100): sound runs
+#: reached 0.0547 at seeds 0-2 and 0.0625 over seeds 0-9; K6 decaying after
+#: the add gave 0.0664-0.0703, inside that reach (the kernel phase's bound
+#: catches it), and the nearest fault beyond it, K6 dropping the last of
+#: hd's terms, 1.37; their geometric mean is 0.29.
+RWKV_SLICE_TOL = 0.29
 
 
 class SmokeFailure(RuntimeError):
@@ -833,23 +860,177 @@ def time_k5(torch, k5, q, k, v, reps: int):
 
 
 # --------------------------------------------------------------------- #
-# 7. serve: OLMoE-1B-7B at full width                                    #
+# 6b. model kernel K6 rwkv_scan                                          #
 # --------------------------------------------------------------------- #
-def serve_phase(torch, kernel_mods):
-    """Serve SERVE_REQUESTS requests through the full-width OLMoE-1B-7B
-    (all 16 layers, float32 weights from seed 0, bf16 compute) with
-    ``ServeEngine`` on the card, every kernel's count set to 0 just before
-    and read just after.  K4's and K5's inputs are recorded (the first call
-    at each shape).  Returns (launches per kernel, K4 records, K5 records,
-    a summary dict)."""
+def rwkv_envelope(torch, args):
+    """The recurrence on magnitudes, for ``check_rwkv``: with A_t =
+    |w_t| A_{t-1} + |k_t| |v_t|^T (A_0 = |state0|) and D_t = |w_t| D_{t-1}
+    + A_t (D_0 = 0), returns O_t = |r_t| (A_{t-1} + |u| |k_t| |v_t|^T) and
+    P_t = |r_t| D_{t-1} ([B, H, T, hd] each) and the final A and D."""
+    r, k, v, w, u, s0 = (None if a is None else a.float().abs() for a in args)
+    B, H, T, hd = r.shape
+    A = (torch.zeros((B, H, hd, hd), device=r.device) if s0 is None
+         else s0.clone())
+    D = torch.zeros_like(A)
+    O = torch.empty((B, H, T, hd), device=r.device)
+    P = torch.empty_like(O)
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        O[:, :, t] = torch.einsum("bhk,bhkv->bhv", r[:, :, t],
+                                  A + u[..., None] * kv)
+        P[:, :, t] = torch.einsum("bhk,bhkv->bhv", r[:, :, t], D)
+        A = w[:, :, t, :, None] * A + kv
+        D = w[:, :, t, :, None] * D + A
+    return O, P, A, D
+
+
+def check_rwkv(torch, what: str, got, args):
+    """K6 against its plain version on ``args`` (r, k, v, w, u, state0).
+
+    Both are float32 arithmetic on the same values in other orders (the
+    kernel fuses multiply-adds and adds out_t's hd terms in sixteen partial
+    sums).  To first order, with eps = 2^-24: a step of the state rounds at
+    most three times on values bounded by A_t (``rwkv_envelope``: the
+    recurrence on |r|, |k|, |v|, |w|, |u|, |state0|), and the errors of the
+    steps before decay with |w|, so either version's state is within
+    3 eps D_t of the exact one, D_t the decayed sum of the A_s; out_t reads
+    the state before step t (error 3 eps P_t, P_t = |r_t| D_{t-1}) and adds
+    hd products to it, within (hd + 3) eps O_t.  So the two versions' final
+    states lie within 2 eps (3 D_T + A_T) of each other and their outputs
+    within 2 eps (3 P_t + (hd + 3) O_t).  Returns (the largest
+    |kernel - plain| over out and state, the largest allowed |out|
+    difference over the largest |out|)."""
+    from repro_torch.kernels import ref
+    out, state = got
+    want, want_state = ref.rwkv_scan(*args)
+    check(out.shape == want.shape and out.dtype == want.dtype
+          and state.shape == want_state.shape
+          and state.dtype == torch.float32,
+          f"{what}: {tuple(out.shape)} {out.dtype}, state "
+          f"{tuple(state.shape)} {state.dtype} vs plain "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(state).all()),
+          f"{what}: non-finite output")
+    hd = args[0].shape[3]
+    eps = 2.0**-24
+    O, P, A, D = rwkv_envelope(torch, args)
+    tol = 2 * eps * (3 * P + (hd + 3) * O)
+    err = (out - want).abs()
+    err_state = (state - want_state).abs()
+    check(bool((err <= tol).all()),
+          f"{what}: out beyond the stated bound of the plain version (max "
+          f"|err| {float(err.max()):.3g})")
+    check(bool((err_state <= 2 * eps * (3 * D + A)).all()),
+          f"{what}: final state beyond the stated bound of the plain "
+          f"version (max |err| {float(err_state.max()):.3g})")
+    admitted = (float(tol.max() / want.abs().max().clamp(min=1e-30))
+                if want.numel() else 0.0)
+    return (max(float(err.max()) if err.numel() else 0.0,
+                float(err_state.max()) if err_state.numel() else 0.0),
+            admitted)
+
+
+def k6_bound(B: int, H: int, T: int, hd: int, with_state: bool):
+    """Least time: 4 hd^2 float32 operations per (b, h, t) at the float32
+    CUDA-core rate (r_t S, a multiply-add per state entry, and the decayed
+    update, one multiply-add per entry in a chunked form that rescales the
+    state by the chunk's decay; the bonus r_t diag(u) k_t v_t^T is
+    (sum_k r_k u_k k_k) v_t, O(hd)), vs float32 r, k, v, w read and out
+    written once, u, state0 (when given) read and the final state
+    written."""
+    t_ops = 4.0 * hd * hd * B * H * T / FP32_OPS_PER_S * 1e3
+    nbytes = 4 * (5 * B * H * T * hd + H * hd
+                  + (2 if with_state else 1) * B * H * hd * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_k6(torch, k6, args, reps: int):
+    """(kernel ms, plain ms, bound ms, bound_by)."""
+    from repro_torch.kernels import ref
+    B, H, T, hd = args[0].shape
+    ms = time_ms(torch, k6.rwkv_scan, args, reps)
+    plain_ms = time_ms(torch, ref.rwkv_scan, args, max(reps // 10, 2))
+    return (ms, plain_ms) + k6_bound(B, H, T, hd, args[5] is not None)
+
+
+def rwkv_inputs(torch, seed: int, B: int, H: int, T: int, hd: int,
+                with_state: bool, views: bool = False):
+    """Float32 r, k, v (normal * 0.5), w in (0.45, 0.95), u (normal * 0.1)
+    and state0 (normal * 0.5, or None), as ``tests/test_kernels.py`` draws
+    them; with ``views`` r, k, v and w are [B, H, T, hd] views of
+    [B, T, H, hd] tensors, as the model passes them."""
+    shape = (B, T, H, hd) if views else (B, H, T, hd)
+    r, k, v = (randn(torch, seed + i, shape, torch.float32, 0.5)
+               for i in range(3))
+    w = torch.sigmoid(randn(torch, seed + 3, shape, torch.float32)) * 0.5 \
+        + 0.45
+    if views:
+        r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
+    u = randn(torch, seed + 4, (H, hd), torch.float32, 0.1)
+    s0 = (randn(torch, seed + 5, (B, H, hd, hd), torch.float32, 0.5)
+          if with_state else None)
+    return r, k, v, w, u, s0
+
+
+def rwkv_kernel_phase(torch, k6) -> float:
+    """K6 against its plain version: hd in {16, 32, 64} x T in {1, 63, 445,
+    4096} x with and without state0 (3 x 48 heads: more blocks than SMs),
+    then inputs in the model's layout and odd head sizes at T = 63; timed
+    at the serve's shape (B = SERVE_BATCH, H = 32, hd = 64) at T = 445 and
+    4096.  Returns the largest error."""
+    err, seed, admitted = 0.0, 500, {}
+    for hd in (16, 32, 64):
+        for T in (1, 63, 445, 4096):
+            for with_state in (False, True):
+                seed += 10
+                args = rwkv_inputs(torch, seed, 3, 48, T, hd, with_state)
+                what = f"rwkv_scan hd={hd} T={T} state0={with_state}"
+                e, adm = check_rwkv(torch, what, k6.rwkv_scan(*args), args)
+                err, admitted[T] = max(err, e), max(admitted.get(T, 0.0), adm)
+                del args
+    for hd, views in ((64, True), (16, True), (5, False), (48, False)):
+        seed += 10
+        args = rwkv_inputs(torch, seed, 2, 7, 63, hd, True, views)
+        what = f"rwkv_scan hd={hd} T=63 {'views' if views else 'contiguous'}"
+        err = max(err, check_rwkv(torch, what, k6.rwkv_scan(*args), args)[0])
+    torch.cuda.synchronize()
+    log(f"model kernels: rwkv_scan within the stated bound of its plain "
+        f"version at B=3 H=48 hd in {{16, 32, 64}} x T in {{1, 63, 445, "
+        f"4096}} x state0 in {{no, yes}}, and at T=63 on views in the "
+        f"model's layout (hd 16, 64) and hd 5, 48 (max |err| {err:.3g}); "
+        f"the bound admits an out difference of at most "
+        + ", ".join(f"{a:.3g} (T={T})" for T, a in admitted.items())
+        + " of the largest |out|")
+    for T in (445, 4096):
+        args = rwkv_inputs(torch, 900 + T, SERVE_BATCH, 32, T, 64, True)
+        t = time_k6(torch, k6, args, 20 if T < 1000 else 5)
+        log(f"model kernels: rwkv_scan B={SERVE_BATCH} H=32 T={T} hd=64 "
+            f"float32 with state0: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
+            f"bound {t[2]:.5f} ms by {t[3]}, {100 * t[2] / t[0]:.1f}% of "
+            f"bound; library: none, no single PyTorch call computes this "
+            f"recurrence)")
+        del args
+    torch.cuda.empty_cache()
+    return err
+
+
+# --------------------------------------------------------------------- #
+# 7. serve: a model at full width (OLMoE-1B-7B; RWKV6-1.6B in phase 9)    #
+# --------------------------------------------------------------------- #
+def serve_phase(torch, kernel_mods, arch: str, recs):
+    """Serve SERVE_REQUESTS requests through ``arch`` at full width (every
+    layer, float32 weights from seed 0, bf16 compute) with ``ServeEngine``
+    on the card, every kernel's count set to 0 just before and read just
+    after, the recorders ``recs`` standing in for their kernels (each keeps
+    the first call at each shape, labelled prefill or decode).  Returns
+    (launches per kernel, a summary dict)."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import segment_matmul as ksm
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("olmoe-1b-7b")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, "cuda")
@@ -865,7 +1046,6 @@ def serve_phase(torch, kernel_mods):
         eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
             np.int32), max_new_tokens=SERVE_NEW))
     spent = {"prefill": [0.0, 0], "decode": [0.0, 0]}
-    recs = (Recorder(ksm, "segment_matmul"), Recorder(kfa, "flash_attention"))
 
     def timed(fn, what):
         def wrapper(tokens, *args):
@@ -884,7 +1064,9 @@ def serve_phase(torch, kernel_mods):
     eng._step = timed(eng._step, "decode")
     for mod, name in kernel_mods:
         getattr(mod, name).launches = 0
-    with recs[0], recs[1]:
+    with contextlib.ExitStack() as stack:
+        for rec in recs:
+            stack.enter_context(rec)
         t0 = time.perf_counter()
         done = eng.run()
         torch.cuda.synchronize()
@@ -898,17 +1080,33 @@ def serve_phase(torch, kernel_mods):
         check(len(r.out_tokens) == SERVE_NEW and all(
             0 <= t < cfg.vocab for t in r.out_tokens),
             f"serve: request {r.uid} gave {r.out_tokens}")
-    for name in ("segment_matmul", "flash_attention"):
-        check(launches[name] > 0, f"serve: {name} never launched")
     generated = sum(len(r.out_tokens) for r in done)
     summary = dict(init_s=init_s, n_params=n_params, wall=wall,
                    generated=generated, prefill=spent["prefill"],
                    decode=spent["decode"], peak_gb=peak_gb,
                    prompts=[int(n) for n in lengths],
-                   tokens_decoded=eng.tokens_decoded)
+                   tokens_decoded=eng.tokens_decoded, n_layers=cfg.n_layers,
+                   calls=spent["prefill"][1] + spent["decode"][1])
+    # The timing wrappers hold the engine's bound methods: drop them, or
+    # the cycle keeps the weights on the card until a garbage collection.
+    del eng._prefill, eng._step
     del eng, params
     torch.cuda.empty_cache()
-    return launches, recs[0].first, recs[1].first, summary
+    return launches, summary
+
+
+def log_serve(name: str, sv, launches, smi: str) -> None:
+    pre_s, pre_n = sv["prefill"]
+    dec_s, dec_n = sv["decode"]
+    log(f"serve: {name}, {sv['n_params']:,} float32 parameters from "
+        f"seed 0 in {sv['init_s']:.2f} s; {SERVE_REQUESTS} requests (prompts "
+        f"{sv['prompts']}), batch {SERVE_BATCH}, {SERVE_NEW} new tokens each: "
+        f"{pre_n} prefills in {pre_s:.4f} s ({pre_s / pre_n:.4f} s each), "
+        f"{dec_n} decode steps at {1e3 * dec_s / dec_n:.3f} ms a step; "
+        f"launches {launches}; peak memory {sv['peak_gb']:.2f} GiB")
+    log(f"serve: {name}: {sv['generated']} tokens in {sv['wall']:.4f} s = "
+        f"{sv['generated'] / sv['wall']:.2f} tokens/s "
+        f"({sv['tokens_decoded']} decoded) on {smi}")
 
 
 def _leaves(tree):
@@ -999,8 +1197,8 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def slice_model(torch, seed: int):
-    """OLMoE-1B-7B at full width and 2 layers with weights from ``seed`` on
+def slice_model(torch, seed: int, arch: str = "olmoe-1b-7b"):
+    """``arch`` at full width and 2 layers with weights from ``seed`` on
     the card and a copy on the host, and SLICE_B x (SLICE_S + SLICE_STEPS)
     tokens from ``seed + 1``.  Returns (cfg, card params, host params,
     tokens)."""
@@ -1008,7 +1206,7 @@ def slice_model(torch, seed: int):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     gpu = init_params(cfg, seed, "cuda")
     toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (SLICE_B, SLICE_S + SLICE_STEPS)))
@@ -1020,7 +1218,7 @@ def slice_logits(torch, cfg, params, toks, dev: str):
     SLICE_STEPS decode steps fed the next tokens (teacher forcing).
     Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]`` and each
     token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]`` (sorted
-    within a layer), on the host."""
+    within a layer; None for a model without experts), on the host."""
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.models import moe as moe_lib
 
@@ -1033,9 +1231,10 @@ def slice_logits(torch, cfg, params, toks, dev: str):
 
     def take(logits, n):
         out.append(logits.float().cpu())
-        routes.append(torch.cat([c.reshape(SLICE_B, n, -1) for c in calls],
-                                dim=-1))
-        calls.clear()
+        if calls:
+            routes.append(torch.cat([c.reshape(SLICE_B, n, -1)
+                                     for c in calls], dim=-1))
+            calls.clear()
 
     out, routes = [], []
     with StandIn(moe_lib, "router_topk", routed):
@@ -1048,7 +1247,8 @@ def slice_logits(torch, cfg, params, toks, dev: str):
             logits, cache = decode_step(params, cfg, toks[:, i:i + 1].to(dev),
                                         cache, i)
             take(logits, 1)
-    return torch.cat(out, dim=1), torch.cat(routes, dim=1)
+    return torch.cat(out, dim=1), (torch.cat(routes, dim=1) if routes
+                                   else None)
 
 
 def slice_compare(card, host):
@@ -1117,6 +1317,122 @@ def slice_phase(torch):
     torch.cuda.empty_cache()
     r["cpu_s"] = cpu_s
     return r
+
+
+# --------------------------------------------------------------------- #
+# 9. RWKV6-1.6B: serve, replay and slice                                 #
+# --------------------------------------------------------------------- #
+def rwkv_replay_phase(torch, k6, first):
+    """K6 against its plain version on the inputs the RWKV serve gave it
+    (the first call at each shape: each prefill's, the first decode
+    step's), timed beside the plain version and the bound.  Returns (max
+    error, the JSON record's numbers from the first prefill, and the first
+    decode's)."""
+    err, main = 0.0, {}
+    for key, (args, _) in first.items():
+        label = key[0]
+        B, H, T, hd = args[0].shape
+        what = (f"rwkv_scan on the serve's {label} B={B} H={H} T={T} "
+                f"hd={hd}")
+        err = max(err, check_rwkv(torch, what, k6.rwkv_scan(*args),
+                                  args)[0])
+        reps = 200 if T == 1 else 20
+        t = time_k6(torch, k6, args, reps)
+        # The host's time to submit the calls (no wait for the card): where
+        # it matches the CUDA-event time, the calls are host-paced.
+        start = time.perf_counter()
+        for _ in range(reps):
+            k6.rwkv_scan(*args)
+        submit_ms = (time.perf_counter() - start) / reps * 1e3
+        torch.cuda.synchronize()
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, bound "
+            f"{t[2]:.6f} ms by {t[3]}, {100 * t[2] / t[0]:.1f}% of bound; "
+            f"CUDA events over {reps} calls, the host submits a call in "
+            f"{submit_ms:.5f} ms)")
+        main.setdefault(label, t)
+    check(set(main) == {"prefill", "decode"},
+          f"replay: K6 was recorded at {sorted(main)}, not at both prefill "
+          f"and decode")
+    return err, main
+
+
+def rwkv_slice_compare(card, host):
+    """Card against host at every token: the largest |logit difference|
+    (over the prompt's positions and per decode step), and the greedy
+    tokens, compared where the card's top-2 margin exceeds
+    RWKV_SLICE_TOL."""
+    lc, lh = card[0], host[0]
+    err = (lc - lh).abs().amax(dim=-1)                  # [B, P]
+    top2 = lc.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > RWKV_SLICE_TOL
+    same = lc.argmax(-1) == lh.argmax(-1)
+    return dict(err=float(err.max()), prompt_err=float(err[:, :SLICE_S].max()),
+                steps=[float(e) for e in err[:, SLICE_S:].amax(dim=0)],
+                decided=int(sure.sum()), agree=int((same & sure).sum()),
+                equal=int(same.sum()), tokens=int(err.numel()))
+
+
+def rwkv_slice_phase(torch):
+    """RWKV6-1.6B at full width and 2 layers, the same weights (seed 0) on
+    the card (K6) and on the host (its plain version), over every token of
+    a SLICE_B x SLICE_S prefill and SLICE_STEPS decode steps: logits within
+    RWKV_SLICE_TOL everywhere, greedy tokens equal where the card's top-2
+    margin exceeds it.  Returns a summary dict."""
+    from repro_torch.kernels import rwkv_scan as krw
+
+    cfg, gpu, cpu, toks = slice_model(torch, 0, "rwkv6-1.6b")
+    launches = krw.rwkv_scan.launches
+    card = slice_logits(torch, cfg, gpu, toks, "cuda")
+    check(krw.rwkv_scan.launches - launches
+          == cfg.n_layers * (1 + SLICE_STEPS),
+          f"slice: the card side launched K6 "
+          f"{krw.rwkv_scan.launches - launches} times, not once a layer "
+          f"a model call")
+    t0 = time.perf_counter()
+    host = slice_logits(torch, cfg, cpu, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card[0]).all() and torch.isfinite(host[0]).all()),
+          "slice: non-finite logits")
+    r = rwkv_slice_compare(card, host)
+    check(r["err"] <= RWKV_SLICE_TOL,
+          f"slice: RWKV6 card and host logits differ by {r['err']:.4g} "
+          f"(> {RWKV_SLICE_TOL})")
+    check(r["agree"] == r["decided"],
+          f"slice: RWKV6 greedy tokens differ at {r['decided'] - r['agree']} "
+          f"of the {r['decided']} tokens whose top-2 margin exceeds "
+          f"{RWKV_SLICE_TOL}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def rwkv_phase(torch, k6, kernel_mods, smi: str):
+    """Phase 9: the RWKV6-1.6B serve (K6 counted from 0; it must launch
+    once a layer a model call, and K4 and K5 never), the replay of its
+    K6 calls and the slice check.  Returns (K6's launches in the serve, max
+    replay error, the replay's numbers)."""
+    rec = Recorder(k6, "rwkv_scan")
+    launches, sv = serve_phase(torch, kernel_mods, "rwkv6-1.6b", (rec,))
+    log_serve("RWKV6-1.6B", sv, launches, smi)
+    check(launches["rwkv_scan"] == sv["n_layers"] * sv["calls"],
+          f"serve: K6 launched {launches['rwkv_scan']} times in "
+          f"{sv['calls']} model calls, not {sv['n_layers']} a call")
+    check(launches["segment_matmul"] == 0 and launches["flash_attention"] == 0,
+          f"serve: the RWKV6 serve launched K4 or K5: {launches}")
+    err, main = rwkv_replay_phase(torch, k6, rec.first)
+    del rec
+    torch.cuda.empty_cache()
+    sl = rwkv_slice_phase(torch)
+    log(f"slice: RWKV6-1.6B at 2 layers, card vs host over {sl['tokens']} "
+        f"tokens ({SLICE_B} x {SLICE_S} prompt positions, {SLICE_STEPS} "
+        f"decode steps): max |logit diff| {sl['err']:.5f} (allowed "
+        f"{RWKV_SLICE_TOL}; prompt {sl['prompt_err']:.5f}, per decode step "
+        f"{[round(e, 5) for e in sl['steps']]}); greedy tokens equal at "
+        f"{sl['agree']} of the {sl['decided']} whose top-2 margin exceeds "
+        f"{RWKV_SLICE_TOL}, and at {sl['equal']} of all {sl['tokens']}; "
+        f"host side {sl['cpu_s']:.2f} s")
+    return launches["rwkv_scan"], err, main
 
 
 # --------------------------------------------------------------------- #
@@ -1198,6 +1514,111 @@ def slice_readings(torch, seeds=(0, 1, 2)):
     return runs
 
 
+def rwkv_planted_faults(torch, krw):
+    """Faults planted in K6 on the card's side of the RWKV6 slice, each a
+    stand-in for the wrapper that still launches the kernel: (name,
+    module, wrapper name, stand-in)."""
+    k6 = krw.rwkv_scan
+
+    def no_bonus(r, k, v, w, u, state0=None):
+        return k6(r, k, v, w, torch.zeros_like(u), state0)
+
+    def decay_after_add(r, k, v, w, u, state0=None):
+        # S <- diag(w) (S + k v^T): the kernel on w * k carries that state;
+        # out_t still takes the bonus of the unscaled k, added back here.
+        out, state = k6(r, torch.mul(w, k, out=torch.empty_like(k)), v, w,
+                        u, state0)
+        bonus = (r * u[None, :, None, :] * k * (1 - w)).sum(-1, keepdim=True)
+        return out + bonus * v, state
+
+    def state0_ignored(r, k, v, w, u, state0=None):
+        return k6(r, k, v, w, u, None)
+
+    def last_term_dropped(r, k, v, w, u, state0=None):
+        r = r.clone()
+        r[..., -1] = 0.0
+        return k6(r, k, v, w, u, state0)
+
+    return [("K6 drops u's bonus", krw, "rwkv_scan", no_bonus),
+            ("K6 decays after the add", krw, "rwkv_scan", decay_after_add),
+            ("K6 ignores state0", krw, "rwkv_scan", state0_ignored),
+            ("K6 drops the last of hd's terms from out", krw, "rwkv_scan",
+             last_term_dropped)]
+
+
+def rwkv_slice_readings(torch, seeds=(0, 1, 2), sound_seeds=range(3, 10)):
+    """The readings that RWKV_SLICE_TOL is set from: at each of ``seeds``,
+    the RWKV6 slice's card against its host as the check compares them,
+    sound and with each planted K6 fault on the card's side; at each of
+    ``sound_seeds`` sound only (the spread of sound runs).  Returns the
+    readings by run name, a list per seed."""
+    from repro_torch.kernels import rwkv_scan as krw
+
+    runs = {}
+    for seed in (*seeds, *sound_seeds):
+        cfg, gpu, cpu, toks = slice_model(torch, seed, "rwkv6-1.6b")
+        host = slice_logits(torch, cfg, cpu, toks, "cpu")
+        stand_ins = [("sound", contextlib.nullcontext())] + [
+            (name, StandIn(mod, attr, fn))
+            for name, mod, attr, fn in rwkv_planted_faults(torch, krw)
+            if seed in seeds]
+        for name, stand_in in stand_ins:
+            with stand_in:
+                card = slice_logits(torch, cfg, gpu, toks, "cuda")
+            r = rwkv_slice_compare(card, host)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: rwkv slice seed {seed}: {name}: max |card - "
+                f"host| {r['err']:.6f} (prompt {r['prompt_err']:.6f}; per "
+                f"decode step {[round(e, 6) for e in r['steps']]}); greedy "
+                f"equal at {r['equal']} of {r['tokens']}, and at "
+                f"{r['agree']} of the {r['decided']} with a top-2 margin "
+                f"above {RWKV_SLICE_TOL}")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: rwkv slice {name} over {len(rs)} seeds: max "
+            f"|diff| {min(r['err'] for r in rs):.6f} to "
+            f"{max(r['err'] for r in rs):.6f}")
+    log(f"readings: rwkv slice limit: RWKV_SLICE_TOL {RWKV_SLICE_TOL}")
+    # The kernel phase's check against each planted fault, at the serve's
+    # prefill shape, with the test's decay and with the model's (w near 1).
+    for name, _, _, fn in rwkv_planted_faults(torch, krw):
+        for decay in ("test", "model"):
+            args = list(rwkv_inputs(torch, 77, SERVE_BATCH, 32, 445, 64,
+                                    True))
+            if decay == "model":
+                args[3] = torch.exp(-torch.exp(randn(
+                    torch, 78, args[3].shape, torch.float32, 0.1) - 6.0))
+            try:
+                check_rwkv(torch, name, fn(*args), args)
+                caught = "passes check_rwkv"
+            except SmokeFailure as e:
+                caught = f"fails check_rwkv: {e}"
+            log(f"readings: rwkv kernel check, {name}, {decay} decay: "
+                f"{caught}")
+    return runs
+
+
+def profile_busy(torch, fn):
+    """Run ``fn`` once under the profiler: (the profile, the device spans
+    sorted by start, the µs in which some span ran)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us, end = busy_us + b - a, b
+        elif b > end:
+            busy_us, end = busy_us + b - end, b
+    return prof, spans, busy_us
+
+
 def decode_readings(torch):
     """One decode step of the full-width serve (batch SERVE_BATCH, a
     257-token context) taken apart on the card: the step (CUDA events over
@@ -1257,20 +1678,7 @@ def decode_readings(torch):
         f"{sum(t.numel() for t in experts) * 6 / 1e9:.2f} GB moved), the "
         f"other weights {others_ms:.4f} ms")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        step()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    busy_us, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy_us, end = busy_us + b - a, b
-        elif b > end:
-            busy_us, end = busy_us + b - end, b
+    prof, spans, busy_us = profile_busy(torch, step)
 
     def device_us(e):
         for attr in ("device_time_total", "cuda_time_total"):
@@ -1301,9 +1709,112 @@ def decode_readings(torch):
                 others_ms=others_ms)
 
 
+def rwkv_decode_readings(torch):
+    """One decode step of the full-width RWKV6 serve (batch SERVE_BATCH
+    after a 256-token prefill) taken apart on the card: the step (CUDA
+    events over 10 steps) and the host's time to submit it, and a prefill
+    of the same 256 tokens, as served, with the copies into K6's contiguous
+    layout that it does without and with ``F.silu`` in place of the gate's
+    ``layers.silu``; K6's calls inside the step (CUDA events around each),
+    the step's float32 -> bf16 weight casts timed alone (CUDA events), and
+    the device's busy share under the profiler.  Returns the times."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv_scan as krw
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models import ssm as tssm
+
+    cfg = get_config("rwkv6-1.6b")
+    params = init_params(cfg, 0, "cuda")
+    B, S = SERVE_BATCH, 256
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, S + 1))).cuda()
+    cache = init_cache(cfg, B, S + 1, "cuda")
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :S]}, cache)
+
+    def step():
+        return decode_step(params, cfg, toks[:, S:], cache, S)[0]
+
+    k6 = krw.rwkv_scan
+
+    def copies(r, k, v, w, u, state0=None):
+        # r, k, v and w copied into contiguous [B, H, T, hd], and out (then
+        # contiguous) copied back by the model's reshape: no-ops at T = 1.
+        return k6(*(x.contiguous() for x in (r, k, v, w)), u, state0)
+
+    def timed():
+        pre_ms = time_ms(torch, lambda: prefill(
+            params, cfg, {"tokens": toks[:, :S]}, init_cache(cfg, B, S + 1,
+                                                             "cuda")), (), 5)
+        ms = time_ms(torch, step, (), 10)
+        start = time.perf_counter()
+        for _ in range(10):
+            step()
+        sub = (time.perf_counter() - start) / 10 * 1e3
+        torch.cuda.synchronize()
+        return pre_ms, ms, sub
+
+    variants = {}
+    for name, stand_in in (
+            ("as served", contextlib.nullcontext()),
+            ("with layout copies into and out of K6",
+             StandIn(krw, "rwkv_scan", copies)),
+            ("with F.silu for the gate", StandIn(tssm, "silu", F.silu)),
+            ("as served, again", contextlib.nullcontext())):
+        with stand_in:
+            variants[name] = timed()
+        log(f"readings: rwkv {name}: a {S}-token prefill "
+            f"{variants[name][0]:.4f} ms (CUDA events, 5 prefills), a "
+            f"decode step {variants[name][1]:.4f} ms (CUDA events, 10 "
+            f"steps), submitted by the host in {variants[name][2]:.4f} ms")
+    step_ms, submit_ms = variants["as served"][1:]
+
+    k6_events = []
+
+    def k6_timed(*args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k6(*args)
+        ev[1].record()
+        k6_events.append(ev)
+        return out
+
+    with StandIn(krw, "rwkv_scan", k6_timed):
+        step()
+        torch.cuda.synchronize()
+    k6_ms = sum(a.elapsed_time(b) for a, b in k6_events)
+    weights = [t for bp in params["blocks"] for t in _leaves(bp)]
+    weights.append(params["lm_head"])
+    casts_ms = time_ms(
+        torch, lambda: [t.to(torch.bfloat16) for t in weights], (), 5)
+    _, spans, busy_us = profile_busy(torch, step)
+    log(f"readings: rwkv decode step (batch {B}, after {S} tokens): "
+        f"{step_ms:.4f} ms (CUDA events, 10 steps), submitted by the host in "
+        f"{submit_ms:.4f} ms a step; K6's {len(k6_events)} calls inside one "
+        f"step {k6_ms:.4f} ms (CUDA events around each); the step's "
+        f"float32 -> bf16 weight casts timed alone {casts_ms:.4f} ms "
+        f"({len(weights)} tensors, "
+        f"{sum(t.numel() for t in weights) * 6 / 1e9:.2f} GB moved)")
+    if spans:
+        wall_us = spans[-1][1] - spans[0][0]
+        log(f"readings: rwkv decode step under the profiler: {len(spans)} "
+            f"device spans, busy {busy_us / 1e3:.4f} ms of the "
+            f"{wall_us / 1e3:.4f} ms from the first to the last "
+            f"({100 * busy_us / wall_us:.1f}%)")
+    else:
+        log("readings: rwkv decode step under the profiler: no device spans "
+            "(the profiler does not see the card): not measured")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, submit_ms=submit_ms, k6_ms=k6_ms,
+                casts_ms=casts_ms, variants=variants)
+
+
 def readings() -> int:
-    """``--readings``: build, then the slice check's readings and the
-    decode step taken apart (``PERF.md``).  Not part of the smoke."""
+    """``--readings``: build, then the slice checks' readings and the
+    OLMoE decode step taken apart (``PERF.md``).  Not part of the smoke."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1324,6 +1835,8 @@ def readings() -> int:
     t0 = time.perf_counter()
     slice_readings(torch)
     decode_readings(torch)
+    rwkv_slice_readings(torch)
+    rwkv_decode_readings(torch)
     log(f"readings: done in {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -1341,6 +1854,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import partition as kpart
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as krw
     from repro_torch.kernels import segment_matmul as kseg
 
     # Float32 products in full float32 (the plain versions' bmm too).
@@ -1366,6 +1880,7 @@ def main() -> int:
 
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
+    rwkv_err = rwkv_kernel_phase(torch, krw)
     t0 = time.perf_counter()
     launches, first = main_path(torch, kpart)
     log(f"main: all workflows in {time.perf_counter() - t0:.1f} s; "
@@ -1379,21 +1894,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernel_mods = [(kpart, name) for name in KERNELS] + [
-        (kseg, "segment_matmul"), (kfa, "flash_attention")]
-    serve_launches, k4_first, k5_first, sv = serve_phase(torch, kernel_mods)
-    pre_s, pre_n = sv["prefill"]
-    dec_s, dec_n = sv["decode"]
-    log(f"serve: OLMoE-1B-7B, {sv['n_params']:,} float32 parameters from "
-        f"seed 0 in {sv['init_s']:.2f} s; {SERVE_REQUESTS} requests (prompts "
-        f"{sv['prompts']}), batch {SERVE_BATCH}, {SERVE_NEW} new tokens each: "
-        f"{pre_n} prefills in {pre_s:.4f} s ({pre_s / pre_n:.4f} s each), "
-        f"{dec_n} decode steps at {1e3 * dec_s / dec_n:.3f} ms a step; "
-        f"launches {serve_launches}; peak memory {sv['peak_gb']:.2f} GiB")
-    log(f"serve: {sv['generated']} tokens in {sv['wall']:.4f} s = "
-        f"{sv['generated'] / sv['wall']:.2f} tokens/s "
-        f"({sv['tokens_decoded']} decoded) on {smi}")
-    errs, main = model_replay_phase(torch, kseg, kfa, k4_first, k5_first)
-    del k4_first, k5_first
+        (kseg, "segment_matmul"), (kfa, "flash_attention"),
+        (krw, "rwkv_scan")]
+    recs = (Recorder(kseg, "segment_matmul"), Recorder(kfa, "flash_attention"))
+    serve_launches, sv = serve_phase(torch, kernel_mods, "olmoe-1b-7b", recs)
+    log_serve("OLMoE-1B-7B", sv, serve_launches, smi)
+    for name in ("segment_matmul", "flash_attention"):
+        check(serve_launches[name] > 0, f"serve: {name} never launched")
+    errs, main = model_replay_phase(torch, kseg, kfa, recs[0].first,
+                                    recs[1].first)
+    del recs
     torch.cuda.empty_cache()
     sl = slice_phase(torch)
     log(f"slice: OLMoE-1B-7B at 2 layers, card vs host over {sl['tokens']} "
@@ -1418,6 +1928,16 @@ def main() -> int:
             max_abs_err=max(model_errs[name], errs[name]), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
+    rwkv_launches, replay_k6_err, k6_main = rwkv_phase(torch, krw,
+                                                       kernel_mods, smi)
+    ms, plain_ms, b_ms, b_by = k6_main["prefill"]
+    records.append(dict(
+        name="rwkv_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv_scan.cu",
+        replaces="src/repro/kernels/rwkv_scan.py:40",
+        launches=rwkv_launches, max_abs_err=max(rwkv_err, replay_k6_err),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)

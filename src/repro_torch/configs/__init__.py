@@ -30,6 +30,7 @@ ARCH_IDS: List[str] = [
 _MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "llama3.2-3b": "llama3_2_3b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 #: The architectures the port serves.

@@ -3,15 +3,17 @@
   csrc/partition.cu        routing-table exchange kernels K1-K3
   csrc/segment_matmul.cu   grouped expert matmul K4
   csrc/flash_attention.cu  prefill attention K5
+  csrc/rwkv_scan.cu        RWKV6 recurrence K6
   _build.py                nvcc build at first use (sm_90a, plain C
                            interface), ctypes loading, launch helpers
-  partition.py, segment_matmul.py, flash_attention.py
+  partition.py, segment_matmul.py, flash_attention.py, rwkv_scan.py
                            wrappers: a CUDA tensor launches the kernel, a
                            CPU tensor runs the plain version; launch counters
   ref.py                   plain PyTorch versions (the comparison targets)
 
-Still to port from ``repro.kernels``: ``rwkv_scan`` (K6).
+Every Pallas kernel of ``repro.kernels`` has its counterpart here.
 """
-from . import flash_attention, partition, ref, segment_matmul
+from . import flash_attention, partition, ref, rwkv_scan, segment_matmul
 
-__all__ = ["flash_attention", "partition", "ref", "segment_matmul"]
+__all__ = ["flash_attention", "partition", "ref", "rwkv_scan",
+           "segment_matmul"]

@@ -5,8 +5,8 @@ The counterpart of ``repro.kernels.ref`` for the kernels ported so far.
 and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 They repeat the kernels' arithmetic and are no yardstick of speed: the
 row gather materializes ``[N, W]``, the grouped matmul upcasts its inputs
-to float32, and attention materializes a ``[S, block]`` score tile per
-head.
+to float32, attention materializes a ``[S, block]`` score tile per
+head, and the RWKV6 scan walks T in Python with a few ops a step.
 """
 from __future__ import annotations
 
@@ -129,3 +129,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + torch.einsum("bhst,bhtd->bhsd", p, vb)
         m = m_new
     return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 recurrence, ``repro.kernels.ref.rwkv_scan``: r, k, v, w
+    ``[B, H, T, hd]``, u ``[H, hd]``, state0 ``[B, H, hd, hd]`` (zeros when
+    None).  In float32, one step at a time:
+
+        out_t = r_t (S + diag(u) k_t v_t^T)
+        S     = diag(w_t) S + k_t v_t^T
+
+    Returns (out ``[B, H, T, hd]`` in ``r.dtype``, the final state
+    ``[B, H, hd, hd]`` float32).
+    """
+    B, H, T, hd = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[..., None]                                  # [H, hd, 1]
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float().clone())
+    out = torch.empty((B, H, T, hd), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]       # [B, H, hd, hd]
+        out[:, :, t] = torch.einsum("bhk,bhkv->bhv", rf[:, :, t], s + uf * kv)
+        s = wf[:, :, t, :, None] * s + kv
+    return out.to(r.dtype), s

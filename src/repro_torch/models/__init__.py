@@ -3,10 +3,12 @@
   layers.py     norms, rope, SwiGLU, initializers from a torch.Generator
   attention.py  GQA with a KV cache; prefill attention through K5
   moe.py        capacity-bounded top-k MoE; expert products through K4
+  ssm.py        RWKV6 time-mix and channel-mix; the recurrence through K6
   model.py      init / forward / prefill / decode for the GQA families
+                and the RWKV6 (ssm) family
   convert.py    the JAX model's weights as the port's params
 """
-from . import attention, convert, layers, model, moe
+from . import attention, convert, layers, model, moe, ssm
 from .model import decode_step, forward, init_cache, init_params, prefill
 
 __all__ = [
@@ -15,6 +17,7 @@ __all__ = [
     "layers",
     "model",
     "moe",
+    "ssm",
     "decode_step",
     "forward",
     "init_cache",

@@ -100,6 +100,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------- #
 # Feed-forward block                                                     #
 # --------------------------------------------------------------------- #
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the JAX package computes it here: ``x * (1 / (1 +
+    exp(-x)))``, each op rounded to x's dtype.  ``F.silu`` rounds once,
+    which in bf16 differs in the last bit at about a third of the values.
+    RWKV6's gate uses it: its bf16 forward drifts past the tests' tolerance
+    with ``F.silu``.  SwiGLU and the MoE experts keep the fused ``F.silu``
+    (four eager ops fewer a call), within tolerance either way."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
                 dtype=torch.float32) -> Params:
     return {

@@ -1,6 +1,7 @@
 """The model of the ported architectures, in PyTorch.
 
-The port of ``repro.models.model`` for the decoder-only GQA families:
+The port of ``repro.models.model`` for the decoder-only GQA families and
+the attention-free RWKV6 family:
 
     params = init_params(cfg, seed, device)
     logits, stats = forward(params, cfg, batch)            # train / prefill
@@ -8,9 +9,12 @@ The port of ``repro.models.model`` for the decoder-only GQA families:
     logits, cache = prefill(params, cfg, batch, cache)
     logits, cache = decode_step(params, cfg, tokens, cache, cache_len)
 
-``family`` is ``"dense"`` (SwiGLU) or ``"moe"``, with ``attn="gqa"`` and RMS
-norms.  The other families (ssm, hybrid, encdec, vlm), MLA, first-k-dense
-prefixes and shared experts are not ported yet and raise
+``family`` is ``"dense"`` (SwiGLU) or ``"moe"``, with ``attn="gqa"``, or
+``"ssm"`` (RWKV6 time-mix and channel-mix, the recurrence through K6) with
+``attn="none"``; RMS norms.  The ssm family's cache is a float32 recurrent
+state per layer (``wkv`` and the two token-shift carries), so ``max_len``
+does not size it.  The other families (hybrid, encdec, vlm), MLA,
+first-k-dense prefixes and shared experts are not ported yet and raise
 (:func:`check_supported`); nor is the balancer's routing table
 (``moe_routing`` in JAX).
 
@@ -31,6 +35,7 @@ from ..configs.base import ModelConfig, dtype_of
 from ..devices import DeviceSpec, resolve_device
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .layers import (
     Params,
     dense_init,
@@ -45,10 +50,10 @@ from .layers import (
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet."""
     missing = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         missing.append(f"family {cfg.family!r}")
-    if cfg.attn != "gqa":
-        missing.append(f"attn {cfg.attn!r}")
+    if cfg.attn != ("none" if cfg.family == "ssm" else "gqa"):
+        missing.append(f"attn {cfg.attn!r} in family {cfg.family!r}")
     if cfg.norm != "rms" or cfg.act != "swiglu":
         missing.append(f"norm {cfg.norm!r} / act {cfg.act!r}")
     if cfg.first_k_dense:
@@ -68,6 +73,11 @@ def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
     dt = dtype_of(cfg.param_dtype)
     dev = gen.device
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, dev)}
+    if cfg.family == "ssm":
+        p["tmix"] = ssm_lib.rwkv6_init(gen, cfg.d_model, cfg.n_heads, dt)
+        p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
+        p["cmix"] = ssm_lib.rwkv6_cmix_init(gen, cfg.d_model, cfg.d_ff, dt)
+        return p
     p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
                                   cfg.n_kv_heads, cfg.hd, dt)
     p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
@@ -108,10 +118,25 @@ def _block_apply(
     cache: Optional[Params] = None,
     cache_len: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
-    """One decoder block (GQA attention + MoE or SwiGLU).  Returns (x, the
-    cache, moe_stats)."""
+    """One decoder block (GQA attention + MoE or SwiGLU, or RWKV6 time-mix
+    + channel-mix).  Returns (x, the new cache, moe_stats)."""
     stats: Dict[str, torch.Tensor] = {}
     h = rmsnorm(x, bp["ln1"])
+    if cfg.family == "ssm":
+        mix_state = None if cache is None else {
+            "wkv": cache["wkv"], "shift": cache["shift"]}
+        out, new_mix = ssm_lib.rwkv6_apply(bp["tmix"], h, n_heads=cfg.n_heads,
+                                           state=mix_state)
+        x = x + out
+        h2 = rmsnorm(x, bp["ln2"])
+        clast = None if cache is None else cache["cshift"]
+        out2, new_clast = ssm_lib.rwkv6_cmix_apply(bp["cmix"], h2, clast)
+        x = x + out2
+        new_cache = None
+        if cache is not None:
+            new_cache = {"wkv": new_mix["wkv"], "shift": new_mix["shift"],
+                         "cshift": new_clast}
+        return x, new_cache, stats
     attn_cache = None if cache is None else cache["attn"]
     a_out, new_attn = attn_lib.gqa_apply(
         bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -179,12 +204,25 @@ def forward(params: Params, cfg: ModelConfig,
 # ===================================================================== #
 # KV caches & decode                                                     #
 # ===================================================================== #
+def _ssm_cache(cfg: ModelConfig, batch: int, dev: torch.device) -> Params:
+    st = ssm_lib.rwkv6_state_init(batch, cfg.d_model, cfg.n_heads,
+                                  torch.float32, dev)
+    return {"wkv": st["wkv"], "shift": st["shift"],
+            "cshift": torch.zeros((batch, 1, cfg.d_model),
+                                  dtype=torch.float32, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceSpec = "cuda") -> Params:
     """One ``{"attn": {"k", "v"}}`` per layer, ``[batch, max_len, KV,
-    hd]`` in the compute dtype."""
+    hd]`` in the compute dtype; for the ssm family one float32
+    ``{"wkv": [batch, H, hd, hd], "shift", "cshift": [batch, 1, D]}`` per
+    layer, whatever ``max_len``."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return {"blocks": [_ssm_cache(cfg, batch, dev)
+                           for _ in range(cfg.n_layers)]}
     cdt = dtype_of(cfg.compute_dtype)
     return {"blocks": [
         {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
@@ -198,12 +236,14 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One serve step: append ``tokens [B, S_new]`` at ``cache_len`` and
     return the last position's logits ``[B, 1, V]`` (every new position's,
     ``[B, S_new, V]``, with ``all_positions``) and the cache (updated in
-    place)."""
+    place: the attention caches' tensors, the recurrent state's entries)."""
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][tokens].to(cdt)
     cache_len = int(cache_len)
     for bp, bc in zip(params["blocks"], cache["blocks"]):
-        x, _, _ = _block_apply(cfg, bp, x, cache=bc, cache_len=cache_len)
+        x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
+                                       cache_len=cache_len)
+        bc.update(new_cache)
     return _logits(params, cfg, x if all_positions else x[:, -1:]), cache
 
 

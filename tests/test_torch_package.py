@@ -35,5 +35,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.dataflow.workflows", "repro_torch.models.model",
                  "repro_torch.serve.engine",
                  "repro_torch.kernels.segment_matmul",
-                 "repro_torch.kernels.flash_attention"):
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan"):
         assert name in imported
