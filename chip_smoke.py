@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. card    the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build   nvcc builds every kernel source (one process each, in parallel)
-           and the ``-Xptxas -v`` lines are printed;
+           and the ``-Xptxas -v`` lines are printed; K4's tiles and stream
+           kernels must hold wgmma (HGMMA) in their SASS (``cuobjdump``);
 3. kernels each CUDA kernel against its plain PyTorch version on the card
            at odd shapes and at the real exchange shape (N = 2^24 records,
            K = 65,536 keys, W = 64 workers): K1/K3 bit for bit; K2 with all
@@ -39,8 +40,10 @@ Phases, in order; any failure exits non-zero before the last line:
            W1's filter ingest and sink calls), checked as in phase 3 and
            timed;
 6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
-           float32; odd shapes and OLMoE-1B-7B's expert products at C = 4
-           and C = 2048) and K5 ``flash_attention`` (bf16, float32 at one
+           float32; odd shapes and OLMoE-1B-7B's expert products at C = 4,
+           1780 and 2048; dense and with ``rows`` all 0, all C and ragged
+           with NaN in x past them; each call on the kernel its shape calls
+           for) and K5 ``flash_attention`` (bf16, float32 at one
            length; causal and full; 1 and 3 query heads per KV head; S in
            {1, 63, 512, 4096}) against their plain versions within bounds
            stated in ``check_segment_matmul`` and ``check_flash``; and K6
@@ -53,13 +56,16 @@ Phases, in order; any failure exits non-zero before the last line:
            from seed 0, bf16 compute) behind ``ServeEngine`` on the card:
            batch 4, 8 requests with prompts of 64-512 tokens, 16 new tokens
            each, every kernel's count set to 0 just before and read just
-           after; K4 and K5 must have launched, every token must lie in the
+           after; K4 must have launched 3 times a layer a model call, the
+           prefills' on its tiles kernel and the decode steps' on its stream
+           kernel, K5 must have launched, every token must lie in the
            vocabulary and every logit be finite.  Prefill seconds, ms per
            decode step and tokens/s, beside the ``nvidia-smi`` line.  Then
            K4 and K5 are replayed against their plain versions on the
-           serve's own inputs (the first call at each shape) and timed
-           beside the plain version, ``torch.bmm`` /
-           ``scaled_dot_product_attention`` and the bound; K5 also at
+           serve's own inputs (the first call at each shape; K4 with the
+           serve's rows and dense) and timed beside the plain version,
+           ``torch.bmm`` / ``scaled_dot_product_attention`` and the bound
+           (K4's live bound with rows, and the dense one); K5 also at
            OLMoE's 4096-token context;
 8. slice   OLMoE-1B-7B at full width and 2 layers with the same weights on
            the card (K4, K5) and on the host (their plain versions): a
@@ -695,15 +701,17 @@ def replay_phase(torch, kpart, ref, first) -> float:
 # --------------------------------------------------------------------- #
 # 6. model kernels: K4 segment_matmul, K5 flash_attention                #
 # --------------------------------------------------------------------- #
-def check_segment_matmul(torch, what: str, got, x, w) -> float:
+def check_segment_matmul(torch, what: str, got, x, w, rows=None) -> float:
     """K4 against its plain version (float32 sums of bf16 x bf16 products,
     which are exact, or of float32 products): each float32 sum of D terms,
     in any order, is within D * 2^-24 * sum|x w| of the exact one (first
     order), so the two versions within twice that; a bf16 output adds one
     rounding of each, within 2^-8 (bf16's unit roundoff) relative apiece,
-    so 2^-7 of the larger for the two.  Returns max |got - plain|."""
+    so 2^-7 of the larger for the two.  With ``rows``, every row past
+    rows[e] must be exactly zero, whatever x holds there.  Returns
+    max |got - plain|."""
     from repro_torch.kernels import ref
-    want = ref.segment_matmul(x, w)
+    want = ref.segment_matmul(x, w, rows)
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{what}: {tuple(got.shape)} {got.dtype} vs plain "
           f"{tuple(want.shape)} {want.dtype}")
@@ -713,6 +721,10 @@ def check_segment_matmul(torch, what: str, got, x, w) -> float:
     if x.dtype == torch.bfloat16:
         tol = tol + 2.0**-7 * torch.maximum(got.float().abs(),
                                             want.float().abs())
+    if rows is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < rows.long()[:, None])
+        tol = torch.where(live[..., None], tol, 0.0)
     err = (got.float() - want.float()).abs()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     check(bool((err <= tol).all()),
@@ -743,13 +755,20 @@ def check_flash(torch, what: str, got, q, k, v, causal: bool,
     return err
 
 
-def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int):
+def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows=None):
     """Least time: 2 E C D F operations at the bf16 tensor-core rate (the
-    float32 CUDA-core rate for float32) vs x, w and out moved once."""
-    ops = 2.0 * E * C * D * F
+    float32 CUDA-core rate for float32) vs x, w and out moved once.  With
+    ``rows`` (E counts), the live bound: 2 sum(rows) D F operations, and
+    the bytes of the live rows of x, the weights of the experts whose
+    rows > 0 and all of out (its zeros too)."""
+    live, used = E * C, E
+    if rows is not None:
+        counts = [min(max(int(r), 0), C) for r in rows]
+        live, used = sum(counts), sum(1 for r in counts if r > 0)
+    ops = 2.0 * live * D * F
     t_ops = ops / (BF16_TC_OPS_PER_S if dtype_bytes == 2
                    else FP32_OPS_PER_S) * 1e3
-    t_bytes = (dtype_bytes * (E * C * D + E * D * F + E * C * F)
+    t_bytes = (dtype_bytes * (live * D + used * D * F + E * C * F)
                / HBM_BYTES_PER_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -777,33 +796,118 @@ def randn(torch, seed: int, shape, dtype, scale: float = 1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def model_kernel_phase(torch, k4, k5):
-    """K4 and K5 against their plain versions at odd shapes and at the
-    serving shapes.  Returns the largest error of each."""
-    errs = {"segment_matmul": 0.0, "flash_attention": 0.0}
-    seed = 0
-    # Odd shapes, and OLMoE-1B-7B's expert products (E = 64, D = 2048,
-    # F = 1024 and back) at a decode batch (C = 4) and a prefill of
-    # 4 x 512 tokens (C = 2048).
+def k4_sass():
+    """HGMMA (wgmma) instructions in each kernel function of K4's library,
+    from ``cuobjdump -sass`` beside nvcc: {mangled name: count}."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.library_path("segment_matmul"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_k4_sass() -> None:
+    """The tiles kernel and each width of the stream kernel run wgmma."""
+    counts = k4_sass()
+    for kernel in ("seg_mm_tiles", "seg_mm_stream"):
+        found = {fn: n for fn, n in counts.items() if kernel in fn}
+        check(found and all(n > 0 for n in found.values()),
+              f"build: {kernel} has no wgmma (HGMMA) in its SASS: {found}")
+        for fn, n in found.items():
+            log(f"build: segment_matmul: {n} HGMMA (wgmma) instructions in "
+                f"{fn}")
+
+
+def k4_rows_cases(torch, E: int, C: int, seed: int):
+    """The ``rows`` K4 is held to at a shape: none (dense), all zero, all
+    C, and ragged (drawn in [0, C] from ``seed``, the first expert at 0
+    and the last at C)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    ragged = torch.randint(0, C + 1, (E,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    if E > 1:
+        ragged[0], ragged[-1] = 0, C
+    return [("dense", None),
+            ("rows 0", torch.zeros(E, dtype=torch.int32, device="cuda")),
+            ("rows C", torch.full((E,), C, dtype=torch.int32, device="cuda")),
+            ("rows ragged", ragged)]
+
+
+def k4_route(D: int, F: int, C: int, dtype_bytes: int) -> str:
+    """The kernel ``csrc/segment_matmul.cu`` picks for contiguous fresh
+    tensors (16-byte aligned)."""
+    if dtype_bytes == 4:
+        return "fma"
+    if D % 8 or F % 8:
+        return "wmma"
+    return "tiles" if C >= 64 else "stream"
+
+
+def k4_kernel_phase(torch, k4) -> float:
+    """K4 against its plain version at odd shapes and at the serving
+    shapes, dense and with rows, each call on the kernel its shape calls
+    for.  Returns the largest error."""
+    err, seed = 0.0, 0
+    # Odd shapes (D and F no multiple of 8, of 64; C on each side of 64 and
+    # each token width of the stream kernel), and OLMoE-1B-7B's expert
+    # products (E = 64, D = 2048, F = 1024 and back) at a decode batch
+    # (C = 4), the serve's longest prefill (4 x 445 = 1780 tokens) and
+    # 4 x 512 tokens.  Each with every case of k4_rows_cases; the ragged
+    # case has NaN in x past rows[e].
     shapes = [(1, 1, 1, 1), (3, 67, 33, 130), (2, 300, 1000, 96),
+              (3, 12, 200, 72), (2, 40, 136, 200), (4, 24, 64, 64),
+              (2, 130, 64, 64), (2, 100, 40, 200),
               (64, 4, 2048, 1024), (64, 4, 1024, 2048),
+              (64, 1780, 2048, 1024), (64, 1780, 1024, 2048),
               (64, 2048, 2048, 1024), (64, 2048, 1024, 2048)]
+    routes = dict.fromkeys(k4.ROUTES, 0)
     for E, C, D, F in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             seed += 1
             x = randn(torch, seed, (E, C, D), dtype, 0.5)
             w = randn(torch, seed + 1000, (E, D, F), dtype, D ** -0.5)
-            what = f"segment_matmul E={E} C={C} D={D} F={F} {dtype}"
-            errs["segment_matmul"] = max(errs["segment_matmul"],
-                                         check_segment_matmul(
-                                             torch, what,
-                                             k4.segment_matmul(x, w), x, w))
+            want_route = k4_route(D, F, C, x.element_size())
+            for case, rows in k4_rows_cases(torch, E, C, seed):
+                xc = x
+                if case == "rows ragged":
+                    dead = (torch.arange(C, device="cuda")[None, :]
+                            >= rows.long()[:, None])
+                    xc = x.masked_fill(dead[..., None], float("nan"))
+                what = (f"segment_matmul E={E} C={C} D={D} F={F} {dtype} "
+                        f"{case}")
+                before = dict(k4.routes)
+                got = k4.segment_matmul(xc, w, rows)
+                took = [r for r in k4.ROUTES if k4.routes[r] > before[r]]
+                check(took == [want_route], f"{what}: ran {took}, not "
+                                            f"{want_route}")
+                routes[want_route] += 1
+                err = max(err, check_segment_matmul(torch, what, got, xc, w,
+                                                    rows))
+                del xc, got
             del x, w
     torch.cuda.synchronize()
-    log("model kernels: segment_matmul within the stated bound of its plain "
-        f"version at {len(shapes)} shapes x {{bf16, float32}} (max |err| "
-        f"{errs['segment_matmul']:.3g})")
+    log(f"model kernels: segment_matmul within the stated bound of its plain "
+        f"version at {len(shapes)} shapes x {{bf16, float32}} x {{dense, "
+        f"rows 0, rows C, rows ragged with NaN in x past them}} (max |err| "
+        f"{err:.3g}; calls by kernel {routes})")
+    return err
 
+
+def model_kernel_phase(torch, k4, k5):
+    """K4 and K5 against their plain versions at odd shapes and at the
+    serving shapes.  Returns the largest error of each."""
+    errs = {"segment_matmul": k4_kernel_phase(torch, k4),
+            "flash_attention": 0.0}
+    seed = 14                    # K5's inputs as drawn before K4 had rows
     for S in (1, 63, 512, 4096):
         for H, KV in ((6, 6), (6, 2)):
             for causal in (True, False):
@@ -828,15 +932,21 @@ def model_kernel_phase(torch, k4, k5):
     return errs
 
 
-def time_k4(torch, k4, x, w, reps: int):
-    """(kernel ms, plain ms, torch.bmm ms, bound ms, bound_by)."""
+def time_k4(torch, k4, x, w, reps: int, rows=None):
+    """(kernel ms, plain ms, torch.bmm ms, bound ms, bound_by), each with
+    ``rows`` where given (``torch.bmm`` is the dense product: the same
+    function on inputs whose rows past ``rows`` are zero, as the serve's
+    are); the bound is the live one with ``rows``."""
     from repro_torch.kernels import ref
     E, C, D = x.shape
     F = w.shape[2]
-    ms = time_ms(torch, k4.segment_matmul, (x, w), reps)
-    plain_ms = time_ms(torch, ref.segment_matmul, (x, w), max(reps // 4, 3))
+    ms = time_ms(torch, k4.segment_matmul, (x, w, rows), reps)
+    plain_ms = time_ms(torch, ref.segment_matmul, (x, w, rows),
+                       max(reps // 4, 3))
     lib_ms = time_ms(torch, torch.bmm, (x, w), reps)
-    return (ms, plain_ms, lib_ms) + k4_bound(E, C, D, F, x.element_size())
+    return (ms, plain_ms, lib_ms) + k4_bound(
+        E, C, D, F, x.element_size(),
+        None if rows is None else rows.tolist())
 
 
 def time_k5(torch, k5, q, k, v, reps: int):
@@ -1064,6 +1174,8 @@ def serve_phase(torch, kernel_mods, arch: str, recs):
     eng._step = timed(eng._step, "decode")
     for mod, name in kernel_mods:
         getattr(mod, name).launches = 0
+        if hasattr(mod, "routes"):
+            mod.routes.update(dict.fromkeys(mod.routes, 0))
     with contextlib.ExitStack() as stack:
         for rec in recs:
             stack.enter_context(rec)
@@ -1072,6 +1184,8 @@ def serve_phase(torch, kernel_mods, arch: str, recs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: getattr(mod, name).launches for mod, name in kernel_mods}
+    routes = {name: dict(mod.routes) for mod, name in kernel_mods
+              if hasattr(mod, "routes")}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     check(len(done) == SERVE_REQUESTS, f"serve: {len(done)} of "
@@ -1086,7 +1200,8 @@ def serve_phase(torch, kernel_mods, arch: str, recs):
                    decode=spent["decode"], peak_gb=peak_gb,
                    prompts=[int(n) for n in lengths],
                    tokens_decoded=eng.tokens_decoded, n_layers=cfg.n_layers,
-                   calls=spent["prefill"][1] + spent["decode"][1])
+                   calls=spent["prefill"][1] + spent["decode"][1],
+                   routes=routes)
     # The timing wrappers hold the engine's bound methods: drop them, or
     # the cycle keeps the weights on the card until a garbage collection.
     del eng._prefill, eng._step
@@ -1126,17 +1241,35 @@ def model_replay_phase(torch, k4, k5, k4_first, k5_first):
     bound.  Returns (max errors, the JSON records' numbers per kernel)."""
     errs = {"segment_matmul": 0.0, "flash_attention": 0.0}
     main = {}
-    for (label, xs, ws), ((x, w), _) in k4_first.items():
-        what = f"segment_matmul on the serve's {label} x {xs[0]} w {ws[0]}"
-        errs["segment_matmul"] = max(errs["segment_matmul"], check_segment_matmul(
-            torch, what, k4.segment_matmul(x, w), x, w))
+    for key, ((x, w, rows), _) in k4_first.items():
+        label = key[0]
         E, C, D = x.shape
         F = w.shape[2]
-        t = time_k4(torch, k4, x, w, 20 if C > 64 else 100)
-        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, torch.bmm "
-            f"{t[2]:.5f} ms, bound {t[3]:.5f} ms by {t[4]}, "
-            f"{100 * t[3] / t[0]:.1f}% of bound; {E * C} rows, of which the "
-            f"live share is k/E)")
+        what = (f"segment_matmul on the serve's {label} x {(E, C, D)} w "
+                f"{(E, D, F)}")
+        for r in (rows, None):
+            errs["segment_matmul"] = max(
+                errs["segment_matmul"], check_segment_matmul(
+                    torch, what, k4.segment_matmul(x, w, r), x, w, r))
+        reps = 20 if C > 64 else 200
+        t = time_k4(torch, k4, x, w, reps, rows)
+        dense = time_k4(torch, k4, x, w, reps)
+        # The host's time to submit the calls (no wait for the card): where
+        # it matches the CUDA-event time, the calls are host-paced.
+        start = time.perf_counter()
+        for _ in range(reps):
+            k4.segment_matmul(x, w, rows)
+        submit_ms = (time.perf_counter() - start) / reps * 1e3
+        torch.cuda.synchronize()
+        counts = rows.tolist()
+        log(f"replay: {what} with the serve's rows (sum {sum(counts)} of "
+            f"{E * C}, {sum(1 for n in counts if n > 0)} of {E} experts "
+            f"live): {t[0]:.5f} ms (plain {t[1]:.5f} ms, torch.bmm "
+            f"{t[2]:.5f} ms, live bound {t[3]:.5f} ms by {t[4]}, "
+            f"{100 * t[3] / t[0]:.1f}% of it; the host submits a call in "
+            f"{submit_ms:.5f} ms); dense {dense[0]:.5f} ms (plain "
+            f"{dense[1]:.5f} ms, bound {dense[3]:.5f} ms by {dense[4]}, "
+            f"{100 * dense[3] / dense[0]:.1f}% of it)")
         if label == "prefill" and D > F and "segment_matmul" not in main:
             main["segment_matmul"] = t
     for (label, qs, ks, vs), ((q, k, v), kw) in k5_first.items():
@@ -1450,16 +1583,19 @@ def planted_faults(ksm, kfa):
     def scaled_twice(q, k, v, causal=True, scale=None):
         return k5(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
 
-    def bf16_accumulator(x, w):
+    def bf16_accumulator(x, w, rows=None):
         out = None
         for d in range(0, x.shape[2], 64):
             part = k4(x[:, :, d:d + 64].contiguous(),
-                      w[:, d:d + 64].contiguous())
+                      w[:, d:d + 64].contiguous(), rows)
             out = part if out is None else out + part
         return out
 
-    def last_d_dropped(x, w):
-        return k4(x[:, :, :-1].contiguous(), w[:, :-1].contiguous())
+    def last_d_dropped(x, w, rows=None):
+        # D stays a multiple of 8, so the call takes the kernel it would.
+        x = x.clone()
+        x[:, :, -1] = 0
+        return k4(x, w, rows)
 
     return [("K5 causal mask off", kfa, "flash_attention", mask_off),
             ("K5 q scaled twice", kfa, "flash_attention", scaled_twice),
@@ -1619,6 +1755,17 @@ def profile_busy(torch, fn):
     return prof, spans, busy_us
 
 
+def device_us(e, own: bool = False) -> float:
+    """A profiler event's device time, µs, under either attribute name;
+    with ``own``, only the time of the event itself (a kernel's, not that
+    of the kernels an operator launched)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        attr = "self_" + attr if own else attr
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
 def decode_readings(torch):
     """One decode step of the full-width serve (batch SERVE_BATCH, a
     257-token context) taken apart on the card: the step (CUDA events over
@@ -1646,11 +1793,11 @@ def decode_readings(torch):
 
     k4, k4_events = ksm.segment_matmul, []
 
-    def k4_timed(x, w):
+    def k4_timed(x, w, rows=None):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        out = k4(x, w)
+        out = k4(x, w, rows)
         ev[1].record()
         k4_events.append(ev)
         return out
@@ -1679,13 +1826,6 @@ def decode_readings(torch):
         f"other weights {others_ms:.4f} ms")
 
     prof, spans, busy_us = profile_busy(torch, step)
-
-    def device_us(e):
-        for attr in ("device_time_total", "cuda_time_total"):
-            if hasattr(e, attr):
-                return float(getattr(e, attr))
-        return 0.0
-
     casts_us, casts_n = 0.0, 0
     for e in prof.key_averages(group_by_input_shape=True):
         shapes = getattr(e, "input_shapes", None) or []
@@ -1703,6 +1843,25 @@ def decode_readings(torch):
     else:
         log("readings: decode step under the profiler: no device spans "
             "(the profiler does not see the card): not measured")
+
+    # A prefill of the same prompt, where the time went.
+    def fill():
+        fresh = init_cache(cfg, B, S + 1, "cuda")
+        return prefill(params, cfg, {"tokens": toks[:, :S]}, fresh)[0]
+
+    fill_ms = time_ms(torch, fill, (), 3)
+    prof, spans, busy_us = profile_busy(torch, fill)
+    if spans:
+        ops = sorted(((device_us(e, own=True), e.count, e.key)
+                      for e in prof.key_averages()
+                      if device_us(e, own=True) > 0), reverse=True)[:6]
+        wall_us = spans[-1][1] - spans[0][0]
+        log(f"readings: prefill (batch {B}, {S} tokens): {fill_ms:.4f} ms "
+            f"(CUDA events, 3 prefills); under the profiler busy "
+            f"{busy_us / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms "
+            f"({100 * busy_us / wall_us:.1f}%); most device time: "
+            + "; ".join(f"{key[:60]} {us / 1e3:.4f} ms ({n} calls)"
+                        for us, n, key in ops))
     del params, cache
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, k4_ms=k4_ms, experts_ms=experts_ms,
@@ -1878,6 +2037,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
+    check_k4_sass()
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
@@ -1901,6 +2061,17 @@ def main() -> int:
     log_serve("OLMoE-1B-7B", sv, serve_launches, smi)
     for name in ("segment_matmul", "flash_attention"):
         check(serve_launches[name] > 0, f"serve: {name} never launched")
+    # Three expert products a layer a model call: the prefills' (C = the
+    # batch's tokens) on the tiles kernel, the decode steps' (C = 4) on
+    # the stream kernel.
+    per_call = 3 * sv["n_layers"]
+    want = {"tiles": per_call * sv["prefill"][1],
+            "stream": per_call * sv["decode"][1]}
+    got = sv["routes"]["segment_matmul"]
+    check(serve_launches["segment_matmul"] == per_call * sv["calls"]
+          and {r: n for r, n in got.items() if n} == want,
+          f"serve: segment_matmul launched {got} over {sv['calls']} model "
+          f"calls, not {per_call} a call as {want}")
     errs, main = model_replay_phase(torch, kseg, kfa, recs[0].first,
                                     recs[1].first)
     del recs

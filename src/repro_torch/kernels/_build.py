@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface (every one exports
 ``repro_cuda_error_string``) and is compiled at first
 use into ``build/repro_torch/lib<name>-<digest>.so`` at the root of the
-checkout (listed in ``.gitignore``); the digest covers the source and the
-flags, so an edited source is rebuilt.  :func:`build` starts one nvcc per
+checkout (listed in ``.gitignore``); the digest covers the source, the
+shared headers ``csrc/*.cuh`` it may include and the flags, so an edited
+source or header is rebuilt.  :func:`build` starts one nvcc per
 missing source, all at once, and keeps each compiler log (``-Xptxas -v``:
 registers, shared memory and spills per kernel) beside its library.
 
@@ -42,12 +43,14 @@ def _nvcc() -> str:
         "on the machine with the card")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, every
+    shared header ``csrc/*.cuh`` (by name and bytes) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -76,10 +76,18 @@ def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
     return dest, rank, hist, cnt, sums
 
 
-def segment_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def segment_matmul(x: torch.Tensor, w: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped expert matmul ``x [E, C, D] @ w [E, D, F] -> [E, C, F]``,
-    accumulated in float32 and rounded once to ``x.dtype``."""
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    accumulated in float32 and rounded once to ``x.dtype``.  With ``rows``
+    (``[E]``), rows ``r >= rows[e]`` of ``out[e]`` are zero, whatever x
+    holds there."""
+    out = torch.bmm(x.float(), w.float())
+    if rows is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :]
+                < rows.to(x.device, torch.int64)[:, None])
+        out = torch.where(live[..., None], out, 0.0)
+    return out.to(x.dtype)
 
 
 #: The mask value of the reference's attention (not -inf).

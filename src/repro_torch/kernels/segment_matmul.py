@@ -3,31 +3,40 @@
 Counterpart of the Pallas kernel ``repro.kernels.segment_matmul``
 (``segment_matmul.py:35``): ``x [E, C, D] @ w [E, D, F] -> [E, C, F]``,
 accumulated in float32 and returned in ``x.dtype``.  It is the expert
-compute of :func:`repro_torch.models.moe.moe_apply`.
+compute of :func:`repro_torch.models.moe.moe_apply`, which passes each
+expert's count of live rows as ``rows``: ``out[e, r] = x[e, r] @ w[e]`` for
+``r < rows[e]`` and 0 past it, whatever x holds there.
 
-For CUDA tensors the wrapper launches the kernel of
-``csrc/segment_matmul.cu`` (built at first use, see
-:mod:`repro_torch.kernels._build`) on the current stream, or raises; for
-CPU tensors it runs the plain version in :mod:`repro_torch.kernels.ref`.
-``.launches`` counts the calls that launched the kernel.
+For CUDA tensors the wrapper launches a kernel of ``csrc/segment_matmul.cu``
+(built at first use, see :mod:`repro_torch.kernels._build`) on the current
+stream, or raises; for CPU tensors it runs the plain version in
+:mod:`repro_torch.kernels.ref`.  ``.launches`` counts the calls that
+launched a kernel and the module's ``routes`` which one: ``tiles``
+(bf16, C >= 64: TMA-fed wgmma on 128 x 128 tiles), ``stream`` (bf16,
+C < 64: the weights streamed once, wgmma on ``w^T x^T``), ``wmma`` (bf16
+whose D or F is no multiple of 8, which TMA cannot map) and ``fma``
+(float32).
 
 Bound on an H100: ``2 E C D F`` operations against the bf16 tensor-core
 rate (float32: the CUDA-core rate), or the elements of x, w and out moved
-once against the memory rate, whichever is longer.  The kernel is one
-64 x 64 output tile of one expert a block, with a shared-memory D loop:
-WMMA (``mma.sync``) for bf16, FMA for float32; ragged C, D and F are
-masked, where the TPU kernel asserts that its tiles divide them.  The
-source note in ``csrc/segment_matmul.cu`` has the details.
+once against the memory rate, whichever is longer; with ``rows``, ``E C``
+becomes ``sum(rows)`` in the operations and in the rows of x read, and
+only the weights of experts with ``rows > 0`` count.  The source note in
+``csrc/segment_matmul.cu`` has the design.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("fma", "wmma", "tiles", "stream")
+#: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
+routes = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -37,15 +46,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("segment_matmul")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_segment_matmul.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.repro_segment_matmul.argtypes = ([ptr] * 4 + [i32] * 6
+                                             + [ptr, ctypes.POINTER(i32)])
         lib.repro_segment_matmul.restype = i32
         _lib = lib
     return _lib
 
 
-def segment_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def segment_matmul(x: torch.Tensor, w: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[e] = x[e] @ w[e]``: x ``[E, C, D]``, w ``[E, D, F]``, both
-    bf16 or both float32, contiguous, on one device."""
+    bf16 or both float32, contiguous, on one device.  ``rows``: int32
+    ``[E]`` on that device (read by the kernel, never by the host), or None
+    for every row."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"x and w must both be bfloat16 or both float32, got "
                         f"{x.dtype} and {w.dtype}")
@@ -58,8 +71,17 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
+    if rows is not None:
+        if rows.dtype != torch.int32:
+            raise TypeError(f"rows must be int32, got {rows.dtype}")
+        if rows.shape != x.shape[:1] or not rows.is_contiguous():
+            raise ValueError(f"rows must be a contiguous [E] = "
+                             f"[{x.shape[0]}], got {tuple(rows.shape)}")
+        if rows.device != x.device:
+            raise ValueError(f"rows must lie on {x.device}, got "
+                             f"{rows.device}")
     if x.device.type == "cpu":
-        return ref.segment_matmul(x, w)
+        return ref.segment_matmul(x, w, rows)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
@@ -70,11 +92,15 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if E > 65535 or C > 65535 * 64:
         raise ValueError(f"shape {tuple(x.shape)} is past the kernel's grid")
     lib = _library()
+    route = ctypes.c_int(-1)
     code = lib.repro_segment_matmul(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
-        _DTYPES[x.dtype], *_build.device_and_stream(x.device))
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if rows is None else rows.data_ptr(), E, C, D, F,
+        _DTYPES[x.dtype], *_build.device_and_stream(x.device),
+        ctypes.byref(route))
     _build.raise_on(lib, code, "segment_matmul")
     segment_matmul.launches += 1
+    routes[ROUTES[route.value]] += 1
     return out
 
 

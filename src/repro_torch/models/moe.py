@@ -106,27 +106,19 @@ def moe_apply(
     combine_c = combine * keep
     dropped = (combine > 0) & ~keep
 
-    # [P, cap] token of each slot (N = empty) and its gate; the sentinel
-    # cell P * cap takes the writes of dropped (token, slot) pairs, as
-    # JAX's mode="drop".
-    arange_p = torch.arange(P, device=dev, dtype=torch.int64)
-    flat_slot = torch.where(keep, arange_p[None, :] * cap + pos, P * cap)
-    token_ids = torch.arange(N, device=dev, dtype=torch.int64)[:, None]
-    token_for_slot = torch.full((P * cap + 1,), N, dtype=torch.int64,
-                                device=dev)
-    token_for_slot[flat_slot.reshape(-1)] = token_ids.expand(N, P).reshape(-1)
-    token_for_slot = token_for_slot[:P * cap].reshape(P, cap)
-    gate_for_slot = torch.zeros((P * cap + 1,), dtype=torch.float32,
-                                device=dev)
-    gate_for_slot[flat_slot.reshape(-1)] = combine_c.reshape(-1)
-    gate_for_slot = gate_for_slot[:P * cap].reshape(P, cap)
+    token_for_slot, gate_for_slot = slot_tables(keep, pos, combine_c, cap)
+    # The kept tokens of slot e fill its rows 0 .. rows[e] - 1 (pos counts
+    # them in arrival order); every later row is the zero sentinel row, and
+    # stays zero through silu(gate) * up, so K4 computes only the first
+    # rows[e] rows and zeroes the rest.
+    rows = keep.sum(0).to(torch.int32)                 # [P], on the device
 
     xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
     h_in = xf_pad[token_for_slot].to(dt)               # [P, cap, D]
-    gate = k4.segment_matmul(h_in, p["w_gate"].to(dt))
-    up = k4.segment_matmul(h_in, p["w_up"].to(dt))
+    gate = k4.segment_matmul(h_in, p["w_gate"].to(dt), rows)
+    up = k4.segment_matmul(h_in, p["w_up"].to(dt), rows)
     act = F.silu(gate) * up                            # [P, cap, F]
-    out_e = k4.segment_matmul(act, p["w_down"].to(dt))    # [P, cap, D]
+    out_e = k4.segment_matmul(act, p["w_down"].to(dt), rows)  # [P, cap, D]
     out_e = out_e * gate_for_slot[..., None].to(dt)
 
     # Combine: each token adds its kept slots by ascending expert, in dt.
@@ -134,10 +126,11 @@ def moe_apply(
     kept = torch.gather(keep, 1, experts)
     slots = torch.where(kept, experts * cap + torch.gather(pos, 1, experts),
                         P * cap)
-    rows = torch.cat([out_e.reshape(P * cap, D), out_e.new_zeros((1, D))])
+    out_rows = torch.cat([out_e.reshape(P * cap, D),
+                          out_e.new_zeros((1, D))])
     out = torch.zeros((N, D), dtype=dt, device=dev)
     for j in range(slots.shape[1]):
-        out = out + rows[slots[:, j]]
+        out = out + out_rows[slots[:, j]]
 
     out = out.reshape(orig_shape)
     if not return_stats:
@@ -150,6 +143,27 @@ def moe_apply(
         "aux_loss": load_balance_aux_loss(logits, idx, E),
     }
     return out, stats
+
+
+def slot_tables(keep: torch.Tensor, pos: torch.Tensor,
+                combine_c: torch.Tensor, cap: int):
+    """``[P, cap]`` token of each slot (``N`` = empty) and its gate, from
+    the kept (token, slot) pairs ``keep [N, P]`` at queue positions ``pos``;
+    the sentinel cell ``P * cap`` takes the writes of dropped pairs, as
+    JAX's ``mode="drop"``."""
+    N, P = keep.shape
+    dev = keep.device
+    arange_p = torch.arange(P, device=dev, dtype=torch.int64)
+    flat_slot = torch.where(keep, arange_p[None, :] * cap + pos, P * cap)
+    token_ids = torch.arange(N, device=dev, dtype=torch.int64)[:, None]
+    token_for_slot = torch.full((P * cap + 1,), N, dtype=torch.int64,
+                                device=dev)
+    token_for_slot[flat_slot.reshape(-1)] = token_ids.expand(N, P).reshape(-1)
+    gate_for_slot = torch.zeros((P * cap + 1,), dtype=torch.float32,
+                                device=dev)
+    gate_for_slot[flat_slot.reshape(-1)] = combine_c.reshape(-1)
+    return (token_for_slot[:P * cap].reshape(P, cap),
+            gate_for_slot[:P * cap].reshape(P, cap))
 
 
 def load_balance_aux_loss(logits: torch.Tensor, idx: torch.Tensor,

@@ -4,6 +4,8 @@ On the CPU the port's wrappers run their plain PyTorch versions, held
 against the JAX package on the same numpy inputs: ``repro.kernels.ref``,
 the Pallas kernels of ``repro.kernels.ops`` in interpret mode and, for K5,
 the model's chunked flash (``repro.models.attention.flash_attention_ref``).
+K4's ``rows`` (zeros past each expert's live rows) is checked against
+the dense forms on inputs that are zero there, as the MoE layer's are.
 Tolerances are those of ``tests/test_kernels.py``: float32 K4
 ``atol = rtol = 1e-4`` and bf16 ``atol = 0.5, rtol = 0.05``; float32 K5
 ``atol = 3e-5, rtol = 1e-4`` and bf16 ``atol = 0.06, rtol = 0.05`` (the
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _propcheck import given, settings, st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -90,11 +93,51 @@ def test_plain_segment_matmul_ragged_shapes(E, C, D, F, dtype):
                                           np.float32), atol=atol, rtol=rtol)
 
 
+@settings(max_examples=10, deadline=None)
+@given(E=st.integers(1, 3), C=st.integers(1, 20), D=st.integers(1, 40),
+       F=st.integers(1, 40), bf16=st.integers(0, 1), seed=st.integers(0, 999))
+def test_plain_segment_matmul_rows(E, C, D, F, bf16, seed):
+    """``rows``: on inputs whose rows past ``rows[e]`` are zero (as the MoE
+    layer's are) the plain version with rows equals it without, and the
+    JAX kernel (Pallas, interpret mode) and ``repro.kernels.ref`` within
+    the tolerances above; with garbage (NaN, 1e30) past ``rows[e]`` it
+    gives the same rows and exact zeros past them."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, C + 1, E).astype(np.int32)
+    live = np.arange(C)[None, :] < rows[:, None]                  # [E, C]
+    x = np.where(live[..., None], _normal(seed, (E, C, D), 0.5), 0.0
+                 ).astype(np.float32)
+    w = _normal(seed + 1, (E, D, F), 0.05)
+    if bf16:
+        (jx, tx), (jw, tw) = _bf16(x), _bf16(w)
+        tol = dict(atol=0.5, rtol=0.05)
+    else:
+        jx, tx, jw, tw = (jnp.asarray(x), torch.from_numpy(x),
+                          jnp.asarray(w), torch.from_numpy(w))
+        tol = dict(atol=1e-4, rtol=1e-4)
+    trows = torch.from_numpy(rows)
+    got = k4.segment_matmul(tx, tw, trows)
+    assert got.dtype == tx.dtype and got.shape == (E, C, F)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  k4.segment_matmul(tx, tw).float().numpy())
+    for want in (jops.segment_matmul(jx, jw), jref.segment_matmul(jx, jw)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **tol)
+    garbage = np.where(rng.integers(0, 2, (E, C, D)) == 1, np.nan, 1e30)
+    tx_bad = torch.where(torch.from_numpy(live)[..., None], tx,
+                         torch.from_numpy(garbage).to(tx.dtype))
+    bad = k4.segment_matmul(tx_bad, tw, trows).float().numpy()
+    np.testing.assert_array_equal(bad, got.float().numpy())
+    assert not bad[~live].any()
+
+
 @pytest.mark.parametrize("bad", ["mixed dtypes", "float64", "short w",
-                                 "strided x", "2-d x"])
+                                 "strided x", "2-d x", "rows int64",
+                                 "rows [E + 1]", "rows [E, 1]",
+                                 "rows elsewhere"])
 def test_segment_matmul_rejects_bad_inputs(bad):
     x, w = torch.zeros(2, 8, 16), torch.zeros(2, 16, 4)
-    err = ValueError
+    rows, err = None, ValueError
     if bad == "mixed dtypes":
         w, err = w.to(torch.bfloat16), TypeError
     elif bad == "float64":
@@ -103,10 +146,18 @@ def test_segment_matmul_rejects_bad_inputs(bad):
         w = torch.zeros(2, 15, 4)
     elif bad == "strided x":
         x = torch.zeros(2, 16, 8).transpose(1, 2)
-    else:
+    elif bad == "2-d x":
         x = x[0]
+    elif bad == "rows int64":
+        rows, err = torch.zeros(2, dtype=torch.int64), TypeError
+    elif bad == "rows [E + 1]":
+        rows = torch.zeros(3, dtype=torch.int32)
+    elif bad == "rows [E, 1]":
+        rows = torch.zeros(2, 1, dtype=torch.int32)
+    else:
+        rows = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(err):
-        k4.segment_matmul(x, w)
+        k4.segment_matmul(x, w, rows)
 
 
 # --------------------------------------------------------------------- #
@@ -215,24 +266,42 @@ def test_cuda_segment_matmul_matches_plain_version():
     """K4 on the card against its plain version: float32 within
     ``1e-5 * sqrt(D) * max|x| * max|w|``-scale tolerance (another order of
     float32 sums), bf16 within one bf16 rounding of the output (the
-    products are exact, the float32 sums differ in order)."""
+    products are exact, the float32 sums differ in order).  Each shape
+    dense and with ``rows`` all zero, full, and ragged (expert 0 at 0 rows,
+    NaN in x past every expert's rows), rows past ``rows[e]`` exactly zero.
+    The shapes reach every kernel: D or F no multiple of 8 (WMMA, FMA),
+    C < 64 (the stream kernel, C = 4 and 12), C >= 64 (the tiles kernel,
+    C = 1780), D and F no multiples of 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for E, C, D, F in ((1, 1, 1, 1), (3, 67, 33, 130), (8, 4, 2048, 1024),
-                       (4, 300, 256, 96)):
+                       (4, 300, 256, 96), (3, 12, 72, 200),
+                       (4, 1780, 200, 136)):
+        ragged = np.random.default_rng(C).integers(0, C + 1, E)
+        ragged[0] = 0
+        cases = (None, np.zeros(E), np.full(E, C), ragged)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(_normal(E + C, (E, C, D), 0.5)).to(
                 "cuda", dtype)
             w = torch.from_numpy(_normal(D + F, (E, D, F), 0.05)).to(
                 "cuda", dtype)
-            launches = k4.segment_matmul.launches
-            got = k4.segment_matmul(x, w)
-            assert k4.segment_matmul.launches == launches + 1
-            want = tref.segment_matmul(x, w)
-            assert got.dtype == dtype and got.shape == want.shape
-            tol = (1e-4 if dtype == torch.float32 else 2.0**-7)
-            err = (got.float() - want.float()).abs()
-            assert bool((err <= tol * (1 + want.float().abs())).all())
+            for case in cases:
+                rows = (None if case is None else
+                        torch.tensor(case, dtype=torch.int32, device="cuda"))
+                live = torch.ones(E, C, dtype=torch.bool, device="cuda")
+                if rows is not None:
+                    live = (torch.arange(C, device="cuda")[None, :]
+                            < rows.long()[:, None])
+                xc = x.masked_fill(~live[..., None], float("nan"))
+                launches = k4.segment_matmul.launches
+                got = k4.segment_matmul(xc, w, rows)
+                assert k4.segment_matmul.launches == launches + 1
+                want = tref.segment_matmul(xc, w, rows)
+                assert got.dtype == dtype and got.shape == want.shape
+                tol = (1e-4 if dtype == torch.float32 else 2.0**-7)
+                err = (got.float() - want.float()).abs()
+                assert bool((err <= tol * (1 + want.float().abs())).all())
+                assert not bool(got[~live].any())
     torch.cuda.synchronize()
 
 

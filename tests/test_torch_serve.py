@@ -212,6 +212,42 @@ def test_router_ties_keep_the_lower_expert():
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-7)
 
 
+def test_moe_rows_count_each_slots_tokens(monkeypatch):
+    """``moe_apply`` hands K4 each slot's live rows: at the smoke OLMoE's
+    prefill and decode, ``rows`` of each of the three expert products
+    equals the non-sentinel entries of the slot's ``token_for_slot``, and
+    serving being drop-free, they add up to every token's top-k."""
+    cfg = get_smoke("olmoe-1b-7b")
+    params = tm.init_params(cfg, 0, "cpu")
+    tables, calls = [], []
+    slot_tables, k4_call = tmoe.slot_tables, tmoe.k4.segment_matmul
+
+    def tables_spy(keep, pos, combine_c, cap):
+        out = slot_tables(keep, pos, combine_c, cap)
+        tables.append((out[0], keep.shape[0]))
+        return out
+
+    def k4_spy(x, w, rows=None):
+        calls.append(rows)
+        return k4_call(x, w, rows)
+
+    monkeypatch.setattr(tmoe, "slot_tables", tables_spy)
+    monkeypatch.setattr(tmoe.k4, "segment_matmul", k4_spy)
+    B, S = 2, 9
+    cache = tm.init_cache(cfg, B, S + 1, "cpu")
+    toks = torch.from_numpy(_tokens(5, cfg.vocab, (B, S + 1))).long()
+    _, cache = tm.prefill(params, cfg, {"tokens": toks[:, :S]}, cache)
+    per_call = len(tables)
+    tm.decode_step(params, cfg, toks[:, S:], cache, S)
+    assert per_call > 0 and len(tables) == 2 * per_call
+    assert len(calls) == 3 * len(tables)
+    for i, (token_for_slot, n) in enumerate(tables):
+        want = (token_for_slot != n).sum(1).to(torch.int32)
+        assert int(want.sum()) == n * cfg.top_k
+        for rows in calls[3 * i:3 * i + 3]:
+            assert rows.dtype == torch.int32 and torch.equal(rows, want)
+
+
 def test_moe_refuses_what_the_training_slice_brings():
     p = tmoe.moe_init(torch.Generator().manual_seed(0), 16, 8, 4)
     x = torch.zeros(3, 16)
