@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero before the last line:
 1. card    the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build   nvcc builds every kernel source (one process each, in parallel)
            and the ``-Xptxas -v`` lines are printed; K4's tiles and stream
-           kernels must hold wgmma (HGMMA) in their SASS (``cuobjdump``);
+           kernels and K5's wgmma kernel must hold wgmma (HGMMA) in their
+           SASS (``cuobjdump``);
 3. kernels each CUDA kernel against its plain PyTorch version on the card
            at odd shapes and at the real exchange shape (N = 2^24 records,
            K = 65,536 keys, W = 64 workers): K1/K3 bit for bit; K2 with all
@@ -34,18 +35,21 @@ Phases, in order; any failure exits non-zero before the last line:
            ``Sink.sums`` must equal the host run's on a per-chunk path, and
            lie within c * 2^-23 * sum|v| of it on a resident one (c the
            key's count; the resident sink adds K2's float32 chunk sums);
-5. replay  K2 against its plain version on the very inputs the resident
-           paths gave it: the first call at each (N, K, W) of each path
-           (W3's ingest and its one sink call of the whole sorted output,
-           W1's filter ingest and sink calls), checked as in phase 3 and
-           timed;
+5. replay  K1 and K3 bit for bit on the first call of each path that
+           launched them, and K2 against its plain version on the very
+           inputs the resident paths gave it: the first call at each
+           (N, K, W) of each path (W3's ingest and its one sink call of the
+           whole sorted output, W1's filter ingest and sink calls), checked
+           as in phase 3; each timed beside its bound at that shape;
 6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
            float32; odd shapes and OLMoE-1B-7B's expert products at C = 4,
            1780 and 2048; dense and with ``rows`` all 0, all C and ragged
            with NaN in x past them; each call on the kernel its shape calls
-           for) and K5 ``flash_attention`` (bf16, float32 at one
-           length; causal and full; 1 and 3 query heads per KV head; S in
-           {1, 63, 512, 4096}) against their plain versions within bounds
+           for) and K5 ``flash_attention`` (bf16 on its wgmma kernel,
+           float32 at one length on its fma kernel; causal and full; 1 and
+           3 query heads per KV head; S in {1, 63, 512, 4096}; each also
+           from ``[B, S, H, hd]`` views, which must give the same bits)
+           against their plain versions within bounds
            stated in ``check_segment_matmul`` and ``check_flash``; and K6
            ``rwkv_scan`` (hd in {16, 32, 64}, T in {1, 63, 445, 4096}, with
            and without state0; views in the model's layout and odd hd at
@@ -58,8 +62,9 @@ Phases, in order; any failure exits non-zero before the last line:
            each, every kernel's count set to 0 just before and read just
            after; K4 must have launched 3 times a layer a model call, the
            prefills' on its tiles kernel and the decode steps' on its stream
-           kernel, K5 must have launched, every token must lie in the
-           vocabulary and every logit be finite.  Prefill seconds, ms per
+           kernel, K5 once a layer a prefill, every call on its wgmma
+           kernel, every token must lie in the vocabulary and every logit
+           be finite.  Prefill seconds, ms per
            decode step and tokens/s, beside the ``nvidia-smi`` line.  Then
            K4 and K5 are replayed against their plain versions on the
            serve's own inputs (the first call at each shape; K4 with the
@@ -114,9 +119,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
-#: cores (the partition kernels' compares, K5's P V and its float32 path,
-#: K4's float32 path) and dense bf16 tensor-core rate (K4's bf16 path,
-#: K5's bf16 Q K^T).
+#: cores (the partition kernels' compares, K4's float32 path, K5's fma
+#: kernel but for its bf16 Q K^T) and dense bf16 tensor-core rate (K4's
+#: bf16 path, K5's wgmma kernel and the fma kernel's bf16 Q K^T).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
@@ -366,8 +371,10 @@ def kernel_phase(torch, kpart, ref):
     # The end-to-end chunk size: one tick of W1 (48 workers x 4 records).
     small = make_inputs(torch, 7, 192, 56, 48, 0.05)
     small_ms = time_ms(torch, kpart.partition_scatter, small, 500)
+    b_ms, b_by = bound_ms(192, 56, 48, 16)
     log(f"kernels: partition_scatter at the W1 chunk size N=192 K=56 W=48: "
-        f"{small_ms:.5f} ms a call (CUDA events, 500 calls)")
+        f"{small_ms:.5f} ms a call (CUDA events, 500 calls; bound "
+        f"{b_ms:.6f} ms by {b_by})")
     return records, small_ms
 
 
@@ -453,6 +460,13 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.kernel)
+
+
+class PathRecorder(Recorder):
+    """A recorder that keeps the first call of each path."""
+
+    def key(self, *args):
+        return (self.label,)
 
 
 class FoldRecorder(Recorder):
@@ -577,19 +591,23 @@ def same_row_state(a, b) -> bool:
 def main_path(torch, kpart):
     """Drive every card path (launch counts zeroed just before each and read
     just after), then hold each against one host numpy run of the same
-    workflow.  Returns the launches per kernel, summed over the paths, and
-    the K2 inputs the recorder kept."""
+    workflow.  Returns the launches per kernel, summed over the paths, the
+    K2 inputs the recorder kept and the first K1 and K3 call of each
+    path, by kernel."""
     import numpy as np
     from repro_torch import dataflow
     from repro_torch.dataflow import datasets
 
     kernels = {name: getattr(kpart, name) for name in KERNELS}
     cards = {}
-    with FoldRecorder(kpart) as rec:
+    firsts = (PathRecorder(kpart, "partition_scatter"),
+              PathRecorder(kpart, "partition"))
+    with FoldRecorder(kpart) as rec, firsts[0], firsts[1]:
         for label, factory, kw, executor in PATHS:
             for fn in kernels.values():
                 fn.launches = 0
-            rec.label = label
+            for r in (rec,) + firsts:
+                r.label = label
             run = run_workflow(dataflow, factory, kw, "torch", executor)
             torch.cuda.synchronize()
             counts = {name: fn.launches for name, fn in kernels.items()}
@@ -671,13 +689,30 @@ def main_path(torch, kpart):
             f"({tuples / wall:.0f} tuples/s; {parts}), numpy host plane "
             f"{host_wall:.3f} s ({tuples / host_wall:.0f} tuples/s); "
             f"identical, {sums}")
-    return launches, rec.first
+    return launches, rec.first, {r.name: r.first for r in firsts}
 
 
-def replay_phase(torch, kpart, ref, first) -> float:
-    """K2 against its plain version on the inputs the resident paths gave
-    it (the first call at each shape of each path), timed.  Returns the
-    kernel's max |fold_sums - float64 sum|."""
+def replay_phase(torch, kpart, ref, first, path_calls) -> float:
+    """K1 and K3 on the first call of each path that launched them (bit for
+    bit) and K2 on the inputs the resident paths gave it (the first call at
+    each shape of each path), against their plain versions, timed beside
+    the bound at those shapes.  Returns K2's max |fold_sums - float64
+    sum|."""
+    for name, per_record in (("partition_scatter", 16), ("partition", 12)):
+        kernel, plain = getattr(kpart, name), getattr(ref, name)
+        for (label,), (args, _) in path_calls[name].items():
+            n, (num_keys, num_workers) = args[0].numel(), args[2].shape
+            what = (f"{name} on {label}'s first call N={n} K={num_keys} "
+                    f"W={num_workers}")
+            err = max_abs_err(kernel(*args), plain(*args))
+            check(err == 0, f"{what}: max |err| {err} against the plain "
+                            f"version")
+            ms = time_ms(torch, kernel, args, 200)
+            plain_ms = time_ms(torch, plain, args, 20)
+            b_ms, b_by = bound_ms(n, num_keys, num_workers, per_record)
+            log(f"replay: {what}: {ms:.5f} ms a call (plain {plain_ms:.5f} "
+                f"ms, bound {b_ms:.6f} ms by {b_by}; CUDA events, 200 / 20 "
+                f"calls); bit-identical")
     k2 = "partition_scatter_fold"
     err = 0.0
     for (label, n, num_keys, num_workers), (args, _) in first.items():
@@ -775,16 +810,21 @@ def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows=None):
 
 def k5_bound(B: int, H: int, KV: int, S: int, T: int, hd: int, causal: bool,
              dtype_bytes: int):
-    """Least time: 2 hd operations per visible (query, key) pair for Q K^T
-    and 2 hd for P V, vs q, k, v read once and the float32 output written
-    once.  With bf16 inputs Q K^T runs at the bf16 tensor-core rate (bf16 x
-    bf16 products are exact in float32, and the main path calls K5 with
-    scale 1); P is float32, so P V runs at the float32 CUDA-core rate, as
-    do both products with float32 inputs."""
+    """Least time: the operations per visible (query, key) pair vs q, k, v
+    read once and the float32 output written once.  bf16 at hd 128 (the
+    wgmma route): 2 hd for Q K^T and 4 hd for P V (P is float32, split into
+    bf16 hi and lo: two products), all at the bf16 tensor-core rate.  Other
+    calls (the fma route): 2 hd for Q K^T, at the bf16 tensor-core rate for
+    bf16 inputs (their products are exact in float32) and the float32
+    CUDA-core rate for float32 ones, and 2 hd for P V at the float32
+    rate."""
     pairs = S * (S + 1) // 2 if causal else S * T
     ops = 2.0 * hd * pairs * B * H
-    qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-    t_ops = (ops / qk_rate + ops / FP32_OPS_PER_S) * 1e3
+    if dtype_bytes == 2 and hd == 128:
+        t_ops = 3 * ops / BF16_TC_OPS_PER_S * 1e3
+    else:
+        qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+        t_ops = (ops / qk_rate + ops / FP32_OPS_PER_S) * 1e3
     t_bytes = (dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
                + 4 * B * H * S * hd) / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -796,13 +836,14 @@ def randn(torch, seed: int, shape, dtype, scale: float = 1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def k4_sass():
-    """HGMMA (wgmma) instructions in each kernel function of K4's library,
-    from ``cuobjdump -sass`` beside nvcc: {mangled name: count}."""
+def hgmma_counts(source: str):
+    """HGMMA (wgmma) instructions in each kernel function of the library of
+    ``csrc/<source>.cu``, from ``cuobjdump -sass`` beside nvcc:
+    {mangled name: count}."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(tool), "-sass", str(_build.library_path("segment_matmul"))],
+        [str(tool), "-sass", str(_build.library_path(source))],
         capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -814,16 +855,21 @@ def k4_sass():
     return counts
 
 
-def check_k4_sass() -> None:
-    """The tiles kernel and each width of the stream kernel run wgmma."""
-    counts = k4_sass()
-    for kernel in ("seg_mm_tiles", "seg_mm_stream"):
-        found = {fn: n for fn, n in counts.items() if kernel in fn}
-        check(found and all(n > 0 for n in found.values()),
-              f"build: {kernel} has no wgmma (HGMMA) in its SASS: {found}")
-        for fn, n in found.items():
-            log(f"build: segment_matmul: {n} HGMMA (wgmma) instructions in "
-                f"{fn}")
+def check_sass() -> None:
+    """K4's tiles kernel, each width of its stream kernel and K5's wgmma
+    kernel run wgmma."""
+    for source, kernels in (("segment_matmul", ("seg_mm_tiles",
+                                                "seg_mm_stream")),
+                            ("flash_attention", ("flash_wgmma",))):
+        counts = hgmma_counts(source)
+        for kernel in kernels:
+            found = {fn: n for fn, n in counts.items() if kernel in fn}
+            check(found and all(n > 0 for n in found.values()),
+                  f"build: {kernel} has no wgmma (HGMMA) in its SASS: "
+                  f"{found}")
+            for fn, n in found.items():
+                log(f"build: {source}: {n} HGMMA (wgmma) instructions in "
+                    f"{fn}")
 
 
 def k4_rows_cases(torch, E: int, C: int, seed: int):
@@ -902,6 +948,15 @@ def k4_kernel_phase(torch, k4) -> float:
     return err
 
 
+def k5_call(k5, what: str, route: str, q, k, v, **kw):
+    """K5 on (q, k, v), required to launch the kernel of ``route``."""
+    before = dict(k5.routes)
+    got = k5.flash_attention(q, k, v, **kw)
+    took = [r for r in k5.ROUTES if k5.routes[r] > before[r]]
+    check(took == [route], f"{what}: ran {took}, not {route}")
+    return got
+
+
 def model_kernel_phase(torch, k4, k5):
     """K4 and K5 against their plain versions at odd shapes and at the
     serving shapes.  Returns the largest error of each."""
@@ -919,15 +974,25 @@ def model_kernel_phase(torch, k4, k5):
                     v = randn(torch, seed + 2, (2, KV, S, 128), dtype)
                     what = (f"flash_attention S={S} rep={H // KV} "
                             f"causal={causal} {dtype}")
+                    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+                    got = k5_call(k5, what, route, q, k, v, causal=causal)
                     errs["flash_attention"] = max(
                         errs["flash_attention"],
-                        check_flash(torch, what,
-                                    k5.flash_attention(q, k, v, causal=causal),
-                                    q, k, v, causal, 128 ** -0.5))
+                        check_flash(torch, what, got, q, k, v, causal,
+                                    128 ** -0.5))
+                    # The same values in the model's [B, S, H, hd] layout,
+                    # read through .transpose(1, 2): the same bits.
+                    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                             for t in (q, k, v)]
+                    check(torch.equal(k5_call(k5, what, route, *views,
+                                              causal=causal), got),
+                          f"{what}: a [B, S, H, hd] view gives other bits "
+                          f"than its contiguous copy")
     torch.cuda.synchronize()
     log("model kernels: flash_attention within the stated bound of its plain "
         "version at B=2 hd=128 S in {1, 63, 512, 4096} x rep in {1, 3} x "
-        "{causal, full} (bf16; float32 too at S=512) (max |err| "
+        "{causal, full} (bf16 on the wgmma kernel; float32 too at S=512, on "
+        "the fma kernel), the same bits from [B, S, H, hd] views (max |err| "
         f"{errs['flash_attention']:.3g})")
     return errs
 
@@ -1275,19 +1340,26 @@ def model_replay_phase(torch, k4, k5, k4_first, k5_first):
     for (label, qs, ks, vs), ((q, k, v), kw) in k5_first.items():
         what = f"flash_attention on the serve's {label} q {qs[0]} k {ks[0]}"
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
-            torch, what, k5.flash_attention(q, k, v, **kw), q, k, v,
+            torch, what, k5_call(k5, what, "wgmma", q, k, v, **kw), q, k, v,
             kw.get("causal", True), kw.get("scale") or q.shape[-1] ** -0.5))
         t = time_k5(torch, k5, q, k, v, 50)
+        start = time.perf_counter()
+        for _ in range(50):
+            k5.flash_attention(q, k, v, **kw)
+        submit_ms = (time.perf_counter() - start) / 50 * 1e3
+        torch.cuda.synchronize()
         log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
             f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms "
-            f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+            f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound; the host submits "
+            f"a call in {submit_ms:.5f} ms)")
         main.setdefault("flash_attention", t)
     # OLMoE's context, 4096 tokens, at the serve's batch and heads.
     q, k, v = (randn(torch, 70 + i, (SERVE_BATCH, 16, 4096, 128),
                      torch.bfloat16) for i in range(3))
+    what = "flash_attention B=4 H=16 S=4096"
     errs["flash_attention"] = max(errs["flash_attention"], check_flash(
-        torch, "flash_attention B=4 H=16 S=4096", k5.flash_attention(q, k, v),
-        q, k, v, True, 128 ** -0.5))
+        torch, what, k5_call(k5, what, "wgmma", q, k, v), q, k, v, True,
+        128 ** -0.5))
     t = time_k5(torch, k5, q, k, v, 10)
     log(f"replay: flash_attention B={SERVE_BATCH} H=16 S=4096 hd=128 causal "
         f"bf16 (OLMoE's context): {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
@@ -2037,20 +2109,20 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    check_k4_sass()
+    check_sass()
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
     t0 = time.perf_counter()
-    launches, first = main_path(torch, kpart)
+    launches, first, path_calls = main_path(torch, kpart)
     log(f"main: all workflows in {time.perf_counter() - t0:.1f} s; "
         f"partition_scatter at the W1 chunk size {small_ms:.5f} ms a call")
-    replay_err = replay_phase(torch, kpart, ref, first)
+    replay_err = replay_phase(torch, kpart, ref, first, path_calls)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] == "partition_scatter_fold":
             rec["max_abs_err"] = max(rec["max_abs_err"], replay_err)
-    del first
+    del first, path_calls
     torch.cuda.empty_cache()
 
     kernel_mods = [(kpart, name) for name in KERNELS] + [
@@ -2072,6 +2144,13 @@ def main() -> int:
           and {r: n for r, n in got.items() if n} == want,
           f"serve: segment_matmul launched {got} over {sv['calls']} model "
           f"calls, not {per_call} a call as {want}")
+    # One K5 call a layer a prefill, every one on the wgmma kernel (bf16,
+    # hd 128, the model's layout read in place).
+    want = {"fma": 0, "wgmma": sv["n_layers"] * sv["prefill"][1]}
+    got = sv["routes"]["flash_attention"]
+    check(serve_launches["flash_attention"] == want["wgmma"] and got == want,
+          f"serve: flash_attention launched {got} over {sv['prefill'][1]} "
+          f"prefills, not {want}")
     errs, main = model_replay_phase(torch, kseg, kfa, recs[0].first,
                                     recs[1].first)
     del recs

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks, raw PTX: mbarriers, TMA tensor copies,
 // wgmma shared-memory descriptors and the wgmma instructions the kernels
-// use, and the host-side encoding of a TMA tensor map.  Included by the
+// use (shared-memory A, and register A for 16-bit types), and the
+// host-side encoding of 3-D and 4-D TMA tensor maps.  Included by the
 // kernel sources of this directory; it adds nothing to their C interfaces.
 //
 // Conventions (PTX ISA, "Asynchronous warpgroup level matrix multiply" and
@@ -86,6 +87,16 @@ DEV void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2) : "memory");
+}
+
+// The same for a 4-D tensor map, at (c0, c1, c2, c3).
+DEV void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                     int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
 // Stores a box from shared memory at (c0, c1, c2); elements outside the
@@ -232,6 +243,52 @@ DEV void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
+// d += A B as above, with A 64 x 16 bf16 in registers (the "RS" form): a
+// thread holds the A fragment of rows 16 w + l / 4 (+ 8) and columns
+// 2 (l % 4) (+ 8), two bf16 a register, low half first:
+// a[0] = (r, c), (r, c + 1); a[1] = (r + 8, c), ...; a[2] = (r, c + 8), ...;
+// a[3] = (r + 8, c + 8), ....  That is the accumulator layout above, so
+// the float32 d[8 j .. 8 j + 7] of a product m64nNk16 packs in order into
+// the A fragment of its columns [16 j, 16 j + 16).  The registers of `a`
+// must hold their values until the product is waited for.
+template <int kTransB>
+DEV void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
+}
+
+// Keeps the compiler from reusing the registers of an A fragment before
+// the product that reads them was waited for.
+template <int R>
+DEV void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // ---- host: TMA tensor maps ------------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -278,6 +335,29 @@ inline bool tensor_map_bf16_3d(CUtensorMap* map, const void* base, int d0,
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a bf16 tensor of dims (d[0], d[1], d[2], d[3]), d[0] innermost
+// with stride 1 and dims 1..3 `strides` bytes apart in any order (a view,
+// such as [B, S, H, hd] seen as [B, H, S, hd]), read in boxes
+// [1, 1, b1, b0], 128-byte swizzled in shared memory (b0 * 2 must be 128
+// bytes at most), zeros outside the tensor.  Needs strides that are
+// multiples of 16 bytes and a 16-byte-aligned base.  Returns false if the
+// encode refuses it.
+inline bool tensor_map_bf16_4d(CUtensorMap* map, const void* base,
+                               const uint64_t (&d)[4],
+                               const uint64_t (&strides)[3], int b0, int b1) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {d[0], d[1], d[2], d[3]};
+  const cuuint64_t bytes[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

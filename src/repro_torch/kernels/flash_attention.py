@@ -1,4 +1,4 @@
-"""Flash attention K5: wrapper over the hand-written CUDA kernel.
+"""Flash attention K5: wrapper over the hand-written CUDA kernels.
 
 Counterpart of the Pallas kernel ``repro.kernels.flash_attention``
 (``flash_attention.py:72``) and of the prefill attention of
@@ -6,28 +6,33 @@ Counterpart of the Pallas kernel ``repro.kernels.flash_attention``
 ``attention.py:174`` and ``:180``).  The JAX layout is kept: q
 ``[B, H, S, hd]``, k and v ``[B, KV, T, hd]`` with ``H`` a multiple of
 ``KV``; query head ``h`` reads KV head ``h // (H // KV)``, so the KV heads
-are never repeated in memory.  The output is float32 ``[B, H, S, hd]``;
-the model casts it, as the JAX model does.
+are never repeated in memory.  Each may be a view whose last dimension has
+stride 1, such as the model's ``[B, S, H, hd]`` seen through
+``.transpose(1, 2)``: the kernels read it in place.  The output is float32
+``[B, H, S, hd]``; the model casts it, as the JAX model does.
 
 Causal attention needs ``S == T`` (query ``i`` sees keys ``j <= i``): the
 JAX package's two forms align a causal mask with ``S != T`` differently
 (``repro.kernels.ref`` bottom-right, the Pallas kernel top-left), and the
 model only ever calls it with ``S == T``, so the wrapper refuses it.
 
-For CUDA tensors the wrapper launches the kernel of
+For CUDA tensors the wrapper launches a kernel of
 ``csrc/flash_attention.cu`` (built at first use) on the current stream, or
 raises; for CPU tensors it runs the plain version in
-:mod:`repro_torch.kernels.ref`.  ``.launches`` counts the calls that
-launched the kernel.
+:mod:`repro_torch.kernels.ref` on contiguous copies, so a view and its copy
+give the same bits.  ``.launches`` counts the calls that launched a kernel
+and the module's ``routes`` which one: ``wgmma`` (bf16 at hd 128, the
+model's prefill: Q K^T and a split-bf16 P V on the tensor cores, K and V
+on a TMA ring; its strides must be multiples of 8 elements) and ``fma``
+(float32, and bf16 at the other head widths: float32 on the CUDA cores).
 
-Bound on an H100: ``2 hd`` operations per visible (query, key) pair for
-``Q K^T``, at the bf16 tensor-core rate for bf16 inputs (their products
-are exact in float32; the model passes ``scale=1``) and the CUDA-core
-float32 rate for float32 ones, plus ``2 hd`` for ``P V`` at the float32
-rate (``P`` is float32, as in the reference); or q, k, v and the output
-moved once against the memory rate.  Design: one block per (b, h, 64-query tile),
-K/V tiles staged in shared memory as float32, online softmax in
-registers; the source note in the ``.cu`` file has the details.
+Bound on an H100, per visible (query, key) pair: ``wgmma`` ``2 hd``
+operations for ``Q K^T`` and ``4 hd`` for ``P V`` (P split into bf16 hi
+and lo, two products) at the bf16 tensor-core rate; ``fma`` ``2 hd`` for
+``Q K^T`` (at the bf16 tensor-core rate for bf16 inputs, whose products
+are exact in float32, else the float32 rate) and ``2 hd`` for ``P V`` at
+the float32 rate; or q, k, v and the output moved once against the
+memory rate.  The source note in the ``.cu`` file has the design.
 """
 from __future__ import annotations
 
@@ -39,8 +44,11 @@ import torch
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Head widths the kernel is compiled for.
+#: Head widths the kernels are compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
+ROUTES = ("fma", "wgmma")
+#: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
+routes = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -50,19 +58,26 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_flash_attention.argtypes = ([ptr] * 4 + [i32] * 6
-                                              + [ctypes.c_float] + [i32] * 3
-                                              + [ptr])
+        lib.repro_flash_attention.argtypes = (
+            [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
+               ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
         _lib = lib
     return _lib
+
+
+def _strides(t: torch.Tensor):
+    """t's element strides over (batch, head, row); a dimension of size 1
+    is never stepped over, so it takes a row's width (valid for TMA)."""
+    return [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
-    the float32 q (default ``hd ** -0.5``)."""
+    the float32 scores (default ``hd ** -0.5``)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must all be bfloat16 or all float32, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -82,25 +97,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.device == k.device == v.device) or q.device.type not in (
             "cpu", "cuda"):
         raise ValueError("q, k and v must share one cpu or cuda device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v must have hd innermost (stride 1)")
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+        return ref.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal, scale=scale)
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     if T == 0:
         return out.zero_()
-    if B * H > 65535:
+    strides = _strides(q) + _strides(k) + _strides(v)
+    if q.dtype == torch.bfloat16 and hd == 128:
+        if any(s % 8 for s in strides) or any(t.data_ptr() % 16
+                                              for t in (q, k, v)):
+            raise ValueError("bf16 q, k and v at hd 128 need strides that "
+                             "are multiples of 8 elements and 16-byte "
+                             "aligned data (the kernel reads them by TMA)")
+        if S > 65535 * 128:
+            raise ValueError(f"S = {S} is past the kernel's grid")
+    elif B * H > 65535:
         raise ValueError(f"B * H = {B * H} is past the kernel's grid")
     lib = _library()
+    route = ctypes.c_int(-1)
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
         S, T, hd, scale, int(causal), _DTYPES[q.dtype],
-        *_build.device_and_stream(q.device))
+        (ctypes.c_longlong * 9)(*strides),
+        *_build.device_and_stream(q.device), ctypes.byref(route))
     _build.raise_on(lib, code, "flash_attention")
     flash_attention.launches += 1
+    routes[ROUTES[route.value]] += 1
     return out
 
 

@@ -67,12 +67,11 @@ def _prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
     q is scaled in its own dtype first (``attention.py:70``: with
     hd = 128 the scale is no power of two, so where it is applied changes
-    the bits), and K5 runs with ``scale = 1``."""
+    the bits), and K5 runs with ``scale = 1``.  K5 reads the
+    ``[B, H, S, hd]`` views of the model's tensors in place."""
     qs = scalar_mul(q, q.shape[-1] ** -0.5)
-    out = k5.flash_attention(qs.transpose(1, 2).contiguous(),
-                             k.transpose(1, 2).contiguous(),
-                             v.transpose(1, 2).contiguous(),
-                             causal=True, scale=1.0)
+    out = k5.flash_attention(qs.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True, scale=1.0)
     return out.transpose(1, 2)
 
 

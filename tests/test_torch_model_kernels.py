@@ -222,7 +222,7 @@ def test_flash_matches_model_reference(H, KV, S):
 
 @pytest.mark.parametrize("bad", ["causal S != T", "head_dim 48",
                                  "H not a multiple of KV", "mixed dtypes",
-                                 "strided q"])
+                                 "hd not innermost"])
 def test_flash_rejects_bad_inputs(bad):
     q, k = torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16)
     v, causal, err = k.clone(), True, ValueError
@@ -235,9 +235,103 @@ def test_flash_rejects_bad_inputs(bad):
     elif bad == "mixed dtypes":
         v, err = v.to(torch.bfloat16), TypeError
     else:
-        q = torch.zeros(1, 8, 4, 16).transpose(1, 2)
+        q = torch.zeros(1, 4, 16, 8).transpose(2, 3)
     with pytest.raises(err):
         k5.flash_attention(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_reads_views_as_their_copies(dtype, causal):
+    """q, k, v in the model's ``[B, S, H, hd]`` layout seen through
+    ``.transpose(1, 2)`` (hd innermost, the other strides in another
+    order) give the same bits as their contiguous copies."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(_normal(20 + i, s)).to(dt) for i, s in
+               enumerate([(2, 63, 6, 128), (2, 63, 2, 128), (2, 63, 2, 128)]))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = k5.flash_attention(*views, causal=causal)
+    want = k5.flash_attention(*(t.contiguous() for t in views), causal=causal)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _wgmma_arithmetic(q, k, v, causal, scale, split=True, block=128):
+    """K5's wgmma route on the CPU: the scores are exact bf16 products
+    summed (here in float64) and rounded to float32, then scaled; the
+    online softmax runs in float32 over 128-key tiles; P is split into
+    ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, rounded to nearest even as
+    the kernel's ``__float2bfloat16_rn`` does (``split=False``: P rounded
+    once to bf16, as a plain bf16 P V would), and ``hi V + lo V`` is
+    summed exactly and rounded to float32 once a tile."""
+    B, H, S, _ = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    rep = H // KV
+    qd = q.double()
+    kd = k.double().repeat_interleave(rep, dim=1)
+    vd = v.double().repeat_interleave(rep, dim=1)
+    m = torch.full((B, H, S), tref.NEG_INF, dtype=torch.float32)
+    l = torch.zeros((B, H, S), dtype=torch.float32)
+    acc = torch.zeros((B, H, S, v.shape[-1]), dtype=torch.float32)
+    for k0 in range(0, T, block):
+        kb, vb = kd[:, :, k0:k0 + block], vd[:, :, k0:k0 + block]
+        s = torch.einsum("bhsd,bhtd->bhst", qd, kb).float() * scale
+        if causal:
+            keep = (torch.arange(k0, k0 + kb.shape[2])[None, :]
+                    <= torch.arange(S)[:, None])
+            s = torch.where(keep, s, tref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16)
+        parts = [hi]
+        if split:
+            parts.append((p - hi.float()).to(torch.bfloat16))
+        pv = sum(torch.einsum("bhst,bhtd->bhsd", part.double(), vb)
+                 for part in parts)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+def _flash_misses(got, want, v):
+    """How many outputs miss each tolerance K5 is held to: the bound of
+    ``chip_smoke.py::check_flash`` (3e-5 + 2 T 2^-24 max|v|) and
+    ``atol = 3e-5, rtol = 1e-4`` (the ``gpu`` test below)."""
+    T = v.shape[2]
+    err = (got - want).abs()
+    bound = 3e-5 + 2 * T * 2.0**-24 * float(v.float().abs().max())
+    return (int((err > bound).sum()),
+            int((err > 3e-5 + 1e-4 * want.abs()).sum()))
+
+
+@pytest.mark.parametrize("rep", [1, 3])
+@pytest.mark.parametrize("S", [1, 63, 445])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_keeps_the_float32_accuracy(S, rep, causal):
+    """The wgmma route's P = hi + lo in bf16 against the float32 plain
+    version at hd 128: within both tolerances K5 is held to."""
+    q, k, v = (torch.from_numpy(_normal(30 + i, s)).to(torch.bfloat16)
+               for i, s in enumerate([(2, 2 * rep, S, 128), (2, 2, S, 128),
+                                      (2, 2, S, 128)]))
+    scale = 128 ** -0.5
+    got = _wgmma_arithmetic(q, k, v, causal, scale)
+    want = tref.flash_attention(q, k, v, causal=causal, scale=scale)
+    assert _flash_misses(got, want, v) == (0, 0)
+
+
+def test_one_bf16_rounding_of_p_misses_the_float32_accuracy():
+    """Why P is split: rounded once to bf16, P V misses both tolerances
+    at the serve's prefill length."""
+    q, k, v = (torch.from_numpy(_normal(30 + i, s)).to(torch.bfloat16)
+               for i, s in enumerate([(2, 2, 445, 128), (2, 2, 445, 128),
+                                      (2, 2, 445, 128)]))
+    scale = 128 ** -0.5
+    want = tref.flash_attention(q, k, v, causal=True, scale=scale)
+    once = _wgmma_arithmetic(q, k, v, True, scale, split=False)
+    bound_misses, tol_misses = _flash_misses(once, want, v)
+    assert bound_misses > 0 and tol_misses > 0
 
 
 def test_full_attention_takes_s_other_than_t():
@@ -308,10 +402,28 @@ def test_cuda_segment_matmul_matches_plain_version():
 @pytest.mark.gpu
 def test_cuda_flash_attention_matches_plain_version():
     """K5 on the card against its plain version (float32 arithmetic in both,
-    sums in another order): ``atol = 3e-5, rtol = 1e-4`` from float32 and
-    bf16 inputs alike, causal and full, rep 1 and 3, ragged S."""
+    sums in another order; the wgmma route's P split into bf16 hi and lo):
+    ``atol = 3e-5, rtol = 1e-4`` from float32 and bf16 inputs alike,
+    causal and full, rep 1 and 3, ragged S.  bf16 at hd 128 takes the
+    wgmma route, also at S = 64, 445 and 4096 and from the model's
+    ``[B, S, H, hd]`` layout through ``.transpose(1, 2)``, which gives
+    the same bits as its contiguous copy; every other call the fma
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+    def run(q, k, v, causal, route):
+        before = dict(k5.routes)
+        launches = k5.flash_attention.launches
+        got = k5.flash_attention(q, k, v, causal=causal)
+        assert k5.flash_attention.launches == launches + 1
+        assert {r: k5.routes[r] - before[r] for r in k5.ROUTES} == {
+            r: int(r == route) for r in k5.ROUTES}
+        want = tref.flash_attention(q, k, v, causal=causal,
+                                    scale=q.shape[-1] ** -0.5)
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+        return got
+
     for B, H, KV, S, hd in ((1, 1, 1, 1, 16), (2, 3, 1, 63, 64),
                             (1, 6, 2, 130, 128), (2, 4, 4, 512, 32)):
         for causal in (True, False):
@@ -320,10 +432,16 @@ def test_cuda_flash_attention_matches_plain_version():
                            for i, s in enumerate([(B, H, S, hd),
                                                   (B, KV, S, hd),
                                                   (B, KV, S, hd)]))
-                launches = k5.flash_attention.launches
-                got = k5.flash_attention(q, k, v, causal=causal)
-                assert k5.flash_attention.launches == launches + 1
-                want = tref.flash_attention(q, k, v, causal=causal,
-                                            scale=hd ** -0.5)
-                torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+                route = ("wgmma" if dtype == torch.bfloat16 and hd == 128
+                         else "fma")
+                run(q, k, v, causal, route)
+    for B, H, KV, S in ((2, 6, 2, 64), (4, 16, 16, 445), (1, 16, 16, 4096)):
+        for causal in (True, False):
+            q, k, v = (torch.from_numpy(_normal(40 + i, s)).to(
+                "cuda", torch.bfloat16).transpose(1, 2) for i, s in
+                enumerate([(B, S, H, 128), (B, S, KV, 128), (B, S, KV, 128)]))
+            got = run(q, k, v, causal, "wgmma")
+            copies = [t.contiguous() for t in (q, k, v)]
+            torch.testing.assert_close(run(*copies, causal, "wgmma"), got,
+                                       atol=0, rtol=0)
     torch.cuda.synchronize()
