@@ -11,13 +11,20 @@ Phases, in order; any failure exits non-zero before the last line:
            kernels and K5's wgmma kernel must hold wgmma (HGMMA) in their
            SASS (``cuobjdump``);
 3. kernels each CUDA kernel against its plain PyTorch version on the card
-           at odd shapes and at the real exchange shape (N = 2^24 records,
-           K = 65,536 keys, W = 64 workers): K1/K3 bit for bit; K2 with all
-           lanes live, suffix padding and random holes in the mask, with
-           dest / rank / hist / fold_counts bit for bit and fold_sums within
-           a bound from each key's count of a float64 sum of the same
-           values; CUDA-event times of kernel and plain version, and the
-           bound from the card's memory rate;
+           at odd shapes, on both sides of K1's and K2's one-tile limit
+           (N = 4095, 4096, 4097), and at the real exchange shape (N = 2^24
+           records, K = 65,536 keys, W = 64 workers): K1/K3 bit for bit; K2
+           with all lanes live, suffix padding and random holes in the
+           mask, with dest / rank / hist / fold_counts bit for bit and
+           fold_sums within a bound from each key's count of a float64 sum
+           of the same values; all three again on adversarial tables (rows
+           whose float32 CDF rounds above 1 before the last positive
+           column, zero columns, all-zero rows, one live column) with
+           thresholds at 0, at 1 - 2^-24 and beside the rows' entries; K2
+           on the resident plane's wide columns (int64 keys and counters,
+           no counters, float64 vals); CUDA-event times of kernel and plain
+           version, the bound from the card's memory rate, and the stream
+           operations of one multi-tile call under the profiler;
 4. main    the paper's workflows with the Reshape controller on
            ``device="cuda"``, path by path, each driven with the kernels'
            launch counts set to 0 just before it and read just after it:
@@ -40,7 +47,12 @@ Phases, in order; any failure exits non-zero before the last line:
            inputs the resident paths gave it: the first call at each
            (N, K, W) of each path (W3's ingest and its one sink call of the
            whole sorted output, W1's filter ingest and sink calls), checked
-           as in phase 3; each timed beside its bound at that shape;
+           as in phase 3; each timed beside its bound at that shape, the
+           host's time to submit a call, the card's own time and the
+           stream operations one call makes (under the profiler) and the
+           launch floor (the library's empty kernel through the same
+           ctypes path, timed the same way); and one per-chunk exchange
+           call under the profiler, whose copies are counted;
 6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
            float32; odd shapes and OLMoE-1B-7B's expert products at C = 4,
            1780 and 2048; dense and with ``rows`` all 0, all C and ragged
@@ -223,20 +235,108 @@ def fold_inputs(torch, seed: int, n: int, num_keys: int, num_workers: int,
             torch.from_numpy(valid).cuda(), cdf)
 
 
+#: Weights whose float32 row-CDF rounds above 1 before the last positive
+#: column: [.., 0.9544028, 1.0000001, 1.0].
+ROUNDS_ABOVE_ONE = (2.9226431534880243e-01, 9.3378590947111456e-03,
+                    1.3774107888430048e-01, 1.0934441588710811e-01,
+                    4.0571506790850898e-01, 4.5597261426568905e-02, 1.45e-09)
+
+
+def counters_for(u_ints):
+    """int32 counters whose Weyl threshold is exactly ``u_ints * 2^-24``:
+    the threshold's bits are ``(c + 1) * GOLDEN mod 2^32`` and GOLDEN is
+    odd, so ``c = (u << 8) * GOLDEN^-1 - 1 mod 2^32``."""
+    import numpy as np
+    inv = np.uint64(pow(2654435769, -1, 2**32))
+    bits = np.asarray(u_ints, dtype=np.uint64) << np.uint64(8)
+    return ((bits * inv - np.uint64(1)) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32).view(np.int32)
+
+
+def adversarial_inputs(torch, seed: int, n: int, num_workers: int):
+    """Keys, counters and a row-CDF of every kind of row a routing table
+    can hold (non-negative weights): the row above (alone and with zero
+    columns between its weights), a tiny last weight, zero columns between
+    and after live ones, all-zero rows, one live column, dense rows.  Each
+    record's threshold sits on the 2^-24 grid beside an entry of its key's
+    row (one step below, on, above), or at 0 or 1 - 2^-24."""
+    import numpy as np
+    from repro_torch.core.ops import saturated_cdf32
+
+    rng = np.random.default_rng(seed)
+    W = num_workers
+    rows = [np.zeros(W)] + [np.eye(W)[c] for c in sorted({0, W // 2, W - 1})]
+    if W >= 7:
+        for spread in (1, 2, W // 7):
+            row = np.zeros(W)
+            row[np.arange(7) * spread] = ROUNDS_ABOVE_ONE
+            rows.append(row)
+    for _ in range(8):
+        row = np.zeros(W)
+        live = rng.choice(W, size=min(W, 3), replace=False)
+        row[live] = rng.dirichlet(np.ones(live.size))
+        tiny = rng.dirichlet(np.ones(W)) * (1 - 1e-9)
+        tiny[-1] = 1e-9
+        rows += [row, rng.dirichlet(np.ones(W)), tiny]
+    cdf = saturated_cdf32(torch.from_numpy(np.array(rows)))
+    keys = rng.integers(0, len(rows), n)
+    entry = cdf.numpy().astype(np.float64)[keys, rng.integers(0, W, n)]
+    u_ints = np.clip(np.floor(entry * 2**24) + rng.integers(-1, 2, n), 0,
+                     2**24 - 1)
+    u_ints[::5] = 0
+    u_ints[1::5] = 2**24 - 1
+    return (torch.from_numpy(keys.astype(np.int32)).cuda(),
+            torch.from_numpy(counters_for(u_ints.astype(np.int64))).cuda(),
+            cdf.cuda())
+
+
+def widen(torch, seed: int, args, form: str):
+    """K2's inputs in the resident plane's wide form: int64 keys that wrap
+    to the same int32 (most from outside int32's range), int64 counters
+    likewise or none (``form == "no counters"``: all zero), float64 vals
+    that round to the same float32 (between two float32 values, or on a
+    tie, which goes to the even one)."""
+    import numpy as np
+    keys, counters, vals, valid, cdf = args
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n = keys.numel()
+    turns = torch.randint(-2**30, 2**30, (n,), generator=g, device="cuda")
+    keys64 = keys.long() + turns * 2**32
+    ctr64 = (None if form == "no counters"
+             else counters.long() + turns.flip(0) * 2**32)
+    v = vals.double()
+    ulp = torch.from_numpy(np.spacing(np.abs(vals.cpu().numpy())).astype(
+        np.float64)).cuda()
+    off = torch.rand(n, generator=g, device="cuda", dtype=torch.float64) - 0.5
+    off[::3] = 0.5                                   # ties
+    return keys64, ctr64, v + ulp * off, valid, cdf
+
+
+def k2_record_bytes(args) -> int:
+    """Bytes a lane of K2 moves at least: its keys, counters (none when
+    None) and vals as given, the 1-byte mask, dest and rank."""
+    keys, counters, vals, _, _ = args
+    return (keys.element_size() + vals.element_size() + 1 + 8
+            + (0 if counters is None else counters.element_size()))
+
+
 def check_fold(torch, name: str, got, want, args) -> float:
     """K2's integer outputs bit for bit against the plain version, and both
-    versions' fold_sums against a float64 sum of the same float32 values.
-    Any order of c additions of float32 values is within c * 2^-24 * sum|v|
-    of the exact sum (first-order bound); the check allows twice that.
-    Returns the kernel's max |fold_sums - float64 sum|."""
+    versions' fold_sums against a float64 sum of the same float32 values
+    (wide columns narrowed as K2 narrows them).  Any order of c additions
+    of float32 values is within c * 2^-24 * sum|v| of the exact sum (first
+    order); the check allows twice that.  Returns the kernel's max
+    |fold_sums - float64 sum|."""
     err = max_abs_err(got[:4], want[:4])
     check(err == 0, f"{name}: integer outputs disagree with the plain "
                     f"version: max |err| {err}")
     keys, _, vals, valid, cdf = args
+    keys = keys.to(torch.int32)
     num_keys = cdf.shape[0]
     live = valid & (keys >= 0) & (keys < num_keys)
     slot = torch.where(live, keys.long(), 0)
-    v64 = torch.where(live, vals.double(), 0.0)
+    v64 = torch.where(live, vals.float().double(), 0.0)
     exact = torch.zeros(num_keys, dtype=torch.float64,
                         device=keys.device).index_add_(0, slot, v64)
     sumabs = torch.zeros_like(exact).index_add_(0, slot, v64.abs())
@@ -273,6 +373,59 @@ def time_ms(torch, fn, args, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def submit_ms(torch, fn, args, reps: int) -> float:
+    """The host's time to submit one call (the same loop as ``time_ms``,
+    host clock, no wait for the card): where it matches the CUDA-event
+    time, the calls are host-paced."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    took = (time.perf_counter() - start) / reps * 1e3
+    torch.cuda.synchronize()
+    return took
+
+
+#: CUDA runtime calls that put work on a stream.
+STREAM_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
+                "cudaMemset")
+
+
+def stream_ops(torch, fn, args):
+    """One call under the profiler: (the CUDA runtime calls it made that
+    put work on a stream, the device spans the profiler delivered for it),
+    by name.  The runtime calls are recorded on the host as they are made;
+    the device spans come from CUPTI's activity buffers, which the
+    profiler does not deliver for every short profile (the list is then
+    empty), so the count is taken from the runtime calls."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    return ([e.name for e in events if e.name.startswith(STREAM_CALLS)],
+            [e.name for e in events
+             if str(getattr(e, "device_type", "")).endswith("CUDA")])
+
+
+def device_ms(torch, fn, args, reps: int) -> str:
+    """The card's own time for one call: the device spans of ``reps`` calls
+    under the profiler, summed, over ``reps``, as "<ms> ms", or "not
+    delivered" where the profiler delivered no span (``stream_ops``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return f"{sum(spans) / reps / 1e3:.5f} ms" if spans else "not delivered"
+
+
 def bound_ms(n: int, num_keys: int, num_workers: int, per_record_bytes: int,
              per_key_bytes: int = 0):
     """Least time on the card: bytes (inputs read once, outputs written
@@ -284,33 +437,54 @@ def bound_ms(n: int, num_keys: int, num_workers: int, per_record_bytes: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: Phase 3's odd shapes: both sides of a power of two, of K1's and K2's
+#: one-tile limit (4096 records) and a chunk of 257 tiles; the main paths'
+#: worker counts, one worker and the widest table.
+ODD_NS = (1, 1023, 1025, 4095, 4096, 4097, 2**20 + 7)
+ODD_WS = (1, 20, 48, 64, 1024)
+
+
 def kernel_phase(torch, kpart, ref):
     """Bit-exact comparisons and timings; returns the per-kernel records."""
-    max_workers = kpart.MAX_WORKERS
     errs = {"partition_scatter": 0, "partition": 0}
     pairs = (("partition_scatter", kpart.partition_scatter, ref.partition_scatter),
              ("partition", kpart.partition, ref.partition))
     seed = 0
-    for n in (1, 1023, 1025, 2**20 + 7):
-        for num_workers in (1, 20, 48, 64, max_workers):
-            seed += 1
-            args = make_inputs(torch, seed, n, 4096, num_workers, 0.3)
-            for name, kernel, plain in pairs:
-                err = max_abs_err(kernel(*args), plain(*args))
-                check(err == 0, f"{name} disagrees with its plain version "
-                                f"at N={n} W={num_workers}: max |err| {err}")
-                errs[name] = max(errs[name], err)
+    for n in ODD_NS:
+        for num_workers in ODD_WS:
+            for table in ("random", "adversarial"):
+                seed += 1
+                if table == "random":
+                    args = make_inputs(torch, seed, n, 4096, num_workers, 0.3)
+                else:
+                    args = adversarial_inputs(torch, seed, n, num_workers)
+                for name, kernel, plain in pairs:
+                    err = max_abs_err(kernel(*args), plain(*args))
+                    check(err == 0, f"{name} disagrees with its plain "
+                                    f"version at N={n} W={num_workers} "
+                                    f"({table} table): max |err| {err}")
+                    errs[name] = max(errs[name], err)
     torch.cuda.synchronize()
     log(f"kernels: K1/K3 bit-identical to the plain versions at N in "
-        f"{{1, 1023, 1025, 2^20+7}} x W in {{1, 20, 48, 64, {max_workers}}}")
+        f"{set(ODD_NS)} x W in {set(ODD_WS)} x random and adversarial "
+        f"tables")
 
     k2 = "partition_scatter_fold"
     errs[k2] = 0.0
-    for n in (1, 1023, 1025, 2**20 + 7):
-        for num_workers in (1, 20, 48, 64, max_workers):
-            for mask in ("live", "suffix", "holes"):
+    for n in ODD_NS:
+        for num_workers in ODD_WS:
+            for mask in ("live", "suffix", "holes", "adversarial",
+                         "int64", "no counters"):
                 seed += 1
-                args = fold_inputs(torch, seed, n, 4096, num_workers, mask)
+                args = fold_inputs(torch, seed, n, 4096, num_workers,
+                                   mask if mask in ("live", "suffix")
+                                   else "holes")
+                if mask == "adversarial":
+                    keys, counters, cdf = adversarial_inputs(
+                        torch, seed, n, num_workers)
+                    args = (keys, counters, args[2], args[3], cdf)
+                elif mask in ("int64", "no counters"):
+                    args = widen(torch, seed, args, mask)
                 errs[k2] = max(errs[k2], check_fold(
                     torch, f"{k2} N={n} W={num_workers} mask={mask}",
                     kpart.partition_scatter_fold(*args),
@@ -318,8 +492,9 @@ def kernel_phase(torch, kpart, ref):
     torch.cuda.synchronize()
     log(f"kernels: {k2} integer outputs bit-identical to the plain version, "
         f"fold_sums within c * 2^-23 * sum|v| of float64, at N in "
-        f"{{1, 1023, 1025, 2^20+7}} x W in {{1, 20, 48, 64, {max_workers}}} "
-        f"x mask in {{live, suffix, holes}}")
+        f"{set(ODD_NS)} x W in {set(ODD_WS)} x mask in {{live, suffix, "
+        f"holes}}, holes on adversarial tables, and holes with int64 keys, "
+        f"float64 vals and int64 or no counters")
 
     args = make_inputs(torch, 99, REAL_N, REAL_K, REAL_W, 0.01)
     records = []
@@ -334,11 +509,13 @@ def kernel_phase(torch, kpart, ref):
         errs[name] = max(errs[name], err)
         ms = time_ms(torch, kernel, args, 50)
         plain_ms = time_ms(torch, plain, args, 20)
+        calls, spans = stream_ops(torch, kernel, args)
         b_ms, b_by = bound_ms(REAL_N, REAL_K, REAL_W, per_record)
         log(f"kernels: {name} N={REAL_N} K={REAL_K} W={REAL_W}: {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
             f"{100 * b_ms / ms:.1f}% of bound; library: none, no single "
-            f"PyTorch call computes this function)")
+            f"PyTorch call computes this function); {len(calls)} stream "
+            f"operation(s) a call: {calls}, device spans {spans}")
         records.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=0,
                             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
@@ -352,14 +529,16 @@ def kernel_phase(torch, kpart, ref):
         ref.partition_scatter_fold(*args), args))
     ms = time_ms(torch, kpart.partition_scatter_fold, args, 50)
     plain_ms = time_ms(torch, ref.partition_scatter_fold, args, 10)
+    calls, spans = stream_ops(torch, kpart.partition_scatter_fold, args)
     # Compulsory bytes: keys, counters, vals (4 N each) and the 1-byte mask
     # in, dest and rank (4 N each) out, the cdf table, hist and both folds.
-    b_ms, b_by = bound_ms(REAL_N, REAL_K, REAL_W, 21, 8)
+    b_ms, b_by = bound_ms(REAL_N, REAL_K, REAL_W, k2_record_bytes(args), 8)
     log(f"kernels: {k2} N={REAL_N} K={REAL_K} W={REAL_W} "
         f"({REAL_DEAD:.0%} dead lanes): {ms:.4f} ms (plain {plain_ms:.4f} "
         f"ms, bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
         f"bound; library: none, no single PyTorch call computes this "
-        f"function)")
+        f"function); {len(calls)} stream operation(s) a call: {calls}, "
+        f"device spans {spans}")
     records.append(dict(name=k2, route="cuda", source=SOURCE,
                         replaces="src/repro/kernels/partition.py:286",
                         launches=0, max_abs_err=errs[k2], ms=ms,
@@ -451,7 +630,8 @@ class Recorder:
     def __call__(self, *args, **kw):
         key = self.key(*args)
         if key not in self.first:
-            self.first[key] = (tuple(t.clone() for t in args), kw)
+            self.first[key] = (tuple(None if t is None else t.clone()
+                                     for t in args), kw)
         return self.kernel(*args, **kw)
 
     def __enter__(self):
@@ -692,12 +872,50 @@ def main_path(torch, kpart):
     return launches, rec.first, {r.name: r.first for r in firsts}
 
 
+def exchange_copies(torch):
+    """One per-chunk exchange call (``TorchPartitionBackend``, W1's chunk:
+    192 records, 48 workers, split keys) under the profiler, as
+    ``stream_ops`` gives it."""
+    import numpy as np
+    from repro_torch.core.partitioner import RoutingTable
+    from repro_torch.dataflow.exchange import TorchPartitionBackend
+
+    rt = RoutingTable(56, 48)
+    rt.split_key(0, [0, 1, 2], [0.5, 0.25, 0.25])
+    rt.split_key(5, [7, 9], [0.5, 0.5])
+    backend = TorchPartitionBackend("cuda")
+    keys = np.random.default_rng(3).integers(0, 56, 192)
+    for _ in range(3):
+        backend.partition_scatter(rt, keys)
+    return stream_ops(torch, backend.partition_scatter, (rt, keys))
+
+
 def replay_phase(torch, kpart, ref, first, path_calls) -> float:
     """K1 and K3 on the first call of each path that launched them (bit for
     bit) and K2 on the inputs the resident paths gave it (the first call at
     each shape of each path), against their plain versions, timed beside
-    the bound at those shapes.  Returns K2's max |fold_sums - float64
-    sum|."""
+    the bound at those shapes, the host's time to submit a call, the
+    stream operations of one call and the launch floor.  Returns K2's max
+    |fold_sums - float64 sum|."""
+    dev = torch.device("cuda", 0)
+    floor_ms = time_ms(torch, kpart.launch_floor, (dev,), 200)
+    floor_submit = submit_ms(torch, kpart.launch_floor, (dev,), 200)
+    floor_dev = device_ms(torch, kpart.launch_floor, (dev,), 50)
+    floor = (f"launch floor {floor_ms:.5f} ms, submitted in "
+             f"{floor_submit:.5f} ms, device {floor_dev}")
+    log(f"replay: {floor} (the partition library's empty kernel through "
+        f"its ctypes path; CUDA events and host clock over 200 calls, the "
+        f"profiler's device spans over 50)")
+    calls, spans = exchange_copies(torch)
+    copies = [c for c in calls if c.startswith("cudaMemcpy")]
+    check(len(copies) == 3 and sum("DtoH" in s for s in spans) <= 1,
+          f"a per-chunk exchange call made {len(copies)} copies (want "
+          f"three: keys and counters up, K1's packed output down): "
+          f"{calls}, device spans {spans}")
+    log(f"replay: one per-chunk exchange call (N=192 K=56 W=48): "
+        f"{len(calls)} stream operations, {len(copies)} copies (keys and "
+        f"counters up, K1's output down in one): {calls}, device spans "
+        f"{spans}")
     for name, per_record in (("partition_scatter", 16), ("partition", 12)):
         kernel, plain = getattr(kpart, name), getattr(ref, name)
         for (label,), (args, _) in path_calls[name].items():
@@ -708,11 +926,20 @@ def replay_phase(torch, kpart, ref, first, path_calls) -> float:
             check(err == 0, f"{what}: max |err| {err} against the plain "
                             f"version")
             ms = time_ms(torch, kernel, args, 200)
+            submit = submit_ms(torch, kernel, args, 200)
+            dev_time = device_ms(torch, kernel, args, 50)
+            calls, spans = stream_ops(torch, kernel, args)
             plain_ms = time_ms(torch, plain, args, 20)
             b_ms, b_by = bound_ms(n, num_keys, num_workers, per_record)
+            if name == "partition_scatter" and n <= kpart.TILE_RECORDS:
+                check(len(calls) == 1, f"{what}: {len(calls)} stream "
+                                       f"operations a call: {calls}")
             log(f"replay: {what}: {ms:.5f} ms a call (plain {plain_ms:.5f} "
                 f"ms, bound {b_ms:.6f} ms by {b_by}; CUDA events, 200 / 20 "
-                f"calls); bit-identical")
+                f"calls); the host submits a call in {submit:.5f} ms, the "
+                f"card runs it in {dev_time} (profiler, 50 calls); "
+                f"{len(calls)} stream operation(s) a call {calls}, device "
+                f"spans {spans}; {floor}; bit-identical")
     k2 = "partition_scatter_fold"
     err = 0.0
     for (label, n, num_keys, num_workers), (args, _) in first.items():
@@ -721,15 +948,30 @@ def replay_phase(torch, kpart, ref, first, path_calls) -> float:
                                   kpart.partition_scatter_fold(*args),
                                   ref.partition_scatter_fold(*args), args))
         small = n <= 1 << 16
-        ms = time_ms(torch, kpart.partition_scatter_fold, args,
-                     200 if small else 20)
+        reps = 200 if small else 20
+        ms = time_ms(torch, kpart.partition_scatter_fold, args, reps)
+        submit = submit_ms(torch, kpart.partition_scatter_fold, args, reps)
+        dev_time = device_ms(torch, kpart.partition_scatter_fold, args,
+                           50 if small else 5)
+        calls, spans = stream_ops(torch, kpart.partition_scatter_fold, args)
+        if n <= kpart.TILE_RECORDS:
+            check(len(calls) == 1, f"{k2} on {what}: {len(calls)} stream "
+                                   f"operations a call: {calls}")
         plain_ms = time_ms(torch, ref.partition_scatter_fold, args,
                            50 if small else 5)
-        b_ms, b_by = bound_ms(n, num_keys, num_workers, 21, 8)
-        log(f"replay: {k2} on {what} ({int(args[3].sum())} live lanes): "
-            f"{ms:.5f} ms a call (plain {plain_ms:.5f} ms, bound "
-            f"{b_ms:.6f} ms by {b_by}; CUDA events, {200 if small else 20}"
-            f" / {50 if small else 5} calls); integers bit-identical")
+        b_ms, b_by = bound_ms(n, num_keys, num_workers,
+                              k2_record_bytes(args), 8)
+        columns = ", ".join(f"{c} {'none' if t is None else t.dtype}"
+                            for c, t in zip(("keys", "counters", "vals"),
+                                            args[:3]))
+        log(f"replay: {k2} on {what} ({int(args[3].sum())} live lanes; "
+            f"{columns}): {ms:.5f} ms a call (plain {plain_ms:.5f} ms, "
+            f"bound {b_ms:.6f} ms by {b_by}; CUDA events, {reps} / "
+            f"{50 if small else 5} calls); the host submits a call in "
+            f"{submit:.5f} ms, the card runs it in {dev_time} (profiler); "
+            f"{len(calls)} stream operation(s) a call "
+            f"on the resident plane's own columns {calls}, device "
+            f"spans {spans}; {floor}; integers bit-identical")
     return err
 
 

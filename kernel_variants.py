@@ -3,6 +3,8 @@
 
     python3 kernel_variants.py k4    # K4's ring depths
     python3 kernel_variants.py k5    # K5's wgmma kernel: exp, stages, registers
+    python3 kernel_variants.py k1k2  # K1/K2: route by search or count,
+                                     # one tile or the multi-tile pass
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -14,8 +16,15 @@ reverse order).  K4 at OLMoE-1B-7B's expert products: the serve's longest
 prefill (C = 1780) and a decode batch (C = 4), dense and with serve-like
 ``rows``.  K5 at the serve's prefill shapes (B 4, H 16, hd 128, bf16,
 causal; S = 202, 445) and OLMoE's 4096-token context, from the model's
-``[B, S, H, hd]`` layout.  Prints one line a timing.  Not part of the
-smoke: it chose the constants in the sources.
+``[B, S, H, hd]`` layout.  K1 and K2 at the smoke's real shape (N = 2^24,
+1% of keys split, K2 with 10% dead lanes) at W = 20, 48, 64 and 1024 (K =
+65,536; 4,096 at W = 1024), where each variant's integers must equal the
+source as it is and K2's sums pass ``check_fold``; and at the main paths'
+own sizes (K1 at W1's chunk, N = 192, K = 56, W = 48; K2 at a resident
+ingest, N = 256, K = 40, W = 20), where the calls are host-paced, so the
+kernels' device time under the profiler is printed beside the CUDA-event
+time.  Prints one line a timing.  Not part of the smoke: it chose the
+constants in the sources.
 """
 from __future__ import annotations
 
@@ -184,11 +193,114 @@ def k5(torch, cs, _build) -> None:
                       f"{ms:.5f} ms (max |err| {err:.3g})", flush=True)
 
 
+#: Edits of K1 and K2's source (csrc/partition.cu) that make each variant.
+K1K2_VARIANTS = {
+    "as is (route by search, one tile up to 4096 records)": {},
+    # The count of all W compares that the search replaced, with 16-byte
+    # loads where the row allows them.
+    "route by count": {
+        "  // Binary lifting: d is the longest prefix known to satisfy cdf <= u.\n"
+        "  for (int step = top; step > 0; step >>= 1) {\n"
+        "    const int probe = d + step;\n"
+        "    if (probe <= num_workers && __ldg(row + probe - 1) <= u) d = probe;\n"
+        "  }\n":
+        "  if (num_workers % 4 == 0 && reinterpret_cast<uintptr_t>(row) % 16 == 0) {\n"
+        "    const float4* row4 = reinterpret_cast<const float4*>(row);\n"
+        "    for (int w = 0; w < num_workers / 4; ++w) {\n"
+        "      const float4 c = __ldg(row4 + w);\n"
+        "      d += (u >= c.x) + (u >= c.y) + (u >= c.z) + (u >= c.w);\n"
+        "    }\n"
+        "  } else {\n"
+        "    for (int w = 0; w < num_workers; ++w) d += (u >= __ldg(row + w));\n"
+        "  }\n"},
+    "multi-tile pass always": {"kOneTileRecords = kTile;":
+                               "kOneTileRecords = 0;"},
+}
+
+
+def k1k2(torch, cs, _build) -> None:
+    from repro_torch.kernels import partition as kpart
+    libs = build(_build, "partition", K1K2_VARIANTS)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.repro_partition_scatter.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.repro_partition_scatter.restype = i32
+        lib.repro_partition_scatter_fold.argtypes = (
+            [ptr, i32] * 3 + [ptr] * 4 + [i32] * 4 + [ptr])
+        lib.repro_partition_scatter_fold.restype = i32
+        lib.repro_partition_one_tile_records.restype = i32
+
+    def k1(lib, keys, counters, cdf):
+        n = keys.numel()
+        K, W = cdf.shape
+        index, stream = _build.device_and_stream(keys.device)
+        buf = torch.empty(2 * n + W, dtype=torch.int32, device="cuda")
+        code = lib.repro_partition_scatter(
+            keys.data_ptr(), counters.data_ptr(), cdf.data_ptr(),
+            buf.data_ptr(), kpart.workspace(
+                n, W, index, stream, lib.repro_partition_one_tile_records()),
+            n, K, W, index, stream)
+        cs.check(code == 0, f"launch failed: CUDA error {code}")
+        return buf.split((n, n, W))
+
+    def k2(lib, keys, counters, vals, valid, cdf):
+        n = keys.numel()
+        K, W = cdf.shape
+        index, stream = _build.device_and_stream(keys.device)
+        buf = torch.empty(2 * n + W + 2 * K, dtype=torch.int32,
+                          device="cuda")
+        code = lib.repro_partition_scatter_fold(
+            keys.data_ptr(), 4, counters.data_ptr(), 4, vals.data_ptr(), 4,
+            valid.data_ptr(), cdf.data_ptr(), buf.data_ptr(),
+            kpart.workspace(n, W, index, stream,
+                            lib.repro_partition_one_tile_records()),
+            n, K, W, index, stream)
+        cs.check(code == 0, f"launch failed: CUDA error {code}")
+        *ints, sums = buf.split((n, n, W, K, K))
+        return (*ints, sums.view(torch.float32))
+
+    real = [(cs.REAL_N, 4096 if W == 1024 else cs.REAL_K, W, 50)
+            for W in (20, 48, 64, 1024)]
+    # K2 also at W3's sink call: 2^21 lanes, 40 keys, one worker.
+    for kernel, cases in (("K1", real + [(192, 56, 48, 500)]),
+                          ("K2", real + [(2**21, 40, 1, 50),
+                                         (256, 40, 20, 500)])):
+        for n, K, W, reps in cases:
+            if kernel == "K1":
+                fn = k1
+                args = cs.make_inputs(torch, 99, n, K, W, 0.01)
+            else:
+                fn = k2
+                args = cs.fold_inputs(torch, 98, n, K, W, "real", 0.01)
+            want = fn(libs[next(iter(libs))], *args)
+            for turn, names in enumerate((list(libs), list(libs)[::-1])):
+                for name in names:
+                    lib = libs[name]
+                    got = fn(lib, *args)
+                    if kernel == "K1":
+                        err = cs.max_abs_err(got, want)
+                        cs.check(err == 0, f"{name}: K1 differs from the "
+                                           f"source as it is: {err}")
+                    else:
+                        cs.check_fold(torch, name, got, want, args)
+                    ms = cs.time_ms(torch, lambda *a: fn(lib, *a), args,
+                                    reps)
+                    dev_time = cs.device_ms(torch, lambda *a: fn(lib, *a),
+                                          args, min(reps, 50))
+                    print(f"{name}: {kernel} N={n} K={K} W={W} turn {turn}:"
+                          f" {ms:.5f} ms a call (CUDA events, {reps} calls);"
+                          f" device {dev_time} a call (profiler)",
+                          flush=True)
+            del args, want
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in (["k4"], ["k5"]):
-        print("usage: python3 kernel_variants.py k4|k5", file=sys.stderr)
+    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"]):
+        print("usage: python3 kernel_variants.py k4|k5|k1k2",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -203,7 +315,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    {"k4": k4, "k5": k5}[sys.argv[1]](torch, cs, _build)
+    {"k4": k4, "k5": k5, "k1k2": k1k2}[sys.argv[1]](torch, cs, _build)
     return 0
 
 

@@ -184,13 +184,6 @@ def _iota(n: int, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> int32 by two's-complement wrap (``np.astype(np.int32)``):
-    the narrowing cast truncates to the low 32 bits on the CPU and on CUDA
-    (PTX ``cvt.s32.s64``)."""
-    return x.to(torch.int32)
-
-
 def _split_counters(spec: StepSpec, consts: Consts, count: torch.Tensor,
                     keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Device twin of ``RoutingTable.advance_counters``: per-record running
@@ -214,15 +207,6 @@ def _split_counters(spec: StepSpec, consts: Consts, count: torch.Tensor,
     return counters
 
 
-def _kernel_pass(keys: torch.Tensor, counters: torch.Tensor,
-                 vals: torch.Tensor, valid: torch.Tensor,
-                 cdf: torch.Tensor):
-    """K2 on one staged chunk (int64 / float64 columns cast for the
-    kernel)."""
-    return kpart.partition_scatter_fold(keys.to(torch.int32), counters,
-                                        vals.to(torch.float32), valid, cdf)
-
-
 def _fold_stats(state: State, counts: torch.Tensor) -> None:
     """Per-key arrival stats fold (armed when a controller monitors the
     operator): ``counts`` is K2's per-key live-lane count."""
@@ -233,16 +217,15 @@ def _fold_stats(state: State, counts: torch.Tensor) -> None:
 def _ingest(spec: StepSpec, consts: Consts, state: State,
             chunk: DeviceChunk) -> torch.Tensor:
     """Route + ring-scatter one staged chunk through K2; returns K2's int32
-    histogram."""
+    histogram.  K2 takes the chunk's int64 keys and counters (None when no
+    key is split: all zero) and float64 vals as they are and narrows them
+    as ``.to(torch.int32)`` / ``.to(torch.float32)`` would, so the call is
+    one launch with no cast or fill before it."""
     keys, vals, valid = chunk.keys, chunk.vals, chunk.valid
-    if spec.any_split:
-        counters = _wrap_i32(_split_counters(spec, consts, state["count"],
-                                             keys, valid))
-    else:
-        counters = torch.zeros(keys.shape, dtype=torch.int32,
-                               device=keys.device)
-    dest, rank, hist, fcnt, _ = _kernel_pass(keys, counters, vals, valid,
-                                             consts["cdf"])
+    counters = (_split_counters(spec, consts, state["count"], keys, valid)
+                if spec.any_split else None)
+    dest, rank, hist, fcnt, _ = kpart.partition_scatter_fold(
+        keys, counters, vals, valid, consts["cdf"])
     _push(spec, state, keys, vals, valid, dest, rank, hist)
     if spec.track_stats:
         _fold_stats(state, fcnt)
@@ -367,10 +350,8 @@ def _sink_step(spec: StepSpec, ones_cdf: torch.Tensor, state: State,
     """Fold one staged chunk into the sink columns through K2 (W == 1: the
     ones CDF routes every lane to worker 0; the kernel's per-key counts and
     float32 sums are the fold)."""
-    zeros = torch.zeros(chunk.keys.shape, dtype=torch.int32,
-                        device=chunk.keys.device)
-    _, _, _, fcnt, fsum = _kernel_pass(chunk.keys, zeros, chunk.vals,
-                                       chunk.valid, ones_cdf)
+    _, _, _, fcnt, fsum = kpart.partition_scatter_fold(
+        chunk.keys, None, chunk.vals, chunk.valid, ones_cdf)
     if spec.track_stats:
         _fold_stats(state, fcnt)
     state["counts"] += fcnt

@@ -37,7 +37,8 @@ Backends
             backend's device (plain PyTorch versions on ``device="cpu"``).
             The host keeps the per-key counters; each chunk's keys and
             counters are uploaded, the kernel emits destination,
-            within-destination rank and histogram, and the host places
+            within-destination rank and histogram into one buffer, which
+            comes back in one copy, and the host places
             record *i* at ``bounds[dest[i]] + rank[i]`` — no sort.
 ``numpy``   the host plane: ``RoutingTable.advance_counters`` + the
             canonical fixed-point inverse-CDF rule, pure numpy.  Its
@@ -254,14 +255,16 @@ class TorchPartitionBackend(PartitionBackend):
                 hist.cpu().numpy().astype(np.int64))
 
     def partition_scatter(self, routing, keys):
-        dest, rank, hist = self._device_call(routing, keys,
-                                             kpart.partition_scatter)
-        dest = dest.cpu().numpy().astype(np.int64)
-        hist = hist.cpu().numpy().astype(np.int64)
+        # K1's three outputs lie in one buffer: one copy to the host.
+        out = self._device_call(
+            routing, keys, lambda k, c, cdf: kpart.partition_scatter(
+                k, c, cdf, packed=True)).cpu().numpy().astype(np.int64)
+        n = len(keys)
+        dest, hist = out[:n], out[2 * n:]
         bounds = _bounds_of(hist)
         # Fused placement: each record's slot is its destination's base
         # offset plus its within-destination arrival rank (kernel output).
-        pos = bounds[dest] + rank.cpu().numpy().astype(np.int64)
+        pos = bounds[dest] + out[n:2 * n]
         return ScatterPlan(dest, hist, bounds, pos=pos)
 
 

@@ -105,11 +105,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def device_and_stream(dev: torch.device) -> Tuple[int, ctypes.c_void_p]:
+def device_and_stream(dev: torch.device) -> Tuple[int, int]:
     """The last two arguments of every entry point: the card's index and
-    PyTorch's current stream on it."""
+    the address of PyTorch's current stream on it (read without making a
+    ``torch.cuda.Stream`` object each call)."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, ctypes.c_void_p(torch.cuda.current_stream(index).cuda_stream)
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:

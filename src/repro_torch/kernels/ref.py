@@ -45,7 +45,8 @@ def partition_scatter(keys: torch.Tensor, counters: torch.Tensor,
     return dest, within_dest_ranks(dest, cdf.shape[1]), hist
 
 
-def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
+def partition_scatter_fold(keys: torch.Tensor,
+                           counters: Optional[torch.Tensor],
                            vals: torch.Tensor, valid: torch.Tensor,
                            cdf: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -54,11 +55,17 @@ def partition_scatter_fold(keys: torch.Tensor, counters: torch.Tensor,
     (dest [N], rank [N], hist [W], fold_counts [K] int32, fold_sums [K]
     float32).
 
+    Wide columns are cast first: int64 keys and counters wrap to int32,
+    float64 vals round to float32, and ``counters=None`` is all zero.
     ``dest`` by :func:`partition` for every lane; ``rank`` and ``hist``
     count live lanes only (dead lanes get rank 0); the folds count and sum
     (in float32, with ``index_add_``) the live lanes whose key lies in
     ``[0, K)``.
     """
+    keys = keys.to(torch.int32)
+    counters = (torch.zeros_like(keys) if counters is None
+                else counters.to(torch.int32))
+    vals = vals.to(torch.float32)
     num_keys, num_workers = cdf.shape
     dest, _ = partition(keys, counters, cdf)
     live = valid.to(torch.bool)

@@ -24,6 +24,7 @@ import repro.dataflow.operators as jops
 from repro.core import ReshapeConfig as JaxConfig
 from repro_torch import dataflow as tdf
 from repro_torch.core import ReshapeConfig
+from repro_torch.core.ops import saturated_cdf32
 from repro_torch.dataflow import device as tdev
 from repro_torch.dataflow import engine as teng
 from repro_torch.dataflow import operators as tops
@@ -328,10 +329,23 @@ def test_split_tables_through_the_kernel_ingest(build):
 
 
 def test_int32_cast_wraps_like_numpy():
+    """The resident plane hands K2 its int64 keys and split counters as they
+    are; K2 narrows them by two's-complement wrap, as ``np.astype(np.int32)``
+    does (the plain version with ``.to(torch.int32)``, the kernel in
+    registers)."""
     x = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 5, 2**32 + 7, 3 * 2**32 - 1,
                   -1, -(2**31), -(2**31) - 1], dtype=np.int64)
-    np.testing.assert_array_equal(tdev._wrap_i32(torch.from_numpy(x)).numpy(),
-                                  x.astype(np.int32))
+    w = np.random.default_rng(0).dirichlet(np.ones(6), 8)
+    cdf = saturated_cdf32(torch.from_numpy(w))
+    vals = torch.arange(x.size, dtype=torch.float64)
+    valid = torch.ones(x.size, dtype=torch.bool)
+    x32 = torch.from_numpy(x.astype(np.int32))
+    wide = kpart.partition_scatter_fold(torch.from_numpy(x),
+                                        torch.from_numpy(x), vals, valid, cdf)
+    narrow = kpart.partition_scatter_fold(x32, x32, vals.float(), valid, cdf)
+    assert int(wide[3].sum()) == 3        # 0, 1 and 2^32 + 7 -> 7 in [0, 8)
+    for a, b in zip(wide, narrow):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------- #

@@ -71,6 +71,21 @@ def test_destinations_histogram_and_placement_match_numpy(n):
     np.testing.assert_array_equal(rt_np._count, rt_t._count)
 
 
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097])
+def test_scatter_plan_on_both_sides_of_one_tile(n):
+    """K1 runs on one block up to 4096 records and in one multi-tile pass
+    above; the exchange reads its packed output back in one copy and
+    splits it on the host.  The plan equals the numpy backend's on both
+    sides of the tile, over a wide table with split keys."""
+    rt_np, rt_t = _tables(num_keys=300, num_workers=48)
+    be_np, be_t = NumpyPartitionBackend(), TorchPartitionBackend("cpu")
+    keys = np.random.default_rng(n).integers(0, 300, n).astype(np.int64)
+    for _ in range(2):          # the second chunk continues the counters
+        _assert_plans_equal(be_np.partition_scatter(rt_np, keys),
+                            be_t.partition_scatter(rt_t, keys), keys)
+    np.testing.assert_array_equal(rt_np._count, rt_t._count)
+
+
 def test_agreement_across_midstream_rewrites():
     rng = np.random.default_rng(8)
     rt_np, rt_t = _tables()

@@ -23,6 +23,7 @@ from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import ref as tref
 
 jpart = importlib.import_module("repro.kernels.partition")
+jops = importlib.import_module("repro.kernels.ops")
 
 MASKS = ("live", "suffix", "holes")
 
@@ -140,23 +141,79 @@ def test_uint8_mask_equals_bool_mask():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("bad", ["float64 vals", "int32 mask", "short vals",
-                                 "strided mask", "int64 keys"])
+@pytest.mark.parametrize("bad", ["float16 vals", "int32 mask", "short vals",
+                                 "strided mask", "int16 keys",
+                                 "short int64 counters"])
 def test_wrapper_rejects_bad_inputs(bad):
     tk, tc, tv, tm, cdf = _torch(*_inputs(3, 16, 4, 3, "live"))
     err = ValueError
-    if bad == "float64 vals":
-        tv, err = tv.double(), TypeError
+    if bad == "float16 vals":
+        tv, err = tv.half(), TypeError
     elif bad == "int32 mask":
         tm, err = tm.to(torch.int32), TypeError
     elif bad == "short vals":
         tv = tv[:-1].clone()
     elif bad == "strided mask":
         tm = torch.stack([tm, tm], dim=1)[:, 0]
-    elif bad == "int64 keys":
-        tk, err = tk.long(), TypeError
+    elif bad == "int16 keys":
+        tk, err = tk.to(torch.int16), TypeError
+    elif bad == "short int64 counters":
+        tc = tc[:-1].long()
     with pytest.raises(err):
         kpart.partition_scatter_fold(tk, tc, tv, tm, cdf)
+
+
+def _wide(seed, n, num_keys):
+    """int64 keys, many far outside int32's range (some wrap into [0, K),
+    some to negative or past K), int64 counters likewise, and float64 vals
+    that round to float32: most between two float32 values, some exactly
+    halfway (ties go to even), some below float32's normal range."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.integers(0, num_keys + 3, n)
+            + rng.integers(-3, 4, n) * 2**32).astype(np.int64)
+    keys[::7] = rng.integers(-2**62, 2**62, keys[::7].size)
+    counters = rng.integers(-2**40, 2**40, n).astype(np.int64)
+    base = rng.uniform(-8.0, 8.0, n).astype(np.float32).astype(np.float64)
+    ulp = np.spacing(np.abs(base).astype(np.float32)).astype(np.float64)
+    vals = base + ulp * rng.uniform(-0.5, 0.5, n)
+    vals[::5] = base[::5] + ulp[::5] / 2                 # a tie
+    vals[::11] = rng.uniform(-1.0, 1.0, vals[::11].size) * 2.0**-140
+    return keys, counters, vals
+
+
+@pytest.mark.parametrize("form", ["int64 keys", "int64 counters",
+                                  "no counters", "float64 vals", "all wide"])
+@pytest.mark.parametrize("n", [1, 700, 4097])
+def test_wide_inputs_equal_cast_inputs(n, form):
+    """K2 takes the resident plane's columns as they are: int64 keys and
+    counters, None for zero counters, float64 vals.  Its plain version
+    gives, bit for bit, what it gives on the columns cast first
+    (``.to(torch.int32)`` wraps as numpy's astype does;
+    ``.to(torch.float32)`` rounds to nearest even), and the Pallas kernel
+    in interpret mode agrees on the cast columns."""
+    num_keys, num_workers = 40, 20
+    keys64, ctr64, vals64 = _wide(n + len(form), n, num_keys)
+    _, _, _, valid, w = _inputs(n, n, num_keys, num_workers, "holes")
+    cdf = saturated_cdf32(torch.from_numpy(w))
+    k32, c32, v32 = (keys64.astype(np.int32), ctr64.astype(np.int32),
+                     vals64.astype(np.float32))
+    keys = keys64 if form in ("int64 keys", "all wide") else k32
+    counters = {"int64 counters": ctr64, "no counters": None,
+                "all wide": None}.get(form, c32)
+    vals = vals64 if form in ("float64 vals", "all wide") else v32
+    cast = (k32, np.zeros(n, np.int32) if counters is None else c32, v32)
+    tvalid = torch.from_numpy(valid)
+    got = kpart.partition_scatter_fold(
+        torch.from_numpy(keys),
+        None if counters is None else torch.from_numpy(counters),
+        torch.from_numpy(vals), tvalid, cdf)
+    want = kpart.partition_scatter_fold(*map(torch.from_numpy, cast), tvalid,
+                                        cdf)
+    for g, p in zip(got, want):
+        assert g.dtype == p.dtype and torch.equal(g, p)
+    _assert_same([x.numpy() for x in got], jops.partition_scatter_fold(
+        *map(jnp.asarray, cast), jnp.asarray(w, jnp.float32),
+        valid=jnp.asarray(valid, jnp.int32), cdf=jnp.asarray(cdf.numpy())))
 
 
 def test_cpu_tensors_never_count_launches():
@@ -193,4 +250,46 @@ def test_cuda_fold_kernel_matches_plain_version():
             sumabs = torch.zeros_like(exact).index_add_(0, slot, v64.abs())
             tol = got[3].double() * 2.0**-23 * sumabs
             assert bool(((got[4].double() - exact).abs() <= tol).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_one_and_multi_tile_fold_kernels():
+    """K2's one-block kernel (N <= 4096) and its one-pass multi-tile kernel
+    on both sides of the tile, at the main paths' worker counts and the
+    widest table, every mask kind, and with the resident plane's wide
+    columns (int64 keys and counters, None, float64 vals): integer outputs
+    bit for bit against the plain version, sums within c * 2^-23 * sum|v|
+    of a float64 sum of the float32 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    seed = 0
+    for n in (1, 4095, 4096, 4097):
+        for num_workers in (1, 20, 48, 64, kpart.MAX_WORKERS):
+            for mask in MASKS + ("wide",):
+                seed += 1
+                args = _inputs(seed, n, 300, num_workers,
+                               "holes" if mask == "wide" else mask)
+                tens = [x.cuda() for x in _torch(*args)]
+                if mask == "wide":
+                    keys64, _, vals64 = _wide(seed, n, 300)
+                    tens[0] = torch.from_numpy(keys64).cuda()
+                    tens[1] = None
+                    tens[2] = torch.from_numpy(vals64).cuda()
+                launches = kpart.partition_scatter_fold.launches
+                got = kpart.partition_scatter_fold(*tens)
+                assert kpart.partition_scatter_fold.launches == launches + 1
+                want = tref.partition_scatter_fold(*tens)
+                for g, p in zip(got[:4], want[:4]):
+                    assert torch.equal(g, p), (n, num_workers, mask)
+                keys = tens[0].to(torch.int32).long()
+                live = tens[3] & (keys >= 0) & (keys < 300)
+                slot = torch.where(live, keys, 0)
+                v64 = torch.where(live, tens[2].float().double(), 0.0)
+                exact = torch.zeros(300, dtype=torch.float64,
+                                    device="cuda").index_add_(0, slot, v64)
+                sumabs = torch.zeros_like(exact).index_add_(0, slot,
+                                                            v64.abs())
+                tol = got[3].double() * 2.0**-23 * sumabs
+                assert bool(((got[4].double() - exact).abs() <= tol).all())
     torch.cuda.synchronize()

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.core.ops import saturated_cdf32
+from repro_torch.core.ops import ld_thresholds, saturated_cdf32
+from repro_torch.core.partitioner import routing_cdf32
 from repro_torch.kernels import partition as kpart
 from repro_torch.kernels import ref as tref
 
@@ -37,6 +38,103 @@ def _inputs(seed, n, num_keys, num_workers, split_frac=0.5):
 def _torch(keys, counters, w):
     cdf = saturated_cdf32(torch.from_numpy(w))
     return torch.from_numpy(keys), torch.from_numpy(counters), cdf
+
+
+#: Float64 weights whose float32 row-CDF rounds above 1 before the last
+#: positive column: [.., 0.9544028, 1.0000001, 1.0].
+ROUNDS_ABOVE_ONE = [2.9226431534880243e-01, 9.3378590947111456e-03,
+                    1.3774107888430048e-01, 1.0934441588710811e-01,
+                    4.0571506790850898e-01, 4.5597261426568905e-02,
+                    1.45e-09]
+
+
+def _adversarial_weights(seed, num_workers):
+    """Non-negative weight rows of every kind a routing table can hold: a
+    row whose float32 CDF rounds above 1 before its last positive column
+    (alone, with zero columns between its weights, and after them), a
+    tiny last weight, zero columns between and after live ones, all-zero
+    rows, one live column (first, middle, last) and dense rows."""
+    rng = np.random.default_rng(seed)
+    W = num_workers
+    rows = [np.zeros(W)]
+    for col in sorted({0, W // 2, W - 1}):
+        rows.append(np.eye(W)[col])
+    if W >= 7:
+        for spread in (1, 2, W // 7):
+            row = np.zeros(W)
+            row[np.arange(7) * spread] = ROUNDS_ABOVE_ONE
+            rows.append(row)
+    for _ in range(4):
+        row = np.zeros(W)
+        live = rng.choice(W, size=min(W, 3), replace=False)
+        row[live] = rng.dirichlet(np.ones(live.size))
+        rows.append(row)
+        rows.append(rng.dirichlet(np.ones(W)))
+        tiny = rng.dirichlet(np.ones(W)) * (1 - 1e-9)
+        tiny[-1] = 1e-9
+        rows.append(tiny)
+    return np.array(rows)
+
+
+def _counters_for(u_ints):
+    """int32 counters whose Weyl threshold is exactly ``u_ints * 2^-24``
+    (the threshold's bits are ``(c + 1) * GOLDEN mod 2^32``; GOLDEN is odd,
+    so invertible mod 2^32)."""
+    inv = pow(2654435769, -1, 2**32)
+    bits = np.asarray(u_ints, dtype=object) * 256
+    return np.array([(int(b) * inv - 1) % 2**32 for b in bits],
+                    dtype=np.uint32).view(np.int32)
+
+
+def _search(rows, u):
+    """dest by binary lifting over each row: the longest prefix whose
+    entries are all <= u, clipped to the last worker."""
+    W = rows.shape[1]
+    d = np.zeros(len(u), dtype=np.int64)
+    step = 1 << (W.bit_length() - 1)
+    while step:
+        probe = d + step
+        ok = probe <= W
+        ok[ok] = rows[np.flatnonzero(ok), probe[ok] - 1] <= u[ok]
+        d[ok] = probe[ok]
+        step >>= 1
+    return np.minimum(d, W - 1)
+
+
+@pytest.mark.parametrize("table", ["routing_cdf32", "saturated_cdf32"])
+@pytest.mark.parametrize("num_workers", [1, 2, 63, 64, 1024])
+def test_cdf_rows_hold_the_search_prefix_property(table, num_workers):
+    """The kernels route by binary search (``csrc/partition.cu``).  For a
+    table of non-negative weights, saturated from each row's last positive
+    column, and a threshold u < 1, ``cdf[w] <= u`` holds on a prefix of
+    every row, even where the row decreases; so a search equals the plain
+    count, at u = 0, u = 1 - 2^-24 and on both sides of every entry."""
+    w = _adversarial_weights(num_workers, num_workers)
+    if table == "routing_cdf32":
+        cdf = routing_cdf32(w)
+    else:
+        cdf = saturated_cdf32(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(cdf, routing_cdf32(w))
+    if num_workers >= 7:
+        assert (np.diff(cdf, axis=1) < 0).any()      # not monotone
+    cols = np.arange(num_workers)
+    for r, row in enumerate(cdf):
+        near = np.floor(row.astype(np.float64) * 2**24)[None, :] + [[-1], [0],
+                                                                    [1]]
+        u_ints = np.unique(np.clip(np.r_[near.ravel(), 0, 2**24 - 1], 0,
+                                   2**24 - 1)).astype(np.int64)
+        u = (u_ints * 2.0**-24).astype(np.float32)
+        holds = row[None, :] <= u[:, None]
+        count = holds.sum(axis=1)
+        np.testing.assert_array_equal(holds, cols[None, :] < count[:, None])
+        searched = _search(np.repeat(row[None, :], u.size, 0), u)
+        np.testing.assert_array_equal(searched,
+                                      np.minimum(count, num_workers - 1))
+        keys = torch.full((u.size,), r, dtype=torch.int32)
+        counters = torch.from_numpy(_counters_for(u_ints))
+        np.testing.assert_array_equal(ld_thresholds(counters).numpy(), u)
+        dest, _ = kpart.partition(keys, counters, torch.from_numpy(cdf))
+        np.testing.assert_array_equal(dest.numpy(), searched)
 
 
 def _stable_positions(dest):
@@ -182,4 +280,33 @@ def test_cuda_kernels_match_plain_versions():
         want = tref.partition(tk, tc, cdf)
         for g, p in zip(got, want):
             assert torch.equal(g, p), (n, num_keys, num_workers)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_one_and_multi_tile_kernels():
+    """K1's one-block kernel (N <= 4096) and its one-pass multi-tile kernel
+    on both sides of the tile, and K3, at the main paths' worker counts and
+    the widest table, on the adversarial tables: bit for bit against the
+    plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n in (1, 4095, 4096, 4097):
+        for num_workers in (1, 20, 48, 64, kpart.MAX_WORKERS):
+            cdf = saturated_cdf32(torch.from_numpy(
+                _adversarial_weights(n, num_workers))).cuda()
+            rng = np.random.default_rng(n + num_workers)
+            keys = torch.from_numpy(rng.integers(
+                0, cdf.shape[0], n).astype(np.int32)).cuda()
+            counters = torch.from_numpy(_counters_for(
+                rng.integers(0, 2**24, n))).cuda()
+            launches = kpart.partition_scatter.launches
+            got = kpart.partition_scatter(keys, counters, cdf)
+            assert kpart.partition_scatter.launches == launches + 1
+            want = tref.partition_scatter(keys, counters, cdf)
+            for g, p in zip(got, want):
+                assert torch.equal(g, p), (n, num_workers)
+            for g, p in zip(kpart.partition(keys, counters, cdf),
+                            tref.partition(keys, counters, cdf)):
+                assert torch.equal(g, p), (n, num_workers)
     torch.cuda.synchronize()
