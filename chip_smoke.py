@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero before the last line:
            on the resident plane's wide columns (int64 keys and counters,
            no counters, float64 vals); CUDA-event times of kernel and plain
            version, the bound from the card's memory rate, and the stream
-           operations of one multi-tile call under the profiler;
+           operations of one multi-tile call under the profiler (K1 and K3
+           must make one);
 4. main    the paper's workflows with the Reshape controller on
            ``device="cuda"``, path by path, each driven with the kernels'
            launch counts set to 0 just before it and read just after it:
@@ -49,7 +50,8 @@ Phases, in order; any failure exits non-zero before the last line:
            whole sorted output, W1's filter ingest and sink calls), checked
            as in phase 3; each timed beside its bound at that shape, the
            host's time to submit a call, the card's own time and the
-           stream operations one call makes (under the profiler) and the
+           stream operations one call makes (under the profiler; K1 and K3
+           must make one, K2 one on one tile) and the
            launch floor (the library's empty kernel through the same
            ctypes path, timed the same way); and one per-chunk exchange
            call under the profiler, whose copies are counted;
@@ -64,10 +66,11 @@ Phases, in order; any failure exits non-zero before the last line:
            against their plain versions within bounds
            stated in ``check_segment_matmul`` and ``check_flash``; and K6
            ``rwkv_scan`` (hd in {16, 32, 64}, T in {1, 63, 445, 4096}, with
-           and without state0; views in the model's layout and odd hd at
-           one length)
+           and without state0, float32 and the model's bf16 r, k, v; views
+           in the model's layout and odd hd at one length, all bf16 too)
            within the bound stated in ``check_rwkv``, timed at the serve's
-           shape;
+           shape with the host's submit time, the card's own time, the
+           stream operations of a call (one) and the launch floor;
 7. serve   OLMoE-1B-7B at full width (16 layers, ~6.9e9 float32 weights
            from seed 0, bf16 compute) behind ``ServeEngine`` on the card:
            batch 4, 8 requests with prompts of 64-512 tokens, 16 new tokens
@@ -97,7 +100,9 @@ Phases, in order; any failure exits non-zero before the last line:
            just after: K6 must launch once a layer a model call, every token
            lie in the vocabulary and every logit be finite; K6 replayed
            against its plain version on the serve's own prefill and decode
-           inputs, timed beside the plain version and the bound; then the slice
+           inputs (bf16 r, k, v, float32 w), timed beside the plain version
+           and the bound, with the host's and the card's side of a call as
+           in phase 6; then the slice
            check at 2 layers, card (K6) against host (its plain version),
            every position of a 2 x 64 prompt and 4 teacher-forced decode
            steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
@@ -510,6 +515,8 @@ def kernel_phase(torch, kpart, ref):
         ms = time_ms(torch, kernel, args, 50)
         plain_ms = time_ms(torch, plain, args, 20)
         calls, spans = stream_ops(torch, kernel, args)
+        check(len(calls) == 1, f"{name} at the real shape: {len(calls)} "
+                               f"stream operations a call: {calls}")
         b_ms, b_by = bound_ms(REAL_N, REAL_K, REAL_W, per_record)
         log(f"kernels: {name} N={REAL_N} K={REAL_K} W={REAL_W}: {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
@@ -931,9 +938,8 @@ def replay_phase(torch, kpart, ref, first, path_calls) -> float:
             calls, spans = stream_ops(torch, kernel, args)
             plain_ms = time_ms(torch, plain, args, 20)
             b_ms, b_by = bound_ms(n, num_keys, num_workers, per_record)
-            if name == "partition_scatter" and n <= kpart.TILE_RECORDS:
-                check(len(calls) == 1, f"{what}: {len(calls)} stream "
-                                       f"operations a call: {calls}")
+            check(len(calls) == 1, f"{what}: {len(calls)} stream "
+                                   f"operations a call: {calls}")
             log(f"replay: {what}: {ms:.5f} ms a call (plain {plain_ms:.5f} "
                 f"ms, bound {b_ms:.6f} ms by {b_by}; CUDA events, 200 / 20 "
                 f"calls); the host submits a call in {submit:.5f} ms, the "
@@ -1304,18 +1310,34 @@ def rwkv_envelope(torch, args):
 def check_rwkv(torch, what: str, got, args):
     """K6 against its plain version on ``args`` (r, k, v, w, u, state0).
 
-    Both are float32 arithmetic on the same values in other orders (the
-    kernel fuses multiply-adds and adds out_t's hd terms in sixteen partial
-    sums).  To first order, with eps = 2^-24: a step of the state rounds at
-    most three times on values bounded by A_t (``rwkv_envelope``: the
-    recurrence on |r|, |k|, |v|, |w|, |u|, |state0|), and the errors of the
-    steps before decay with |w|, so either version's state is within
-    3 eps D_t of the exact one, D_t the decayed sum of the A_s; out_t reads
-    the state before step t (error 3 eps P_t, P_t = |r_t| D_{t-1}) and adds
-    hd products to it, within (hd + 3) eps O_t.  So the two versions' final
-    states lie within 2 eps (3 D_T + A_T) of each other and their outputs
-    within 2 eps (3 P_t + (hd + 3) O_t).  Returns (the largest
-    |kernel - plain| over out and state, the largest allowed |out|
+    Both are float32 arithmetic on the same values (bf16 inputs are
+    widened exactly, on both sides) in other orders: the kernel fuses
+    multiply-adds, adds out_t's hd terms in row-group partial sums, and
+    takes the bonus as one dot product, beta_t = sum_k r_k u_k k_k, whose
+    product beta_t v_t[c] starts out_t[c]'s sum.  To first order, with eps
+    = 2^-24: a step of the state rounds at most three times on values
+    bounded by A_t (``rwkv_envelope``: the recurrence on |r|, |k|, |v|,
+    |w|, |u|, |state0|), and the errors of the steps before decay with
+    |w|, so either version's state is within 3 eps D_t of the exact one,
+    D_t the decayed sum of the A_s; out_t reads the state before step t
+    (error 3 eps P_t, P_t = |r_t| D_{t-1}) and adds hd products to it,
+    within (hd + 3) eps O_t in the plain version.  The bonus stays inside
+    the envelope: |beta_t v_t[c]| <= sum_k |r_k| |u_k| |k_k| |v_c|, the
+    bonus half of O_t, and each of its terms rounds at most 1 + HDP / 16
+    (its product and the dot product's chain, HDP = hd rounded up to 16,
+    32 or 64) + 4 (the shuffle tree) + 1 (times v_t[c]) times before it
+    starts out_t[c]'s sum, then 4 times in a thread's multiply-adds and
+    log2(HDP / 4) in the tree over row groups, which a term of r_t S sees
+    too: at most 18 roundings a term at hd 64, 15 at 32 and 13 at 16,
+    within hd + 3 for hd >= 16 and within 19 for any hd.  So the kernel's
+    out is within (max(hd, 16) + 3) eps O_t + 3 eps P_t of the exact one,
+    the two versions' final states lie
+    within 2 eps (3 D_T + A_T) of each other and their outputs within
+    eps (6 P_t + (hd + 3 + max(hd, 16) + 3) O_t).  A bf16 out is each
+    side's float32 out rounded once to nearest, so it may differ by one
+    bf16 ulp more, taken at the larger of |out| and |want| (a rounding
+    moves a value by at most half an ulp of its own binade).  Returns (the
+    largest |kernel - plain| over out and state, the largest allowed |out|
     difference over the largest |out|)."""
     from repro_torch.kernels import ref
     out, state = got
@@ -1331,7 +1353,14 @@ def check_rwkv(torch, what: str, got, args):
     hd = args[0].shape[3]
     eps = 2.0**-24
     O, P, A, D = rwkv_envelope(torch, args)
-    tol = 2 * eps * (3 * P + (hd + 3) * O)
+    tol = eps * (6 * P + (hd + 3 + max(hd, 16) + 3) * O)
+    out, want = out.float(), want.float()
+    if args[0].dtype == torch.bfloat16:
+        # bf16's ulp at |x|: 2^(e - 8) for x = m 2^e, 0.5 <= m < 1.
+        big = torch.maximum(out.abs(), want.abs())
+        _, e = torch.frexp(big)
+        tol = tol + torch.where(big > 0, torch.ldexp(torch.ones_like(tol),
+                                                     e - 8), 0.0)
     err = (out - want).abs()
     err_state = (state - want_state).abs()
     check(bool((err <= tol).all()),
@@ -1347,17 +1376,18 @@ def check_rwkv(torch, what: str, got, args):
             admitted)
 
 
-def k6_bound(B: int, H: int, T: int, hd: int, with_state: bool):
+def k6_bound(B: int, H: int, T: int, hd: int, with_state: bool,
+             in_bytes: int = 4, w_bytes: int = 4):
     """Least time: 4 hd^2 float32 operations per (b, h, t) at the float32
     CUDA-core rate (r_t S, a multiply-add per state entry, and the decayed
     update, one multiply-add per entry in a chunked form that rescales the
     state by the chunk's decay; the bonus r_t diag(u) k_t v_t^T is
-    (sum_k r_k u_k k_k) v_t, O(hd)), vs float32 r, k, v, w read and out
-    written once, u, state0 (when given) read and the final state
-    written."""
+    (sum_k r_k u_k k_k) v_t, O(hd)), vs r, k, v (``in_bytes`` a value) and
+    w (``w_bytes``) read and out (r's width) written once, u, state0 (when
+    given) read and the final state written, float32."""
     t_ops = 4.0 * hd * hd * B * H * T / FP32_OPS_PER_S * 1e3
-    nbytes = 4 * (5 * B * H * T * hd + H * hd
-                  + (2 if with_state else 1) * B * H * hd * hd)
+    nbytes = ((4 * in_bytes + w_bytes) * B * H * T * hd + 4 * H * hd
+              + 4 * (2 if with_state else 1) * B * H * hd * hd)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1368,20 +1398,53 @@ def time_k6(torch, k6, args, reps: int):
     B, H, T, hd = args[0].shape
     ms = time_ms(torch, k6.rwkv_scan, args, reps)
     plain_ms = time_ms(torch, ref.rwkv_scan, args, max(reps // 10, 2))
-    return (ms, plain_ms) + k6_bound(B, H, T, hd, args[5] is not None)
+    return (ms, plain_ms) + k6_bound(B, H, T, hd, args[5] is not None,
+                                     args[0].element_size(),
+                                     args[3].element_size())
+
+
+def k6_host_side(torch, k6, args, reps: int) -> str:
+    """What a K6 call costs beside its CUDA-event time: the host's time to
+    submit one, the card's own time (profiler), the stream operations one
+    call makes (which must be 1) and the launch floor, as text."""
+    from repro_torch.kernels import partition as kpart
+    dev = args[0].device
+    submit = submit_ms(torch, k6.rwkv_scan, args, reps)
+    card = device_ms(torch, k6.rwkv_scan, args, min(reps, 50))
+    calls, spans = stream_ops(torch, k6.rwkv_scan, args)
+    check(len(calls) == 1, f"rwkv_scan: {len(calls)} stream operations a "
+                           f"call: {calls}")
+    floor = time_ms(torch, kpart.launch_floor, (dev,), 200)
+    floor_submit = submit_ms(torch, kpart.launch_floor, (dev,), 200)
+    return (f"the host submits a call in {submit:.5f} ms, the card runs it "
+            f"in {card} (profiler, {min(reps, 50)} calls); {len(calls)} "
+            f"stream operation(s) a call {calls}, device spans {spans}; "
+            f"launch floor {floor:.5f} ms, submitted in {floor_submit:.5f} "
+            f"ms")
+
+
+#: K6's input types: r, k, v and w float32; the model's bf16 r, k, v with
+#: a float32 w; all four bf16.
+K6_KINDS = ("float32", "bf16 r, k, v", "bf16")
 
 
 def rwkv_inputs(torch, seed: int, B: int, H: int, T: int, hd: int,
-                with_state: bool, views: bool = False):
-    """Float32 r, k, v (normal * 0.5), w in (0.45, 0.95), u (normal * 0.1)
-    and state0 (normal * 0.5, or None), as ``tests/test_kernels.py`` draws
-    them; with ``views`` r, k, v and w are [B, H, T, hd] views of
-    [B, T, H, hd] tensors, as the model passes them."""
+                with_state: bool, views: bool = False,
+                kind: str = "float32"):
+    """r, k, v (normal * 0.5), w in (0.45, 0.95), u (normal * 0.1) and
+    state0 (normal * 0.5, or None), as ``tests/test_kernels.py`` draws
+    them, float32 or rounded to bf16 as ``kind`` (``K6_KINDS``) says; with
+    ``views`` r, k, v and w are [B, H, T, hd] views of [B, T, H, hd]
+    tensors, as the model passes them."""
     shape = (B, T, H, hd) if views else (B, H, T, hd)
     r, k, v = (randn(torch, seed + i, shape, torch.float32, 0.5)
                for i in range(3))
     w = torch.sigmoid(randn(torch, seed + 3, shape, torch.float32)) * 0.5 \
         + 0.45
+    if kind != "float32":
+        r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    if kind == "bf16":
+        w = w.to(torch.bfloat16)
     if views:
         r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
     u = randn(torch, seed + 4, (H, hd), torch.float32, 0.1)
@@ -1393,41 +1456,58 @@ def rwkv_inputs(torch, seed: int, B: int, H: int, T: int, hd: int,
 def rwkv_kernel_phase(torch, k6) -> float:
     """K6 against its plain version: hd in {16, 32, 64} x T in {1, 63, 445,
     4096} x with and without state0 (3 x 48 heads: more blocks than SMs),
-    then inputs in the model's layout and odd head sizes at T = 63; timed
-    at the serve's shape (B = SERVE_BATCH, H = 32, hd = 64) at T = 445 and
-    4096.  Returns the largest error."""
+    float32 and the model's bf16 r, k, v (w float32); then inputs in the
+    model's layout and odd head sizes at T = 63, all three kinds; timed at
+    the serve's shape (B = SERVE_BATCH, H = 32, hd = 64) at T = 445 and
+    4096, float32 and the model's bf16, with the host's and the card's
+    side of a call.  Returns the largest error."""
     err, seed, admitted = 0.0, 500, {}
-    for hd in (16, 32, 64):
-        for T in (1, 63, 445, 4096):
-            for with_state in (False, True):
-                seed += 10
-                args = rwkv_inputs(torch, seed, 3, 48, T, hd, with_state)
-                what = f"rwkv_scan hd={hd} T={T} state0={with_state}"
-                e, adm = check_rwkv(torch, what, k6.rwkv_scan(*args), args)
-                err, admitted[T] = max(err, e), max(admitted.get(T, 0.0), adm)
-                del args
-    for hd, views in ((64, True), (16, True), (5, False), (48, False)):
-        seed += 10
-        args = rwkv_inputs(torch, seed, 2, 7, 63, hd, True, views)
-        what = f"rwkv_scan hd={hd} T=63 {'views' if views else 'contiguous'}"
-        err = max(err, check_rwkv(torch, what, k6.rwkv_scan(*args), args)[0])
+    for kind in K6_KINDS[:2]:
+        for hd in (16, 32, 64):
+            for T in (1, 63, 445, 4096):
+                for with_state in (False, True):
+                    seed += 10
+                    args = rwkv_inputs(torch, seed, 3, 48, T, hd, with_state,
+                                       kind=kind)
+                    what = (f"rwkv_scan {kind} hd={hd} T={T} "
+                            f"state0={with_state}")
+                    e, adm = check_rwkv(torch, what, k6.rwkv_scan(*args),
+                                        args)
+                    key = (kind, T)
+                    err = max(err, e)
+                    admitted[key] = max(admitted.get(key, 0.0), adm)
+                    del args
+    for kind in K6_KINDS:
+        for hd, views in ((64, True), (16, True), (5, False), (48, False)):
+            seed += 10
+            args = rwkv_inputs(torch, seed, 2, 7, 63, hd, True, views, kind)
+            what = (f"rwkv_scan {kind} hd={hd} T=63 "
+                    f"{'views' if views else 'contiguous'}")
+            err = max(err, check_rwkv(torch, what, k6.rwkv_scan(*args),
+                                      args)[0])
     torch.cuda.synchronize()
     log(f"model kernels: rwkv_scan within the stated bound of its plain "
         f"version at B=3 H=48 hd in {{16, 32, 64}} x T in {{1, 63, 445, "
-        f"4096}} x state0 in {{no, yes}}, and at T=63 on views in the "
-        f"model's layout (hd 16, 64) and hd 5, 48 (max |err| {err:.3g}); "
-        f"the bound admits an out difference of at most "
-        + ", ".join(f"{a:.3g} (T={T})" for T, a in admitted.items())
+        f"4096}} x state0 in {{no, yes}} x {{float32, bf16 r, k, v}}, and "
+        f"at T=63 on views in the model's layout (hd 16, 64) and hd 5, 48 "
+        f"for {set(K6_KINDS)} (max |err| {err:.3g}); the bound admits an "
+        f"out difference of at most "
+        + ", ".join(f"{a:.3g} ({kind}, T={T})"
+                    for (kind, T), a in admitted.items())
         + " of the largest |out|")
-    for T in (445, 4096):
-        args = rwkv_inputs(torch, 900 + T, SERVE_BATCH, 32, T, 64, True)
-        t = time_k6(torch, k6, args, 20 if T < 1000 else 5)
-        log(f"model kernels: rwkv_scan B={SERVE_BATCH} H=32 T={T} hd=64 "
-            f"float32 with state0: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
-            f"bound {t[2]:.5f} ms by {t[3]}, {100 * t[2] / t[0]:.1f}% of "
-            f"bound; library: none, no single PyTorch call computes this "
-            f"recurrence)")
-        del args
+    for kind in K6_KINDS[:2]:
+        for T in (445, 4096):
+            args = rwkv_inputs(torch, 900 + T, SERVE_BATCH, 32, T, 64, True,
+                               views=True, kind=kind)
+            reps = 20 if T < 1000 else 5
+            t = time_k6(torch, k6, args, reps)
+            log(f"model kernels: rwkv_scan B={SERVE_BATCH} H=32 T={T} hd=64 "
+                f"{kind} with state0, the model's layout: {t[0]:.5f} ms "
+                f"(plain {t[1]:.5f} ms, bound {t[2]:.5f} ms by {t[3]}, "
+                f"{100 * t[2] / t[0]:.1f}% of bound; library: none, no "
+                f"single PyTorch call computes this recurrence); "
+                + k6_host_side(torch, k6, args, reps))
+            del args
     torch.cuda.empty_cache()
     return err
 
@@ -1772,30 +1852,24 @@ def slice_phase(torch):
 def rwkv_replay_phase(torch, k6, first):
     """K6 against its plain version on the inputs the RWKV serve gave it
     (the first call at each shape: each prefill's, the first decode
-    step's), timed beside the plain version and the bound.  Returns (max
-    error, the JSON record's numbers from the first prefill, and the first
-    decode's)."""
+    step's; the model's bf16 r, k, v and float32 w), timed beside the plain
+    version and the bound, with the host's and the card's side of a call.
+    Returns (max error, the JSON record's numbers from the first prefill,
+    and the first decode's)."""
     err, main = 0.0, {}
     for key, (args, _) in first.items():
         label = key[0]
         B, H, T, hd = args[0].shape
         what = (f"rwkv_scan on the serve's {label} B={B} H={H} T={T} "
-                f"hd={hd}")
+                f"hd={hd} (r, k, v {args[0].dtype}, w {args[3].dtype})")
         err = max(err, check_rwkv(torch, what, k6.rwkv_scan(*args),
                                   args)[0])
         reps = 200 if T == 1 else 20
         t = time_k6(torch, k6, args, reps)
-        # The host's time to submit the calls (no wait for the card): where
-        # it matches the CUDA-event time, the calls are host-paced.
-        start = time.perf_counter()
-        for _ in range(reps):
-            k6.rwkv_scan(*args)
-        submit_ms = (time.perf_counter() - start) / reps * 1e3
-        torch.cuda.synchronize()
         log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, bound "
             f"{t[2]:.6f} ms by {t[3]}, {100 * t[2] / t[0]:.1f}% of bound; "
-            f"CUDA events over {reps} calls, the host submits a call in "
-            f"{submit_ms:.5f} ms)")
+            f"CUDA events over {reps} calls); "
+            + k6_host_side(torch, k6, args, reps))
         main.setdefault(label, t)
     check(set(main) == {"prefill", "decode"},
           f"replay: K6 was recorded at {sorted(main)}, not at both prefill "

@@ -5,6 +5,8 @@
     python3 kernel_variants.py k5    # K5's wgmma kernel: exp, stages, registers
     python3 kernel_variants.py k1k2  # K1/K2: route by search or count,
                                      # one tile or the multi-tile pass
+    python3 kernel_variants.py k6    # K6: the first (scalar) step kernel
+                                     # against today's and its constants
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -23,8 +25,15 @@ source as it is and K2's sums pass ``check_fold``; and at the main paths'
 own sizes (K1 at W1's chunk, N = 192, K = 56, W = 48; K2 at a resident
 ingest, N = 256, K = 40, W = 20), where the calls are host-paced, so the
 kernels' device time under the profiler is printed beside the CUDA-event
-time.  Prints one line a timing.  Not part of the smoke: it chose the
-constants in the sources.
+time.  K6 at the serve's shape (B 4, H 32, hd 64, with state0, the model's
+``[B, T, H, hd]`` views) at T = 1, 202, 445 and 4096, float32 and with the
+model's bf16 r, k, v (w float32): the source as it is and with other
+constants, against the first design (``csrc/variants/rwkv_scan_scalar.cu``:
+scalar broadcast loads, register staging, the bonus on every state entry,
+float32 only, so its bf16 calls cast r, k, v, w to float32 and out back to
+bf16 around it, as the model did), each within ``check_rwkv``; device time
+under the profiler beside the CUDA-event time.  Prints one line a timing.
+Not part of the smoke: it chose the constants in the sources.
 """
 from __future__ import annotations
 
@@ -82,7 +91,7 @@ def build(_build, source: str, variants):
                 raise RuntimeError(f"{name}: {old!r} is not once in the "
                                    f"source")
             text = text.replace(old, new)
-        tag = source + "_" + re.sub(r"\W+", "_", name).strip("_")
+        tag = re.sub(r"\W+", "_", f"{source}_{name}").strip("_")
         cu, so = out / f"{tag}.cu", out / f"lib{tag}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
@@ -295,11 +304,105 @@ def k1k2(torch, cs, _build) -> None:
             torch.cuda.empty_cache()
 
 
+#: Edits of K6's source (csrc/rwkv_scan.cu) that make each variant.
+K6_VARIANTS = {
+    "as is (4 x 4 state entries a thread, 16-step chunks, 4 stages)": {},
+    "4 x 8 a thread (128 compute threads at hd 64)": {
+        "kCols = 4;": "kCols = 8;"},
+    "4 x 2 a thread (512 compute threads at hd 64)": {
+        "kCols = 4;": "kCols = 2;"},
+    "3 stages": {"kStages = 4;": "kStages = 3;"},
+    "8-step chunks": {"kTC = 16;": "kTC = 8;"},
+    "one helper warp": {"kHelpers = 128;": "kHelpers = 32;"},
+    "step loop unrolled by 4": {
+        "#pragma unroll 2\n    for (int tt = 0; tt < steps; ++tt) {":
+        "#pragma unroll 4\n    for (int tt = 0; tt < steps; ++tt) {"},
+    # Each step's loads issued at its start, after the previous step's
+    # arithmetic.
+    "step loads not pipelined": {
+        "      load(tt + 1 < steps ? tt + 1 : tt);\n": "",
+        "    load(0);\n#pragma unroll 2\n"
+        "    for (int tt = 0; tt < steps; ++tt) {\n":
+        "#pragma unroll 2\n"
+        "    for (int tt = 0; tt < steps; ++tt) {\n      load(tt);\n"},
+}
+
+
+def k6(torch, cs, _build) -> None:
+    libs = build(_build, "rwkv_scan", K6_VARIANTS)
+    first = build(_build, "variants/rwkv_scan_scalar",
+                  {"first design (scalar loads, float32 only)": {}})
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib in libs.values():
+        lib.repro_rwkv_scan.argtypes = ([ptr] * 8 + [i32] * 5 + [i64] * 6
+                                        + [i32, ptr])
+        lib.repro_rwkv_scan.restype = i32
+    for lib in first.values():
+        lib.repro_rwkv_scan.argtypes = ([ptr] * 8 + [i32] * 4 + [i64] * 6
+                                        + [i32, ptr])
+        lib.repro_rwkv_scan.restype = i32
+    kinds = {(torch.float32, torch.float32): 0,
+             (torch.bfloat16, torch.float32): 1,
+             (torch.bfloat16, torch.bfloat16): 2}
+
+    def call(lib, r, k, v, w, u, s0):
+        B, H, T, hd = r.shape
+        out = torch.empty_like(r)
+        state = torch.empty((B, H, hd, hd), device="cuda")
+        code = lib.repro_rwkv_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), out.data_ptr(), state.data_ptr(),
+            B, H, T, hd, kinds[(r.dtype, w.dtype)], *r.stride()[:3],
+            *out.stride()[:3], *_build.device_and_stream(r.device))
+        cs.check(code == 0, f"launch failed: CUDA error {code}")
+        return out, state
+
+    def call_first(lib, r, k, v, w, u, s0):
+        # The model's casts around the float32-only kernel.
+        rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+        B, H, T, hd = r.shape
+        out = torch.empty_like(rf)
+        state = torch.empty((B, H, hd, hd), device="cuda")
+        code = lib.repro_rwkv_scan(
+            rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), wf.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), out.data_ptr(), state.data_ptr(),
+            B, H, T, hd, *rf.stride()[:3], *out.stride()[:3],
+            *_build.device_and_stream(r.device))
+        cs.check(code == 0, f"launch failed: CUDA error {code}")
+        return out.to(r.dtype), state
+
+    runs = {name: (lib, call) for name, lib in libs.items()}
+    runs.update({name: (lib, call_first) for name, lib in first.items()})
+    for T in (1, 202, 445, 4096):
+        for kind in cs.K6_KINDS[:2]:
+            args = cs.rwkv_inputs(torch, 40 + T, cs.SERVE_BATCH, 32, T, 64,
+                                  True, views=True, kind=kind)
+            reps = 200 if T == 1 else 5 if T == 4096 else 20
+            bound, by = cs.k6_bound(cs.SERVE_BATCH, 32, T, 64, True,
+                                    args[0].element_size(),
+                                    args[3].element_size())
+            for turn, names in enumerate((list(runs), list(runs)[::-1])):
+                for name in names:
+                    lib, fn = runs[name]
+                    err = cs.check_rwkv(torch, name, fn(lib, *args), args)[0]
+                    ms = cs.time_ms(torch, lambda *a: fn(lib, *a), args,
+                                    reps)
+                    dev_time = cs.device_ms(torch, lambda *a: fn(lib, *a),
+                                            args, min(reps, 50))
+                    print(f"{name}: K6 B={cs.SERVE_BATCH} H=32 T={T} hd=64 "
+                          f"{kind} turn {turn}: {ms:.5f} ms a call (CUDA "
+                          f"events, {reps} calls; bound {bound:.5f} ms by "
+                          f"{by}); device {dev_time} a call (profiler); max "
+                          f"|err| {err:.3g}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"]):
-        print("usage: python3 kernel_variants.py k4|k5|k1k2",
+    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"]):
+        print("usage: python3 kernel_variants.py k4|k5|k1k2|k6",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -315,7 +418,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    {"k4": k4, "k5": k5, "k1k2": k1k2}[sys.argv[1]](torch, cs, _build)
+    {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6}[sys.argv[1]](torch, cs,
+                                                             _build)
     return 0
 
 

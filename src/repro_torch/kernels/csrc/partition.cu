@@ -49,7 +49,8 @@
 //   K3: 12 N + 4 K W + 4 W bytes
 // The compares, at most N W of them, are far below the operation rate.
 //
-// Design of K1 and K2 (one kernel, scatter_kernel<kFold, kMulti>).  The TPU
+// Design of K1, K2 and K3 (one kernel, scatter_kernel<kFold, kMulti,
+// kRank>; K3 is the instantiation without ranks or folds).  The TPU
 // kernel runs its grid in order and carries running per-worker counts (and
 // K2's folds) from block to block in VMEM scratch; GPU blocks run at once
 // and in no order.  A tile is kTile = 4096 records on 256 threads, 16 each;
@@ -75,8 +76,9 @@
 //     the last block out resets the ticket and advances the counter.  The
 //     tile of ticket 0 zeroes K2's global folds and raises a tagged flag
 //     that the other blocks wait for before their first global fold add.
-//     The workspace (16 bytes + 8 W tiles) is the wrapper's, allocated
-//     zeroed once per device and stream and grown when a call needs more.
+//     The workspace (16 bytes, K3's 4 KB accumulator, and 8 W tiles bytes
+//     of status words) is the wrapper's, allocated zeroed once per device
+//     and stream and grown when a call needs more.
 // K2's lanes: a dead lane takes the group -1 in __match_any_sync (as a lane
 // past the end does), so it is in no live lane's peer set, never touches
 // the counts, and gets rank 0; its destination is still written.  The fold
@@ -89,9 +91,18 @@
 // .to(torch.int32) does), no counters at all (all zero), and float32 or
 // float64 vals (rounded to nearest even, as .to(torch.float32) does).
 //
-// K3 is one block per tile without ranks: shared-memory atomics build the
-// tile histogram and one global atomicAdd per worker per block folds it
-// into hist, after a memset.  It routes as K1 does.
+// K3 needs no ranks, only dest and hist, and is one launch a call with no
+// memset.  Its warps count by __match_any_sync and one leader add per
+// destination a group, as K1's do.  One tile: the block writes hist from
+// its counts (the scan above).  More: nothing orders the records, so a
+// grid of persistent blocks as wide as the card holds (or as the records
+// need) deals groups of 32 records to its warps in turn (warp gw takes
+// groups gw, gw + all warps, ..; no ticket, no status words, no
+// look-back, no barrier a turn), so that a chunk of 60,000 records keeps
+// every SM busy.  Each warp counts into its [W] row, then each block folds
+// its rows into the workspace's [W] accumulator with one atomicAdd per
+// nonzero worker; the last block out (the done counter, as K1's) writes
+// hist from it with atomicExch, which leaves it zero for the next call.
 //
 // Shared memory: (kWarps + 1) W int32 per block (36 KB at W = 1024, so W
 // is at most kMaxWorkers = 1024; the wrapper raises above it and the entry
@@ -116,10 +127,11 @@ constexpr unsigned kFull = 0xffffffffu;
 // (a launch error, not a hung card).
 constexpr int kMaxSpins = 1 << 26;
 
-// Entries of the multi-tile workspace (uint32 words), then the status
-// words (uint64, [tiles][W]).
+// Entries of the multi-tile workspace (uint32 words), K3's [kMaxWorkers]
+// accumulator (uint32, zero between calls) from kAccWords, then K1's and
+// K2's status words (uint64, [tiles][W]) from kStatusWords.
 enum : int { kTicket = 0, kDone = 1, kCalls = 2, kFoldsZeroed = 3,
-             kHeaderWords = 4 };
+             kAccWords = 4, kStatusWords = kAccWords + kMaxWorkers };
 
 struct ScatterArgs {
   const void* keys;            // int32 or int64 [n]
@@ -216,10 +228,15 @@ __device__ __forceinline__ void wait_folds_zeroed(const uint32_t* ws,
   __syncthreads();
 }
 
-// K1 (kFold false) and K2 (kFold true); one block when !kMulti.
-template <bool kFold, bool kMulti>
+// K1 (kFold false), K2 (kFold true) and K3 (kRank false: dest and hist
+// only); one block when !kMulti.
+template <bool kFold, bool kMulti, bool kRank>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const ScatterArgs a) {
+  static_assert(kRank || !kFold, "K2 ranks its lanes");
+  // K3's multi-tile pass counts all of a block's tiles together; every
+  // other pass counts a tile at a time.
+  constexpr bool kPerTile = kRank || !kMulti;
   extern __shared__ int smem[];
   const int W = a.num_workers;
   int* warp_count = smem;                       // [kWarps][W]
@@ -227,7 +244,7 @@ scatter_kernel(const ScatterArgs a) {
   int* s_cnt = tile_off + W;                    // [K] when a.priv
   float* s_sum = reinterpret_cast<float*>(s_cnt + a.num_keys);
   __shared__ int s_ticket;
-  __shared__ bool s_zero_seen;
+  __shared__ bool s_zero_seen, s_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -238,7 +255,7 @@ scatter_kernel(const ScatterArgs a) {
     const uint32_t calls =
         *reinterpret_cast<const volatile uint32_t*>(a.ws + kCalls);
     tag = ((calls & 0x3fffffffu) + 1u) << 1;    // never 0, low bit free
-    status = reinterpret_cast<unsigned long long*>(a.ws + kHeaderWords);
+    status = reinterpret_cast<unsigned long long*>(a.ws + kStatusWords);
   }
   if (threadIdx.x == 0) s_zero_seen = !kMulti;
   if constexpr (kFold) {
@@ -254,10 +271,22 @@ scatter_kernel(const ScatterArgs a) {
       }
     }
   }
+  if constexpr (!kPerTile) {
+    for (int i = threadIdx.x; i < kWarps * W; i += kThreads)
+      warp_count[i] = 0;
+    __syncthreads();
+  }
 
-  for (;;) {
+  // K3's pass needs no order over the records: the grid's warps take
+  // groups of 32 records in turn, warp gw groups gw, gw + all warps, ..,
+  // kPerThread of them a turn, so that every warp of a full grid has work.
+  const int64_t all_warps = (int64_t)gridDim.x * kWarps;
+  const int64_t gw = (int64_t)blockIdx.x * kWarps + warp;
+  for (int turn = 0;; ++turn) {
     int t = 0;
-    if constexpr (kMulti) {
+    if constexpr (!kPerTile) {
+      if ((int64_t)turn * kPerThread * all_warps * 32 >= a.n) break;
+    } else if constexpr (kMulti) {
       __syncthreads();                          // s_ticket is reused
       if (threadIdx.x == 0) s_ticket = (int)atomicAdd(a.ws + kTicket, 1u);
       __syncthreads();
@@ -276,9 +305,11 @@ scatter_kernel(const ScatterArgs a) {
         }
       }
     }
-    for (int i = threadIdx.x; i < kWarps * W; i += kThreads)
-      warp_count[i] = 0;
-    __syncthreads();
+    if constexpr (kPerTile) {
+      for (int i = threadIdx.x; i < kWarps * W; i += kThreads)
+        warp_count[i] = 0;
+      __syncthreads();
+    }
 
     // Groups of 32 records a warp: kPerThread in the multi-tile pass; a
     // one-tile call spreads its records over every warp, so that no warp
@@ -287,12 +318,18 @@ scatter_kernel(const ScatterArgs a) {
     const int groups =
         kMulti ? kPerThread : (a.n + 32 * kWarps - 1) / (32 * kWarps);
     const int64_t warp_start = tile_start + (int64_t)warp * groups * 32;
+    // Lane `lane`'s record in group g of this warp's turn.
+    auto record = [&](int g) -> int64_t {
+      if constexpr (!kPerTile)
+        return (((int64_t)turn * kPerThread + g) * all_warps + gw) * 32 + lane;
+      return warp_start + g * 32 + lane;
+    };
     int my_dest[kPerThread];
     int my_rank[kPerThread];
     // Route first: the records' loads are independent.
 #pragma unroll
     for (int g = 0; g < kPerThread; ++g) {
-      const int64_t i = warp_start + g * 32 + lane;
+      const int64_t i = record(g);
       int d = -1;                               // -1: lane past the end
       if (g < groups && i < a.n) {
         // K1's columns are int32: its instantiation has no other loads.
@@ -310,20 +347,22 @@ scatter_kernel(const ScatterArgs a) {
 #pragma unroll
     for (int g = 0; g < kPerThread; ++g) {
       if (g >= groups) continue;                // uniform over the block
-      const int64_t i = warp_start + g * 32 + lane;
+      const int64_t i = record(g);
       // The counted group: K1 counts every lane it routes; K2 gives a dead
       // lane the group -1 and the mark -1 (rank 0).
       bool live = i < a.n;
       if constexpr (kFold) live = live && a.valid[i] != 0;
       const int c = live ? my_dest[g] : -1;
       const unsigned peers = __match_any_sync(kFull, c);
-      int r = -1;
-      if (c >= 0) r = warp_count[warp * W + c] + __popc(peers & below);
-      __syncwarp();
+      if constexpr (kRank) {
+        int r = -1;
+        if (c >= 0) r = warp_count[warp * W + c] + __popc(peers & below);
+        __syncwarp();
+        my_rank[g] = r;
+      }
       if (c >= 0 && (peers & below) == 0)       // lowest lane of the group
         warp_count[warp * W + c] += __popc(peers);
       __syncwarp();
-      my_rank[g] = r;
       if constexpr (kFold) {
         // The key and value are read again here (the key from cache):
         // holding them from the first loop costs 32 registers a thread,
@@ -347,6 +386,16 @@ scatter_kernel(const ScatterArgs a) {
           }
         }
       }
+    }
+    if constexpr (!kPerTile) {
+      // K3's pass: the counts stay in warp_count for the warp's next
+      // turn; only dest is written.
+#pragma unroll
+      for (int g = 0; g < kPerThread; ++g) {
+        const int64_t i = record(g);
+        if (i < a.n) a.dest[i] = my_dest[g];
+      }
+      continue;
     }
     __syncthreads();
 
@@ -426,13 +475,14 @@ scatter_kernel(const ScatterArgs a) {
 
 #pragma unroll
     for (int g = 0; g < kPerThread; ++g) {
-      const int64_t i = warp_start + g * 32 + lane;
+      const int64_t i = record(g);
       if (g < groups && i < a.n) {
         const int d = my_dest[g];
         a.dest[i] = d;
-        a.rank[i] = my_rank[g] < 0
-                        ? 0
-                        : my_rank[g] + warp_count[warp * W + d] + tile_off[d];
+        if constexpr (kRank)
+          a.rank[i] = my_rank[g] < 0 ? 0
+                                     : my_rank[g] + warp_count[warp * W + d] +
+                                           tile_off[d];
       }
     }
     if constexpr (!kMulti) break;
@@ -458,42 +508,38 @@ scatter_kernel(const ScatterArgs a) {
     }
   }
   if constexpr (kMulti) {
+    if constexpr (!kRank) {
+      // K3: the block's counts into the accumulator.
+      __syncthreads();
+      for (int w = threadIdx.x; w < W; w += kThreads) {
+        int c = 0;
+        for (int j = 0; j < kWarps; ++j) c += warp_count[j * W + w];
+        if (c) atomicAdd(a.ws + kAccWords + w, (uint32_t)c);
+      }
+      __threadfence();
+    }
     __syncthreads();
     if (threadIdx.x == 0) {
       __threadfence();
-      if (atomicAdd(a.ws + kDone, 1u) == gridDim.x - 1) {   // the last out
-        a.ws[kTicket] = 0;
+      s_last = atomicAdd(a.ws + kDone, 1u) == gridDim.x - 1;
+      if (s_last) {                                         // the last out
+        if constexpr (kRank) {
+          a.ws[kTicket] = 0;
+          a.ws[kCalls] += 1;
+        }
         a.ws[kDone] = 0;
-        a.ws[kCalls] += 1;
+      }
+    }
+    if constexpr (!kRank) {
+      // K3: the last block out takes hist and leaves the accumulator zero.
+      __syncthreads();
+      if (s_last) {
+        __threadfence();
+        for (int w = threadIdx.x; w < W; w += kThreads)
+          a.hist[w] = (int32_t)atomicExch(a.ws + kAccWords + w, 0u);
       }
     }
   }
-}
-
-// K3: dest and histogram.
-__global__ void __launch_bounds__(kThreads)
-partition_tile_kernel(const int32_t* __restrict__ keys,
-                      const int32_t* __restrict__ counters,
-                      const float* __restrict__ cdf, int n, int num_keys,
-                      int num_workers, int top,
-                      int32_t* __restrict__ dest, int32_t* __restrict__ hist) {
-  __shared__ int tile_count[kMaxWorkers];
-  for (int w = threadIdx.x; w < num_workers; w += kThreads) tile_count[w] = 0;
-  __syncthreads();
-  const int64_t start = (int64_t)blockIdx.x * kTile;
-#pragma unroll 4
-  for (int g = 0; g < kPerThread; ++g) {
-    const int64_t i = start + g * kThreads + threadIdx.x;
-    if (i < n) {
-      const int d = route(keys[i], (uint32_t)counters[i], cdf, num_keys,
-                          num_workers, top);
-      dest[i] = d;
-      atomicAdd(&tile_count[d], 1);
-    }
-  }
-  __syncthreads();
-  for (int w = threadIdx.x; w < num_workers; w += kThreads)
-    if (tile_count[w]) atomicAdd(&hist[w], tile_count[w]);
 }
 
 __global__ void empty_kernel() {}
@@ -541,18 +587,19 @@ cudaError_t device_info(int device, DeviceInfo* out) {
   return cudaSuccess;
 }
 
-// Lets scatter_kernel<kFold, kMulti> take `smem` bytes of dynamic shared
-// memory (needed above 48 KB, before the occupancy query and the launch).
-template <bool kFold, bool kMulti>
+// Lets scatter_kernel<kFold, kMulti, kRank> take `smem` bytes of dynamic
+// shared memory (needed above 48 KB, before the occupancy query and the
+// launch).
+template <bool kFold, bool kMulti, bool kRank>
 cudaError_t allow_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(scatter_kernel<kFold, kMulti>,
+  return cudaFuncSetAttribute(scatter_kernel<kFold, kMulti, kRank>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
-// K1 (kFold false) and K2 on stream s: one launch.
-template <bool kFold>
+// K1 (kFold false), K2 and K3 (kRank false) on stream s: one launch.
+template <bool kFold, bool kRank>
 cudaError_t scatter(ScatterArgs a, int device, cudaStream_t s) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -567,20 +614,24 @@ cudaError_t scatter(ScatterArgs a, int device, cudaStream_t s) {
            base + fold + 1024 <= (size_t)info.smem_optin;
   const size_t smem = base + (a.priv ? fold : 0);
   if (a.n <= kOneTileRecords) {
-    if ((err = allow_smem<kFold, false>(smem)) != cudaSuccess) return err;
-    scatter_kernel<kFold, false><<<1, kThreads, smem, s>>>(a);
+    if ((err = allow_smem<kFold, false, kRank>(smem)) != cudaSuccess)
+      return err;
+    scatter_kernel<kFold, false, kRank><<<1, kThreads, smem, s>>>(a);
     return cudaGetLastError();
   }
   if (a.ws == nullptr) return cudaErrorInvalidValue;
-  if ((err = allow_smem<kFold, true>(smem)) != cudaSuccess) return err;
+  if ((err = allow_smem<kFold, true, kRank>(smem)) != cudaSuccess)
+    return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scatter_kernel<kFold, true>, kThreads, smem);
+      &per_sm, scatter_kernel<kFold, true, kRank>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = per_sm * info.sms < a.num_tiles ? per_sm * info.sms
-                                                   : a.num_tiles;
-  scatter_kernel<kFold, true><<<grid, kThreads, smem, s>>>(a);
+  // K1 and K2 take whole tiles; K3 needs a group of 32 records a warp.
+  const int work =
+      kRank ? a.num_tiles : (a.n + 32 * kWarps - 1) / (32 * kWarps);
+  const int grid = per_sm * info.sms < work ? per_sm * info.sms : work;
+  scatter_kernel<kFold, true, kRank><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -599,7 +650,8 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // K1.  out: dest [n], rank [n], hist [W] (int32).  ws: the zeroed
-// workspace (4 + 2 W ceil(n / kTile) uint32), read only when n > kTile.
+// workspace (kStatusWords + 2 W ceil(n / kTile) uint32), read only when
+// n > kTile.
 // Returns a cudaError_t (0 on success); one launch, asynchronous on
 // `stream`.
 int repro_partition_scatter(const int32_t* keys, const int32_t* counters,
@@ -619,7 +671,7 @@ int repro_partition_scatter(const int32_t* keys, const int32_t* counters,
   a.num_keys = num_keys;
   a.num_workers = num_workers;
   a.key_bytes = a.counter_bytes = 4;
-  return scatter<false>(a, device, static_cast<cudaStream_t>(stream));
+  return scatter<false, true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
 // K2.  keys: key_bytes 4 or 8; counters: counter_bytes 4 or 8, or null
@@ -658,24 +710,27 @@ int repro_partition_scatter_fold(const void* keys, int key_bytes,
   a.key_bytes = key_bytes;
   a.counter_bytes = counter_bytes;
   a.val_bytes = val_bytes;
-  return scatter<true>(a, device, static_cast<cudaStream_t>(stream));
+  return scatter<true, true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-// K3.  Returns a cudaError_t (0 on success); launches asynchronously.
+// K3.  out: dest [n], hist [W] (int32); ws as for K1.  Returns a
+// cudaError_t (0 on success); one launch, asynchronous on `stream`.
 int repro_partition(const int32_t* keys, const int32_t* counters,
-                    const float* cdf, int32_t* dest, int32_t* hist, int n,
+                    const float* cdf, int32_t* out, uint32_t* ws, int n,
                     int num_keys, int num_workers, int device, void* stream) {
   if (bad_shape(n, num_keys, num_workers)) return cudaErrorInvalidValue;
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * num_workers, s);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (n + kTile - 1) / kTile;
-  partition_tile_kernel<<<num_tiles, kThreads, 0, s>>>(
-      keys, counters, cdf, n, num_keys, num_workers, top_power(num_workers),
-      dest, hist);
-  return cudaGetLastError();
+  ScatterArgs a{};
+  a.keys = keys;
+  a.counters = counters;
+  a.cdf = cdf;
+  a.dest = out;
+  a.hist = out + n;
+  a.ws = ws;
+  a.n = n;
+  a.num_keys = num_keys;
+  a.num_workers = num_workers;
+  a.key_bytes = a.counter_bytes = 4;
+  return scatter<false, false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
 // An empty kernel on `stream`: the launch floor of this library's ctypes

@@ -1,206 +1,509 @@
 // RWKV6 recurrence for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/rwkv_scan.py
-// (wrapper rwkv_scan :40, kernel _rwkv_kernel :22), the recurrence that
-// repro/models/ssm.py::rwkv6_apply runs with lax.scan (ssm.py:99-110).
-// Per (b, h), over t = 0 .. T-1, with S the [hd, hd] state:
+// (wrapper rwkv_scan :40, kernel _rwkv_kernel :22, pallas_call :61), the
+// recurrence that repro/models/ssm.py::rwkv6_apply runs with lax.scan
+// (ssm.py:99-110).  Per (b, h), over t = 0 .. T-1, with S the [hd, hd]
+// float32 state:
 //   out_t = r_t (S + diag(u) k_t v_t^T)
 //   S     = diag(w_t) S + k_t v_t^T
-// for float32 r, k, v, w [B, H, T, hd] (any strides, hd's 1; the four
-// alike), u [H, hd], state0 [B, H, hd, hd] (zeros when null), out
+// r, k, v, w [B, H, T, hd] (any strides, hd's 1; the four alike in
+// elements), u [H, hd], state0 [B, H, hd, hd] (zeros when null), out
 // [B, H, T, hd] (any strides, hd's 1) and the final state [B, H, hd, hd].
-// The model passes r, k, v, w as views of its [B, T, H hd] activations
-// and gets out in that layout, so no copy goes in or out.  The arithmetic
-// is the reference's, in float32; only the order of out_t's sum over k
-// differs (sixteen partial sums of hd/16 terms, added in a fixed order).
+// Types, as the Pallas kernel takes them: r, k and v float32 or bf16, all
+// three alike; w float32 or r's type; u, state0 and the final state
+// float32; out in r's type.  Each value is widened to float32 as it is
+// read (exact for bf16), the arithmetic is float32, and a bf16 out is
+// rounded once to nearest even, as .to(torch.bfloat16) rounds.  The model
+// passes its bf16 r, k and v and float32 w as views of its [B, T, H hd]
+// activations and gets out in that layout and type, so no cast and no copy
+// goes in or out.
 //
 // Bound on an H100 (NVIDIA H100 SXM data sheet): the function needs about
 // 4 hd^2 float32 operations per step of each (b, h): r_t S, a multiply-add
-// per state entry, and the decayed update, which a chunked form does as
-// one multiply-add per entry on a state rescaled by the chunk's decay; the
+// per state entry, and the decayed update, which a chunked form does as one
+// multiply-add per entry on a state rescaled by the chunk's decay; the
 // bonus r_t diag(u) k_t v_t^T is (sum_k r_k u_k k_k) v_t, O(hd).  Those at
-// 67 TFLOP/s on the CUDA cores, against r, k, v, w and out moved once and
-// the two states at 3.35 TB/s.  At the serve's prefill (B 4, H 32,
-// T ~ 445, hd 64) the bytes set it, ~0.023 ms; a decode step (T = 1) is
-// the 4 MB of state in and out, ~1.3 us.  This kernel does 7 hd^2 (it adds
-// the bonus to every entry, one multiply-add each, and updates S with a
-// product and a multiply-add), and the recurrence is sequential in t, so a
-// kernel that walks t one step at a time is bound by its per-step latency
-// instead, far above either.
+// 67 TFLOP/s on the CUDA cores, against r, k, v, w and out moved once (2
+// bytes a value for bf16) and the two states at 3.35 TB/s.  At the serve's
+// prefill (B 4, H 32, T ~ 445, hd 64) the bytes set it, ~0.023 ms in
+// float32 (~0.015 ms with the model's bf16 r, k, v and out); a decode step
+// (T = 1) is the 4 MB of state in and out, ~1.3 us.  The recurrence is
+// sequential in t, so a kernel that walks t one step at a time is bound
+// by what one step costs an SM.
 //
 // Design.  The TPU kernel keeps the state in VMEM for the whole sequence,
-// one grid step per (b, h).  Here one block of 4 HDP threads owns one
-// (b, h) (grid B H) and keeps the state in registers for the whole T loop:
-// thread (quarter q, column c) holds S[k][c] for the HDP/4 rows k of its
-// quarter, where HDP is hd rounded up to 16, 32 or 64 (the padding rows and
-// columns hold zeros and stay zero).  The inputs are staged in shared
-// memory, kTC = 16 steps of r, k, v and w a chunk, in two buffers: the
-// next chunk's loads start into registers before the current chunk is
-// computed and stored to the other buffer after it, so they are in flight
-// during the compute.  Each step a thread adds its quarter's terms of
-// out_t[c] in four interleaved accumulators (four short dependency chains
-// in place of one long one) and writes their sum to shared memory; after
-// the chunk's one __syncthreads the four quarters' partials of each (t, c)
-// are summed in a fixed order and written out.  The step loop is unrolled
-// by two, so one step's shared loads overlap the other's chains (0.104
-// against 0.134 ms with neither, at the serve's prefill shape on an H100;
-// the four accumulators alone gained nothing).  Float32 on the CUDA
-// cores, no tensor cores: a simple kernel first.  The chunked form, which
-// puts the intra-chunk products on the tensor cores, is later work.
+// one grid step per (b, h).  Here one block owns one (b, h) (grid B H) and
+// keeps the state in registers for the whole T loop, where HDP is hd
+// rounded up to 16, 32 or 64 (the padding rows and columns hold zeros and
+// stay zero).  A step costs each state entry one multiply (k_k v_c), one
+// multiply-add into out (r_k S[k][c]) and one for the update (w_k S[k][c]
+// + k_k v_c).  The first design (one column and 16 rows a thread, kept as
+// csrc/variants/rwkv_scan_scalar.cu) took the bonus as a multiply-add on
+// every entry, read 196 bytes of shared memory a thread a step as 49
+// scalar broadcasts (~400 cycles a step for the SM's 256 threads at the
+// 128 bytes a cycle that shared memory hands to registers; a float4
+// broadcast costs what four scalar ones do), and stopped every warp at
+// each chunk's staging and partial sums.  This one:
+//   * A compute thread holds a 4 x NC tile of the state (rows r0 .. r0 +
+//     3, NC = 4 columns; 2 at hd 16): a step reads one float4 each of r_t,
+//     k_t and w_t for its rows and NC floats of v_t, 64 bytes for 16
+//     entries, and writes its NC partial sums of out_t (256 compute
+//     threads at hd 64).  A step's loads go out before the previous
+//     step's arithmetic.
+//   * The bonus is one dot product a step, not a multiply-add per entry:
+//     beta_t = sum_k r_t,k u_k k_t,k, taken for a chunk of kTC steps at
+//     once, sixteen threads a step; the threads of row group 0 start
+//     out_t[c]'s sum at beta_t v_t[c].
+//   * kHelpers helper threads (four warps) do everything else while the
+//     compute threads run the recurrence, ordered by named barriers (the
+//     compute threads wait at kFull for a chunk, the helpers at kDone for
+//     its partial sums): they copy chunk ch + kStages's rows into a ring
+//     of kStages chunk buffers by cp.async once chunk ch is computed (no
+//     register round trip; 16-byte copies, element copies where a row is
+//     not 16-byte aligned), ready chunk ch + kAhead (bf16 rows land as
+//     bf16, half the bytes, and are widened once into the float32
+//     buffers; its bonus dot products), and add chunk ch's HDP / 4
+//     row-group partial sums of out_t as a tree (two buffers) and write
+//     out.
+// kCols, kHelpers, kStages, kTC and the unroll were chosen by measurement
+// (kernel_variants.py k6; PERF.md).  What is left: a step takes ~0.15 us
+// at hd 64, about twice its issue time (what stalls it is not measured).
+// No tensor cores: the chunked form that would put the intra-chunk
+// products on them is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kTC = 16;        // steps staged a chunk
+using bf16 = __nv_bfloat16;
 
+constexpr int kTC = 16;        // steps a chunk
+constexpr int kStages = 4;     // chunk buffers in the ring
+constexpr int kAhead = 2;      // a chunk is readied this many chunks ahead
+constexpr int kRows = 4;       // state rows a thread holds (a float4)
+constexpr int kCols = 4;       // state columns a thread holds above hd 16
+static_assert(kStages > kAhead, "the ring must hold the readied chunks");
+// Named barriers (0 is __syncthreads'): the helper threads arrive at
+// kFull when a chunk is ready to compute, the compute threads at kDone when
+// they have computed one; kHelp orders the helpers among themselves.
+enum : int { kFull = 1, kDone = 2, kHelp = 3 };
+constexpr int kHelpers = 128;  // helper threads a block (four warps)
+
+// Columns a thread holds, and compute threads a block (one a kRows x cols
+// tile of the state): 256 at hd 64, 64 at 32, 32 at 16; kHelpers more.
 template <int HDP>
-constexpr size_t smem_bytes() {
-  // Two staging buffers [4][kTC][HDP] (r, k, v, w) and two partial-sum
-  // buffers [kTC][4][HDP].
-  return sizeof(float) * 2 * (4 * kTC * HDP + kTC * 4 * HDP);
+constexpr int cols() {
+  return HDP == 16 ? 2 : kCols;
 }
-
-// Thread (q, c) stages, of each of r, k, v and w, column c of the chunk's
-// steps q, q + 4, q + 8 and q + 12: reg[4 a + m] is array a at step
-// t0 + q + 4 m.  Out of range (t >= T or c >= hd) it stages 0.  `src[a]`
-// points at column c of array a's (b, h) sequence, `ts` is t's stride.
-__device__ __forceinline__ void fetch(const float* const (&src)[4],
-                                      int64_t ts, int t0, int T_len,
-                                      bool col, int q, float (&reg)[kTC]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int t = t0 + q + 4 * m;
-    const bool in = col && t < T_len;
-    const int64_t off = t * ts;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) reg[4 * a + m] = in ? src[a][off] : 0.0f;
-  }
-}
-
 template <int HDP>
-__device__ __forceinline__ void stage(float* buf, int q, int c,
-                                      const float (&reg)[kTC]) {
-#pragma unroll
-  for (int j = 0; j < kTC; ++j)
-    buf[((j / 4) * kTC + q + 4 * (j % 4)) * HDP + c] = reg[j];
+constexpr int threads() {
+  return (HDP / kRows) * (HDP / cols<HDP>());
 }
 
-// Strides in elements: `in` of r, k, v and w (b, h, t), `os` of out.
-struct Strides {
-  int64_t in[3], os[3];
+// Element types: r, k, v and out are TI, w is TW.
+template <bool kBI, bool kBW>
+struct Types {
+  static_assert(kBI || !kBW, "w is float32 or r's type");
+  static constexpr int kLanded = (kBI ? 3 : 0) + (kBW ? 1 : 0);
 };
 
-template <int HDP>
-__global__ void __launch_bounds__(4 * HDP)
-rwkv_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ w,
-                 const float* __restrict__ u, const float* __restrict__ s0,
-                 float* __restrict__ out, float* __restrict__ sT, int H,
-                 int T_len, int hd, Strides sd) {
-  constexpr int KPT = HDP / 4;               // state rows a thread holds
-  constexpr int STAGE = 4 * kTC * HDP;       // floats of a staging buffer
-  constexpr int PART = kTC * 4 * HDP;        // floats of a partial buffer
-  extern __shared__ float smem[];
-  float* stg = smem;                         // [2][STAGE]
-  float* part = smem + 2 * STAGE;            // [2][PART]
+// Shared memory, in order: the float32 ring [kStages][4][kTC][HDP] (r, k,
+// v, w), the bonus ring [kStages][kTC], the partial sums [2][kTC][RG][HDP]
+// (RG = HDP / kRows row groups) and the bf16 landing ring
+// [kStages][kLanded][kTC][HDP]: 216 KB at hd 64 with the model's types.
+template <int HDP, bool kBI, bool kBW>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kStages * 4 * kTC * HDP + kStages * kTC +
+                          2 * kTC * (HDP / kRows) * HDP) +
+         sizeof(bf16) * kStages * Types<kBI, kBW>::kLanded * kTC * HDP;
+}
 
-  const int tid = threadIdx.x;
-  const int c = tid % HDP;                   // the state column (v index)
-  const int q = tid / HDP;                   // the quarter of the rows
-  const int k0 = q * KPT;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int64_t seq = b * sd.in[0] + h * sd.in[1] + c;
-  const int64_t oseq = b * sd.os[0] + h * sd.os[1];
-  const float* const src[4] = {r + seq, k + seq, v + seq, w + seq};
-  const size_t st = static_cast<size_t>(bh) * hd * hd;
+struct Args {
+  const void* in[4];           // r, k, v, w
+  const float* u;              // [H, hd]
+  const float* s0;             // [B, H, hd, hd] or null
+  void* out;
+  float* sT;
+  int H, T, hd;
+  bool vec;                    // rows 16-byte aligned: cp.async 16 bytes
+  long long is[3], os[3];      // (b, h, t) strides of the inputs and out
+};
 
-  float S[KPT], uk[KPT];
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int HDP, bool kBI, bool kBW>
+struct Kernel {
+  static constexpr int RG = HDP / kRows;     // row groups
+  static constexpr int NC = cols<HDP>();     // columns a thread holds
+  static constexpr int CG = HDP / NC;        // column groups
+  static constexpr int NT = RG * CG;         // threads a block
+  static constexpr int SLOT = 4 * kTC * HDP; // floats of a ring buffer
+  static constexpr int PART = kTC * RG * HDP;
+  static constexpr int LANDED = Types<kBI, kBW>::kLanded;
+  static_assert(kRows == 4 && NT % 32 == 0 && NC % 2 == 0,
+                "rows are read as a float4, columns as float2s, and the "
+                "bonus takes whole warps");
+
+  float* ring;                 // [kStages][4][kTC][HDP]
+  float* beta;                 // [kStages][kTC]
+  float* part;                 // [2][kTC][RG][HDP]
+  bf16* land;                  // [kStages][LANDED][kTC][HDP]
+  const char* seq[4];          // r, k, v, w at (b, h, t = 0, 0)
+  int hid;                     // the helper thread's index, 0 ..
+
+  // Where array a of chunk slot s lands: its bf16 buffer or, for a float32
+  // array, the float32 ring itself.
+  __device__ __forceinline__ void* landing(int a, int s) const {
+    const bool lands = a < 3 ? kBI : kBW;
+    if (!lands) return ring + s * SLOT + a * kTC * HDP;
+    const int la = a < 3 ? a : LANDED - 1;
+    return land + (s * LANDED + la) * kTC * HDP;
+  }
+
+  // Starts the copies of chunk ch into its slot and commits them as one
+  // group (an empty group past the end, so the count of groups stays one a
+  // chunk).  Rows past T and columns past hd are zero-filled.
+  __device__ void issue(const Args& a, int ch) const {
+    const int t0 = ch * kTC;
+    if (t0 < a.T) {
+      const int steps = min(kTC, a.T - t0);
+      const int s = ch % kStages;
 #pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int kk = k0 + j;
-    const bool in = kk < hd && c < hd;
-    S[j] = (s0 != nullptr && in) ? s0[st + static_cast<size_t>(kk) * hd + c]
-                                 : 0.0f;
-    uk[j] = kk < hd ? u[h * hd + kk] : 0.0f;
+      for (int arr = 0; arr < 4; ++arr) {
+        const bool b16 = arr < 3 ? kBI : kBW;
+        const int es = b16 ? 2 : 4;
+        char* dst = static_cast<char*>(landing(arr, s));
+        const char* src = seq[arr] + t0 * a.is[2] * es;
+        if (a.vec) {
+          const int per = 16 / es;           // elements a copy
+          const int row = HDP / per;         // copies a row
+          for (int i = hid; i < kTC * row; i += kHelpers) {
+            const int tt = i / row, col = (i % row) * per;
+            const bool in = tt < steps && col < a.hd;
+            cp_async16(dst + (tt * HDP + col) * es,
+                       in ? src + (tt * a.is[2] + col) * es : seq[arr],
+                       in ? 16 : 0);
+          }
+        } else {
+          for (int i = hid; i < kTC * HDP; i += kHelpers) {
+            const int tt = i / HDP, col = i % HDP;
+            const bool in = tt < steps && col < a.hd;
+            const long long off = tt * a.is[2] + col;
+            if (b16)
+              reinterpret_cast<bf16*>(dst)[i] =
+                  in ? reinterpret_cast<const bf16*>(src)[off]
+                     : __float2bfloat16_rn(0.0f);
+            else
+              reinterpret_cast<float*>(dst)[i] =
+                  in ? reinterpret_cast<const float*>(src)[off] : 0.0f;
+          }
+        }
+      }
+    }
+    cp_async_commit();
   }
 
-  float reg[kTC];
-  const int n_chunks = (T_len + kTC - 1) / kTC;
-  if (n_chunks > 0) {
-    fetch(src, sd.in[2], 0, T_len, c < hd, q, reg);
-    stage<HDP>(stg, q, c, reg);
+  // Readies chunk ch (landed, and visible to the block): widens its bf16
+  // rows into the float32 ring and takes its bonus dot products
+  // beta_t = sum_k r_k u_k k_k, sixteen threads a step (thread part p
+  // takes rows p HDP / 16 ..), from the rows as they landed.
+  __device__ void ready(const Args& a, int ch,
+                        const float (&uu)[HDP / 16]) const {
+    if (ch * kTC >= a.T) return;
+    const int s = ch % kStages;
+    float* slot = ring + s * SLOT;
+    if constexpr (LANDED > 0) {
+      constexpr int V8 = kTC * HDP / 8;      // 8 values a 16-byte load
+      for (int i = hid; i < LANDED * V8; i += kHelpers) {
+        const int la = i / V8, j = (i % V8) * 8;
+        const int arr = la < (kBI ? 3 : 0) ? la : 3;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            land + (s * LANDED + la) * kTC * HDP + j);
+        const __nv_bfloat162* h2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float4* d = reinterpret_cast<float4*>(slot + arr * kTC * HDP + j);
+        const float2 f0 = __bfloat1622float2(h2[0]);
+        const float2 f1 = __bfloat1622float2(h2[1]);
+        const float2 f2 = __bfloat1622float2(h2[2]);
+        const float2 f3 = __bfloat1622float2(h2[3]);
+        d[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+        d[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+      }
+    }
+    using TI = typename std::conditional<kBI, bf16, float>::type;
+    const TI* R = static_cast<const TI*>(landing(0, s));
+    const TI* K = static_cast<const TI*>(landing(1, s));
+    constexpr int PER = HDP / 16;
+    // Whole warps take (step, part) pairs, so the shuffles see 32 lanes.
+    for (int w0 = hid & ~31; w0 < kTC * 16; w0 += kHelpers) {
+      const int tt = (w0 + (hid & 31)) >> 4, p = hid & 15;
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int kk = p * PER + m;
+        acc = fmaf(widen(R[tt * HDP + kk]) * uu[m], widen(K[tt * HDP + kk]),
+                   acc);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(~0u, acc, o);
+      if (p == 0) beta[s * kTC + tt] = acc;
+    }
   }
-  __syncthreads();
+
+  // out[t0 + tt][col .. col + 3] of chunk ch (its partial sums written):
+  // the row groups' partial sums, added as a tree (log2 RG roundings).
+  template <typename TO>
+  __device__ void reduce(const Args& a, int ch, TO* out) const {
+    const float* P = part + (ch & 1) * PART;
+    const int t0 = ch * kTC, steps = min(kTC, a.T - t0);
+    for (int i = hid; i < kTC * HDP / 4; i += kHelpers) {
+      const int tt = i / (HDP / 4), col = (i % (HDP / 4)) * 4;
+      if (tt < steps && col < a.hd) {
+        float4 p[RG];
+#pragma unroll
+        for (int g = 0; g < RG; ++g)
+          p[g] = reinterpret_cast<const float4*>(P + (tt * RG + g) * HDP +
+                                                 col)[0];
+#pragma unroll
+        for (int span = 1; span < RG; span *= 2)
+#pragma unroll
+          for (int g = 0; g + span < RG; g += 2 * span) {
+            p[g].x += p[g + span].x;
+            p[g].y += p[g + span].y;
+            p[g].z += p[g + span].z;
+            p[g].w += p[g + span].w;
+          }
+        const float o[4] = {p[0].x, p[0].y, p[0].z, p[0].w};
+        TO* row = out + (t0 + tt) * a.os[2] + col;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (col + m < a.hd) narrow(row + m, o[m]);
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A thread's NC floats of v_t or of its partial sums of out_t, as float2s
+// (8-byte aligned; as float4s, or folded over a warp's row groups by
+// shuffles, the loop ran slower: kernel_variants.py k6, PERF.md).
+template <int NC>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[NC]) {
+#pragma unroll
+  for (int n = 0; n < NC; n += 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p + n);
+    v[n] = x.x;
+    v[n + 1] = x.y;
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[NC]) {
+#pragma unroll
+  for (int n = 0; n < NC; n += 2)
+    *reinterpret_cast<float2*>(p + n) = make_float2(v[n], v[n + 1]);
+}
+
+template <int HDP, bool kBI, bool kBW>
+__global__ void __launch_bounds__(threads<HDP>() + kHelpers, 1)
+rwkv_scan_kernel(const Args a) {
+  using KS = Kernel<HDP, kBI, kBW>;
+  using TO = typename std::conditional<kBI, bf16, float>::type;
+  constexpr int RG = KS::RG, NC = KS::NC, CG = KS::CG, NT = KS::NT;
+  constexpr int ALL = NT + kHelpers;         // compute and helper threads
+  extern __shared__ __align__(16) float smem[];
+  KS ks;
+  ks.ring = smem;
+  ks.beta = ks.ring + kStages * KS::SLOT;
+  ks.part = ks.beta + kStages * kTC;
+  ks.land = reinterpret_cast<bf16*>(ks.part + 2 * KS::PART);
+  ks.hid = threadIdx.x - NT;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int hd = a.hd;
+  const int n_chunks = (a.T + kTC - 1) / kTC;
+
+  if (threadIdx.x >= NT) {
+    // The helper threads: copy, ready and reduce while the compute
+    // threads run the recurrence.  Chunk ch is readied kAhead chunks
+    // ahead; the copies of chunk ch + kStages go into its slot once it
+    // is computed.
+#pragma unroll
+    for (int arr = 0; arr < 4; ++arr) {
+      const int es = (arr < 3 ? kBI : kBW) ? 2 : 4;
+      ks.seq[arr] = static_cast<const char*>(a.in[arr]) +
+                    (b * a.is[0] + h * a.is[1]) * es;
+    }
+    // u for this thread's part of the bonus dot products.
+    float uu[HDP / 16];
+#pragma unroll
+    for (int m = 0; m < HDP / 16; ++m) {
+      const int kk = (ks.hid & 15) * (HDP / 16) + m;
+      uu[m] = kk < hd ? a.u[h * hd + kk] : 0.0f;
+    }
+    TO* out = static_cast<TO*>(a.out) + b * a.os[0] + h * a.os[1];
+    for (int ch = 0; ch < kStages; ++ch) ks.issue(a, ch);
+    cp_async_wait<kStages - kAhead>();       // chunks 0 .. kAhead-1 landed
+    bar_sync(kHelp, kHelpers);
+    for (int ch = 0; ch < kAhead; ++ch) ks.ready(a, ch, uu);
+    if (n_chunks > 0) bar_arrive(kFull, ALL);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      bar_sync(kDone, ALL);                  // chunk ch computed
+      // Chunk ch + 1 was readied, and its partial-sum buffer reduced, in
+      // the turn before.
+      if (ch + 1 < n_chunks) bar_arrive(kFull, ALL);
+      ks.reduce(a, ch, out);
+      ks.issue(a, ch + kStages);
+      cp_async_wait<kStages - kAhead>();     // chunks .. ch + kAhead landed
+      bar_sync(kHelp, kHelpers);
+      ks.ready(a, ch + kAhead, uu);
+    }
+    return;
+  }
+
+  // Compute thread (row group rg, column group cg) holds S[r0 .. r0 +
+  // 3][c0 .. c0 + NC - 1]; a warp spans 32 / CG row groups and all
+  // columns.
+  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
+  const int r0 = rg * kRows, c0 = cg * NC;
+  const size_t st = static_cast<size_t>(bh) * hd * hd;
+  float S[kRows][NC];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int row = r0 + j, col = c0 + n;
+      S[j][n] = (a.s0 != nullptr && row < hd && col < hd)
+                    ? a.s0[st + static_cast<size_t>(row) * hd + col]
+                    : 0.0f;
+    }
 
   for (int ch = 0; ch < n_chunks; ++ch) {
-    const int t0 = ch * kTC;
-    const bool more = ch + 1 < n_chunks;
-    // The next chunk's loads go out now and land during the compute.
-    if (more) fetch(src, sd.in[2], t0 + kTC, T_len, c < hd, q, reg);
-
-    const float* R = stg + (ch & 1) * STAGE;
+    bar_sync(kFull, ALL);                    // chunk ch ready, its buffer
+                                             // of partial sums free
+    const int s = ch % kStages;
+    const float* R = ks.ring + s * KS::SLOT;
     const float* K = R + kTC * HDP;
     const float* V = K + kTC * HDP;
     const float* W = V + kTC * HDP;
-    float* P = part + (ch & 1) * PART;
-    const int steps = min(kTC, T_len - t0);
+    const float* beta = ks.beta + s * kTC;
+    float* P = ks.part + (ch & 1) * KS::PART;
+    const int steps = min(kTC, a.T - ch * kTC);
+    // Step tt's rows are in registers when it starts; step tt + 1's loads
+    // go out before step tt's arithmetic, so the shared-memory pipe and
+    // the multiply-adds overlap within a warp and not only across warps.
+    float4 r4, k4, w4;
+    float vv[NC], bt;
+    auto load = [&](int tt) {
+      r4 = reinterpret_cast<const float4*>(R + tt * HDP)[rg];
+      k4 = reinterpret_cast<const float4*>(K + tt * HDP)[rg];
+      w4 = reinterpret_cast<const float4*>(W + tt * HDP)[rg];
+      load_cols<NC>(V + tt * HDP + c0, vv);
+      // Row group 0 starts out_t[c] at the bonus beta_t v_t[c].
+      bt = rg == 0 ? beta[tt] : 0.0f;
+    };
+    load(0);
 #pragma unroll 2
     for (int tt = 0; tt < steps; ++tt) {
-      const float vc = V[tt * HDP + c];
-      const float* Rt = R + tt * HDP + k0;
-      const float* Kt = K + tt * HDP + k0;
-      const float* Wt = W + tt * HDP + k0;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const float rr[kRows] = {r4.x, r4.y, r4.z, r4.w};
+      const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
+      const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
+      float vn[NC], acc[NC];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float kv = Kt[j] * vc;
-        acc[j % 4] = fmaf(Rt[j], fmaf(uk[j], kv, S[j]), acc[j % 4]);
-        S[j] = fmaf(Wt[j], S[j], kv);
+      for (int n = 0; n < NC; ++n) {
+        vn[n] = vv[n];
+        acc[n] = bt * vv[n];
       }
-      P[(tt * 4 + q) * HDP + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    }
-
-    if (more) stage<HDP>(stg + ((ch + 1) & 1) * STAGE, q, c, reg);
-    __syncthreads();
-
-    // out[t0 + tt][c] for tt = q, q + 4, q + 8, q + 12.
+      load(tt + 1 < steps ? tt + 1 : tt);
 #pragma unroll
-    for (int m = 0; m < kTC / 4; ++m) {
-      const int tt = q + 4 * m;
-      if (tt < steps && c < hd) {
-        const float* p = P + tt * 4 * HDP + c;
-        const float o = ((p[0] + p[HDP]) + p[2 * HDP]) + p[3 * HDP];
-        out[oseq + (t0 + tt) * sd.os[2] + c] = o;
-      }
+      for (int j = 0; j < kRows; ++j)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const float kv = kk[j] * vn[n];
+          acc[n] = fmaf(rr[j], S[j][n], acc[n]);
+          S[j][n] = fmaf(ww[j], S[j][n], kv);
+        }
+      store_cols<NC>(P + (tt * RG + rg) * HDP + c0, acc);
     }
+    bar_arrive(kDone, ALL);
   }
 
-  if (c < hd) {
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kk = k0 + j;
-      if (kk < hd) sT[st + static_cast<size_t>(kk) * hd + c] = S[j];
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int row = r0 + j, col = c0 + n;
+      if (row < hd && col < hd)
+        a.sT[st + static_cast<size_t>(row) * hd + col] = S[j][n];
     }
-  }
 }
 
-template <int HDP>
-cudaError_t launch(const float* r, const float* k, const float* v,
-                   const float* w, const float* u, const float* s0,
-                   float* out, float* sT, int B, int H, int T_len, int hd,
-                   const Strides& sd, cudaStream_t stream) {
-  auto kernel = rwkv_scan_kernel<HDP>;
-  const size_t smem = smem_bytes<HDP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<B * H, 4 * HDP, smem, stream>>>(r, k, v, w, u, s0, out, sT, H,
-                                           T_len, hd, sd);
+// Makes `device` current if it is not (the stream belongs to it).
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+template <int HDP, bool kBI, bool kBW>
+cudaError_t launch(const Args& a, int B, int device, cudaStream_t stream) {
+  auto kernel = rwkv_scan_kernel<HDP, kBI, kBW>;
+  constexpr size_t smem = smem_bytes<HDP, kBI, kBW>();
+  // The shared-memory opt-in, once a device.
+  static bool allowed[64];
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!allowed[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed[device] = true;
+  }
+  kernel<<<B * a.H, threads<HDP>() + kHelpers, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kBI, bool kBW>
+cudaError_t dispatch(const Args& a, int B, int device, cudaStream_t s) {
+  if (a.hd <= 16) return launch<16, kBI, kBW>(a, B, device, s);
+  if (a.hd <= 32) return launch<32, kBI, kBW>(a, B, device, s);
+  return launch<64, kBI, kBW>(a, B, device, s);
 }
 
 }  // namespace
@@ -211,32 +514,55 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// r, k, v, w and out [B, H, T, hd] float32, at element strides (b, h, t)
+// r, k, v, w and out [B, H, T, hd], at element strides (b, h, t)
 // `sb, sh, st` for r, k, v and w and `ob, oh, ot` for out, hd's stride 1;
-// u [H, hd], state0 [B, H, hd, hd] (or null: zeros) and state
-// [B, H, hd, hd] float32, contiguous.  1 <= hd <= 64, T >= 0.  Returns a
-// cudaError_t (0 on success); launches asynchronously on `stream`.
-int repro_rwkv_scan(const float* r, const float* k, const float* v,
-                    const float* w, const float* u, const float* state0,
-                    float* out, float* state, int B, int H, int T_len,
-                    int hd, long long sb, long long sh, long long st,
+// `kinds` 0: all float32; 1: r, k, v and out bf16, w float32; 2: r, k, v,
+// w and out bf16.  u [H, hd], state0 [B, H, hd, hd] (or null: zeros) and
+// state [B, H, hd, hd] float32, contiguous.  1 <= hd <= 64, T >= 0.
+// Returns a cudaError_t (0 on success); one launch, asynchronous on
+// `stream`.
+int repro_rwkv_scan(const void* r, const void* k, const void* v,
+                    const void* w, const float* u, const float* state0,
+                    void* out, float* state, int B, int H, int T_len, int hd,
+                    int kinds, long long sb, long long sh, long long st,
                     long long ob, long long oh, long long ot, int device,
                     void* stream) {
-  if (B < 1 || H < 1 || T_len < 0 || hd < 1 || hd > 64 ||
-      static_cast<long long>(B) * H > 0x7fffffffLL)
+  if (B < 1 || H < 1 || T_len < 0 || hd < 1 || hd > 64 || kinds < 0 ||
+      kinds > 2 || static_cast<long long>(B) * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
-  const Strides sd{{sb, sh, st}, {ob, oh, ot}};
+  Args a{};
+  a.in[0] = r;
+  a.in[1] = k;
+  a.in[2] = v;
+  a.in[3] = w;
+  a.u = u;
+  a.s0 = state0;
+  a.out = out;
+  a.sT = state;
+  a.H = H;
+  a.T = T_len;
+  a.hd = hd;
+  a.is[0] = sb;
+  a.is[1] = sh;
+  a.is[2] = st;
+  a.os[0] = ob;
+  a.os[1] = oh;
+  a.os[2] = ot;
+  // 16-byte copies need every row start and hd's extent 16-byte aligned:
+  // 8 elements for a bf16 array, 4 for a float32 one (strides in
+  // elements, shared by the four).
+  const long long per = kinds == 0 ? 4 : 8;
+  bool vec = hd % per == 0 && sb % per == 0 && sh % per == 0 &&
+             st % per == 0;
+  for (const void* p : a.in)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 16)
-    return launch<16>(r, k, v, w, u, state0, out, state, B, H, T_len, hd, sd,
-                      s);
-  if (hd <= 32)
-    return launch<32>(r, k, v, w, u, state0, out, state, B, H, T_len, hd, sd,
-                      s);
-  return launch<64>(r, k, v, w, u, state0, out, state, B, H, T_len, hd, sd,
-                    s);
+  if (kinds == 0) return dispatch<false, false>(a, B, device, s);
+  if (kinds == 1) return dispatch<true, false>(a, B, device, s);
+  return dispatch<true, true>(a, B, device, s);
 }
 
 }  // extern "C"

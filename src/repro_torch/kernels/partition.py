@@ -15,10 +15,10 @@ launches its kernel from ``csrc/partition.cu`` (built at first use, see
 :mod:`repro_torch.kernels._build`) on the current stream, or raises; for
 CPU tensors it runs the plain version in :mod:`repro_torch.kernels.ref`.
 Each wrapper counts the calls that launched its kernel in ``.launches``.
-K1 and K2 are one launch a call: a chunk of at most :data:`TILE_RECORDS`
+All three are one launch a call: a chunk of at most :data:`TILE_RECORDS`
 records on one block, a longer one in one pass over a workspace that is
 allocated once per device and stream (and grown when a call needs more).
-Their outputs are views of one int32 buffer.
+Each call's outputs are views of one int32 buffer.
 
 Inputs: ``keys`` and ``counters`` are int32 ``[N]`` (K2 also takes int64,
 wrapped mod 2^32 as ``.to(torch.int32)`` does, and ``counters=None`` for
@@ -54,8 +54,8 @@ MAX_WORKERS = 1024
 TILE_RECORDS = 4096
 
 _lib = None
-#: The multi-tile workspace of K1 and K2 per (device, stream): int64 words,
-#: zeroed once (the kernels leave it ready for the next call).
+#: The multi-tile workspace of the kernels per (device, stream): int64
+#: words, zeroed once (the kernels leave it ready for the next call).
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -94,7 +94,9 @@ def workspace(n: int, num_workers: int, index: int, stream: int,
     (``n <= one_tile``)."""
     if n <= one_tile:
         return None
-    words = 2 + num_workers * -(-n // TILE_RECORDS)
+    # The header (four uint32), K3's [MAX_WORKERS] uint32 accumulator, and
+    # K1's and K2's status words, one a worker a tile.
+    words = 2 + MAX_WORKERS // 2 + num_workers * -(-n // TILE_RECORDS)
     ws = _WORKSPACE.get((index, stream))
     if ws is None or ws.numel() < words:
         ws = _WORKSPACE[(index, stream)] = torch.zeros(
@@ -239,15 +241,15 @@ def partition(keys: torch.Tensor, counters: torch.Tensor,
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.zeros(num_workers, dtype=torch.int32, device=dev))
     lib = _library()
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    hist = torch.empty(num_workers, dtype=torch.int32, device=dev)
+    index, stream = _build.device_and_stream(dev)
+    buf = torch.empty(n + num_workers, dtype=torch.int32, device=dev)
     code = lib.repro_partition(
-        keys.data_ptr(), counters.data_ptr(), cdf.data_ptr(),
-        dest.data_ptr(), hist.data_ptr(), n, num_keys, num_workers,
-        *_build.device_and_stream(dev))
+        keys.data_ptr(), counters.data_ptr(), cdf.data_ptr(), buf.data_ptr(),
+        workspace(n, num_workers, index, stream), n, num_keys, num_workers,
+        index, stream)
     _build.raise_on(lib, code, "partition")
     partition.launches += 1
-    return dest, hist
+    return buf.split_with_sizes((n, num_workers))
 
 
 def launch_floor(dev: torch.device) -> None:

@@ -10,9 +10,12 @@ simplified but recurrence-faithful): per head, with a data-dependent decay
 Where the JAX layer runs the recurrence with ``lax.scan`` (``ssm.py:99-110``)
 the port makes one call of K6
 (:func:`repro_torch.kernels.rwkv_scan.rwkv_scan`, through its module so a
-recorder can stand in for it) on float32 r, k, v and w, as JAX casts them
-(``ssm.py:95-97``), passed as ``[B, H, S, hd]`` views of the ``[B, S, D]``
-activations; K6 writes ``out`` in that layout, so no copy goes in or out.
+recorder can stand in for it) on r, k and v in the compute dtype and the
+float32 w, passed as ``[B, H, S, hd]`` views of the ``[B, S, D]``
+activations.  K6 widens each value to float32 as it reads it, which gives
+exactly JAX's casts (``ssm.py:95-97``), and writes ``out`` in r's dtype
+(one rounding of the float32 sum, as JAX's ``.astype``) and in that
+layout, so no cast and no copy goes in or out.
 Every bf16 rounding of the JAX layer is kept: the decay's ``w0 + tanh(.)
 W_b`` in the compute dtype and its ``exp(-exp(.))`` in float32, the RMS
 ``ln_x`` over all of D cast back before the ``ln_x`` product.  Decode
@@ -74,7 +77,7 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
 
 
 def _heads(x: torch.Tensor, B: int, S: int, H: int, hd: int) -> torch.Tensor:
-    """``[B, S, H * hd]`` float32 -> ``[B, H, S, hd]``, a view (K6 reads its
+    """``[B, S, H * hd]`` -> ``[B, H, S, hd]``, a view (K6 reads its
     strides)."""
     return x.view(B, S, H, hd).transpose(1, 2)
 
@@ -110,10 +113,12 @@ def rwkv6_apply(
     w = torch.exp(-torch.exp(wlin.float()))                    # [B,S,D]
 
     wkv0 = None if state is None else state["wkv"].float()
+    # r, k and v in the compute dtype and w in float32, as they come: K6
+    # widens each value as it reads it and writes out in r's dtype.
     out, wkv_fin = k6.rwkv_scan(
-        *(_heads(t.float(), B, S, H, hd) for t in (r, k, v, w)),
+        *(_heads(t, B, S, H, hd) for t in (r, k, v, w)),
         p["u"].float().contiguous(), wkv0)
-    out = out.transpose(1, 2).reshape(B, S, D).to(dt)
+    out = out.transpose(1, 2).reshape(B, S, D)
 
     # per-head groupnorm (ln_x simplified to RMS over channel)
     o32 = out.float()

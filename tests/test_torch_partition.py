@@ -310,3 +310,35 @@ def test_cuda_one_and_multi_tile_kernels():
                             tref.partition(keys, counters, cdf)):
                 assert torch.equal(g, p), (n, num_workers)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_partition_is_one_launch_and_leaves_its_accumulator_zero():
+    """K3 at one tile (N <= 4096: one block writes hist itself) and at many
+    (persistent blocks fold their counts into the workspace's accumulator,
+    and the last block out writes hist and zeroes it), at W in {1, 20, 64,
+    1024}, called repeatedly on one stream between K1 calls that use the
+    same workspace: bit for bit against the plain version every time, one
+    launch a call, and the accumulator zero after every call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    index, stream = kpart._build.device_and_stream(torch.device("cuda"))
+    for n in (1, 4096, 4097, 70_000, 2**20 + 7):
+        for num_workers in (1, 20, 64, kpart.MAX_WORKERS):
+            keys, counters, w = _inputs(n + num_workers, n, 300, num_workers,
+                                        split_frac=0.3)
+            tk, tc, cdf = (x.cuda() for x in _torch(keys, counters, w))
+            want = tref.partition(tk, tc, cdf)
+            for _ in range(3):
+                launches = kpart.partition.launches
+                got = kpart.partition(tk, tc, cdf)
+                assert kpart.partition.launches == launches + 1
+                for g, p in zip(got, want):
+                    assert torch.equal(g, p), (n, num_workers)
+                kpart.partition_scatter(tk, tc, cdf)
+            ws = kpart._WORKSPACE.get((index, stream))
+            if n > kpart.TILE_RECORDS:
+                # int64 words 2 .. 2 + MAX_WORKERS / 2: the accumulator.
+                acc = ws[2:2 + kpart.MAX_WORKERS // 2]
+                assert int(acc.abs().sum()) == 0, (n, num_workers)
+    torch.cuda.synchronize()
