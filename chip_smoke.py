@@ -32,14 +32,35 @@ Phases, in order; any failure exits non-zero before the last line:
              W3 resident        1.5M orders (TPC-H SF1 ORDERS),
                                 ``device_executor="jit"``: both edges on
                                 the device-resident plane (K2);
-             W1 resident-mixed  ``"jit"``: filter and sink edges resident
-                                (K2), the probe edge per chunk (K1);
+             W1 resident        ``"jit"``: the filter, probe and sink
+                                edges resident (K2, no K1), the Filter ->
+                                Probe chain fused (one placement a
+                                super-tick) until the controller's first
+                                rewrite of the probe table, per edge after;
+             W1 resident unfused  the same with ``REPRO_DEVICE_CHAIN=0``:
+                                every edge its own placement, no fused
+                                dispatch (the cost of fusion, same call);
+             W1 resident-mixed  the probe's emit ceiling set to 0, so its
+                                edge demotes (``probe fanout``) on the
+                                first tick and the resident filter's
+                                device chunks cross to it per chunk
+                                (compacted on the host, then K1; K2 on the
+                                filter and sink edges);
+             W4 resident        80,000 tuples, 40 workers, 42 keys (paper
+                                §7.8), ``"jit"``: the probe and sink edges
+                                resident (K2);
              W1, W2, W3 per-chunk  the builders' default executor: every
                                 chunk of every edge through K1;
            then each workflow once on the host ``numpy`` plane.  Ticks,
            ``Sink.series``, ``Sink.counts``, per-edge ``sent_per_worker``,
            controller events and the sort's row state must be identical to
-           the host run, and results must equal the datasets' ground truth.
+           the host run, and results must equal the datasets' ground truth;
+           no edge may be demoted but W1 resident-mixed's probe edge (for
+           ``probe fanout``), no fused chain may fall back, W1 resident's
+           probe edge must have paid placements, fewer than the host
+           plane's, and the unfused and mixed paths as many as the host
+           plane's (each edge's placements, the fused dispatches and the
+           time of the per-tick fusion check are printed).
            ``Sink.sums`` must equal the host run's on a per-chunk path, and
            lie within c * 2^-23 * sum|v| of it on a resident one (c the
            key's count; the resident sink adds K2's float32 chunk sums);
@@ -47,7 +68,9 @@ Phases, in order; any failure exits non-zero before the last line:
            launched them, and K2 against its plain version on the very
            inputs the resident paths gave it: the first call at each
            (N, K, W) of each path (W3's ingest and its one sink call of the
-           whole sorted output, W1's filter ingest and sink calls), checked
+           whole sorted output, W1's filter and probe ingests and sink
+           calls on each resident path, W4's probe ingest and sink calls),
+           checked
            as in phase 3; each timed beside its bound at that shape, the
            host's time to submit a call, the card's own time and the
            stream operations one call makes (under the profiler; K1 and K3
@@ -586,14 +609,19 @@ def same_series(a, b) -> bool:
         t1 == t2 and np.array_equal(c1, c2) for (t1, c1), (t2, c2) in zip(a, b))
 
 
-#: Card paths of the main phase: (label, builder, kwargs, device_executor;
-#: None = the builders' default, the per-chunk plane).
+#: Card paths of the main phase: (label, builder, kwargs, device_executor
+#: (None = the builders' default, the per-chunk plane), tweak (see
+#: ``path_tweak``)).
 PATHS = (
-    ("W3 resident", "build_w3", dict(n_tuples=W3_TUPLES), "jit"),
-    ("W1 resident-mixed", "build_w1", dict(scale=W1_SCALE), "jit"),
-    ("W1 per-chunk", "build_w1", dict(scale=W1_SCALE), None),
-    ("W2 per-chunk", "build_w2", dict(n_tuples=W2_TUPLES), None),
-    ("W3 per-chunk", "build_w3", dict(n_tuples=W3_TUPLES), None),
+    ("W3 resident", "build_w3", dict(n_tuples=W3_TUPLES), "jit", None),
+    ("W1 resident", "build_w1", dict(scale=W1_SCALE), "jit", None),
+    ("W1 resident unfused", "build_w1", dict(scale=W1_SCALE), "jit",
+     "unfused"),
+    ("W1 resident-mixed", "build_w1", dict(scale=W1_SCALE), "jit", "mixed"),
+    ("W4 resident", "build_w4", dict(), "jit", None),
+    ("W1 per-chunk", "build_w1", dict(scale=W1_SCALE), None, None),
+    ("W2 per-chunk", "build_w2", dict(n_tuples=W2_TUPLES), None, None),
+    ("W3 per-chunk", "build_w3", dict(n_tuples=W3_TUPLES), None, None),
 )
 KERNELS = ("partition_scatter", "partition_scatter_fold", "partition")
 #: Edge planes each card path must show, and the kernels it must (True) or
@@ -601,11 +629,50 @@ KERNELS = ("partition_scatter", "partition_scatter_fold", "partition")
 EXPECT = {
     "W3 resident": (["jit", "jit"], dict(partition_scatter=False,
                                          partition_scatter_fold=True)),
-    "W1 resident-mixed": (["jit", None, "jit"],
+    "W1 resident": (["jit", "jit", "jit"],
+                    dict(partition_scatter=False,
+                         partition_scatter_fold=True)),
+    "W1 resident unfused": (["jit", "jit", "jit"],
+                            dict(partition_scatter=False,
+                                 partition_scatter_fold=True)),
+    # The filter's device chunks cross to the demoted probe edge: compacted
+    # on the host (``Edge.send``), then K1.
+    "W1 resident-mixed": (["jit", "demoted(probe fanout)", "jit"],
                           dict(partition_scatter=True,
                                partition_scatter_fold=True)),
+    "W4 resident": (["jit", "jit"], dict(partition_scatter=False,
+                                         partition_scatter_fold=True)),
 }
 PER_CHUNK = dict(partition_scatter=True, partition_scatter_fold=False)
+#: The demotions (their causes, in order) a card path must record; any
+#: other path must record none.
+DEMOTIONS = {"W1 resident-mixed": ["probe fanout"]}
+
+
+@contextlib.contextmanager
+def path_tweak(tweak):
+    """The one setting a card path runs under: ``"unfused"`` builds its
+    engine with ``REPRO_DEVICE_CHAIN=0`` (every edge its own dispatch and
+    placement, for the cost of fusion on the same path); ``"mixed"`` sets
+    the probe's emit ceiling ``MAX_EMIT_CELLS`` to 0, so the probe edge
+    demotes (``probe fanout``) on its first tick and the filter's device
+    chunks cross to a per-chunk edge."""
+    import os
+    from repro_torch.dataflow import device
+
+    env, cells = os.environ.get("REPRO_DEVICE_CHAIN"), device.MAX_EMIT_CELLS
+    if tweak == "unfused":
+        os.environ["REPRO_DEVICE_CHAIN"] = "0"
+    elif tweak == "mixed":
+        device.MAX_EMIT_CELLS = 0
+    try:
+        yield
+    finally:
+        device.MAX_EMIT_CELLS = cells
+        if env is None:
+            os.environ.pop("REPRO_DEVICE_CHAIN", None)
+        else:
+            os.environ["REPRO_DEVICE_CHAIN"] = env
 
 
 class Recorder:
@@ -688,12 +755,14 @@ class FoldRecorder(Recorder):
 def run_workflow(dataflow, factory: str, kw, backend: str, executor=None):
     """Run one workflow with the Reshape controller; returns it, its wall
     time, the host-clock seconds and calls of the per-chunk exchange
-    backend, of the resident runtime's dispatches and of its boundary
-    materializations (``sync_host`` / ``sync_stats`` /
-    ``sync_sink_counts``), and the routing-only share.  Times are
-    exclusive: a timed call made inside another (the per-chunk exchange of
-    a chunk a resident Filter emits, a boundary's flush dispatch) counts
-    for itself only."""
+    backend, of the resident runtime's per-edge dispatches, of its fused
+    chain dispatches, of its check whether a dispatch fuses
+    (``_chain_for_dispatch``, made every tick of a linked map stage) and of
+    its boundary materializations (``sync_host`` / ``sync_stats`` /
+    ``sync_sink_counts``), and the routing-only share.
+    Times are exclusive: a timed call made inside another (the per-chunk
+    exchange of a chunk a resident Filter emits, a boundary's flush
+    dispatch) counts for itself only."""
     from repro_torch.dataflow.device import DeviceOpRuntime
 
     if executor is not None:
@@ -701,8 +770,8 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None):
     wf = getattr(dataflow, factory)(strategy="reshape", device="cuda",
                                     partition_backend=backend, **kw)
     exchange = wf.engine.partition_backend
-    spent = {"exchange": [0.0, 0], "dispatch": [0.0, 0],
-             "boundary": [0.0, 0]}
+    spent = {"exchange": [0.0, 0], "dispatch": [0.0, 0], "fused": [0.0, 0],
+             "chain check": [0.0, 0], "boundary": [0.0, 0]}
     stack = []          # [start, seconds of timed calls nested inside]
 
     def timed(fn, what):
@@ -720,8 +789,9 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None):
         return wrapper
 
     exchange.partition_scatter = timed(exchange.partition_scatter, "exchange")
-    methods = {"_dispatch": "dispatch", "sync_host": "boundary",
-               "sync_stats": "boundary", "sync_sink_counts": "boundary"}
+    methods = {"_dispatch": "dispatch", "_dispatch_chain": "fused",
+               "_chain_for_dispatch": "chain check", "sync_host": "boundary", "sync_stats": "boundary",
+               "sync_sink_counts": "boundary"}
     saved = {m: getattr(DeviceOpRuntime, m) for m in methods}
     for m, what in methods.items():
         setattr(DeviceOpRuntime, m, timed(saved[m], what))
@@ -746,6 +816,14 @@ def ground_truth_ok(factory, wf, datasets) -> bool:
     import numpy as np
     if factory == "build_w1":
         return np.array_equal(wf.sink.counts, datasets.tweet_counts(W1_SCALE))
+    if factory == "build_w4":
+        # Each probe record matches every build row of its key.
+        n, nk = wf.engine.sources[0].keys.size, wf.meta["num_keys"]
+        keys = datasets.synthetic_changing(n, nk, 3)[0]
+        build = datasets.synthetic_small_table(nk)[0]
+        return np.array_equal(wf.sink.counts,
+                              np.bincount(keys, minlength=nk)
+                              * np.bincount(build, minlength=nk))
     if factory == "build_w2":
         spec = datasets.DsbSpec()
         items = datasets.dsb_sales(W2_TUPLES, spec, 1)[1]
@@ -790,12 +868,13 @@ def main_path(torch, kpart):
     firsts = (PathRecorder(kpart, "partition_scatter"),
               PathRecorder(kpart, "partition"))
     with FoldRecorder(kpart) as rec, firsts[0], firsts[1]:
-        for label, factory, kw, executor in PATHS:
+        for label, factory, kw, executor, tweak in PATHS:
             for fn in kernels.values():
                 fn.launches = 0
             for r in (rec,) + firsts:
                 r.label = label
-            run = run_workflow(dataflow, factory, kw, "torch", executor)
+            with path_tweak(tweak):
+                run = run_workflow(dataflow, factory, kw, "torch", executor)
             torch.cuda.synchronize()
             counts = {name: fn.launches for name, fn in kernels.items()}
             absum = (rec.sink_abs_sums(torch, run[0].sink.counts.size)
@@ -809,7 +888,7 @@ def main_path(torch, kpart):
               f"{label}: K2 was not called at both the ingest and the sink")
 
     hosts = {}
-    for label, factory, kw, executor in PATHS:
+    for label, factory, kw, executor, tweak in PATHS:
         key = (factory, tuple(sorted(kw.items())))
         if key not in hosts:
             hosts[key] = run_workflow(dataflow, factory, kw, "numpy")
@@ -820,8 +899,23 @@ def main_path(torch, kpart):
         check([e.device_plane for e in wf.engine.edges] == planes,
               f"{label}: edge planes {[e.device_plane for e in wf.engine.edges]}"
               f", expected {planes}")
-        check(not wf.engine.incidents.query(kind="demotion"),
-              f"{label}: an edge was demoted")
+        demoted = [i.cause for i in wf.engine.incidents.query(kind="demotion")]
+        check(demoted == DEMOTIONS.get(label, []),
+              f"{label}: demotions {demoted}, expected "
+              f"{DEMOTIONS.get(label, [])}")
+        check(not wf.engine.incidents.query(kind="chain-fallback"),
+              f"{label}: a fused chain fell back to per-edge dispatch")
+        placed = [e.exchange.placements for e in wf.engine.edges]
+        host_placed = [e.exchange.placements for e in host.engine.edges]
+        if factory == "build_w1" and executor == "jit" and tweak is None:
+            check(0 < placed[1] < host_placed[1],
+                  f"{label}: the probe edge paid {placed[1]} placements "
+                  f"(host plane {host_placed[1]}): fusion never engaged, "
+                  f"or never let go")
+        elif factory == "build_w1" and executor == "jit":
+            check(placed[:2] == host_placed[:2] and spent["fused"][1] == 0,
+                  f"{label}: placements {placed} (host plane {host_placed})"
+                  f", {spent['fused'][1]} fused dispatches: an edge fused")
         for name, launched in must.items():
             check((counts[name] > 0) == launched,
                   f"{label}: {name} launched {counts[name]} times")
@@ -869,7 +963,8 @@ def main_path(torch, kpart):
         log(f"main: {label}: {tuples} tuples, {wf.engine.tick} ticks, "
             f"{len(events)} controller events, "
             f"{wf.edges[0].routing.version} rewrites of the monitored "
-            f"edge, launches "
+            f"edge, placements per edge {placed} (host plane "
+            f"{host_placed}), {spent['fused'][1]} fused dispatches, launches "
             f"K1 {counts['partition_scatter']} / "
             f"K2 {counts['partition_scatter_fold']} / "
             f"K3 {counts['partition']}: cuda {wall:.3f} s "

@@ -4,11 +4,12 @@ Counterpart of ``repro.dataflow.device``.  An eligible edge keeps its whole
 data plane on the engine's device between host boundaries: the staged
 chunks, the per-worker ring queues, the routing constants (float32 row-CDF,
 split mask, owners), the per-key split counters, and the destination's
-keyed fold (GroupByAgg), row store (HashJoinBuild / RangeSort) or sink
-columns live as ``torch`` tensors, and :meth:`DeviceOpRuntime.tick`
-advances them — split counters → partition → within-destination rank →
-ring scatter → budgeted pop → fold / row append / map (Filter, Project) —
-in one dispatch per edge per super-tick.  The JAX package traces that
+keyed fold (GroupByAgg), row store (HashJoinBuild / RangeSort), build-match
+table (HashJoinProbe) or sink columns live as ``torch`` tensors, and
+:meth:`DeviceOpRuntime.tick` advances them — split counters → partition →
+within-destination rank → ring scatter → budgeted pop → fold / row append /
+map (Filter, Project) / probe expansion — in one dispatch per edge (or per
+fused chain) per super-tick.  The JAX package traces that
 dispatch into one jitted program; here it runs eagerly, as a few dozen
 tensor operations on the current stream, and updates the state tensors in
 place (the runtime owns them; nothing else holds a reference).
@@ -46,20 +47,63 @@ padded, validity-masked :class:`DeviceChunk` buffers (a Filter's output
 has dead lanes anywhere in it); an edge that is not resident compacts
 them on the host (``Edge.send``).
 
+The probe (HashJoinProbe) kind: the installed build side is immutable, so
+the probe is stateless per record given a dense ``[W, K]`` match-count
+table (owned and scattered build rows summed, reloaded from the host
+whenever a migration or ``install_build`` marks it stale).  Its step pops
+a budgeted window and expands it (:func:`repro_torch.kernels.ref.
+match_expand`): each live lane emitted ``mcounts[w, key]`` times into a
+padded ``[W, B * M]`` block, ``M`` the largest match count, so the emit
+buffer covers the worst case and nothing carries over.  An edge whose
+``W * B * M`` would pass ``MAX_EMIT_CELLS`` demotes to the per-chunk path
+(the JAX plane's chunked emission waits for the spill tier).
+
+Multi-edge chain fusion: consecutive resident edges whose tables are
+routing-equivalent (``RoutingTable.routing_token`` equal; tokens exist
+only for one-hot tables) share one placement.  A record sits on worker
+*w* of a Filter, a key-preserving Project or a probe exactly because the
+upstream table's primary of its key is *w*, so under an equal table its
+destination downstream is *w* again: the stage hands its follower a
+pre-placed ``[W, B]`` block (:func:`_push_placed`, a per-row cumsum rank
+and no partition) and the whole chain advances in one dispatch per
+super-tick (:func:`_chain_step`).  Fusibility is re-checked every
+dispatch (:meth:`DeviceOpRuntime._chain_for_dispatch`): a rewrite that
+splits or moves a key, backlog placed under an older table, a demotion,
+END, a manual tick with another budget or ``Engine(device_chain=False)``
+keeps the edges apart, every stage with its exact host mirrors.  The
+chain's one placement counts at its head; a fused follower's
+``DeviceExchange.placements`` stays 0.  Two places differ from the JAX
+plane:
+
+  * the sink tail.  The JAX plane keeps a sink per edge when it folds
+    through the kernel, because its chain tail folds by a plain
+    scatter-add.  Every sink of the port folds through K2, and so does a
+    sink at the tail of a chain: the carry's flat keys and vals, ``keep``
+    as the valid mask, the ones CDF.  ``Sink.counts`` is bit-identical to
+    the per-edge fold, and the sums stay within the plane's bound below.
+  * failures.  The JAX plane un-fuses on any exception of a first fused
+    dispatch, which would hide a kernel fault here.  The port runs each
+    never-dispatched member's Filter / Project function on a window of
+    zeros before the first fused dispatch; only a
+    :class:`UserFunctionError` there un-fuses (a ``chain-fallback``
+    incident) and replays per edge, where the stage's own tick demotes
+    it.  A K2, build or CUDA error inside a fused dispatch propagates, as
+    it does per edge.
+
 Bit-exactness: destinations, ranks, histograms, queue contents, split
 counters, row stores and every integer metric are identical to the host
 numpy plane.  Only float sums may differ in their last bits: GroupByAgg
 sums fold with ``index_add_`` (atomic order on the card), and the sink
 adds K2's float32 per-chunk sums to its float64 columns, as the JAX
 package's kernel sink does, so sink sums differ from the host plane's in
-about the 7th digit.  The cross-plane contract is therefore stated on
-``Sink.series``, ``Sink.counts``, the counters and the mirrors, all
-integers.
+about the 7th digit (within c * 2^-23 * sum|v| per key, c its count).
+The cross-plane contract is therefore stated on ``Sink.series``,
+``Sink.counts``, the counters and the mirrors, all integers.
 
-Not ported yet from the JAX plane (each in ``ROADMAP.md``): the
-HashJoinProbe expand stage (probe edges keep the per-chunk exchange),
-multi-edge chain fusion, the spill tier and checkpoint restore
-(``on_restore``), the in-dispatch controller and the sanitizers.
+Not ported yet from the JAX plane (each in ``ROADMAP.md``): the spill
+tier with the probe's chunked emission (``_tick_probe_chunked``),
+checkpoint restore (``on_restore``), the in-dispatch controller and the
+sanitizers.
 """
 from __future__ import annotations
 
@@ -71,6 +115,7 @@ import numpy as np
 import torch
 
 from ..kernels import partition as kpart
+from ..kernels.ref import match_expand
 from .tuples import Chunk, ring_span
 
 __all__ = ["DeviceChunk", "DeviceOpRuntime", "StepSpec", "UserFunctionError",
@@ -85,6 +130,15 @@ MAX_FOLD_CELLS = 1 << 22
 #: operators stay on the per-chunk path (the Sink itself has no rings).
 MAX_SERVICE_RATE = 1 << 20
 
+#: probe-expand ceiling: the emit buffer is W * B * M lanes (M = the largest
+#: per-(worker, key) build-match count, so it covers the worst case and no
+#: output ever waits past the host plane's tick); a build table skewed
+#: enough to pass it demotes the edge instead.
+MAX_EMIT_CELLS = 1 << 22
+
+#: kinds that emit downstream (and may lead or continue a fused chain).
+MAP_KINDS = ("filter", "project", "probe")
+
 State = Dict[str, torch.Tensor]
 Consts = Dict[str, torch.Tensor]
 
@@ -93,14 +147,15 @@ def wireable(op, num_keys: int) -> bool:
     """Is ``op`` a device-wireable destination for an edge of ``num_keys``?
 
     Exact types only (a subclass may override ``process``): Filter,
-    Project, GroupByAgg, Sink, HashJoinBuild and RangeSort.  The dense
-    per-(worker, key) fold keeps wide key spaces on the per-chunk path, and
-    K2 takes at most ``MAX_WORKERS`` destinations.
+    Project, GroupByAgg, Sink, HashJoinBuild, HashJoinProbe and RangeSort.
+    The dense per-(worker, key) structures (the keyed fold, the probe's
+    match table) keep wide key spaces on the per-chunk path, and K2 takes
+    at most ``MAX_WORKERS`` destinations.
     """
-    from .operators import (Filter, GroupByAgg, HashJoinBuild, Project,
-                            RangeSort, Sink)
+    from .operators import (Filter, GroupByAgg, HashJoinBuild,
+                            HashJoinProbe, Project, RangeSort, Sink)
     if type(op) not in (Filter, Project, GroupByAgg, Sink, HashJoinBuild,
-                        RangeSort):
+                        HashJoinProbe, RangeSort):
         return False
     # Row-state operators keep no dense [W, K] structure (their state is a
     # [W, rcap] row log), so only the K-sized routing consts gate them.
@@ -146,7 +201,7 @@ class DeviceChunk:
 class StepSpec:
     """The static shape of one dispatch step."""
 
-    kind: str        # "fold" | "filter" | "project" | "sink" | "rows"
+    kind: str   # "fold" | "filter" | "project" | "sink" | "probe" | "rows"
     W: int                       # destination workers
     K: int                       # key-space size
     cap: int                     # ring capacity (power of two)
@@ -155,7 +210,7 @@ class StepSpec:
     may_scatter: bool            # owned/scattered fold split armed
     track_stats: bool            # per-key arrival stats fold armed
     fn: Optional[Callable] = None   # Filter predicate / Project map
-    M: int = 1                   # probe fanout bound (probe not ported)
+    M: int = 1                   # probe: largest per-record match fanout
     rcap: int = 0                # rows: segment-store capacity (pow2)
 
 
@@ -242,6 +297,23 @@ def _push(spec: StepSpec, state: State, keys, vals, valid, dest, rank,
     state["tail"] += hist
 
 
+def _push_placed(spec: StepSpec, state: State, ok, ov, keep, hist) -> None:
+    """Ring-scatter a pre-placed ``[W, E]`` block (a fused chain's ingest):
+    row ``w``'s live lanes append to ring ``w`` in lane order.  The upstream
+    edge's partition placed the records and routing-token equality proves
+    this edge would place them the same way, so the within-destination rank
+    is a per-row cumsum and no partition runs."""
+    kin = keep.to(torch.int64)
+    rank = torch.cumsum(kin, dim=1) - kin
+    pos = (state["tail"][:, None] + rank) % spec.cap
+    wid = _iota(spec.W, keep.device)[:, None]
+    flat = torch.where(keep, wid * spec.cap + pos,
+                       spec.W * spec.cap).reshape(-1)
+    state["rk"].index_put_((flat,), ok.reshape(-1))
+    state["rv"].index_put_((flat,), ov.reshape(-1))
+    state["tail"] += hist
+
+
 def _pop(spec: StepSpec, state: State, budget: int):
     """Budgeted pop of a ``[W, B]`` window: (keys, vals, mask, take)."""
     head = state["head"]
@@ -322,40 +394,96 @@ def _fold_popped(spec: StepSpec, consts: Consts, state: State, wk, wv,
             (torch.where(mf, flat, spec.W * spec.K),), mf)
 
 
+def _pop_and_tail(spec: StepSpec, consts: Consts, state: State,
+                  budget: int):
+    """Pop a ``[W, B]`` window and run the stage's tail on it: returns
+    (take, the third metric row, out block or None): the emitted counts of
+    a map or probe, the owned rows appended by a row-state stage, None
+    after a keyed fold.  The out block (keys, vals, keep) is ``[W, B]`` for
+    a Filter / Project and ``[W, B * M]`` for a probe, each live lane
+    repeated by its build-match count (``np.repeat`` per worker)."""
+    wk, wv, wmask, take = _pop(spec, state, budget)
+    if spec.kind == "rows":
+        return take, _fold_rows(spec, consts, state, wk, wv, wmask, take), None
+    if spec.kind == "fold":
+        _fold_popped(spec, consts, state, wk, wv, wmask)
+        return take, None, None
+    out = (match_expand(wk, wv, wmask, state["mcounts"], spec.B * spec.M)
+           if spec.kind == "probe" else _map_stage(spec, wk, wv, wmask))
+    return take, out[2].sum(dim=1), out
+
+
 def _step(spec: StepSpec, consts: Consts, state: State,
           chunk: Optional[DeviceChunk], budget: int):
-    """One fold / rows / map step: optional ingest, pop, tail.  Returns
-    (metrics, out chunk columns or None): ``metrics`` stacks the int64
-    histogram, the popped counts and, for a map, the emitted counts or, for
-    rows, the owned rows appended, per worker."""
+    """One fold / rows / map / probe step: optional ingest, pop, tail.
+    Returns (metrics, out chunk columns or None): ``metrics`` stacks the
+    int64 histogram, the popped counts and the third row of
+    :func:`_pop_and_tail` (if any), per worker."""
     if chunk is not None:
         hist = _ingest(spec, consts, state, chunk).to(torch.int64)
     else:
         hist = torch.zeros(spec.W, dtype=torch.int64,
                            device=state["tail"].device)
-    wk, wv, wmask, take = _pop(spec, state, budget)
-    if spec.kind == "rows":
-        owned = _fold_rows(spec, consts, state, wk, wv, wmask, take)
-        return torch.stack([hist, take, owned]), None
-    if spec.kind == "fold":
-        _fold_popped(spec, consts, state, wk, wv, wmask)
-        return torch.stack([hist, take]), None
-    ok, ov, keep = _map_stage(spec, wk, wv, wmask)
-    out = (ok.reshape(-1), ov.reshape(-1), keep.reshape(-1))
-    return torch.stack([hist, take, keep.sum(dim=1)]), out
+    take, third, out = _pop_and_tail(spec, consts, state, budget)
+    if out is not None:
+        out = tuple(t.reshape(-1) for t in out)
+    return torch.stack([hist, take] if third is None
+                       else [hist, take, third]), out
 
 
-def _sink_step(spec: StepSpec, ones_cdf: torch.Tensor, state: State,
-               chunk: DeviceChunk) -> None:
-    """Fold one staged chunk into the sink columns through K2 (W == 1: the
-    ones CDF routes every lane to worker 0; the kernel's per-key counts and
+def _sink_fold(spec: StepSpec, ones_cdf: torch.Tensor, state: State,
+               keys, vals, valid) -> None:
+    """Fold masked lanes into the sink columns through K2 (W == 1: the ones
+    CDF routes every lane to worker 0; the kernel's per-key counts and
     float32 sums are the fold)."""
     _, _, _, fcnt, fsum = kpart.partition_scatter_fold(
-        chunk.keys, None, chunk.vals, chunk.valid, ones_cdf)
+        keys, None, vals, valid, ones_cdf)
     if spec.track_stats:
         _fold_stats(state, fcnt)
     state["counts"] += fcnt
     state["sums"] += fsum
+
+
+def _chain_step(specs: List[StepSpec], consts: List[Consts],
+                states: List[State], chunk: Optional[DeviceChunk],
+                budgets: List[int], ones_cdf: Optional[torch.Tensor]):
+    """Advance a fused chain in one dispatch, the counterpart of the JAX
+    plane's ``_make_step_chain``: the head ingests through K2 (the chain's
+    one placement); every later stage takes its predecessor's pre-placed
+    block (:func:`_push_placed`), pops its own budget and maps, expands or
+    folds; a sink tail folds the block through K2.  Returns (metrics, out):
+    ``metrics`` stacks three ``[W]`` rows per stage (histogram, popped,
+    third row of :func:`_pop_and_tail` or zeros; a sink's last two are
+    zero), read back once; ``out`` is the tail's flat emit block, if it
+    emits."""
+    rows: List[torch.Tensor] = []
+    carry = None
+    for i, (spec, st) in enumerate(zip(specs, states)):
+        if i == 0:
+            hist = (_ingest(spec, consts[0], st, chunk).to(torch.int64)
+                    if chunk is not None else
+                    torch.zeros(spec.W, dtype=torch.int64,
+                                device=st["count"].device))
+        else:
+            ok, ov, keep = carry
+            hist = keep.sum(dim=1)
+            kf, vf, mf = ok.reshape(-1), ov.reshape(-1), keep.reshape(-1)
+            if spec.kind == "sink":
+                _sink_fold(spec, ones_cdf, st, kf, vf, mf)
+                zero = torch.zeros_like(hist)
+                rows += [hist, zero, zero]
+                carry = None
+                continue
+            if spec.track_stats:
+                one = mf.to(torch.int64)
+                st["arrived"].index_add_(0, kf, one)
+                st["totals"].index_add_(0, kf, one)
+            _push_placed(spec, st, ok, ov, keep, hist)
+        take, third, carry = _pop_and_tail(spec, consts[i], st, budgets[i])
+        rows += [hist, take, torch.zeros_like(take) if third is None
+                 else third]
+    out = None if carry is None else tuple(t.reshape(-1) for t in carry)
+    return torch.stack(rows), out
 
 
 def _pow2(n: int) -> int:
@@ -379,8 +507,8 @@ class DeviceOpRuntime:
     """
 
     def __init__(self, op, edge, engine):
-        from .operators import (Filter, GroupByAgg, HashJoinBuild, Project,
-                                RangeSort, Sink)
+        from .operators import (Filter, GroupByAgg, HashJoinBuild,
+                                HashJoinProbe, Project, RangeSort, Sink)
 
         self.op = op
         self.edge = edge
@@ -389,12 +517,14 @@ class DeviceOpRuntime:
         self.routing = edge.routing
         self.kind = {Filter: "filter", Project: "project",
                      GroupByAgg: "fold", Sink: "sink",
-                     HashJoinBuild: "rows", RangeSort: "rows"}[type(op)]
+                     HashJoinProbe: "probe", HashJoinBuild: "rows",
+                     RangeSort: "rows"}[type(op)]
         self.W = op.num_workers
         self.K = edge.routing.num_keys
         self.NB = 0                    # upload padding width
         self.B = 0                     # pop-window width
         self.cap = 0                   # ring capacity (pow2)
+        self.M = 1                     # probe emit fanout bound
         self.rcap = 0                  # rows segment-store capacity (pow2)
         #: rows kind: per-worker row-log length (exact host mirror, the
         #: twin of ``ScopeRows.total_rows()`` across state + scattered).
@@ -422,17 +552,24 @@ class DeviceOpRuntime:
         self._reload_pending = False   # host mutated: reload pre-dispatch
         self._consts_split = False  # any_split of the uploaded consts
         #: placement (partition + scatter) executions, one per ingested
-        #: chunk (``DeviceExchange.placements``).
+        #: chunk (``DeviceExchange.placements``); a fused chain counts its
+        #: one placement at the head, so a fused follower's stays 0.
         self.placements = 0
         #: the routing token under which all current ring content was
-        #: placed (None = mixed/unknown): the placement epoch that chain
-        #: fusion (not ported yet) must match before reusing a placement.
+        #: placed (None = mixed/unknown).  Chain fusion requires it to equal
+        #: the chain's token: equal *current* tables prove nothing about
+        #: backlog placed under an older version (both edges rewritten in
+        #: lockstep keep equal tokens, but records queued before sit on the
+        #: old primary's ring and a pre-placed push would mis-deliver them).
         self._placed_token = None
-        # Chain links and the in-dispatch controller are not ported; the
-        # engine reads these attributes on every operator's runtime.
+        # Chain links (set by Engine._wire_device).  The engine skips a
+        # follower's own tick in the super-tick whose serial it carries.
         self.chain_up: Optional["DeviceOpRuntime"] = None
         self.chain_down: Optional["DeviceOpRuntime"] = None
         self._chain_serial = -1
+        #: a fused dispatch's pre-check failed: this head stays apart.
+        self._chain_disabled = False
+        # The in-dispatch controller is not ported; the engine reads this.
         self.ctrl = None
         #: the sink's [K, 1] ones CDF for K2, built once.
         self._ones_cdf: Optional[torch.Tensor] = None
@@ -451,7 +588,7 @@ class DeviceOpRuntime:
                         track_stats=bool(self.op.track_key_stats
                                          and self.op.arrived_by_key
                                          is not None),
-                        fn=self._fn, rcap=self.rcap)
+                        fn=self._fn, M=self.M, rcap=self.rcap)
 
     def _put(self, a, dtype: torch.dtype) -> torch.Tensor:
         """Upload a host array (always a copy, also on the CPU)."""
@@ -470,9 +607,13 @@ class DeviceOpRuntime:
         return self.received.astype(np.float64)
 
     def owned_rows(self, worker: int) -> Optional[int]:
-        """Rows kind: the owned rows of ``worker`` from the exact mirror, or
-        None when the host copy is the one to read (no device state yet, or
-        a host mutation not reloaded)."""
+        """The owned rows of ``worker`` without a boundary, or None when the
+        host copy is the one to read after a sync.  Rows kind: the exact
+        mirror, once device state exists and no host mutation awaits a
+        reload.  Probe kind: the host's build rows, which the device never
+        changes (it holds only their counts)."""
+        if self.kind == "probe":
+            return int(self.op.workers[worker].state.total_rows())
         if self.kind != "rows" or self.state is None or self._reload_pending:
             return None
         return int(self.rows_owned[worker])
@@ -486,8 +627,10 @@ class DeviceOpRuntime:
     # ---- demotion (per-chunk fallback) -------------------------------- #
     def demote(self, reason: str) -> None:
         """Fall back to the per-chunk torch exchange (2-D vals, a user
-        function that fails on device tensors, or a second in-edge)."""
+        function that fails on device tensors, a second in-edge, or a probe
+        fanout past ``MAX_EMIT_CELLS``); the edge leaves any chain."""
         from .exchange import Exchange
+        self._unlink_chain()
         staged, self.staged, self.staged_live = self.staged, [], 0
         if self.kind == "sink":
             # Staged sink chunks were accounted at stage time; the re-send
@@ -535,6 +678,16 @@ class DeviceOpRuntime:
         self._append(self._upload(keys, vals))
 
     def _append(self, chunk: DeviceChunk) -> None:
+        if (self.staged and self.kind != "sink"
+                and self._consts_version != self.routing.version):
+            # The table was rewritten since the staged chunks were sent (a
+            # SCATTERED rewrite is no boundary): place them under the
+            # constants they were sent under before this chunk, sent under
+            # the new table, joins the backlog.
+            self.tick(0)
+            if self.op.device is not self:      # demoted by that tick
+                self.edge.send(chunk)
+                return
         if not self.staged:
             # Pin the routing constants of the table version this chunk was
             # *sent* under: a rewrite between stage and dispatch flushes the
@@ -611,6 +764,14 @@ class DeviceOpRuntime:
                 st[prefix + "present"] = self._put(
                     np.concatenate([c[2] for c in cols] + [[False]]),
                     torch.bool)
+        if self.kind == "probe":
+            # Dense match table: owned + scattered build rows summed per
+            # (worker, key) (a split build key may hold rows in both); M,
+            # the largest count, sizes the emit block.
+            mc = np.stack([w.state.counts + w.scattered.counts
+                           for w in op.workers])
+            st["mcounts"] = self._put(mc, torch.int64)
+            self.M = max(int(mc.max(initial=1)), 1)
         if self.kind == "rows":
             need = max(int(w.state.total_rows() + w.scattered.total_rows())
                        for w in op.workers)
@@ -654,13 +815,18 @@ class DeviceOpRuntime:
             self.NB = _pow2(int(keys.shape[0]))
         return self._upload(keys, vals)
 
-    def _ensure_ready(self) -> None:
+    def _ensure_ready(self, incoming: int = 0) -> None:
         """Grow the static shapes (cap / B / rcap) and allocate device
-        state."""
+        state.  ``incoming`` bounds the records a ring takes inside the next
+        dispatch without being staged: a chain follower's ring ``w`` takes
+        at most its upstream's emit bound from upstream ring ``w``, so the
+        capacity must cover them or the pre-placed push would wrap onto
+        live entries."""
         budget_cap = self.engine.batch_ticks * self.op.service_rate
         if self.kind != "sink" and budget_cap > self.B:
             self.B = int(budget_cap)
-        need = int(self.lens.max(initial=0)) + self.staged_live
+        need = (int(self.lens.max(initial=0)) + self.staged_live
+                + int(incoming))
         if self.state is None:
             self.cap = max(self.cap, _pow2(2 * max(need, 1)))
             self._alloc_state()
@@ -731,16 +897,16 @@ class DeviceOpRuntime:
             rt._count_owner = self._pull
 
     # ---- the super-tick dispatch -------------------------------------- #
-    def _prep(self, budget: int) -> None:
-        """Pre-dispatch lifecycle: widen the pop window, allocate/grow
-        device state, apply deferred host reloads, claim counters, flush
-        version-stale staged chunks under their pinned constants, then
-        refresh to the live table."""
+    def _prep(self, budget: int, incoming: int = 0) -> None:
+        """Pre-dispatch lifecycle of the per-edge and chain paths: widen the
+        pop window, allocate/grow device state, apply deferred host reloads,
+        claim counters, flush version-stale staged chunks under their pinned
+        constants, then refresh to the live table."""
         if self.kind != "sink" and int(budget) > self.B:
             # A caller outpaced the batch_ticks sizing (a manual
             # run_super_tick with a wider window): widen the pop window.
             self.B = int(budget)
-        self._ensure_ready()
+        self._ensure_ready(incoming)
         if self._reload_pending:
             self._reload_pending = False
             self._load_host_state()
@@ -775,6 +941,12 @@ class DeviceOpRuntime:
     def tick(self, budget: int) -> List:
         if not self.staged and not self.lens.any():
             return []                  # nothing to ingest or pop
+        if self.kind == "probe" and not self._probe_capacity_ok(budget):
+            # A build table (or budget) skewed enough that the padded emit
+            # block W * B * M would pass the ceiling: the per-chunk path
+            # takes any fanout.
+            self.demote("probe fanout")
+            return self.op.tick(budget)
         if not self._dispatched and self.kind in ("filter", "project"):
             try:
                 self._check_fn(budget)
@@ -786,6 +958,9 @@ class DeviceOpRuntime:
                     f"per-chunk path", RuntimeWarning, stacklevel=2)
                 self.demote("user fn")
                 return self.op.tick(budget)
+        chain = self._chain_for_dispatch(budget)
+        if chain is not None:
+            return self._dispatch_chain(chain, budget)
         self._host_fresh = False
         self._prep(budget)
         chunks, self.staged, self.staged_live = self.staged, [], 0
@@ -803,6 +978,182 @@ class DeviceOpRuntime:
         if self.staged and self.kind != "sink" and self.op.device is self:
             self.tick(0)
 
+    # ---- the probe's emit capacity ------------------------------------ #
+    def _host_fanout(self) -> int:
+        """The largest per-(worker, key) build-match count, from host
+        state."""
+        mc = max((int((w.state.counts + w.scattered.counts).max(initial=0))
+                  for w in self.op.workers), default=0)
+        return max(mc, 1)
+
+    def _probe_capacity_ok(self, budget: int) -> bool:
+        """Would the probe's emit block stay within ``MAX_EMIT_CELLS``?  The
+        host state's fanout counts whenever the device match table is absent
+        or stale (``install_build`` or a migration just ran)."""
+        B = max(self.B, int(budget),
+                self.engine.batch_ticks * self.op.service_rate)
+        M = (self.M if self.state is not None and not self._reload_pending
+             else self._host_fanout())
+        return self.W * B * M <= MAX_EMIT_CELLS
+
+    def _emit_bound(self, budget: int) -> int:
+        """The most records one ring of this stage hands its chain follower
+        in one dispatch: the pop budget, times the match fanout for a
+        probe."""
+        return int(budget) * (self.M if self.kind == "probe" else 1)
+
+    # ---- chain fusion (one placement for routing-equivalent edges) ---- #
+    def _preserves_keys(self) -> bool:
+        """May this stage's output reuse its input placement?  A Filter only
+        masks and a probe repeats its input records, so always; a Project
+        only if it declares ``preserves_keys=True``."""
+        if self.kind in ("filter", "probe"):
+            return True
+        return bool(getattr(self.op, "preserves_keys", False))
+
+    def _unlink_chain(self) -> None:
+        if self.chain_up is not None:
+            self.chain_up.chain_down = None
+            self.chain_up = None
+        if self.chain_down is not None:
+            self.chain_down.chain_up = None
+            self.chain_down = None
+
+    def _placement_current(self, tok) -> bool:
+        """Was every record this stage would hand downstream placed under
+        the chain's token?  Empty rings are current; staged chunks count
+        only if they will be placed under the live table (a version-stale
+        backlog flushes under the old one)."""
+        if self.staged and self._consts_version != self.routing.version:
+            return False
+        return self._placed_token == tok or int(self.lens.sum()) == 0
+
+    def _chain_for_dispatch(self, budget: int):
+        """The fused chain ``[self, ...]`` to advance in one dispatch, or
+        None to stay per edge.  Re-checked every dispatch: the routing
+        tokens must be equal along the chain (one-hot tables only), every
+        member device-wired and unfinished, every non-tail stage
+        key-preserving, and the budget the scheduler's ``k *
+        service_rate`` so the followers' budgets are known (a manual tick
+        with another budget stays per edge)."""
+        eng = self.engine
+        if (self.kind not in MAP_KINDS or self.chain_down is None
+                or self._chain_disabled or not eng.device_chain
+                or self.op.device is not self or self.op.finished
+                or not self._preserves_keys()
+                or budget != eng._super_k * self.op.service_rate):
+            return None
+        tok = self._live_token()
+        if tok is None:
+            return None
+        members = [self]
+        r = self
+        while True:
+            d = r.chain_down
+            if (d is None or d.op.device is not d or d.op.finished
+                    or d._live_token() != tok):
+                break
+            if d.kind == "probe" and not d._probe_capacity_ok(
+                    eng._super_k * d.op.service_rate):
+                break                   # d's own tick demotes it
+            members.append(d)
+            if (d.kind not in MAP_KINDS or d._chain_disabled
+                    or not d._preserves_keys()):
+                break                   # d is the chain's tail
+            r = d
+        if len(members) < 2:
+            return None
+        # Equal current tables are not enough: every record a non-tail
+        # stage hands downstream must have been placed under that token.
+        if not all(m._placement_current(tok) for m in members[:-1]):
+            return None
+        return members
+
+    def _dispatch_chain(self, members: List["DeviceOpRuntime"],
+                        budget: int) -> List:
+        """Advance the fused chain in one dispatch (in the head's tick slot;
+        the engine skips the followers' own ticks this super-tick by
+        ``_chain_serial``).  Per-stage metrics keep the same exact host
+        mirrors the per-edge dispatches keep."""
+        eng = self.engine
+        budgets = [eng._super_k * r.op.service_rate for r in members]
+        budgets[0] = int(budget)
+        # Before any state moves: every follower's user function must run
+        # on device tensors (the head's ran in its tick).  Only such a
+        # failure un-fuses; the stage's own tick then demotes it with its
+        # incident.
+        for r, b in zip(members[1:], budgets[1:]):
+            if not r._dispatched and r.kind in ("filter", "project"):
+                try:
+                    r._check_fn(b)
+                except UserFunctionError as exc:
+                    warnings.warn(
+                        f"device plane: {exc}; the fused chain at "
+                        f"{self.op.name!r} falls back to per-edge dispatch",
+                        RuntimeWarning, stacklevel=3)
+                    eng.incidents.record(
+                        "chain-fallback", tick=eng.tick, edge=self.op.name,
+                        cause=str(exc), action="per-edge dispatch")
+                    self._chain_disabled = True
+                    return self.tick(budget)
+        for r in members[1:]:
+            if r.staged:                # leftovers of an unfused window
+                r.tick(0)               # budget 0 never chains: per edge
+        if any(r.op.device is not r for r in members):
+            return self.tick(budget)    # a leftover demoted its stage
+        tok = self._live_token()
+        empty_before = []
+        for i, r in enumerate(members):
+            r._host_fresh = False
+            empty_before.append(int(r.lens.sum()) == 0)
+            # A follower's rings take up to the upstream stage's emit bound
+            # inside the dispatch (the upstream's M is final: its _prep ran).
+            r._prep(budgets[i],
+                    members[i - 1]._emit_bound(budgets[i - 1]) if i else 0)
+        chunks, self.staged, self.staged_live = self.staged, [], 0
+        chunk = chunks[0] if len(chunks) == 1 else None
+        if len(chunks) > 1:
+            # Several staged chunks (END flushes): ingest per edge first
+            # (budget 0 pops nothing), then run the chain pop-only, as the
+            # per-edge [(c, 0), ..., (c, B)] sequence does.
+            self._dispatch(self._spec(), chunks, 0)
+        tail = members[-1]
+        metrics, out = _chain_step(
+            [r._spec() for r in members], [r.consts for r in members],
+            [r.state for r in members], chunk, budgets, tail._ones_cdf)
+        metrics = metrics.cpu().numpy()             # the one readback
+        if chunk is not None:
+            self.placements += 1        # the chain's one placement
+        for i, (r, was_empty) in enumerate(zip(members, empty_before)):
+            r._dispatched = True
+            # Everything delivered in this dispatch was placed under the
+            # chain's token (fusibility proved any older backlog shares it).
+            r._placed_token = (tok if was_empty or r._placed_token == tok
+                               else None)
+            if i:
+                r._chain_serial = eng._super_serial
+            hist, take, third = metrics[3 * i:3 * i + 3]
+            r.edge.exchange.account(hist)
+            r.received += hist
+            if r.kind == "sink":        # no rings: folded on arrival
+                r.op.workers[0].stats.processed_total += int(hist.sum())
+                r._sink_dirty = r._sink_dirty or bool(hist.any())
+                continue
+            r.lens += hist - take
+            if r.kind == "rows":        # every popped row was appended
+                r.rows_len += take
+                r.rows_owned += third
+            emits = r.kind in MAP_KINDS
+            for w, worker in enumerate(r.op.workers):
+                worker.stats.processed_total += int(take[w])
+                if emits:
+                    worker.stats.emitted_total += int(third[w])
+        if out is not None:             # an emitting tail sends downstream
+            n_live = int(metrics[-1].sum())
+            if n_live and tail.op.out_edge is not None:
+                tail.op.out_edge.send(DeviceChunk(*out, n_live))
+        return []
+
     def _dispatch(self, spec: StepSpec, chunks: List[DeviceChunk],
                   budget: int) -> List:
         if chunks and self.kind != "sink":
@@ -816,7 +1167,8 @@ class DeviceOpRuntime:
                 self._placed_token = None
         if self.kind == "sink":
             for ch in chunks:          # received accounted at stage time
-                _sink_step(spec, self._ones_cdf, self.state, ch)
+                _sink_fold(spec, self._ones_cdf, self.state, ch.keys,
+                           ch.vals, ch.valid)
                 # The host-plane pop happens in this same tick slot.
                 self.op.workers[0].stats.processed_total += ch.n_live
             self._dispatched = True

@@ -37,12 +37,14 @@ destinations) — is chosen per engine via ``Engine(partition_backend=...)``
 or globally via the ``REPRO_PARTITION_BACKEND`` environment variable.
 Under the torch backend, ``Engine(device_executor="jit")`` promotes every
 eligible edge (a single-upstream Filter / Project / GroupByAgg / Sink /
-HashJoinBuild / RangeSort destination) into the device-resident plane
-(:mod:`repro_torch.dataflow.device`): chunks, ring queues, split counters
-and keyed folds / row stores stay on the device for a whole super-tick, one
-dispatch per edge, and the host materializes state only at the boundaries
-``_fusible_ticks`` computes.  The default, ``device_executor="host"``,
-keeps the per-chunk torch exchange on every edge.  The JAX package's
+HashJoinBuild / HashJoinProbe / RangeSort destination) into the
+device-resident plane (:mod:`repro_torch.dataflow.device`): chunks, ring
+queues, split counters and keyed folds / row stores stay on the device for
+a whole super-tick, one dispatch per edge (or per fused chain of
+routing-equivalent edges), and the host materializes state only at the
+boundaries ``_fusible_ticks`` computes.  The default,
+``device_executor="host"``, keeps the per-chunk torch exchange on every
+edge.  The JAX package's
 ``reference=True`` oracle is not ported.
 
 Batched tick scheduler
@@ -285,19 +287,30 @@ class Engine:
     eagerly, without tracing.  The default is the per-chunk plane because
     it is the faster one on the card so far: an eager resident dispatch
     costs more than the per-chunk round trip it saves (``PERF.md``).
-    Ineligible edges (HashJoinProbe destinations, 2-D payloads, a second
-    upstream) always use the per-chunk exchange.
+    Ineligible edges (2-D payloads, a second upstream, a probe whose emit
+    block would pass ``MAX_EMIT_CELLS``) always use the per-chunk exchange.
+
+    ``device_chain`` (default: the ``REPRO_DEVICE_CHAIN`` environment
+    variable, on unless it is ``"0"``) fuses consecutive resident edges
+    whose routing tables are provably routing-equivalent
+    (``RoutingTable.routing_token``) into one dispatch with one placement
+    per super-tick; ``False`` keeps every edge apart, with the same bits.
     """
 
     def __init__(self, *, partition_backend: BackendSpec = None,
                  batch_ticks: int = 1, device: DeviceSpec = "cuda",
-                 device_executor: str = "host"):
+                 device_executor: str = "host",
+                 device_chain: Optional[bool] = None):
         if device_executor not in ("jit", "host"):
             raise ValueError(f"unknown device executor {device_executor!r}; "
                              f"choose from 'jit' and 'host'")
         self.device = resolve_device(device)
         self.partition_backend = get_backend(partition_backend, self.device)
         self.device_executor = device_executor
+        if device_chain is None:
+            import os
+            device_chain = os.environ.get("REPRO_DEVICE_CHAIN", "1") != "0"
+        self.device_chain = bool(device_chain)
         self.batch_ticks = max(1, int(batch_ticks))
         self.sources: List[Source] = []
         self.ops: List[Operator] = []                 # topological order
@@ -344,19 +357,26 @@ class Engine:
         producer.out_edge = edge
         self.edges.append(edge)
         self.upstreams.setdefault(consumer.name, []).append(producer)
-        self._wire_device(edge, consumer)
+        self._wire_device(edge, consumer, producer)
         return edge
 
-    def _wire_device(self, edge: Edge, consumer: Operator) -> None:
+    def _wire_device(self, edge: Edge, consumer: Operator,
+                     producer=None) -> None:
         """Promote an eligible torch edge into the device-resident plane.
 
         Eligible: the engine runs the torch backend, ``device_executor`` is
         not ``"host"``, and the destination is a single-upstream Filter /
-        Project / GroupByAgg / Sink / HashJoinBuild / RangeSort with a
-        bounded (worker x key) dense structure
+        Project / GroupByAgg / Sink / HashJoinBuild / HashJoinProbe /
+        RangeSort with a bounded (worker x key) dense structure
         (:func:`repro_torch.dataflow.device.wireable`).  A second upstream
         demotes an already promoted destination.  Ineligible edges keep
         the per-chunk exchange.
+
+        Consecutive resident edges are also chain-linked when the producer
+        is itself a resident Filter, Project or HashJoinProbe: the link is
+        structural only, and each dispatch decides whether the chain fuses
+        (:meth:`~repro_torch.dataflow.device.DeviceOpRuntime.
+        _chain_for_dispatch`).
         """
         if (self.device_executor == "host"
                 or not isinstance(self.partition_backend,
@@ -373,6 +393,10 @@ class Engine:
         consumer.device = runtime
         edge.exchange = DeviceExchange(edge.routing, consumer, runtime)
         edge.device_plane = "jit"
+        up = getattr(producer, "device", None)
+        if isinstance(up, dev.DeviceOpRuntime) and up.kind in dev.MAP_KINDS:
+            up.chain_down = runtime
+            runtime.chain_up = up
 
     def attach_controller(
         self,

@@ -11,7 +11,8 @@
 ``partition_backend="numpy"`` selects the host plane.  Under the torch
 backend ``device_executor`` (see :class:`~repro_torch.dataflow.engine.Engine`)
 keeps the per-chunk exchange on every edge (``"host"``, the default) or
-puts every eligible edge on the device-resident plane (``"jit"``).
+puts every eligible edge on the device-resident plane (``"jit"``), where
+the engine fuses routing-equivalent edges unless ``REPRO_DEVICE_CHAIN=0``.
 """
 from __future__ import annotations
 

@@ -83,6 +83,33 @@ def partition_scatter_fold(keys: torch.Tensor,
     return dest, rank, hist, cnt, sums
 
 
+def match_expand(wk: torch.Tensor, wv: torch.Tensor, wmask: torch.Tensor,
+                 mcounts: torch.Tensor, emit_width: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hash-join probe expansion of a popped ``[W, B]`` window.
+
+    Not the plain version of a kernel: the reference's ``match_expand`` is
+    jitted jnp code, not Pallas, and runs as these torch ops on the card
+    too.  ``mcounts`` is the ``[W, K]`` per-(worker, key) build-match table
+    (``wk`` must hold keys in ``[0, K)`` in every lane, dead ones too).
+    Each live lane ``(k, v)`` of worker ``w`` is emitted ``mcounts[w, k]``
+    times into a padded ``[W, emit_width]`` block, lanes in stream order and
+    a lane's copies contiguous, as ``np.repeat`` per worker: output slot
+    ``j`` takes the first lane whose inclusive fanout cumsum exceeds ``j``
+    (a row-wise binary search), and slots past the row's total are dead.
+    ``emit_width`` must bound the row totals.  Returns ``(out_keys,
+    out_vals, keep)``, each ``[W, emit_width]``.
+    """
+    W, B = wk.shape
+    m = torch.where(wmask, mcounts.gather(1, wk), 0)
+    csum = torch.cumsum(m, dim=1)                      # [W, B] inclusive
+    iot = torch.arange(emit_width, dtype=csum.dtype, device=wk.device)
+    src = torch.searchsorted(csum, iot.expand(W, emit_width).contiguous(),
+                             right=True).clamp_(max=B - 1)
+    keep = iot[None, :] < csum[:, -1:]
+    return wk.gather(1, src), wv.gather(1, src), keep
+
+
 def segment_matmul(x: torch.Tensor, w: torch.Tensor,
                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped expert matmul ``x [E, C, D] @ w [E, D, F] -> [E, C, F]``,

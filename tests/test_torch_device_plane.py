@@ -451,16 +451,17 @@ def test_executor_selection():
 # --------------------------------------------------------------------- #
 # Workflows                                                              #
 # --------------------------------------------------------------------- #
-def test_w1_resident_mixed_matches_numpy_plane():
-    """W1 under reshape: the filter and sink edges resident, the probe edge
-    per chunk (the device chunks of the filter cross to the host there)."""
+def test_w1_all_resident_matches_numpy_plane():
+    """W1 under reshape with every edge resident: the filter, the probe
+    and the sink."""
     kw = dict(strategy="reshape", scale=0.03, num_workers=16, service_rate=4,
               batch_ticks=4, snapshot_every=2)
     a = jdf.build_w1(partition_backend="numpy", **kw)
     a.run()
     b = tdf.build_w1(device="cpu", device_executor="jit", **kw)
     b.run()
-    assert [e.device_plane for e in b.engine.edges] == ["jit", None, "jit"]
+    assert [e.device_plane for e in b.engine.edges] == ["jit", "jit", "jit"]
+    assert not b.engine.incidents.query(kind="demotion")
     _assert_runs_identical((a.engine, a.sink, None, a.controllers[0]),
                            (b.engine, b.sink, None, b.controllers[0]))
     np.testing.assert_array_equal(b.sink.counts,
