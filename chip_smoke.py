@@ -32,11 +32,34 @@ Phases, in order; any failure exits non-zero before the last line:
              W3 resident        1.5M orders (TPC-H SF1 ORDERS),
                                 ``device_executor="jit"``: both edges on
                                 the device-resident plane (K2);
+             W3 resident spill  the same with a 375,000-cell device budget
+                                (a quarter of the sort's row store) under
+                                ``REPRO_SANITIZE=1``: the spill tier must
+                                engage (``mem-pressure``, the sort's rows
+                                spilled, the controller's pressure
+                                consumed), with no demotion; row and ring
+                                evictions, refills and prefetch hits are
+                                printed, and its host seconds (``spill``);
+             W3 resident chaos  the spill path driven by a ``ChaosRunner``
+                                under ``CHAOS_PLAN`` (each of the nine
+                                fault kinds once; cuts every 1,000 ticks,
+                                4 kept): every kind injected, each healed
+                                (a retry for the dispatch faults, a
+                                ``recovery`` for each rolled-back kind),
+                                the spill corruption on a real segment,
+                                no demotion; cuts, their seconds and the
+                                replayed ticks are printed;
              W1 resident        ``"jit"``: the filter, probe and sink
                                 edges resident (K2, no K1), the Filter ->
                                 Probe chain fused (one placement a
                                 super-tick) until the controller's first
                                 rewrite of the probe table, per edge after;
+             W1 resident chunked-probe  a device budget nothing reaches
+                                and the probe's ``MAX_EMIT_CELLS`` half its
+                                first emit block: the probe emits in two
+                                sub-dispatches a tick (one
+                                ``degraded-emit``, no ``probe fanout``
+                                demotion);
              W1 resident unfused  the same with ``REPRO_DEVICE_CHAIN=0``:
                                 every edge its own placement, no fused
                                 dispatch (the cost of fusion, same call);
@@ -174,6 +197,26 @@ REAL_DEAD = 0.1
 #: (144,592 tweets), W2 at its default 60k sales, W3 at TPC-H SF1's 1.5M
 #: orders.
 W1_SCALE, W2_TUPLES, W3_TUPLES = 2.0, 60_000, 1_500_000
+#: The spill paths' device budget: W3's sort holds every order in its row
+#: store, so 375,000 cells are a quarter of it at SF1 (the JAX suite's
+#: ratio, 40,000 orders against 10,000 cells).
+W3_BUDGET = 375_000
+#: W1's budget on its chunked-probe path: far past what its edges hold, so
+#: nothing spills and only the probe's emit ceiling bites.
+W1_BUDGET = 1 << 26
+#: The chaos path's cut interval and retention, and its plan: each of the
+#: nine fault kinds once, a hundred ticks past a cut (a rollback replays
+#: little), spread over W3's ~18,000 ticks; the dispatch fault heals by
+#: two retries in place, the budget shrink hits the sort (target 0 of the
+#: runtimes [sort, sink]), the spill corruption comes long after the
+#: sort's first row eviction.
+CHAOS_EVERY, CHAOS_RETENTION = 1000, 4
+CHAOS_PLAN = (("worker-loss", 1100, 0, 0, 1), ("dispatch-fail", 3100, 0, 0, 2),
+              ("straggler", 4100, 5, 0, 1), ("corrupt-cut", 6100, 0, 0, 1),
+              ("missing-cut", 7100, 0, 0, 1), ("ctrl-drop", 9100, 3, 0, 1),
+              ("ctrl-delay", 10100, 3, 0, 1),
+              ("mem-pressure", 12100, 4, 0, 1),
+              ("spill-corrupt", 13100, 0, 0, 1))
 
 SOURCE = "src/repro_torch/kernels/csrc/partition.cu"
 
@@ -614,7 +657,13 @@ def same_series(a, b) -> bool:
 #: ``path_tweak``)).
 PATHS = (
     ("W3 resident", "build_w3", dict(n_tuples=W3_TUPLES), "jit", None),
+    ("W3 resident spill", "build_w3",
+     dict(n_tuples=W3_TUPLES, device_budget=W3_BUDGET), "jit", "spill"),
+    ("W3 resident chaos", "build_w3",
+     dict(n_tuples=W3_TUPLES, device_budget=W3_BUDGET), "jit", "chaos"),
     ("W1 resident", "build_w1", dict(scale=W1_SCALE), "jit", None),
+    ("W1 resident chunked-probe", "build_w1",
+     dict(scale=W1_SCALE, device_budget=W1_BUDGET), "jit", "chunked"),
     ("W1 resident unfused", "build_w1", dict(scale=W1_SCALE), "jit",
      "unfused"),
     ("W1 resident-mixed", "build_w1", dict(scale=W1_SCALE), "jit", "mixed"),
@@ -629,6 +678,15 @@ KERNELS = ("partition_scatter", "partition_scatter_fold", "partition")
 EXPECT = {
     "W3 resident": (["jit", "jit"], dict(partition_scatter=False,
                                          partition_scatter_fold=True)),
+    "W3 resident spill": (["jit", "jit"],
+                          dict(partition_scatter=False,
+                               partition_scatter_fold=True)),
+    "W3 resident chaos": (["jit", "jit"],
+                          dict(partition_scatter=False,
+                               partition_scatter_fold=True)),
+    "W1 resident chunked-probe": (["jit", "jit", "jit"],
+                                  dict(partition_scatter=False,
+                                       partition_scatter_fold=True)),
     "W1 resident": (["jit", "jit", "jit"],
                     dict(partition_scatter=False,
                          partition_scatter_fold=True)),
@@ -656,23 +714,30 @@ def path_tweak(tweak):
     placement, for the cost of fusion on the same path); ``"mixed"`` sets
     the probe's emit ceiling ``MAX_EMIT_CELLS`` to 0, so the probe edge
     demotes (``probe fanout``) on its first tick and the filter's device
-    chunks cross to a per-chunk edge."""
+    chunks cross to a per-chunk edge; ``"spill"`` and ``"chaos"`` run under
+    ``REPRO_SANITIZE=1`` (the mirror, spill and NaN checks at every
+    boundary).  ``"chunked"`` lowers ``MAX_EMIT_CELLS`` once the workflow
+    is built (``run_workflow``); it is put back here."""
     import os
     from repro_torch.dataflow import device
 
-    env, cells = os.environ.get("REPRO_DEVICE_CHAIN"), device.MAX_EMIT_CELLS
+    names = ("REPRO_DEVICE_CHAIN", "REPRO_SANITIZE")
+    env, cells = {n: os.environ.get(n) for n in names}, device.MAX_EMIT_CELLS
     if tweak == "unfused":
         os.environ["REPRO_DEVICE_CHAIN"] = "0"
     elif tweak == "mixed":
         device.MAX_EMIT_CELLS = 0
+    elif tweak in ("spill", "chaos"):
+        os.environ["REPRO_SANITIZE"] = "1"
     try:
         yield
     finally:
         device.MAX_EMIT_CELLS = cells
-        if env is None:
-            os.environ.pop("REPRO_DEVICE_CHAIN", None)
-        else:
-            os.environ["REPRO_DEVICE_CHAIN"] = env
+        for n, v in env.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
 
 
 class Recorder:
@@ -752,33 +817,64 @@ class FoldRecorder(Recorder):
         return out.cpu().numpy()
 
 
-def run_workflow(dataflow, factory: str, kw, backend: str, executor=None):
+def chaos_plan(resilience):
+    """The chaos path's ``FaultPlan`` (``CHAOS_PLAN``)."""
+    return resilience.FaultPlan([
+        resilience.FaultEvent(kind, tick, duration, target, count)
+        for kind, tick, duration, target, count in CHAOS_PLAN])
+
+
+def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
+                 tweak=None):
     """Run one workflow with the Reshape controller; returns it, its wall
     time, the host-clock seconds and calls of the per-chunk exchange
     backend, of the resident runtime's per-edge dispatches, of its fused
     chain dispatches, of its check whether a dispatch fuses
-    (``_chain_for_dispatch``, made every tick of a linked map stage) and of
+    (``_chain_for_dispatch``, made every tick of a linked map stage), of
     its boundary materializations (``sync_host`` / ``sync_stats`` /
-    ``sync_sink_counts``), and the routing-only share.
-    Times are exclusive: a timed call made inside another (the per-chunk
-    exchange of a chunk a resident Filter emits, a boundary's flush
-    dispatch) counts for itself only."""
+    ``sync_sink_counts``), of its spill tier (``_spill_refill``,
+    ``_spill_admit`` with the evictions, ``_spill_demote_fresh``) and of
+    the checkpoint coordinator's cuts and recoveries, and the routing-only
+    share.  Times are exclusive: a timed call made inside another (the
+    per-chunk exchange of a chunk a resident Filter emits, a boundary's
+    flush dispatch, a cut's boundaries) counts for itself only.
+
+    ``tweak`` ``"chunked"`` sets the probe's ``MAX_EMIT_CELLS`` to half its
+    first emit block, ``W * B * M`` after ``install_build``, so a tick's
+    pop runs as two sub-dispatches (``path_tweak`` puts it back);
+    ``"chaos"`` drives the run by a ``ChaosRunner`` under ``CHAOS_PLAN``
+    (kept in ``wf.meta["runner"]``)."""
+    from repro_torch.dataflow import device, resilience
+    from repro_torch.dataflow.checkpoint import CheckpointCoordinator
     from repro_torch.dataflow.device import DeviceOpRuntime
 
     if executor is not None:
         kw = dict(kw, device_executor=executor)
     wf = getattr(dataflow, factory)(strategy="reshape", device="cuda",
                                     partition_backend=backend, **kw)
+    if tweak == "chunked":
+        probe = wf.monitored[0].device
+        block = (probe.W * wf.engine.batch_ticks * probe.op.service_rate
+                 * probe._host_fanout())
+        device.MAX_EMIT_CELLS = block // 2
+    drive = wf.run
+    if tweak == "chaos":
+        runner = resilience.ChaosRunner(
+            wf.engine, chaos_plan(resilience), every_ticks=CHAOS_EVERY,
+            retention=CHAOS_RETENTION)
+        wf.meta["runner"] = runner
+        drive = runner.run
     exchange = wf.engine.partition_backend
     spent = {"exchange": [0.0, 0], "dispatch": [0.0, 0], "fused": [0.0, 0],
-             "chain check": [0.0, 0], "boundary": [0.0, 0]}
+             "chain check": [0.0, 0], "boundary": [0.0, 0],
+             "spill": [0.0, 0], "checkpoint": [0.0, 0]}
     stack = []          # [start, seconds of timed calls nested inside]
 
     def timed(fn, what):
-        def wrapper(*args):
+        def wrapper(*args, **kw):
             stack.append([time.perf_counter(), 0.0])
             try:
-                return fn(*args)
+                return fn(*args, **kw)
             finally:
                 start, inner = stack.pop()
                 took = time.perf_counter() - start
@@ -789,22 +885,27 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None):
         return wrapper
 
     exchange.partition_scatter = timed(exchange.partition_scatter, "exchange")
-    methods = {"_dispatch": "dispatch", "_dispatch_chain": "fused",
-               "_chain_for_dispatch": "chain check", "sync_host": "boundary", "sync_stats": "boundary",
-               "sync_sink_counts": "boundary"}
-    saved = {m: getattr(DeviceOpRuntime, m) for m in methods}
-    for m, what in methods.items():
-        setattr(DeviceOpRuntime, m, timed(saved[m], what))
+    methods = {(DeviceOpRuntime, m): what for m, what in (
+        ("_dispatch", "dispatch"), ("_dispatch_chain", "fused"),
+        ("_chain_for_dispatch", "chain check"), ("sync_host", "boundary"),
+        ("sync_stats", "boundary"), ("sync_sink_counts", "boundary"),
+        ("_spill_refill", "spill"), ("_spill_admit", "spill"),
+        ("_spill_demote_fresh", "spill"))}
+    methods[(CheckpointCoordinator, "checkpoint")] = "checkpoint"
+    methods[(CheckpointCoordinator, "recover")] = "checkpoint"
+    saved = {(cls, m): getattr(cls, m) for cls, m in methods}
+    for (cls, m), what in methods.items():
+        setattr(cls, m, timed(saved[(cls, m)], what))
     try:
         t0 = time.perf_counter()
-        wf.run()
+        drive()
         if backend == "torch":
             import torch
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for m, fn in saved.items():
-            setattr(DeviceOpRuntime, m, fn)
+        for (cls, m), fn in saved.items():
+            setattr(cls, m, fn)
     # Routing-only entry point (K3): where the monitored edge's final table
     # sends the whole stream, i.e. the per-worker share after mitigation.
     _, share = wf.engine.partition_backend.partition(
@@ -874,7 +975,8 @@ def main_path(torch, kpart):
             for r in (rec,) + firsts:
                 r.label = label
             with path_tweak(tweak):
-                run = run_workflow(dataflow, factory, kw, "torch", executor)
+                run = run_workflow(dataflow, factory, kw, "torch", executor,
+                                   tweak)
             torch.cuda.synchronize()
             counts = {name: fn.launches for name, fn in kernels.items()}
             absum = (rec.sink_abs_sums(torch, run[0].sink.counts.size)
@@ -889,7 +991,8 @@ def main_path(torch, kpart):
 
     hosts = {}
     for label, factory, kw, executor, tweak in PATHS:
-        key = (factory, tuple(sorted(kw.items())))
+        key = (factory, tuple(sorted((k, v) for k, v in kw.items()
+                                     if k != "device_budget")))
         if key not in hosts:
             hosts[key] = run_workflow(dataflow, factory, kw, "numpy")
         host, host_wall, host_spent, host_share = hosts[key]
@@ -955,6 +1058,7 @@ def main_path(torch, kpart):
         if factory == "build_w3":
             check(same_row_state(wf.monitored[0], host.monitored[0]),
                   f"{label}: the sort's row state differs")
+        extra = tweak_checks(label, tweak, wf, spent)
         tuples = int(wf.engine.sources[0].keys.size)
         parts = "; ".join(
             f"{what} {sec:.3f} s in {calls} calls"
@@ -970,8 +1074,71 @@ def main_path(torch, kpart):
             f"K3 {counts['partition']}: cuda {wall:.3f} s "
             f"({tuples / wall:.0f} tuples/s; {parts}), numpy host plane "
             f"{host_wall:.3f} s ({tuples / host_wall:.0f} tuples/s); "
-            f"identical, {sums}")
+            f"identical, {sums}{extra}")
     return launches, rec.first, {r.name: r.first for r in firsts}
+
+
+def tweak_checks(label: str, tweak, wf, spent) -> str:
+    """The conditions of the spill, chunked-probe and chaos paths; returns
+    what their log line adds."""
+    inc = wf.engine.incidents
+    extra = ""
+    if tweak in ("spill", "chaos"):
+        rt = wf.monitored[0].device
+        sp = rt.spill
+        ctrl = wf.controllers[0]
+        check(inc.count("mem-pressure") >= 1,
+              f"{label}: no mem-pressure incident: the spill tier never "
+              f"engaged")
+        check(sp is not None and sp.rows_spilled > 0,
+              f"{label}: the sort spilled no rows")
+        check(ctrl.pressure_consumed >= 1,
+              f"{label}: the controller consumed no pressure event")
+        extra = (f"; spill: {sp.rows_spilled} row evictions "
+                 f"({int(rt.spilled_rows.sum())} rows spilled at the end), "
+                 f"{sp.evictions} ring evictions, {sp.refills} refills, "
+                 f"prefetch {sp.prefetch_hits} hits / {sp.prefetch_misses} "
+                 f"misses, {inc.count('mem-pressure')} mem-pressure "
+                 f"incidents, {ctrl.pressure_consumed} consumed")
+    if tweak == "chunked":
+        probe = wf.monitored[0].device
+        check(inc.count("degraded-emit") == 1,
+              f"{label}: {inc.count('degraded-emit')} degraded-emit "
+              f"incidents, not one")
+        extra = (f"; chunked emission at B <= {probe._b_limit} "
+                 f"(MAX_EMIT_CELLS {probe.W} x {probe._b_limit} x M "
+                 f"{probe.M}), {spent['dispatch'][1]} dispatches")
+    if tweak == "chaos":
+        from repro_torch.dataflow import resilience as rs
+        runner = wf.meta["runner"]
+        kinds = [k for k, *_ in CHAOS_PLAN]
+        check(dict(runner.injected) == {k: 1 for k in kinds},
+              f"{label}: injected {dict(runner.injected)}")
+        healed = [k for k in kinds if k != rs.DISPATCH_FAIL]
+        rollback = [k for k in healed if k != rs.MEM_PRESSURE]
+        check(inc.count("chaos-recover") == len(healed)
+              and inc.count("recovery") == len(rollback)
+              and runner.recovered == len(healed),
+              f"{label}: {inc.count('chaos-recover')} chaos-recover and "
+              f"{inc.count('recovery')} recovery incidents for "
+              f"{len(healed)} healed and {len(rollback)} rolled-back "
+              f"faults")
+        check(inc.count("retry") == 2,
+              f"{label}: {inc.count('retry')} retries for the two "
+              f"injected dispatch faults")
+        corrupt = inc.query("fault", cause=rs.SPILL_CORRUPT)
+        check(len(corrupt) == 1 and "no spill segments" not in
+              corrupt[0].action,
+              f"{label}: the spill corruption hit no segment "
+              f"({[i.action for i in corrupt]})")
+        coord = runner.coord
+        extra += (f"; chaos: {sum(runner.injected.values())} faults "
+                  f"({', '.join(i.cause + ': ' + i.action for i in inc.query('fault'))}), "
+                  f"{coord.checkpoints_taken} cuts, "
+                  f"{coord.recoveries} recoveries, {coord.replayed_ticks} "
+                  f"replayed ticks, {coord.corrupt_detected} corrupt cut "
+                  f"detected")
+    return extra
 
 
 def exchange_copies(torch):

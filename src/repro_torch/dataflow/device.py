@@ -55,8 +55,11 @@ a budgeted window and expands it (:func:`repro_torch.kernels.ref.
 match_expand`): each live lane emitted ``mcounts[w, key]`` times into a
 padded ``[W, B * M]`` block, ``M`` the largest match count, so the emit
 buffer covers the worst case and nothing carries over.  An edge whose
-``W * B * M`` would pass ``MAX_EMIT_CELLS`` demotes to the per-chunk path
-(the JAX plane's chunked emission waits for the spill tier).
+``W * B * M`` would pass ``MAX_EMIT_CELLS`` emits in sub-budget dispatches
+when a device budget is set (:meth:`DeviceOpRuntime._tick_probe_chunked`,
+one ``degraded-emit`` incident) and otherwise demotes to the per-chunk
+path (``probe fanout``); with a budget it demotes only when one record's
+fanout alone, ``W * M``, passes the ceiling.
 
 Multi-edge chain fusion: consecutive resident edges whose tables are
 routing-equivalent (``RoutingTable.routing_token`` equal; tokens exist
@@ -90,6 +93,60 @@ plane:
     it.  A K2, build or CUDA error inside a fused dispatch propagates, as
     it does per edge.
 
+Memory tiering (the spill tier): with ``Engine(device_budget=cells)`` or
+``REPRO_DEVICE_BUDGET`` (:mod:`repro_torch.dataflow.spill`) each edge
+bounds its *resident* entries, the budget split evenly across workers.
+Crossing ``high_wm`` of a worker's share evicts cold spans down to
+``low_wm``: for a ring the newest resident records, past what the next
+pops can reach; for a row store the oldest rows, a prefix of the
+append-only log.  Evicted spans become CRC-checked host
+:class:`~repro_torch.dataflow.spill.SpillSegment` objects, so that per worker
+the logical record order stays ``[resident][spilled]``; ``lens`` and
+``rows_len`` keep counting resident plus spilled, so every decision stays
+that of an unspilled run.  Where the JAX plane copies a whole store to
+the host and back on every eviction, the port moves only the spans:
+
+  * an eviction gathers the evicted spans of every evicting worker in one
+    device-to-host copy (:meth:`DeviceOpRuntime._gather_spans`); a row
+    eviction then shifts each worker's live suffix to the front of its
+    row on the device;
+  * span positions come from the device's ``head`` / ``tail`` and the
+    host's exact counts, with no read of a device cursor per worker;
+  * before a dispatch, :meth:`~DeviceOpRuntime._spill_refill` re-appends
+    the logically next segments until each ring covers its pop budget, in
+    one scatter for all workers; the next two segments of a worker are
+    kept on the device ahead of it (``SpillState.prefetch``), copied
+    from pinned host memory with ``non_blocking=True`` on the current
+    stream, the pinned source held beside the copy until the refill uses
+    it (after that the caching host allocator's stream event keeps the
+    block from reuse until the copy is done);
+  * fresh pushes that land behind spilled spans move to the spill tail
+    after the dispatch (:meth:`~DeviceOpRuntime._spill_demote_fresh`);
+  * the row log's sync is incremental (above), so ``rows_synced`` counts
+    logical rows: a boundary takes the unsynced rows from the segments
+    (CRC-checked) before the device's suffix.
+
+A high-watermark crossing records one ``mem-pressure`` incident a worker
+and hands the attached controller ``note_memory_pressure``; it re-arms
+below the low watermark.  Growth past the budget's allocation cap records
+one ``regrow-capped`` incident and grows all the same.  A fused chain
+stays apart while any member holds spilled spans or would cross its high
+watermark (:meth:`~DeviceOpRuntime._spill_gate`).
+
+Checkpoints and chaos: a cut is a boundary (``sync_host``, spill tier
+included); :meth:`~DeviceOpRuntime.on_restore` drops the device state and
+the spill tier and uploads the restored host truth at once, so a restored
+backlog is poppable on the next tick; restored backlog has no known
+placement, so a chain re-fuses only after it drains.  Before each
+dispatch :meth:`~DeviceOpRuntime._chaos_dispatch_ok` consumes the faults a
+:class:`~repro_torch.dataflow.resilience.ChaosRunner` injected: up to
+``RetryPolicy.max_attempts`` retries in place, then a drain-first demotion
+to the per-chunk torch exchange.  Only an injected fault is retried; a
+K2, build or CUDA error propagates.  Under ``REPRO_SANITIZE=1`` every
+``sync_host`` checks the mirrors against the device and the spill tier
+and the fold sums for NaN and inf (:meth:`~DeviceOpRuntime.
+_sanitize_check`).
+
 Bit-exactness: destinations, ranks, histograms, queue contents, split
 counters, row stores and every integer metric are identical to the host
 numpy plane.  Only float sums may differ in their last bits: GroupByAgg
@@ -100,10 +157,8 @@ about the 7th digit (within c * 2^-23 * sum|v| per key, c its count).
 The cross-plane contract is therefore stated on ``Sink.series``,
 ``Sink.counts``, the counters and the mirrors, all integers.
 
-Not ported yet from the JAX plane (each in ``ROADMAP.md``): the spill
-tier with the probe's chunked emission (``_tick_probe_chunked``),
-checkpoint restore (``on_restore``), the in-dispatch controller and the
-sanitizers.
+Not ported yet from the JAX plane (``ROADMAP.md``): the in-dispatch
+controller.
 """
 from __future__ import annotations
 
@@ -114,8 +169,11 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..analysis import sanitize as _sanitize
 from ..kernels import partition as kpart
 from ..kernels.ref import match_expand
+from . import spill as spill_tier
+from .resilience import InjectedDispatchFault
 from .tuples import Chunk, ring_span
 
 __all__ = ["DeviceChunk", "DeviceOpRuntime", "StepSpec", "UserFunctionError",
@@ -133,7 +191,8 @@ MAX_SERVICE_RATE = 1 << 20
 #: probe-expand ceiling: the emit buffer is W * B * M lanes (M = the largest
 #: per-(worker, key) build-match count, so it covers the worst case and no
 #: output ever waits past the host plane's tick); a build table skewed
-#: enough to pass it demotes the edge instead.
+#: enough to pass it emits in sub-budget dispatches under a device budget
+#: and demotes the edge without one.
 MAX_EMIT_CELLS = 1 << 22
 
 #: kinds that emit downstream (and may lead or continue a fused chain).
@@ -546,6 +605,16 @@ class DeviceOpRuntime:
         # host mirrors (exact integers, updated per dispatch)
         self.lens = np.zeros(self.W, dtype=np.int64)
         self.received = np.zeros(self.W, dtype=np.int64)
+        # ---- spill tier (memory tiering; see the module docstring) ---- #
+        #: entries of ``lens`` / ``rows_len`` held in host spill segments
+        #: (exact mirrors: resident = total - spilled).
+        self.spilled_lens = np.zeros(self.W, dtype=np.int64)
+        self.spilled_rows = np.zeros(self.W, dtype=np.int64)
+        self.budget_cfg = engine.device_budget
+        self.spill: Optional[spill_tier.SpillState] = None
+        self._b_limit: Optional[int] = None   # chunked-probe B clamp
+        self._degraded_once = False           # one-time degraded-emit
+        self._regrow_capped_once = False      # one-time regrow-capped
         self._fn = getattr(op, "predicate", None) or getattr(op, "fn", None)
         self._pull = self._pull_counters    # stable identity (ownership)
         self._host_fresh = False   # host copies match device state
@@ -627,8 +696,10 @@ class DeviceOpRuntime:
     # ---- demotion (per-chunk fallback) -------------------------------- #
     def demote(self, reason: str) -> None:
         """Fall back to the per-chunk torch exchange (2-D vals, a user
-        function that fails on device tensors, a second in-edge, or a probe
-        fanout past ``MAX_EMIT_CELLS``); the edge leaves any chain."""
+        function that fails on device tensors, a second in-edge, a probe
+        fanout past ``MAX_EMIT_CELLS``, or injected dispatch faults past
+        the retry policy); the edge leaves any chain.  ``sync_host`` folds
+        the spill tier into the host structures first."""
         from .exchange import Exchange
         self._unlink_chain()
         staged, self.staged, self.staged_live = self.staged, [], 0
@@ -733,6 +804,13 @@ class DeviceOpRuntime:
         W = self.W
         self._reload_pending = False
         self._host_fresh = False
+        # The host structures hold the whole content (``sync_host`` folds
+        # the spill tier back in before any host mutation), so everything
+        # uploaded here is resident: the spill tier restarts empty.
+        self.spilled_lens[:] = 0
+        self.spilled_rows[:] = 0
+        if self.spill is not None:
+            self.spill.clear()
         # Host-loaded queue content has unknown placement provenance.
         self._placed_token = None
         st = self.state
@@ -823,23 +901,48 @@ class DeviceOpRuntime:
         capacity must cover them or the pre-placed push would wrap onto
         live entries."""
         budget_cap = self.engine.batch_ticks * self.op.service_rate
+        if self._b_limit is not None:
+            # Chunked probe emission: the widening must not pass the emit
+            # block the chunk loop sized.
+            budget_cap = min(budget_cap, self._b_limit)
         if self.kind != "sink" and budget_cap > self.B:
             self.B = int(budget_cap)
-        need = (int(self.lens.max(initial=0)) + self.staged_live
-                + int(incoming))
+        # Capacity covers the resident share only: spilled entries come
+        # back through the budget-covering refill, never all at once.
+        need = (int((self.lens - self.spilled_lens).max(initial=0))
+                + self.staged_live + int(incoming))
         if self.state is None:
             self.cap = max(self.cap, _pow2(2 * max(need, 1)))
             self._alloc_state()
         elif need > self.cap and self.kind != "sink":
-            self.cap = _pow2(2 * need)
+            self.cap = self._capped_growth(_pow2(2 * need), "ring")
             self._regrow_rings()
         if self.kind == "rows" and self.state is not None:
-            rows = int(self.rows_len.max(initial=0))
+            rows = int((self.rows_len - self.spilled_rows).max(initial=0))
             if rows + self.B > self.rcap:
                 # The row log only grows (appends, never pops): double it
                 # so the next dispatch's worst-case append (<= B rows) fits.
-                self.rcap = _pow2(2 * (rows + self.B))
+                self.rcap = self._capped_growth(_pow2(2 * (rows + self.B)),
+                                                "row store")
                 self._regrow_rowstore()
+
+    def _capped_growth(self, new_cap: int, what: str) -> int:
+        """Growth past the budget's allocation cap means eviction could not
+        keep this edge bounded (a burst larger than the budget itself):
+        grow all the same, and record it once."""
+        cfg = self.budget_cfg
+        if cfg is not None:
+            limit = _pow2(2 * (cfg.per_worker(self.W) + max(self.B, 1)))
+            if new_cap > limit and not self._regrow_capped_once:
+                self._regrow_capped_once = True
+                self.engine.incidents.record(
+                    "regrow-capped", tick=self.engine.tick,
+                    edge=self.op.name,
+                    cause=f"{what} regrowth to {new_cap} cells exceeds "
+                          f"the device-budget cap {limit}",
+                    action="grow past the budget (burst exceeds it); "
+                           "spill resumes bounding the steady state")
+        return new_cap
 
     def _regrow_rings(self) -> None:
         """Re-layout the rings at a larger capacity (content preserved)."""
@@ -850,8 +953,9 @@ class DeviceOpRuntime:
         head = self.state["head"].cpu().numpy()
         new_k = np.zeros(W * self.cap + 1, np.int64)
         new_v = np.zeros(W * self.cap + 1, np.float64)
+        resident = self.lens - self.spilled_lens
         for w in range(W):
-            ln = int(self.lens[w])
+            ln = int(resident[w])
             idx = ring_span(head[w], ln, old_cap)
             new_k[w * self.cap:w * self.cap + ln] = rk[w, idx]
             new_v[w * self.cap:w * self.cap + ln] = rv[w, idx]
@@ -859,7 +963,7 @@ class DeviceOpRuntime:
                           rv=self._put(new_v, torch.float64),
                           head=torch.zeros(W, dtype=torch.int64,
                                            device=self.device),
-                          tail=self._put(self.lens, torch.int64))
+                          tail=self._put(resident, torch.int64))
 
     def _regrow_rowstore(self) -> None:
         """Re-layout the flat row log at a larger capacity (append-only: no
@@ -874,6 +978,220 @@ class DeviceOpRuntime:
             _grid(new, W, self.rcap)[:, :old] = _grid(buf, W, old)
             grown[name] = new
         self.state.update(grown)
+
+    # ---- spill tier (memory tiering; see the module docstring) --------- #
+    def set_budget(self, budget) -> None:
+        """(Re)configure this edge's device budget mid-run (the chaos
+        ``mem-pressure`` fault shrinks it; its undo restores).  ``None``
+        stops eviction but keeps spilled spans reachable (refill goes on
+        draining them)."""
+        self.budget_cfg = spill_tier.resolve_budget(budget)
+
+    def _spill_upload(self, a: np.ndarray):
+        """The prefetcher's upload of one segment column: on the card a
+        copy from pinned host memory with ``non_blocking=True`` on the
+        current stream; returns (device copy, pinned source), the source
+        held until the refill consumes the copy."""
+        src = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return src.clone(), None
+        pinned = src.pin_memory()
+        return pinned.to(self.device, non_blocking=True), pinned
+
+    def _spill_corrupt_incident(self, exc) -> None:
+        self.engine.incidents.record(
+            "spill-corrupt", tick=self.engine.tick, edge=self.op.name,
+            cause=str(exc),
+            action="recover from the last valid checkpoint cut")
+
+    def _spill_refill(self, budget: int) -> None:
+        """Re-append logically next spilled ring spans until the pop window
+        is covered by resident records: per worker, refill stops when
+        ``resident >= budget`` or the worker's spill ring drains, so the
+        dispatch's ``take = min(budget, resident)`` equals the host plane's
+        ``min(budget, total)`` and takes the logically first records.  One
+        scatter appends every worker's segments (prefetched device copies,
+        else uploaded now); each segment's CRC is checked on its host
+        bytes first."""
+        sp = self.spill
+        if (sp is None or self.state is None or self._reload_pending
+                or self.kind == "sink" or not sp.any()):
+            return
+        budget = int(budget)
+        res = self.lens - self.spilled_lens
+        got = np.zeros(self.W, dtype=np.int64)
+        cols: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for w in range(self.W):
+            while sp.rings[w] and int(res[w] + got[w]) < budget:
+                try:
+                    seg, dev = sp.pop_ring_front(w)
+                except spill_tier.SpillCorruptError as exc:
+                    self._spill_corrupt_incident(exc)
+                    raise
+                if dev is None:
+                    dev = tuple(self._spill_upload(a) for a in seg.arrays)
+                cols.append((dev[0][0], dev[1][0]))
+                got[w] += seg.n
+        if cols:
+            need = int((res + got).max())
+            if need > self.cap:
+                self.cap = _pow2(2 * (need + budget))
+                self._regrow_rings()
+            dev_got = torch.from_numpy(got).to(self.device)
+            total = int(got.sum())
+            wid = torch.repeat_interleave(_iota(self.W, self.device), dev_got,
+                                          output_size=total)
+            first = torch.cumsum(dev_got, dim=0) - dev_got
+            off = torch.arange(total, dtype=torch.int64,
+                               device=self.device) - first[wid]
+            flat = wid * self.cap + (self.state["tail"][wid] + off) % self.cap
+            self.state["rk"].index_put_((flat,), torch.cat([c[0] for c in cols]))
+            self.state["rv"].index_put_((flat,), torch.cat([c[1] for c in cols]))
+            self.state["tail"] += dev_got
+            self.spilled_lens -= got
+        for w in range(self.W):
+            if sp.rings[w]:
+                sp.prefetch(w, self._spill_upload)
+
+    def _spill_admit(self, budget: int) -> None:
+        """Watermark check before a dispatch: evict cold resident spans to
+        the host spill tier and raise the ``mem-pressure`` signal on a
+        high-watermark crossing (hysteresis: it re-arms below the low
+        watermark)."""
+        cfg = self.budget_cfg
+        if (cfg is None or self.kind == "sink" or self.state is None
+                or self._reload_pending):
+            return
+        L = cfg.per_worker(self.W)
+        high = max(int(L * cfg.high_wm), 1)
+        low = max(int(L * cfg.low_wm), 1)
+        budget = int(budget)
+        res = self.lens - self.spilled_lens
+        over = np.flatnonzero(res > max(high, budget))
+        rows_over = over[:0]
+        calm = res <= low
+        if self.kind == "rows":
+            rres = self.rows_len - self.spilled_rows
+            rows_over = np.flatnonzero(rres > high)
+            calm &= rres <= low
+        if (over.size or rows_over.size) and self.spill is None:
+            self.spill = spill_tier.SpillState(cfg, self.W)
+        if over.size:
+            self._spill_evict_rings(over, keep=max(low, budget))
+        if rows_over.size:
+            self._spill_evict_rows(rows_over, keep=low)
+        sp = self.spill
+        if sp is None:
+            return
+        pressured = np.zeros(self.W, dtype=bool)
+        pressured[over] = True
+        pressured[rows_over] = True
+        for w in np.flatnonzero(pressured & ~sp.pressure_active):
+            sp.pressure_active[w] = True
+            self.engine.incidents.record(
+                "mem-pressure", tick=self.engine.tick, edge=self.op.name,
+                cause=f"worker {w}: resident device state crossed the high "
+                      f"watermark ({high} of {L} cells/worker)",
+                action="spill cold spans to host; notify the attached "
+                       "controller")
+            self._notify_pressure(int(w))
+        sp.pressure_active[calm & ~pressured] = False
+
+    def _spill_evict_rings(self, ws: np.ndarray, keep: int) -> None:
+        """Move the newest resident ring records of each listed worker (the
+        next pops cannot reach them) into checksummed host segments at the
+        spill front (they are logically just before any spilled span): one
+        device-to-host copy for all workers, and the tails pulled back."""
+        res = self.lens - self.spilled_lens
+        m = np.zeros(self.W, dtype=np.int64)
+        m[ws] = np.maximum(res[ws] - int(keep), 0)
+        if m.any():
+            start = self.state["head"] + torch.from_numpy(res - m).to(
+                self.device)
+            spans = self._gather_spans(("rk", "rv"), start, m, self.cap,
+                                       ring=True)
+            for w in np.flatnonzero(m):
+                self.spill.prepend_ring(w, spill_tier.SpillSegment(
+                    tuple(a.copy() for a in spans[w]), int(m[w])))
+            self.spilled_lens += m
+            self.state["tail"] -= torch.from_numpy(m).to(self.device)
+        for w in ws:
+            self.spill.prefetch(int(w), self._spill_upload)
+
+    def _spill_evict_rows(self, ws: np.ndarray, keep: int) -> None:
+        """Spill the oldest rows (a prefix per worker) of the device row
+        log: one device-to-host copy of the evicted prefixes, then each
+        worker's live suffix shifted to the front of its row on the device.
+        The log is append-only and read back only at boundaries, so the
+        prefix is the coldest span and never comes back mid-run."""
+        rres = self.rows_len - self.spilled_rows
+        m = np.zeros(self.W, dtype=np.int64)
+        m[ws] = np.maximum(rres[ws] - int(keep), 0)
+        if not m.any():
+            return
+        spans = self._gather_spans(
+            ("bk", "bv", "bo"), torch.zeros(self.W, dtype=torch.int64,
+                                            device=self.device),
+            m, self.rcap, ring=False)
+        for w in np.flatnonzero(m):
+            self.spill.append_rows(w, spill_tier.SpillSegment(
+                tuple(a.copy() for a in spans[w]), int(m[w])))
+        self.spilled_rows += m
+        dev_m = torch.from_numpy(m).to(self.device)
+        src = _iota(self.rcap, self.device)[None, :] + dev_m[:, None]
+        dead = src >= self.state["rlen"][:, None]
+        src = src.clamp_(max=self.rcap - 1)
+        for name in ("bk", "bv", "bo"):
+            grid = _grid(self.state[name], self.W, self.rcap)
+            grid.copy_(grid.gather(1, src).masked_fill_(dead, 0))
+        self.state["rlen"] -= dev_m
+
+    def _spill_demote_fresh(self, pushed: np.ndarray) -> None:
+        """Fresh pushes landed behind spilled spans: move them to the spill
+        tier's logical end so each worker's order stays
+        ``[resident][spilled]`` (this dispatch's pops never reached them:
+        the refill made ``resident >= budget`` first)."""
+        m = np.where([bool(r) for r in self.spill.rings], pushed, 0)
+        if not m.any():
+            return
+        res = self.lens - self.spilled_lens
+        start = self.state["head"] + torch.from_numpy(res - m).to(
+            self.device)
+        spans = self._gather_spans(("rk", "rv"), start, m, self.cap,
+                                   ring=True)
+        for w in np.flatnonzero(m):
+            self.spill.append_ring(w, spill_tier.SpillSegment(
+                tuple(a.copy() for a in spans[w]), int(m[w])))
+        self.spilled_lens += m
+        self.state["tail"] -= torch.from_numpy(m).to(self.device)
+
+    def _spill_gate(self, budget: int) -> bool:
+        """Must this edge stay per edge (unfused) this dispatch?  Yes while
+        it holds spilled spans (refill and re-tiering run per edge only) or
+        when its projected resident count would cross the high watermark,
+        so a chain dispatch never needs to evict."""
+        if self.spill is not None and self.spill.any():
+            return True
+        cfg = self.budget_cfg
+        if cfg is None or self.kind == "sink":
+            return False
+        high = max(int(cfg.per_worker(self.W) * cfg.high_wm), 1)
+        res = int((self.lens - self.spilled_lens).max(initial=0))
+        if self.kind == "rows":
+            res = max(res, int((self.rows_len
+                                - self.spilled_rows).max(initial=0)))
+        return res + self.staged_live + int(budget) > max(high, int(budget))
+
+    def _notify_pressure(self, worker: int) -> None:
+        """Memory pressure is a mitigation trigger: hand the signal to the
+        attached host controller (splitting the fat worker sheds the hot
+        partition's growth)."""
+        for att in self.engine.controllers:
+            if att.op is not self.op:
+                continue
+            note = getattr(att.controller, "note_memory_pressure", None)
+            if note is not None:
+                note(worker, self.engine.tick)
 
     # ---- routing constants / split counters --------------------------- #
     def _refresh_consts(self) -> None:
@@ -941,7 +1259,14 @@ class DeviceOpRuntime:
     def tick(self, budget: int) -> List:
         if not self.staged and not self.lens.any():
             return []                  # nothing to ingest or pop
+        chaos = self.engine.chaos
+        if chaos is not None and not self._chaos_dispatch_ok(chaos):
+            return self.op.tick(budget)    # demoted: the host path replays
         if self.kind == "probe" and not self._probe_capacity_ok(budget):
+            if self.budget_cfg is not None:
+                # With a device budget the cliff degrades instead: emit in
+                # sub-budget dispatches.
+                return self._tick_probe_chunked(budget)
             # A build table (or budget) skewed enough that the padded emit
             # block W * B * M would pass the ceiling: the per-chunk path
             # takes any fanout.
@@ -962,9 +1287,31 @@ class DeviceOpRuntime:
         if chain is not None:
             return self._dispatch_chain(chain, budget)
         self._host_fresh = False
+        self._spill_refill(budget)
         self._prep(budget)
+        self._spill_admit(budget)
         chunks, self.staged, self.staged_live = self.staged, [], 0
         return self._dispatch(self._spec(), chunks, budget)
+
+    def _chaos_dispatch_ok(self, chaos) -> bool:
+        """Consume the injected dispatch faults with retry/backoff; once the
+        retries are spent, demote this edge drain-first (the per-chunk path
+        replays the tick bit-identically) and return False.  Only an
+        injected fault is caught: a K2, build or CUDA error propagates."""
+        policy = self.engine.retry_policy
+        for attempt in range(policy.max_attempts + 1):
+            try:
+                chaos.dispatch_fault(self)
+                return True
+            except InjectedDispatchFault as exc:
+                if attempt < policy.max_attempts:
+                    self.engine.incidents.record(
+                        "retry", tick=self.engine.tick, edge=self.op.name,
+                        cause=str(exc), action="retry device dispatch",
+                        attempt=attempt + 1)
+                    policy.sleep(attempt + 1)
+        self.demote("dispatch retries exhausted")
+        return False
 
     def flush_staged(self) -> None:
         """Route staged chunks into the rings without popping (budget 0).
@@ -995,6 +1342,47 @@ class DeviceOpRuntime:
         M = (self.M if self.state is not None and not self._reload_pending
              else self._host_fanout())
         return self.W * B * M <= MAX_EMIT_CELLS
+
+    def _tick_probe_chunked(self, budget: int) -> List:
+        """The probe-fanout cliff under a device budget: pop and expand in
+        sub-budget dispatches whose emit block ``W * b * M`` stays within
+        ``MAX_EMIT_CELLS`` (one ``degraded-emit`` incident).  Bit-exact
+        against one dispatch of the whole budget: prefix pops compose, and
+        splitting a window keeps each lane's expansion order.  Only a
+        record whose fanout alone passes the ceiling (``W * M``) demotes."""
+        M = max(self.M if self.state is not None and not self._reload_pending
+                else self._host_fanout(), 1)
+        if self.W * M > MAX_EMIT_CELLS:
+            self.demote("probe fanout")
+            return self.op.tick(budget)
+        b_limit = max(MAX_EMIT_CELLS // (self.W * M), 1)
+        self._b_limit = b_limit
+        self.B = min(self.B, b_limit)
+        if not self._degraded_once:
+            self._degraded_once = True
+            self.engine.incidents.record(
+                "degraded-emit", tick=self.engine.tick, edge=self.op.name,
+                cause=f"probe emit buffer W*B*M over MAX_EMIT_CELLS "
+                      f"(W={self.W}, M={M})",
+                action=f"chunked emission at B<={b_limit} (no demotion)")
+        self._host_fresh = False
+        left = int(budget)
+        first = True
+        while True:
+            b = min(left, b_limit)
+            self._spill_refill(b)
+            self._prep(b)
+            self._spill_admit(b)
+            chunks: List[DeviceChunk] = []
+            if first:                   # after _prep flushed a stale backlog
+                chunks, self.staged, self.staged_live = self.staged, [], 0
+                first = False
+            self._dispatch(self._spec(), chunks, b)
+            left -= b
+            # ``lens`` counts spilled records too: stop only when nothing
+            # is left to pop anywhere.
+            if left <= 0 or b == 0 or not self.lens.any():
+                return []
 
     def _emit_bound(self, budget: int) -> int:
         """The most records one ring of this stage hands its chain follower
@@ -1041,7 +1429,8 @@ class DeviceOpRuntime:
                 or self._chain_disabled or not eng.device_chain
                 or self.op.device is not self or self.op.finished
                 or not self._preserves_keys()
-                or budget != eng._super_k * self.op.service_rate):
+                or budget != eng._super_k * self.op.service_rate
+                or self._spill_gate(budget)):
             return None
         tok = self._live_token()
         if tok is None:
@@ -1053,9 +1442,11 @@ class DeviceOpRuntime:
             if (d is None or d.op.device is not d or d.op.finished
                     or d._live_token() != tok):
                 break
-            if d.kind == "probe" and not d._probe_capacity_ok(
-                    eng._super_k * d.op.service_rate):
-                break                   # d's own tick demotes it
+            d_budget = eng._super_k * d.op.service_rate
+            if d.kind == "probe" and not d._probe_capacity_ok(d_budget):
+                break                   # d's own tick demotes or chunks it
+            if d._spill_gate(d_budget):
+                break                   # d must evict or refill per edge
             members.append(d)
             if (d.kind not in MAP_KINDS or d._chain_disabled
                     or not d._preserves_keys()):
@@ -1177,6 +1568,7 @@ class DeviceOpRuntime:
         seq = ([(c, 0) for c in chunks[:-1]] + [(chunks[-1], budget)]
                if chunks else [(None, budget)])
         outs: List[DeviceChunk] = []
+        pushed = np.zeros(self.W, dtype=np.int64)
         for ch, b in seq:
             metrics, out = _step(spec, self.consts, self.state, ch, b)
             if ch is not None:
@@ -1187,6 +1579,7 @@ class DeviceOpRuntime:
             self.edge.exchange.account(hist)
             self.received += hist
             self.lens += hist - take
+            pushed += hist
             if self.kind == "rows":   # every popped row was appended
                 self.rows_len += take
                 self.rows_owned += metrics[2]
@@ -1199,6 +1592,11 @@ class DeviceOpRuntime:
                 n_live = int(em.sum())
                 if n_live:
                     outs.append(DeviceChunk(*out, n_live))
+        if (self.spill is not None and pushed.any()
+                and any(self.spill.rings)):
+            # Ordering invariant: fresh pushes behind spilled spans re-tier
+            # to the spill tail (see _spill_demote_fresh).
+            self._spill_demote_fresh(pushed)
         # Emission happens here (inside the op's tick slot) so the
         # downstream edge sees outputs in exactly the host plane's order.
         if outs and self.op.out_edge is not None:
@@ -1270,14 +1668,25 @@ class DeviceOpRuntime:
             # The host was mutated after the last sync and no dispatch has
             # run since: the host copies are *ahead* of the device.
             return
+        if _sanitize.enabled():
+            # Before any span is read: a forked mirror would mis-size it.
+            self._sanitize_check()
         op = self.op
         W = self.W
         if self.kind != "sink":
-            # The live span of every ring only (its backlog), not the grid.
+            # The live span of every ring only (its backlog), not the grid,
+            # then the spilled spans: the logical order is
+            # [resident][spilled].
             spans = self._gather_spans(("rk", "rv"), self.state["head"],
-                                       self.lens, self.cap, ring=True)
+                                       self.lens - self.spilled_lens,
+                                       self.cap, ring=True)
             for w, worker in enumerate(op.workers):
-                worker.queue.restore(spans[w], int(self.received[w]))
+                k_w, v_w = spans[w]
+                if self.spilled_lens[w]:
+                    segs = self._drain(self.spill.drain_ring, w)
+                    k_w = np.concatenate([k_w] + [g.arrays[0] for g in segs])
+                    v_w = np.concatenate([v_w] + [g.arrays[1] for g in segs])
+                worker.queue.restore((k_w, v_w), int(self.received[w]))
         if self.kind == "fold":
             cols = {name: _grid(self.state[name], W, self.K).cpu().numpy()
                     for name in ("counts", "sums", "present", "scat_counts",
@@ -1296,11 +1705,20 @@ class DeviceOpRuntime:
             # to the host plane's per-chunk segment appends.  The host holds
             # the older rows already: a rewrite boundary (every few ticks
             # under an active mitigation) costs the new rows, not the log.
+            # ``rows_synced`` counts logical rows; the first
+            # ``spilled_rows`` of them sit in the spill tier and device row
+            # i is logical row ``spilled_rows + i``.
+            first = np.maximum(self.rows_synced, self.spilled_rows)
             new = self._gather_spans(
-                ("bk", "bv", "bo"), torch.from_numpy(self.rows_synced).to(
-                    self.device), self.rows_len - self.rows_synced,
-                self.rcap, ring=False)
-            for (k_w, v_w, o_w), worker in zip(new, op.workers):
+                ("bk", "bv", "bo"), torch.from_numpy(
+                    first - self.spilled_rows).to(self.device),
+                self.rows_len - first, self.rcap, ring=False)
+            for w, worker in enumerate(op.workers):
+                k_w, v_w, o_w = new[w]
+                if self.rows_synced[w] < self.spilled_rows[w]:
+                    old = self._spilled_rows_from(w, int(self.rows_synced[w]))
+                    k_w, v_w, o_w = (np.concatenate([a, b])
+                                     for a, b in zip(old, (k_w, v_w, o_w)))
                 worker.state.extend_segments(k_w[o_w], v_w[o_w])
                 worker.scattered.extend_segments(k_w[~o_w], v_w[~o_w])
             self.rows_synced[:] = self.rows_len
@@ -1318,6 +1736,87 @@ class DeviceOpRuntime:
         self.routing.sync_counters()
         self._host_fresh = True
 
+    def _drain(self, drain, w: int):
+        """``SpillState.drain_ring`` / ``drain_rows`` of worker ``w``, the
+        CRC failure recorded as a ``spill-corrupt`` incident."""
+        try:
+            return drain(w)
+        except spill_tier.SpillCorruptError as exc:
+            self._spill_corrupt_incident(exc)
+            raise
+
+    def _spilled_rows_from(self, w: int, start: int):
+        """Worker ``w``'s spilled rows from logical row ``start`` on, as
+        (keys, vals, owned) columns; only the segments read are
+        CRC-checked."""
+        parts, base = [], 0
+        for seg in self.spill.rows[w]:
+            if base + seg.n > start:
+                if not seg.verify():
+                    self._drain(self.spill.drain_rows, w)   # records, raises
+                lo = max(start - base, 0)
+                parts.append(tuple(a[lo:] for a in seg.arrays))
+            base += seg.n
+        return tuple(np.concatenate(c) for c in zip(*parts))
+
+    def _sanitize_check(self) -> None:
+        """Boundary sanitizers (``REPRO_SANITIZE=1``): cross-check the
+        exact host mirrors against the device truth, the spill tier's
+        segments against the spilled mirrors, and fold sums against NaN and
+        inf.  Violations are structured incidents (``sanitize-mirror`` /
+        ``sanitize-spill`` / ``sanitize-nan``) plus a hard failure."""
+        st = self.state
+        problems = []
+        cursors = []
+        if self.kind != "sink":
+            cursors.append(st["tail"] - st["head"])
+        if self.kind == "rows":
+            cursors.append(st["rlen"])
+        sums = [name for name in ("sums", "scat_sums") if name in st]
+        finite = [bool(torch.isfinite(st[name]).all()) for name in sums]
+        dev = torch.stack(cursors).cpu().numpy() if cursors else []
+        if self.kind != "sink":
+            resident = self.lens - self.spilled_lens
+            if not np.array_equal(dev[0], resident):
+                problems.append((
+                    "sanitize-mirror",
+                    f"queue-length mirror {resident.tolist()} (total "
+                    f"{self.lens.tolist()} - spilled "
+                    f"{self.spilled_lens.tolist()}) != device tail-head "
+                    f"{dev[0].tolist()}"))
+        if self.kind == "rows":
+            rres = self.rows_len - self.spilled_rows
+            if not np.array_equal(dev[1], rres):
+                problems.append((
+                    "sanitize-mirror",
+                    f"rows_len mirror {rres.tolist()} (total "
+                    f"{self.rows_len.tolist()} - spilled "
+                    f"{self.spilled_rows.tolist()}) != device rlen "
+                    f"{dev[1].tolist()}"))
+        for w in range(self.W):
+            ring = self.spill.ring_len(w) if self.spill else 0
+            rows = self.spill.rows_len(w) if self.spill else 0
+            if (ring != int(self.spilled_lens[w])
+                    or rows != int(self.spilled_rows[w])):
+                problems.append((
+                    "sanitize-spill",
+                    f"worker {w}: spill segments hold {ring} ring / {rows} "
+                    f"row records but mirrors say "
+                    f"{int(self.spilled_lens[w])} / "
+                    f"{int(self.spilled_rows[w])}"))
+        for name, ok in zip(sums, finite):
+            if not ok:
+                problems.append(("sanitize-nan",
+                                 f"non-finite values in fold state {name!r}"))
+        for kind, cause in problems:
+            self.engine.incidents.record(
+                kind, tick=self.engine.tick, edge=self.op.name, cause=cause,
+                action="fail (REPRO_SANITIZE=1)")
+        if problems:
+            raise _sanitize.SanitizeError(
+                f"device-plane sanitizer tripped at a sync_host boundary on "
+                f"{self.op.name!r}: " + "; ".join(c for _, c in problems))
+
     def mark_state_stale(self) -> None:
         """The host copies were mutated (migration / merge): reload the
         device state from them before the next dispatch.  Deferred, so a
@@ -1329,3 +1828,33 @@ class DeviceOpRuntime:
         self._host_fresh = False
         self._reload_pending = True
         self._consts_version = -1
+
+    def on_restore(self) -> None:
+        """Checkpoint restore rewrote every host structure: drop the device
+        state and the spill tier and upload the restored host truth now.
+
+        The upload is eager: a restored backlog must be poppable on the
+        next tick even if no chunk ever arrives again (the sources may be
+        exhausted), or END would never propagate.  The reload also resets
+        the spilled mirrors, ``rows_synced`` and ``rows_owned``, and leaves
+        the restored backlog with no known placement, so a chain re-fuses
+        only once it drains."""
+        self.state = None
+        self.consts = None
+        self._consts_version = -1
+        self._chain_serial = -1        # never "already ticked" after it
+        self._reload_pending = False
+        self._host_fresh = False
+        self._sink_dirty = False
+        self.staged, self.staged_live = [], 0
+        self.spilled_lens[:] = 0
+        self.spilled_rows[:] = 0
+        if self.spill is not None:
+            self.spill.clear()
+        for w, worker in enumerate(self.op.workers):
+            self.lens[w] = len(worker.queue)
+            self.received[w] = worker.queue.received_total
+        if self.kind == "sink":
+            self.lens[:] = 0
+        if not self.op.finished:
+            self._ensure_ready()       # upload rings, state and backlog now

@@ -24,6 +24,11 @@ marker-aligned point at which no chunk is in flight, so
   mutable + SBK       -> MARKERS    : move scope state, flip ownership
   mutable + SBR       -> SCATTERED  : nothing now; merge at END markers
 
+Fault tolerance mirrors §2.2: :mod:`repro_torch.dataflow.checkpoint`
+snapshots queues/state/routing/controller at tick boundaries (aligned
+markers) and the engine can restore and replay after an injected worker
+failure (:class:`~repro_torch.dataflow.resilience.ChaosRunner`).
+
 Data plane
 ----------
 Every edge delegates chunk routing to the fused columnar exchange
@@ -42,10 +47,13 @@ device-resident plane (:mod:`repro_torch.dataflow.device`): chunks, ring
 queues, split counters and keyed folds / row stores stay on the device for
 a whole super-tick, one dispatch per edge (or per fused chain of
 routing-equivalent edges), and the host materializes state only at the
-boundaries ``_fusible_ticks`` computes.  The default,
-``device_executor="host"``, keeps the per-chunk torch exchange on every
-edge.  The JAX package's
-``reference=True`` oracle is not ported.
+boundaries ``_fusible_ticks`` computes; with ``device_budget`` each
+resident edge bounds its resident entries and spills cold spans to
+checksummed host segments (:mod:`repro_torch.dataflow.spill`).  The
+default, ``device_executor="host"``, keeps the per-chunk torch exchange on
+every edge.  ``Engine(reference=True)`` swaps in the pre-refactor
+tuple-at-a-time oracle (:mod:`repro_torch.dataflow.reference`) for
+equivalence tests.
 
 Batched tick scheduler
 ----------------------
@@ -77,6 +85,7 @@ from ..core.state_migration import choose_strategy
 from ..core.types import MigrationStrategy, ReshapeConfig, StateMutability, TransferMode
 from ..devices import DeviceSpec, resolve_device
 from .device import DeviceChunk
+from .spill import resolve_budget
 from .exchange import (BackendSpec, DeviceExchange, Exchange,
                        TorchPartitionBackend, get_backend)
 from .operators import Operator, Sink
@@ -123,7 +132,8 @@ class Edge:
     """
 
     def __init__(self, dst: Operator, num_keys: int, *, init: str = "hash",
-                 backend: BackendSpec = None, device: DeviceSpec = "cuda"):
+                 backend: BackendSpec = None, device: DeviceSpec = "cuda",
+                 reference: bool = False):
         self.dst = dst
         #: which plane carries this edge: "jit" (the device-resident
         #: runtime; the JAX package's name, run eagerly here),
@@ -138,7 +148,11 @@ class Edge:
         #: controller is attached (engine default: replicate-or-scatter).
         self.strategy: Optional[MigrationStrategy] = None
         self.routing.listener = self._on_rewrite
-        self.exchange = Exchange(self.routing, dst, backend, device)
+        if reference:
+            from .reference import ReferenceExchange
+            self.exchange = ReferenceExchange(self.routing, dst)
+        else:
+            self.exchange = Exchange(self.routing, dst, backend, device)
         self.units_moved = 0.0
 
     @property
@@ -288,29 +302,45 @@ class Engine:
     it is the faster one on the card so far: an eager resident dispatch
     costs more than the per-chunk round trip it saves (``PERF.md``).
     Ineligible edges (2-D payloads, a second upstream, a probe whose emit
-    block would pass ``MAX_EMIT_CELLS``) always use the per-chunk exchange.
+    block would pass ``MAX_EMIT_CELLS`` with no ``device_budget`` set)
+    always use the per-chunk exchange.
 
     ``device_chain`` (default: the ``REPRO_DEVICE_CHAIN`` environment
     variable, on unless it is ``"0"``) fuses consecutive resident edges
     whose routing tables are provably routing-equivalent
     (``RoutingTable.routing_token``) into one dispatch with one placement
     per super-tick; ``False`` keeps every edge apart, with the same bits.
+
+    ``device_budget`` bounds each resident edge's device entries (an int
+    or str cell count, a :class:`~repro_torch.dataflow.spill.SpillConfig`
+    for other watermarks, or None for the ``REPRO_DEVICE_BUDGET``
+    environment variable; unset, the spill tier is off): crossing the high
+    watermark evicts cold spans to checksummed host segments instead of
+    growing device state.  ``reference=True`` runs the pre-refactor
+    tuple-at-a-time data plane instead (the testing oracle); it keeps no
+    edge resident.
     """
 
     def __init__(self, *, partition_backend: BackendSpec = None,
                  batch_ticks: int = 1, device: DeviceSpec = "cuda",
                  device_executor: str = "host",
-                 device_chain: Optional[bool] = None):
+                 device_chain: Optional[bool] = None,
+                 device_budget=None, reference: bool = False):
         if device_executor not in ("jit", "host"):
             raise ValueError(f"unknown device executor {device_executor!r}; "
                              f"choose from 'jit' and 'host'")
         self.device = resolve_device(device)
         self.partition_backend = get_backend(partition_backend, self.device)
+        self.reference = bool(reference)
         self.device_executor = device_executor
         if device_chain is None:
             import os
             device_chain = os.environ.get("REPRO_DEVICE_CHAIN", "1") != "0"
         self.device_chain = bool(device_chain)
+        #: per-edge device budget (cells) of the spill tier, resolved once
+        #: (see :func:`repro_torch.dataflow.spill.resolve_budget`); each
+        #: resident runtime starts from it.
+        self.device_budget = resolve_budget(device_budget)
         self.batch_ticks = max(1, int(batch_ticks))
         self.sources: List[Source] = []
         self.ops: List[Operator] = []                 # topological order
@@ -353,7 +383,8 @@ class Engine:
 
     def connect(self, producer, consumer: Operator, num_keys: int, *, init: str = "hash") -> Edge:
         edge = Edge(consumer, num_keys, init=init,
-                    backend=self.partition_backend, device=self.device)
+                    backend=self.partition_backend, device=self.device,
+                    reference=self.reference)
         producer.out_edge = edge
         self.edges.append(edge)
         self.upstreams.setdefault(consumer.name, []).append(producer)
@@ -364,10 +395,11 @@ class Engine:
                      producer=None) -> None:
         """Promote an eligible torch edge into the device-resident plane.
 
-        Eligible: the engine runs the torch backend, ``device_executor`` is
-        not ``"host"``, and the destination is a single-upstream Filter /
-        Project / GroupByAgg / Sink / HashJoinBuild / HashJoinProbe /
-        RangeSort with a bounded (worker x key) dense structure
+        Eligible: the engine runs the torch backend without ``reference``,
+        ``device_executor`` is not ``"host"``, and the destination is a
+        single-upstream Filter / Project / GroupByAgg / Sink /
+        HashJoinBuild / HashJoinProbe / RangeSort with a bounded
+        (worker x key) dense structure
         (:func:`repro_torch.dataflow.device.wireable`).  A second upstream
         demotes an already promoted destination.  Ineligible edges keep
         the per-chunk exchange.
@@ -378,7 +410,7 @@ class Engine:
         (:meth:`~repro_torch.dataflow.device.DeviceOpRuntime.
         _chain_for_dispatch`).
         """
-        if (self.device_executor == "host"
+        if (self.reference or self.device_executor == "host"
                 or not isinstance(self.partition_backend,
                                   TorchPartitionBackend)):
             return

@@ -12,7 +12,9 @@
 backend ``device_executor`` (see :class:`~repro_torch.dataflow.engine.Engine`)
 keeps the per-chunk exchange on every edge (``"host"``, the default) or
 puts every eligible edge on the device-resident plane (``"jit"``), where
-the engine fuses routing-equivalent edges unless ``REPRO_DEVICE_CHAIN=0``.
+the engine fuses routing-equivalent edges unless ``REPRO_DEVICE_CHAIN=0``,
+and ``device_budget`` arms the spill tier.
+``reference=True`` builds the graph on the tuple-at-a-time oracle.
 """
 from __future__ import annotations
 
@@ -29,11 +31,20 @@ from .engine import Edge, Engine, Source
 from .operators import Filter, GroupByAgg, HashJoinProbe, Operator, Project, RangeSort, Sink
 
 
-def _engine(partition_backend, batch_ticks: int, device,
-            device_executor) -> Engine:
-    return Engine(partition_backend=partition_backend,
+def _engine(reference: bool, partition_backend, batch_ticks: int, device,
+            device_executor, device_budget) -> Engine:
+    return Engine(partition_backend=partition_backend, reference=reference,
                   batch_ticks=batch_ticks, device=device,
-                  device_executor=device_executor)
+                  device_executor=device_executor,
+                  device_budget=device_budget)
+
+
+def _op_cls(cls, reference: bool):
+    # Columnar operator class, or its pre-refactor oracle twin.
+    if not reference:
+        return cls
+    from .reference import REFERENCE_OPS
+    return REFERENCE_OPS.get(cls, cls)
 
 
 @dataclasses.dataclass
@@ -75,20 +86,24 @@ def build_w1(
     pin_helpers: bool = True,
     seed: int = 0,
     partition_backend=None,
+    reference: bool = False,
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
     device_executor="host",
+    device_budget=None,
 ) -> Workflow:
     keys, vals = datasets.tweets_stream(scale, seed)
     nkeys = datasets.NUM_LOCATIONS
     emit_rate = num_workers * service_rate          # join is the bottleneck
 
-    eng = _engine(partition_backend, batch_ticks, device, device_executor)
+    eng = _engine(reference, partition_backend, batch_ticks, device,
+                  device_executor, device_budget)
     src = eng.add_source(Source("tweets", keys, vals, emit_rate))
     filt = eng.add_op(Filter("filter", num_workers, emit_rate,
                              predicate=lambda k, v: np.ones(k.shape, dtype=bool)))
-    join = eng.add_op(HashJoinProbe("join", num_workers, service_rate))
+    join = eng.add_op(_op_cls(HashJoinProbe, reference)(
+        "join", num_workers, service_rate))
     sink = eng.add_op(Sink("viz", nkeys, snapshot_every=snapshot_every))
 
     eng.connect(src, filt, nkeys)
@@ -135,25 +150,30 @@ def build_w2(
     cfg: Optional[ReshapeConfig] = None,
     seed: int = 1,
     partition_backend=None,
+    reference: bool = False,
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
     device_executor="host",
+    device_budget=None,
 ) -> Workflow:
     spec = datasets.DsbSpec()
     dates, items, custs, vals = datasets.dsb_sales(n_tuples, spec, seed)
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device, device_executor)
+    eng = _engine(reference, partition_backend, batch_ticks, device,
+                  device_executor, device_budget)
     # vals columns: [item, customer, amount] so downstream re-keys by item.
     payload = np.stack([items.astype(np.float64), custs.astype(np.float64), vals], axis=1)
     src = eng.add_source(Source("sales", dates, payload, emit_rate))
 
-    join_date = eng.add_op(HashJoinProbe("join_date", num_workers, service_rate))
+    _join = _op_cls(HashJoinProbe, reference)
+    join_date = eng.add_op(_join("join_date", num_workers, service_rate))
     rekey = eng.add_op(Project("rekey_item", num_workers, emit_rate,
                                fn=lambda k, v: (v[:, 0].astype(np.int64), v[:, 1:])))
-    join_item = eng.add_op(HashJoinProbe("join_item", num_workers, service_rate))
-    grp = eng.add_op(GroupByAgg("groupby_item", num_workers, emit_rate))
+    join_item = eng.add_op(_join("join_item", num_workers, service_rate))
+    grp = eng.add_op(_op_cls(GroupByAgg, reference)(
+        "groupby_item", num_workers, emit_rate))
     sink = eng.add_op(Sink("viz", spec.num_items, snapshot_every=snapshot_every))
 
     e_date = eng.connect(src, join_date, spec.num_dates)
@@ -194,10 +214,12 @@ def build_w3(
     cfg: Optional[ReshapeConfig] = None,
     seed: int = 2,
     partition_backend=None,
+    reference: bool = False,
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
     device_executor="host",
+    device_budget=None,
 ) -> Workflow:
     prices = datasets.tpch_orders(n_tuples, seed)
     bounds = datasets.price_ranges(num_workers * 2)   # 2 ranges per worker
@@ -205,9 +227,11 @@ def build_w3(
     nranges = num_workers * 2
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device, device_executor)
+    eng = _engine(reference, partition_backend, batch_ticks, device,
+                  device_executor, device_budget)
     src = eng.add_source(Source("orders", rids, prices, emit_rate))
-    sort = eng.add_op(RangeSort("sort", num_workers, service_rate))
+    sort = eng.add_op(_op_cls(RangeSort, reference)(
+        "sort", num_workers, service_rate))
     sink = eng.add_op(Sink("out", nranges, snapshot_every=snapshot_every))
 
     e_sort = eng.connect(src, sort, nranges)
@@ -233,18 +257,22 @@ def build_w4(
     cfg: Optional[ReshapeConfig] = None,
     seed: int = 3,
     partition_backend=None,
+    reference: bool = False,
     batch_ticks: int = 1,
     snapshot_every: int = 1,
     device="cuda",
     device_executor="host",
+    device_budget=None,
 ) -> Workflow:
     num_keys = 42
     keys, vals = datasets.synthetic_changing(n_tuples, num_keys, seed)
     emit_rate = num_workers * service_rate
 
-    eng = _engine(partition_backend, batch_ticks, device, device_executor)
+    eng = _engine(reference, partition_backend, batch_ticks, device,
+                  device_executor, device_budget)
     src = eng.add_source(Source("synthetic", keys, vals, emit_rate))
-    join = eng.add_op(HashJoinProbe("join", num_workers, service_rate))
+    join = eng.add_op(_op_cls(HashJoinProbe, reference)(
+        "join", num_workers, service_rate))
     sink = eng.add_op(Sink("viz", num_keys, snapshot_every=snapshot_every))
 
     e = eng.connect(src, join, num_keys)

@@ -36,5 +36,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.serve.engine",
                  "repro_torch.kernels.segment_matmul",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan"):
+                 "repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
+                 "repro_torch.dataflow.spill", "repro_torch.dataflow.checkpoint",
+                 "repro_torch.dataflow.resilience",
+                 "repro_torch.dataflow.metrics",
+                 "repro_torch.dataflow.reference",
+                 "repro_torch.analysis.sanitize"):
         assert name in imported
