@@ -25,7 +25,11 @@ Phases, in order; any failure exits non-zero before the last line:
            no counters, float64 vals); CUDA-event times of kernel and plain
            version, the bound from the card's memory rate, and the stream
            operations of one multi-tile call under the profiler (K1 and K3
-           must make one);
+           must make one); then the in-dispatch controller's step
+           ``ctrl_step`` (``csrc/ctrl_step.cu``, one block) against its
+           plain version from random controller states with mitigations
+           live in both phases, W 20 and 64, window 64, k 1 and 16: every
+           state field bit for bit;
 4. main    the paper's workflows with the Reshape controller on
            ``device="cuda"``, path by path, each driven with the kernels'
            launch counts set to 0 just before it and read just after it:
@@ -40,6 +44,22 @@ Phases, in order; any failure exits non-zero before the last line:
                                 consumed), with no demotion; row and ring
                                 evictions, refills and prefetch hits are
                                 printed, and its host seconds (``spill``);
+             W3 resident armed  W3 resident under
+                                ``REPRO_DEVICE_CONTROLLER=1``: every metric
+                                round on the card, one ``ctrl_step`` launch
+                                and one epoch readback a tick, the host
+                                controller reconciled by a drain every 64
+                                windows; its rounds must equal the
+                                host-stepped controller's, its launches its
+                                steps, with no ``ctrl-mismatch`` or
+                                ``ctrl-demotion``; tau, mitigations and the
+                                routing weights and counters equal the host
+                                plane's (``ctrl`` host seconds, steps and
+                                drains printed);
+             W3 resident armed k16  the same driven by fixed windows of
+                                ``ARMED_K`` = 16 ticks beside the host
+                                plane driven by the same windows (metric
+                                rounds no longer cut them);
              W3 resident chaos  the spill path driven by a ``ChaosRunner``
                                 under ``CHAOS_PLAN`` (each of the nine
                                 fault kinds once; cuts every 1,000 ticks,
@@ -87,6 +107,7 @@ Phases, in order; any failure exits non-zero before the last line:
            ``Sink.sums`` must equal the host run's on a per-chunk path, and
            lie within c * 2^-23 * sum|v| of it on a resident one (c the
            key's count; the resident sink adds K2's float32 chunk sums);
+           ``ctrl_step`` must launch on the armed paths and on no other;
 5. replay  K1 and K3 bit for bit on the first call of each path that
            launched them, and K2 against its plain version on the very
            inputs the resident paths gave it: the first call at each
@@ -100,7 +121,11 @@ Phases, in order; any failure exits non-zero before the last line:
            must make one, K2 one on one tile) and the
            launch floor (the library's empty kernel through the same
            ctypes path, timed the same way); and one per-chunk exchange
-           call under the profiler, whose copies are counted;
+           call under the profiler, whose copies are counted; then
+           ``ctrl_step`` from the state the W3 armed path held at its
+           ``CTRL_PICK``-th call (k 1 and 16, bit for bit), timed there by
+           CUDA events beside its plain version (on the host), the bound and
+           the launch floor;
 6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
            float32; odd shapes and OLMoE-1B-7B's expert products at C = 4,
            1780 and 2048; dense and with ``rows`` all 0, all C and ragged
@@ -153,7 +178,7 @@ Phases, in order; any failure exits non-zero before the last line:
            every position of a 2 x 64 prompt and 4 teacher-forced decode
            steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
            the card's top-2 margin exceeds it;
-10. report one JSON line of kernels (K1-K6), the card line, and the
+10. report one JSON line of kernels (K1-K6 and ctrl_step), the card line, and the
            ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
@@ -188,6 +213,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+#: The same data sheet's float64 rate outside the tensor cores (the
+#: controller step's arithmetic).
+FP64_OPS_PER_S = 34e12
 
 #: The real exchange shape of the kernel phase.
 REAL_N, REAL_K, REAL_W = 2**24, 65_536, 64
@@ -219,6 +247,16 @@ CHAOS_PLAN = (("worker-loss", 1100, 0, 0, 1), ("dispatch-fail", 3100, 0, 0, 2),
               ("spill-corrupt", 13100, 0, 0, 1))
 
 SOURCE = "src/repro_torch/kernels/csrc/partition.cu"
+
+#: The in-dispatch controller's step: its source, the JAX function it
+#: replaces (jitted XLA, no Pallas kernel), the (W, K) of its kernel checks
+#: (W3's 20 workers and 40 ranges, and 64 workers), their window widths,
+#: the call of the W3 path whose state the replay takes (mid-run), and the
+#: window width of the armed path driven by fixed windows.
+CTRL_SOURCE = "src/repro_torch/kernels/csrc/ctrl_step.cu"
+CTRL_REPLACES = "src/repro/dataflow/device.py:829"
+CTRL_SHAPES, CTRL_KS, CTRL_PICK, ARMED_K = ((20, 40), (64, 128)), (1, 16), \
+    9000, 16
 
 #: The serve: OLMoE-1B-7B at full width, batch 4, 8 requests with prompts
 #: of 64-512 tokens drawn from seed 0, 16 new tokens each.
@@ -631,6 +669,258 @@ def kernel_phase(torch, kpart, ref):
 
 
 # --------------------------------------------------------------------- #
+# 3b. the in-dispatch controller's step                                  #
+# --------------------------------------------------------------------- #
+def ctrl_spec(tdev, W: int, K: int):
+    """The ``CtrlSpec`` of the default ``ReshapeConfig`` (W3's)."""
+    from repro_torch.core import ReshapeConfig
+    cfg = ReshapeConfig()
+    return tdev.CtrlSpec(
+        W=W, K=K, window=cfg.sample_window, R=tdev.DeviceController.LOG_CAP,
+        eta=cfg.eta, metric_period=cfg.metric_period,
+        initial_delay=cfg.initial_delay_ticks, adaptive_tau=cfg.adaptive_tau,
+        eps_lower=cfg.eps_lower, eps_upper=cfg.eps_upper,
+        tau_increase=cfg.tau_increase,
+        max_tau_adjustments=cfg.max_tau_adjustments,
+        catchup_tolerance=cfg.catchup_tolerance,
+        retire_window=cfg.sample_window, enable_phase1=cfg.enable_phase1,
+        horizon=2000.0)
+
+
+def ctrl_state(torch, ref, seed: int, W: int, K: int, window: int = 64):
+    """A controller state with mitigations live in both phases (a quarter of
+    the workers skewed, each with its own helper), split and one-hot rows,
+    rings of every fill, and random workloads and arrivals: (state as
+    numpy arrays, arrived [K] int64, phi [W])."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    owner = rng.integers(0, W, K)
+    weights = np.zeros((K, W))
+    weights[np.arange(K), owner] = 1.0
+    split = rng.random(K) < 0.3
+    other = (owner + 1 + rng.integers(0, W - 1, K)) % W
+    frac = rng.random(K)
+    weights[split, owner[split]] = 1.0 - frac[split]
+    weights[split, other[split]] += frac[split]
+    cdf, primary, is_split = ref.routing_consts(torch.from_numpy(weights))
+    workers = rng.permutation(W)
+    m = max(1, W // 4)
+    mit = np.zeros((5, W), np.int32)
+    for seq, (s, h) in enumerate(zip(workers[:m], workers[m:2 * m])):
+        phase = 2 + seq if seq < 2 else rng.integers(2, 4)   # both live
+        mit[:, s] = (1, h, phase, rng.integers(0, 5), seq)
+    state = dict(
+        weights=weights, cdf=cdf.numpy(), primary=primary.numpy(),
+        is_split=is_split.numpy(), owner=owner,
+        obs=rng.uniform(0.0, 300.0, (W, window)),
+        obs_n=rng.integers(0, window + 1, W),
+        obs_pos=rng.integers(0, window, W), tau=np.float64(100.0),
+        tau_adj=np.int32(rng.integers(0, 3)), mit_active=mit[0].astype(bool),
+        mit_helper=mit[1], mit_phase=mit[2], mit_calm=mit[3],
+        mit_seq=mit[4], seq_next=np.int32(m), epoch=np.int32(0),
+        log_phi=np.zeros((64, W)), log_arr=np.zeros((64, W)),
+        log_n=np.int32(rng.integers(0, 60)))
+    return (state, rng.integers(0, 60, K).astype(np.int64),
+            rng.integers(0, 400, W).astype(np.float64))
+
+
+def bits(torch, t):
+    """A tensor's bits as integers (float fields compare bit for bit)."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def ctrl_case(torch, kctrl, ref, tdev, what: str, spec, state, arrived, phi,
+              t0: int, k: int, left: float) -> dict:
+    """The kernel on the card against its plain version on the host, from
+    the same state: every field bit for bit and ``arrived`` zeroed.
+    Returns the state after the step (host tensors)."""
+    import numpy as np
+    host = tdev.ctrl_state_from_numpy(state, "cpu")
+    card = tdev.ctrl_state_from_numpy(state, "cuda")
+    arr_h = torch.from_numpy(np.array(arrived))
+    arr_d = arr_h.cuda()
+    ref.ctrl_step(spec, host, arr_h, phi, t0, k, left, 0.0)
+    kctrl.ctrl_step(spec, card, arr_d, phi, t0, k, left, 0.0)
+    torch.cuda.synchronize()
+    check(not bool(arr_d.any()), f"ctrl_step {what}: arrived not zeroed")
+    for name in kctrl.STATE_DTYPES:
+        got = card[name].cpu()
+        check(got.dtype == host[name].dtype and torch.equal(
+            bits(torch, got), bits(torch, host[name])),
+            f"ctrl_step {what}: {name} differs from the plain version")
+    return host
+
+
+def ctrl_kernel_phase(torch, kctrl, ref, tdev) -> int:
+    """``ctrl_step`` against its plain version from random states with
+    mitigations live in both phases: W 20 (W3's) and 64, window 64, k 1
+    and 16.  Returns the cases checked."""
+    import numpy as np
+    cases, moved = 0, 0
+    for W, K in CTRL_SHAPES:
+        spec = ctrl_spec(tdev, W, K)
+        for seed in range(4):
+            state, arrived, phi = ctrl_state(torch, ref, 100 * W + seed, W, K)
+            for k in CTRL_KS:
+                after = ctrl_case(torch, kctrl, ref, tdev,
+                                  f"W={W} K={K} k={k} seed {seed}", spec,
+                                  state, arrived, phi, 3 + seed, k,
+                                  float(5e4 * (seed + 1)))
+                cases += 1
+                moved += int(after["epoch"]) != 0
+                moved += not np.array_equal(after["mit_phase"].numpy(),
+                                            state["mit_phase"])
+    check(moved > 0, "ctrl_step: no case rewrote the table or moved a "
+                     "mitigation's phase")
+    log(f"kernels: ctrl_step bit-identical to its plain version in every "
+        f"state field at (W, K) in {CTRL_SHAPES} x k in {CTRL_KS} x 4 "
+        f"random states with mitigations live in both phases ({cases} "
+        f"cases; {moved} moved the epoch or a phase)")
+    return cases
+
+
+class CtrlRecorder:
+    """Stands in for ``ctrl_step`` in its module and keeps a copy of the
+    inputs of one call, the ``pick``-th, for the replay (a W3 state mid-run).
+    The wrapper still counts its own launches."""
+
+    def __init__(self, module, pick: int):
+        self.module, self.pick = module, pick
+        self.kernel = module.ctrl_step
+        self.calls = 0
+        self.kept = None
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.kernel.launches = n
+
+    def __call__(self, spec, c, arrived, phi, t0, k, left, rate):
+        self.calls += 1
+        if self.calls == self.pick:
+            self.kept = (spec, {n: t.cpu().numpy().copy() for n, t in c.items()},
+                         arrived.cpu().numpy().copy(), phi.copy(), t0, k,
+                         left)
+        return self.kernel(spec, c, arrived, phi, t0, k, left, rate)
+
+    def __enter__(self):
+        self.module.ctrl_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ctrl_step = self.kernel
+
+
+def ctrl_times(torch, fn, spec, state, arrived, phi, t0, k, left, dev: str,
+               reps: int):
+    """(ms a call, host ms to submit it) from ``state`` restored before each
+    call, the restore outside the timed span: CUDA events on the card, the
+    host clock on the CPU."""
+    import numpy as np
+    from repro_torch.dataflow import device as tdev
+    c = tdev.ctrl_state_from_numpy(state, dev)
+    saved = {n: t.clone() for n, t in c.items()}
+    arr = torch.from_numpy(np.array(arrived)).to(dev)
+    arr0 = arr.clone()
+    card = dev == "cuda"
+    spans, host = [], 0.0
+    for i in range(reps + 3):
+        for n, t in saved.items():
+            c[n].copy_(t)
+        arr.copy_(arr0)
+        if card:
+            torch.cuda.synchronize()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        h0 = time.perf_counter()
+        fn(spec, c, arr, phi, t0, k, left, 0.0)
+        took = time.perf_counter() - h0
+        if card:
+            ev[1].record()
+        if i >= 3:
+            host += took
+            spans.append(ev if card else took)
+    if card:
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in spans) / reps
+    else:
+        ms = sum(spans) / reps * 1e3
+    return ms, host / reps * 1e3
+
+
+def ctrl_bound(spec, state, k: int):
+    """The least time of one step on these inputs: the bytes it must move
+    (the state it reads once, what it writes once: the rings, the small
+    arrays, one log row, ``arrived``; the weights and the consts only where
+    the epoch moved) over the memory rate, against the float64 operations
+    its rounds need at least (each round's predicted shares: one add a
+    valid observation and a divide a worker) over the float64 rate."""
+    import numpy as np
+    W, K = spec.W, spec.K
+    rounds = sum(1 for t in range(state["t0"], state["t0"] + k)
+                 if t >= spec.initial_delay
+                 and (t - spec.initial_delay) % spec.metric_period == 0)
+    small = 4 * 7 * W + 4 * 5 + 8
+    read = (8 * W * spec.window + small + 8 * K * 2 + 8 * W)
+    write = (8 * W + small + 2 * 8 * W + 8 * K)
+    if state["moved"]:
+        read += 8 * K * W
+        write += 8 * K * W + 4 * K * W + 9 * K
+    ops = rounds * (int(np.sum(state["obs_n"])) + W)
+    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ctrl_replay(torch, kctrl, ref, tdev, kpart, kept) -> dict:
+    """``ctrl_step`` on the state the W3 path held mid-run (k 1 and 16),
+    against its plain version, then timed at that state: the kernel's time
+    a call (CUDA events, the staging copy of phi included), the host's time
+    to submit it, the plain version's time (on the host, where it runs),
+    the bound and the launch floor.  Returns the kernel's record."""
+    check(kept is not None, "ctrl_step: no W3 state was recorded mid-run")
+    spec, state, arrived, phi, t0, _, left = kept
+    after = {kk: ctrl_case(torch, kctrl, ref, tdev,
+                           f"on W3's state at tick {t0} k={kk}", spec, state,
+                           arrived, phi, t0, kk, left) for kk in CTRL_KS}
+    moved = int(after[1]["epoch"]) != int(state["epoch"])
+    live = state["mit_active"]
+    phases = sorted({int(p) for p in state["mit_phase"][live]})
+    dev = torch.device("cuda", 0)
+    reps = 200
+    ms, submit = ctrl_times(torch, kctrl.ctrl_step, spec, state, arrived,
+                            phi, t0, 1, left, "cuda", reps)
+    plain_ms, _ = ctrl_times(torch, ref.ctrl_step, spec, state, arrived, phi,
+                             t0, 1, left, "cpu", reps)
+    floor_ms = time_ms(torch, kpart.launch_floor, (dev,), 200)
+    b_ms, b_by = ctrl_bound(spec, dict(state, t0=t0, moved=moved), 1)
+    log(f"replay: ctrl_step on W3's state at tick {t0} (W={spec.W} "
+        f"K={spec.K}, {int(live.sum())} mitigations live in phases "
+        f"{phases}, observation log at {int(state['log_n'])}): "
+        f"bit-identical at k in {CTRL_KS}; {ms:.5f} ms a call (CUDA events "
+        f"over {reps} calls, phi's staging copy included; the state "
+        f"restored outside the timed span), submitted by the host in "
+        f"{submit:.5f} ms; plain version {plain_ms:.5f} ms on the host "
+        f"(Python floats); bound {b_ms:.7f} ms by {b_by}; launch floor "
+        f"{floor_ms:.5f} ms (the partition library's empty kernel through "
+        f"its ctypes path): one block, a latency-bound chain, so the "
+        f"launch floor is its practical bound; library: none, no PyTorch "
+        f"call computes this function")
+    return dict(name="ctrl_step", route="cuda", source=CTRL_SOURCE,
+                replaces=CTRL_REPLACES, launches=0, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+# --------------------------------------------------------------------- #
 # 4. main path                                                           #
 # --------------------------------------------------------------------- #
 def plain_events(events):
@@ -661,6 +951,10 @@ PATHS = (
      dict(n_tuples=W3_TUPLES, device_budget=W3_BUDGET), "jit", "spill"),
     ("W3 resident chaos", "build_w3",
      dict(n_tuples=W3_TUPLES, device_budget=W3_BUDGET), "jit", "chaos"),
+    ("W3 resident armed", "build_w3", dict(n_tuples=W3_TUPLES), "jit",
+     "armed"),
+    ("W3 resident armed k16", "build_w3",
+     dict(n_tuples=W3_TUPLES, batch_ticks=ARMED_K), "jit", "armed-k16"),
     ("W1 resident", "build_w1", dict(scale=W1_SCALE), "jit", None),
     ("W1 resident chunked-probe", "build_w1",
      dict(scale=W1_SCALE, device_budget=W1_BUDGET), "jit", "chunked"),
@@ -674,8 +968,12 @@ PATHS = (
 )
 KERNELS = ("partition_scatter", "partition_scatter_fold", "partition")
 #: Edge planes each card path must show, and the kernels it must (True) or
-#: must not (False) launch.
+#: must not (False) launch; ``ctrl_step`` on the armed paths only.
+ARMED = dict(partition_scatter=False, partition_scatter_fold=True,
+             ctrl_step=True)
 EXPECT = {
+    "W3 resident armed": (["jit", "jit"], ARMED),
+    "W3 resident armed k16": (["jit", "jit"], ARMED),
     "W3 resident": (["jit", "jit"], dict(partition_scatter=False,
                                          partition_scatter_fold=True)),
     "W3 resident spill": (["jit", "jit"],
@@ -717,11 +1015,14 @@ def path_tweak(tweak):
     chunks cross to a per-chunk edge; ``"spill"`` and ``"chaos"`` run under
     ``REPRO_SANITIZE=1`` (the mirror, spill and NaN checks at every
     boundary).  ``"chunked"`` lowers ``MAX_EMIT_CELLS`` once the workflow
-    is built (``run_workflow``); it is put back here."""
+    is built (``run_workflow``); it is put back here.  ``"armed"`` and
+    ``"armed-k16"`` build under ``REPRO_DEVICE_CONTROLLER=1`` (the
+    in-dispatch controller; the second is driven by fixed windows in
+    ``run_workflow``)."""
     import os
     from repro_torch.dataflow import device
 
-    names = ("REPRO_DEVICE_CHAIN", "REPRO_SANITIZE")
+    names = ("REPRO_DEVICE_CHAIN", "REPRO_SANITIZE", "REPRO_DEVICE_CONTROLLER")
     env, cells = {n: os.environ.get(n) for n in names}, device.MAX_EMIT_CELLS
     if tweak == "unfused":
         os.environ["REPRO_DEVICE_CHAIN"] = "0"
@@ -729,6 +1030,8 @@ def path_tweak(tweak):
         device.MAX_EMIT_CELLS = 0
     elif tweak in ("spill", "chaos"):
         os.environ["REPRO_SANITIZE"] = "1"
+    elif tweak in ("armed", "armed-k16"):
+        os.environ["REPRO_DEVICE_CONTROLLER"] = "1"
     try:
         yield
     finally:
@@ -833,9 +1136,10 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
     (``_chain_for_dispatch``, made every tick of a linked map stage), of
     its boundary materializations (``sync_host`` / ``sync_stats`` /
     ``sync_sink_counts``), of its spill tier (``_spill_refill``,
-    ``_spill_admit`` with the evictions, ``_spill_demote_fresh``) and of
-    the checkpoint coordinator's cuts and recoveries, and the routing-only
-    share.  Times are exclusive: a timed call made inside another (the
+    ``_spill_admit`` with the evictions, ``_spill_demote_fresh``), of the
+    in-dispatch controller (``ctrl``: its steps, ``super_tick``, and its
+    drains) and of the checkpoint coordinator's cuts and recoveries, and
+    the routing-only share.  Times are exclusive: a timed call made inside another (the
     per-chunk exchange of a chunk a resident Filter emits, a boundary's
     flush dispatch, a cut's boundaries) counts for itself only.
 
@@ -843,10 +1147,11 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
     first emit block, ``W * B * M`` after ``install_build``, so a tick's
     pop runs as two sub-dispatches (``path_tweak`` puts it back);
     ``"chaos"`` drives the run by a ``ChaosRunner`` under ``CHAOS_PLAN``
-    (kept in ``wf.meta["runner"]``)."""
+    (kept in ``wf.meta["runner"]``); ``"armed-k16"`` and ``"k16"`` (its
+    host run) by fixed windows of ``ARMED_K`` ticks."""
     from repro_torch.dataflow import device, resilience
     from repro_torch.dataflow.checkpoint import CheckpointCoordinator
-    from repro_torch.dataflow.device import DeviceOpRuntime
+    from repro_torch.dataflow.device import DeviceController, DeviceOpRuntime
 
     if executor is not None:
         kw = dict(kw, device_executor=executor)
@@ -864,10 +1169,15 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
             retention=CHAOS_RETENTION)
         wf.meta["runner"] = runner
         drive = runner.run
+    if tweak in ("armed-k16", "k16"):
+        def drive():
+            eng = wf.engine
+            while not eng.done():
+                eng.run_super_tick(ARMED_K)
     exchange = wf.engine.partition_backend
     spent = {"exchange": [0.0, 0], "dispatch": [0.0, 0], "fused": [0.0, 0],
              "chain check": [0.0, 0], "boundary": [0.0, 0],
-             "spill": [0.0, 0], "checkpoint": [0.0, 0]}
+             "spill": [0.0, 0], "ctrl": [0.0, 0], "checkpoint": [0.0, 0]}
     stack = []          # [start, seconds of timed calls nested inside]
 
     def timed(fn, what):
@@ -891,6 +1201,8 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
         ("sync_stats", "boundary"), ("sync_sink_counts", "boundary"),
         ("_spill_refill", "spill"), ("_spill_admit", "spill"),
         ("_spill_demote_fresh", "spill"))}
+    methods[(DeviceController, "super_tick")] = "ctrl"
+    methods[(DeviceController, "drain")] = "ctrl"
     methods[(CheckpointCoordinator, "checkpoint")] = "checkpoint"
     methods[(CheckpointCoordinator, "recover")] = "checkpoint"
     saved = {(cls, m): getattr(cls, m) for cls, m in methods}
@@ -954,27 +1266,31 @@ def same_row_state(a, b) -> bool:
     return True
 
 
-def main_path(torch, kpart):
+def main_path(torch, kpart, kctrl):
     """Drive every card path (launch counts zeroed just before each and read
     just after), then hold each against one host numpy run of the same
-    workflow.  Returns the launches per kernel, summed over the paths, the
-    K2 inputs the recorder kept and the first K1 and K3 call of each
-    path, by kernel."""
+    workflow (driven by the same windows).  Returns the launches per
+    kernel, summed over the paths, the K2 inputs the recorder kept, the
+    first K1 and K3 call of each path, by kernel, and the inputs of the W3
+    armed path's ``CTRL_PICK``-th ``ctrl_step`` call."""
     import numpy as np
     from repro_torch import dataflow
     from repro_torch.dataflow import datasets
 
     kernels = {name: getattr(kpart, name) for name in KERNELS}
+    kernels["ctrl_step"] = kctrl.ctrl_step
     cards = {}
     firsts = (PathRecorder(kpart, "partition_scatter"),
               PathRecorder(kpart, "partition"))
+    ctrl_rec = CtrlRecorder(kctrl, CTRL_PICK)
     with FoldRecorder(kpart) as rec, firsts[0], firsts[1]:
         for label, factory, kw, executor, tweak in PATHS:
             for fn in kernels.values():
                 fn.launches = 0
             for r in (rec,) + firsts:
                 r.label = label
-            with path_tweak(tweak):
+            with path_tweak(tweak), (ctrl_rec if label == "W3 resident armed"
+                                     else contextlib.nullcontext()):
                 run = run_workflow(dataflow, factory, kw, "torch", executor,
                                    tweak)
             torch.cuda.synchronize()
@@ -983,7 +1299,7 @@ def main_path(torch, kpart):
                      if executor == "jit" else None)
             cards[label] = run + (counts, absum)
     launches = {name: sum(c[4][name] for c in cards.values())
-                for name in KERNELS}
+                for name in kernels}
     for label in EXPECT:
         widths = {k[3] for k in rec.first if k[0] == label}
         check(1 in widths and max(widths) > 1,
@@ -991,10 +1307,12 @@ def main_path(torch, kpart):
 
     hosts = {}
     for label, factory, kw, executor, tweak in PATHS:
+        drive = "k16" if tweak == "armed-k16" else None
         key = (factory, tuple(sorted((k, v) for k, v in kw.items()
-                                     if k != "device_budget")))
+                                     if k != "device_budget")), drive)
         if key not in hosts:
-            hosts[key] = run_workflow(dataflow, factory, kw, "numpy")
+            hosts[key] = run_workflow(dataflow, factory, kw, "numpy",
+                                      tweak=drive)
         host, host_wall, host_spent, host_share = hosts[key]
         wf, wall, spent, share, counts, absum = cards[label]
         planes, must = EXPECT.get(label, ([None] * len(wf.engine.edges),
@@ -1019,7 +1337,7 @@ def main_path(torch, kpart):
             check(placed[:2] == host_placed[:2] and spent["fused"][1] == 0,
                   f"{label}: placements {placed} (host plane {host_placed})"
                   f", {spent['fused'][1]} fused dispatches: an edge fused")
-        for name, launched in must.items():
+        for name, launched in dict(dict(ctrl_step=False), **must).items():
             check((counts[name] > 0) == launched,
                   f"{label}: {name} launched {counts[name]} times")
         check(counts["partition"] > 0, f"{label}: partition never launched")
@@ -1058,7 +1376,7 @@ def main_path(torch, kpart):
         if factory == "build_w3":
             check(same_row_state(wf.monitored[0], host.monitored[0]),
                   f"{label}: the sort's row state differs")
-        extra = tweak_checks(label, tweak, wf, spent)
+        extra = tweak_checks(label, tweak, wf, spent, host, counts)
         tuples = int(wf.engine.sources[0].keys.size)
         parts = "; ".join(
             f"{what} {sec:.3f} s in {calls} calls"
@@ -1071,18 +1389,62 @@ def main_path(torch, kpart):
             f"{host_placed}), {spent['fused'][1]} fused dispatches, launches "
             f"K1 {counts['partition_scatter']} / "
             f"K2 {counts['partition_scatter_fold']} / "
-            f"K3 {counts['partition']}: cuda {wall:.3f} s "
+            f"K3 {counts['partition']} / ctrl_step {counts['ctrl_step']}: "
+            f"{wf.engine.super_ticks} super-ticks; cuda {wall:.3f} s "
             f"({tuples / wall:.0f} tuples/s; {parts}), numpy host plane "
             f"{host_wall:.3f} s ({tuples / host_wall:.0f} tuples/s); "
             f"identical, {sums}{extra}")
-    return launches, rec.first, {r.name: r.first for r in firsts}
+    return (launches, rec.first, {r.name: r.first for r in firsts},
+            ctrl_rec.kept)
 
 
-def tweak_checks(label: str, tweak, wf, spent) -> str:
-    """The conditions of the spill, chunked-probe and chaos paths; returns
-    what their log line adds."""
+def tweak_checks(label: str, tweak, wf, spent, host, counts) -> str:
+    """The conditions of the spill, chunked-probe, chaos and armed paths;
+    returns what their log line adds."""
     inc = wf.engine.incidents
     extra = ""
+    if tweak in ("armed", "armed-k16"):
+        import numpy as np
+        rt = wf.monitored[0].device
+        ctrl, hctrl = wf.controllers[0], host.controllers[0]
+        rounds = hctrl.metric_messages() // hctrl.adapter.num_workers
+        check(rt.ctrl is not None and rt.ctrl.reason == "END",
+              f"{label}: the controller was not armed to the sort's END "
+              f"({None if rt.ctrl is None else rt.ctrl.reason})")
+        check(inc.count("ctrl-mismatch") == 0
+              and inc.count("ctrl-demotion") == 0,
+              f"{label}: {inc.count('ctrl-mismatch')} ctrl-mismatch and "
+              f"{inc.count('ctrl-demotion')} ctrl-demotion incidents")
+        check(ctrl.rounds_on_device == rounds and hctrl.rounds_on_device == 0,
+              f"{label}: {ctrl.rounds_on_device} rounds on the card, the "
+              f"host-stepped controller ran {rounds}")
+        check(counts["ctrl_step"] == rt.ctrl.steps
+              and (tweak != "armed" or rt.ctrl.steps == rounds),
+              f"{label}: ctrl_step launched {counts['ctrl_step']} times for "
+              f"{rt.ctrl.steps} steps and {rounds} rounds")
+        check(ctrl.tau == hctrl.tau
+              and ctrl.tau_adjustments == hctrl.tau_adjustments
+              and {s: (m.phase, tuple(m.helpers), m.calm_rounds)
+                   for s, m in ctrl.mitigations.items()}
+              == {s: (m.phase, tuple(m.helpers), m.calm_rounds)
+                  for s, m in hctrl.mitigations.items()},
+              f"{label}: tau or mitigations differ from the host plane")
+        for e1, e2 in zip(wf.engine.edges, host.engine.edges):
+            e1.routing.sync_counters()
+            e2.routing.sync_counters()
+            check(np.array_equal(e1.routing.weights, e2.routing.weights)
+                  and np.array_equal(e1.routing._count, e2.routing._count),
+                  f"{label}: routing weights or counters differ")
+        sec, calls = spent["ctrl"]
+        extra = (f"; controller: {ctrl.rounds_on_device} metric rounds on "
+                 f"the card (the host plane's {rounds}), {rt.ctrl.steps} "
+                 f"steps (one ctrl_step launch and one epoch readback "
+                 f"each), {rt.ctrl.drains} drains (one readback of the "
+                 f"log and the consts each), {ctrl.sync_readbacks} "
+                 f"boundary readbacks accounted, ctrl {sec:.3f} s in "
+                 f"{calls} calls; tau {ctrl.tau}, "
+                 f"{len(ctrl.mitigations)} mitigations at the end; no "
+                 f"ctrl-mismatch, no ctrl-demotion")
     if tweak in ("spill", "chaos"):
         rt = wf.monitored[0].device
         sp = rt.spill
@@ -2659,7 +3021,9 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dataflow import device as tdev
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ctrl_step as kctrl
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import partition as kpart
     from repro_torch.kernels import ref
@@ -2691,11 +3055,14 @@ def main() -> int:
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
+    ctrl_kernel_phase(torch, kctrl, ref, tdev)
     t0 = time.perf_counter()
-    launches, first, path_calls = main_path(torch, kpart)
+    launches, first, path_calls, ctrl_kept = main_path(torch, kpart, kctrl)
     log(f"main: all workflows in {time.perf_counter() - t0:.1f} s; "
         f"partition_scatter at the W1 chunk size {small_ms:.5f} ms a call")
     replay_err = replay_phase(torch, kpart, ref, first, path_calls)
+    ctrl_record = ctrl_replay(torch, kctrl, ref, tdev, kpart, ctrl_kept)
+    ctrl_record["launches"] = launches["ctrl_step"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] == "partition_scatter_fold":
@@ -2766,6 +3133,7 @@ def main() -> int:
         launches=rwkv_launches, max_abs_err=max(rwkv_err, replay_k6_err),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
+    records.append(ctrl_record)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)

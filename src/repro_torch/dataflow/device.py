@@ -157,8 +157,24 @@ about the 7th digit (within c * 2^-23 * sum|v| per key, c its count).
 The cross-plane contract is therefore stated on ``Sink.series``,
 ``Sink.counts``, the counters and the mirrors, all integers.
 
-Not ported yet from the JAX plane (``ROADMAP.md``): the in-dispatch
-controller.
+The in-dispatch controller (:class:`DeviceController`): with
+``Engine(device_controller=True)`` or ``REPRO_DEVICE_CONTROLLER=1`` an
+eligible attached ``ReshapeController`` (SBR + SCATTERED, one helper, no
+control delay) runs every metric round on the device, one launch of the
+hand-written ``ctrl_step`` kernel a super-tick in which a round fires
+(:mod:`repro_torch.kernels.ctrl_step`; its plain version on the CPU), and
+the routing consts are rewritten in place.  Metric rounds then cut no
+fused span and cost no ``sync_stats`` readback: one epoch scalar comes
+back a step.  The host controller is reconciled at boundaries by replaying
+the device's observation log, 64 windows at most (:meth:`DeviceController.
+drain`); a rewrite made in-dispatch leaves ``routing.version`` unchanged
+until then, so :meth:`DeviceOpRuntime._live_token` is None meanwhile and
+staged chunks are flushed before each step, under the consts they were
+sent under.  Decisions, tau, mitigations and every routing rewrite equal
+the host-stepped controller's bit for bit; a mismatch at a drain is a
+``ctrl-mismatch`` incident and the host wins.  One departure from the JAX
+plane: the END merge of the monitored operator stands the controller down
+without a ``ctrl-demotion`` incident.
 """
 from __future__ import annotations
 
@@ -170,13 +186,15 @@ import numpy as np
 import torch
 
 from ..analysis import sanitize as _sanitize
+from ..kernels import ctrl_step as kctrl
 from ..kernels import partition as kpart
 from ..kernels.ref import match_expand
 from . import spill as spill_tier
 from .resilience import InjectedDispatchFault
 from .tuples import Chunk, ring_span
 
-__all__ = ["DeviceChunk", "DeviceOpRuntime", "StepSpec", "UserFunctionError",
+__all__ = ["CtrlSpec", "DeviceChunk", "DeviceController", "DeviceOpRuntime",
+           "StepSpec", "UserFunctionError", "ctrl_state_from_numpy",
            "wireable"]
 
 #: fold-state ceiling: skip device wiring when W * K explodes.
@@ -553,6 +571,409 @@ def _pow2(n: int) -> int:
 
 
 # --------------------------------------------------------------------- #
+# The in-dispatch skew controller                                        #
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class CtrlSpec:
+    """The static half of the controller step.  The JAX package's spec also
+    carries ``KMAX``, the widest window, which only bounds its traced tick
+    loop; the kernel and its plain version loop over ``k`` itself."""
+
+    W: int                     # workers
+    K: int                     # key space
+    window: int                # estimator sample window
+    R: int                     # observation-log capacity (windows)
+    eta: float
+    metric_period: int
+    initial_delay: int
+    adaptive_tau: bool
+    eps_lower: float
+    eps_upper: float
+    tau_increase: float
+    max_tau_adjustments: int
+    catchup_tolerance: float
+    retire_window: int         # 0 = never retire
+    enable_phase1: bool
+    horizon: float             # tracker prediction horizon (tuples)
+
+
+def ctrl_state_from_numpy(d: Dict[str, np.ndarray],
+                          device) -> Dict[str, torch.Tensor]:
+    """The controller state of the JAX package's ``DeviceController.cstate``
+    (its arrays read into numpy) as this port's: a dict of tensors of
+    :data:`repro_torch.kernels.ctrl_step.STATE_DTYPES` on ``device``."""
+    return {name: torch.tensor(np.asarray(d[name]), dtype=dtype,
+                               device=device)
+            for name, dtype in kctrl.STATE_DTYPES.items()}
+
+
+class _ReplayAdapter:
+    """Adapter shim for the boundary drain: replays the device-logged
+    observations of past windows through the host ``ReshapeController``, so
+    the host twin re-derives, bit for bit, every decision the device
+    controller made in-dispatch.  ``key_shares`` is decision-neutral for the
+    eligible configuration (SBR phase 2 ignores it; full-partition phase 1
+    uses it only for the unlogged ``moved`` field)."""
+
+    def __init__(self, base):
+        self.num_workers = base.num_workers
+        self.traits = base.traits
+        self.routing = base.routing
+        self._phi = np.zeros(base.num_workers)
+        self._arr = np.zeros(base.num_workers)
+        self._drained = True
+        self._left = 0.0
+        self._rate = 0.0
+
+    def set_window(self, phi, arr, left, rate):
+        self._phi = np.asarray(phi, dtype=np.float64)
+        self._arr = np.asarray(arr, dtype=np.float64).copy()
+        self._drained = False
+        self._left = float(left)
+        self._rate = float(rate)
+
+    def workloads(self):
+        return self._phi.copy()
+
+    def arrivals_by_owner(self):
+        if self._drained:
+            return np.zeros(self.num_workers)
+        self._drained = True
+        return self._arr
+
+    def key_shares(self, worker):
+        return {}
+
+    def state_units(self, worker, mode):
+        return 0.0
+
+    def begin_migration(self, skewed, helpers, mode):
+        return None
+
+    def tuples_left(self):
+        return self._left
+
+    def processing_rate(self):
+        return self._rate
+
+
+class DeviceController:
+    """Device-resident twin of one armed ``ReshapeController``.
+
+    While active, the engine stops host-stepping the controller: each
+    super-tick calls :meth:`super_tick`, which runs every covered metric
+    round in one launch of the ``ctrl_step`` kernel
+    (:mod:`repro_torch.kernels.ctrl_step`, its plain version on the CPU)
+    against the device-held state ``cstate``, rewriting the routing consts
+    in place, with one epoch scalar read back.  At every materialization
+    boundary, and whenever the observation log holds ``LOG_CAP`` windows,
+    :meth:`drain` replays the logged windows through the host controller
+    (the bit-exact oracle and arbiter), then compares the host-derived
+    routing consts with the device's and lets the host win on a mismatch
+    (a ``ctrl-mismatch`` incident).  Anything that mutates host keyed state
+    mid-run deactivates it (a ``ctrl-demotion`` incident) and host stepping
+    resumes from the drained twin.  The END merge of the monitored operator
+    is no demotion: the controller drains and stands down, as the engine
+    steps no finished operator's controller anyway.
+    """
+
+    #: observation-log capacity: drain when this many windows accumulate.
+    LOG_CAP = 64
+
+    def __init__(self, rt: "DeviceOpRuntime", controller):
+        self.rt = rt
+        self.host = controller
+        self.active = False
+        self.reason: Optional[str] = None   # why deactivated
+        self.cstate: Optional[Dict[str, torch.Tensor]] = None
+        self.spec: Optional[CtrlSpec] = None
+        self.meta: List[tuple] = []  # (t0, k, tuples_left, rate) per window
+        self.epoch_host = 0          # device epoch after the last step
+        self.epoch_synced = 0        # device epoch at the last drain
+        self._last_tick = controller._tick
+        #: steps launched (one epoch readback each) and drains that
+        #: replayed a log (one readback of the log and the consts each).
+        self.steps = 0
+        self.drains = 0
+
+    # ---- eligibility -------------------------------------------------- #
+    @staticmethod
+    def ineligible_reason(controller, rt) -> Optional[str]:
+        """None iff this (controller, runtime) pair may run in-dispatch.
+
+        The device twin replicates the paper's default control path: SBR +
+        SCATTERED (rewrites move no state), one helper, full-partition
+        phase 1, no control delay, instant migration.  Anything else stays
+        on the host path."""
+        from ..core.controller import ReshapeController
+        from ..core.types import MigrationStrategy, TransferMode
+        if type(controller) is not ReshapeController:
+            return "controller subclass"
+        cfg = controller.cfg
+        if controller.mode is not TransferMode.SBR:
+            return f"transfer mode {controller.mode.value}"
+        if controller.strategy is not MigrationStrategy.SCATTERED:
+            return f"strategy {controller.strategy}"
+        if cfg.control_delay_ticks != 0:
+            return "control delay"
+        if getattr(cfg, "pressure_rounds", False):
+            # Eager pressure-triggered rounds fire off the metric grid;
+            # the step covers grid-aligned rounds only.
+            return "pressure rounds"
+        if cfg.max_helpers != 1:
+            return "multi-helper"
+        if not cfg.phase1_full_partition:
+            return "partial-key phase 1"
+        if cfg.migration_rate != float("inf"):
+            return "finite migration rate"
+        if cfg.pinned_helpers:
+            return "pinned helpers"
+        if cfg.adaptive_tau and (cfg.eps_lower is None
+                                 or cfg.eps_upper is None):
+            return "unbounded adaptive tau"
+        if rt.kind == "sink":
+            return "sink"
+        if rt.W < 2:
+            return "single worker"
+        return None
+
+    @property
+    def routing_dirty(self) -> bool:
+        """True while the device consts carry rewrites the host table has
+        not seen yet (between an in-dispatch rewrite and the next drain)."""
+        return self.epoch_host != self.epoch_synced
+
+    # ---- arming / state build ----------------------------------------- #
+    def arm(self) -> bool:
+        # Scattered-arrival masking must be on from the first armed
+        # dispatch: an in-dispatch rewrite cannot flip it afterwards.  On
+        # one-hot tables the mask is the identity, so arming early is
+        # bit-neutral.
+        self.rt.op.may_scatter = True
+        return self._build()
+
+    def _build(self) -> bool:
+        """(Re)build the device controller state from the host twin.
+        Returns False, deactivating, when the host state is not
+        representable on the device."""
+        from ..core.types import MitigationPhase
+        host = self.host
+        cfg = host.cfg
+        rt = self.rt
+        for m in host.mitigations.values():
+            if (len(m.helpers) != 1
+                    or m.phase not in (MitigationPhase.PHASE_ONE,
+                                       MitigationPhase.PHASE_TWO)):
+                self.deactivate("non-reformable mitigation", drain=False)
+                return False
+        if host._pending:
+            self.deactivate("pending control messages", drain=False)
+            return False
+        retire = (cfg.retire_after if cfg.retire_after is not None
+                  else cfg.sample_window)
+        self.spec = CtrlSpec(
+            W=rt.W, K=rt.K, window=int(cfg.sample_window), R=self.LOG_CAP,
+            eta=float(cfg.eta), metric_period=max(1, int(cfg.metric_period)),
+            initial_delay=int(cfg.initial_delay_ticks),
+            adaptive_tau=bool(cfg.adaptive_tau),
+            eps_lower=float(cfg.eps_lower
+                            if cfg.eps_lower is not None else -np.inf),
+            eps_upper=float(cfg.eps_upper
+                            if cfg.eps_upper is not None else np.inf),
+            tau_increase=float(cfg.tau_increase),
+            max_tau_adjustments=int(cfg.max_tau_adjustments),
+            catchup_tolerance=float(cfg.catchup_tolerance),
+            retire_window=int(retire),
+            enable_phase1=bool(cfg.enable_phase1),
+            horizon=float(host.tracker.horizon))
+        table = rt.routing
+        window = int(cfg.sample_window)
+        obs = np.zeros((rt.W, window))
+        obs_n = np.zeros(rt.W, np.int32)
+        obs_pos = np.zeros(rt.W, np.int32)
+        for w, est in enumerate(host.tracker._estimators):
+            vals = list(est._obs)
+            obs[w, :len(vals)] = vals
+            obs_n[w] = len(vals)
+            obs_pos[w] = len(vals) % window
+        mit = np.zeros((5, rt.W), np.int32)   # active, helper, phase, calm, seq
+        for seq, (s, m) in enumerate(host.mitigations.items()):
+            mit[:, s] = (1, m.helpers[0], int(m.phase.value),
+                         int(m.calm_rounds), seq)
+        rt._refresh_consts(force=True)
+        put = rt._put
+        self.cstate = dict(
+            weights=put(table.weights, torch.float64),
+            cdf=rt.consts["cdf"], primary=put(table._primary, torch.int64),
+            is_split=rt.consts["is_split"], owner=rt.consts["owner"],
+            obs=put(obs, torch.float64), obs_n=put(obs_n, torch.int32),
+            obs_pos=put(obs_pos, torch.int32),
+            tau=put(float(host.tau), torch.float64),
+            tau_adj=put(int(host.tau_adjustments), torch.int32),
+            mit_active=put(mit[0].astype(bool), torch.bool),
+            mit_helper=put(mit[1], torch.int32),
+            mit_phase=put(mit[2], torch.int32),
+            mit_calm=put(mit[3], torch.int32),
+            mit_seq=put(mit[4], torch.int32),
+            seq_next=put(len(host.mitigations), torch.int32),
+            epoch=put(0, torch.int32),
+            log_phi=put(np.zeros((self.LOG_CAP, rt.W)), torch.float64),
+            log_arr=put(np.zeros((self.LOG_CAP, rt.W)), torch.float64),
+            log_n=put(0, torch.int32))
+        self.meta = []
+        self.epoch_host = self.epoch_synced = 0
+        self._last_tick = host._tick
+        self.active = True
+        self.reason = None
+        return True
+
+    # ---- the per-super-tick in-dispatch step -------------------------- #
+    def super_tick(self, t0: int, k: int) -> None:
+        host = self.host
+        cfg = host.cfg
+        rt = self.rt
+        chaos = rt.engine.chaos
+        if chaos is not None and not self._chaos_dispatch_ok(chaos):
+            # Demoted drain-first; the engine's armed branch skipped the
+            # boundary sync for this window, so run it here (the per-tick
+            # loop below the boundary host-steps).
+            rt.sync_stats()
+            return
+        rt.flush_staged()       # boundary sends land before the rounds
+        delay = int(cfg.initial_delay_ticks)
+        period = max(1, int(cfg.metric_period))
+        fired = [t for t in range(t0, t0 + k)
+                 if t >= delay and (t - delay) % period == 0]
+        self._last_tick = t0 + k - 1
+        if not fired:
+            return              # no metric round in this window
+        if len(self.meta) >= self.spec.R:
+            self.drain()        # observation log full: reconcile first
+        left = float(host.adapter.tuples_left())
+        rate = float(host.adapter.processing_rate())
+        arrived = (rt.state["arrived"] if rt.state is not None
+                   else torch.zeros(rt.K, dtype=torch.int64,
+                                    device=rt.device))
+        c = self.cstate
+        kctrl.ctrl_step(self.spec, c, arrived, rt.workloads(), t0, k, left,
+                        rate)
+        # The kernel rewrote the consts in place; the dict names them.
+        rt.consts = dict(cdf=c["cdf"], is_split=c["is_split"],
+                         owner=c["owner"])
+        self.meta.append((t0, k, left, rate))
+        self.epoch_host = int(c["epoch"])      # the one readback
+        self.steps += 1
+        host.rounds_on_device += len(fired)
+
+    # ---- boundary drain: mirror decisions into the host twin ---------- #
+    def drain(self) -> None:
+        if not self.active:
+            return
+        host = self.host
+        rt = self.rt
+        table = rt.routing
+        meta, self.meta = self.meta, []
+        if not meta:
+            if self._last_tick > host._tick:
+                host._tick = self._last_tick
+            return
+        c = self.cstate
+        n = int(c["log_n"])
+        if n != len(meta):
+            raise RuntimeError("controller observation log out of step")
+        logs = torch.stack([c["log_phi"][:n], c["log_arr"][:n]]).cpu().numpy()
+        shim = _ReplayAdapter(host.adapter)
+        saved_adapter = host.adapter
+        saved_listener = table.listener
+        table.listener = None   # the device already routed post-rewrite
+        host.adapter = shim
+        try:
+            for (t0, k, left, rate), phi, arr in zip(meta, logs[0], logs[1]):
+                shim.set_window(phi, arr, left, rate)
+                for t in range(t0, t0 + k):
+                    host.step(t)
+        finally:
+            host.adapter = saved_adapter
+            table.listener = saved_listener
+        if self._last_tick > host._tick:
+            host._tick = self._last_tick
+        host.sync_readbacks += 1
+        self.drains += 1
+        # Arbitration: the host twin is the oracle.  Its replayed table must
+        # equal the device's bit for bit; on a mismatch the host wins and
+        # the device consts are overwritten from it.
+        table._refresh_derived()
+        host_consts = dict(weights=table.weights, cdf=table.cdf32,
+                           primary=table._primary, is_split=table._is_split)
+        if not all(np.array_equal(c[name].cpu().numpy(), value)
+                   for name, value in host_consts.items()):
+            warnings.warn(
+                "device controller: in-dispatch decisions diverged from the "
+                "host twin; host wins", RuntimeWarning, stacklevel=2)
+            eng = rt.engine
+            eng.incidents.record(
+                "ctrl-mismatch", tick=eng.tick, edge=rt.op.name,
+                cause="in-dispatch decisions diverged from the host twin",
+                action="host wins; device consts re-uploaded")
+            for name, value in host_consts.items():
+                c[name].copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        c["log_n"].zero_()
+        rt.consts = dict(cdf=c["cdf"], is_split=c["is_split"],
+                         owner=c["owner"])
+        rt._consts_version = table.version
+        rt._consts_split = bool(table._any_split)
+        self.epoch_synced = self.epoch_host
+
+    # ---- retry/backoff against injected dispatch faults --------------- #
+    def _chaos_dispatch_ok(self, chaos) -> bool:
+        """Consume any injected dispatch fault with retry/backoff; once the
+        retries are spent demote the controller drain-first (host stepping
+        resumes, bit-identical) and return False.  Only an injected fault
+        is caught: a build or launch error of the kernel propagates."""
+        eng = self.rt.engine
+        policy = eng.retry_policy
+        for attempt in range(policy.max_attempts + 1):
+            try:
+                chaos.dispatch_fault(self.rt)
+                return True
+            except InjectedDispatchFault as exc:
+                if attempt < policy.max_attempts:
+                    eng.incidents.record(
+                        "retry", tick=eng.tick, edge=self.rt.op.name,
+                        cause=str(exc), action="retry controller dispatch",
+                        attempt=attempt + 1)
+                    policy.sleep(attempt + 1)
+        self.deactivate("dispatch retries exhausted", drain=True)
+        return False
+
+    # ---- lifecycle ---------------------------------------------------- #
+    def deactivate(self, reason: str, drain: bool = True,
+                   record: bool = True) -> None:
+        """Stand down to host stepping, draining pending decisions first
+        unless the caller knows there are none worth keeping; ``record``
+        logs it as a ``ctrl-demotion``."""
+        if self.active:
+            if drain:
+                self.drain()
+            if record:
+                eng = self.rt.engine
+                eng.incidents.record(
+                    "ctrl-demotion", tick=eng.tick, edge=self.rt.op.name,
+                    cause=reason, action="host-stepped controller resumes")
+        self.active = False
+        self.reason = reason
+
+    def on_restore(self) -> None:
+        """Checkpoint restore: in-flight device decisions die with the
+        restored state; re-form from the restored host twin, or demote when
+        its mitigation state is not representable in-dispatch."""
+        self.meta = []
+        self.epoch_host = self.epoch_synced = 0
+        self.active = False
+        self._build()
+
+
+# --------------------------------------------------------------------- #
 # The per-(edge, operator) runtime                                        #
 # --------------------------------------------------------------------- #
 class DeviceOpRuntime:
@@ -638,8 +1059,10 @@ class DeviceOpRuntime:
         self._chain_serial = -1
         #: a fused dispatch's pre-check failed: this head stays apart.
         self._chain_disabled = False
-        # The in-dispatch controller is not ported; the engine reads this.
-        self.ctrl = None
+        # ---- in-dispatch control plane (set by arm_controller) ------- #
+        self.ctrl: Optional[DeviceController] = None
+        #: the memoized reason a controller was refused, if one was.
+        self._ctrl_refused: Optional[str] = None
         #: the sink's [K, 1] ones CDF for K2, built once.
         self._ones_cdf: Optional[torch.Tensor] = None
         #: the sink folded since its columns were last read back.
@@ -651,6 +1074,12 @@ class DeviceOpRuntime:
         rt._refresh_derived()
         if any_split is None:
             any_split = bool(rt._any_split)
+        if self.ctrl is not None and self.ctrl.active:
+            # An in-dispatch rewrite may split keys mid-window: take the
+            # split-aware path up front.  On one-hot tables the saturated
+            # CDF routes every draw to the primary, so this is bit-neutral
+            # while no key is split.
+            any_split = True
         return StepSpec(kind=self.kind, W=self.W, K=self.K, cap=self.cap,
                         B=self.B, any_split=bool(any_split),
                         may_scatter=bool(self.op.may_scatter),
@@ -688,10 +1117,44 @@ class DeviceOpRuntime:
         return int(self.rows_owned[worker])
 
     def _live_token(self):
-        """The routing token of the live table (the JAX plane returns None
-        while its in-dispatch controller holds unreconciled rewrites; that
-        controller is not ported)."""
+        """The routing token of the live (possibly device-rewritten) table.
+        While the in-dispatch controller holds rewrites the host table has
+        not seen yet, no host-side token describes the device consts: chain
+        fusion and placement epochs treat the table as unprovable (None)
+        until the next drain reconciles."""
+        if (self.ctrl is not None and self.ctrl.active
+                and self.ctrl.routing_dirty):
+            return None
         return self.routing.routing_token()
+
+    # ---- in-dispatch control plane ------------------------------------ #
+    def arm_controller(self, controller) -> bool:
+        """Attach a device-resident twin of ``controller`` (idempotent).
+        Returns True when armed; a refusal is memoized per runtime."""
+        if self.ctrl is not None:
+            if self.ctrl.host is controller:
+                return self.ctrl.active
+            self.ctrl.deactivate("controller replaced")
+            self.ctrl = None
+        if self._ctrl_refused is not None:
+            return False
+        reason = DeviceController.ineligible_reason(controller, self)
+        if reason is not None:
+            self._ctrl_refused = reason
+            return False
+        ctrl = DeviceController(self, controller)
+        if not ctrl.arm():
+            return False
+        self.ctrl = ctrl
+        return True
+
+    def _at_end(self) -> bool:
+        """Is the operator at its END (every producer done, no backlog)?
+        ``on_end`` merges scattered state only then."""
+        eng = self.engine
+        return (all(eng._producer_done(u)
+                    for u in eng.upstreams.get(self.op.name, ()))
+                and self.op.queues_empty())
 
     # ---- demotion (per-chunk fallback) -------------------------------- #
     def demote(self, reason: str) -> None:
@@ -699,8 +1162,12 @@ class DeviceOpRuntime:
         function that fails on device tensors, a second in-edge, a probe
         fanout past ``MAX_EMIT_CELLS``, or injected dispatch faults past
         the retry policy); the edge leaves any chain.  ``sync_host`` folds
-        the spill tier into the host structures first."""
+        the spill tier into the host structures first; an armed controller
+        drains and demotes before anything moves."""
         from .exchange import Exchange
+        if self.ctrl is not None:
+            self.ctrl.deactivate(f"demoted({reason})", drain=True)
+            self.ctrl = None
         self._unlink_chain()
         staged, self.staged, self.staged_live = self.staged, [], 0
         if self.kind == "sink":
@@ -1194,9 +1661,17 @@ class DeviceOpRuntime:
                 note(worker, self.engine.tick)
 
     # ---- routing constants / split counters --------------------------- #
-    def _refresh_consts(self) -> None:
+    def _refresh_consts(self, force: bool = False) -> None:
         rt = self.routing
         rt._refresh_derived()
+        if self.ctrl is not None and self.ctrl.active and not force:
+            # While armed, the device consts are ahead of the host table
+            # between drains: never overwrite them from the host copy.  A
+            # host-side version bump the controller did not make (an
+            # out-of-band rewrite) demotes the control plane first.
+            if self._consts_version == rt.version:
+                return
+            self.ctrl.deactivate("out-of-band table rewrite")
         if self.consts is None or self._consts_version != rt.version:
             self.consts = dict(cdf=self._put(rt.cdf32, torch.float32),
                                is_split=self._put(rt._is_split, torch.bool),
@@ -1633,13 +2108,26 @@ class DeviceOpRuntime:
 
     def sync_stats(self) -> None:
         """Drain the device per-key arrival accumulators into the host
-        arrays the controller adapter reads (metric-round boundary)."""
+        arrays the controller adapter reads (metric-round boundary).
+
+        An armed in-dispatch controller first mirrors its decisions into
+        the host twin (:meth:`DeviceController.drain`), so everything after
+        (the adapter's arrival drain, checkpoint cuts, rewrites) sees a
+        reconciled control plane."""
+        if self.ctrl is not None and self.ctrl.active:
+            self.ctrl.drain()
         self.flush_staged()
         if self.state is None or self.op.arrived_by_key is None:
             return
         a, t = torch.stack([self.state["arrived"],
                             self.state["totals"]]).cpu().numpy()
-        if a.any():
+        pending = a.any()
+        if not pending and self.ctrl is not None:
+            # The in-dispatch controller drains ``arrived`` itself (its
+            # owner-aggregated copy feeds the estimators), but the
+            # cumulative per-key totals still reach the host.
+            pending = t.any()
+        if pending:
             self.op.arrived_by_key += a
             self.op.key_arrivals_total += t
             self.state["arrived"].zero_()
@@ -1820,7 +2308,17 @@ class DeviceOpRuntime:
     def mark_state_stale(self) -> None:
         """The host copies were mutated (migration / merge): reload the
         device state from them before the next dispatch.  Deferred, so a
-        rewrite migrating m keys costs one download and one upload."""
+        rewrite migrating m keys costs one download and one upload.
+
+        An armed controller cannot replicate a host-side migration or merge:
+        it drains and demotes (``host state mutated``).  The merge of the
+        operator's END is the exception: the engine steps no finished
+        operator's controller, so it drains and stands down unrecorded."""
+        if self.ctrl is not None and self.ctrl.active:
+            if self._at_end():
+                self.ctrl.deactivate("END", record=False)
+            else:
+                self.ctrl.deactivate("host state mutated")
         if self.state is None:
             return
         self.routing.sync_counters()
@@ -1858,3 +2356,5 @@ class DeviceOpRuntime:
             self.lens[:] = 0
         if not self.op.finished:
             self._ensure_ready()       # upload rings, state and backlog now
+        if self.ctrl is not None:
+            self.ctrl.on_restore()     # re-form from the restored twin

@@ -70,7 +70,10 @@ per-tick scheduler.  Within a window, controllers and sink snapshots are
 stepped through every covered tick in order (interior ticks are no-ops by
 construction of the window).  The schedule depends only on configuration,
 so runs are bit-identical across the numpy and torch planes (and the JAX
-package's planes) for a given ``batch_ticks``.
+package's planes) for a given ``batch_ticks``.  An armed in-dispatch
+controller (``device_controller``) runs its metric rounds inside the
+window, so they no longer bound it; on the same windows its decisions
+equal the host-stepped controller's.
 """
 from __future__ import annotations
 
@@ -316,15 +319,30 @@ class Engine:
     for other watermarks, or None for the ``REPRO_DEVICE_BUDGET``
     environment variable; unset, the spill tier is off): crossing the high
     watermark evicts cold spans to checksummed host segments instead of
-    growing device state.  ``reference=True`` runs the pre-refactor
-    tuple-at-a-time data plane instead (the testing oracle); it keeps no
-    edge resident.
+    growing device state.
+
+    ``device_controller`` (default: the ``REPRO_DEVICE_CONTROLLER``
+    environment variable, off unless it is ``"1"``) runs each eligible
+    attached controller (SBR + SCATTERED, one helper, no control delay) on
+    its resident edge, inside the dispatch window: every metric round is
+    one launch of the ``ctrl_step`` kernel, rounds no longer cut fused
+    spans, and the host controller is reconciled at boundaries
+    (:class:`~repro_torch.dataflow.device.DeviceController`).  Off, the
+    host-stepped controller stays the oracle it is compared with.
+
+    ``reference=True`` runs the pre-refactor tuple-at-a-time data plane
+    instead (the testing oracle); it keeps no edge resident.
+
+    So the switches of the resident plane are ``device_executor``,
+    ``device_chain``, ``device_budget`` and ``device_controller``, each
+    with its environment variable where it has one.
     """
 
     def __init__(self, *, partition_backend: BackendSpec = None,
                  batch_ticks: int = 1, device: DeviceSpec = "cuda",
                  device_executor: str = "host",
                  device_chain: Optional[bool] = None,
+                 device_controller: Optional[bool] = None,
                  device_budget=None, reference: bool = False):
         if device_executor not in ("jit", "host"):
             raise ValueError(f"unknown device executor {device_executor!r}; "
@@ -337,6 +355,11 @@ class Engine:
             import os
             device_chain = os.environ.get("REPRO_DEVICE_CHAIN", "1") != "0"
         self.device_chain = bool(device_chain)
+        if device_controller is None:
+            import os
+            device_controller = (
+                os.environ.get("REPRO_DEVICE_CONTROLLER", "0") == "1")
+        self.device_controller = bool(device_controller)
         #: per-edge device budget (cells) of the spill tier, resolved once
         #: (see :func:`repro_torch.dataflow.spill.resolve_budget`); each
         #: resident runtime starts from it.
@@ -443,6 +466,8 @@ class Engine:
         controller = controller_cls(adapter, cfg, **kwargs)
         edge.strategy = getattr(controller, "strategy", None)
         self.controllers.append(_Attached(op, edge, controller))
+        if self.device_controller and op.device is not None:
+            op.device.arm_controller(controller)
         return controller
 
     def _in_edge(self, op: Operator) -> Edge:
@@ -527,15 +552,17 @@ class Engine:
         # The window end is a control boundary: drain device-resident
         # per-key arrival stats for monitored operators so the metric
         # rounds read exactly what the host plane would have folded.
-        # A runtime with an armed device-resident controller (the JAX
-        # package's ``device_controller``; not ported yet, so ``dev.ctrl``
-        # is None) instead runs every covered metric round *in-dispatch*;
-        # its host twin is skipped below and reconciled at the next
-        # boundary.
+        # With ``device_controller`` an armed runtime instead runs every
+        # covered metric round in-dispatch (one ``ctrl_step`` launch, no
+        # stats readback); its host twin is skipped below and reconciled
+        # at the next boundary.
         for att in self.controllers:
             dev = att.op.device
             if dev is None:
                 continue
+            if (self.device_controller and dev.ctrl is None
+                    and not att.op.finished):
+                dev.arm_controller(att.controller)   # late/post-restore arm
             ctrl = dev.ctrl
             if (ctrl is not None and ctrl.active
                     and ctrl.host is att.controller):

@@ -10,6 +10,7 @@ head, and the RWKV6 scan walks T in Python with a few ops a step.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -198,3 +199,359 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, :, t] = torch.einsum("bhk,bhkv->bhv", rf[:, :, t], s + uf * kv)
         s = wf[:, :, t, :, None] * s + kv
     return out.to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# The in-dispatch skew controller's arithmetic (plain version of ctrl_step)
+# ---------------------------------------------------------------------------
+# Twins of the host controller's decision math: the skew test
+# (core/skew_test.py), the adaptive-tau step (core/adaptive_tau.py), the
+# phase-2 split ratio (core/load_transfer.py), the mean-model estimator
+# (core/estimator.py) and the derived routing consts
+# (core/partitioner.routing_cdf32).  Each must be bit-exact against the host
+# in float64, so every reduction a decision depends on is a strictly
+# sequential left-to-right chain of IEEE adds (``core.estimator.seq_sum``),
+# never ``torch.sum`` or ``cumsum``.  The scalar chains run on Python
+# floats, which are IEEE float64 with no contraction, as the host's are.
+
+#: ``MitigationPhase.PHASE_ONE.value`` / ``PHASE_TWO.value``.
+PH1, PH2 = 2, 3
+
+
+def _floats(v) -> list:
+    return v.tolist() if isinstance(v, torch.Tensor) else [float(x) for x in v]
+
+
+def seq_sum_vec(v) -> float:
+    """Sequential left-to-right float64 sum of a 1-D vector (``seq_sum``)."""
+    acc = 0.0
+    for x in _floats(v):
+        acc += x
+    return acc
+
+
+def ring_mean_stderr(obs_row, n: int, pos: int) -> Tuple[float, float]:
+    """(predict, stderr) of one worker's observation ring, the twin of
+    ``MeanModelEstimator.predict`` / ``stderr``: the ring holds ``n`` valid
+    entries ending just before slot ``pos``, read oldest first.  ``predict``
+    is 0.0 on an empty sample; ``stderr`` is +inf below two samples, else
+    ``d * sqrt(1 + 1/n)`` with ``d = sqrt(ssq / (n - 1))``."""
+    row = _floats(obs_row)
+    window = len(row)
+    n, pos = int(n), int(pos)
+    start = (pos - n) % window
+    vals = [row[(start + i) % window] for i in range(n)]
+    acc = 0.0
+    for x in vals:
+        acc += x
+    mean = acc / n if n > 0 else 0.0
+    ssq = 0.0
+    for x in vals:
+        d = x - mean
+        ssq += d * d
+    if n < 2:
+        return mean, math.inf
+    d = math.sqrt(ssq / (n - 1.0))
+    return mean, d * math.sqrt(1.0 + 1.0 / n)
+
+
+def skew_test(phi_l: float, phi_c: float, eta: float, tau: float) -> bool:
+    """Twin of :func:`repro_torch.core.skew_test.skew_test`."""
+    return phi_l >= eta and phi_l - phi_c >= tau
+
+
+def adjust_tau(phi_s: float, phi_h: float, eps: float, tau: float, *, eta,
+               eps_lower, eps_upper, tau_increase, enabled: bool
+               ) -> Tuple[float, bool, bool]:
+    """Twin of :func:`repro_torch.core.adaptive_tau.adjust_tau`: returns
+    ``(new_tau, changed, decreased)``; ``enabled`` folds in both
+    ``cfg.adaptive_tau`` and the adjustment budget."""
+    gap = phi_s - phi_h
+    passes = skew_test(phi_s, phi_h, eta, tau)
+    finite = math.isfinite(eps)
+    inc = enabled and finite and passes and eps > eps_upper
+    dec = (enabled and finite and not passes and eps < eps_lower and gap > 0
+           and phi_s >= eta)
+    if inc:
+        return tau + tau_increase, True, False
+    if dec:
+        return max(gap, 1e-9), True, True
+    return tau, False, False
+
+
+def phase2_fraction(f_s: float, f_h: float) -> float:
+    """Single-helper twin of ``load_transfer.phase2_fractions_multi``: the
+    fraction of the skewed worker's future share handed to the helper (0.0
+    when ``f_s <= 0``)."""
+    avg = (f_s + f_h) / 2.0
+    give = max(avg - f_h, 0.0)
+    max_total = max(f_s - avg, 0.0)
+    if give > max_total and max_total > 0:
+        give = give * (max_total / give)
+    return give / f_s if f_s > 0 else 0.0
+
+
+def saturated_cdf32_seq(weights: torch.Tensor) -> torch.Tensor:
+    """Twin of ``core.partitioner.routing_cdf32``: the float32 row-CDF as a
+    sequential chain over the columns (numpy's cumsum order), saturated to
+    1.0 from each row's last positive column on (the last column for a row
+    with none)."""
+    K, W = weights.shape
+    acc = torch.zeros(K, dtype=torch.float32, device=weights.device)
+    cols = []
+    for j in range(W):
+        acc = acc + weights[:, j].to(torch.float32)
+        cols.append(acc)
+    cdf = torch.stack(cols, dim=1)
+    pos = weights > 0
+    idx = torch.arange(W, device=weights.device)
+    last = torch.where(pos, idx, -1).amax(dim=1)
+    last = torch.where(last < 0, W - 1, last)
+    return torch.where(idx[None, :] >= last[:, None], 1.0, cdf)
+
+
+def routing_consts(weights: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cdf32, primary, is_split) of float64 weights: the twin of
+    ``RoutingTable._refresh_derived`` (``primary`` the first arg-max)."""
+    primary = torch.argmax(weights, dim=1)
+    is_split = (weights > 0).sum(dim=1) > 1
+    return saturated_cdf32_seq(weights), primary, is_split
+
+
+def ctrl_step(spec, c, arrived: torch.Tensor, phi, t0: int, k: int,
+              tuples_left: float, rate: float) -> None:
+    """Plain version of the ``ctrl_step`` kernel: one super-tick window
+    ``[t0, t0 + k)`` of the in-dispatch controller on the state ``c``.
+
+    The twin of the JAX package's jitted ``controller_step``: the window's
+    owner-attributed arrivals and ``phi`` go into the observation log, then
+    every metric round in the window replays the host controller's round
+    (tracker update, the mitigations in ``mit_seq`` order, adaptive tau,
+    detection and helper assignment, the phase-1 / phase-2 rewrites), and
+    the routing consts are rebuilt once if ``epoch`` moved.  Mutates ``c``
+    in place and zeroes ``arrived``.  ``rate`` is unused: the eligible
+    configuration migrates at an infinite rate.  Where the reference masks
+    an update by a predicate, this branches on it: a masked-off update is
+    the identity, so skipping it is exact.
+    """
+    W = spec.W
+    window = spec.window
+    inf = math.inf
+    # Owner-attributed arrivals (integer counts: any order is exact).
+    arr_i = torch.zeros(W, dtype=torch.int64, device=arrived.device)
+    arr_i.index_add_(0, c["owner"], arrived)
+    arrived.zero_()
+    arr0 = [float(x) for x in arr_i.tolist()]
+    phi = _floats(phi)
+    n_log = int(c["log_n"])
+    if n_log >= c["log_phi"].shape[0]:
+        raise RuntimeError("controller observation log is full")
+    c["log_phi"][n_log] = torch.tensor(phi, dtype=torch.float64)
+    c["log_arr"][n_log] = torch.tensor(arr0, dtype=torch.float64)
+    c["log_n"].fill_(n_log + 1)
+
+    obs = c["obs"].tolist()
+    obs_n = c["obs_n"].tolist()
+    obs_pos = c["obs_pos"].tolist()
+    tau = float(c["tau"])
+    tau_adj = int(c["tau_adj"])
+    active = c["mit_active"].tolist()
+    helper = c["mit_helper"].tolist()
+    phase = c["mit_phase"].tolist()
+    calm_r = c["mit_calm"].tolist()
+    seq = c["mit_seq"].tolist()
+    seq_next = int(c["seq_next"])
+    epoch0 = epoch = int(c["epoch"])
+    weights = c["weights"]
+    owner = c["owner"]
+
+    def stderr(w):
+        return ring_mean_stderr(obs[w], obs_n[w], obs_pos[w])[1]
+
+    def shares():
+        means = [ring_mean_stderr(obs[w], obs_n[w], obs_pos[w])[0]
+                 for w in range(W)]
+        total = seq_sum_vec(means)
+        if total <= 0:
+            return [1.0 / W] * W
+        return [m / total for m in means]
+
+    def phase1(s, h):
+        # plan_phase1 (full partition): every key owned by S with S-mass
+        # hands that mass to H (row sums kept).
+        col_s, col_h = weights[:, s], weights[:, h]
+        sel = (owner == s) & (col_s > 0.0)
+        if not bool(sel.any()):
+            return False
+        weights[:, h] = torch.where(sel, col_h + col_s, col_h)
+        weights[:, s] = torch.where(sel, 0.0, col_s)
+        return True
+
+    def phase2(s, h):
+        # plan_phase2 (SBR, one helper): every key owned by S gets the row
+        # [S: 1 - r, H: r] from the predicted shares.
+        f = shares()
+        r = phase2_fraction(f[s], f[h])
+        row = [0.0] * W
+        row[s] = 1.0 - r
+        row[h] = row[h] + r
+        owned = owner == s
+        if not bool(owned.any()):
+            return False
+        weights[owned] = torch.tensor(row, dtype=weights.dtype,
+                                      device=weights.device)
+        return True
+
+    arr = arr0
+    for i in range(int(k)):
+        t = int(t0) + i
+        if t < spec.initial_delay or (t - spec.initial_delay) % \
+                spec.metric_period:
+            continue
+        # ---- tracker.update -------------------------------------------
+        total = seq_sum_vec(arr)
+        if total > 0:
+            scale = spec.horizon / total
+            for w in range(W):
+                obs[w][obs_pos[w]] = arr[w] * scale
+                obs_n[w] = min(obs_n[w] + 1, window)
+                obs_pos[w] = (obs_pos[w] + 1) % window
+        arr = [0.0] * W             # the adapter drains every round
+        # ---- _advance_mitigations (insertion order == mit_seq order) --
+        for s in sorted((w for w in range(W) if active[w]),
+                        key=lambda w: (seq[w], w)):
+            h = helper[s]
+            q_s, q_h = phi[s], phi[h]
+            top = max(max(q_s, q_h), 1.0)
+            p1_to_p2 = (phase[s] == PH1
+                        and q_h >= q_s - spec.catchup_tolerance * top)
+            in_p2 = phase[s] == PH2
+            s_ahead = skew_test(q_s, q_h, spec.eta, tau)
+            h_ahead = skew_test(q_h, q_s, spec.eta, tau)
+            calm = in_p2 and not (s_ahead or h_ahead)
+            div = in_p2 and (s_ahead or h_ahead)
+            new_calm = calm_r[s] + 1
+            retire = (calm and spec.retire_window > 0
+                      and new_calm >= spec.retire_window)
+            if div:
+                # adaptive tau on divergence (eps before the resets)
+                eps = max(stderr(s), stderr(h))
+                if (spec.adaptive_tau and math.isfinite(eps)
+                        and eps > spec.eps_upper
+                        and tau_adj < spec.max_tau_adjustments):
+                    tau = tau + spec.tau_increase
+                    tau_adj += 1
+                obs_n[s] = 0        # reset_samples([s, h])
+                obs_n[h] = 0
+            start_p1 = div and s_ahead
+            start_p2 = (div and not s_ahead) or p1_to_p2
+            if not spec.enable_phase1:
+                start_p2, start_p1 = start_p2 or start_p1, False
+            if start_p1:
+                epoch += phase1(s, h)
+                phase[s] = PH1
+            elif start_p2:
+                epoch += phase2(s, h)       # post-reset shares
+                phase[s] = PH2
+            if calm:
+                calm_r[s] = new_calm
+            elif div:
+                calm_r[s] = 0
+            if retire:
+                active[s] = False
+        # ---- _detect --------------------------------------------------
+        busy = list(active)
+        for s in range(W):
+            if active[s]:
+                busy[helper[s]] = True
+        free = [not b for b in busy]
+        nfree = sum(free)
+        s0 = h0 = 0
+        hi, lo = -inf, inf
+        for w in range(W):
+            if free[w] and phi[w] > hi:
+                s0, hi = w, phi[w]
+            if free[w] and phi[w] < lo:
+                h0, lo = w, phi[w]
+        eps0 = max(stderr(s0), stderr(h0))
+        t_new, t_chg, t_dec = adjust_tau(
+            phi[s0], phi[h0], eps0, tau, eta=spec.eta,
+            eps_lower=spec.eps_lower, eps_upper=spec.eps_upper,
+            tau_increase=spec.tau_increase,
+            enabled=(spec.adaptive_tau
+                     and tau_adj < spec.max_tau_adjustments))
+        app = nfree >= 2 and math.isfinite(eps0)
+        detect_tau = t_new if app and t_dec else tau
+        if app and t_chg:
+            tau = t_new
+            tau_adj += 1
+        # the skewed set: free workers >= eta whose gap to the free
+        # minimum (excluding themselves) reaches detect_tau
+        m1 = m2 = inf
+        i1 = 0
+        for w in range(W):
+            if free[w] and phi[w] < m1:
+                i1, m1 = w, phi[w]
+        for w in range(W):
+            if free[w] and w != i1 and phi[w] < m2:
+                m2 = phi[w]
+        skewed = [free[w] and phi[w] >= spec.eta
+                  and phi[w] - (m2 if w == i1 else m1) >= detect_tau
+                  for w in range(W)]
+        f_hat = shares()
+        L = float(tuples_left)
+        taken = [b or sk for b, sk in zip(busy, skewed)]
+        processed = [False] * W
+        for _ in range(W):
+            s, best = -1, -inf
+            for w in range(W):
+                if skewed[w] and not processed[w] and (s < 0 or phi[w] > best):
+                    s, best = w, phi[w]
+            if s < 0:
+                break               # no skewed worker left: the rest is idle
+            processed[s] = True
+            cands = [free[w] and not taken[w] and phi[s] - phi[w] >= detect_tau
+                     and w != s for w in range(W)]
+            if not any(cands):
+                continue
+            # choose_helpers, max_helpers=1: the lexicographic minimum by
+            # (f_hat, phi, index), the host's stable double sort
+            h = min((w for w in range(W) if cands[w]),
+                    key=lambda w: (f_hat[w], phi[w], w))
+            for w in range(W):
+                taken[w] = taken[w] or cands[w]
+            f_s, f_h = f_hat[s], f_hat[h]
+            lr_max = (f_s - (f_s + f_h) / 2.0) * L
+            future = max(L, 0.0) * f_s          # M = 0 (infinite rate)
+            if not min(lr_max, future) >= -1e-12:
+                continue
+            if spec.enable_phase1:
+                epoch += phase1(s, h)
+                phase[s] = PH1
+            else:
+                epoch += phase2(s, h)
+                phase[s] = PH2
+            active[s] = True
+            helper[s] = h
+            calm_r[s] = 0
+            seq[s] = seq_next
+            seq_next += 1
+
+    i32 = torch.int32
+    c["obs"].copy_(torch.tensor(obs, dtype=torch.float64))
+    for name, vals, dt in (("obs_n", obs_n, i32), ("obs_pos", obs_pos, i32),
+                           ("mit_active", active, torch.bool),
+                           ("mit_helper", helper, i32),
+                           ("mit_phase", phase, i32),
+                           ("mit_calm", calm_r, i32), ("mit_seq", seq, i32)):
+        c[name].copy_(torch.tensor(vals, dtype=dt))
+    c["tau"].fill_(tau)
+    c["tau_adj"].fill_(tau_adj)
+    c["seq_next"].fill_(seq_next)
+    c["epoch"].fill_(epoch)
+    if epoch != epoch0:
+        cdf, primary, is_split = routing_consts(weights)
+        c["cdf"].copy_(cdf)
+        c["primary"].copy_(primary)
+        c["is_split"].copy_(is_split)

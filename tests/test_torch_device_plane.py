@@ -242,6 +242,32 @@ def test_kernel_counts_feed_the_key_stats():
                                   runs["resident"][2].key_arrivals_total)
 
 
+def test_forced_device_controller_leg(monkeypatch):
+    """test_device_plane.py:146 — ``REPRO_DEVICE_CONTROLLER=1`` arms the
+    monitored GroupBy's in-dispatch controller, and on the same window
+    schedule the run, the event stream with its details included, is
+    bit-identical to the JAX package's host-stepped numpy plane."""
+    kw = dict(num_workers=6, controller=True, hot_frac=0.5, seed=1, n=8000)
+    a = _fold_pipeline("numpy", **kw)
+    while not a[0].done():
+        a[0].run_super_tick(4)
+    monkeypatch.setenv("REPRO_DEVICE_CONTROLLER", "1")
+    b = _fold_pipeline("resident", **kw)
+    assert b[0].device_controller
+    dev = b[2].device
+    assert dev is not None and dev.ctrl is not None and dev.ctrl.active
+    while not b[0].done():
+        b[0].run_super_tick(4)
+    _assert_runs_identical(a, b)
+    ev = lambda c: [(e.tick, e.kind, e.skewed, tuple(e.helpers),
+                     tuple(sorted(e.detail.items()))) for e in c.events]
+    assert ev(a[3]) == ev(b[3])
+    assert any(e.kind == "phase2" for e in b[3].events)
+    assert b[3].rounds_on_device > 0
+    assert b[0].incidents.count("ctrl-mismatch") == 0
+    _assert_groupby_identical(a[2], b[2])
+
+
 # --------------------------------------------------------------------- #
 # Row-state steps (test_device_rowstate.py analogues)                    #
 # --------------------------------------------------------------------- #

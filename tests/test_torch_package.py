@@ -36,6 +36,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.serve.engine",
                  "repro_torch.kernels.segment_matmul",
                  "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.ctrl_step",
                  "repro_torch.models.ssm", "repro_torch.kernels.rwkv_scan",
                  "repro_torch.dataflow.spill", "repro_torch.dataflow.checkpoint",
                  "repro_torch.dataflow.resilience",

@@ -507,6 +507,45 @@ class TestChaosDirected:
         assert eng2.incidents.count("recovery") == 1
 
 
+    def test_worker_loss_mid_mitigation_armed_controller(self, monkeypatch):
+        """test_resilience.py:470 — a worker loss while a mitigation is in
+        flight, with the controller armed in-dispatch
+        (``REPRO_DEVICE_CONTROLLER=1``), replays bit-identically to the
+        fault-free armed run.  Armed, metric rounds no longer cut windows,
+        so that run is held against the JAX package's numpy plane driven by
+        the same windows."""
+        monkeypatch.setenv("REPRO_DEVICE_CONTROLLER", "1")
+        eng, sink, grp, ctrl = _pipeline("resident")
+        dev = grp.device
+        assert dev.ctrl is not None and dev.ctrl.active
+        widths, mit_tick = [], None
+        while not eng.done():
+            widths.append(eng._fusible_ticks(eng.batch_ticks))
+            eng.run_super_tick(widths[-1])
+            if (mit_tick is None and dev.ctrl.active
+                    and bool(dev.ctrl.cstate["mit_active"].any())):
+                mit_tick = eng.tick
+        assert mit_tick is not None, "no mitigation fired on the clean run"
+        jax_eng, jax_sink, _, jax_ctrl = _pipeline("jax")
+        for k in widths:
+            jax_eng.run_super_tick(k)
+        assert jax_eng.done() and jax_eng.tick == eng.tick
+        assert _series_equal(sink.series, jax_sink.series)
+        assert _plain(ctrl.events) == _plain(jax_ctrl.events)
+        eng2, sink2, _, ctrl2 = _pipeline("resident")
+        runner = rs.ChaosRunner(
+            eng2, rs.FaultPlan([rs.FaultEvent(rs.WORKER_LOSS, mit_tick + 1,
+                                              target=1)]),
+            every_ticks=16)
+        runner.run()
+        assert _series_equal(sink2.series, sink.series)
+        assert _plain(ctrl2.events) == _plain(ctrl.events)
+        assert runner.injected[rs.WORKER_LOSS] == 1
+        assert eng2.incidents.count("recovery") == 1
+        assert eng2.incidents.count("ctrl-mismatch") == 0
+        assert ctrl2.rounds_on_device > 0
+
+
 class TestChaosProperty:
     @settings(max_examples=9, deadline=None)
     @given(st.integers(min_value=0, max_value=10_000))

@@ -165,6 +165,38 @@ class TestAcceptance:
         for e in wf.engine.edges:
             assert e.device_plane == "jit"
 
+    def test_w3_4x_over_budget_armed_controller(self, monkeypatch):
+        """test_spill.py:109 — the same acceptance with the controller
+        armed in-dispatch (``REPRO_DEVICE_CONTROLLER=1``): the pressure the
+        spill tier raises reaches the host twin through the drains, and
+        the run equals the JAX package's host numpy plane."""
+        host = jdf.build_w3(strategy="reshape", partition_backend="numpy")
+        host.run()
+        monkeypatch.setenv("REPRO_SANITIZE", "1")
+        monkeypatch.setenv("REPRO_DEVICE_CONTROLLER", "1")
+        wf = twf.build_w3(strategy="reshape", device_budget=10_000,
+                          **_RESIDENT)
+        dev = wf.monitored[0].device
+        assert dev.ctrl is not None and dev.ctrl.active
+        wf.run()
+        inc = wf.engine.incidents
+        assert inc.count("demotion") == 0, inc.kinds()
+        assert inc.count("ctrl-mismatch") == inc.count("ctrl-demotion") == 0
+        assert inc.count("mem-pressure") >= 1
+        assert wf.engine.tick == host.engine.tick
+        assert _series_equal(wf.sink.series, host.sink.series)
+        assert _rows_equal(wf.monitored[0], host.monitored[0])
+        assert ([(e.tick, e.kind, e.skewed, tuple(e.helpers))
+                 for e in wf.controllers[0].events]
+                == [(e.tick, e.kind, e.skewed, tuple(e.helpers))
+                    for e in host.controllers[0].events])
+        assert dev.spill.rows_spilled > 0
+        assert wf.controllers[0].rounds_on_device > 0
+        assert wf.controllers[0].pressure_consumed >= 1
+        assert wf.controllers[0].pressure_events == []
+        for e in wf.engine.edges:
+            assert e.device_plane == "jit"
+
     def test_w1_probe_with_budget_bit_identical(self, monkeypatch):
         host = jdf.build_w1(strategy="none", scale=0.05,
                             partition_backend="numpy")
