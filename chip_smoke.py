@@ -26,10 +26,13 @@ Phases, in order; any failure exits non-zero before the last line:
            version, the bound from the card's memory rate, and the stream
            operations of one multi-tile call under the profiler (K1 and K3
            must make one); then the in-dispatch controller's step
-           ``ctrl_step`` (``csrc/ctrl_step.cu``, one block) against its
-           plain version from random controller states with mitigations
-           live in both phases, W 20 and 64, window 64, k 1 and 16: every
-           state field bit for bit;
+           ``ctrl_step`` (``csrc/ctrl_step.cu``, one block, warp 0 running
+           the rounds) against its plain version from random controller
+           states with mitigations live in both phases, W 20, 48 and 64, a
+           quarter and half of the workers mitigating, window 64, and two
+           wide states (W 150: phi staged past the launch's parameter
+           block; W 200 at window 160: the rings read in place), k 1 and
+           16: every state field bit for bit;
 4. main    the paper's workflows with the Reshape controller on
            ``device="cuda"``, path by path, each driven with the kernels'
            launch counts set to 0 just before it and read just after it:
@@ -54,8 +57,8 @@ Phases, in order; any failure exits non-zero before the last line:
                                 steps, with no ``ctrl-mismatch`` or
                                 ``ctrl-demotion``; tau, mitigations and the
                                 routing weights and counters equal the host
-                                plane's (``ctrl`` host seconds, steps and
-                                drains printed);
+                                plane's (``ctrl step`` and ``ctrl drain``
+                                host seconds, steps and drains printed);
              W3 resident armed k16  the same driven by fixed windows of
                                 ``ARMED_K`` = 16 ticks beside the host
                                 plane driven by the same windows (metric
@@ -123,9 +126,13 @@ Phases, in order; any failure exits non-zero before the last line:
            ctypes path, timed the same way); and one per-chunk exchange
            call under the profiler, whose copies are counted; then
            ``ctrl_step`` from the state the W3 armed path held at its
-           ``CTRL_PICK``-th call (k 1 and 16, bit for bit), timed there by
-           CUDA events beside its plain version (on the host), the bound and
-           the launch floor;
+           ``CTRL_PICK``-th call (k 1 and 16, bit for bit), timed there at k
+           1 and 16 by CUDA events beside its submit time, its plain version
+           (on the host), the bound (the larger of its throughput bound and
+           its critical path: the dependent float64 operations the state
+           needs, counted by ``ctrl_chain``, at the card's add latency
+           measured by a one-thread chain, plus the launch floor) and the
+           launch floor;
 6. model kernels  (run after phase 3) K4 ``segment_matmul`` (bf16 and
            float32; odd shapes and OLMoE-1B-7B's expert products at C = 4,
            1780 and 2048; dense and with ``rows`` all 0, all C and ragged
@@ -192,6 +199,13 @@ kernel faults, the RWKV6 one sound at seven more) and one decode step of
 each full-width serve taken apart (the kernels' calls, the weight casts,
 the device's busy share under the profiler; the RWKV6 step also with the
 layout copies K6 does without and with ``F.silu`` for the gate's silu).
+
+    python3 chip_smoke.py --armed      # not part of the smoke
+
+times W3 at SF1 resident, with the in-dispatch controller armed, armed by
+windows of 16 ticks and on the host plane by the same windows: each wall
+with its host seconds, ``ctrl step`` and ``ctrl drain`` apart.  A copy of
+this file in another tree's root times that tree's package the same way.
 """
 from __future__ import annotations
 
@@ -250,13 +264,19 @@ SOURCE = "src/repro_torch/kernels/csrc/partition.cu"
 
 #: The in-dispatch controller's step: its source, the JAX function it
 #: replaces (jitted XLA, no Pallas kernel), the (W, K) of its kernel checks
-#: (W3's 20 workers and 40 ranges, and 64 workers), their window widths,
-#: the call of the W3 path whose state the replay takes (mid-run), and the
-#: window width of the armed path driven by fixed windows.
+#: (W3's 20 workers and 40 ranges, W1's 48 and 56 keys, and 64 workers:
+#: two a lane of the kernel's warp), the shares of the workers mitigating
+#: in their states (one in 4, one in 2: every worker busy, as in W3's
+#: state mid-run), the (W, K, window) of its wide checks (phi past the
+#: launch's parameter block; the rings past shared memory as well), their
+#: window widths, the call of the W3 path whose state the replay takes
+#: (mid-run), and the window width of the armed path driven by fixed
+#: windows.
 CTRL_SOURCE = "src/repro_torch/kernels/csrc/ctrl_step.cu"
 CTRL_REPLACES = "src/repro/dataflow/device.py:829"
-CTRL_SHAPES, CTRL_KS, CTRL_PICK, ARMED_K = ((20, 40), (64, 128)), (1, 16), \
-    9000, 16
+CTRL_SHAPES, CTRL_SHARES, CTRL_WIDE = ((20, 40), (48, 56), (64, 128)), \
+    (4, 2), ((150, 60, 64), (200, 70, 160))
+CTRL_KS, CTRL_PICK, ARMED_K = (1, 16), 9000, 16
 
 #: The serve: OLMoE-1B-7B at full width, batch 4, 8 requests with prompts
 #: of 64-512 tokens drawn from seed 0, 16 new tokens each.
@@ -671,25 +691,27 @@ def kernel_phase(torch, kpart, ref):
 # --------------------------------------------------------------------- #
 # 3b. the in-dispatch controller's step                                  #
 # --------------------------------------------------------------------- #
-def ctrl_spec(tdev, W: int, K: int):
-    """The ``CtrlSpec`` of the default ``ReshapeConfig`` (W3's)."""
+def ctrl_spec(tdev, W: int, K: int, window: int = 64):
+    """The ``CtrlSpec`` of the default ``ReshapeConfig`` (W3's; its window
+    is 64)."""
     from repro_torch.core import ReshapeConfig
     cfg = ReshapeConfig()
     return tdev.CtrlSpec(
-        W=W, K=K, window=cfg.sample_window, R=tdev.DeviceController.LOG_CAP,
+        W=W, K=K, window=window, R=tdev.DeviceController.LOG_CAP,
         eta=cfg.eta, metric_period=cfg.metric_period,
         initial_delay=cfg.initial_delay_ticks, adaptive_tau=cfg.adaptive_tau,
         eps_lower=cfg.eps_lower, eps_upper=cfg.eps_upper,
         tau_increase=cfg.tau_increase,
         max_tau_adjustments=cfg.max_tau_adjustments,
         catchup_tolerance=cfg.catchup_tolerance,
-        retire_window=cfg.sample_window, enable_phase1=cfg.enable_phase1,
+        retire_window=window, enable_phase1=cfg.enable_phase1,
         horizon=2000.0)
 
 
-def ctrl_state(torch, ref, seed: int, W: int, K: int, window: int = 64):
-    """A controller state with mitigations live in both phases (a quarter of
-    the workers skewed, each with its own helper), split and one-hot rows,
+def ctrl_state(torch, ref, seed: int, W: int, K: int, window: int = 64,
+               share: int = 4):
+    """A controller state with mitigations live in both phases (one worker
+    in ``share`` skewed, each with its own helper), split and one-hot rows,
     rings of every fill, and random workloads and arrivals: (state as
     numpy arrays, arrived [K] int64, phi [W])."""
     import numpy as np
@@ -704,7 +726,7 @@ def ctrl_state(torch, ref, seed: int, W: int, K: int, window: int = 64):
     weights[split, other[split]] += frac[split]
     cdf, primary, is_split = ref.routing_consts(torch.from_numpy(weights))
     workers = rng.permutation(W)
-    m = max(1, W // 4)
+    m = max(1, W // share)
     mit = np.zeros((5, W), np.int32)
     for seq, (s, h) in enumerate(zip(workers[:m], workers[m:2 * m])):
         phase = 2 + seq if seq < 2 else rng.integers(2, 4)   # both live
@@ -757,29 +779,37 @@ def ctrl_case(torch, kctrl, ref, tdev, what: str, spec, state, arrived, phi,
 
 def ctrl_kernel_phase(torch, kctrl, ref, tdev) -> int:
     """``ctrl_step`` against its plain version from random states with
-    mitigations live in both phases: W 20 (W3's) and 64, window 64, k 1
-    and 16.  Returns the cases checked."""
+    mitigations live in both phases: W 20 (W3's), 48 (W1's) and 64, a
+    quarter and half of the workers mitigating, window 64, and the wide
+    states of ``CTRL_WIDE``; k 1 and 16.  Returns the cases checked."""
     import numpy as np
     cases, moved = 0, 0
-    for W, K in CTRL_SHAPES:
-        spec = ctrl_spec(tdev, W, K)
-        for seed in range(4):
-            state, arrived, phi = ctrl_state(torch, ref, 100 * W + seed, W, K)
-            for k in CTRL_KS:
-                after = ctrl_case(torch, kctrl, ref, tdev,
-                                  f"W={W} K={K} k={k} seed {seed}", spec,
-                                  state, arrived, phi, 3 + seed, k,
-                                  float(5e4 * (seed + 1)))
-                cases += 1
-                moved += int(after["epoch"]) != 0
-                moved += not np.array_equal(after["mit_phase"].numpy(),
-                                            state["mit_phase"])
+    shapes = [(W, K, 64, share, seed) for W, K in CTRL_SHAPES
+              for share in CTRL_SHARES for seed in range(4)]
+    shapes += [(W, K, window, 2, seed) for W, K, window in CTRL_WIDE
+               for seed in range(2)]
+    for W, K, window, share, seed in shapes:
+        spec = ctrl_spec(tdev, W, K, window)
+        state, arrived, phi = ctrl_state(torch, ref, 100 * W + seed, W, K,
+                                         window, share)
+        for k in CTRL_KS:
+            after = ctrl_case(torch, kctrl, ref, tdev,
+                              f"W={W} K={K} window {window} one in {share} "
+                              f"mitigating k={k} seed {seed}", spec, state,
+                              arrived, phi, 3 + seed, k,
+                              float(5e4 * (seed + 1)))
+            cases += 1
+            moved += int(after["epoch"]) != 0
+            moved += not np.array_equal(after["mit_phase"].numpy(),
+                                        state["mit_phase"])
     check(moved > 0, "ctrl_step: no case rewrote the table or moved a "
                      "mitigation's phase")
     log(f"kernels: ctrl_step bit-identical to its plain version in every "
-        f"state field at (W, K) in {CTRL_SHAPES} x k in {CTRL_KS} x 4 "
-        f"random states with mitigations live in both phases ({cases} "
-        f"cases; {moved} moved the epoch or a phase)")
+        f"state field at (W, K) in {CTRL_SHAPES} x one in {CTRL_SHARES} "
+        f"workers mitigating x 4 random states, and (W, K, window) in "
+        f"{CTRL_WIDE} (phi staged; at 200 x 160 the rings read in place) "
+        f"x 2, each at k in {CTRL_KS}, mitigations live in both phases "
+        f"({cases} cases; {moved} moved the epoch or a phase)")
     return cases
 
 
@@ -802,13 +832,14 @@ class CtrlRecorder:
     def launches(self, n: int) -> None:
         self.kernel.launches = n
 
-    def __call__(self, spec, c, arrived, phi, t0, k, left, rate):
+    def __call__(self, spec, c, arrived, phi, t0, k, left, rate, block=None):
         self.calls += 1
         if self.calls == self.pick:
             self.kept = (spec, {n: t.cpu().numpy().copy() for n, t in c.items()},
                          arrived.cpu().numpy().copy(), phi.copy(), t0, k,
                          left)
-        return self.kernel(spec, c, arrived, phi, t0, k, left, rate)
+        return self.kernel(spec, c, arrived, phi, t0, k, left, rate,
+                           block=block)
 
     def __enter__(self):
         self.module.ctrl_step = self
@@ -822,14 +853,17 @@ def ctrl_times(torch, fn, spec, state, arrived, phi, t0, k, left, dev: str,
                reps: int):
     """(ms a call, host ms to submit it) from ``state`` restored before each
     call, the restore outside the timed span: CUDA events on the card, the
-    host clock on the CPU."""
+    host clock on the CPU.  On the card the calls pass one argument block
+    built before the first, as ``DeviceController`` does."""
     import numpy as np
     from repro_torch.dataflow import device as tdev
+    from repro_torch.kernels import ctrl_step as kctrl
     c = tdev.ctrl_state_from_numpy(state, dev)
     saved = {n: t.clone() for n, t in c.items()}
     arr = torch.from_numpy(np.array(arrived)).to(dev)
     arr0 = arr.clone()
     card = dev == "cuda"
+    kw = dict(block=kctrl.ArgBlock(spec, c)) if card else {}
     spans, host = [], 0.0
     for i in range(reps + 3):
         for n, t in saved.items():
@@ -841,7 +875,7 @@ def ctrl_times(torch, fn, spec, state, arrived, phi, t0, k, left, dev: str,
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         h0 = time.perf_counter()
-        fn(spec, c, arr, phi, t0, k, left, 0.0)
+        fn(spec, c, arr, phi, t0, k, left, 0.0, **kw)
         took = time.perf_counter() - h0
         if card:
             ev[1].record()
@@ -856,13 +890,107 @@ def ctrl_times(torch, fn, spec, state, arrived, phi, t0, k, left, dev: str,
     return ms, host / reps * 1e3
 
 
-def ctrl_bound(spec, state, k: int):
-    """The least time of one step on these inputs: the bytes it must move
-    (the state it reads once, what it writes once: the rings, the small
-    arrays, one log row, ``arrived``; the weights and the consts only where
-    the epoch moved) over the memory rate, against the float64 operations
-    its rounds need at least (each round's predicted shares: one add a
-    valid observation and a divide a worker) over the float64 rate."""
+def ctrl_chain(torch, ref, tdev, spec, state, arrived, phi, t0: int, k: int,
+               left: float) -> int:
+    """The longest chain of dependent float64 operations one step needs on
+    the kernel's layout, counted from a run of the plain version on this
+    state (its ring statistics and sums over workers observed as they are
+    taken): the tracker's total (W adds, a divide, a multiply); each
+    predicted shares whose means changed (the longest lane's ring means,
+    n adds and a divide each, the lanes abreast, then the W-add total and
+    a divide); each stderr pair a divergence or the detection (with two
+    free workers or more) reads (a stale mean, then the ssq chain of n
+    adds and five tail operations, the two lanes abreast); six operations
+    a phase-2 fraction.  A mean or stderr taken since the ring last changed
+    counts nothing, as the kernel's memo keeps it; the mitigations and
+    rounds add up, one after another."""
+    import inspect
+    import sys
+    import numpy as np
+    W = spec.W
+    lines, first = inspect.getsourcelines(ref.ctrl_step)
+    detect = first + next(i for i, line in enumerate(lines)
+                          if "eps0 = max(stderr(s0), stderr(h0))" in line)
+    memo, sd_memo = {}, {}
+    st = dict(path=0, gen=0, shares=False, tracked=False, pair=[], means=[])
+
+    def lanes(costs):       # the lanes run abreast; a lane's workers not
+        per = {}
+        for w, cost in costs:
+            per[w % 32] = per.get(w % 32, 0) + cost
+        return max(per.values(), default=0)
+
+    def mean_cost(w, n):
+        if memo.get(w) == (st["gen"], n):
+            return 0
+        memo[w] = (st["gen"], n)
+        st["shares"] = False
+        return n + 1 if n > 0 else 0
+
+    def sd_cost(w, n):
+        cost = mean_cost(w, n)
+        if sd_memo.get(w) != (st["gen"], n):
+            sd_memo[w] = (st["gen"], n)
+            cost += n + 5 if n >= 2 else 0
+        return cost
+
+    real_rms, real_sum = ref.ring_mean_stderr, ref.seq_sum_vec
+
+    def rms(row, n, pos):
+        caller = sys._getframe(1)
+        if caller.f_code.co_name != "stderr":
+            st["means"].append(int(n))          # shares(), w in order
+        else:
+            outer = sys._getframe(2)
+            if outer.f_lineno != detect or outer.f_locals["nfree"] >= 2:
+                st["pair"].append((caller.f_locals["w"], int(n)))
+                if len(st["pair"]) == 2:
+                    st["path"] += lanes([(w, sd_cost(w, m))
+                                         for w, m in st["pair"]])
+                    st["pair"] = []
+        return real_rms(row, n, pos)
+
+    def seq_sum(v):
+        caller = sys._getframe(1)
+        if caller.f_code.co_name == "shares":
+            costs = [(w, mean_cost(w, n)) for w, n in enumerate(st["means"])]
+            st["means"] = []
+            if not st["shares"]:
+                st["path"] += lanes(costs) + W + 1
+                st["shares"] = True
+            if sys._getframe(2).f_code.co_name == "phase2":
+                st["path"] += 6
+        elif not st["tracked"]:    # the tracker runs in the first round only
+            st["tracked"] = True
+            st["path"] += W
+            if sum(ref._floats(v)) > 0:
+                st["path"] += 2
+                st["gen"] += 1
+        return real_sum(v)
+
+    c = tdev.ctrl_state_from_numpy(state, "cpu")
+    ref.ring_mean_stderr, ref.seq_sum_vec = rms, seq_sum
+    try:
+        ref.ctrl_step(spec, c, torch.from_numpy(np.array(arrived)), phi, t0,
+                      k, left, 0.0)
+    finally:
+        ref.ring_mean_stderr, ref.seq_sum_vec = real_rms, real_sum
+    return st["path"]
+
+
+def ctrl_bound(spec, state, k: int, chain: int, add_ms: float,
+               floor_ms: float):
+    """The least time of one step on these inputs, the larger of two:
+    throughput (the bytes it must move, the state it reads once and what
+    it writes once: the rings, the small arrays, one log row, ``arrived``;
+    the weights and the consts only where the epoch moved, over the memory
+    rate, against the float64 operations its rounds need at least, each
+    round's predicted shares: one add a valid observation and a divide a
+    worker, over the float64 rate) and the critical path (``chain``
+    dependent float64 operations, each at the card's add latency
+    ``add_ms``, a divide or square root taking longer, plus the launch
+    floor).  Returns (ms, "bytes" or "operations", which binds, the three
+    times)."""
     import numpy as np
     W, K = spec.W, spec.K
     rounds = sum(1 for t in range(state["t0"], state["t0"] + k)
@@ -875,45 +1003,64 @@ def ctrl_bound(spec, state, k: int):
         read += 8 * K * W
         write += 8 * K * W + 4 * K * W + 9 * K
     ops = rounds * (int(np.sum(state["obs_n"])) + W)
-    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t = dict(bytes=(read + write) / HBM_BYTES_PER_S * 1e3,
+             operations=ops / FP64_OPS_PER_S * 1e3,
+             chain=chain * add_ms + floor_ms)
+    binds = max(t, key=t.get)
+    return (t[binds], "bytes" if binds == "bytes" else "operations", binds,
+            t)
 
 
 def ctrl_replay(torch, kctrl, ref, tdev, kpart, kept) -> dict:
     """``ctrl_step`` on the state the W3 path held mid-run (k 1 and 16),
-    against its plain version, then timed at that state: the kernel's time
-    a call (CUDA events, the staging copy of phi included), the host's time
-    to submit it, the plain version's time (on the host, where it runs),
-    the bound and the launch floor.  Returns the kernel's record."""
+    against its plain version, then timed at that state at k 1 and 16: the
+    kernel's time a call (CUDA events, phi in the launch's parameters),
+    the host's time to submit it (the argument block built once), the
+    plain version's time (on the host, where it runs), the restated bound
+    (the card's float64 add latency measured by a one-thread chain) and
+    the launch floor.  Returns the kernel's record (k 1)."""
     check(kept is not None, "ctrl_step: no W3 state was recorded mid-run")
     spec, state, arrived, phi, t0, _, left = kept
     after = {kk: ctrl_case(torch, kctrl, ref, tdev,
                            f"on W3's state at tick {t0} k={kk}", spec, state,
                            arrived, phi, t0, kk, left) for kk in CTRL_KS}
-    moved = int(after[1]["epoch"]) != int(state["epoch"])
     live = state["mit_active"]
     phases = sorted({int(p) for p in state["mit_phase"][live]})
     dev = torch.device("cuda", 0)
-    reps = 200
-    ms, submit = ctrl_times(torch, kctrl.ctrl_step, spec, state, arrived,
-                            phi, t0, 1, left, "cuda", reps)
-    plain_ms, _ = ctrl_times(torch, ref.ctrl_step, spec, state, arrived, phi,
-                             t0, 1, left, "cpu", reps)
     floor_ms = time_ms(torch, kpart.launch_floor, (dev,), 200)
-    b_ms, b_by = ctrl_bound(spec, dict(state, t0=t0, moved=moved), 1)
-    log(f"replay: ctrl_step on W3's state at tick {t0} (W={spec.W} "
-        f"K={spec.K}, {int(live.sum())} mitigations live in phases "
-        f"{phases}, observation log at {int(state['log_n'])}): "
-        f"bit-identical at k in {CTRL_KS}; {ms:.5f} ms a call (CUDA events "
-        f"over {reps} calls, phi's staging copy included; the state "
-        f"restored outside the timed span), submitted by the host in "
-        f"{submit:.5f} ms; plain version {plain_ms:.5f} ms on the host "
-        f"(Python floats); bound {b_ms:.7f} ms by {b_by}; launch floor "
-        f"{floor_ms:.5f} ms (the partition library's empty kernel through "
-        f"its ctypes path): one block, a latency-bound chain, so the "
-        f"launch floor is its practical bound; library: none, no PyTorch "
-        f"call computes this function")
+    add_ms = kctrl.dadd_latency_ms(dev)
+    log(f"replay: the card's float64 add latency {add_ms * 1e6:.3f} ns (a "
+        f"one-thread chain of 2^20 and 2^21 dependent adds, CUDA events, "
+        f"the difference); launch floor {floor_ms:.5f} ms (the partition "
+        f"library's empty kernel through its ctypes path)")
+    out = {}
+    for kk in CTRL_KS:
+        ms, submit = ctrl_times(torch, kctrl.ctrl_step, spec, state, arrived,
+                                phi, t0, kk, left, "cuda", 200)
+        plain_ms, _ = ctrl_times(torch, ref.ctrl_step, spec, state, arrived,
+                                 phi, t0, kk, left, "cpu",
+                                 200 if kk == 1 else 50)
+        moved = int(after[kk]["epoch"]) != int(state["epoch"])
+        chain = ctrl_chain(torch, ref, tdev, spec, state, arrived, phi, t0,
+                           kk, left)
+        b_ms, b_by, binds, t = ctrl_bound(spec, dict(state, t0=t0,
+                                                     moved=moved),
+                                          kk, chain, add_ms, floor_ms)
+        out[kk] = (ms, plain_ms, b_ms, b_by)
+        log(f"replay: ctrl_step on W3's state at tick {t0} k={kk} (W="
+            f"{spec.W} K={spec.K}, {int(live.sum())} mitigations live in "
+            f"phases {phases}, observation log at {int(state['log_n'])}): "
+            f"bit-identical; {ms:.5f} ms a call (CUDA events over 200 "
+            f"calls, the state restored outside the timed span), submitted "
+            f"by the host in {submit:.5f} ms (the argument block built "
+            f"once); plain version {plain_ms:.5f} ms on the host (Python "
+            f"floats); bound {b_ms:.7f} ms by {b_by}, binding: {binds} "
+            f"(throughput: bytes {t['bytes']:.7f} ms, float64 operations "
+            f"{t['operations']:.7f} ms; critical path: {chain} dependent "
+            f"float64 operations x {add_ms * 1e6:.3f} ns + the launch "
+            f"floor = {t['chain']:.5f} ms); library: none, no PyTorch call "
+            f"computes this function")
+    ms, plain_ms, b_ms, b_by = out[1]
     return dict(name="ctrl_step", route="cuda", source=CTRL_SOURCE,
                 replaces=CTRL_REPLACES, launches=0, max_abs_err=0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1137,8 +1284,9 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
     its boundary materializations (``sync_host`` / ``sync_stats`` /
     ``sync_sink_counts``), of its spill tier (``_spill_refill``,
     ``_spill_admit`` with the evictions, ``_spill_demote_fresh``), of the
-    in-dispatch controller (``ctrl``: its steps, ``super_tick``, and its
-    drains) and of the checkpoint coordinator's cuts and recoveries, and
+    in-dispatch controller (``ctrl step``: ``super_tick``, and ``ctrl
+    drain``: ``drain``) and of the checkpoint coordinator's cuts and
+    recoveries, and
     the routing-only share.  Times are exclusive: a timed call made inside another (the
     per-chunk exchange of a chunk a resident Filter emits, a boundary's
     flush dispatch, a cut's boundaries) counts for itself only.
@@ -1177,7 +1325,8 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
     exchange = wf.engine.partition_backend
     spent = {"exchange": [0.0, 0], "dispatch": [0.0, 0], "fused": [0.0, 0],
              "chain check": [0.0, 0], "boundary": [0.0, 0],
-             "spill": [0.0, 0], "ctrl": [0.0, 0], "checkpoint": [0.0, 0]}
+             "spill": [0.0, 0], "ctrl step": [0.0, 0],
+             "ctrl drain": [0.0, 0], "checkpoint": [0.0, 0]}
     stack = []          # [start, seconds of timed calls nested inside]
 
     def timed(fn, what):
@@ -1201,8 +1350,8 @@ def run_workflow(dataflow, factory: str, kw, backend: str, executor=None,
         ("sync_stats", "boundary"), ("sync_sink_counts", "boundary"),
         ("_spill_refill", "spill"), ("_spill_admit", "spill"),
         ("_spill_demote_fresh", "spill"))}
-    methods[(DeviceController, "super_tick")] = "ctrl"
-    methods[(DeviceController, "drain")] = "ctrl"
+    methods[(DeviceController, "super_tick")] = "ctrl step"
+    methods[(DeviceController, "drain")] = "ctrl drain"
     methods[(CheckpointCoordinator, "checkpoint")] = "checkpoint"
     methods[(CheckpointCoordinator, "recover")] = "checkpoint"
     saved = {(cls, m): getattr(cls, m) for cls, m in methods}
@@ -1435,14 +1584,16 @@ def tweak_checks(label: str, tweak, wf, spent, host, counts) -> str:
             check(np.array_equal(e1.routing.weights, e2.routing.weights)
                   and np.array_equal(e1.routing._count, e2.routing._count),
                   f"{label}: routing weights or counters differ")
-        sec, calls = spent["ctrl"]
+        (step_s, steps), (drain_s, drains) = (spent["ctrl step"],
+                                              spent["ctrl drain"])
         extra = (f"; controller: {ctrl.rounds_on_device} metric rounds on "
                  f"the card (the host plane's {rounds}), {rt.ctrl.steps} "
                  f"steps (one ctrl_step launch and one epoch readback "
                  f"each), {rt.ctrl.drains} drains (one readback of the "
                  f"log and the consts each), {ctrl.sync_readbacks} "
-                 f"boundary readbacks accounted, ctrl {sec:.3f} s in "
-                 f"{calls} calls; tau {ctrl.tau}, "
+                 f"boundary readbacks accounted, ctrl step {step_s:.3f} s "
+                 f"in {steps} calls, ctrl drain {drain_s:.3f} s in "
+                 f"{drains} calls; tau {ctrl.tau}, "
                  f"{len(ctrl.mitigations)} mitigations at the end; no "
                  f"ctrl-mismatch, no ctrl-demotion")
     if tweak in ("spill", "chaos"):
@@ -3012,6 +3163,46 @@ def readings() -> int:
     return 0
 
 
+def armed() -> int:
+    """``--armed``: W3 at SF1 resident, armed (``run()``), armed by windows
+    of ``ARMED_K`` and the host plane by the same windows, each once: its
+    wall and host seconds (``ctrl step`` / ``ctrl drain`` split).  Not part
+    of the smoke; a copy beside another tree's ``src`` times that tree the
+    same way, so two trees run in turns in one call compare."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import dataflow
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | {ROOT}")
+    _build.build()
+    k16 = dict(n_tuples=W3_TUPLES, batch_ticks=ARMED_K)
+    for label, kw, backend, executor, tweak in (
+            ("W3 resident", dict(n_tuples=W3_TUPLES), "torch", "jit", None),
+            ("W3 resident armed", dict(n_tuples=W3_TUPLES), "torch", "jit",
+             "armed"),
+            ("W3 resident armed k16", k16, "torch", "jit", "armed-k16"),
+            ("W3 numpy host k16", k16, "numpy", None, "k16")):
+        with path_tweak(tweak):
+            wf, wall, spent, _ = run_workflow(dataflow, "build_w3", kw,
+                                              backend, executor, tweak)
+        parts = "; ".join(f"{what} {sec:.3f} s in {calls} calls"
+                          for what, (sec, calls) in spent.items() if calls)
+        log(f"armed: {label}: {wf.engine.tick} ticks, "
+            f"{wf.engine.super_ticks} super-ticks, wall {wall:.3f} s "
+            f"({parts or 'no timed calls'})")
+    return 0
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     import torch
@@ -3143,4 +3334,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(readings() if sys.argv[1:] == ["--readings"] else main())
+    sys.exit({"--readings": readings, "--armed": armed}.get(
+        " ".join(sys.argv[1:]), main)())

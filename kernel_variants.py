@@ -7,6 +7,8 @@
                                      # one tile or the multi-tile pass
     python3 kernel_variants.py k6    # K6: the first (scalar) step kernel
                                      # against today's and its constants
+    python3 kernel_variants.py ctrl  # ctrl_step: the first (one-thread)
+                                     # design against today's
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -32,7 +34,19 @@ constants, against the first design (``csrc/variants/rwkv_scan_scalar.cu``:
 scalar broadcast loads, register staging, the bonus on every state entry,
 float32 only, so its bf16 calls cast r, k, v, w to float32 and out back to
 bf16 around it, as the model did), each within ``check_rwkv``; device time
-under the profiler beside the CUDA-event time.  Prints one line a timing.
+under the profiler beside the CUDA-event time.  ``ctrl_step`` (the
+in-dispatch controller's step) from ``chip_smoke.ctrl_state``'s random
+states at (W, K) = (20, 40), (48, 56) and (64, 128), a quarter and half
+of the workers mitigating, and from the state W3 at SF1 armed holds at its
+9,000th step (the smoke's replay state; the run stops there), k 1 and 16:
+the source as it is (warp 0 runs
+the rounds, a lane a worker's ring; called through ``ctrl_step`` with one
+argument block a state, phi in the launch's parameters) against the first
+design (``csrc/variants/ctrl_step_serial.cu``: every round on one thread;
+its structure built once too and phi already on the card, so its calls
+cost the host less than its wrapper's did), each bit for bit against the
+plain version, the state restored outside the timed span; CUDA-event time
+and the host's submit time of a call.  Prints one line a timing.
 Not part of the smoke: it chose the constants in the sources.
 """
 from __future__ import annotations
@@ -398,11 +412,144 @@ def k6(torch, cs, _build) -> None:
             torch.cuda.empty_cache()
 
 
+def w3_state(torch, cs, kctrl):
+    """The inputs of the ``CTRL_PICK``-th ``ctrl_step`` call of W3 at SF1
+    armed (``run()``, the smoke's "W3 resident armed" path), the run
+    stopped there: (spec, state, arrived, phi, t0, k, tuples_left)."""
+    from repro_torch import dataflow
+
+    class Stop(Exception):
+        pass
+
+    class Pick(cs.CtrlRecorder):
+        def __call__(self, *args, **kw):
+            out = super().__call__(*args, **kw)
+            if self.kept is not None:
+                raise Stop
+            return out
+
+    with cs.path_tweak("armed"):
+        wf = dataflow.build_w3(strategy="reshape", device="cuda",
+                               device_executor="jit", n_tuples=cs.W3_TUPLES)
+    with Pick(kctrl, cs.CTRL_PICK) as rec:
+        try:
+            wf.run()
+        except Stop:
+            pass
+    cs.check(rec.kept is not None,
+             f"W3 ended before its ctrl_step call {cs.CTRL_PICK}")
+    return rec.kept
+
+
+def ctrl(torch, cs, _build) -> None:
+    import time
+
+    from repro_torch.dataflow import device as tdev
+    from repro_torch.kernels import ctrl_step as kctrl
+    from repro_torch.kernels import ref
+
+    first = build(_build, "variants/ctrl_step_serial",
+                  {"first design (one thread)": {}})
+    serial = first["first design (one thread)"]
+
+    class SerialArgs(ctypes.Structure):
+        """The first design's ``CtrlArgs``: phi by device pointer only."""
+        _fields_ = [f for f in kctrl._Args._fields_ if f[0] != "phi_param"]
+
+    serial.repro_ctrl_step.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p]
+    serial.repro_ctrl_step.restype = ctypes.c_int
+    cs.check(serial.repro_ctrl_step_args_size() == ctypes.sizeof(SerialArgs),
+             "the first design's CtrlArgs disagrees with SerialArgs")
+
+    def as_is(spec, c, arr, phi):
+        block = kctrl.ArgBlock(spec, c)
+        return lambda t0, k, left: kctrl.ctrl_step(
+            spec, c, arr, phi, t0, k, left, 0.0, block=block)
+
+    def first_design(spec, c, arr, phi):
+        phi_dev = torch.tensor(phi, dtype=torch.float64, device="cuda")
+        args = SerialArgs(**{n: c[n].data_ptr() for n in kctrl.STATE_DTYPES})
+        args.arrived, args.phi = arr.data_ptr(), phi_dev.data_ptr()
+        for name in kctrl._SPEC_DOUBLES:
+            setattr(args, name, float(getattr(spec, name)))
+        for name in kctrl._SPEC_INTS:
+            setattr(args, name, int(getattr(spec, name)))
+        where = _build.device_and_stream(c["weights"].device)
+
+        def call(t0, k, left):
+            args.t0, args.k, args.tuples_left = t0, k, left
+            code = serial.repro_ctrl_step(ctypes.addressof(args), *where)
+            cs.check(code == 0, f"launch failed: CUDA error {code}")
+        call.phi = phi_dev       # the kernel reads it by address
+        return call
+
+    designs = {"as is (warp 0, a lane a ring)": as_is,
+               "first design (one thread)": first_design}
+    cases = []
+    for W, K in ((20, 40), (48, 56), (64, 128)):
+        spec = cs.ctrl_spec(tdev, W, K)
+        for share in (4, 2):
+            state, arrived, phi = cs.ctrl_state(torch, ref, 100 * W, W, K,
+                                                64, share)
+            cases.append((f"W={W} K={K} one in {share} mitigating", spec,
+                          state, arrived, phi, 3, 5e4))
+    spec, state, arrived, phi, t0, _, left = w3_state(torch, cs, kctrl)
+    cases.append((f"W3's state at tick {t0} (W={spec.W} K={spec.K}, "
+                  f"{int(state['mit_active'].sum())} mitigations live)",
+                  spec, state, arrived, phi, t0, left))
+    for what, spec, state, arrived, phi, t0, left in cases:
+        for k in (1, 16):
+            want = tdev.ctrl_state_from_numpy(state, "cpu")
+            ref.ctrl_step(spec, want, torch.from_numpy(arrived.copy()), phi,
+                          t0, k, left, 0.0)
+            runs = {}
+            for name, make in designs.items():
+                c = tdev.ctrl_state_from_numpy(state, "cuda")
+                saved = {n: t.clone() for n, t in c.items()}
+                arr = torch.from_numpy(arrived.copy()).cuda()
+                runs[name] = (c, saved, arr, arr.clone(),
+                              make(spec, c, arr, phi))
+                runs[name][4](t0, k, left)
+                torch.cuda.synchronize()
+                for n in kctrl.STATE_DTYPES:
+                    cs.check(torch.equal(cs.bits(torch, c[n].cpu()),
+                                         cs.bits(torch, want[n])),
+                             f"{name}: {n} differs from the plain version "
+                             f"at {what} k={k}")
+            for turn, names in enumerate((list(runs), list(runs)[::-1])):
+                for name in names:
+                    c, saved, arr, arr0, call = runs[name]
+                    reps, spans, host = 200, [], 0.0
+                    for i in range(reps + 3):
+                        for n, t in saved.items():
+                            c[n].copy_(t)
+                        arr.copy_(arr0)
+                        torch.cuda.synchronize()
+                        ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                        h0 = time.perf_counter()
+                        call(t0, k, left)
+                        took = time.perf_counter() - h0
+                        ev[1].record()
+                        if i >= 3:
+                            host += took
+                            spans.append(ev)
+                    torch.cuda.synchronize()
+                    ms = sum(a.elapsed_time(b) for a, b in spans) / reps
+                    print(f"{name}: ctrl_step at {what} k={k} turn {turn}: "
+                          f"{ms:.5f} ms a call (CUDA events, {reps} calls), "
+                          f"submitted in {host / reps * 1e3:.5f} ms; "
+                          f"bit-identical to the plain version", flush=True)
+            del runs
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"]):
-        print("usage: python3 kernel_variants.py k4|k5|k1k2|k6",
+    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"]):
+        print("usage: python3 kernel_variants.py k4|k5|k1k2|k6|ctrl",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -418,8 +565,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6}[sys.argv[1]](torch, cs,
-                                                             _build)
+    {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6,
+     "ctrl": ctrl}[sys.argv[1]](torch, cs, _build)
     return 0
 
 

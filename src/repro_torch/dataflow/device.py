@@ -687,6 +687,8 @@ class DeviceController:
         self.reason: Optional[str] = None   # why deactivated
         self.cstate: Optional[Dict[str, torch.Tensor]] = None
         self.spec: Optional[CtrlSpec] = None
+        #: the kernel's argument block, built with each ``cstate``
+        self.args: Optional[kctrl.ArgBlock] = None
         self.meta: List[tuple] = []  # (t0, k, tuples_left, rate) per window
         self.epoch_host = 0          # device epoch after the last step
         self.epoch_synced = 0        # device epoch at the last drain
@@ -820,6 +822,7 @@ class DeviceController:
             log_phi=put(np.zeros((self.LOG_CAP, rt.W)), torch.float64),
             log_arr=put(np.zeros((self.LOG_CAP, rt.W)), torch.float64),
             log_n=put(0, torch.int32))
+        self.args = kctrl.ArgBlock(self.spec, self.cstate)
         self.meta = []
         self.epoch_host = self.epoch_synced = 0
         self._last_tick = host._tick
@@ -856,7 +859,7 @@ class DeviceController:
                                     device=rt.device))
         c = self.cstate
         kctrl.ctrl_step(self.spec, c, arrived, rt.workloads(), t0, k, left,
-                        rate)
+                        rate, block=self.args)
         # The kernel rewrote the consts in place; the dict names them.
         rt.consts = dict(cdf=c["cdf"], is_split=c["is_split"],
                          owner=c["owner"])

@@ -12,6 +12,7 @@ plane driven by the same fixed-width windows: controller events, tau,
 mitigations, ``Sink.series``, counts, ``sent_per_worker``, routing weights
 and counters bit for bit, with no ``ctrl-mismatch``.
 """
+import ctypes
 import dataclasses
 
 import jax
@@ -236,9 +237,85 @@ def test_ctrl_step_wrapper_checks_and_counts():
     assert int(c["log_n"]) == 1
 
 
-def _random_state(seed, W, K, window=64):
-    """A controller state with mitigations live in both phases, split and
-    one-hot rows, rings of every fill, and random workloads and arrivals."""
+def test_ctrl_arg_block_layout():
+    """The argument block's structure is ``CtrlArgs`` field for field: 22
+    pointers, the call's and the spec's scalars, then phi's
+    ``PHI_PARAM`` doubles, which a numpy view writes in place."""
+    assert kctrl._Args.phi_param.offset == 22 * 8 + 3 * 8 + 6 * 8 + 10 * 4
+    assert ctypes.sizeof(kctrl._Args) == (kctrl._Args.phi_param.offset
+                                          + 8 * kctrl.PHI_PARAM)
+    spec = _default_spec(20, 40)
+    state, _, phi = _random_state(0, 20, 40)
+    block = kctrl.ArgBlock(spec, tdev.ctrl_state_from_numpy(state, "cpu"))
+    block.set_phi(phi)
+    assert list(block.args.phi_param[:20]) == phi.tolist()
+    assert (block.args.W, block.args.K, block.args.window) == (20, 40, 64)
+    assert block.args.eps_upper == spec.eps_upper
+
+
+def _names(block, cstate):
+    """Whether the argument block points at every tensor of ``cstate``."""
+    return all(getattr(block.args, name) == cstate[name].data_ptr()
+               for name in kctrl.STATE_DTYPES)
+
+
+def test_ctrl_arg_block_follows_the_state(monkeypatch):
+    """The argument block is built with each ``cstate`` and names its
+    tensors: every step passes it; it still names them after a
+    ``ctrl-mismatch`` host-wins overwrite (in place) and the drain's
+    ``log_n`` reset, and ``on_restore`` builds a new state and a new block
+    with it.  A block handed over with another state is not used."""
+    seen = []
+    real = kctrl.ctrl_step
+
+    def recording(spec, c, arrived, phi, t0, k, left, rate, block=None):
+        seen.append((block, c))
+        return real(spec, c, arrived, phi, t0, k, left, rate, block=block)
+
+    monkeypatch.setattr(kctrl, "ctrl_step", recording)
+    k = 4
+    eng, _, grp, ctrl = _monitored("armed", n=4000, num_workers=6,
+                                   hot_frac=0.6, seed=1, batch_ticks=k)
+    dc = grp.device.ctrl
+    block = dc.args
+    assert block is not None and block.cstate is dc.cstate
+    assert _names(block, dc.cstate)
+    for _ in range(8):
+        eng.run_super_tick(k)
+    assert seen and all(b is block and c is dc.cstate for b, c in seen)
+    assert dc.args is block and _names(block, dc.cstate)
+    # a device table the host twin disagrees with: the drain's host wins
+    assert dc.active and dc.meta, "the drain needs logged windows"
+    dc.cstate["cdf"][0, 0] += 0.5
+    with pytest.warns(RuntimeWarning, match="host wins"):
+        dc.drain()
+    assert eng.incidents.count("ctrl-mismatch") == 1
+    assert dc.args is block and _names(block, dc.cstate)
+    assert int(dc.cstate["log_n"]) == 0
+    snap = ckpt.snapshot(eng)
+    eng.run_super_tick(k)
+    ckpt.restore(eng, snap)
+    assert dc.active and dc.args is not block
+    assert dc.args.cstate is dc.cstate and _names(dc.args, dc.cstate)
+    assert not _names(block, dc.cstate)
+    del seen[:]
+    eng.run_super_tick(k)
+    assert seen and all(b is dc.args for b, _ in seen)
+    # another state with this block: the call runs on that state
+    other = {n: t.clone() for n, t in dc.cstate.items()}
+    n_log = int(dc.cstate["log_n"])
+    kctrl.ctrl_step(dc.spec, other, torch.zeros(grp.device.K,
+                                                dtype=torch.int64),
+                    np.zeros(6), eng.tick, 1, 100.0, 0.0, block=dc.args)
+    assert int(other["log_n"]) == n_log + 1
+    assert int(dc.cstate["log_n"]) == n_log
+
+
+def _random_state(seed, W, K, window=64, share=4):
+    """A controller state with mitigations live in both phases (one worker
+    in ``share`` skewed, each with its own helper: at 2 every worker is
+    busy, as at W3's tick 9,001), split and one-hot rows, rings of every
+    fill, and random workloads and arrivals."""
     rng = np.random.default_rng(seed)
     owner = rng.integers(0, W, K)
     weights = np.zeros((K, W))
@@ -250,7 +327,7 @@ def _random_state(seed, W, K, window=64):
     weights[split, other[split]] += frac[split]
     cdf, primary, is_split = kref.routing_consts(torch.from_numpy(weights))
     workers = rng.permutation(W)
-    m = max(1, W // 4)
+    m = max(1, W // share)
     mit = np.zeros((5, W), np.int32)
     for seq, (s, h) in enumerate(zip(workers[:m], workers[m:2 * m])):
         phase = 2 + seq if seq < 2 else rng.integers(2, 4)   # both live
@@ -269,20 +346,30 @@ def _random_state(seed, W, K, window=64):
     return state, rng.integers(0, 60, K).astype(np.int64), phi
 
 
-def _default_spec(W, K):
+def _default_spec(W, K, window=None):
     cfg = ReshapeConfig()
     return tdev.CtrlSpec(
-        W=W, K=K, window=cfg.sample_window, R=64, eta=cfg.eta,
+        W=W, K=K, window=window or cfg.sample_window, R=64, eta=cfg.eta,
         metric_period=1, initial_delay=cfg.initial_delay_ticks,
         adaptive_tau=True, eps_lower=cfg.eps_lower, eps_upper=cfg.eps_upper,
         tau_increase=cfg.tau_increase,
         max_tau_adjustments=cfg.max_tau_adjustments,
         catchup_tolerance=cfg.catchup_tolerance,
-        retire_window=cfg.sample_window, enable_phase1=True, horizon=2000.0)
+        retire_window=window or cfg.sample_window, enable_phase1=True,
+        horizon=2000.0)
 
 
-@pytest.mark.parametrize("W, K", [(4, 24), (20, 40)])
-def test_ctrl_step_matches_the_jax_step_on_random_states(W, K, monkeypatch):
+#: (W, K, one worker in ``share`` mitigating): W3's 20 workers, W1's 48,
+#: and 64 (two workers a lane of the kernel's warp); a quarter and half.
+RANDOM_SHAPES = [pytest.param(W, K, share, id=f"{W}-{K}" + (
+    "-half" if share == 2 else "")) for W, K in [(4, 24), (20, 40), (48, 56),
+                                                 (64, 128)]
+                 for share in (4, 2)]
+
+
+@pytest.mark.parametrize("W, K, share", RANDOM_SHAPES)
+def test_ctrl_step_matches_the_jax_step_on_random_states(W, K, share,
+                                                         monkeypatch):
     """Random states with mitigations live in both phases, random workloads
     and arrivals (divergence, adaptive tau and rewrites on most of them),
     through the JAX package's jitted step and the port's plain one: every
@@ -293,7 +380,8 @@ def test_ctrl_step_matches_the_jax_step_on_random_states(W, K, monkeypatch):
     jspec = jdev.CtrlSpec(KMAX=16, **dataclasses.asdict(spec))
     moved = 0
     for seed in range(8):
-        state, arrived, phi = _random_state(100 * W + seed, W, K)
+        state, arrived, phi = _random_state(100 * W + seed, W, K,
+                                            share=share)
         # the port's dtypes, which are the JAX package's
         state = {n: t.numpy() for n, t in
                  tdev.ctrl_state_from_numpy(state, "cpu").items()}
@@ -320,14 +408,20 @@ def test_ctrl_step_matches_the_jax_step_on_random_states(W, K, monkeypatch):
 @pytest.mark.gpu
 def test_cuda_ctrl_step_matches_plain_version():
     """The kernel on the card against its plain version on the host, from
-    the same random states: every field bit for bit, W 20 and 64, k 1 and
-    16, a launch counted each call."""
+    the same random states: every field bit for bit, W 20, 48 and 64 with a
+    quarter and half of the workers mitigating, W 150 (phi wider than the
+    parameter block: staged) and W 200 with a window of 160 (the rings too
+    wide for shared memory: read in place), k 1 and 16, a launch counted
+    each call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for seed, (W, K) in enumerate([(20, 40), (64, 300), (20, 40), (64, 7)]):
+    cases = [(W, K, share, 64) for W, K in [(20, 40), (64, 300), (48, 56),
+                                            (64, 7)] for share in (4, 2)]
+    cases += [(150, 60, 2, 64), (200, 70, 4, 160)]
+    for seed, (W, K, share, window) in enumerate(cases):
         for k in (1, 16):
-            state, arrived, phi = _random_state(seed, W, K)
-            spec = _default_spec(W, K)
+            state, arrived, phi = _random_state(seed, W, K, window, share)
+            spec = _default_spec(W, K, window)
             host = tdev.ctrl_state_from_numpy(state, "cpu")
             card = tdev.ctrl_state_from_numpy(state, "cuda")
             arr_h = torch.from_numpy(arrived.copy())
