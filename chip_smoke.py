@@ -185,20 +185,59 @@ Phases, in order; any failure exits non-zero before the last line:
            every position of a 2 x 64 prompt and 4 teacher-forced decode
            steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
            the card's top-2 margin exceeds it;
-10. report one JSON line of kernels (K1-K6 and ctrl_step), the card line, and the
-           ``{"ok": ...}`` line last.
+10. train  (its kernel checks run after phase 6) K5's backward
+           (``flash_attention_bwd``: ``csrc/flash_attention.cu``'s
+           ``flash_bwd_dq`` and ``flash_bwd_dkv``) against its plain version
+           within the bound stated in ``check_flash_bwd``, at the training
+           shape (B 4, H 16, S 512, hd 128, bf16 through the model's
+           ``[B, S, H, hd]`` views, and float32) and at S 445, hd 64 with
+           two query heads a KV head, the same bits from two calls; K4's
+           backward (``segment_matmul_backward``: dx and dw, two K4
+           launches) against its plain version within
+           ``check_segment_matmul``'s bound at OLMoE's expert products with 8
+           replica slots (E 72, D 2048, F 1024 both ways, C 320 and 20), bf16
+           and float32, ragged rows with NaN in x past them.  Then the
+           training path, every kernel's count set to 0 just before and read
+           just after: OLMoE-1B-7B at its published widths cut to
+           ``TRAIN_LAYERS`` = 6 layers with ``TRAIN_SLOTS`` = 8 replica slots
+           (~3.0e9 float32 params from seed 0, bf16 compute, remat), a hot
+           expert planted in every router, ``Trainer`` with the Reshape
+           balancer on 4 shards, ``TRAIN_STEPS`` = 8 steps on one 4 x 512
+           batch from ``SkewAwarePipeline``: the loss finite and lower at
+           the last step than the first, an ``sbr_replicate``, every replica
+           slot equal to its primary bit for bit after every step, K4's
+           forward 3 launches a layer a forward run (two runs a step under
+           remat) and its backward 6 a layer a step, all on its tiles
+           kernel, K5's forward one a layer a run on its wgmma kernel and
+           its backward one a layer a step; step seconds, tokens/s, the
+           AdamW update's share and peak GiB printed.  Both backwards are
+           replayed on the path's own inputs and timed beside their plain
+           versions, ``torch.bmm`` (dx and dw) / SDPA's backward and their
+           bounds.  Then the train slice: a 2-layer full-width OLMoE in
+           float32 (K4 and K5 on their fma routes, forward and backward),
+           8 replica slots and a split table, one ``loss_fn`` gradient of a
+           2 x 64 batch on the card against the host: the loss within
+           ``TRAIN_SLICE_LOSS_TOL``, every gradient leaf within
+           ``TRAIN_SLICE_TOL`` of its largest entry;
+11. report one JSON line of kernels (K1-K6, ctrl_step and K4's and K5's
+           backward), the card line, and the ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
 non-zero and prints no result.  It imports nothing of JAX.
 
     python3 chip_smoke.py --readings   # not part of the smoke
 
-builds the kernels and prints the readings behind ``SLICE_TOL`` and
-``RWKV_SLICE_TOL`` (each slice check at three seeds, sound and with planted
-kernel faults, the RWKV6 one sound at seven more) and one decode step of
+builds the kernels and prints the readings behind ``SLICE_TOL``,
+``RWKV_SLICE_TOL`` and ``TRAIN_SLICE_TOL`` (each slice check at three seeds,
+sound and with planted kernel faults, the RWKV6 one sound at seven more;
+the train slice's faults in the backward) and one decode step of
 each full-width serve taken apart (the kernels' calls, the weight casts,
 the device's busy share under the profiler; the RWKV6 step also with the
 layout copies K6 does without and with ``F.silu`` for the gate's silu).
+
+    python3 chip_smoke.py --train      # not part of the smoke
+
+builds K4 and K5 and runs phase 10 alone.
 
     python3 chip_smoke.py --armed      # not part of the smoke
 
@@ -213,6 +252,7 @@ import contextlib
 import dataclasses
 import enum
 import json
+import math
 import subprocess
 import sys
 import time
@@ -304,6 +344,29 @@ SLICE_TOL, SLICE_MOVED, SLICE_CAP = 0.2, 14, 1.6
 #: catches it), and the nearest fault beyond it, K6 dropping the last of
 #: hd's terms, 1.37; their geometric mean is 0.29.
 RWKV_SLICE_TOL = 0.29
+
+#: The training path: OLMoE-1B-7B's published widths cut to TRAIN_LAYERS
+#: of its 16 layers (float32 params, grads and AdamW moments, 16 bytes a
+#: parameter, for the 16 layers would need ~138 GB), with TRAIN_SLOTS
+#: spare replica slots a layer (P = 72) for the balancer; a TRAIN_B x
+#: TRAIN_S batch, TRAIN_STEPS steps on it at TRAIN_LR (warmup 1, cosine to
+#: a tenth), a hot expert planted as the JAX suite's ``_skewed_moe`` does
+#: (TRAIN_BOOST added to router column TRAIN_HOT in every layer).
+TRAIN_LAYERS, TRAIN_SLOTS, TRAIN_STEPS = 6, 8, 8
+TRAIN_B, TRAIN_S, TRAIN_LR = 4, 512, 1e-3
+TRAIN_HOT, TRAIN_BOOST = 0, 3.0
+#: The train slice: card against host at TRAIN_SLICE_LAYERS layers, a
+#: TRAIN_SLICE_B x TRAIN_SLICE_S batch, float32 compute: the largest
+#: |loss difference| (TRAIN_SLICE_LOSS_TOL) and the largest gradient
+#: difference relative to its leaf's largest entry (TRAIN_SLICE_TOL)
+#: allowed, set from ``python3 chip_smoke.py --readings`` near the
+#: geometric mean of what sound runs reached at seeds 0-2 in two calls and
+#: the nearest planted fault (H100): gradients 1.33e-4 against 0.351 (K4
+#: dropping the last of D's terms; the backward's faults 0.456-2.6), the
+#: loss 6.68e-6 against 0.00146 (the same fault; the backward's faults
+#: leave the loss as it is).  K4's bf16-tile fault is none in float32.
+TRAIN_SLICE_LAYERS, TRAIN_SLICE_B, TRAIN_SLICE_S = 2, 2, 64
+TRAIN_SLICE_TOL, TRAIN_SLICE_LOSS_TOL = 0.007, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1765,7 +1828,10 @@ def check_segment_matmul(torch, what: str, got, x, w, rows=None) -> float:
     in any order, is within D * 2^-24 * sum|x w| of the exact one (first
     order), so the two versions within twice that; a bf16 output adds one
     rounding of each, within 2^-8 (bf16's unit roundoff) relative apiece,
-    so 2^-7 of the larger for the two.  With ``rows``, every row past
+    so 2^-7 of the larger for the two.  The tensor cores flush subnormal
+    values to zero where the plain version's float32 keeps them: each of
+    the D products and the output may lose up to 2^-126, so (D + 1) 2^-126
+    more (gradients hold such values).  With ``rows``, every row past
     rows[e] must be exactly zero, whatever x holds there.  Returns
     max |got - plain|."""
     from repro_torch.kernels import ref
@@ -1775,7 +1841,7 @@ def check_segment_matmul(torch, what: str, got, x, w, rows=None) -> float:
           f"{tuple(want.shape)} {want.dtype}")
     D = x.shape[2]
     absum = torch.bmm(x.float().abs(), w.float().abs())
-    tol = 2 * D * 2.0**-24 * absum
+    tol = 2 * D * 2.0**-24 * absum + (D + 1) * 2.0**-126
     if x.dtype == torch.bfloat16:
         tol = tol + 2.0**-7 * torch.maximum(got.float().abs(),
                                             want.float().abs())
@@ -1785,9 +1851,14 @@ def check_segment_matmul(torch, what: str, got, x, w, rows=None) -> float:
         tol = torch.where(live[..., None], tol, 0.0)
     err = (got.float() - want.float()).abs()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-    check(bool((err <= tol).all()),
-          f"{what}: beyond the stated bound of the plain version (max |err| "
-          f"{float(err.max()):.3g})")
+    if not bool((err <= tol).all()):
+        at = tuple(int(i) for i in torch.nonzero(err > tol)[0])
+        check(False,
+              f"{what}: beyond the stated bound of the plain version (max "
+              f"|err| {float(err.max()):.3g}; at {at}: kernel "
+              f"{float(got[at]):.6g}, plain {float(want[at]):.6g}, bound "
+              f"{float(tol[at]):.3g}, sum of |x w| {float(absum[at]):.3g}"
+              f"{'' if rows is None else f', rows {int(rows[at[0]])}'})")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -2732,6 +2803,652 @@ def rwkv_phase(torch, k6, kernel_mods, smi: str):
 
 
 # --------------------------------------------------------------------- #
+# 10. train: K4's and K5's backward, OLMoE-1B-7B trained at full width   #
+# --------------------------------------------------------------------- #
+def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
+                    scale: float) -> float:
+    """K5's backward against its plain version (``ref.flash_attention_bwd``
+    on the same inputs), both float32 arithmetic, entry by entry.  A float32
+    sum of n terms in any order lies within n 2^-24 of the sum of its terms'
+    magnitudes, so two orders within twice that.  P's relative error e_p:
+    twice the scores' (hd-term dot products of scale q and k) and the row's
+    log-sum-exp's (T terms), plus 2^-21 for expf.  dS = P (dO v - D): e_p
+    |dS| plus P times the error of dO v - D (two hd-term sums).  Each
+    gradient: its terms' errors times their factors' magnitudes, plus the
+    order of its own sum (n = max(S rep, T)).  A bf16 output adds one
+    rounding on each side, 2^-7 of the larger.  Returns max |got - plain|."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                   scale=scale)
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    rep = H // KV
+    eps = 2.0**-24
+    qs = q.float() * scale
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    do = dout.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qs, kf)
+    if causal:
+        vis = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(vis, s, float("-inf"))
+    P = torch.softmax(s, -1)
+    del s
+    e_p = 2 * (2 * hd * eps * float(torch.einsum(
+        "bhsd,bhtd->bhst", qs.abs(), kf.abs()).amax()) + 2 * T * eps) \
+        + 2.0**-21
+    ds = P * (torch.einsum("bhsd,bhtd->bhst", do, vf)
+              - (do * out.float()).sum(-1, keepdim=True))
+    mag_dp = (torch.einsum("bhsd,bhtd->bhst", do.abs(), vf.abs())
+              + (do * out.float()).abs().sum(-1, keepdim=True))
+    n = max(S * rep, T)
+    term = e_p * ds.abs() + 4 * hd * eps * P * mag_dp + 2 * n * eps * ds.abs()
+    del ds, mag_dp
+    tols = [scale * torch.einsum("bhst,bhtd->bhsd", term, kf.abs()),
+            torch.einsum("bhst,bhsd->bhtd", term, qs.abs()),
+            (e_p + 2 * n * eps) * torch.einsum("bhst,bhsd->bhtd", P,
+                                                 do.abs())]
+    del term, P
+    if rep > 1:
+        tols[1:] = [t.reshape(B, KV, rep, T, hd).sum(2) for t in tols[1:]]
+    err = 0.0
+    for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, tols):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{what}: {name} {tuple(g.shape)} {g.dtype} vs plain "
+              f"{tuple(w.shape)} {w.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        if g.dtype == torch.bfloat16:
+            tol = tol + 2.0**-7 * torch.maximum(g.float().abs(),
+                                                w.float().abs())
+        e = (g.float() - w.float()).abs()
+        check(bool((e <= tol).all()),
+              f"{what}: {name} beyond the stated bound of the plain version "
+              f"(max |err| {float(e.max()):.3g})")
+        err = max(err, float(e.max()))
+    return err
+
+
+def k5_bwd_bound(B: int, H: int, KV: int, S: int, T: int, hd: int,
+                 causal: bool, dtype_bytes: int):
+    """Least time of K5's backward: per visible (query, key) pair, the
+    scores once (2 hd, at the bf16 tensor-core rate for bf16 inputs, whose
+    products are exact in float32, else the float32 rate) and dO v, dS k,
+    dS^T q and P^T dO (8 hd on float32 operands, at the float32 rate); or
+    q, k, v read and dq, dk, dv written in their dtype, out and dout read
+    in float32, once."""
+    pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
+    qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+    t_ops = (2.0 * hd * pairs / qk_rate
+             + 8.0 * hd * pairs / FP32_OPS_PER_S) * 1e3
+    t_bytes = (2 * dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
+               + 2 * 4 * B * H * S * hd) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_bwd_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows):
+    """Least time of K4's backward (dx = dout w^T, dw = x^T dout) with
+    ``rows`` (E counts): 2 sum(rows) D F operations each at the bf16
+    tensor-core rate (the float32 rate for float32), or the live rows of
+    dout and x, the weights of the experts with rows > 0 read and all of
+    dx and dw written, once."""
+    counts = [min(max(int(r), 0), C) for r in rows]
+    live, used = sum(counts), sum(1 for r in counts if r > 0)
+    rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+    t_ops = 2 * 2.0 * live * D * F / rate * 1e3
+    t_bytes = dtype_bytes * (live * (F + D) + used * D * F + E * C * D
+                             + E * D * F) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def seg_bwd_products(torch, dout, x, w, rows):
+    """The two products of K4's backward as K4 calls: (dout, w^T, rows)
+    for dx and (x^T, dout) for dw, x and dout zeroed past ``rows``."""
+    live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+            < rows.long()[:, None, None])
+    xz = torch.where(live, x, x.new_zeros(()))
+    dz = torch.where(live, dout, dout.new_zeros(()))
+    return ((dout, w.transpose(1, 2).contiguous(), rows),
+            (xz.transpose(1, 2).contiguous(), dz, None))
+
+
+def plain_seg_bwd(torch, dout, x, w, rows):
+    """The plain version of ``segment_matmul_backward`` on the card's
+    tensors: the same operands, ``ref.segment_matmul`` for each product."""
+    from repro_torch.kernels import ref
+    return tuple(ref.segment_matmul(*args)
+                 for args in seg_bwd_products(torch, dout, x, w, rows))
+
+
+def check_seg_bwd(torch, k4, what: str, got, dout, x, w, rows) -> float:
+    """K4's backward against its plain version: each of its two products
+    within ``check_segment_matmul``'s bound (dw's contraction runs over
+    the live rows only: x and dout zeroed past ``rows``)."""
+    return max(check_segment_matmul(torch, f"{what} {name}", g, *args)
+               for name, g, args in zip(
+                   ("dx", "dw"), got,
+                   seg_bwd_products(torch, dout, x, w, rows)))
+
+
+def train_kernel_phase(torch, k4, k5) -> dict:
+    """K5's backward kernels against their plain version at the training
+    shape (B 4, H 16, S 512, hd 128, bf16 through the model's
+    ``[B, S, H, hd]`` views, and float32), at an odd S (445) and hd 64,
+    causal, and with 2 query heads a KV head; K4's backward (dx and dw, two
+    K4 launches) against its plain version at OLMoE's expert products with
+    8 replica slots (E 72, D 2048, F 1024 and back, C 320: the training
+    capacity) and C 20 (the 2-layer slice's), ragged rows and NaN in x past
+    them; the forward's outputs the backward is fed are held against K5's
+    plain version too.  Returns the largest error of each."""
+    errs = {"flash_attention_bwd": 0.0, "segment_matmul_backward": 0.0,
+            "flash_attention": 0.0}
+    seed = 200
+    for B, H, KV, S, hd, dtype, views in (
+            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.bfloat16, True),
+            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.float32, True),
+            (2, 6, 3, 445, 64, torch.bfloat16, False),
+            (2, 6, 3, 445, 64, torch.float32, False)):
+        seed += 3
+        shapes = [(B, S, h, hd) if views else (B, h, S, hd)
+                  for h in (H, KV, KV)]
+        q, k, v = (randn(torch, seed + i, s, dtype) for i, s in
+                   enumerate(shapes))
+        if views:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        scale = hd ** -0.5
+        what = (f"flash_attention_bwd B={B} H={H} KV={KV} S={S} hd={hd} "
+                f"{dtype}{' views' if views else ''}")
+        route = "wgmma" if dtype == torch.bfloat16 and hd == 128 else "fma"
+        out = k5_call(k5, what, route, q, k, v, causal=True, scale=scale)
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, f"{what} (the forward)", out, q, k, v, True, scale))
+        dout = randn(torch, seed + 9, (B, H, S, hd), torch.float32)
+        before = k5.flash_attention_bwd.launches
+        got = k5.flash_attention_bwd(q, k, v, out, dout, causal=True,
+                                     scale=scale)
+        check(k5.flash_attention_bwd.launches == before + 2,
+              f"{what}: not two launches (flash_bwd_dq, flash_bwd_dkv)")
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, k5.flash_attention_bwd(q, k, v, out, dout, causal=True,
+                                        scale=scale))),
+              f"{what}: two calls give other bits")
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"],
+            check_flash_bwd(torch, what, got, q, k, v, out, dout, True,
+                            scale))
+        del q, k, v, out, dout, got
+    for E, C, D, F in ((72, 320, 2048, 1024), (72, 320, 1024, 2048),
+                       (72, 20, 2048, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            seed += 3
+            x = randn(torch, seed, (E, C, D), dtype, 0.5)
+            w = randn(torch, seed + 1, (E, D, F), dtype, D ** -0.5)
+            dout = randn(torch, seed + 2, (E, C, F), dtype)
+            rows = k4_rows_cases(torch, E, C, seed)[3][1]
+            dead = (torch.arange(C, device="cuda")[None, :]
+                    >= rows.long()[:, None])
+            x = x.masked_fill(dead[..., None], float("nan"))
+            what = f"segment_matmul_backward E={E} C={C} D={D} F={F} {dtype}"
+            before = k4.segment_matmul_backward.launches
+            got = k4.segment_matmul_backward(dout, x, w, rows)
+            check(k4.segment_matmul_backward.launches == before + 2,
+                  f"{what}: not two K4 launches")
+            errs["segment_matmul_backward"] = max(
+                errs["segment_matmul_backward"],
+                check_seg_bwd(torch, k4, what, got, dout, x, w, rows))
+            del x, w, dout, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"train kernels: flash_attention_bwd within the stated bound of its "
+        f"plain version at B={TRAIN_B} H=16 S={TRAIN_S} hd=128 (bf16 from "
+        f"[B, S, H, hd] views, float32) and S=445 hd=64 rep 2, the same bits "
+        f"from two calls (max |err| {errs['flash_attention_bwd']:.3g}; the "
+        f"forward fed to it {errs['flash_attention']:.3g}); "
+        f"segment_matmul_backward within check_segment_matmul's bound at "
+        f"E=72 D/F 2048/1024 both ways, C 320 and 20, bf16 and float32, "
+        f"ragged rows with NaN past them (max |err| "
+        f"{errs['segment_matmul_backward']:.3g})")
+    return errs
+
+
+def train_config(torch):
+    """The training path's model, its training config and its batch: the
+    published OLMoE-1B-7B widths at TRAIN_LAYERS layers with TRAIN_SLOTS
+    spare replica slots, bf16 compute, remat, the balancer on 4 shards;
+    TRAIN_B x TRAIN_S tokens from ``SkewAwarePipeline`` fed
+    ``zipf_doc_lengths``, as ``launch/train.py`` builds a batch."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_balancer import MoEBalancerConfig
+    from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
+                                  zipf_doc_lengths)
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              n_layers=TRAIN_LAYERS,
+                              moe_replica_slots=TRAIN_SLOTS)
+    tc = TrainConfig(
+        opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                        total_steps=TRAIN_STEPS),
+        remat=True,
+        moe_balancer=MoEBalancerConfig(
+            n_experts=cfg.n_experts, n_slots=cfg.n_experts + TRAIN_SLOTS,
+            n_shards=4, min_steps_between=2))
+    pipe = SkewAwarePipeline(PipelineConfig(
+        seq_len=TRAIN_S, batch_per_shard=max(TRAIN_B // 8, 1), n_shards=8,
+        vocab=cfg.vocab))
+    pipe.ingest(zipf_doc_lengths(64, TRAIN_S, seed=0))
+    nb = pipe.next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
+             for k in ("tokens", "labels")}
+    return cfg, tc, batch
+
+
+def replicas_equal(torch, tr) -> int:
+    """Check that every replica slot holds its primary's weights, bit for
+    bit, in every layer; returns the number of replica slots."""
+    n = 0
+    for li, (bal, block) in enumerate(zip(tr.balancers, tr.params["blocks"])):
+        for s, m in enumerate(bal.grad_merge_map()):
+            if m == s:
+                continue
+            n += 1
+            for name in ("w_gate", "w_up", "w_down"):
+                check(torch.equal(block["moe"][name][s],
+                                  block["moe"][name][m]),
+                      f"train: layer {li} slot {s}'s {name} differs from "
+                      f"its primary's (slot {m})")
+    return n
+
+
+def train_phase(torch, k4, k5):
+    """TRAIN_STEPS steps of the training path on one repeated batch, a hot
+    expert planted in every layer's router (``tests/test_moe_balancer.py``'s
+    ``_skewed_moe``), every kernel's count set to 0 just before and read
+    just after.  Requires a finite loss, lower at the last step than the
+    first; an ``sbr_replicate``; every replica equal to its primary after
+    every step; K4's forward launches 3 a layer per forward run (twice a
+    step under remat), its backward 6 a layer a step, all on its tiles
+    kernel; K5's forward one a layer per forward run on its wgmma kernel
+    and its backward two a layer a step (``flash_bwd_dq``, then
+    ``flash_bwd_dkv``).  Returns (launches, a summary, the recorders, whose
+    ``first`` holds the first call of each kernel at each shape)."""
+    from repro_torch.train import Trainer
+    from repro_torch.train import optimizer as topt
+
+    cfg, tc, batch = train_config(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, seed=0, device="cuda")
+    for block in tr.params["blocks"]:
+        block["moe"]["router"][:, TRAIN_HOT] += TRAIN_BOOST
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(tr.params))
+
+    update = topt.update
+    spent = [0.0, 0]
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - start
+        spent[1] += 1
+        return out
+
+    names = [(k4, "segment_matmul"), (k4, "segment_matmul_backward"),
+             (k5, "flash_attention"), (k5, "flash_attention_bwd")]
+    route_tables = {"segment_matmul": k4.routes,
+                    "segment_matmul_backward": k4.bwd_routes,
+                    "flash_attention": k5.routes}
+    recs = {name: Recorder(mod, name) for mod, name in names}
+    for mod, name in names:
+        getattr(mod, name).launches = 0
+    before = {n: dict(t) for n, t in route_tables.items()}
+    losses, times = [], []
+    with contextlib.ExitStack() as stack:
+        for rec in recs.values():
+            stack.enter_context(rec)
+        stack.enter_context(StandIn(topt, "update", timed_update))
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            losses.append(m["loss"])
+            check(math.isfinite(m["loss"]),
+                  f"train: non-finite loss at step {step}")
+            n_replicas = replicas_equal(torch, tr)
+            log(f"train: step {step}: loss {m['loss']:.5f}, dropped "
+                f"{m['dropped_frac']:.4f}, representativeness "
+                f"{m['representativeness']:.4f}, {times[-1]:.3f} s, "
+                f"{n_replicas} replica slots equal to their primaries")
+    launches = {name: getattr(mod, name).launches for mod, name in names}
+    routes = {n: {r: t[r] - before[n][r] for r in t if t[r] > before[n][r]}
+              for n, t in route_tables.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    events = [e for b in tr.balancers for e in b.state.events]
+    L, S = cfg.n_layers, TRAIN_STEPS
+    want = {"segment_matmul": {"tiles": 3 * L * 2 * S},
+            "segment_matmul_backward": {"tiles": 6 * L * S},
+            "flash_attention": {"wgmma": L * 2 * S}}
+    for name, by_route in want.items():
+        check(launches[name] == sum(by_route.values())
+              and routes[name] == by_route,
+              f"train: {name} launched {launches[name]} times by route "
+              f"{routes[name]} over {S} steps of {L} layers, not "
+              f"{by_route} (remat runs each forward twice a step)")
+    check(launches["flash_attention_bwd"] == 2 * L * S,
+          f"train: flash_attention_bwd launched "
+          f"{launches['flash_attention_bwd']} kernels over {S} steps of {L} "
+          f"layers, not {2 * L * S} (two a layer a step)")
+    check(losses[-1] < losses[0],
+          f"train: the loss did not fall ({losses[0]:.5f} -> "
+          f"{losses[-1]:.5f})")
+    check(any(e.kind == "sbr_replicate" for e in events),
+          "train: the balancer never replicated the hot expert")
+    bytes_migrated = sum(b.state.bytes_migrated for b in tr.balancers)
+    tokens = TRAIN_B * TRAIN_S
+    steady = times[1:]
+    summary = dict(
+        n_params=n_params, init_s=init_s, losses=losses, times=times,
+        step_s=sum(steady) / len(steady), tokens=tokens,
+        update_s=spent[0] / max(spent[1], 1), peak_gib=peak,
+        events=[(e.tick, e.kind) for e in events], routes=routes,
+        bytes_migrated=bytes_migrated, n_layers=L)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, summary, recs
+
+
+def train_replay_phase(torch, k4, k5, recs):
+    """K4 and K5, forward and backward, against their plain versions on
+    the inputs the training path gave them (each recorder's first call at
+    each shape), each on the route the path took; the backward timed
+    beside the plain version, the library's (``torch.bmm`` for dx and dw;
+    SDPA's backward through ``torch.autograd.grad``, a yardstick never on
+    the path) and the bound, the forward logged beside its own.  Then K5's
+    backward at OLMoE's context, 1 x 4096 tokens through the model's views,
+    checked and timed alike (a shape the path does not run).  Returns (max
+    errors, the JSON records' numbers per kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    errs = dict.fromkeys(recs, 0.0)
+    main = {}
+    for key, ((x, w, rows), _) in recs["segment_matmul"].first.items():
+        E, C, D = x.shape
+        Fo = w.shape[2]
+        what = (f"segment_matmul on the training path's x {(E, C, D)} w "
+                f"{(E, D, Fo)}")
+        before = dict(k4.routes)
+        got = k4.segment_matmul(x, w, rows)
+        took = [r for r in k4.ROUTES if k4.routes[r] > before[r]]
+        check(took == ["tiles"], f"{what}: ran {took}, not the path's tiles")
+        errs["segment_matmul"] = max(errs["segment_matmul"],
+                                     check_segment_matmul(torch, what, got, x,
+                                                          w, rows))
+        t = time_k4(torch, k4, x, w, 10, rows)
+        log(f"replay: {what} (rows sum {int(rows.sum())} of {E * C}): "
+            f"{t[0]:.5f} ms (plain {t[1]:.5f} ms, torch.bmm {t[2]:.5f} ms, "
+            f"live bound {t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of "
+            f"it)")
+    for key, ((q, k, v), kw) in recs["flash_attention"].first.items():
+        what = f"flash_attention on the training path's q {tuple(q.shape)}"
+        scale = kw.get("scale")
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, k5_call(k5, what, "wgmma", q, k, v, **kw), q, k, v,
+            kw.get("causal", True), scale))
+        t = time_k5(torch, k5, q, k, v, 20)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
+            f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms "
+            f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+    for key, ((dout, x, w, rows), _) in (
+            recs["segment_matmul_backward"].first.items()):
+        E, C, D = x.shape
+        Fo = w.shape[2]
+        what = (f"segment_matmul_backward on the training path's x "
+                f"{(E, C, D)} w {(E, D, Fo)}")
+        errs["segment_matmul_backward"] = max(
+            errs["segment_matmul_backward"], check_seg_bwd(
+                torch, k4, what, k4.segment_matmul_backward(dout, x, w, rows),
+                dout, x, w, rows))
+        ms = time_ms(torch, k4.segment_matmul_backward, (dout, x, w, rows),
+                     10)
+        plain_ms = time_ms(torch, lambda *a: plain_seg_bwd(torch, *a),
+                           (dout, x, w, rows), 3)
+        lib_ms = time_ms(torch, lambda d, x, w: (
+            torch.bmm(d, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), d)),
+            (dout, x, w), 10)
+        b_ms, b_by = k4_bwd_bound(E, C, D, Fo, x.element_size(),
+                                  rows.tolist())
+        log(f"replay: {what} (rows sum {int(rows.sum())} of {E * C}): "
+            f"{ms:.5f} ms a call of two launches (plain {plain_ms:.5f} ms, "
+            f"torch.bmm for dx and dw {lib_ms:.5f} ms, bound {b_ms:.5f} ms "
+            f"by {b_by}, {100 * b_ms / ms:.1f}% of it)")
+        if D > Fo and "segment_matmul_backward" not in main:
+            main["segment_matmul_backward"] = (ms, plain_ms, lib_ms, b_ms,
+                                               b_by)
+    # OLMoE's context in the model's [B, S, H, hd] layout, one sequence.
+    q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, 16, 128), torch.bfloat16)
+                   .transpose(1, 2) for i in range(3))
+    long_ctx = ((q4, k4_, v4, k5.flash_attention(q4, k4_, v4, causal=True),
+                 randn(torch, 93, (1, 16, 4096, 128), torch.float32)),
+                {"causal": True})
+    firsts = list(recs["flash_attention_bwd"].first.values())
+    for i, ((q, k, v, out, dout), kw) in enumerate(firsts + [long_ctx]):
+        B, H, S, hd = q.shape
+        KV, T = k.shape[1], k.shape[2]
+        what = (f"flash_attention_bwd on the training path's q "
+                f"{tuple(q.shape)}" if i < len(firsts) else
+                f"flash_attention_bwd at OLMoE's context, q {tuple(q.shape)}")
+        causal, scale = kw.get("causal", True), kw.get("scale")
+        scale = hd ** -0.5 if scale is None else scale
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"], check_flash_bwd(
+                torch, what, k5.flash_attention_bwd(q, k, v, out, dout, **kw),
+                q, k, v, out, dout, causal, scale))
+        ms = time_ms(torch, lambda *a: k5.flash_attention_bwd(*a, **kw),
+                     (q, k, v, out, dout), 10)
+        plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(*a, **kw),
+                           (q, k, v, out, dout), 3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              scale=scale)
+        g = dout.to(sdpa.dtype)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), g, retain_graph=True), (), 10)
+        b_ms, b_by = k5_bwd_bound(B, H, KV, S, T, hd, causal,
+                                  q.element_size())
+        log(f"replay: {what}: {ms:.5f} ms (plain {plain_ms:.5f} ms, SDPA's "
+            f"backward {lib_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it)")
+        if i < len(firsts):
+            main.setdefault("flash_attention_bwd", (ms, plain_ms, lib_ms,
+                                                    b_ms, b_by))
+        del sdpa, qg, kg, vg
+    del long_ctx, q4, k4_, v4
+    torch.cuda.empty_cache()
+    return errs, main
+
+
+def train_slice_model(torch, seed: int):
+    """OLMoE-1B-7B at full width and TRAIN_SLICE_LAYERS layers, float32
+    compute (K4 and K5 on their fma routes), TRAIN_SLOTS replica slots and
+    a split routing table (expert 0 over its slot and the first spare, at
+    0.6 / 0.4, every layer), weights from ``seed`` on the card and a copy
+    on the host, and a TRAIN_SLICE_B x TRAIN_SLICE_S batch from
+    ``seed + 1``.  Returns (cfg, card params, host params, batch,
+    routing)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              n_layers=TRAIN_SLICE_LAYERS,
+                              moe_replica_slots=TRAIN_SLOTS,
+                              compute_dtype="float32")
+    gpu = init_params(cfg, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_SLICE_B, TRAIN_SLICE_S))) for k in
+        ("tokens", "labels")}
+    E, P = cfg.n_experts, cfg.n_experts + TRAIN_SLOTS
+    routing = torch.zeros((cfg.n_layers, E, P))
+    routing[:, torch.arange(E), torch.arange(E)] = 1.0
+    routing[:, 0, 0], routing[:, 0, E] = 0.6, 0.4
+    return cfg, gpu, _to_cpu(gpu), batch, routing
+
+
+def train_slice_grads(torch, cfg, params, batch, routing, dev: str):
+    """(loss, gradient leaves) of one ``loss_fn`` on ``dev``, on the host
+    as float32."""
+    from repro_torch.models import model as tm
+    from repro_torch.tree import leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = tm.loss_fn(live, cfg, {k: v.to(dev) for k, v in batch.items()},
+                         remat=True, moe_routing=routing.to(dev))
+    grads = torch.autograd.grad(loss, leaves(live))
+    return loss.item(), [g.float().cpu() for g in grads]
+
+
+def train_slice_compare(card, host):
+    """|loss difference| and, over every gradient leaf, the largest
+    max |card - host| relative to the leaf's largest host entry."""
+    (lc, gc), (lh, gh) = card, host
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(gc, gh))
+    return dict(loss_err=abs(lc - lh), grad_rel=rel, loss=lh,
+                leaves=len(gh))
+
+
+def train_slice_phase(torch):
+    """The training path's gradient at 2 layers, card against host: one
+    ``loss_fn`` gradient of the same weights (seed 0) and batch through
+    K4's and K5's forward and backward on the card, and through their
+    plain versions on the host.  The loss must agree within
+    TRAIN_SLICE_LOSS_TOL and every gradient leaf within TRAIN_SLICE_TOL of
+    its largest entry.  Returns a summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    cfg, gpu, cpu, batch, routing = train_slice_model(torch, 0)
+    tables = (ksm.routes, ksm.bwd_routes, kfa.routes)
+    before = [dict(t) for t in tables]
+    bwd = kfa.flash_attention_bwd.launches
+    card = train_slice_grads(torch, cfg, gpu, batch, routing, "cuda")
+    took = [{r: t[r] - b[r] for r in t if t[r] > b[r]}
+            for t, b in zip(tables, before)]
+    bwd = kfa.flash_attention_bwd.launches - bwd
+    check(all(set(t) == {"fma"} for t in took)
+          and bwd == 2 * TRAIN_SLICE_LAYERS,
+          f"train slice: the card side ran K4 / K4 backward / K5 on {took}, "
+          f"not all on their fma routes, or K5's backward launched {bwd} "
+          f"kernels, not {2 * TRAIN_SLICE_LAYERS}")
+    t0 = time.perf_counter()
+    host = train_slice_grads(torch, cfg, cpu, batch, routing, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
+                                         for g in card[1]),
+          "train slice: non-finite loss or gradient on the card")
+    r = train_slice_compare(card, host)
+    check(r["loss_err"] <= TRAIN_SLICE_LOSS_TOL,
+          f"train slice: card and host losses differ by {r['loss_err']:.3g} "
+          f"(> {TRAIN_SLICE_LOSS_TOL})")
+    check(r["grad_rel"] <= TRAIN_SLICE_TOL,
+          f"train slice: a gradient leaf differs by {r['grad_rel']:.3g} of "
+          f"its largest entry (> {TRAIN_SLICE_TOL})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def train_planted_faults(ksm, kfa):
+    """Faults planted in the backward on the card's side of the train
+    slice, each a stand-in that still launches the kernel: (name, module,
+    wrapper name, stand-in)."""
+    k4b, k5b = ksm.segment_matmul_backward, kfa.flash_attention_bwd
+
+    def d_dropped(q, k, v, out, dout, **kw):
+        return k5b(q, k, v, out.new_zeros(()).expand_as(out).contiguous(),
+                   dout, **kw)
+
+    def mask_off(q, k, v, out, dout, causal=True, scale=None):
+        return k5b(q, k, v, out, dout, causal=False, scale=scale)
+
+    def last_f_dropped(dout, x, w, rows=None):
+        dout = dout.clone()
+        dout[:, :, -1] = 0
+        return k4b(dout, x, w, rows)
+
+    def last_row_dropped(dout, x, w, rows=None):
+        return k4b(dout, x, w, None if rows is None else (rows - 1).clamp(
+            min=0).to(rows.dtype))
+
+    return [("K5 backward drops D", kfa, "flash_attention_bwd", d_dropped),
+            ("K5 backward mask off", kfa, "flash_attention_bwd", mask_off),
+            ("K4 backward drops the last of F's terms", ksm,
+             "segment_matmul_backward", last_f_dropped),
+            ("K4 backward drops each expert's last row", ksm,
+             "segment_matmul_backward", last_row_dropped)]
+
+
+def train_slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings TRAIN_SLICE_TOL and TRAIN_SLICE_LOSS_TOL are set from:
+    at each seed, the card against the host, sound and with each planted
+    fault on the card's side (the serve slice's in K4's and K5's forward,
+    and the backward's)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    runs = {}
+    for seed in seeds:
+        cfg, gpu, cpu, batch, routing = train_slice_model(torch, seed)
+        host = train_slice_grads(torch, cfg, cpu, batch, routing, "cpu")
+        for name, stand_in in [("sound", None)] + [
+                (n, StandIn(m, a, f))
+                for n, m, a, f in (planted_faults(ksm, kfa)
+                                   + train_planted_faults(ksm, kfa))]:
+            with (stand_in or contextlib.nullcontext()):
+                card = train_slice_grads(torch, cfg, gpu, batch, routing,
+                                         "cuda")
+            r = train_slice_compare(card, host)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: train slice seed {seed}: {name}: |loss diff| "
+                f"{r['loss_err']:.3g} (loss {r['loss']:.5f}), gradients "
+                f"within {r['grad_rel']:.3g} of each leaf's largest entry "
+                f"over {r['leaves']} leaves")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: train slice {name} over seeds {list(seeds)}: |loss "
+            f"diff| up to {max(r['loss_err'] for r in rs):.3g}, gradients "
+            f"{min(r['grad_rel'] for r in rs):.3g} to "
+            f"{max(r['grad_rel'] for r in rs):.3g}")
+    log(f"readings: train slice limits: TRAIN_SLICE_TOL {TRAIN_SLICE_TOL}, "
+        f"TRAIN_SLICE_LOSS_TOL {TRAIN_SLICE_LOSS_TOL}")
+    return runs
+
+
+def log_train(tn, launches, smi: str) -> None:
+    log(f"train: OLMoE-1B-7B at full width, {tn['n_layers']} layers, "
+        f"{TRAIN_SLOTS} replica slots ({tn['n_params']:,} float32 params "
+        f"from seed 0 in {tn['init_s']:.1f} s), batch {TRAIN_B} x {TRAIN_S}, "
+        f"{TRAIN_STEPS} steps with remat: loss {tn['losses'][0]:.5f} -> "
+        f"{tn['losses'][-1]:.5f}; {tn['step_s']:.4f} s a step after the "
+        f"first ({tn['times'][0]:.3f} s), {tn['tokens'] / tn['step_s']:.1f} "
+        f"tokens/s, the AdamW update {tn['update_s']:.4f} s a step "
+        f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
+        f"{tn['peak_gib']:.2f} GiB; balancer events {tn['events']}, "
+        f"{tn['bytes_migrated'] / 2**20:.1f} MiB migrated; launches "
+        f"{launches} by route {tn['routes']} | {smi}")
+
+
+# --------------------------------------------------------------------- #
 # Readings: ``python3 chip_smoke.py --readings``                          #
 # --------------------------------------------------------------------- #
 def planted_faults(ksm, kfa):
@@ -3159,6 +3876,7 @@ def readings() -> int:
     decode_readings(torch)
     rwkv_slice_readings(torch)
     rwkv_decode_readings(torch)
+    train_slice_readings(torch)
     log(f"readings: done in {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -3200,6 +3918,74 @@ def armed() -> int:
         log(f"armed: {label}: {wf.engine.tick} ticks, "
             f"{wf.engine.super_ticks} super-ticks, wall {wall:.3f} s "
             f"({parts or 'no timed calls'})")
+    return 0
+
+
+def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
+    """Phase 10 after its kernel checks: the training path, the kernels
+    replayed on its inputs, the 2-layer slice.  Returns (the JSON records
+    of K5's and K4's backward, the largest errors of K4's and K5's forward
+    in this phase)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, tn, recs = train_phase(torch, kseg, kfa)
+    log_train(tn, launches, smi)
+    errs, tmain = train_replay_phase(torch, kseg, kfa, recs)
+    del recs
+    sl = train_slice_phase(torch)
+    log(f"train slice: OLMoE-1B-7B at {TRAIN_SLICE_LAYERS} layers, float32, "
+        f"{TRAIN_SLOTS} replica slots and a split table, a {TRAIN_SLICE_B} x "
+        f"{TRAIN_SLICE_S} batch, card vs host: |loss diff| "
+        f"{sl['loss_err']:.3g} (allowed {TRAIN_SLICE_LOSS_TOL}; loss "
+        f"{sl['loss']:.5f}), every one of {sl['leaves']} gradient leaves "
+        f"within {sl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{TRAIN_SLICE_TOL}); host side {sl['cpu_s']:.2f} s")
+    log(f"train: phase in {time.perf_counter() - t0:.1f} s")
+    records = []
+    for name, src, replaces in (
+            ("flash_attention_bwd", "flash_attention",
+             "src/repro/kernels/flash_attention.py:72"),
+            ("segment_matmul_backward", "segment_matmul",
+             "src/repro/kernels/segment_matmul.py:35")):
+        ms, plain_ms, lib_ms, b_ms, b_by = tmain[name]
+        records.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=max(kernel_errs[name], errs[name]), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+    return records, {"segment_matmul": errs["segment_matmul"],
+                     "flash_attention": max(kernel_errs["flash_attention"],
+                                            errs["flash_attention"])}
+
+
+def train_only() -> int:
+    """``--train``: build, then phase 10 alone (the backward kernels'
+    checks, the training path, its replay and the slice).  Not part of the
+    smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as kseg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    _build.build(("segment_matmul", "flash_attention"))
+    errs = train_kernel_phase(torch, kseg, kfa)
+    print(json.dumps({"kernels": train_phases(torch, kseg, kfa, errs,
+                                               smi)[0]}))
     return 0
 
 
@@ -3245,6 +4031,7 @@ def main() -> int:
     check_sass()
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
+    train_errs = train_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
     ctrl_kernel_phase(torch, kctrl, ref, tdev)
     t0 = time.perf_counter()
@@ -3325,6 +4112,11 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
     records.append(ctrl_record)
+    train_records, fwd_errs = train_phases(torch, kseg, kfa, train_errs, smi)
+    for rec in records:
+        if rec["name"] in fwd_errs:
+            rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
+    records += train_records
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -3334,5 +4126,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--readings": readings, "--armed": armed}.get(
+    sys.exit({"--readings": readings, "--armed": armed,
+              "--train": train_only}.get(
         " ".join(sys.argv[1:]), main)())

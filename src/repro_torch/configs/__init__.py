@@ -31,6 +31,8 @@ _MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "llama3.2-3b": "llama3_2_3b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "yi-6b": "yi_6b",
+    "granite-8b": "granite_8b",
 }
 
 #: The architectures the port serves.

@@ -11,8 +11,8 @@ Layout:
   state_migration.py  mutability -> migration strategy (Fig. 10, §5)
   controller.py       the periodic controller tying it all together
   ops.py              tensor twins of the routing rule (plain PyTorch)
-
-Not ported yet from ``repro.core``: moe_balancer.py.
+  moe_balancer.py     Reshape on MoE expert routing (SBK migration, SBR
+                      replication of a hot expert)
 """
 from .types import (
     MigrationStrategy,

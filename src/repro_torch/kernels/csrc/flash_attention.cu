@@ -424,6 +424,303 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the backward: float32 on the CUDA cores ------------------------------
+// dQ, dK and dV of out = softmax(scale q k^T) v (masked as the forward),
+// given out (the forward's float32 output) and dO = dL/d out (float32):
+//   P = exp(s - lse) with s = (scale q) . k and lse = m + log(l) of the row,
+//   D_i = sum_d dO[i, d] out[i, d],  dS = P (dO v^T - D),
+//   dQ = scale dS k,  dK = dS^T (scale q),  dV = P^T dO,
+// dK and dV summed over the rep query heads of a KV head.  Two kernels, no
+// atomics, so a run's bits do not depend on the schedule:
+//   flash_bwd_dq   a block a (b, h, 64 query rows): the forward's first pass
+//                  again for m and l, D_i from dO and out, then a pass over
+//                  the visible key tiles that recomputes P and dS and sums
+//                  dQ in registers; it writes dQ and the rows' lse and D to
+//                  a float32 workspace [2][B H S];
+//   flash_bwd_dkv  a block a (b, KV head, 64 key rows): for each query head
+//                  of the group, each visible query tile (causal: from the
+//                  diagonal down), P^T and dS^T from the workspace's lse
+//                  and D, dV and dK summed in registers, written once.
+// Four threads own a row (dq: a query, dkv: a key), each 16 of the tile's
+// 64 scores and every fourth of hd's columns, as in flash_fma; the tiles
+// sit in shared memory as float32 rows padded by one word.  Per visible
+// (query, key) pair this design does 16 hd operations, all float32 on the
+// CUDA cores (67 TFLOP/s): 8 hd in the dq kernel (two score passes, dO v,
+// dS k) and 8 hd in the dkv kernel (the score, dO v, P dO, dS q).  Its
+// bound is the least work instead: the scores once (2 hd, at the bf16
+// tensor-core rate for bf16 inputs, whose products are exact in float32)
+// and dO v, dS k, dS^T q, P^T dO (8 hd at the float32 rate); or q, k, v,
+// out and dO read once and dq, dk, dv written once (3.35 TB/s).  At the
+// training shape (B 4, H 16, S 512, hd 128) the operations bound it.
+constexpr int kBB = 64;               // rows a tile, both kernels
+constexpr int kBThreads = 256;
+
+template <int HD>
+constexpr size_t bwd_dq_smem() {
+  return sizeof(float) * (4 * kBB * (HD + 1) + kBB * (kBB + 1));
+}
+
+template <int HD>
+constexpr size_t bwd_dkv_smem() {
+  return sizeof(float) * (4 * kBB * (HD + 1) + 2 * kBB * (kBB + 1) + 2 * kBB);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const float* __restrict__ o,
+             const float* __restrict__ dout, T* __restrict__ dq,
+             float* __restrict__ ws, Strides st, int S, int T_len, int H,
+             int rep, float scale, int causal, int BHS) {
+  constexpr int LD = HD + 1;
+  constexpr int LP = kBB + 1;
+  constexpr int DPT = HD / 4;
+  constexpr int SPT = kBB / 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [kBB][LD], scale q
+  float* dOs = Qs + kBB * LD;        // [kBB][LD]
+  float* Ks = dOs + kBB * LD;        // [kBB][LD]
+  float* Vs = Ks + kBB * LD;         // [kBB][LD]
+  float* Ps = Vs + kBB * LD;         // [kBB][LP], dS
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int t = tid & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBB;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / rep;
+  const T* qp = q + b * st.q[0] + h * st.q[1];
+  const T* kp = k + b * st.k[0] + kvh * st.k[1];
+  const T* vp = v + b * st.v[0] + kvh * st.v[1];
+  const size_t row0 = static_cast<size_t>(bh) * S;   // rows of out, dO, dq
+
+  for (int i = tid; i < kBB * HD; i += kBThreads) {
+    const int rr = i / HD, c = i % HD;
+    const int qi = q0 + rr;
+    const bool in = qi < S;
+    Qs[rr * LD + c] = in ? to_float(qp[qi * st.q[2] + c]) * scale : 0.0f;
+    dOs[rr * LD + c] = in ? dout[(row0 + qi) * HD + c] : 0.0f;
+  }
+  const int qrow = q0 + r;
+  const int kv_end = causal ? min(T_len, q0 + kBB) : T_len;
+
+  // Pass 1: the row's max and sum, as the forward takes them.
+  float m = kNegInf, l = 0.0f;
+  for (int k0 = 0; k0 < kv_end; k0 += kBB) {
+    __syncthreads();
+    for (int i = tid; i < kBB * HD; i += kBThreads) {
+      const int rr = i / HD, c = i % HD;
+      const int kj = k0 + rr;
+      Ks[rr * LD + c] = kj < T_len ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
+    }
+    __syncthreads();
+    float s[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) s[j] = 0.0f;
+    for (int d = 0; d < HD; ++d) {
+      const float qd = Qs[r * LD + d];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j)
+        s[j] = fmaf(qd, Ks[(t + 4 * j) * LD + d], s[j]);
+    }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int kj = k0 + t + 4 * j;
+      const bool ok = kj < T_len && (!causal || kj <= qrow);
+      s[j] = ok ? s[j] : kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int kj = k0 + t + 4 * j;
+      psum += kj < T_len ? expf(s[j] - mx) : 0.0f;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l = l * expf(m - mx) + psum;
+    m = mx;
+  }
+  const float lse = m + logf(fmaxf(l, 1e-20f));
+  float dd = 0.0f;
+  if (qrow < S) {
+    const float* orow = o + (row0 + qrow) * HD;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c)
+      dd = fmaf(dOs[r * LD + t + 4 * c], orow[t + 4 * c], dd);
+  }
+  dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+  dd += __shfl_xor_sync(0xffffffffu, dd, 2);
+  if (qrow < S && t == 0) {
+    ws[row0 + qrow] = lse;
+    ws[BHS + row0 + qrow] = dd;
+  }
+
+  // Pass 2: dS row by row, dQ += dS k.
+  float acc[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.0f;
+  for (int k0 = 0; k0 < kv_end; k0 += kBB) {
+    __syncthreads();
+    for (int i = tid; i < kBB * HD; i += kBThreads) {
+      const int rr = i / HD, c = i % HD;
+      const int kj = k0 + rr;
+      const bool in = kj < T_len;
+      Ks[rr * LD + c] = in ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
+      Vs[rr * LD + c] = in ? to_float(vp[kj * st.v[2] + c]) : 0.0f;
+    }
+    __syncthreads();
+    float s[SPT], dp[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.0f;
+    for (int d = 0; d < HD; ++d) {
+      const float qd = Qs[r * LD + d];
+      const float gd = dOs[r * LD + d];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        s[j] = fmaf(qd, Ks[(t + 4 * j) * LD + d], s[j]);
+        dp[j] = fmaf(gd, Vs[(t + 4 * j) * LD + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int kj = k0 + t + 4 * j;
+      const bool ok = qrow < S && kj < T_len && (!causal || kj <= qrow);
+      const float p = ok ? expf(s[j] - lse) : 0.0f;
+      Ps[r * LP + t + 4 * j] = p * (dp[j] - dd);
+    }
+    __syncwarp();      // the row's four threads share one warp
+    for (int j = 0; j < kBB; ++j) {
+      const float ds = Ps[r * LP + j];
+#pragma unroll
+      for (int c = 0; c < DPT; ++c)
+        acc[c] = fmaf(ds, Ks[j * LD + t + 4 * c], acc[c]);
+    }
+  }
+  if (qrow < S) {
+    T* drow = dq + (row0 + qrow) * HD;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) store(drow + t + 4 * c, acc[c] * scale);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBThreads)
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ ws, T* __restrict__ dk,
+              T* __restrict__ dv, Strides st, int S, int T_len, int H,
+              int KV, int rep, float scale, int causal, int BHS) {
+  constexpr int LD = HD + 1;
+  constexpr int LP = kBB + 1;
+  constexpr int DPT = HD / 4;
+  constexpr int SPT = kBB / 4;
+  extern __shared__ float smem[];
+  float* Ks = smem;                  // [kBB][LD]
+  float* Vs = Ks + kBB * LD;         // [kBB][LD]
+  float* Qs = Vs + kBB * LD;         // [kBB][LD], scale q
+  float* dOs = Qs + kBB * LD;        // [kBB][LD]
+  float* Ps = dOs + kBB * LD;        // [kBB keys][LP]: P^T
+  float* Ds = Ps + kBB * LP;         // [kBB keys][LP]: dS^T
+  float* lses = Ds + kBB * LP;       // [kBB]
+  float* dds = lses + kBB;           // [kBB]
+
+  const int tid = threadIdx.x;
+  const int c = tid >> 2;            // key row within the tile
+  const int t = tid & 3;
+  const int k0 = blockIdx.x * kBB;
+  const int bk = blockIdx.y;
+  const int b = bk / KV, kvh = bk % KV;
+  const T* kp = k + b * st.k[0] + kvh * st.k[1];
+  const T* vp = v + b * st.v[0] + kvh * st.v[1];
+
+  for (int i = tid; i < kBB * HD; i += kBThreads) {
+    const int rr = i / HD, cc = i % HD;
+    const int kj = k0 + rr;
+    const bool in = kj < T_len;
+    Ks[rr * LD + cc] = in ? to_float(kp[kj * st.k[2] + cc]) : 0.0f;
+    Vs[rr * LD + cc] = in ? to_float(vp[kj * st.v[2] + cc]) : 0.0f;
+  }
+  const int krow = k0 + c;
+  float adk[DPT], adv[DPT];
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) adk[d] = adv[d] = 0.0f;
+
+  // Causal: query tiles from the one holding the diagonal (tiles align).
+  const int q_start = causal ? k0 : 0;
+  for (int g = 0; g < rep; ++g) {
+    const int h = kvh * rep + g;
+    const T* qp = q + b * st.q[0] + h * st.q[1];
+    const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
+    for (int q0 = q_start; q0 < S; q0 += kBB) {
+      __syncthreads();   // the last tile's readers are done
+      for (int i = tid; i < kBB * HD; i += kBThreads) {
+        const int rr = i / HD, cc = i % HD;
+        const int qi = q0 + rr;
+        const bool in = qi < S;
+        Qs[rr * LD + cc] = in ? to_float(qp[qi * st.q[2] + cc]) * scale
+                              : 0.0f;
+        dOs[rr * LD + cc] = in ? dout[(row0 + qi) * HD + cc] : 0.0f;
+      }
+      if (tid < kBB) {
+        const int qi = q0 + tid;
+        lses[tid] = qi < S ? ws[row0 + qi] : 0.0f;
+        dds[tid] = qi < S ? ws[BHS + row0 + qi] : 0.0f;
+      }
+      __syncthreads();
+      float s[SPT], dp[SPT];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.0f;
+      for (int d = 0; d < HD; ++d) {
+        const float kd = Ks[c * LD + d];
+        const float vd = Vs[c * LD + d];
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          s[j] = fmaf(Qs[(t + 4 * j) * LD + d], kd, s[j]);
+          dp[j] = fmaf(dOs[(t + 4 * j) * LD + d], vd, dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const int i = t + 4 * j;
+        const int qi = q0 + i;
+        const bool ok = qi < S && krow < T_len && (!causal || krow <= qi);
+        const float p = ok ? expf(s[j] - lses[i]) : 0.0f;
+        Ps[c * LP + i] = p;
+        Ds[c * LP + i] = p * (dp[j] - dds[i]);
+      }
+      __syncwarp();    // the key row's four threads share one warp
+      for (int i = 0; i < kBB; ++i) {
+        const float p = Ps[c * LP + i];
+        const float ds = Ds[c * LP + i];
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) {
+          adv[d] = fmaf(p, dOs[i * LD + t + 4 * d], adv[d]);
+          adk[d] = fmaf(ds, Qs[i * LD + t + 4 * d], adk[d]);
+        }
+      }
+    }
+  }
+  if (krow < T_len) {
+    const size_t off = ((static_cast<size_t>(b) * KV + kvh) * T_len + krow)
+                       * HD;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) {
+      store(dk + off + t + 4 * d, adk[d]);
+      store(dv + off + t + 4 * d, adv[d]);
+    }
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 constexpr int kMaxDevices = 64;
 
@@ -509,6 +806,59 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v,
   }
 }
 
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const float* o, const float* dout, void* dq, void* dk,
+                       void* dv, float* ws, int B, int H, int KV, int S,
+                       int T_len, float scale, int causal, const Strides& st,
+                       int device, cudaStream_t stream) {
+  static bool done_dq[kMaxDevices] = {}, done_dkv[kMaxDevices] = {};
+  auto kdq = flash_bwd_dq<T, HD>;
+  auto kdkv = flash_bwd_dkv<T, HD>;
+  cudaError_t err = allow_smem(kdq, bwd_dq_smem<HD>(), device, done_dq);
+  if (err == cudaSuccess)
+    err = allow_smem(kdkv, bwd_dkv_smem<HD>(), device, done_dkv);
+  if (err != cudaSuccess) return err;
+  const int rep = H / KV;
+  const int bhs = B * H * S;
+  kdq<<<dim3((S + kBB - 1) / kBB, B * H), kBThreads, bwd_dq_smem<HD>(),
+        stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), o, dout, static_cast<T*>(dq), ws,
+                  st, S, T_len, H, rep, scale, causal, bhs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kdkv<<<dim3((T_len + kBB - 1) / kBB, B * KV), kBThreads,
+         bwd_dkv_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), dout, ws, static_cast<T*>(dk),
+      static_cast<T*>(dv), st, S, T_len, H, KV, rep, scale, causal, bhs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
+                         const float* o, const float* dout, void* dq,
+                         void* dk, void* dv, float* ws, int B, int H, int KV,
+                         int S, int T_len, int hd, float scale, int causal,
+                         const Strides& st, int device, cudaStream_t s) {
+  switch (hd) {
+    case 16:
+      return launch_bwd<T, 16>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
+                               T_len, scale, causal, st, device, s);
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
+                               T_len, scale, causal, st, device, s);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
+                               T_len, scale, causal, st, device, s);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV,
+                                S, T_len, scale, causal, st, device, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 bool tma_ready(const void* p, const long long (&st)[3]) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st[0] % 8 == 0 &&
          st[1] % 8 == 0 && st[2] % 8 == 0 && st[0] > 0 && st[1] > 0 &&
@@ -565,6 +915,40 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                               causal, st, device, s);
   return dispatch_fma<float>(q, k, v, out, B, H, rep, S, T_len, hd, scale,
                              causal, st, device, s);
+}
+
+// The backward of repro_flash_attention: q, k, v as there (same strides,
+// dtype, hd, causal rule), out and dout [B, H, S, hd] float32 contiguous
+// (the forward's output and the gradient at it), dq [B, H, S, hd] and dk,
+// dv [B, KV, T, hd] contiguous in q's dtype, ws a float32 workspace of
+// 2 B H S; two launches on `stream` (dq, then dk and dv), no atomics.
+// Returns a cudaError_t.
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                              const float* out, const float* dout, void* dq,
+                              void* dk, void* dv, float* ws, int B, int H,
+                              int KV, int S, int T_len, int hd, float scale,
+                              int causal, int dtype,
+                              const long long* strides, int device,
+                              void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || T_len < 1 ||
+      (causal && S != T_len) || (dtype != 0 && dtype != 1) ||
+      static_cast<long long>(B) * H > 65535 ||
+      static_cast<long long>(B) * H * S > (1LL << 30))
+    return cudaErrorInvalidValue;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch_bwd<bf16>(q, k, v, out, dout, dq, dk, dv, ws, B, H, KV, S,
+                              T_len, hd, scale, causal, st, device, s);
+  return dispatch_bwd<float>(q, k, v, out, dout, dq, dk, dv, ws, B, H, KV, S,
+                             T_len, hd, scale, causal, st, device, s);
 }
 
 }  // extern "C"

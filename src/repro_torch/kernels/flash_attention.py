@@ -33,6 +33,19 @@ and lo, two products) at the bf16 tensor-core rate; ``fma`` ``2 hd`` for
 are exact in float32, else the float32 rate) and ``2 hd`` for ``P V`` at
 the float32 rate; or q, k, v and the output moved once against the
 memory rate.  The source note in the ``.cu`` file has the design.
+
+The backward, :func:`flash_attention_bwd`: dq, dk and dv from q, k, v, the
+forward's output and the gradient at it, by two CUDA-core kernels of the
+same source (``flash_bwd_dq``, then ``flash_bwd_dkv``; no atomics, so
+recomputing a step gives the same bits), counted on its own ``.launches``
+(two a call, one a kernel); for CPU tensors its plain version.
+:func:`flash_attention_ad` is K5 as a ``torch.autograd.Function`` whose
+backward that is (the model's call).  The kernels do 16 hd float32
+operations per visible (query, key) pair on the CUDA cores (the source note
+counts them).  Bound of the backward: the least work, 10 hd a pair (the
+scores' 2 hd at the bf16 tensor-core rate for bf16 inputs, else the float32
+rate, and 8 hd at the float32 rate), or q, k, v, out and dout read and dq,
+dk, dv written once against the memory rate, whichever is longer.
 """
 from __future__ import annotations
 
@@ -63,6 +76,10 @@ def _library() -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
+        lib.repro_flash_attention_bwd.argtypes = (
+            [ptr] * 9 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            + [ctypes.POINTER(ctypes.c_longlong), i32, ptr])
+        lib.repro_flash_attention_bwd.restype = i32
         _lib = lib
     return _lib
 
@@ -73,11 +90,9 @@ def _strides(t: torch.Tensor):
     return [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
-    the float32 scores (default ``hd ** -0.5``)."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool):
+    """Raise on what the kernels do not take; (B, H, S, hd, KV, T)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must all be bfloat16 or all float32, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -99,6 +114,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must share one cpu or cuda device")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must have hd innermost (stride 1)")
+    return B, H, S, hd, KV, T
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
+    the float32 scores (default ``hd ** -0.5``)."""
+    B, H, S, hd, KV, T = _check(q, k, v, causal)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q.contiguous(), k.contiguous(),
@@ -133,3 +157,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None):
+    """(dq, dk, dv) of ``out = flash_attention(q, k, v, causal=causal,
+    scale=scale)`` at ``dout``: q, k and v as the forward takes them (views
+    too), ``out`` its float32 ``[B, H, S, hd]`` and ``dout`` the gradient
+    at it (made float32 and contiguous here).  dq ``[B, H, S, hd]`` in q's
+    dtype, dk and dv ``[B, KV, T, hd]`` in k's, contiguous; float32 sums,
+    dk and dv over the query heads of each KV head."""
+    B, H, S, hd, KV, T = _check(q, k, v, causal)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be {list(q.shape)}, got "
+                         f"{list(out.shape)} and {list(dout.shape)}")
+    if out.device != q.device or dout.device != q.device:
+        raise ValueError(f"out and dout must lie on {q.device}")
+    scale = float(scale) if scale is not None else hd ** -0.5
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), out, dout,
+            causal=causal, scale=scale)
+    out = out.float().contiguous()
+    dout = dout.float().contiguous()
+    dq = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, T, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, KV, T, hd), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    if B * H > 65535 or B * H * S > 1 << 30:
+        raise ValueError(f"B * H = {B * H}, S = {S} are past the backward's "
+                         f"grid")
+    ws = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
+    lib = _library()
+    code = lib.repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ws.data_ptr(), B, H, KV, S, T, hd, scale, int(causal),
+        _DTYPES[q.dtype],
+        (ctypes.c_longlong * 9)(*(_strides(q) + _strides(k) + _strides(v))),
+        *_build.device_and_stream(q.device))
+    _build.raise_on(lib, code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 2    # flash_bwd_dq, flash_bwd_dkv
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 with :func:`flash_attention_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` as an autograd function (the model's call),
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, scale)

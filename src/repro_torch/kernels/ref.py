@@ -174,6 +174,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return acc / torch.clamp(l, min=1e-20)[..., None]
 
 
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True,
+                        scale: Optional[float] = None):
+    """The backward of :func:`flash_attention`: (dq, dk, dv) at ``dout``,
+    the gradient at its float32 output ``out``.
+
+    P is recomputed in float32 (``softmax`` of the scores masked as the
+    forward masks them), ``D_i = sum_d dout[i, d] out[i, d]``,
+    ``dS = P (dout v^T - D)``, ``dq = scale dS k``, ``dk = dS^T (scale q)``
+    and ``dv = P^T dout``, summed over the ``H // KV`` query heads of each
+    KV head; each gradient is returned in its input's dtype.  It
+    materializes the ``[B, H, S, T]`` scores.
+    """
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=1)
+        vf = vf.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf)
+    if causal:
+        vis = (torch.arange(T, device=q.device)[None, :]
+               <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(vis, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    do = dout.float()
+    dd = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", do, vf) - dd)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, do)
+    if rep > 1:
+        dk = dk.reshape(B, KV, rep, T, hd).sum(2)
+        dv = dv.reshape(B, KV, rep, T, -1).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state0: Optional[torch.Tensor] = None

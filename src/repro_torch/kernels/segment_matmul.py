@@ -23,6 +23,15 @@ once against the memory rate, whichever is longer; with ``rows``, ``E C``
 becomes ``sum(rows)`` in the operations and in the rows of x read, and
 only the weights of experts with ``rows > 0`` count.  The source note in
 ``csrc/segment_matmul.cu`` has the design.
+
+:func:`segment_matmul_ad` is the same product as a
+``torch.autograd.Function`` (the model calls it): its backward is K4 too,
+``dx = K4(dout, w^T, rows)`` and ``dw = K4(x^T, dout)`` with x and dout
+zeroed past ``rows`` first (x may hold anything there, NaN included, and
+those rows take no part in ``out``), through
+:func:`segment_matmul_backward`, which counts its launches on its own
+``.launches`` (two a call) and ``bwd_routes``.  No ``torch.bmm`` computes
+an expert product on the card.
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wmma", "tiles", "stream")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)
+#: The backward's launches by kernel (two a call: dx, then dw).
+bwd_routes = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -53,12 +64,8 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def segment_matmul(x: torch.Tensor, w: torch.Tensor,
-                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[e] = x[e] @ w[e]``: x ``[E, C, D]``, w ``[E, D, F]``, both
-    bf16 or both float32, contiguous, on one device.  ``rows``: int32
-    ``[E]`` on that device (read by the kernel, never by the host), or None
-    for every row."""
+def _check(x: torch.Tensor, w: torch.Tensor,
+           rows: Optional[torch.Tensor]) -> None:
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"x and w must both be bfloat16 or both float32, got "
                         f"{x.dtype} and {w.dtype}")
@@ -80,15 +87,19 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor,
         if rows.device != x.device:
             raise ValueError(f"rows must lie on {x.device}, got "
                              f"{rows.device}")
-    if x.device.type == "cpu":
-        return ref.segment_matmul(x, w, rows)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            rows: Optional[torch.Tensor]):
+    """One K4 launch on checked CUDA tensors: (out, the route's name, or
+    None where nothing was launched)."""
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, None
     if D == 0:
-        return out.zero_()
+        return out.zero_(), None
     if E > 65535 or C > 65535 * 64:
         raise ValueError(f"shape {tuple(x.shape)} is past the kernel's grid")
     lib = _library()
@@ -99,9 +110,86 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor,
         _DTYPES[x.dtype], *_build.device_and_stream(x.device),
         ctypes.byref(route))
     _build.raise_on(lib, code, "segment_matmul")
-    segment_matmul.launches += 1
-    routes[ROUTES[route.value]] += 1
+    return out, ROUTES[route.value]
+
+
+def segment_matmul(x: torch.Tensor, w: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[e] = x[e] @ w[e]``: x ``[E, C, D]``, w ``[E, D, F]``, both
+    bf16 or both float32, contiguous, on one device.  ``rows``: int32
+    ``[E]`` on that device (read by the kernel, never by the host), or None
+    for every row."""
+    _check(x, w, rows)
+    if x.device.type == "cpu":
+        return ref.segment_matmul(x, w, rows)
+    out, route = _launch(x, w, rows)
+    if route is not None:
+        segment_matmul.launches += 1
+        routes[route] += 1
     return out
 
 
 segment_matmul.launches = 0
+
+
+def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
+                            w: torch.Tensor,
+                            rows: Optional[torch.Tensor] = None):
+    """(dx, dw) of ``out = segment_matmul(x, w, rows)`` at ``dout``
+    (``[E, C, F]``, x's dtype): ``dx = dout @ w^T`` with its rows past
+    ``rows`` zero, and ``dw = x^T @ dout`` over the live rows only (x and
+    dout zeroed past ``rows`` by ``torch.where`` first, so NaN there stays
+    out).  Each product is one K4 launch for CUDA tensors (the plain
+    version for CPU ones); dw contracts over C, so a C that is no multiple
+    of 8 takes K4's ``wmma`` kernel in bf16."""
+    _check(x, w, rows)
+    dout = dout.contiguous()
+    if dout.shape != (*x.shape[:2], w.shape[2]) or dout.dtype != x.dtype:
+        raise ValueError(f"dout must be {x.dtype} [E, C, F] = "
+                         f"{[*x.shape[:2], w.shape[2]]}, got {dout.dtype} "
+                         f"{list(dout.shape)}")
+    dout_live = dout
+    if rows is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+                < rows.to(torch.int64)[:, None, None])
+        x = torch.where(live, x, x.new_zeros(()))
+        dout_live = torch.where(live, dout, dout.new_zeros(()))
+    wt = w.transpose(1, 2).contiguous()
+    xt = x.transpose(1, 2).contiguous()
+    if x.device.type == "cpu":
+        return (ref.segment_matmul(dout, wt, rows),
+                ref.segment_matmul(xt, dout_live))
+    grads = []
+    for a, b, r in ((dout, wt, rows), (xt, dout_live, None)):
+        out, route = _launch(a, b, r)
+        if route is not None:
+            segment_matmul_backward.launches += 1
+            bwd_routes[route] += 1
+        grads.append(out)
+    return tuple(grads)
+
+
+segment_matmul_backward.launches = 0
+
+
+class _SegmentMatmul(torch.autograd.Function):
+    """K4 with K4 as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows):
+        ctx.save_for_backward(x, w, rows)
+        return segment_matmul(x, w, rows)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, rows = ctx.saved_tensors
+        dx, dw = segment_matmul_backward(dout, x, w, rows)
+        return dx, dw, None
+
+
+def segment_matmul_ad(x: torch.Tensor, w: torch.Tensor,
+                      rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`segment_matmul` as an autograd function (the model's call):
+    differentiable in x and w, its backward through
+    :func:`segment_matmul_backward`."""
+    return _SegmentMatmul.apply(x, w, rows)

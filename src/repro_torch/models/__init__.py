@@ -4,12 +4,13 @@
   attention.py  GQA with a KV cache; prefill attention through K5
   moe.py        capacity-bounded top-k MoE; expert products through K4
   ssm.py        RWKV6 time-mix and channel-mix; the recurrence through K6
-  model.py      init / forward / prefill / decode for the GQA families
-                and the RWKV6 (ssm) family
+  model.py      init / forward / loss / prefill / decode for the GQA
+                families and the RWKV6 (ssm) family
   convert.py    the JAX model's weights as the port's params
 """
 from . import attention, convert, layers, model, moe, ssm
-from .model import decode_step, forward, init_cache, init_params, prefill
+from .model import (decode_step, forward, init_cache, init_params,
+                    loss_fn, prefill)
 
 __all__ = [
     "attention",
@@ -22,5 +23,6 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "prefill",
 ]

@@ -1,7 +1,8 @@
 """GQA attention (llama family) with a KV cache, in PyTorch.
 
-The port of the GQA half of ``repro.models.attention``.  Prefill attention
-goes through K5 (:func:`repro_torch.kernels.flash_attention.flash_attention`)
+The port of the GQA half of ``repro.models.attention``.  Prefill and training
+attention goes through K5
+(:func:`repro_torch.kernels.flash_attention.flash_attention_ad`)
 exactly where the JAX model calls its chunked-flash reference
 (``attention.py:174`` and ``:180``): a CUDA tensor launches the kernel, a
 CPU tensor runs its plain version.  Decode (one new token against the
@@ -68,10 +69,12 @@ def _prefill_attention(q: torch.Tensor, k: torch.Tensor,
     q is scaled in its own dtype first (``attention.py:70``: with
     hd = 128 the scale is no power of two, so where it is applied changes
     the bits), and K5 runs with ``scale = 1``.  K5 reads the
-    ``[B, H, S, hd]`` views of the model's tensors in place."""
+    ``[B, H, S, hd]`` views of the model's tensors in place, through its
+    autograd form (its backward is K5's backward kernel), so a forward
+    without a cache is differentiable."""
     qs = scalar_mul(q, q.shape[-1] ** -0.5)
-    out = k5.flash_attention(qs.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True, scale=1.0)
+    out = k5.flash_attention_ad(qs.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True, scale=1.0)
     return out.transpose(1, 2)
 
 

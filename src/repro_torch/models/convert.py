@@ -4,8 +4,12 @@
 lists) of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``, and
 returns the port's params: the scan-stacked ``blocks`` (a leading layer
 axis on every leaf, ``repro/models/model.py:109``) become a list of
-per-layer dicts, and every array a tensor on ``device``.  It imports no
-JAX; the tests use it to feed both packages one set of weights.
+per-layer dicts, and every array a tensor on ``device``; a MoE layer's
+expert stacks keep their physical slot axis (``P = E + R``).
+:func:`adamw_state_from_jax` carries an AdamW state across the same way
+(``step``, and ``m`` and ``v`` shaped as the params), so both packages
+can take a step from one state.  It imports no JAX; the tests use it to
+feed both packages one set of weights.
 """
 from __future__ import annotations
 
@@ -49,3 +53,17 @@ def params_from_jax(tree: Any, cfg: ModelConfig,
     out["blocks"] = [_convert(_layer(tree["blocks"], i), dev)
                      for i in range(cfg.n_layers)]
     return out
+
+
+def adamw_state_from_jax(state: Any, cfg: ModelConfig,
+                         device: DeviceSpec = "cuda"):
+    """The port's :class:`repro_torch.train.optimizer.AdamWState` holding
+    a JAX ``AdamWState``'s values (its fields as numpy arrays: ``step``,
+    and ``m`` and ``v`` shaped as the JAX params)."""
+    from ..train.optimizer import AdamWState
+    dev = resolve_device(device)
+    step, m, v = state
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=params_from_jax(m, cfg, dev), v=params_from_jax(v, cfg, dev))

@@ -1,6 +1,6 @@
 """Core neural layers in PyTorch (params = nested dicts of tensors).
 
-The port of ``repro.models.layers`` for the serving path.  The same
+The port of ``repro.models.layers`` (the serving and training paths).  The same
 conventions: parameters are stored in ``param_dtype`` (float32 by default)
 and cast to ``compute_dtype`` (bf16) inside the forward pass; every
 ``apply``-style function is pure and shape-polymorphic over batch and
@@ -124,3 +124,20 @@ def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
     return (F.silu(g) * u) @ p["w_down"].to(dt)
+
+
+# --------------------------------------------------------------------- #
+# Losses                                                                 #
+# --------------------------------------------------------------------- #
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32; logits ``[..., V]``, labels
+    ``[...]`` integers (``mask``: weights of the tokens, 1 or 0)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -5,6 +5,7 @@ the attention-free RWKV6 family:
 
     params = init_params(cfg, seed, device)
     logits, stats = forward(params, cfg, batch)            # train / prefill
+    loss, stats = loss_fn(params, cfg, batch)              # train
     cache  = init_cache(cfg, batch_size, max_len, device)
     logits, cache = prefill(params, cfg, batch, cache)
     logits, cache = decode_step(params, cfg, tokens, cache, cache_len)
@@ -15,13 +16,18 @@ the attention-free RWKV6 family:
 state per layer (``wkv`` and the two token-shift carries), so ``max_len``
 does not size it.  The other families (hybrid, encdec, vlm), MLA,
 first-k-dense prefixes and shared experts are not ported yet and raise
-(:func:`check_supported`); nor is the balancer's routing table
-(``moe_routing`` in JAX).
+(:func:`check_supported`).  MoE configurations may carry spare replica
+slots (``moe_replica_slots``) and :func:`forward` the Reshape balancer's
+routing tables (``moe_routing``, one ``[E, P]`` table a layer).
 
 Where JAX stacks the per-layer params for ``lax.scan``, the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops over it in
 Python (:func:`repro_torch.models.convert.params_from_jax` unstacks a JAX
-tree); there is no remat, since nothing here takes gradients.  Entry points
+tree).  ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, where JAX takes ``jax.checkpoint``), so the
+kernels' forwards launch twice a step.  :func:`loss_fn` is differentiable
+for the GQA families: K4 and K5 have their backward (both kernels); the
+ssm family raises there until K6 has one.  Entry points
 take ``device`` (default ``"cuda"``), resolved by
 :func:`repro_torch.devices.resolve_device`.
 """
@@ -30,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, dtype_of
 from ..devices import DeviceSpec, resolve_device
@@ -38,6 +45,7 @@ from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (
     Params,
+    cross_entropy,
     dense_init,
     embed_init,
     rmsnorm,
@@ -58,8 +66,8 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"norm {cfg.norm!r} / act {cfg.act!r}")
     if cfg.first_k_dense:
         missing.append("first_k_dense layers")
-    if cfg.n_shared or cfg.moe_replica_slots:
-        missing.append("shared experts / replica slots")
+    if cfg.n_shared:
+        missing.append("shared experts")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
@@ -83,7 +91,9 @@ def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
     p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
     if cfg.n_experts:
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_expert,
-                                    cfg.n_experts, dtype=dt)
+                                    cfg.n_experts,
+                                    n_replica_slots=cfg.moe_replica_slots,
+                                    dtype=dt)
     else:
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
@@ -117,6 +127,7 @@ def _block_apply(
     *,
     cache: Optional[Params] = None,
     cache_len: int = 0,
+    moe_routing: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
     """One decoder block (GQA attention + MoE or SwiGLU, or RWKV6 time-mix
     + channel-mix).  Returns (x, the new cache, moe_stats)."""
@@ -153,7 +164,8 @@ def _block_apply(
               if cache is not None else cfg.capacity_factor)
         f_out, mstats = moe_lib.moe_apply(
             bp["moe"], h2, top_k=cfg.top_k, capacity_factor=cf,
-            return_stats=True, token_groups=cfg.moe_token_groups)
+            expert_routing=moe_routing, return_stats=True,
+            token_groups=cfg.moe_token_groups)
         stats.update(mstats)
     else:
         f_out = swiglu(h2, bp["mlp"])
@@ -168,27 +180,41 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            moe_routing: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence logits ``[B, S, V]`` and aux stats (the train /
-    prefill forward, without a cache)."""
+    prefill forward, without a cache).  ``moe_routing``: the balancer's
+    ``[L, E, P]`` tables (a layer's table is its block's
+    ``expert_routing``); ``remat`` recomputes each block in the backward
+    when gradients are taken."""
     check_supported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][batch["tokens"]].to(cdt)
     dev = x.device
     n_e = max(cfg.n_experts, 1)
+    n_slots = moe_routing.shape[-1] if moe_routing is not None else n_e
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    aux: List[Tuple[torch.Tensor, ...]] = []
-    for bp in params["blocks"]:
-        x, _, st = _block_apply(cfg, bp, x)
-        aux.append((
+
+    def block(bp, x, routing):
+        x, _, st = _block_apply(cfg, bp, x, moe_routing=routing)
+        return x, (
             st.get("aux_loss", zero),
             st.get("dropped_frac", zero),
             st.get("tokens_per_expert_router",
                    torch.zeros((n_e,), dtype=torch.float32, device=dev)),
             st.get("tokens_per_expert",
-                   torch.zeros((n_e,), dtype=torch.float32, device=dev)),
-        ))
+                   torch.zeros((n_slots,), dtype=torch.float32, device=dev)),
+        )
+
+    aux: List[Tuple[torch.Tensor, ...]] = []
+    for i, bp in enumerate(params["blocks"]):
+        routing = None if moe_routing is None else moe_routing[i]
+        if remat and torch.is_grad_enabled():
+            x, st = checkpoint(block, bp, x, routing, use_reentrant=False)
+        else:
+            x, st = block(bp, x, routing)
+        aux.append(st)
     aux_l, drop_f, tpe_router, tpe_slot = (torch.stack(t) for t in zip(*aux))
     logits = _logits(params, cfg, x)
     stats = {
@@ -199,6 +225,27 @@ def forward(params: Params, cfg: ModelConfig,
         "tokens_per_slot_layers": tpe_slot,       # [L, P] post-routing
     }
     return logits, stats
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, aux_weight: float = 0.01, remat: bool = True,
+            moe_routing: Optional[torch.Tensor] = None):
+    """(loss, stats): the float32 cross-entropy of the last ``n_text``
+    positions' logits against ``batch["labels"]`` ``[B, n_text]``, plus
+    ``aux_weight`` times the MoE load-balance loss where there are
+    experts (``repro.models.model.loss_fn``)."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the ssm family needs K6's backward, "
+            "which is not ported yet (ROADMAP.md)")
+    logits, stats = forward(params, cfg, batch, remat=remat,
+                            moe_routing=moe_routing)
+    labels = batch["labels"]
+    n_text = labels.shape[1]
+    loss = cross_entropy(logits[:, -n_text:], labels)
+    if cfg.n_experts:
+        loss = loss + aux_weight * stats["aux_loss"]
+    return loss, stats
 
 
 # ===================================================================== #

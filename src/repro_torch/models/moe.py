@@ -1,24 +1,33 @@
 """Mixture-of-Experts layer with capacity-bounded gather dispatch, in PyTorch.
 
-The port of ``repro.models.moe`` for serving.  Token->expert routing is the
-paper's partitioning skew (tuples->keys): a hot expert is a heavy-hitter
-key.  The three expert products go through K4
-(:func:`repro_torch.kernels.segment_matmul.segment_matmul`), exactly where
-the JAX layer computes them (``moe.py:161-164``).
+The port of ``repro.models.moe``.  Token->expert routing is the paper's
+partitioning skew (tuples->keys): a hot expert is a heavy-hitter key.  The
+three expert products go through K4
+(:func:`repro_torch.kernels.segment_matmul.segment_matmul_ad`, K4 with K4
+as its backward), exactly where the JAX layer computes them
+(``moe.py:161-164``).
 
-Not ported yet (they raise): the Reshape balancer's ``expert_routing``
-table and the DP-local dispatch (``token_groups > 1``), both for the
-training slice.  Shared experts and spare replica slots are not ported
-either: no ported configuration has them, so physical slots are the
-logical experts.
+The Reshape balancer's ``expert_routing`` table (``[E, P]``,
+row-stochastic) maps the logical experts onto ``P = E + R`` physical
+slots, ``R`` of them spare slots for replicas (``moe_init(...,
+n_replica_slots=R)``); a token of a split expert goes to the slot its
+float32 Weyl number ``u = mod((n + 1) * 0.618033988749895, 1)`` picks
+against the row's CDF, as in JAX.  Not ported yet (it raises): the
+DP-local dispatch (``token_groups > 1``).  Shared experts are not ported
+either (no ported configuration has them).
 
-Two choices keep the bits of the JAX layer:
+Three choices keep the bits of the JAX layer:
 
 * top-k ties: ``lax.top_k`` keeps the lower expert index among equal
   gates, ``torch.topk`` promises no order; :func:`router_topk` takes the
   first k of a stable descending sort;
+* the routing CDF: JAX's ``jnp.cumsum`` over a row of P slots is XLA's
+  blocked sum (sequential within blocks of 16 columns, the blocks' totals
+  summed the same way, recursively), not a sequential one;
+  :func:`slot_cdf` repeats it with elementwise float32 adds, so the card
+  and the host pick the same slots as JAX;
 * the combine: JAX scatter-adds each token's expert outputs in the working
-  dtype in slot order, i.e. by ascending expert.  A scatter-add on the card
+  dtype in slot order, i.e. by ascending slot.  A scatter-add on the card
   adds with atomics in no fixed order, so each token gathers its kept slots
   in ascending order and adds them one by one.
 """
@@ -34,16 +43,19 @@ from .layers import Params, dense_init, truncated_normal
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_expert: int,
-             n_experts: int, *, dtype=torch.float32) -> Params:
-    """The router ``[D, E]`` and the expert weights stacked on a leading
-    expert axis."""
+             n_experts: int, *, n_replica_slots: int = 0,
+             dtype=torch.float32) -> Params:
+    """The router ``[D, E]`` (logical experts) and the expert weights
+    stacked on a leading physical slot axis of ``P = E + n_replica_slots``
+    (the spare slots the balancer installs replicas into)."""
+    P = n_experts + n_replica_slots
     return {
         "router": dense_init(gen, d_model, n_experts, dtype, scale=0.02),
-        "w_gate": truncated_normal((n_experts, d_model, d_expert), gen,
+        "w_gate": truncated_normal((P, d_model, d_expert), gen,
                                    std=d_model ** -0.5, dtype=dtype),
-        "w_up": truncated_normal((n_experts, d_model, d_expert), gen,
+        "w_up": truncated_normal((P, d_model, d_expert), gen,
                                  std=d_model ** -0.5, dtype=dtype),
-        "w_down": truncated_normal((n_experts, d_expert, d_model), gen,
+        "w_down": truncated_normal((P, d_expert, d_model), gen,
                                    std=d_expert ** -0.5, dtype=dtype),
     }
 
@@ -74,11 +86,13 @@ def moe_apply(
     token_groups: int = 1,
 ):
     """Capacity-bounded top-k MoE (``repro.models.moe.moe_apply`` with
-    ``token_groups = 1`` and no balancer table)."""
-    if expert_routing is not None:
-        raise NotImplementedError(
-            "the Reshape balancer's expert_routing comes with the training "
-            "slice (ROADMAP.md)")
+    ``token_groups = 1``).
+
+    ``expert_routing``: optional row-stochastic ``[E, P]`` table from the
+    Reshape balancer remapping logical experts to physical slots (SBK: a
+    row's 1 moved; SBR: a row split between a primary and a replica slot,
+    the hot expert's tokens divided by a low-discrepancy record split).
+    Without it the logical experts are slots ``0 .. E-1`` of ``P``."""
     if token_groups != 1:
         raise NotImplementedError(
             "the DP-local dispatch (token_groups > 1) is not ported "
@@ -87,15 +101,25 @@ def moe_apply(
     D = x.shape[-1]
     xf = x.reshape(-1, D)
     N = xf.shape[0]
-    P = E = p["router"].shape[1]                       # experts = slots
+    P = p["w_gate"].shape[0]                           # physical slots
+    E = p["router"].shape[1]                           # logical experts
     dt = x.dtype
     dev = x.device
 
     logits = xf @ p["router"].to(dt)                   # [N, E]
     weights, idx = router_topk(logits, top_k)          # [N, k]
     gates_full = torch.zeros((N, E), dtype=torch.float32, device=dev)
-    gates_full.scatter_(1, idx, weights)               # [N, E]
-    combine = gates_full
+    gates_full = gates_full.scatter(1, idx, weights)   # [N, E]
+    if expert_routing is not None:
+        # Each token's expert e lands in slot pick[n, e] (a split expert's
+        # tokens spread over its slots); a slot holds one expert.
+        pick = slot_pick(expert_routing, N)            # [N, E] slot of e
+        combine = torch.zeros((N, P), dtype=torch.float32, device=dev)
+        combine = combine.scatter_add(1, pick, gates_full)
+        chosen = torch.gather(pick, 1, idx)            # [N, k] slots
+    else:
+        combine = F.pad(gates_full, (0, P - E))
+        chosen = idx
 
     # Capacity per physical slot; each token's position in its slot queue
     # by arrival order.
@@ -115,16 +139,16 @@ def moe_apply(
 
     xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
     h_in = xf_pad[token_for_slot].to(dt)               # [P, cap, D]
-    gate = k4.segment_matmul(h_in, p["w_gate"].to(dt), rows)
-    up = k4.segment_matmul(h_in, p["w_up"].to(dt), rows)
+    gate = k4.segment_matmul_ad(h_in, p["w_gate"].to(dt), rows)
+    up = k4.segment_matmul_ad(h_in, p["w_up"].to(dt), rows)
     act = F.silu(gate) * up                            # [P, cap, F]
-    out_e = k4.segment_matmul(act, p["w_down"].to(dt), rows)  # [P, cap, D]
+    out_e = k4.segment_matmul_ad(act, p["w_down"].to(dt), rows)
     out_e = out_e * gate_for_slot[..., None].to(dt)
 
-    # Combine: each token adds its kept slots by ascending expert, in dt.
-    experts = torch.sort(idx, dim=1).values            # [N, k] ascending
-    kept = torch.gather(keep, 1, experts)
-    slots = torch.where(kept, experts * cap + torch.gather(pos, 1, experts),
+    # Combine: each token adds its kept slots by ascending slot, in dt.
+    chosen = torch.sort(chosen, dim=1).values
+    kept = torch.gather(keep, 1, chosen)
+    slots = torch.where(kept, chosen * cap + torch.gather(pos, 1, chosen),
                         P * cap)
     out_rows = torch.cat([out_e.reshape(P * cap, D),
                           out_e.new_zeros((1, D))])
@@ -143,6 +167,52 @@ def moe_apply(
         "aux_loss": load_balance_aux_loss(logits, idx, E),
     }
     return out, stats
+
+
+#: The Weyl step of the SBR record split (``moe.py:118``), and the column
+#: block of XLA's cumulative sum on the CPU.
+WEYL = 0.618033988749895
+_CUMSUM_BLOCK = 16
+
+
+def slot_cdf(route: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum(route, axis=1)`` of a float32 ``[E, P]`` table, bit for
+    bit as XLA computes it on the CPU: a sequential sum within each block
+    of 16 columns, and the blocks' running totals (the same rule,
+    recursively) added to every later block.  Elementwise adds only, so
+    the card gives the same bits."""
+    E, P = route.shape
+    if P <= _CUMSUM_BLOCK:
+        cols = [route[:, 0]]
+        for j in range(1, P):
+            cols.append(cols[-1] + route[:, j])
+        return torch.stack(cols, dim=1)
+    nb = -(-P // _CUMSUM_BLOCK)
+    padded = torch.zeros((E, nb * _CUMSUM_BLOCK), dtype=route.dtype,
+                         device=route.device)
+    padded[:, :P] = route
+    within = slot_cdf(padded.reshape(E * nb, _CUMSUM_BLOCK)).reshape(
+        E, nb, _CUMSUM_BLOCK)
+    before = slot_cdf(within[:, :, -1])                # [E, nb]
+    out = torch.cat([within[:, :1],
+                     within[:, 1:] + before[:, :-1, None]], dim=1)
+    return out.reshape(E, -1)[:, :P]
+
+
+def slot_pick(expert_routing: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n, E]``: the physical slot of token i's expert e, the number of
+    CDF entries of row e at or below ``u_i = mod((i + 1) * WEYL, 1)`` in
+    float32 (``WEYL`` rounded to float32 first, as JAX's weak-typed
+    constant), at most ``P - 1``."""
+    route = expert_routing.to(torch.float32)
+    P = route.shape[1]
+    dev = route.device
+    u = torch.remainder(
+        (torch.arange(n, dtype=torch.float32, device=dev) + 1.0)
+        * torch.tensor(WEYL, dtype=torch.float32, device=dev), 1.0)
+    cdf = slot_cdf(route)
+    pick = (u[:, None, None] >= cdf[None]).sum(-1)
+    return torch.clamp(pick, max=P - 1)
 
 
 def slot_tables(keep: torch.Tensor, pos: torch.Tensor,

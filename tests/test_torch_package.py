@@ -42,5 +42,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.dataflow.resilience",
                  "repro_torch.dataflow.metrics",
                  "repro_torch.dataflow.reference",
-                 "repro_torch.analysis.sanitize"):
+                 "repro_torch.analysis.sanitize",
+                 "repro_torch.train.trainer", "repro_torch.train.optimizer",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.core.moe_balancer",
+                 "repro_torch.dist.compression", "repro_torch.data.pipeline",
+                 "repro_torch.launch.train"):
         assert name in imported
