@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. card    the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build   nvcc builds every kernel source (one process each, in parallel)
-           and the ``-Xptxas -v`` lines are printed; K4's tiles and stream
-           kernels and K5's wgmma kernel must hold wgmma (HGMMA) in their
-           SASS (``cuobjdump``);
+           and the ``-Xptxas -v`` lines are printed; K4's tiles kernel (in
+           its three forms) and stream kernels, K5's wgmma kernel and the
+           two wgmma kernels of its backward must hold wgmma (HGMMA) in
+           their SASS (``cuobjdump``);
 3. kernels each CUDA kernel against its plain PyTorch version on the card
            at odd shapes, on both sides of K1's and K2's one-tile limit
            (N = 4095, 4096, 4097), and at the real exchange shape (N = 2^24
@@ -186,17 +187,27 @@ Phases, in order; any failure exits non-zero before the last line:
            steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
            the card's top-2 margin exceeds it;
 10. train  (its kernel checks run after phase 6) K5's backward
-           (``flash_attention_bwd``: ``csrc/flash_attention.cu``'s
-           ``flash_bwd_dq`` and ``flash_bwd_dkv``) against its plain version
-           within the bound stated in ``check_flash_bwd``, at the training
-           shape (B 4, H 16, S 512, hd 128, bf16 through the model's
-           ``[B, S, H, hd]`` views, and float32) and at S 445, hd 64 with
-           two query heads a KV head, the same bits from two calls; K4's
-           backward (``segment_matmul_backward``: dx and dw, two K4
-           launches) against its plain version within
-           ``check_segment_matmul``'s bound at OLMoE's expert products with 8
-           replica slots (E 72, D 2048, F 1024 both ways, C 320 and 20), bf16
-           and float32, ragged rows with NaN in x past them.  Then the
+           (``flash_attention_bwd``, ``csrc/flash_attention.cu``: the wgmma
+           route, a prep pass, ``flash_bwd_dkv_wgmma`` and
+           ``flash_bwd_dq_wgmma``, for bf16 at hd 128; the fma route,
+           ``flash_bwd_dq`` and ``flash_bwd_dkv``, for the rest) against its
+           plain version within the bound ``check_flash_bwd`` states for
+           each route, at the training shape (B 4, H 16, S 512, hd 128,
+           bf16 through the model's ``[B, S, H, hd]`` views: wgmma; float32:
+           fma), at S 445, hd 128 with three query heads a KV head, causal
+           and full (wgmma) and at S 445, hd 64 with two (fma), the route
+           and its launches by ``bwd_routes``, the same bits from two calls;
+           K5's forward with the same output bits with and without its lse
+           and (wgmma) the lse within ``check_lse``'s bound; the planted
+           faults "drops D" and "mask off" beyond the wgmma route's bound;
+           K4's backward (``segment_matmul_backward``: dx and dw, two
+           launches, bf16 on the tiles kernel's dx and dw forms with no
+           copy, float32 and D or F no multiple of 8 over copies) against
+           its plain version within ``check_segment_matmul``'s bound at
+           OLMoE's expert products with 8 replica slots (E 72, D 2048, F
+           1024 both ways, C 320 and 20), bf16 and float32, ragged rows with
+           NaN in x past them (and no rows, rows 0 and rows C at the gate
+           product), and at D 40, F 130.  Then the
            training path, every kernel's count set to 0 just before and read
            just after: OLMoE-1B-7B at its published widths cut to
            ``TRAIN_LAYERS`` = 6 layers with ``TRAIN_SLOTS`` = 8 replica slots
@@ -207,13 +218,15 @@ Phases, in order; any failure exits non-zero before the last line:
            the last step than the first, an ``sbr_replicate``, every replica
            slot equal to its primary bit for bit after every step, K4's
            forward 3 launches a layer a forward run (two runs a step under
-           remat) and its backward 6 a layer a step, all on its tiles
-           kernel, K5's forward one a layer a run on its wgmma kernel and
-           its backward one a layer a step; step seconds, tokens/s, the
+           remat) on its tiles kernel and its backward 6 a layer a step on
+           the tiles kernel's dx and dw forms, K5's forward one a layer a
+           run on its wgmma kernel and its backward's wgmma route once a
+           layer a step (three launches); step seconds, tokens/s, the
            AdamW update's share and peak GiB printed.  Both backwards are
-           replayed on the path's own inputs and timed beside their plain
-           versions, ``torch.bmm`` (dx and dw) / SDPA's backward and their
-           bounds.  Then the train slice: a 2-layer full-width OLMoE in
+           replayed on the path's own inputs (K5's also at 1 x 4096) and
+           timed beside their plain versions, ``torch.bmm`` (dx and dw) /
+           SDPA's backward and their routes' bounds.  Then the train
+           slice: a 2-layer full-width OLMoE in
            float32 (K4 and K5 on their fma routes, forward and backward),
            8 replica slots and a split table, one ``loss_fn`` gradient of a
            2 x 64 batch on the card against the host: the loss within
@@ -1950,11 +1963,14 @@ def hgmma_counts(source: str):
 
 
 def check_sass() -> None:
-    """K4's tiles kernel, each width of its stream kernel and K5's wgmma
-    kernel run wgmma."""
+    """K4's tiles kernel (each of its forms: the forward, dx and dw), each
+    width of its stream kernel, K5's wgmma kernel and the two kernels of
+    its backward's wgmma route run wgmma."""
     for source, kernels in (("segment_matmul", ("seg_mm_tiles",
                                                 "seg_mm_stream")),
-                            ("flash_attention", ("flash_wgmma",))):
+                            ("flash_attention", ("flash_wgmma",
+                                                 "flash_bwd_dkv_wgmma",
+                                                 "flash_bwd_dq_wgmma"))):
         counts = hgmma_counts(source)
         for kernel in kernels:
             found = {fn: n for fn, n in counts.items() if kernel in fn}
@@ -2806,7 +2822,7 @@ def rwkv_phase(torch, k6, kernel_mods, smi: str):
 # 10. train: K4's and K5's backward, OLMoE-1B-7B trained at full width   #
 # --------------------------------------------------------------------- #
 def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
-                    scale: float) -> float:
+                    scale: float, route: str = "fma") -> float:
     """K5's backward against its plain version (``ref.flash_attention_bwd``
     on the same inputs), both float32 arithmetic, entry by entry.  A float32
     sum of n terms in any order lies within n 2^-24 of the sum of its terms'
@@ -2816,7 +2832,26 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
     |dS| plus P times the error of dO v - D (two hd-term sums).  Each
     gradient: its terms' errors times their factors' magnitudes, plus the
     order of its own sum (n = max(S rep, T)).  A bf16 output adds one
-    rounding on each side, 2^-7 of the larger.  Returns max |got - plain|."""
+    rounding on each side, 2^-7 of the larger.  Returns max |got - plain|.
+
+    ``route="wgmma"`` (bf16 at hd 128: every product on the tensor cores,
+    its float32 operands split into bf16 hi + lo) adds four terms to that
+    bound, derived so: bf16 keeps 8 significant bits, so |x - hi| <= 2^-8
+    |x|, and lo = bf16(x - hi) (x - hi is exact in float32) leaves
+    |x - hi - lo| <= 2^-8 |x - hi| <= 2^-16 |x|.
+    * dO split: dP = v (hi + lo)^T misses v dO^T by at most 2^-16
+      sum_d |dO| |v|, so dS's error gains 2^-16 P times the magnitude of
+      dO v - D;
+    * dS split before dK = dS^T q and dQ = dS k: 2^-16 |dS| more a term;
+    * dV = P_hi dO_hi + P_lo dO_hi + P_hi dO_lo drops P_lo dO_lo (at most
+      2^-16 (1 + 2^-8)^2 |P| |dO|) and the two residuals (2^-16 (1 +
+      2^-16) |P| |dO| each): under 2^-14 |P| |dO|, so dV's factor gains
+      2^-14;
+    * P = exp(s - lse) with the forward's lse: its l sums __expf values,
+      each within (2 + 1.173 x) units of 2^-23 relative at x = m - s <= 2
+      max|s| (the CUDA guide's bound on __expf), so lse lies within
+      (2 + 2.35 max|s|) 2^-23 of l's exact log, which e_p gains.
+    The fma route's bound is the first paragraph's, unchanged."""
     from repro_torch.kernels import ref
     want = ref.flash_attention_bwd(q, k, v, out, dout, causal=causal,
                                    scale=scale)
@@ -2834,20 +2869,24 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
         s = torch.where(vis, s, float("-inf"))
     P = torch.softmax(s, -1)
     del s
-    e_p = 2 * (2 * hd * eps * float(torch.einsum(
-        "bhsd,bhtd->bhst", qs.abs(), kf.abs()).amax()) + 2 * T * eps) \
-        + 2.0**-21
+    smax = float(torch.einsum("bhsd,bhtd->bhst", qs.abs(), kf.abs()).amax())
+    e_p = 2 * (2 * hd * eps * smax + 2 * T * eps) + 2.0**-21
+    split = dv_split = 0.0
+    if route == "wgmma":
+        e_p += (2 + 2.35 * smax) * 2.0**-23
+        split, dv_split = 2.0**-16, 2.0**-14
     ds = P * (torch.einsum("bhsd,bhtd->bhst", do, vf)
               - (do * out.float()).sum(-1, keepdim=True))
     mag_dp = (torch.einsum("bhsd,bhtd->bhst", do.abs(), vf.abs())
               + (do * out.float()).abs().sum(-1, keepdim=True))
     n = max(S * rep, T)
-    term = e_p * ds.abs() + 4 * hd * eps * P * mag_dp + 2 * n * eps * ds.abs()
+    term = ((e_p + split + 2 * n * eps) * ds.abs()
+            + (4 * hd * eps + split) * P * mag_dp)
     del ds, mag_dp
     tols = [scale * torch.einsum("bhst,bhtd->bhsd", term, kf.abs()),
             torch.einsum("bhst,bhsd->bhtd", term, qs.abs()),
-            (e_p + 2 * n * eps) * torch.einsum("bhst,bhsd->bhtd", P,
-                                                 do.abs())]
+            (e_p + 2 * n * eps + dv_split)
+            * torch.einsum("bhst,bhsd->bhtd", P, do.abs())]
     del term, P
     if rep > 1:
         tols[1:] = [t.reshape(B, KV, rep, T, hd).sum(2) for t in tols[1:]]
@@ -2869,19 +2908,28 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
 
 
 def k5_bwd_bound(B: int, H: int, KV: int, S: int, T: int, hd: int,
-                 causal: bool, dtype_bytes: int):
-    """Least time of K5's backward: per visible (query, key) pair, the
-    scores once (2 hd, at the bf16 tensor-core rate for bf16 inputs, whose
-    products are exact in float32, else the float32 rate) and dO v, dS k,
-    dS^T q and P^T dO (8 hd on float32 operands, at the float32 rate); or
-    q, k, v read and dq, dk, dv written in their dtype, out and dout read
-    in float32, once."""
+                 causal: bool, dtype_bytes: int, route: str = "fma"):
+    """Least time of K5's backward: on the ``fma`` route, per visible
+    (query, key) pair, the scores once (2 hd, at the bf16 tensor-core rate
+    for bf16 inputs, whose products are exact in float32, else the float32
+    rate) and dO v, dS k, dS^T q and P^T dO (8 hd on float32 operands, at
+    the float32 rate); on the ``wgmma`` route the products it does, each
+    once, at the bf16 tensor-core rate: S 2 hd, dP 4 hd (dO's hi and lo),
+    dV 6 hd (three of P's and dO's four hi / lo pairs), dK 4 hd and dQ 4 hd
+    (dS's hi and lo), 20 hd a pair; or q, k, v read and dq, dk, dv written
+    in their dtype, out and dout read in float32 (and the lse on the wgmma
+    route), once."""
     pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
-    qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-    t_ops = (2.0 * hd * pairs / qk_rate
-             + 8.0 * hd * pairs / FP32_OPS_PER_S) * 1e3
+    if route == "wgmma":
+        t_ops = 20.0 * hd * pairs / BF16_TC_OPS_PER_S * 1e3
+    else:
+        qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+        t_ops = (2.0 * hd * pairs / qk_rate
+                 + 8.0 * hd * pairs / FP32_OPS_PER_S) * 1e3
     t_bytes = (2 * dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
-               + 2 * 4 * B * H * S * hd) / HBM_BYTES_PER_S * 1e3
+               + 2 * 4 * B * H * S * hd
+               + (4 * B * H * S if route == "wgmma" else 0)) \
+        / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2901,22 +2949,17 @@ def k4_bwd_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows):
 
 
 def seg_bwd_products(torch, dout, x, w, rows):
-    """The two products of K4's backward as K4 calls: (dout, w^T, rows)
-    for dx and (x^T, dout) for dw, x and dout zeroed past ``rows``."""
-    live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
-            < rows.long()[:, None, None])
-    xz = torch.where(live, x, x.new_zeros(()))
-    dz = torch.where(live, dout, dout.new_zeros(()))
+    """The two products of K4's backward as explicit K4 calls: (dout, w^T,
+    rows) for dx and (x^T, dout) for dw, x and dout zeroed past ``rows``
+    (every row without them)."""
+    xz, dz = x, dout
+    if rows is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+                < rows.long()[:, None, None])
+        xz = torch.where(live, x, x.new_zeros(()))
+        dz = torch.where(live, dout, dout.new_zeros(()))
     return ((dout, w.transpose(1, 2).contiguous(), rows),
             (xz.transpose(1, 2).contiguous(), dz, None))
-
-
-def plain_seg_bwd(torch, dout, x, w, rows):
-    """The plain version of ``segment_matmul_backward`` on the card's
-    tensors: the same operands, ``ref.segment_matmul`` for each product."""
-    from repro_torch.kernels import ref
-    return tuple(ref.segment_matmul(*args)
-                 for args in seg_bwd_products(torch, dout, x, w, rows))
 
 
 def check_seg_bwd(torch, k4, what: str, got, dout, x, w, rows) -> float:
@@ -2929,24 +2972,61 @@ def check_seg_bwd(torch, k4, what: str, got, dout, x, w, rows) -> float:
                    seg_bwd_products(torch, dout, x, w, rows)))
 
 
+def check_lse(torch, what: str, lse, q, k, v, causal: bool,
+              scale: float) -> float:
+    """K5's log-sum-exp against its plain version's: the scores differ by
+    at most 2 hd 2^-24 max sum|scale q k| (another order, the scale applied
+    after the product), l by (2 + 2.35 max|s|) 2^-23 relative (the
+    forward's __expf, ``check_flash_bwd``) and 2 T 2^-24 (the order of its
+    sum), the log and the add by 2^-23 of |lse| more.  Returns the largest
+    error."""
+    from repro_torch.kernels import ref
+    _, want = ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                  return_lse=True)
+    rep = q.shape[1] // k.shape[1]
+    smax = float(torch.einsum("bhsd,bhtd->bhst", q.float().abs() * scale,
+                              k.float().abs().repeat_interleave(rep, 1))
+                 .amax())
+    T = k.shape[2]
+    tol = ((2 * q.shape[-1] * smax + 2 * T) * 2.0**-24
+           + (2 + 2.35 * smax) * 2.0**-23 + 2.0**-23 * want.abs())
+    err = (lse - want).abs()
+    check(lse.shape == want.shape and bool((err <= tol).all()),
+          f"{what}: lse beyond the stated bound of the plain version's (max "
+          f"|err| {float(err.max()):.3g})")
+    return float(err.max())
+
+
 def train_kernel_phase(torch, k4, k5) -> dict:
-    """K5's backward kernels against their plain version at the training
-    shape (B 4, H 16, S 512, hd 128, bf16 through the model's
-    ``[B, S, H, hd]`` views, and float32), at an odd S (445) and hd 64,
-    causal, and with 2 query heads a KV head; K4's backward (dx and dw, two
-    K4 launches) against its plain version at OLMoE's expert products with
-    8 replica slots (E 72, D 2048, F 1024 and back, C 320: the training
-    capacity) and C 20 (the 2-layer slice's), ragged rows and NaN in x past
-    them; the forward's outputs the backward is fed are held against K5's
-    plain version too.  Returns the largest error of each."""
+    """K5's backward against its plain version on both routes, each within
+    its bound (``check_flash_bwd``), its launches counted by route in
+    ``bwd_routes`` and the same bits from two calls: ``wgmma`` (bf16 at hd
+    128) at the training shape (B 4, H 16, S 512 through the model's
+    ``[B, S, H, hd]`` views) and at S 445 with 3 query heads a KV head,
+    causal and full; ``fma`` at the training shape in float32 and at S 445,
+    hd 64, 2 query heads a KV head (bf16 and float32).  The forward fed to
+    it is held against K5's plain version, gives the same output bits with
+    and without its lse, and (wgmma) its lse is within ``check_lse``'s
+    bound; the planted faults "K5 backward drops D" and "K5 backward mask
+    off" must exceed the wgmma route's bound at the training shape.  K4's
+    backward (dx and dw, two launches) against its plain version at OLMoE's
+    expert products with 8 replica slots (E 72, D 2048, F 1024 and back,
+    C 320: the training capacity; every case of ``k4_rows_cases`` at the
+    first) and C 20 (the 2-layer slice's), ragged rows and NaN in x past
+    them, bf16 on the tiles kernel's dx and dw forms and float32 on K4's
+    fma kernel over copies, and at D 40, F 130 in bf16 (no multiple of 8:
+    the copies and the wmma kernel).  Returns the largest error of each."""
     errs = {"flash_attention_bwd": 0.0, "segment_matmul_backward": 0.0,
             "flash_attention": 0.0}
     seed = 200
-    for B, H, KV, S, hd, dtype, views in (
-            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.bfloat16, True),
-            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.float32, True),
-            (2, 6, 3, 445, 64, torch.bfloat16, False),
-            (2, 6, 3, 445, 64, torch.float32, False)):
+    faults = 0
+    for B, H, KV, S, hd, dtype, views, causal in (
+            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.bfloat16, True, True),
+            (TRAIN_B, 16, 16, TRAIN_S, 128, torch.float32, True, True),
+            (2, 6, 2, 445, 128, torch.bfloat16, False, True),
+            (2, 6, 2, 445, 128, torch.bfloat16, False, False),
+            (2, 6, 3, 445, 64, torch.bfloat16, False, True),
+            (2, 6, 3, 445, 64, torch.float32, False, True)):
         seed += 3
         shapes = [(B, S, h, hd) if views else (B, h, S, hd)
                   for h in (H, KV, KV)]
@@ -2956,57 +3036,103 @@ def train_kernel_phase(torch, k4, k5) -> dict:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         scale = hd ** -0.5
         what = (f"flash_attention_bwd B={B} H={H} KV={KV} S={S} hd={hd} "
-                f"{dtype}{' views' if views else ''}")
+                f"{dtype}{' views' if views else ''} causal={causal}")
         route = "wgmma" if dtype == torch.bfloat16 and hd == 128 else "fma"
-        out = k5_call(k5, what, route, q, k, v, causal=True, scale=scale)
+        out, lse = k5_call(k5, what, route, q, k, v, causal=causal,
+                           scale=scale, return_lse=True)
+        check(torch.equal(k5_call(k5, what, route, q, k, v, causal=causal,
+                                  scale=scale), out),
+              f"{what}: the forward gives other bits with its lse")
+        check((lse is None) == (route == "fma"),
+              f"{what}: the {route} forward's lse is {lse}")
+        if lse is not None:
+            check_lse(torch, what, lse, q, k, v, causal, scale)
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
-            torch, f"{what} (the forward)", out, q, k, v, True, scale))
+            torch, f"{what} (the forward)", out, q, k, v, causal, scale))
         dout = randn(torch, seed + 9, (B, H, S, hd), torch.float32)
-        before = k5.flash_attention_bwd.launches
-        got = k5.flash_attention_bwd(q, k, v, out, dout, causal=True,
-                                     scale=scale)
-        check(k5.flash_attention_bwd.launches == before + 2,
-              f"{what}: not two launches (flash_bwd_dq, flash_bwd_dkv)")
+        kw = dict(lse=lse, causal=causal, scale=scale)
+        before = (k5.flash_attention_bwd.launches, dict(k5.bwd_routes))
+        got = k5.flash_attention_bwd(q, k, v, out, dout, **kw)
+        n = k5.BWD_LAUNCHES[route]
+        took = {r: c - before[1][r] for r, c in k5.bwd_routes.items()
+                if c > before[1][r]}
+        check(k5.flash_attention_bwd.launches == before[0] + n
+              and took == {route: n},
+              f"{what}: launched {took}, not {n} on the {route} route")
         check(all(torch.equal(a, b) for a, b in zip(
-            got, k5.flash_attention_bwd(q, k, v, out, dout, causal=True,
-                                        scale=scale))),
+            got, k5.flash_attention_bwd(q, k, v, out, dout, **kw))),
               f"{what}: two calls give other bits")
         errs["flash_attention_bwd"] = max(
             errs["flash_attention_bwd"],
-            check_flash_bwd(torch, what, got, q, k, v, out, dout, True,
-                            scale))
-        del q, k, v, out, dout, got
-    for E, C, D, F in ((72, 320, 2048, 1024), (72, 320, 1024, 2048),
-                       (72, 20, 2048, 1024)):
-        for dtype in (torch.bfloat16, torch.float32):
+            check_flash_bwd(torch, what, got, q, k, v, out, dout, causal,
+                            scale, route))
+        if route == "wgmma" and views:
+            for name, _, _, fault in train_planted_faults(k4, k5)[:2]:
+                try:
+                    check_flash_bwd(torch, f"{what} ({name})",
+                                    fault(q, k, v, out, dout, **kw), q, k, v,
+                                    out, dout, causal, scale, route)
+                except SmokeFailure:
+                    faults += 1
+                    continue
+                check(False, f"{what}: the planted fault '{name}' stays "
+                             f"within the wgmma route's bound")
+        del q, k, v, out, lse, dout, got
+    seg_routes = dict.fromkeys(k4.BWD_ROUTES, 0)
+    for E, C, D, F, dtypes in ((72, 320, 2048, 1024, "both"),
+                               (72, 320, 1024, 2048, "both"),
+                               (72, 20, 2048, 1024, "both"),
+                               (3, 67, 40, 130, "bf16")):
+        for dtype in ((torch.bfloat16, torch.float32) if dtypes == "both"
+                      else (torch.bfloat16,)):
             seed += 3
             x = randn(torch, seed, (E, C, D), dtype, 0.5)
             w = randn(torch, seed + 1, (E, D, F), dtype, D ** -0.5)
             dout = randn(torch, seed + 2, (E, C, F), dtype)
-            rows = k4_rows_cases(torch, E, C, seed)[3][1]
-            dead = (torch.arange(C, device="cuda")[None, :]
-                    >= rows.long()[:, None])
-            x = x.masked_fill(dead[..., None], float("nan"))
-            what = f"segment_matmul_backward E={E} C={C} D={D} F={F} {dtype}"
-            before = k4.segment_matmul_backward.launches
-            got = k4.segment_matmul_backward(dout, x, w, rows)
-            check(k4.segment_matmul_backward.launches == before + 2,
-                  f"{what}: not two K4 launches")
-            errs["segment_matmul_backward"] = max(
-                errs["segment_matmul_backward"],
-                check_seg_bwd(torch, k4, what, got, dout, x, w, rows))
-            del x, w, dout, got
+            cases = k4_rows_cases(torch, E, C, seed)
+            tma = dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+            want = ({"dx_tiles": 1, "dw_tiles": 1} if tma else
+                    {"fma" if dtype == torch.float32 else "wmma": 2})
+            every = (E, C, D, dtype) == (72, 320, 2048, torch.bfloat16)
+            for case, rows in (cases if every else cases[3:]):
+                xc = x
+                if rows is not None:
+                    dead = (torch.arange(C, device="cuda")[None, :]
+                            >= rows.long()[:, None])
+                    xc = x.masked_fill(dead[..., None], float("nan"))
+                what = (f"segment_matmul_backward E={E} C={C} D={D} F={F} "
+                        f"{dtype} {case}")
+                before = (k4.segment_matmul_backward.launches,
+                          dict(k4.bwd_routes))
+                got = k4.segment_matmul_backward(dout, xc, w, rows)
+                took = {r: c - before[1][r] for r, c in k4.bwd_routes.items()
+                        if c > before[1][r]}
+                check(k4.segment_matmul_backward.launches == before[0] + 2
+                      and took == want, f"{what}: launched {took}, not {want}")
+                for r, c in took.items():
+                    seg_routes[r] += c
+                errs["segment_matmul_backward"] = max(
+                    errs["segment_matmul_backward"],
+                    check_seg_bwd(torch, k4, what, got, dout, xc, w, rows))
+                del xc, got
+            del x, w, dout
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    seg_routes = {r: c for r, c in seg_routes.items() if c}
     log(f"train kernels: flash_attention_bwd within the stated bound of its "
-        f"plain version at B={TRAIN_B} H=16 S={TRAIN_S} hd=128 (bf16 from "
-        f"[B, S, H, hd] views, float32) and S=445 hd=64 rep 2, the same bits "
-        f"from two calls (max |err| {errs['flash_attention_bwd']:.3g}; the "
-        f"forward fed to it {errs['flash_attention']:.3g}); "
-        f"segment_matmul_backward within check_segment_matmul's bound at "
-        f"E=72 D/F 2048/1024 both ways, C 320 and 20, bf16 and float32, "
-        f"ragged rows with NaN past them (max |err| "
-        f"{errs['segment_matmul_backward']:.3g})")
+        f"plain version on the wgmma route at B={TRAIN_B} H=16 S={TRAIN_S} "
+        f"hd=128 (bf16 from [B, S, H, hd] views) and S=445 rep 3 (causal "
+        f"and full), and on the fma route at the training shape in float32 "
+        f"and S=445 hd=64 rep 2 (bf16, float32), the same bits from two "
+        f"calls, the forward's bits the same with its lse (max |err| "
+        f"{errs['flash_attention_bwd']:.3g}; the forward fed to it "
+        f"{errs['flash_attention']:.3g}); {faults} planted faults beyond the "
+        f"wgmma route's bound; segment_matmul_backward within "
+        f"check_segment_matmul's bound at E=72 D/F 2048/1024 both ways, C "
+        f"320 and 20, bf16 and float32, and D=40 F=130 bf16, ragged rows "
+        f"with NaN past them (max |err| "
+        f"{errs['segment_matmul_backward']:.3g}; launches by route "
+        f"{seg_routes})")
     return errs
 
 
@@ -3068,11 +3194,12 @@ def train_phase(torch, k4, k5):
     just after.  Requires a finite loss, lower at the last step than the
     first; an ``sbr_replicate``; every replica equal to its primary after
     every step; K4's forward launches 3 a layer per forward run (twice a
-    step under remat), its backward 6 a layer a step, all on its tiles
-    kernel; K5's forward one a layer per forward run on its wgmma kernel
-    and its backward two a layer a step (``flash_bwd_dq``, then
-    ``flash_bwd_dkv``).  Returns (launches, a summary, the recorders, whose
-    ``first`` holds the first call of each kernel at each shape)."""
+    step under remat), all on its tiles kernel, and its backward 6 a layer a
+    step, on the tiles kernel's dx and dw forms (3 each); K5's forward one a
+    layer per forward run on its wgmma kernel and its backward three a layer
+    a step on its wgmma route (the prep pass, ``flash_bwd_dkv_wgmma``,
+    ``flash_bwd_dq_wgmma``).  Returns (launches, a summary, the recorders,
+    whose ``first`` holds the first call of each kernel at each shape)."""
     from repro_torch.train import Trainer
     from repro_torch.train import optimizer as topt
 
@@ -3102,7 +3229,8 @@ def train_phase(torch, k4, k5):
              (k5, "flash_attention"), (k5, "flash_attention_bwd")]
     route_tables = {"segment_matmul": k4.routes,
                     "segment_matmul_backward": k4.bwd_routes,
-                    "flash_attention": k5.routes}
+                    "flash_attention": k5.routes,
+                    "flash_attention_bwd": k5.bwd_routes}
     recs = {name: Recorder(mod, name) for mod, name in names}
     for mod, name in names:
         getattr(mod, name).launches = 0
@@ -3133,18 +3261,17 @@ def train_phase(torch, k4, k5):
     events = [e for b in tr.balancers for e in b.state.events]
     L, S = cfg.n_layers, TRAIN_STEPS
     want = {"segment_matmul": {"tiles": 3 * L * 2 * S},
-            "segment_matmul_backward": {"tiles": 6 * L * S},
-            "flash_attention": {"wgmma": L * 2 * S}}
+            "segment_matmul_backward": {"dx_tiles": 3 * L * S,
+                                        "dw_tiles": 3 * L * S},
+            "flash_attention": {"wgmma": L * 2 * S},
+            "flash_attention_bwd": {
+                "wgmma": k5.BWD_LAUNCHES["wgmma"] * L * S}}
     for name, by_route in want.items():
         check(launches[name] == sum(by_route.values())
               and routes[name] == by_route,
               f"train: {name} launched {launches[name]} times by route "
               f"{routes[name]} over {S} steps of {L} layers, not "
               f"{by_route} (remat runs each forward twice a step)")
-    check(launches["flash_attention_bwd"] == 2 * L * S,
-          f"train: flash_attention_bwd launched "
-          f"{launches['flash_attention_bwd']} kernels over {S} steps of {L} "
-          f"layers, not {2 * L * S} (two a layer a step)")
     check(losses[-1] < losses[0],
           f"train: the loss did not fall ({losses[0]:.5f} -> "
           f"{losses[-1]:.5f})")
@@ -3167,13 +3294,15 @@ def train_phase(torch, k4, k5):
 def train_replay_phase(torch, k4, k5, recs):
     """K4 and K5, forward and backward, against their plain versions on
     the inputs the training path gave them (each recorder's first call at
-    each shape), each on the route the path took; the backward timed
-    beside the plain version, the library's (``torch.bmm`` for dx and dw;
-    SDPA's backward through ``torch.autograd.grad``, a yardstick never on
-    the path) and the bound, the forward logged beside its own.  Then K5's
-    backward at OLMoE's context, 1 x 4096 tokens through the model's views,
-    checked and timed alike (a shape the path does not run).  Returns (max
-    errors, the JSON records' numbers per kernel)."""
+    each shape), each on the route the path took (the backward's: K4's dx
+    and dw forms, K5's wgmma route, within its restated bound); the
+    backward timed beside the plain version, the library's (``torch.bmm``
+    for dx and dw; SDPA's backward through ``torch.autograd.grad``, a
+    yardstick never on the path) and the bound of its route, the forward
+    logged beside its own.  Then K5's backward at OLMoE's context, 1 x 4096
+    tokens through the model's views with the forward's lse, checked and
+    timed alike (a shape the path does not run).  Returns (max errors, the
+    JSON records' numbers per kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     errs = dict.fromkeys(recs, 0.0)
@@ -3197,6 +3326,7 @@ def train_replay_phase(torch, k4, k5, recs):
             f"it)")
     for key, ((q, k, v), kw) in recs["flash_attention"].first.items():
         what = f"flash_attention on the training path's q {tuple(q.shape)}"
+        kw = {n: a for n, a in kw.items() if n != "return_lse"}
         scale = kw.get("scale")
         scale = q.shape[-1] ** -0.5 if scale is None else scale
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
@@ -3212,13 +3342,18 @@ def train_replay_phase(torch, k4, k5, recs):
         Fo = w.shape[2]
         what = (f"segment_matmul_backward on the training path's x "
                 f"{(E, C, D)} w {(E, D, Fo)}")
+        before = dict(k4.bwd_routes)
+        got = k4.segment_matmul_backward(dout, x, w, rows)
+        took = [r for r in k4.BWD_ROUTES if k4.bwd_routes[r] > before[r]]
+        check(took == ["dx_tiles", "dw_tiles"],
+              f"{what}: ran {took}, not the path's dx and dw forms")
         errs["segment_matmul_backward"] = max(
             errs["segment_matmul_backward"], check_seg_bwd(
-                torch, k4, what, k4.segment_matmul_backward(dout, x, w, rows),
-                dout, x, w, rows))
+                torch, k4, what, got, dout, x, w, rows))
+        del got
         ms = time_ms(torch, k4.segment_matmul_backward, (dout, x, w, rows),
                      10)
-        plain_ms = time_ms(torch, lambda *a: plain_seg_bwd(torch, *a),
+        plain_ms = time_ms(torch, ref.segment_matmul_backward,
                            (dout, x, w, rows), 3)
         lib_ms = time_ms(torch, lambda d, x, w: (
             torch.bmm(d, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), d)),
@@ -3235,9 +3370,10 @@ def train_replay_phase(torch, k4, k5, recs):
     # OLMoE's context in the model's [B, S, H, hd] layout, one sequence.
     q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, 16, 128), torch.bfloat16)
                    .transpose(1, 2) for i in range(3))
-    long_ctx = ((q4, k4_, v4, k5.flash_attention(q4, k4_, v4, causal=True),
+    out4, lse4 = k5.flash_attention(q4, k4_, v4, causal=True, return_lse=True)
+    long_ctx = ((q4, k4_, v4, out4,
                  randn(torch, 93, (1, 16, 4096, 128), torch.float32)),
-                {"causal": True})
+                {"causal": True, "lse": lse4})
     firsts = list(recs["flash_attention_bwd"].first.values())
     for i, ((q, k, v, out, dout), kw) in enumerate(firsts + [long_ctx]):
         B, H, S, hd = q.shape
@@ -3247,14 +3383,17 @@ def train_replay_phase(torch, k4, k5, recs):
                 f"flash_attention_bwd at OLMoE's context, q {tuple(q.shape)}")
         causal, scale = kw.get("causal", True), kw.get("scale")
         scale = hd ** -0.5 if scale is None else scale
+        plain_kw = {n: a for n, a in kw.items() if n != "lse"}
+        route = k5.bwd_route(q, k, v)
+        check(route == "wgmma", f"{what}: takes the {route} route")
         errs["flash_attention_bwd"] = max(
             errs["flash_attention_bwd"], check_flash_bwd(
                 torch, what, k5.flash_attention_bwd(q, k, v, out, dout, **kw),
-                q, k, v, out, dout, causal, scale))
+                q, k, v, out, dout, causal, scale, route))
         ms = time_ms(torch, lambda *a: k5.flash_attention_bwd(*a, **kw),
                      (q, k, v, out, dout), 10)
-        plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(*a, **kw),
-                           (q, k, v, out, dout), 3)
+        plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
+            *a, **plain_kw), (q, k, v, out, dout), 3)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                               scale=scale)
@@ -3262,7 +3401,7 @@ def train_replay_phase(torch, k4, k5, recs):
         lib_ms = time_ms(torch, lambda: torch.autograd.grad(
             sdpa, (qg, kg, vg), g, retain_graph=True), (), 10)
         b_ms, b_by = k5_bwd_bound(B, H, KV, S, T, hd, causal,
-                                  q.element_size())
+                                  q.element_size(), route)
         log(f"replay: {what}: {ms:.5f} ms (plain {plain_ms:.5f} ms, SDPA's "
             f"backward {lib_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
             f"{100 * b_ms / ms:.1f}% of it)")
@@ -3270,7 +3409,7 @@ def train_replay_phase(torch, k4, k5, recs):
             main.setdefault("flash_attention_bwd", (ms, plain_ms, lib_ms,
                                                     b_ms, b_by))
         del sdpa, qg, kg, vg
-    del long_ctx, q4, k4_, v4
+    del long_ctx, q4, k4_, v4, out4, lse4
     torch.cuda.empty_cache()
     return errs, main
 
@@ -3336,7 +3475,7 @@ def train_slice_phase(torch):
     from repro_torch.kernels import segment_matmul as ksm
 
     cfg, gpu, cpu, batch, routing = train_slice_model(torch, 0)
-    tables = (ksm.routes, ksm.bwd_routes, kfa.routes)
+    tables = (ksm.routes, ksm.bwd_routes, kfa.routes, kfa.bwd_routes)
     before = [dict(t) for t in tables]
     bwd = kfa.flash_attention_bwd.launches
     card = train_slice_grads(torch, cfg, gpu, batch, routing, "cuda")
@@ -3345,7 +3484,8 @@ def train_slice_phase(torch):
     bwd = kfa.flash_attention_bwd.launches - bwd
     check(all(set(t) == {"fma"} for t in took)
           and bwd == 2 * TRAIN_SLICE_LAYERS,
-          f"train slice: the card side ran K4 / K4 backward / K5 on {took}, "
+          f"train slice: the card side ran K4 / K4 backward / K5 / K5 "
+          f"backward on {took}, "
           f"not all on their fma routes, or K5's backward launched {bwd} "
           f"kernels, not {2 * TRAIN_SLICE_LAYERS}")
     t0 = time.perf_counter()
@@ -3377,8 +3517,8 @@ def train_planted_faults(ksm, kfa):
         return k5b(q, k, v, out.new_zeros(()).expand_as(out).contiguous(),
                    dout, **kw)
 
-    def mask_off(q, k, v, out, dout, causal=True, scale=None):
-        return k5b(q, k, v, out, dout, causal=False, scale=scale)
+    def mask_off(q, k, v, out, dout, causal=True, scale=None, **kw):
+        return k5b(q, k, v, out, dout, causal=False, scale=scale, **kw)
 
     def last_f_dropped(dout, x, w, rows=None):
         dout = dout.clone()
@@ -3457,11 +3597,11 @@ def planted_faults(ksm, kfa):
     wrapper name, stand-in)."""
     k4, k5 = ksm.segment_matmul, kfa.flash_attention
 
-    def mask_off(q, k, v, causal=True, scale=None):
-        return k5(q, k, v, causal=False, scale=scale)
+    def mask_off(q, k, v, causal=True, scale=None, **kw):
+        return k5(q, k, v, causal=False, scale=scale, **kw)
 
-    def scaled_twice(q, k, v, causal=True, scale=None):
-        return k5(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
+    def scaled_twice(q, k, v, causal=True, scale=None, **kw):
+        return k5(q, k, v, causal=causal, scale=q.shape[-1] ** -0.5, **kw)
 
     def bf16_accumulator(x, w, rows=None):
         out = None
@@ -3921,6 +4061,19 @@ def armed() -> int:
     return 0
 
 
+def build_logged(_build, names=None) -> None:
+    """Builds the named sources (every one by default) and prints each
+    kernel's ``-Xptxas -v`` lines: registers, shared memory, spills."""
+    t0 = time.perf_counter()
+    logs = _build.build() if names is None else _build.build(names)
+    log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "warning")):
+                log(f"build: {name}: {line.strip()}")
+
+
 def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
     """Phase 10 after its kernel checks: the training path, the kernels
     replayed on its inputs, the 2-layer slice.  Returns (the JSON records
@@ -3961,9 +4114,9 @@ def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
 
 
 def train_only() -> int:
-    """``--train``: build, then phase 10 alone (the backward kernels'
-    checks, the training path, its replay and the slice).  Not part of the
-    smoke."""
+    """``--train``: build K4 and K5 (their ``-Xptxas -v`` lines and
+    ``check_sass``), then phase 10 alone (the backward kernels' checks, the
+    training path, its replay and the slice).  Not part of the smoke."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3982,10 +4135,13 @@ def train_only() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
-    _build.build(("segment_matmul", "flash_attention"))
+    t0 = time.perf_counter()
+    build_logged(_build, ("segment_matmul", "flash_attention"))
+    check_sass()
     errs = train_kernel_phase(torch, kseg, kfa)
     print(json.dumps({"kernels": train_phases(torch, kseg, kfa, errs,
                                                smi)[0]}))
+    log(f"total: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -4020,14 +4176,7 @@ def main() -> int:
     log(f"card: {kind} x{count} | torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
-
+    build_logged(_build)
     check_sass()
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)

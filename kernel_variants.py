@@ -9,6 +9,11 @@
                                      # against today's and its constants
     python3 kernel_variants.py ctrl  # ctrl_step: the first (one-thread)
                                      # design against today's
+    python3 kernel_variants.py k5bwd # K5's backward: the fma pair forced
+                                     # at bf16 hd 128 against the wgmma
+                                     # route
+    python3 kernel_variants.py k4bwd # K4's backward: the copies and K4
+                                     # against the dx and dw forms
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -46,7 +51,18 @@ design (``csrc/variants/ctrl_step_serial.cu``: every round on one thread;
 its structure built once too and phi already on the card, so its calls
 cost the host less than its wrapper's did), each bit for bit against the
 plain version, the state restored outside the timed span; CUDA-event time
-and the host's submit time of a call.  Prints one line a timing.
+and the host's submit time of a call.  K5's backward (``k5bwd``) at the
+training shape (B 4, H 16, S 512, hd 128, bf16 from the model's views,
+causal) and at OLMoE's context (1 x 4096): the fma pair forced at bf16 hd
+128 (its first design, the route those calls took before the wgmma
+route) against the wgmma route, each within its route's
+``check_flash_bwd`` bound, beside SDPA's backward and each route's bound.
+K4's backward (``k4bwd``) at the training path's expert products (E 72,
+C 320, D / F 2048 / 1024 both ways, rows drawn in [0, C]): its first
+design (``torch.where``, contiguous transposes and two K4 launches)
+against the tiles kernel's dx and dw forms, each within
+``check_seg_bwd``, beside ``torch.bmm`` and the bound, with the device
+memory each call allocates at its peak.  Prints one line a timing.
 Not part of the smoke: it chose the constants in the sources.
 """
 from __future__ import annotations
@@ -181,7 +197,7 @@ def k5(torch, cs, _build) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for lib in libs.values():
         lib.repro_flash_attention.argtypes = (
-            [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
@@ -192,7 +208,8 @@ def k5(torch, cs, _build) -> None:
         strides = kfa._strides(q) + kfa._strides(k) + kfa._strides(v)
         route = ctypes.c_int(-1)
         code = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            B, H,
             k.shape[1], S, S, hd, hd ** -0.5, 1, 1,
             (ctypes.c_longlong * 9)(*strides),
             *_build.device_and_stream(q.device), ctypes.byref(route))
@@ -545,12 +562,109 @@ def ctrl(torch, cs, _build) -> None:
             del runs
 
 
+def k5bwd(torch, cs, _build) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    lib = kfa._library()
+
+    def call(route, q, k, v, out, dout, lse):
+        """K5's backward on ``route`` (the fma pair may be forced at bf16
+        hd 128), as ``flash_attention_bwd`` calls it."""
+        B, H, S, hd = q.shape
+        KV, T = k.shape[1], k.shape[2]
+        dq = torch.empty((B, H, S, hd), dtype=q.dtype, device="cuda")
+        dk = torch.empty((B, KV, T, hd), dtype=k.dtype, device="cuda")
+        dv = torch.empty_like(dk)
+        n = (2 * B * H * -(-S // 128) * 128 + B * H * S * hd
+             if route == "wgmma" else 2 * B * H * S)
+        ws = torch.empty(n, dtype=torch.float32, device="cuda")
+        code = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, hd, hd ** -0.5, 1,
+            1, (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
+                                         + kfa._strides(v))),
+            kfa.ROUTES.index(route), *_build.device_and_stream(q.device))
+        cs.check(code == 0, f"{route}: launch failed: CUDA error {code}")
+        return dq, dk, dv
+
+    for B, S in ((cs.TRAIN_B, cs.TRAIN_S), (1, 4096)):
+        q, k, v = (cs.randn(torch, 80 + i, (B, S, 16, 128),
+                            torch.bfloat16).transpose(1, 2)
+                   for i in range(3))
+        out, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        dout = cs.randn(torch, 89, (B, 16, S, 128), torch.float32)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (),
+            10)
+        for turn, names in enumerate((["fma", "wgmma"], ["wgmma", "fma"])):
+            for route in names:
+                err = cs.check_flash_bwd(
+                    torch, route, call(route, q, k, v, out, dout, lse), q, k,
+                    v, out, dout, True, 128 ** -0.5, route)
+                ms = cs.time_ms(torch, lambda *a: call(route, *a),
+                                (q, k, v, out, dout, lse), 10)
+                bound, by = cs.k5_bwd_bound(B, 16, 16, S, S, 128, True, 2,
+                                            route)
+                print(f"{route}: K5 backward B={B} H=16 S={S} hd=128 bf16 "
+                      f"causal turn {turn}: {ms:.5f} ms (bound {bound:.5f} "
+                      f"ms by {by}, {100 * bound / ms:.1f}%; SDPA's "
+                      f"backward {sdpa_ms:.5f} ms; max |err| {err:.3g})",
+                      flush=True)
+        del q, k, v, out, lse, dout, qg, kg, vg, sdpa
+        torch.cuda.empty_cache()
+
+
+def k4bwd(torch, cs, _build) -> None:
+    from repro_torch.kernels import segment_matmul as kseg
+    forms = {
+        "copies and K4 (first design)": lambda *a: tuple(
+            out for out, _ in kseg._copies_bwd(*a)),
+        "dx and dw forms": kseg.segment_matmul_backward}
+    for E, C, D, F in ((72, 320, 2048, 1024), (72, 320, 1024, 2048)):
+        x = cs.randn(torch, 1, (E, C, D), torch.bfloat16, 0.5)
+        w = cs.randn(torch, 2, (E, D, F), torch.bfloat16, D ** -0.5)
+        dout = cs.randn(torch, 3, (E, C, F), torch.bfloat16)
+        rows = cs.k4_rows_cases(torch, E, C, 4)[3][1]
+        dead = (torch.arange(C, device="cuda")[None, :]
+                >= rows.long()[:, None])
+        x = x.masked_fill(dead[..., None], float("nan"))
+        lib_ms = cs.time_ms(torch, lambda d, x, w: (
+            torch.bmm(d, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), d)),
+            (dout, x, w), 10)
+        bound, by = cs.k4_bwd_bound(E, C, D, F, 2, rows.tolist())
+        for turn, names in enumerate((list(forms), list(forms)[::-1])):
+            for name in names:
+                fn = forms[name]
+                err = cs.check_seg_bwd(torch, kseg, name,
+                                       fn(dout, x, w, rows), dout, x, w,
+                                       rows)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn(dout, x, w, rows)
+                torch.cuda.synchronize()
+                extra = (torch.cuda.max_memory_allocated() - base) / 2**20
+                ms = cs.time_ms(torch, fn, (dout, x, w, rows), 10)
+                print(f"{name}: K4 backward E={E} C={C} D={D} F={F} bf16 "
+                      f"(rows sum {int(rows.sum())} of {E * C}) turn {turn}: "
+                      f"{ms:.5f} ms a call (bound {bound:.5f} ms by {by}, "
+                      f"{100 * bound / ms:.1f}%; torch.bmm for dx and dw "
+                      f"{lib_ms:.5f} ms; {extra:.1f} MiB allocated at its "
+                      f"peak; max |err| {err:.3g})", flush=True)
+        del x, w, dout
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
-    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"]):
-        print("usage: python3 kernel_variants.py k4|k5|k1k2|k6|ctrl",
-              file=sys.stderr)
+    if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"],
+                            ["k5bwd"], ["k4bwd"]):
+        print("usage: python3 kernel_variants.py "
+              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -565,8 +679,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6,
-     "ctrl": ctrl}[sys.argv[1]](torch, cs, _build)
+    {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6, "ctrl": ctrl,
+     "k5bwd": k5bwd, "k4bwd": k4bwd}[sys.argv[1]](torch, cs, _build)
     return 0
 
 

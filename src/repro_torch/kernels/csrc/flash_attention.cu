@@ -35,6 +35,13 @@
 //            than expf (kernel_variants.py k5; PERF.md).
 //   "fma"    (float32, and bf16 at hd 16, 32, 64): float32 on the CUDA
 //            cores, the first, simple design (below).
+// The wgmma kernel also writes each row's log-sum-exp of the scaled scores,
+// m + log(max(l, 1e-20)), when given a buffer for it (the training
+// forward; the serve passes none and its output's bits do not change).
+// The backward has two routes of its own, each described where it is
+// defined: "fma" (flash_bwd_dq, flash_bwd_dkv: CUDA cores, any call) and
+// "wgmma" (bf16 at hd 128: flash_bwd_prep, flash_bwd_dkv_wgmma,
+// flash_bwd_dq_wgmma, which read that log-sum-exp).
 //
 // Bound on an H100 (NVIDIA H100 SXM data sheet), per visible (query, key)
 // pair (S T pairs, S (S + 1) / 2 when causal and S == T): wgmma, 2 hd
@@ -124,7 +131,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma(__grid_constant__ const CUtensorMap tq,
             __grid_constant__ const CUtensorMap tk,
             __grid_constant__ const CUtensorMap tv, float* __restrict__ out,
-            int S, int T_len, int H, int rep, float scale, int causal) {
+            float* __restrict__ lse, int S, int T_len, int H, int rep,
+            float scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* ring = smem + kTile;           // the q tile first
@@ -303,6 +311,10 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
       *reinterpret_cast<float2*>(orow + 8 * g) =
           make_float2(acc[4 * g + 2 * r] / denom,
                       acc[4 * g + 2 * r + 1] / denom);
+    // The row's log-sum-exp of the scaled scores, for the backward (m and
+    // l are the same on the four lanes of the row's quad).
+    if (lse != nullptr && quad == 0)
+      lse[static_cast<size_t>(bh) * S + row] = m[r] + logf(denom);
   }
 }
 
@@ -424,7 +436,8 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- the backward: float32 on the CUDA cores ------------------------------
+// ---- the backward, "fma" route: float32 on the CUDA cores ----------------
+// (float32, bf16 at hd 16, 32, 64, and bf16 at hd 128 that TMA cannot map.)
 // dQ, dK and dV of out = softmax(scale q k^T) v (masked as the forward),
 // given out (the forward's float32 output) and dO = dL/d out (float32):
 //   P = exp(s - lse) with s = (scale q) . k and lse = m + log(l) of the row,
@@ -451,7 +464,8 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
 // tensor-core rate for bf16 inputs, whose products are exact in float32)
 // and dO v, dS k, dS^T q, P^T dO (8 hd at the float32 rate); or q, k, v,
 // out and dO read once and dq, dk, dv written once (3.35 TB/s).  At the
-// training shape (B 4, H 16, S 512, hd 128) the operations bound it.
+// training shape (B 4, H 16, S 512, hd 128) the operations bound it; that
+// call now takes the wgmma route (below).
 constexpr int kBB = 64;               // rows a tile, both kernels
 constexpr int kBThreads = 256;
 
@@ -721,6 +735,510 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the backward, bf16 at hd 128: wgmma on TMA rings ----------------------
+// The same function as the fma pair above, for bf16 q, k, v at hd 128 whose
+// strides TMA can map (the model's training calls).  Three launches:
+//   flash_bwd_prep  a warp a row: D_i = sum_d dO out (float32, as the fma
+//                   pair), dO split into bf16 hi = bf16(dO) and lo =
+//                   bf16(dO - hi) ([B, H, S, hd] each; dO - hi is exact in
+//                   float32, as P's split in flash_wgmma), and the forward's
+//                   lse and D copied to rows padded to Sp (a multiple of
+//                   128): lse = +inf and D = 0 past S, so a query past S
+//                   gets P = 0 with no mask.  Once a call, not once a tile;
+//   flash_bwd_dkv_wgmma  a block a (b, KV head, 64 keys), the heaviest
+//                   causal key tiles first: K and V loaded once by TMA
+//                   through 4-D maps of the tensors' own strides, then for
+//                   each of the rep query heads the 64-query tiles from the
+//                   diagonal on, Q, dO hi and dO lo streamed through a
+//                   2-stage ring on mbarriers by a producer warp.  Two
+//                   consumer warpgroups share the block's 64 keys, per tile:
+//                     wg 0: S^T = K Q^T (both K-major, scaled after the
+//                     product), P^T = exp(S^T - lse) (the mask, -2^30, only
+//                     on the tile that holds the diagonal), P^T to shared
+//                     memory for wg 1, dV += P_hi^T dO_hi + P_lo^T dO_hi +
+//                     P_hi^T dO_lo;
+//                     wg 1: dP^T = V dO_hi^T + V dO_lo^T, dS^T = P^T (dP^T
+//                     - D) with wg 0's P^T, dK += dS_hi^T Q + dS_lo^T Q;
+//                   P^T and dS^T split into bf16 hi + lo and packed straight
+//                   from the accumulators into register A fragments (RS
+//                   form), dO and Q N-major (transpose bit set).  P^T passes
+//                   through two float32 buffers, ordered by named barriers
+//                   (bar.arrive / bar.sync 1-4: full and free, a buffer
+//                   each).  dV and dK (times scale) stay in registers for
+//                   the whole walk and are written once in k's dtype;
+//   flash_bwd_dq_wgmma  a block a (b, h, 128 queries), the heaviest causal
+//                   query tiles first: Q, dO hi and dO lo loaded once, the
+//                   64-key K and V tiles up to the diagonal streamed through
+//                   a 2-stage ring by a producer warp; two consumer
+//                   warpgroups of 64 queries compute S = Q K^T, dP = dO_hi
+//                   V^T + dO_lo V^T, P, dS (the mask on diagonal and ragged
+//                   tiles) and dQ += dS_hi K + dS_lo K (K N-major), written
+//                   once (times scale) in q's dtype.
+// No atomics: each gradient is summed in one block, dK and dV over the
+// query heads of their KV head, so two calls give the same bits.  A tile
+// whose queries all precede a warpgroup's keys (dkv) or whose keys all
+// follow its queries (dq) is skipped by that warpgroup.  The exponentials
+// are expf (2 units in the last place, inside check_flash_bwd's 2^-21).
+// Register budget: ptxas gives a thread of these 288-thread blocks at most
+// 168 registers (it counts warpgroups: 3 x 128 threads).  One warpgroup
+// holding both dK and dV (two 64 x 128 float32 accumulators, 128 registers)
+// beside S^T and dP^T needed 255 and still spilled, with or without
+// setmaxnreg; so each dkv warpgroup holds one accumulator (64) beside one
+// 64 x 64 tile (32) and its fragments (32), and the two split the tile's
+// work evenly (8 hd a pair each).  The price: a block owns 64 keys, not
+// 128, so Q and dO stream through the ring twice as often (from L2).  The
+// dq warpgroup holds dQ (64), S and dP (32 each).  Per visible (query, key)
+// pair the kernels do 26 hd bf16 tensor-core operations: dkv 2 hd for
+// S^T, 4 for dP^T, 6 for dV and 4 for dK; dq S and dP again (6) and 4 for
+// dQ.  The bound counts the products
+// once: 20 hd a pair at the bf16 tensor-core rate (chip_smoke.py
+// k5_bwd_bound), against q, k, v, out, dout and lse read and dq, dk, dv
+// written once.
+constexpr int kRows = 64;                     // a warpgroup's rows, a ring tile
+constexpr int kBlockRows = 128;               // dq: a block's own queries
+constexpr uint32_t kBox64 = 64 * 128;         // 64 rows x 64 bf16, 8 KB
+constexpr uint32_t kTile64 = 2 * kBox64;      // 64 rows x hd 128, 16 KB
+constexpr int kBStages = 2;
+constexpr uint32_t kKVStage = 3 * kTile64;    // Q, dO hi, dO lo: 48 KB
+constexpr int kPBuf = 32 * 128;               // P^T of a tile, float32
+constexpr int kKVThreads = 288;               // 2 consumer wgs + 1 warp
+constexpr size_t kKVSmem = 2 * kTile64 + kBStages * kKVStage +
+                           2 * kPBuf * 4 + (1 + 2 * kBStages) * 8 + 1024;
+constexpr uint32_t kQStage = 2 * kTile64;     // K, V: 32 KB
+constexpr int kQThreads = 288;                // 2 consumer wgs + 1 warp
+constexpr size_t kQSmem =
+    3 * kTile + kBStages * kQStage + (1 + 2 * kBStages) * 8 + 1024;
+
+// Arrives on named barrier `id` (1..15) of `threads` threads without
+// waiting; a bar.sync of the same id by the other threads completes it.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// Splits the float32 accumulator of an m64n64 product into the bf16 hi and
+// lo A fragments of its four 16-column steps (the RS layout of sm90.cuh:
+// d[8 j .. 8 j + 7] packs in order into step j's fragment).
+__device__ __forceinline__ void split_frags(const float (&a)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = a[8 * kk + 2 * r], y = a[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      const float2 back = __bfloat1622float2(h);
+      hi[kk][r] = bits(h);
+      lo[kk][r] = bits(__floats2bfloat162_rn(x - back.x, y - back.y));
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(f[kk]);
+}
+
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const float* __restrict__ out, const float* __restrict__ dout,
+               const float* __restrict__ lse, bf16* __restrict__ dhi,
+               bf16* __restrict__ dlo, float* __restrict__ lse_p,
+               float* __restrict__ d_p, int S, int Sp, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long bh = row / Sp;
+  const int i = static_cast<int>(row % Sp);
+  if (i >= S) {
+    if (lane == 0) {
+      lse_p[row] = pos_inf();
+      d_p[row] = 0.0f;
+    }
+    return;
+  }
+  const size_t at = (static_cast<size_t>(bh) * S + i) * kHD + 4 * lane;
+  const float4 o = *reinterpret_cast<const float4*>(out + at);
+  const float4 g = *reinterpret_cast<const float4*>(dout + at);
+  float dd = fmaf(g.w, o.w, fmaf(g.z, o.z, fmaf(g.y, o.y, g.x * o.x)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    dd += __shfl_xor_sync(0xffffffffu, dd, off);
+  const __nv_bfloat162 h01 = __floats2bfloat162_rn(g.x, g.y);
+  const __nv_bfloat162 h23 = __floats2bfloat162_rn(g.z, g.w);
+  const float2 b01 = __bfloat1622float2(h01), b23 = __bfloat1622float2(h23);
+  *reinterpret_cast<uint2*>(dhi + at) = make_uint2(bits(h01), bits(h23));
+  *reinterpret_cast<uint2*>(dlo + at) = make_uint2(
+      bits(__floats2bfloat162_rn(g.x - b01.x, g.y - b01.y)),
+      bits(__floats2bfloat162_rn(g.z - b23.x, g.w - b23.y)));
+  if (lane == 0) {
+    lse_p[row] = lse[static_cast<size_t>(bh) * S + i];
+    d_p[row] = dd;
+  }
+}
+
+__global__ void __launch_bounds__(kKVThreads, 1)
+flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
+                    __grid_constant__ const CUtensorMap tk,
+                    __grid_constant__ const CUtensorMap tv,
+                    __grid_constant__ const CUtensorMap tdh,
+                    __grid_constant__ const CUtensorMap tdl,
+                    const float* __restrict__ lse_p,
+                    const float* __restrict__ d_p, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int S, int Sp, int T_len, int H,
+                    int KV, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* ks = smem;                     // K [64 keys][hd]: two 8 KB boxes
+  uint8_t* vs = smem + kTile64;           // V alike
+  uint8_t* ring = smem + 2 * kTile64;     // stages of Q, dO hi, dO lo
+  float* pbuf = reinterpret_cast<float*>(ring + kBStages * kKVStage);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(pbuf + 2 * kPBuf);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kBStages;
+
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int rep = H / KV;
+  const int k0 = blockIdx.y * kRows;
+  // Causal: the query tiles from the one holding the diagonal on.
+  const int q_start = causal ? k0 : 0;
+  const int n_q = (S - q_start + kRows - 1) / kRows;
+  const int n_tiles = rep * n_q;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kvbar, 1);
+    for (int s = 0; s < kBStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                        // the producer
+    if (threadIdx.x % 32 == 0) {
+      sm90::mbar_arrive_expect_tx(kvbar, 2 * kTile64);
+      sm90::tma_load_4d(ks, &tk, kvbar, 0, k0, kvh, b);
+      sm90::tma_load_4d(ks + kBox64, &tk, kvbar, 64, k0, kvh, b);
+      sm90::tma_load_4d(vs, &tv, kvbar, 0, k0, kvh, b);
+      sm90::tma_load_4d(vs + kBox64, &tv, kvbar, 64, k0, kvh, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kBStages;
+        if (j >= kBStages) sm90::mbar_wait(&empty[s], (j / kBStages - 1) & 1);
+        uint8_t* st = ring + s * kKVStage;
+        const int h = kvh * rep + j / n_q;
+        const int q0 = q_start + (j % n_q) * kRows;
+        sm90::mbar_arrive_expect_tx(&full[s], kKVStage);
+        sm90::tma_load_4d(st, &tq, &full[s], 0, q0, h, b);
+        sm90::tma_load_4d(st + kBox64, &tq, &full[s], 64, q0, h, b);
+        sm90::tma_load_4d(st + kTile64, &tdh, &full[s], 0, q0, h, b);
+        sm90::tma_load_4d(st + kTile64 + kBox64, &tdh, &full[s], 64, q0, h,
+                          b);
+        sm90::tma_load_4d(st + 2 * kTile64, &tdl, &full[s], 0, q0, h, b);
+        sm90::tma_load_4d(st + 2 * kTile64 + kBox64, &tdl, &full[s], 64, q0,
+                          h, b);
+      }
+    }
+    return;
+  }
+
+  // The consumers, both on the block's 64 keys with the same accumulator
+  // layout: this thread keys kr and kr + 8 (index i / 2) and, in S^T and
+  // dP^T, queries q0 + 8 g + 2 quad + (0, 1).  Warpgroup 0 computes P^T and
+  // dV, and hands P^T to warpgroup 1 through pbuf (element i of thread t
+  // at i * 128 + t: no bank conflicts), which computes dP^T, dS^T and dK.
+  const int wg = warp / 4, lane = threadIdx.x % 32, quad = lane % 4;
+  const int t = threadIdx.x % 128;
+  const int kr = k0 + 16 * (warp % 4) + lane / 4;
+  float acc[64];                          // dV (wg 0) or dK (wg 1)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  sm90::fence_regs(acc);
+  const uint32_t ka = sm90::smem_u32(ks), va = sm90::smem_u32(vs);
+  sm90::mbar_wait(kvbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kBStages, pb = j % 2;
+    const size_t bh = static_cast<size_t>(b) * H + kvh * rep + j / n_q;
+    const int q0 = q_start + (j % n_q) * kRows;
+    const uint32_t qb = sm90::smem_u32(ring + s * kKVStage);
+    const uint32_t hb = qb + kTile64, lb = qb + 2 * kTile64;
+    float* pt = pbuf + pb * kPBuf + t;
+    sm90::mbar_wait(&full[s], (j / kBStages) & 1);
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+    if (wg == 0) {
+      // S^T = K Q^T.
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
+        sm90::wgmma_m64n64k16<0, 0>(sc, sm90::desc_sw128(ka + off, 16, 1024),
+                                    sm90::desc_sw128(qb + off, 16, 1024));
+      }
+    } else {
+      // dP^T = V dO_hi^T + V dO_lo^T.
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
+        const uint64_t dva = sm90::desc_sw128(va + off, 16, 1024);
+        sm90::wgmma_m64n64k16<0, 0>(sc, dva,
+                                    sm90::desc_sw128(hb + off, 16, 1024));
+        sm90::wgmma_m64n64k16<0, 0>(sc, dva,
+                                    sm90::desc_sw128(lb + off, 16, 1024));
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+
+    if (wg == 0) {
+      // P^T = exp(scale S^T - lse): only the diagonal tile has a key past a
+      // query; queries past S read lse = +inf, so P = 0 there.
+      const float* lrow = lse_p + bh * Sp + q0 + 2 * quad;
+      const bool edge = causal && q0 < k0 + kRows - 1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale;
+        if (edge && kr + 8 * ((i >> 1) & 1) > q0 + 8 * (i / 4) + 2 * quad +
+                                                   (i & 1))
+          x = kNegInf;
+        sc[i] = expf(x - lrow[8 * (i / 4) + (i & 1)]);
+      }
+      if (j >= 2) sm90::named_barrier(3 + pb, 256);   // wg 1 read tile j-2
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pt[i * 128] = sc[i];
+      named_arrive(1 + pb, 256);
+      uint32_t hi[4][4], lo[4][4];
+      split_frags(sc, hi, lo);
+      // dV += P_hi^T dO_hi + P_lo^T dO_hi + P_hi^T dO_lo: queries in 4
+      // steps of 16 (2048 bytes each), dO N-major, its second 64 columns
+      // one box on.
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        const uint64_t dh = sm90::desc_sw128(hb + 2048 * kk, kBox64, 1024);
+        sm90::wgmma_m64n128k16_rs<1>(acc, hi[kk], dh);
+        sm90::wgmma_m64n128k16_rs<1>(acc, lo[kk], dh);
+        sm90::wgmma_m64n128k16_rs<1>(
+            acc, hi[kk], sm90::desc_sw128(lb + 2048 * kk, kBox64, 1024));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      fence_frags(hi);
+      fence_frags(lo);
+    } else {
+      // dS^T = P^T (dP^T - D), P^T from warpgroup 0.
+      const float* drow = d_p + bh * Sp + q0 + 2 * quad;
+      sm90::named_barrier(1 + pb, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = pt[i * 128] * (sc[i] - drow[8 * (i / 4) + (i & 1)]);
+      if (j + 2 < n_tiles) named_arrive(3 + pb, 256);
+      uint32_t hi[4][4], lo[4][4];
+      split_frags(sc, hi, lo);
+      // dK += dS_hi^T Q + dS_lo^T Q (times scale at the end), Q N-major.
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        const uint64_t dq_ = sm90::desc_sw128(qb + 2048 * kk, kBox64, 1024);
+        sm90::wgmma_m64n128k16_rs<1>(acc, hi[kk], dq_);
+        sm90::wgmma_m64n128k16_rs<1>(acc, lo[kk], dq_);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      fence_frags(hi);
+      fence_frags(lo);
+    }
+    if (t == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  // dV (wg 0) and dK = scale dS^T Q (wg 1), rounded once to bf16, rows
+  // past T not written.
+  bf16* grad = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.0f : scale;
+  const size_t base = (static_cast<size_t>(b) * KV + kvh) * T_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kr + 8 * r;
+    if (key >= T_len) continue;
+    bf16* row = grad + (base + key) * kHD + 2 * quad;
+#pragma unroll
+    for (int g = 0; g < 16; ++g)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * g) = __floats2bfloat162_rn(
+          acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(kQThreads, 1)
+flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
+                   __grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv,
+                   __grid_constant__ const CUtensorMap tdh,
+                   __grid_constant__ const CUtensorMap tdl,
+                   const float* __restrict__ lse_p,
+                   const float* __restrict__ d_p, bf16* __restrict__ dq,
+                   int S, int Sp, int T_len, int H, int KV, float scale,
+                   int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;                     // Q [128 queries][hd]
+  uint8_t* hs = smem + kTile;             // dO hi
+  uint8_t* ls = smem + 2 * kTile;         // dO lo
+  uint8_t* ring = smem + 3 * kTile;       // stages of K and V, 64 keys
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kBStages * kQStage);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kBStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int kv_end = causal ? min(T_len, q0 + kBlockRows) : T_len;
+  const int n_kv = (kv_end + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int s = 0; s < kBStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                        // the producer
+    if (threadIdx.x % 32 == 0) {
+      sm90::mbar_arrive_expect_tx(qbar, 3 * kTile);
+      sm90::tma_load_4d(qs, &tq, qbar, 0, q0, h, b);
+      sm90::tma_load_4d(qs + kBox, &tq, qbar, 64, q0, h, b);
+      sm90::tma_load_4d(hs, &tdh, qbar, 0, q0, h, b);
+      sm90::tma_load_4d(hs + kBox, &tdh, qbar, 64, q0, h, b);
+      sm90::tma_load_4d(ls, &tdl, qbar, 0, q0, h, b);
+      sm90::tma_load_4d(ls + kBox, &tdl, qbar, 64, q0, h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kBStages;
+        if (j >= kBStages) sm90::mbar_wait(&empty[s], (j / kBStages - 1) & 1);
+        uint8_t* st = ring + s * kQStage;
+        const int k0 = j * kRows;
+        sm90::mbar_arrive_expect_tx(&full[s], kQStage);
+        sm90::tma_load_4d(st, &tk, &full[s], 0, k0, kvh, b);
+        sm90::tma_load_4d(st + kBox64, &tk, &full[s], 64, k0, kvh, b);
+        sm90::tma_load_4d(st + kTile64, &tv, &full[s], 0, k0, kvh, b);
+        sm90::tma_load_4d(st + kTile64 + kBox64, &tv, &full[s], 64, k0, kvh,
+                          b);
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg owns queries [row_lo, row_lo + 64); this
+  // thread rows r0 and r0 + 8 and, in S, keys k0 + 8 g + 2 quad + (0, 1).
+  const int wg = warp / 4, lane = threadIdx.x % 32, quad = lane % 4;
+  const int row_lo = q0 + kRows * wg;
+  const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
+  const float* lrow = lse_p + static_cast<size_t>(bh) * Sp;
+  const float* drow = d_p + static_cast<size_t>(bh) * Sp;
+  const float lse[2] = {lrow[r0], lrow[r0 + 8]};
+  const float dd[2] = {drow[r0], drow[r0 + 8]};
+  float adq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) adq[i] = 0.0f;
+  sm90::fence_regs(adq);
+  const uint32_t qa = sm90::smem_u32(qs) + wg * kRows * 128;
+  const uint32_t ha = sm90::smem_u32(hs) + wg * kRows * 128;
+  const uint32_t la = sm90::smem_u32(ls) + wg * kRows * 128;
+  sm90::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kBStages;
+    const int k0 = j * kRows;
+    sm90::mbar_wait(&full[s], (j / kBStages) & 1);
+    if (!causal || k0 <= row_lo + kRows - 1) {
+      const uint32_t kb = sm90::smem_u32(ring + s * kQStage);
+      const uint32_t vb = kb + kTile64;
+      float st[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.0f;
+      sm90::fence_regs(st);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t oa = (kk / 4) * kBox + (kk % 4) * 32;
+        const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+        sm90::wgmma_m64n64k16<0, 0>(st, sm90::desc_sw128(qa + oa, 16, 1024),
+                                    sm90::desc_sw128(kb + ob, 16, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t oa = (kk / 4) * kBox + (kk % 4) * 32;
+        const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+        const uint64_t dvb = sm90::desc_sw128(vb + ob, 16, 1024);
+        sm90::wgmma_m64n64k16<0, 0>(dp, sm90::desc_sw128(ha + oa, 16, 1024),
+                                    dvb);
+        sm90::wgmma_m64n64k16<0, 0>(dp, sm90::desc_sw128(la + oa, 16, 1024),
+                                    dvb);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dp);
+
+      // P and dS in place; keys past T (the ragged last tile) and past a
+      // query (a tile crossing the diagonal) are masked.
+      const bool edge =
+          (causal && k0 + kRows - 1 > row_lo) || k0 + kRows > T_len;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float sc = st[i] * scale;
+        if (edge) {
+          const int kj = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
+          if (kj >= T_len || (causal && kj > r0 + 8 * r)) sc = kNegInf;
+        }
+        const float p = expf(sc - lse[r]);
+        dp[i] = p * (dp[i] - dd[r]);
+      }
+      uint32_t sh[4][4], sl[4][4];
+      split_frags(dp, sh, sl);
+
+      // dQ += dS K: keys in 4 steps of 16, K N-major.
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        const uint64_t bk = sm90::desc_sw128(kb + 2048 * kk, kBox64, 1024);
+        sm90::wgmma_m64n128k16_rs<1>(adq, sh[kk], bk);
+        sm90::wgmma_m64n128k16_rs<1>(adq, sl[kk], bk);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(adq);
+      fence_frags(sh);
+      fence_frags(sl);
+    }
+    if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= S) continue;
+    bf16* drow_ = dq + (static_cast<size_t>(bh) * S + row) * kHD + 2 * quad;
+#pragma unroll
+    for (int g = 0; g < 16; ++g)
+      *reinterpret_cast<__nv_bfloat162*>(drow_ + 8 * g) =
+          __floats2bfloat162_rn(adq[4 * g + 2 * r] * scale,
+                                adq[4 * g + 2 * r + 1] * scale);
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 constexpr int kMaxDevices = 64;
 
@@ -737,22 +1255,23 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
 }
 
 // A map of q, k or v as (hd, rows, heads, batch) with its own strides, read
-// in 64-column boxes of 128 rows.
+// in 64-column boxes of `box_rows` rows (128, or 64 for the backward's
+// 64-row tiles).
 bool head_map(CUtensorMap* map, const void* base, const long long (&st)[3],
-              int rows, int heads, int B) {
+              int rows, int heads, int B, int box_rows = 128) {
   const uint64_t dims[4] = {kHD, static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(heads),
                             static_cast<uint64_t>(B)};
   const uint64_t bytes[3] = {static_cast<uint64_t>(st[2]) * 2,
                              static_cast<uint64_t>(st[1]) * 2,
                              static_cast<uint64_t>(st[0]) * 2};
-  return sm90::tensor_map_bf16_4d(map, base, dims, bytes, 64, 128);
+  return sm90::tensor_map_bf16_4d(map, base, dims, bytes, 64, box_rows);
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         float* out, int B, int H, int KV, int S, int T_len,
-                         float scale, int causal, const Strides& st,
-                         int device, cudaStream_t s) {
+                         float* out, float* lse, int B, int H, int KV, int S,
+                         int T_len, float scale, int causal,
+                         const Strides& st, int device, cudaStream_t s) {
   static bool done[kMaxDevices] = {};
   CUtensorMap tq, tk, tv;
   if (!head_map(&tq, q, st.q, S, H, B) ||
@@ -762,8 +1281,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t err = allow_smem(flash_wgmma, kWSmem, device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
-  flash_wgmma<<<grid, kWThreads, kWSmem, s>>>(tq, tk, tv, out, S, T_len, H,
-                                              H / KV, scale, causal);
+  flash_wgmma<<<grid, kWThreads, kWSmem, s>>>(tq, tk, tv, out, lse, S, T_len,
+                                              H, H / KV, scale, causal);
   return cudaGetLastError();
 }
 
@@ -859,6 +1378,55 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
   }
 }
 
+// The workspace of the wgmma backward, in floats: lse and D padded to Sp
+// rows a (b, h), then dO hi and dO lo, bf16 [B, H, S, hd] each.
+int padded_rows(int S) { return (S + kBlockRows - 1) / kBlockRows * kBlockRows; }
+
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const float* o, const float* dout,
+                             const float* lse, void* dq, void* dk, void* dv,
+                             float* ws, int B, int H, int KV, int S,
+                             int T_len, float scale, int causal,
+                             const Strides& st, int device, cudaStream_t s) {
+  static bool done_kv[kMaxDevices] = {}, done_q[kMaxDevices] = {};
+  const int Sp = padded_rows(S);
+  const long long rows = static_cast<long long>(B) * H * Sp;
+  float* lse_p = ws;
+  float* d_p = ws + rows;
+  bf16* dhi = reinterpret_cast<bf16*>(ws + 2 * rows);
+  bf16* dlo = dhi + static_cast<size_t>(B) * H * S * kHD;
+  const long long dst[3] = {static_cast<long long>(H) * S * kHD,
+                            static_cast<long long>(S) * kHD, kHD};
+  CUtensorMap tq64, tq128, tk64, tv64, th64, th128, tl64, tl128;
+  if (!head_map(&tq64, q, st.q, S, H, B, 64) ||
+      !head_map(&tq128, q, st.q, S, H, B, 128) ||
+      !head_map(&tk64, k, st.k, T_len, KV, B, 64) ||
+      !head_map(&tv64, v, st.v, T_len, KV, B, 64) ||
+      !head_map(&th64, dhi, dst, S, H, B, 64) ||
+      !head_map(&th128, dhi, dst, S, H, B, 128) ||
+      !head_map(&tl64, dlo, dst, S, H, B, 64) ||
+      !head_map(&tl128, dlo, dst, S, H, B, 128))
+    return cudaErrorNotSupported;
+  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma, kKVSmem, device, done_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_bwd_dq_wgmma, kQSmem, device, done_q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_prep<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wgmma<<<dim3(B * KV, (T_len + kRows - 1) / kRows),
+                        kKVThreads, kKVSmem, s>>>(
+      tq64, tk64, tv64, th64, tl64, lse_p, d_p, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, Sp, T_len, H, KV, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<<<dim3(B * H, Sp / kBlockRows), kQThreads, kQSmem, s>>>(
+      tq128, tk64, tv64, th128, tl128, lse_p, d_p, static_cast<bf16*>(dq), S,
+      Sp, T_len, H, KV, scale, causal);
+  return cudaGetLastError();
+}
+
 bool tma_ready(const void* p, const long long (&st)[3]) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && st[0] % 8 == 0 &&
          st[1] % 8 == 0 && st[2] % 8 == 0 && st[0] > 0 && st[1] > 0 &&
@@ -879,14 +1447,16 @@ const char* repro_cuda_error_string(int code) {
 // 1 = bf16 (q, k and v alike); hd in {16, 32, 64, 128}; H a multiple of
 // KV; causal needs S == T.  bf16 at hd 128 runs the wgmma kernel (its
 // strides multiples of 8 and its bases 16-byte aligned, or an error),
-// every other call the fma kernel; *route is set to the kernel (0 fma,
+// which also writes each row's log-sum-exp of the scaled scores to lse
+// (float32 [B, H, S]) unless lse is null; every other call runs the fma
+// kernel and leaves lse alone.  *route is set to the kernel (0 fma,
 // 1 wgmma).  Returns a cudaError_t (0 on success); launches
 // asynchronously on `stream`.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          float* out, int B, int H, int KV, int S, int T_len,
-                          int hd, float scale, int causal, int dtype,
-                          const long long* strides, int device, void* stream,
-                          int* route) {
+                          float* out, float* lse, int B, int H, int KV, int S,
+                          int T_len, int hd, float scale, int causal,
+                          int dtype, const long long* strides, int device,
+                          void* stream, int* route) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || T_len < 1 ||
       (causal && S != T_len) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
@@ -904,8 +1474,8 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     if ((S + kBM - 1) / kBM > 65535 || !tma_ready(q, st.q) ||
         !tma_ready(k, st.k) || !tma_ready(v, st.v))
       return cudaErrorInvalidValue;
-    return launch_wgmma(q, k, v, out, B, H, KV, S, T_len, scale, causal, st,
-                        device, s);
+    return launch_wgmma(q, k, v, out, lse, B, H, KV, S, T_len, scale, causal,
+                        st, device, s);
   }
   *route = kFma;
   if (static_cast<long long>(B) * H > 65535) return cudaErrorInvalidValue;
@@ -920,16 +1490,21 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 // The backward of repro_flash_attention: q, k, v as there (same strides,
 // dtype, hd, causal rule), out and dout [B, H, S, hd] float32 contiguous
 // (the forward's output and the gradient at it), dq [B, H, S, hd] and dk,
-// dv [B, KV, T, hd] contiguous in q's dtype, ws a float32 workspace of
-// 2 B H S; two launches on `stream` (dq, then dk and dv), no atomics.
-// Returns a cudaError_t.
+// dv [B, KV, T, hd] contiguous in q's dtype; no atomics.  route 0 (fma,
+// any call): ws a float32 workspace of 2 B H S, two launches (dq, then dk
+// and dv), lse unread.  route 1 (wgmma: bf16 at hd 128 with strides that
+// are multiples of 8 and 16-byte-aligned bases): lse the forward's
+// log-sum-exp, float32 [B, H, S], ws a float32 workspace of
+// 2 B H Sp + B H S hd floats (Sp = S rounded up to 128; 16-byte aligned),
+// three launches (the prep pass, dk and dv, dq).  Launches on `stream`;
+// returns a cudaError_t.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
-                              const float* out, const float* dout, void* dq,
-                              void* dk, void* dv, float* ws, int B, int H,
-                              int KV, int S, int T_len, int hd, float scale,
-                              int causal, int dtype,
-                              const long long* strides, int device,
-                              void* stream) {
+                              const float* out, const float* dout,
+                              const float* lse, void* dq, void* dk, void* dv,
+                              float* ws, int B, int H, int KV, int S,
+                              int T_len, int hd, float scale, int causal,
+                              int dtype, const long long* strides, int route,
+                              int device, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || T_len < 1 ||
       (causal && S != T_len) || (dtype != 0 && dtype != 1) ||
       static_cast<long long>(B) * H > 65535 ||
@@ -944,6 +1519,17 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kWgmma) {
+    if (dtype != 1 || hd != kHD || lse == nullptr ||
+        padded_rows(S) / kBlockRows > 65535 ||
+        (T_len + kRows - 1) / kRows > 65535 || !tma_ready(q, st.q) ||
+        !tma_ready(k, st.k) || !tma_ready(v, st.v) ||
+        (reinterpret_cast<uintptr_t>(ws) & 15) != 0)
+      return cudaErrorInvalidValue;
+    return launch_bwd_wgmma(q, k, v, out, dout, lse, dq, dk, dv, ws, B, H, KV,
+                            S, T_len, scale, causal, st, device, s);
+  }
+  if (route != kFma) return cudaErrorInvalidValue;
   if (dtype == 1)
     return dispatch_bwd<bf16>(q, k, v, out, dout, dq, dk, dv, ws, B, H, KV, S,
                               T_len, hd, scale, causal, st, device, s);

@@ -53,6 +53,24 @@
 //            outputs by FMA (no TF32: the result is full float32).
 // Both honour rows: a tile past rows[e] writes zeros and returns, and rows
 // past rows[e] are stored as zeros.
+//
+// The backward of out = x w (rows as there) runs the tiles kernel in two
+// more forms, with no transposed copy and no zeroing pass
+// (repro_segment_matmul_bwd; bf16, D and F multiples of 8, any C):
+//   "dx" dx [E, C, D] = dout [E, C, F] w[E, D, F]^T: w read as a K-major B
+//        operand (its own map, boxes of 64 f by 128 d, transpose bit 0);
+//        rows past rows[e] zero, tiles past them load nothing, as forward.
+//        C < 64 takes it too: TMA reads zeros past C and the store clips.
+//   "dw" dw [E, D, F] = x[E, C, D]^T dout [E, C, F] over r < rows[e]: x an
+//        M-major A operand (boxes of 64 d by 64 c, transpose bit 1), dout
+//        N-major as w is forward.  The contraction stops at rows[e] rounded
+//        up to a stage; in that last stage the rows past rows[e] are zeroed
+//        in shared memory in both operands (x may hold NaN there, and
+//        0 NaN is NaN), the generic-proxy writes fenced before the wgmma.
+//        An expert with rows[e] == 0 writes zeros and loads nothing.
+// Bound of the backward: 2 sum(rows) D F operations a product at the bf16
+// tensor-core rate, or the live rows of dout and x, the weights of the
+// experts with rows > 0 read and all of dx and dw written, once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,21 +85,23 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 enum Route { kFma = 0, kWmma = 1, kTiles = 2, kStream = 3 };
+// The tiles kernel's forms: out = a b (the forward), a b^T (dx), a^T b (dw).
+enum Form { kNN = 0, kNT = 1, kTN = 2 };
 
 // Live rows of expert e: rows[e] clamped to [0, C], or C without rows.
 __device__ __forceinline__ int live_rows(const int* rows, int e, int C) {
   return rows == nullptr ? C : min(max(rows[e], 0), C);
 }
 
-// out[e][r][c] = 0 for r in [r0, r1), c in [c0, c1), by 16-byte stores
-// (c0, c1 and F multiples of 8, out 16-byte aligned).
-__device__ void zero_box(bf16* out, int e, int C, int F, int r0, int r1,
+// out[e][r][c] = 0 for r in [r0, r1), c in [c0, c1) of out [E, M, N], by
+// 16-byte stores (c0, c1 and N multiples of 8, out 16-byte aligned).
+__device__ void zero_box(bf16* out, int e, int M, int N, int r0, int r1,
                          int c0, int c1) {
   const int chunks = (c1 - c0) / 8;
   const int n = (r1 - r0) * chunks;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = r0 + i / chunks, c = c0 + 8 * (i % chunks);
-    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * C + r) * F +
+    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(e) * M + r) * N +
                               c) = make_uint4(0, 0, 0, 0);
   }
 }
@@ -99,11 +119,15 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
+// out [E, M, N] of the form kForm over a contraction of K; C and rows as
+// the forward's (the rows of a and out for kNN and kNT, the contraction
+// for kTN).
+template <int kForm>
 __global__ void __launch_bounds__(kPThreads, 2)
-seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
-             __grid_constant__ const CUtensorMap tw,
+seg_mm_tiles(__grid_constant__ const CUtensorMap ta,
+             __grid_constant__ const CUtensorMap tb,
              __grid_constant__ const CUtensorMap to, bf16* __restrict__ out,
-             const int* __restrict__ rows, int C, int D, int F) {
+             const int* __restrict__ rows, int C, int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPStages * kPStage);
@@ -111,12 +135,13 @@ seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
 
   const int n0 = blockIdx.x * kPN, m0 = blockIdx.y * kPM, e = blockIdx.z;
   const int live = live_rows(rows, e, C);
-  if (m0 >= live) {
-    zero_box(out, e, C, F, m0, min(m0 + kPM, C), n0, min(n0 + kPN, F));
+  if (kForm == kTN ? live == 0 : m0 >= live) {
+    zero_box(out, e, M, N, m0, min(m0 + kPM, M), n0, min(n0 + kPN, N));
     return;
   }
-  const int n_k = (D + kK - 1) / kK;
-  const bool two_halves = n0 + 64 < F;   // else w's second half is past F
+  const int n_k = ((kForm == kTN ? live : K) + kK - 1) / kK;
+  const bool two_halves = n0 + 64 < N;   // else b's second half is past N
+  const bool two_m = m0 + 64 < M;        // kTN: else a's second box is past M
   const int warp = threadIdx.x / 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kPStages; ++s) {
@@ -133,12 +158,25 @@ seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
         const int s = k % kPStages;
         if (k >= kPStages) sm90::mbar_wait(&empty[s], (k / kPStages - 1) & 1);
         uint8_t* st = smem + s * kPStage;
-        sm90::mbar_arrive_expect_tx(&full[s],
-                                    kPXBytes + (two_halves ? 2 : 1) * kHalf);
-        sm90::tma_load_3d(st, &tx, &full[s], k * kK, m0, e);
-        sm90::tma_load_3d(st + kPXBytes, &tw, &full[s], n0, k * kK, e);
+        if constexpr (kForm == kNT) {      // b: one 128-row box, K-major
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * kPXBytes);
+          sm90::tma_load_3d(st, &ta, &full[s], k * kK, m0, e);
+          sm90::tma_load_3d(st + kPXBytes, &tb, &full[s], k * kK, n0, e);
+          continue;
+        }
+        sm90::mbar_arrive_expect_tx(
+            &full[s], (kForm == kTN ? (two_m ? 2 : 1) * kHalf : kPXBytes) +
+                          (two_halves ? 2 : 1) * kHalf);
+        if constexpr (kForm == kTN) {      // a: two 64 x 64 boxes, M-major
+          sm90::tma_load_3d(st, &ta, &full[s], m0, k * kK, e);
+          if (two_m)
+            sm90::tma_load_3d(st + kHalf, &ta, &full[s], m0 + 64, k * kK, e);
+        } else {
+          sm90::tma_load_3d(st, &ta, &full[s], k * kK, m0, e);
+        }
+        sm90::tma_load_3d(st + kPXBytes, &tb, &full[s], n0, k * kK, e);
         if (two_halves)
-          sm90::tma_load_3d(st + kPXBytes + kHalf, &tw, &full[s], n0 + 64,
+          sm90::tma_load_3d(st + kPXBytes + kHalf, &tb, &full[s], n0 + 64,
                             k * kK, e);
       }
     }
@@ -146,8 +184,8 @@ seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
   }
 
   // The consumers: warpgroup wg computes rows [64 wg, 64 wg + 64) of the
-  // tile.  Without two_halves, columns 64..127 multiply stale shared memory
-  // and are never stored.
+  // tile.  Without two_halves (or, kTN, two_m), columns (rows) 64..127
+  // multiply stale shared memory and are never stored.
   const int wg = warp / 4;
   float acc[64];
 #pragma unroll
@@ -156,15 +194,38 @@ seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
   for (int k = 0; k < n_k; ++k) {
     const int s = k % kPStages;
     sm90::mbar_wait(&full[s], (k / kPStages) & 1);
-    const uint32_t xa = sm90::smem_u32(smem + s * kPStage) + wg * 64 * 128;
-    const uint32_t wb = sm90::smem_u32(smem + s * kPStage + kPXBytes);
+    uint8_t* st = smem + s * kPStage;
+    if constexpr (kForm == kTN) {
+      // The last stage's rows past rows[e], in all four 64-row boxes.
+      const int r0 = live - k * kK;
+      if (r0 < kK && live < C) {
+        const int per = (kK - r0) * 8;   // 16-byte chunks a box
+        for (int i = threadIdx.x; i < 4 * per; i += 256)
+          *reinterpret_cast<uint4*>(st + (i / per) * kHalf +
+                                    (r0 + (i % per) / 8) * 128 +
+                                    (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+        sm90::fence_proxy_async();
+        sm90::named_barrier(1, 256);
+      }
+    }
+    const uint32_t sa = sm90::smem_u32(st);
+    const uint32_t sb = sa + kPXBytes;
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kK / 16; ++kk)
-      sm90::wgmma_m64n128k16<0, 1>(acc,
-                                   sm90::desc_sw128(xa + 32 * kk, 16, 1024),
-                                   sm90::desc_sw128(wb + 2048 * kk, kHalf,
-                                                    1024));
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      if constexpr (kForm == kNN)
+        sm90::wgmma_m64n128k16<0, 1>(
+            acc, sm90::desc_sw128(sa + wg * 64 * 128 + 32 * kk, 16, 1024),
+            sm90::desc_sw128(sb + 2048 * kk, kHalf, 1024));
+      else if constexpr (kForm == kNT)
+        sm90::wgmma_m64n128k16<0, 0>(
+            acc, sm90::desc_sw128(sa + wg * 64 * 128 + 32 * kk, 16, 1024),
+            sm90::desc_sw128(sb + 32 * kk, 16, 1024));
+      else
+        sm90::wgmma_m64n128k16<1, 1>(
+            acc, sm90::desc_sw128(sa + wg * kHalf + 2048 * kk, kHalf, 1024),
+            sm90::desc_sw128(sb + 2048 * kk, kHalf, 1024));
+    }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();               // stage k - 1's products are done
     if (k > 0 && threadIdx.x % 128 == 0)
@@ -184,7 +245,7 @@ seg_mm_tiles(__grid_constant__ const CUtensorMap tx,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r_lo + 8 * h;
-      const bool keep = m0 + r < live;
+      const bool keep = kForm == kTN || m0 + r < live;
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           keep ? acc[4 * g + 2 * h] : 0.0f,
           keep ? acc[4 * g + 2 * h + 1] : 0.0f);
@@ -494,6 +555,20 @@ cudaError_t launch_stream(const CUtensorMap& tw, const bf16* x, bf16* out,
   return cudaGetLastError();
 }
 
+template <int kForm>
+cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb,
+                         const CUtensorMap& to, bf16* out, const int* rows,
+                         int E, int C, int M, int N, int K, int device,
+                         cudaStream_t s) {
+  static bool done[kMaxDevices] = {};
+  cudaError_t err = allow_smem(seg_mm_tiles<kForm>, kPSmem, device, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM, E);
+  seg_mm_tiles<kForm><<<grid, kPThreads, kPSmem, s>>>(ta, tb, to, out, rows,
+                                                       C, M, N, K);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_tma(const bf16* x, const bf16* w, bf16* out,
                        const int* rows, int E, int C, int D, int F,
                        int device, cudaStream_t s, int* route) {
@@ -511,17 +586,11 @@ cudaError_t launch_tma(const bf16* x, const bf16* w, bf16* out,
     return launch_stream<64>(tw, x, out, rows, E, C, D, F, device, s);
   }
   *route = kTiles;
-  static bool done[kMaxDevices] = {};
   CUtensorMap tx, to;
   if (!sm90::tensor_map_bf16_3d(&tx, x, D, C, E, kK, kPM) ||
       !sm90::tensor_map_bf16_3d(&to, out, F, C, E, 64, kPM))
     return cudaErrorNotSupported;
-  cudaError_t err = allow_smem(seg_mm_tiles, kPSmem, device, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((F + kPN - 1) / kPN, (C + kPM - 1) / kPM, E);
-  seg_mm_tiles<<<grid, kPThreads, kPSmem, s>>>(tx, tw, to, out, rows, C, D,
-                                                F);
-  return cudaGetLastError();
+  return launch_tiles<kNN>(tx, tw, to, out, rows, E, C, C, F, D, device, s);
 }
 
 bool aligned16(const void* p) {
@@ -567,6 +636,40 @@ int repro_segment_matmul(const void* x, const void* w, void* out,
         static_cast<float*>(out), rows, C, D, F);
   }
   return cudaGetLastError();
+}
+
+// The backward's two products of out = x w (bf16, D and F multiples of 8,
+// every tensor 16-byte aligned; rows as repro_segment_matmul's):
+// form 1 ("dx"): out [E, C, D] = a [E, C, F] b [E, D, F]^T (a = dout,
+// b = w), its rows past rows[e] zero; form 2 ("dw"): out [E, D, F] =
+// a [E, C, D]^T b [E, C, F] (a = x, b = dout) over the rows r < rows[e].
+// Returns a cudaError_t (0 on success); launches asynchronously on
+// `stream`.
+int repro_segment_matmul_bwd(int form, const void* a, const void* b,
+                             void* out, const int* rows, int E, int C, int D,
+                             int F, int device, void* stream) {
+  const int M = form == 1 ? C : D;
+  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 || D % 8 != 0 ||
+      F % 8 != 0 || (M + kPM - 1) / kPM > 65535 || (form != 1 && form != 2) ||
+      !aligned16(a) || !aligned16(b) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* o = static_cast<bf16*>(out);
+  CUtensorMap ta, tb, to;
+  if (form == 1) {
+    if (!sm90::tensor_map_bf16_3d(&ta, a, F, C, E, kK, kPM) ||
+        !sm90::tensor_map_bf16_3d(&tb, b, F, D, E, kK, kPN) ||
+        !sm90::tensor_map_bf16_3d(&to, out, D, C, E, 64, kPM))
+      return cudaErrorNotSupported;
+    return launch_tiles<kNT>(ta, tb, to, o, rows, E, C, C, D, F, device, s);
+  }
+  if (!sm90::tensor_map_bf16_3d(&ta, a, D, C, E, 64, kK) ||
+      !sm90::tensor_map_bf16_3d(&tb, b, F, C, E, 64, kK) ||
+      !sm90::tensor_map_bf16_3d(&to, out, F, D, E, 64, kPM))
+    return cudaErrorNotSupported;
+  return launch_tiles<kTN>(ta, tb, to, o, rows, E, C, D, F, C, device, s);
 }
 
 }  // extern "C"

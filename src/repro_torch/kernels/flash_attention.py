@@ -34,18 +34,37 @@ are exact in float32, else the float32 rate) and ``2 hd`` for ``P V`` at
 the float32 rate; or q, k, v and the output moved once against the
 memory rate.  The source note in the ``.cu`` file has the design.
 
+``flash_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp of the scaled scores, float32 ``[B, H, S]``: the ``wgmma``
+kernel writes it from its final max and sum (the output's bits do not
+change), the plain version computes it; the ``fma`` route returns None in
+its place (its backward recomputes it).
+
 The backward, :func:`flash_attention_bwd`: dq, dk and dv from q, k, v, the
-forward's output and the gradient at it, by two CUDA-core kernels of the
-same source (``flash_bwd_dq``, then ``flash_bwd_dkv``; no atomics, so
-recomputing a step gives the same bits), counted on its own ``.launches``
-(two a call, one a kernel); for CPU tensors its plain version.
+forward's output, the gradient at it and (``wgmma``) the forward's lse, by
+kernels of the same source, none with atomics (recomputing a step gives
+the same bits); ``.launches`` counts its launches and the module's
+``bwd_routes`` them by route (``BWD_LAUNCHES`` a call):
+
+* ``wgmma`` (bf16 at hd 128 whose strides TMA can map, the model's
+  training calls): three launches, a prep pass (D_i and dO split into bf16
+  hi + lo, once a call), ``flash_bwd_dkv_wgmma`` and ``flash_bwd_dq_wgmma``
+  (every product on the tensor cores, P and dS split into hi + lo in
+  registers; the source note has the design).  Bound: 20 hd operations a
+  visible pair at the bf16 tensor-core rate (S 2 hd, dP 4, dV 6, dK 4,
+  dQ 4), or q, k, v, out, dout and lse read and dq, dk, dv written once;
+* ``fma`` (every other call: float32, the other head widths, strides TMA
+  cannot map): two CUDA-core kernels (``flash_bwd_dq`` recomputes the
+  row's log-sum-exp, then ``flash_bwd_dkv``), 16 hd float32 operations a
+  pair.  Bound: the least work, 10 hd a pair (the scores' 2 hd at the bf16
+  tensor-core rate for bf16 inputs, else the float32 rate, and 8 hd at the
+  float32 rate), or the bytes as above, whichever is longer.
+
+For CPU tensors its plain version (which recomputes P and reads no lse).
 :func:`flash_attention_ad` is K5 as a ``torch.autograd.Function`` whose
-backward that is (the model's call).  The kernels do 16 hd float32
-operations per visible (query, key) pair on the CUDA cores (the source note
-counts them).  Bound of the backward: the least work, 10 hd a pair (the
-scores' 2 hd at the bf16 tensor-core rate for bf16 inputs, else the float32
-rate, and 8 hd at the float32 rate), or q, k, v, out and dout read and dq,
-dk, dv written once against the memory rate, whichever is longer.
+forward keeps the lse and whose backward is :func:`flash_attention_bwd`
+(the model's call); with no gradient to take (the serve) it is a plain
+:func:`flash_attention` call, which writes no lse.
 """
 from __future__ import annotations
 
@@ -62,6 +81,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("fma", "wgmma")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)
+#: The backward's launches a call on each route, and its launches by route.
+BWD_LAUNCHES = {"fma": 2, "wgmma": 3}
+bwd_routes = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -72,13 +94,13 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
         lib.repro_flash_attention_bwd.argtypes = (
-            [ptr] * 9 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
-            + [ctypes.POINTER(ctypes.c_longlong), i32, ptr])
+            [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
         lib.repro_flash_attention_bwd.restype = i32
         _lib = lib
     return _lib
@@ -88,6 +110,14 @@ def _strides(t: torch.Tensor):
     """t's element strides over (batch, head, row); a dimension of size 1
     is never stepped over, so it takes a row's width (valid for TMA)."""
     return [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
+
+
+def _tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Strides that are multiples of 8 elements and 16-byte-aligned data:
+    what the ``wgmma`` kernels' TMA maps need."""
+    strides = _strides(q) + _strides(k) + _strides(v)
+    return not (any(s % 8 for s in strides)
+                or any(t.data_ptr() % 16 for t in (q, k, v)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,24 +148,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False):
     """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
-    the float32 scores (default ``hd ** -0.5``)."""
+    the float32 scores (default ``hd ** -0.5``).  With ``return_lse``,
+    ``(out, lse)``: lse the float32 ``[B, H, S]`` log-sum-exp of each row's
+    scaled scores, or None on the ``fma`` route."""
     B, H, S, hd, KV, T = _check(q, k, v, causal)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal, scale=scale)
+                                   v.contiguous(), causal=causal, scale=scale,
+                                   return_lse=return_lse)
+    wgmma = q.dtype == torch.bfloat16 and hd == 128
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
-    if T == 0:
-        return out.zero_()
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse and wgmma else None)
+    if out.numel() == 0 or T == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(ref.NEG_INF)
+        return (out, lse) if return_lse else out
     strides = _strides(q) + _strides(k) + _strides(v)
-    if q.dtype == torch.bfloat16 and hd == 128:
-        if any(s % 8 for s in strides) or any(t.data_ptr() % 16
-                                              for t in (q, k, v)):
+    if wgmma:
+        if not _tma_ready(q, k, v):
             raise ValueError("bf16 q, k and v at hd 128 need strides that "
                              "are multiples of 8 elements and 16-byte "
                              "aligned data (the kernel reads them by TMA)")
@@ -146,28 +182,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _library()
     route = ctypes.c_int(-1)
     code = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-        S, T, hd, scale, int(causal), _DTYPES[q.dtype],
-        (ctypes.c_longlong * 9)(*strides),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, KV, S, T, hd, scale,
+        int(causal), _DTYPES[q.dtype], (ctypes.c_longlong * 9)(*strides),
         *_build.device_and_stream(q.device), ctypes.byref(route))
     _build.raise_on(lib, code, "flash_attention")
     flash_attention.launches += 1
     routes[ROUTES[route.value]] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 
 
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward's route for CUDA tensors: ``wgmma`` for bf16 at hd 128
+    whose strides TMA can map, else ``fma``."""
+    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] == 128
+            and _tma_ready(q, k, v) else "fma")
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
+                        lse: Optional[torch.Tensor] = None,
                         causal: bool = True, scale: Optional[float] = None):
     """(dq, dk, dv) of ``out = flash_attention(q, k, v, causal=causal,
     scale=scale)`` at ``dout``: q, k and v as the forward takes them (views
-    too), ``out`` its float32 ``[B, H, S, hd]`` and ``dout`` the gradient
-    at it (made float32 and contiguous here).  dq ``[B, H, S, hd]`` in q's
-    dtype, dk and dv ``[B, KV, T, hd]`` in k's, contiguous; float32 sums,
-    dk and dv over the query heads of each KV head."""
+    too), ``out`` its float32 ``[B, H, S, hd]``, ``dout`` the gradient at
+    it (made float32 and contiguous here) and ``lse`` the forward's
+    log-sum-exp (``return_lse=True``), which the ``wgmma`` route needs and
+    the others do not read.  dq ``[B, H, S, hd]`` in q's dtype, dk and dv
+    ``[B, KV, T, hd]`` in k's, contiguous; float32 sums, dk and dv over the
+    query heads of each KV head."""
     B, H, S, hd, KV, T = _check(q, k, v, causal)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out and dout must be {list(q.shape)}, got "
@@ -189,17 +235,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H > 65535 or B * H * S > 1 << 30:
         raise ValueError(f"B * H = {B * H}, S = {S} are past the backward's "
                          f"grid")
-    ws = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
+    route = bwd_route(q, k, v)
+    if route == "wgmma":
+        if (lse is None or lse.shape != (B, H, S) or lse.dtype != torch.float32
+                or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError("the wgmma backward needs the forward's lse, "
+                             "float32 [B, H, S] contiguous on q's device "
+                             "(flash_attention(..., return_lse=True))")
+        # The prep pass reads out and dout by 16-byte vectors.
+        out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (out, dout))
+        sp = -(-S // 128) * 128
+        ws = torch.empty(2 * B * H * sp + B * H * S * hd, dtype=torch.float32,
+                         device=q.device)
+    else:
+        ws = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
     lib = _library()
     code = lib.repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ws.data_ptr(), B, H, KV, S, T, hd, scale, int(causal),
-        _DTYPES[q.dtype],
+        dout.data_ptr(), None if route == "fma" else lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, H, KV,
+        S, T, hd, scale, int(causal), _DTYPES[q.dtype],
         (ctypes.c_longlong * 9)(*(_strides(q) + _strides(k) + _strides(v))),
-        *_build.device_and_stream(q.device))
+        ROUTES.index(route), *_build.device_and_stream(q.device))
     _build.raise_on(lib, code, "flash_attention_bwd")
-    flash_attention_bwd.launches += 2    # flash_bwd_dq, flash_bwd_dkv
+    flash_attention_bwd.launches += BWD_LAUNCHES[route]
+    bwd_routes[route] += BWD_LAUNCHES[route]
     return dq, dk, dv
 
 
@@ -207,19 +268,21 @@ flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K5 with :func:`flash_attention_bwd` as its backward."""
+    """K5 with :func:`flash_attention_bwd` as its backward, the forward's
+    lse saved for it (recomputed with the forward under remat)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = flash_attention(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse=lse,
                                          causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
@@ -228,5 +291,10 @@ def flash_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True,
                        scale: Optional[float] = None) -> torch.Tensor:
     """:func:`flash_attention` as an autograd function (the model's call),
-    differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    differentiable in q, k and v.  With no gradient to take (grad mode
+    off, or no input that requires one: the serve) it is
+    :func:`flash_attention` itself, which then writes no lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -125,14 +125,36 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
+def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
+                            w: torch.Tensor,
+                            rows: Optional[torch.Tensor] = None):
+    """(dx, dw) of :func:`segment_matmul` at ``dout``, from the untransposed
+    tensors: ``dx = dout w^T`` with its rows past ``rows`` zero and
+    ``dw = x^T dout`` over the live rows only (x and dout zeroed past
+    ``rows`` first: x may hold NaN there), each accumulated in float32 and
+    rounded once to x's dtype."""
+    xz, dz = x, dout
+    if rows is not None:
+        live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+                < rows.to(x.device, torch.int64)[:, None, None])
+        xz = torch.where(live, x, x.new_zeros(()))
+        dz = torch.where(live, dout, dout.new_zeros(()))
+    return (segment_matmul(dout, w.transpose(1, 2), rows),
+            segment_matmul(xz.transpose(1, 2), dz))
+
+
 #: The mask value of the reference's attention (not -inf).
 NEG_INF = -2.0 ** 30
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    block: int = 1024) -> torch.Tensor:
-    """Online-softmax attention over KV blocks, float32 ``[B, H, S, dv]``.
+                    block: int = 1024, return_lse: bool = False):
+    """Online-softmax attention over KV blocks, float32 ``[B, H, S, dv]``;
+    with ``return_lse``, ``(out, lse)``, lse the float32 ``[B, H, S]``
+    log-sum-exp of each row's scaled (masked) scores, ``m + log(max(l,
+    1e-20))`` from the final running max and sum, as the card's kernel
+    writes it.
 
     q ``[B, H, S, hd]``; k ``[B, KV, T, hd]`` and v ``[B, KV, T, dv]`` with
     ``H`` a multiple of ``KV`` (query head ``h`` reads KV head
@@ -171,7 +193,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhst,bhtd->bhsd", p, vb)
         m = m_new
-    return acc / torch.clamp(l, min=1e-20)[..., None]
+    denom = torch.clamp(l, min=1e-20)
+    out = acc / denom[..., None]
+    return (out, m + torch.log(denom)) if return_lse else out
 
 
 

@@ -26,12 +26,18 @@ only the weights of experts with ``rows > 0`` count.  The source note in
 
 :func:`segment_matmul_ad` is the same product as a
 ``torch.autograd.Function`` (the model calls it): its backward is K4 too,
-``dx = K4(dout, w^T, rows)`` and ``dw = K4(x^T, dout)`` with x and dout
-zeroed past ``rows`` first (x may hold anything there, NaN included, and
+``dx = dout w^T`` with its rows past ``rows`` zero and ``dw = x^T dout``
+over the live rows only (x may hold anything past them, NaN included, and
 those rows take no part in ``out``), through
 :func:`segment_matmul_backward`, which counts its launches on its own
-``.launches`` (two a call) and ``bwd_routes``.  No ``torch.bmm`` computes
-an expert product on the card.
+``.launches`` (two a call) and ``bwd_routes``.  Where TMA can map the
+tensors (bf16, D and F multiples of 8) the two launches are the tiles
+kernel's transposed forms, ``dx_tiles`` and ``dw_tiles``: w, x and dout
+are read in place, with no copy and no zeroing pass (the kernel zeroes
+the rows past ``rows`` in shared memory).  Other calls (float32, or D or
+F no multiple of 8) copy: x and dout zeroed past ``rows`` by
+``torch.where``, then K4 on contiguous ``w^T`` and ``x^T``.  No
+``torch.bmm`` computes an expert product on the card.
 """
 from __future__ import annotations
 
@@ -46,8 +52,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wmma", "tiles", "stream")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)
+#: The backward's kernels: K4's, and the tiles kernel's dx and dw forms.
+BWD_ROUTES = ROUTES + ("dx_tiles", "dw_tiles")
 #: The backward's launches by kernel (two a call: dx, then dw).
-bwd_routes = dict.fromkeys(ROUTES, 0)
+bwd_routes = dict.fromkeys(BWD_ROUTES, 0)
 
 _lib = None
 
@@ -60,6 +68,9 @@ def _library() -> ctypes.CDLL:
         lib.repro_segment_matmul.argtypes = ([ptr] * 4 + [i32] * 6
                                              + [ptr, ctypes.POINTER(i32)])
         lib.repro_segment_matmul.restype = i32
+        lib.repro_segment_matmul_bwd.argtypes = ([i32] + [ptr] * 4
+                                                 + [i32] * 5 + [ptr])
+        lib.repro_segment_matmul_bwd.restype = i32
         _lib = lib
     return _lib
 
@@ -113,6 +124,30 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
     return out, ROUTES[route.value]
 
 
+def _launch_bwd(form: str, a: torch.Tensor, b: torch.Tensor,
+                rows: Optional[torch.Tensor], E: int, C: int, D: int,
+                F: int):
+    """One launch of the tiles kernel's ``dx`` (a = dout, b = w: out
+    ``[E, C, D]``) or ``dw`` (a = x, b = dout: out ``[E, D, F]``) form on
+    checked bf16 CUDA tensors: (out, the route's name, or None where
+    nothing was launched)."""
+    shape, depth = ((E, C, D), F) if form == "dx" else ((E, D, F), C)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out, None
+    if depth == 0:
+        return out.zero_(), None
+    if E > 65535 or shape[1] > 65535 * 128:
+        raise ValueError(f"shape {shape} is past the kernel's grid")
+    lib = _library()
+    code = lib.repro_segment_matmul_bwd(
+        1 if form == "dx" else 2, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if rows is None else rows.data_ptr(), E, C, D, F,
+        *_build.device_and_stream(a.device))
+    _build.raise_on(lib, code, "segment_matmul_backward")
+    return out, f"{form}_tiles"
+
+
 def segment_matmul(x: torch.Tensor, w: torch.Tensor,
                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[e] = x[e] @ w[e]``: x ``[E, C, D]``, w ``[E, D, F]``, both
@@ -132,22 +167,10 @@ def segment_matmul(x: torch.Tensor, w: torch.Tensor,
 segment_matmul.launches = 0
 
 
-def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
-                            w: torch.Tensor,
-                            rows: Optional[torch.Tensor] = None):
-    """(dx, dw) of ``out = segment_matmul(x, w, rows)`` at ``dout``
-    (``[E, C, F]``, x's dtype): ``dx = dout @ w^T`` with its rows past
-    ``rows`` zero, and ``dw = x^T @ dout`` over the live rows only (x and
-    dout zeroed past ``rows`` by ``torch.where`` first, so NaN there stays
-    out).  Each product is one K4 launch for CUDA tensors (the plain
-    version for CPU ones); dw contracts over C, so a C that is no multiple
-    of 8 takes K4's ``wmma`` kernel in bf16."""
-    _check(x, w, rows)
-    dout = dout.contiguous()
-    if dout.shape != (*x.shape[:2], w.shape[2]) or dout.dtype != x.dtype:
-        raise ValueError(f"dout must be {x.dtype} [E, C, F] = "
-                         f"{[*x.shape[:2], w.shape[2]]}, got {dout.dtype} "
-                         f"{list(dout.shape)}")
+def _copies_bwd(dout: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                rows: Optional[torch.Tensor]):
+    """The backward's two K4 launches on copies (the calls TMA cannot
+    map): [(dx, route), (dw, route)]."""
     dout_live = dout
     if rows is not None:
         live = (torch.arange(x.shape[1], device=x.device)[None, :, None]
@@ -156,17 +179,43 @@ def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
         dout_live = torch.where(live, dout, dout.new_zeros(()))
     wt = w.transpose(1, 2).contiguous()
     xt = x.transpose(1, 2).contiguous()
+    return [_launch(dout, wt, rows), _launch(xt, dout_live, None)]
+
+
+def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
+                            w: torch.Tensor,
+                            rows: Optional[torch.Tensor] = None):
+    """(dx, dw) of ``out = segment_matmul(x, w, rows)`` at ``dout``
+    (``[E, C, F]``, x's dtype): ``dx = dout @ w^T`` with its rows past
+    ``rows`` zero, and ``dw = x^T @ dout`` over the live rows only (NaN in
+    x past them stays out).  Two launches for CUDA tensors: where TMA can
+    map them (bf16, D and F multiples of 8, 16-byte-aligned data) the
+    tiles kernel's ``dx`` and ``dw`` forms on the tensors as they are;
+    else x and dout zeroed past ``rows`` by ``torch.where`` and K4 on
+    contiguous copies of ``w^T`` and ``x^T`` (dw contracts over C, so a C
+    that is no multiple of 8 takes K4's ``wmma`` kernel in bf16).  For CPU
+    tensors the plain version, ``ref.segment_matmul_backward``."""
+    _check(x, w, rows)
+    dout = dout.contiguous()
+    if dout.shape != (*x.shape[:2], w.shape[2]) or dout.dtype != x.dtype:
+        raise ValueError(f"dout must be {x.dtype} [E, C, F] = "
+                         f"{[*x.shape[:2], w.shape[2]]}, got {dout.dtype} "
+                         f"{list(dout.shape)}")
     if x.device.type == "cpu":
-        return (ref.segment_matmul(dout, wt, rows),
-                ref.segment_matmul(xt, dout_live))
-    grads = []
-    for a, b, r in ((dout, wt, rows), (xt, dout_live, None)):
-        out, route = _launch(a, b, r)
+        return ref.segment_matmul_backward(dout, x, w, rows)
+    E, C, D = x.shape
+    F = w.shape[2]
+    if (x.dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+            and not any(t.data_ptr() % 16 for t in (x, w, dout))):
+        calls = [_launch_bwd("dx", dout, w, rows, E, C, D, F),
+                 _launch_bwd("dw", x, dout, rows, E, C, D, F)]
+    else:
+        calls = _copies_bwd(dout, x, w, rows)
+    for _, route in calls:
         if route is not None:
             segment_matmul_backward.launches += 1
             bwd_routes[route] += 1
-        grads.append(out)
-    return tuple(grads)
+    return tuple(out for out, _ in calls)
 
 
 segment_matmul_backward.launches = 0

@@ -19,7 +19,10 @@ Tolerances, stated from the arithmetic:
 * on the card, :func:`_bwd_bound`: each float32 sum of n terms within
   ``n 2^-24`` of the sum of its magnitudes on either side, and P's
   relative error from the scores' hd-term dot products and the row's
-  log-sum-exp, times the magnitude of each gradient term.
+  log-sum-exp, times the magnitude of each gradient term; for the
+  ``wgmma`` route (bf16 at hd 128) the terms ``chip_smoke.py``'s
+  ``check_flash_bwd`` adds for its split operands (dO, P and dS in bf16
+  hi + lo, each within ``2^-16`` of its value; the forward's lse).
 """
 import jax
 import jax.numpy as jnp
@@ -171,7 +174,7 @@ def test_cpu_backward_counts_no_launch():
 # --------------------------------------------------------------------- #
 # On the card                                                            #
 # --------------------------------------------------------------------- #
-def _bwd_bound(q, k, v, out, dout, causal, scale):
+def _bwd_bound(q, k, v, out, dout, causal, scale, route="fma"):
     """Per-entry bounds on |kernel - plain| for (dq, dk, dv), both float32
     arithmetic on the same inputs.  A float32 sum of n terms in any order
     lies within n 2^-24 of the sum of the terms' magnitudes, so two orders
@@ -181,7 +184,9 @@ def _bwd_bound(q, k, v, out, dout, causal, scale):
     dp - D (two hd-term sums).  Each gradient: the error of its terms
     times their factors' magnitudes, plus its own sum's order.  A bf16
     output adds one rounding on each side (2^-7 of the larger; the
-    caller adds it)."""
+    caller adds it).  The wgmma route adds 2^-16 for each split operand
+    (dO in dP, dS in dK and dQ), 2^-14 for dV's three hi / lo products and
+    (2 + 2.35 max|s|) 2^-23 to e_p for the forward's lse."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     rep = H // KV
@@ -195,20 +200,23 @@ def _bwd_bound(q, k, v, out, dout, causal, scale):
         vis = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
         s = torch.where(vis, s, float("-inf"))
     P = torch.softmax(s, -1)
-    e_p = 2 * (2 * hd * eps * float(torch.einsum(
-        "bhsd,bhtd->bhst", qs.abs(), kf.abs()).amax()) + 2 * T * eps) \
-        + 2.0 ** -21
+    smax = float(torch.einsum("bhsd,bhtd->bhst", qs.abs(), kf.abs()).amax())
+    e_p = 2 * (2 * hd * eps * smax + 2 * T * eps) + 2.0 ** -21
+    split = dv_split = 0.0
+    if route == "wgmma":
+        e_p += (2 + 2.35 * smax) * 2.0 ** -23
+        split, dv_split = 2.0 ** -16, 2.0 ** -14
     ds = P * (torch.einsum("bhsd,bhtd->bhst", do, vf)
               - (do * out.float()).sum(-1, keepdim=True))
     mag_dp = (torch.einsum("bhsd,bhtd->bhst", do.abs(), vf.abs())
               + (do * out.float()).abs().sum(-1, keepdim=True))
     n = max(S * rep, T)
-    err_ds = e_p * ds.abs() + 4 * hd * eps * P * mag_dp
+    err_ds = (e_p + split) * ds.abs() + (4 * hd * eps + split) * P * mag_dp
     term = err_ds + 2 * n * eps * ds.abs()
     tol_dq = scale * torch.einsum("bhst,bhtd->bhsd", term, kf.abs())
     tol_dk = torch.einsum("bhst,bhsd->bhtd", term, qs.abs())
-    tol_dv = (e_p + 2 * n * eps) * torch.einsum("bhst,bhsd->bhtd", P,
-                                                  do.abs())
+    tol_dv = (e_p + 2 * n * eps + dv_split) * torch.einsum(
+        "bhst,bhsd->bhtd", P, do.abs())
     if rep > 1:
         tol_dk = tol_dk.reshape(B, KV, rep, T, hd).sum(2)
         tol_dv = tol_dv.reshape(B, KV, rep, T, hd).sum(2)
@@ -218,9 +226,10 @@ def _bwd_bound(q, k, v, out, dout, causal, scale):
 @pytest.mark.gpu
 def test_cuda_flash_attention_bwd_matches_plain_version():
     """K5's backward kernels on the card against the plain backward within
-    :func:`_bwd_bound`, float32 and bf16, causal and full, rep 1, 2 and 3,
-    ragged S and the model's [B, S, H, hd] views; one launch a call, on
-    the fma route, and the same bits from two calls."""
+    :func:`_bwd_bound` of the route each call takes (bf16 at hd 128:
+    wgmma, three launches; the rest: fma, two), float32 and bf16, causal
+    and full, rep 1, 2 and 3, ragged S and the model's [B, S, H, hd]
+    views, and the same bits from two calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for B, H, KV, S, hd, views in ((1, 1, 1, 1, 16, False),
@@ -237,18 +246,23 @@ def test_cuda_flash_attention_bwd_matches_plain_version():
                 if views:
                     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
                 scale = hd ** -0.5
-                out = k5.flash_attention(q, k, v, causal=causal, scale=scale)
+                out, lse = k5.flash_attention(q, k, v, causal=causal,
+                                              scale=scale, return_lse=True)
                 dout = torch.from_numpy(_normal(9, (B, H, S, hd))).cuda()
+                route = k5.bwd_route(q, k, v)
+                assert route == ("wgmma" if dtype == torch.bfloat16
+                                 and hd == 128 else "fma")
                 launches = k5.flash_attention_bwd.launches
-                got = k5.flash_attention_bwd(q, k, v, out, dout,
+                got = k5.flash_attention_bwd(q, k, v, out, dout, lse=lse,
                                              causal=causal, scale=scale)
-                assert k5.flash_attention_bwd.launches == launches + 2
-                again = k5.flash_attention_bwd(q, k, v, out, dout,
+                assert (k5.flash_attention_bwd.launches
+                        == launches + k5.BWD_LAUNCHES[route])
+                again = k5.flash_attention_bwd(q, k, v, out, dout, lse=lse,
                                                causal=causal, scale=scale)
                 want = tref.flash_attention_bwd(
                     *(t.contiguous() for t in (q, k, v)), out, dout,
                     causal=causal, scale=scale)
-                tols = _bwd_bound(q, k, v, out, dout, causal, scale)
+                tols = _bwd_bound(q, k, v, out, dout, causal, scale, route)
                 for g, a, w, tol in zip(got, again, want, tols):
                     assert g.dtype == dtype and g.shape == w.shape
                     assert torch.equal(g, a)
@@ -262,10 +276,11 @@ def test_cuda_flash_attention_bwd_matches_plain_version():
 
 @pytest.mark.gpu
 def test_cuda_segment_matmul_bwd_matches_plain_version():
-    """K4's backward on the card (two K4 launches a call) against the plain
-    backward, with ragged rows and NaN in x past them; C = 13 and 320
-    (the training capacity: no multiple of 8 takes the wmma kernel in
-    bf16)."""
+    """K4's backward on the card (two launches a call: the tiles kernel's
+    dx and dw forms in bf16, K4's fma kernel over copies in float32)
+    against the plain backward, with ragged rows and NaN in x past them;
+    C = 13 (no multiple of 8, under one stage) and 320 (the training
+    capacity)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for E, C, D, F in ((4, 13, 24, 40), (8, 320, 256, 128)):
