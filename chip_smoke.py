@@ -231,9 +231,35 @@ Phases, in order; any failure exits non-zero before the last line:
            8 replica slots and a split table, one ``loss_fn`` gradient of a
            2 x 64 batch on the card against the host: the loss within
            ``TRAIN_SLICE_LOSS_TOL``, every gradient leaf within
-           ``TRAIN_SLICE_TOL`` of its largest entry;
-11. report one JSON line of kernels (K1-K6, ctrl_step and K4's and K5's
-           backward), the card line, and the ``{"ok": ...}`` line last.
+           ``TRAIN_SLICE_TOL`` of its largest entry.  RWKV6 (its kernel
+           checks run after phase 6's K6 checks): K6's backward
+           (``rwkv_scan_bwd``, ``csrc/rwkv_scan.cu``) against its plain
+           version within the bound ``check_rwkv_bwd`` states, at hd 16,
+           32 and 64, float32 and the model's bf16 r, k, v, T = 1, C - 1,
+           C, C + 1 and 3C + 5 (C = 8, the forward's checkpoint interval),
+           without and with state0 and dstate_T, on the model's views and
+           odd hd for all three type kinds; one launch a call, the same
+           bits from two calls, K6's forward the same out and state bits
+           with and without its checkpoints; the planted faults "G not
+           decayed", "dw reads S_t for S_{t-1}" and "du of one batch row"
+           beyond the bound.  Then the RWKV6 training path, every
+           kernel's count set to 0 just before and read just after:
+           RWKV6-1.6B at its published widths and all 24 layers (~1.48e9
+           float32 params from seed 0, bf16 compute, remat), ``Trainer``
+           without a balancer, ``TRAIN_STEPS`` steps on one 4 x 512 batch
+           from ``SkewAwarePipeline``: the loss finite at every step and
+           lower at the last than the first, K6's forward twice a layer a
+           step and its backward once, K4 and K5 never; step seconds,
+           tokens/s, the AdamW update's share and peak GiB printed.  K6
+           forward and backward replayed on the path's own inputs, the
+           backward also at 1 x ``RWKV_CONTEXT`` (4096), timed beside its
+           plain version and ``k6_bwd_bound``.  Then the RWKV6 train slice:
+           2 layers at full width in float32, one ``loss_fn`` gradient of
+           a 2 x 64 batch, card against host, within
+           ``RWKV_TRAIN_SLICE_LOSS_TOL`` and ``RWKV_TRAIN_SLICE_TOL``;
+11. report one JSON line of kernels (K1-K6, ctrl_step and K4's, K5's
+           and K6's backward), the card line, and the ``{"ok": ...}`` line
+           last.
 
 Without a card, or run from a directory that holds only this file, it exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -241,16 +267,17 @@ non-zero and prints no result.  It imports nothing of JAX.
     python3 chip_smoke.py --readings   # not part of the smoke
 
 builds the kernels and prints the readings behind ``SLICE_TOL``,
-``RWKV_SLICE_TOL`` and ``TRAIN_SLICE_TOL`` (each slice check at three seeds,
-sound and with planted kernel faults, the RWKV6 one sound at seven more;
-the train slice's faults in the backward) and one decode step of
+``RWKV_SLICE_TOL``, ``TRAIN_SLICE_TOL`` and ``RWKV_TRAIN_SLICE_TOL``
+(each slice check at three seeds, sound and with planted kernel faults,
+the RWKV6 one sound at seven more; the train slices' faults in the
+backward) and one decode step of
 each full-width serve taken apart (the kernels' calls, the weight casts,
 the device's busy share under the profiler; the RWKV6 step also with the
 layout copies K6 does without and with ``F.silu`` for the gate's silu).
 
     python3 chip_smoke.py --train      # not part of the smoke
 
-builds K4 and K5 and runs phase 10 alone.
+builds K4, K5 and K6 and runs phase 10 alone.
 
     python3 chip_smoke.py --armed      # not part of the smoke
 
@@ -380,6 +407,22 @@ TRAIN_HOT, TRAIN_BOOST = 0, 3.0
 #: leave the loss as it is).  K4's bf16-tile fault is none in float32.
 TRAIN_SLICE_LAYERS, TRAIN_SLICE_B, TRAIN_SLICE_S = 2, 2, 64
 TRAIN_SLICE_TOL, TRAIN_SLICE_LOSS_TOL = 0.007, 1e-4
+#: The RWKV6 training path trains RWKV6-1.6B at its published widths and
+#: all 24 layers (its float32 params, grads and AdamW moments, ~23.7 GB,
+#: fit one card) on the OLMoE path's batch shape, steps and rate.  Its
+#: train slice (TRAIN_SLICE_LAYERS layers, float32, the same batch shape):
+#: the largest gradient difference relative to its leaf's largest entry
+#: (RWKV_TRAIN_SLICE_TOL) and |loss difference| (RWKV_TRAIN_SLICE_LOSS_TOL)
+#: allowed, set from ``python3 chip_smoke.py --readings`` like
+#: TRAIN_SLICE_TOL (H100): gradients, sound runs at seeds 0-2 3.86e-6 to
+#: 4.14e-6 against the nearest planted fault's 0.00405 (K6 decaying after
+#: the add; the backward's faults 0.0675-1.02), geometric mean 1.3e-4;
+#: the loss, sound up to 9.54e-7 (one float32 ulp at ~11.6) against
+#: 9.54e-6 (the same fault; the backward's faults leave the loss as it
+#: is), and 4e-6 between them.
+RWKV_TRAIN_SLICE_TOL, RWKV_TRAIN_SLICE_LOSS_TOL = 1.3e-4, 4e-6
+#: The context K6's backward is also replayed at, one sequence.
+RWKV_CONTEXT = 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -1289,8 +1332,9 @@ class Recorder:
         self.kernel.launches = n
 
     def key(self, *args):
-        return (self.label,) + tuple((tuple(a.shape), str(a.dtype))
-                                     for a in args)
+        return (self.label,) + tuple(
+            None if a is None else (tuple(a.shape), str(a.dtype))
+            for a in args)
 
     def __call__(self, *args, **kw):
         key = self.key(*args)
@@ -3449,7 +3493,8 @@ def train_slice_grads(torch, cfg, params, batch, routing, dev: str):
     from repro_torch.tree import leaves, tree_map
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, _ = tm.loss_fn(live, cfg, {k: v.to(dev) for k, v in batch.items()},
-                         remat=True, moe_routing=routing.to(dev))
+                         remat=True,
+                         moe_routing=None if routing is None else routing.to(dev))
     grads = torch.autograd.grad(loss, leaves(live))
     return loss.item(), [g.float().cpu() for g in grads]
 
@@ -3589,6 +3634,593 @@ def log_train(tn, launches, smi: str) -> None:
 
 
 # --------------------------------------------------------------------- #
+# 10b. train: K6's backward, RWKV6-1.6B trained at full width            #
+# --------------------------------------------------------------------- #
+def rwkv_bwd_envelope(torch, args, dout, dstate):
+    """The magnitudes ``check_rwkv_bwd`` bounds K6's backward by, each
+    first-order error of one side of the check over eps = 2^-24: from the
+    forward's envelope of the states (A_t = |w_t| A_{t-1} + |k_t| |v_t|^T
+    from |state0|, D_t = |w_t| D_{t-1} + A_t from 0, as
+    ``rwkv_envelope``) and the backward's (Gh_{t-1} = |w_t| Gh_t + |r_t|
+    |dout_t|^T from |dstate_T|, E_{t-1} = |w_t| E_t + Gh_{t-1} from 0),
+    with n = hd + 8 roundings a sum and vd_t = |v_t| . |dout_t|:
+
+        dk_t: 3 E_t |v_t| + n Gh_t |v_t| + (n + 3) |u| |r_t| vd_t
+        dr_t: 3 D_{t-1} |dout_t| + n A_{t-1} |dout_t| + (n + 3) |u| |k_t| vd_t
+        dv_t: 3 E_t^T |k_t| + n Gh_t^T |k_t| + (n + 3) |dout_t| sum |r u k|
+        dw_t: rowsum(3 E_t A_{t-1} + 3 Gh_t D_{t-1} + n Gh_t A_{t-1})
+        du:   (n + 3 + T + B) sum_{b,t} |r_t| |k_t| vd_t
+        dstate0: 3 E_{-1}
+
+    Returns them in that order ([B, H, T, hd] each, du [H, hd], dstate0
+    [B, H, hd, hd])."""
+    r, k, v, w, u, s0 = (None if a is None else a.float().abs() for a in args)
+    do = dout.float().abs()
+    B, H, T, hd = r.shape
+    n = hd + 8
+    A = (torch.zeros((B, H, hd, hd), device=r.device) if s0 is None
+         else s0.clone())
+    D = torch.zeros_like(A)
+    As = torch.empty((T, B, H, hd, hd), device=r.device)
+    Ds = torch.empty_like(As)
+    for t in range(T):
+        As[t], Ds[t] = A, D
+        A = w[:, :, t, :, None] * A + k[:, :, t, :, None] * v[:, :, t, None, :]
+        D = w[:, :, t, :, None] * D + A
+    del A, D
+    G = (torch.zeros((B, H, hd, hd), device=r.device) if dstate is None
+         else dstate.float().abs())
+    E = torch.zeros_like(G)
+    bounds = [torch.empty((B, H, T, hd), device=r.device) for _ in range(4)]
+    du = torch.zeros((H, hd), device=r.device)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dt = (x[:, :, t] for x in (r, k, v, w, do))
+        vd = (vt * dt).sum(-1, keepdim=True)
+        beta = (rt * u * kt).sum(-1, keepdim=True)
+        Ap, Dp = As[t], Ds[t]
+        bounds[0][:, :, t] = (3 * torch.einsum("bhkc,bhc->bhk", E, vt)
+                              + n * torch.einsum("bhkc,bhc->bhk", G, vt)
+                              + (n + 3) * u * rt * vd)
+        bounds[1][:, :, t] = (3 * torch.einsum("bhkc,bhc->bhk", Dp, dt)
+                              + n * torch.einsum("bhkc,bhc->bhk", Ap, dt)
+                              + (n + 3) * u * kt * vd)
+        bounds[2][:, :, t] = (3 * torch.einsum("bhkc,bhk->bhc", E, kt)
+                              + n * torch.einsum("bhkc,bhk->bhc", G, kt)
+                              + (n + 3) * dt * beta)
+        bounds[3][:, :, t] = (3 * E * Ap + 3 * G * Dp + n * G * Ap).sum(-1)
+        du += (rt * kt * vd).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dt[..., None, :]
+        E = wt[..., None] * E + G
+    dk_b, dr_b, dv_b, dw_b = bounds
+    return dr_b, dk_b, dv_b, dw_b, (n + 3 + T + B) * du, 3 * E
+
+
+def check_rwkv_bwd(torch, what: str, got, args, dout, dstate=None) -> float:
+    """K6's backward against its plain version (``ref.rwkv_scan_bwd``) on
+    ``args`` (r, k, v, w, u, state0), ``dout`` and ``dstate``.
+
+    Both are float32 arithmetic on the same values (bf16 inputs widened
+    exactly) in other orders: the kernel recomputes the states from the
+    forward's checkpoints with the forward's arithmetic, sums a row over
+    its thread's columns by multiply-adds and across the row group by a
+    reduce-scatter of shuffles, a column across the warps' partials, takes
+    v . dout and beta by a warp's multiply-adds and shuffles, and G's
+    update as one multiply-add on r dout.  To first order, with eps =
+    2^-24 and the envelopes of ``rwkv_bwd_envelope``: either version's
+    state before step t is within 3 eps D_{t-1} of the exact one (as in
+    ``check_rwkv``), its G_t within 3 eps E_t (a step of G rounds at most
+    three times on values bounded by Gh_{t-1}, and the errors of the steps
+    after decay with |w|), a sum of hd terms plus its bonus rounds at most
+    n = hd + 8 times on either side (the plain version's einsum chain and
+    add; the kernel's at most 4 multiply-adds, 4 shuffle adds and 7 warp
+    partials and the bonus), v . dout and beta at most n + 2 times before
+    their products (n + 3 with them), and du's sum over T steps and B rows
+    T + B times more.  So each side lies within eps times the envelope of
+    the exact gradient, and the two within twice that.  A bf16 dr, dk, dv
+    (or dw) is each side's float32 gradient rounded once, so it may differ
+    by one bf16 ulp more, taken at the larger of |got| and |want|.
+    Returns the largest |kernel - plain| over the six gradients."""
+    from repro_torch.kernels import ref
+    want = ref.rwkv_scan_bwd(*args, dout, dstate)
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    for name, g, wnt in zip(names, got, want):
+        check(g.shape == wnt.shape and g.dtype == wnt.dtype,
+              f"{what}: {name} {tuple(g.shape)} {g.dtype} vs plain "
+              f"{tuple(wnt.shape)} {wnt.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+    eps = 2.0**-24
+    err = 0.0
+    for name, g, wnt, env in zip(names, got, want,
+                                 rwkv_bwd_envelope(torch, args, dout,
+                                                   dstate)):
+        tol = 2 * eps * env
+        g, wnt = g.float(), wnt.float()
+        if name in ("dr", "dk", "dv", "dw") and (
+                (args[3] if name == "dw" else args[0]).dtype
+                == torch.bfloat16):
+            big = torch.maximum(g.abs(), wnt.abs())
+            _, e = torch.frexp(big)
+            tol = tol + torch.where(big > 0, torch.ldexp(
+                torch.ones_like(tol), e - 8), 0.0)
+        diff = (g - wnt).abs()
+        if diff.numel():
+            check(bool((diff <= tol).all()),
+                  f"{what}: {name} beyond the stated bound of the plain "
+                  f"version (max |err| {float(diff.max()):.3g}, at most "
+                  f"{float((diff / tol.clamp(min=1e-30)).max()):.3g} times "
+                  f"its bound)")
+            err = max(err, float(diff.max()))
+    return err
+
+
+def rwkv_bwd_faults(torch, krw):
+    """Faults planted in K6's backward, each a stand-in for its wrapper
+    (the same signature) that still calls it: (name, stand-in)."""
+    bwd = krw.rwkv_scan_bwd
+
+    def g_not_decayed(r, k, v, w, u, state0, dout, dstate_T=None, **kw):
+        # w read as 1: G is not decayed (nor are the chunk's recomputed
+        # states, from the forward's checkpoints of the real w).
+        return bwd(r, k, v, torch.ones_like(w), u, state0, dout, dstate_T,
+                   **kw)
+
+    def dw_reads_s_t(r, k, v, w, u, state0, dout, dstate_T=None, **kw):
+        # sum_c G_t S_t = w_t dw_t + k_t (G_t v_t), and G_t v_t is dk_t
+        # less its bonus.
+        dr, dk, dv, dw, du, ds0 = bwd(r, k, v, w, u, state0, dout, dstate_T,
+                                      **kw)
+        rf, kf, wf = (x.float() for x in (r, k, w))
+        vd = (v.float() * dout.float()).sum(-1, keepdim=True)
+        gv = dk.float() - u[None, :, None, :] * rf * vd
+        return (dr, dk, dv, (wf * dw.float() + kf * gv).to(dw.dtype), du,
+                ds0)
+
+    def du_one_row(r, k, v, w, u, state0, dout, dstate_T=None, **kw):
+        out = bwd(r, k, v, w, u, state0, dout, dstate_T, **kw)
+        ck = kw.get("checkpoints")
+        one = bwd(*(x[:1] for x in (r, k, v, w)), u,
+                  None if state0 is None else state0[:1], dout[:1],
+                  None if dstate_T is None else dstate_T[:1],
+                  checkpoints=None if ck is None else ck[:1])
+        return out[:4] + (one[4], out[5])
+
+    return [("K6 backward: G not decayed", g_not_decayed),
+            ("K6 backward: dw reads S_t for S_{t-1}", dw_reads_s_t),
+            ("K6 backward: du of one batch row", du_one_row)]
+
+
+def k6_bwd_bound(B: int, H: int, T: int, hd: int, in_bytes: int = 2,
+                 w_bytes: int = 4, with_state: bool = False,
+                 with_dstate: bool = False):
+    """Least time of K6's backward: 12 hd^2 float32 operations per (b, h,
+    t) at the float32 CUDA-core rate (a multiply-add per state entry for
+    each of G's update, dk, dv, dw, dr and the recomputed state), vs r, k,
+    v and dout (``in_bytes`` a value) and w (``w_bytes``) read and dr, dk,
+    dv (r's width) and dw (w's) written once, the forward's checkpoints
+    (a float32 state every CHECKPOINT_EVERY steps) and u read, du's
+    partials, dstate0, and state0 and dstate_T (when given) moved once,
+    against the memory rate."""
+    from repro_torch.kernels import rwkv_scan as krw
+    t_ops = 12.0 * hd * hd * B * H * T / FP32_OPS_PER_S * 1e3
+    n_ck = -(-T // krw.CHECKPOINT_EVERY)
+    nbytes = ((7 * in_bytes + 2 * w_bytes) * B * H * T * hd
+              + 4 * B * H * hd * hd * (n_ck + 1 + with_state + with_dstate)
+              + 4 * (H + B * H) * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rwkv_bwd_case(torch, krw, what: str, args, dout, dstate) -> float:
+    """One check of K6's backward: the forward gives the same out and
+    state bits with and without its checkpoints, the backward launches
+    once a call, gives the same bits from two calls and lies within
+    ``check_rwkv_bwd``'s bound.  Returns the largest error."""
+    out, fin, ck = krw.rwkv_scan(*args, checkpoints=True)
+    plain_out, plain_fin = krw.rwkv_scan(*args)
+    check(torch.equal(out, plain_out) and torch.equal(fin, plain_fin),
+          f"{what}: the forward gives other bits with its checkpoints")
+    launches = krw.rwkv_scan_bwd.launches
+    got = krw.rwkv_scan_bwd(*args, dout, dstate, checkpoints=ck)
+    again = krw.rwkv_scan_bwd(*args, dout, dstate, checkpoints=ck)
+    check(krw.rwkv_scan_bwd.launches == launches + 2,
+          f"{what}: {krw.rwkv_scan_bwd.launches - launches} launches for "
+          f"two calls")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls give other bits")
+    B, H, T, hd = args[0].shape
+    if args[0].stride() == (T * H * hd, hd, H * hd, 1) and T > 1:
+        check(all(g.stride() == args[0].stride() for g in got[:4]),
+              f"{what}: the gradients are not in the model's layout")
+    return check_rwkv_bwd(torch, what, got, args, dout, dstate)
+
+
+def rwkv_bwd_kernel_phase(torch, krw) -> float:
+    """K6's backward against its plain version within ``check_rwkv_bwd``'s
+    bound (``rwkv_bwd_case``): hd 16, 32 and 64, float32 and the model's
+    bf16 r, k, v (w float32), T = 1, C - 1, C, C + 1 and 3C + 5 (C the
+    checkpoint interval), without and with state0 and dstate_T; then the
+    model's [B, T, H, hd] views at hd 64 and 16 and odd hd 5 and 48, all
+    three type kinds, at T = 3C + 5; the planted faults
+    (``rwkv_bwd_faults``) beyond the bound at B 3, T 3C + 5, hd 64 in
+    float32 and the model's types.  Returns the largest error."""
+    C = krw.CHECKPOINT_EVERY
+    Ts = (1, C - 1, C, C + 1, 3 * C + 5)
+    err, seed, faults = 0.0, 700, 0
+    for kind in K6_KINDS[:2]:
+        for hd in (16, 32, 64):
+            for T in Ts:
+                for with_state in (False, True):
+                    seed += 10
+                    args = rwkv_inputs(torch, seed, 3, 12, T, hd, with_state,
+                                       kind=kind)
+                    dout = randn(torch, seed + 6, (3, 12, T, hd),
+                                 args[0].dtype)
+                    ds = (randn(torch, seed + 7, (3, 12, hd, hd),
+                                torch.float32, 0.5) if with_state else None)
+                    err = max(err, rwkv_bwd_case(
+                        torch, krw, f"rwkv_scan_bwd {kind} hd={hd} T={T} "
+                        f"state0/dstate={with_state}", args, dout, ds))
+    for kind in K6_KINDS:
+        for hd, views in ((64, True), (16, True), (5, False), (48, False)):
+            seed += 10
+            T = 3 * C + 5
+            args = rwkv_inputs(torch, seed, 2, 7, T, hd, True, views, kind)
+            dout = randn(torch, seed + 6, (2, T, 7, hd) if views
+                         else (2, 7, T, hd), args[0].dtype)
+            if views:
+                dout = dout.transpose(1, 2)
+            ds = randn(torch, seed + 7, (2, 7, hd, hd), torch.float32, 0.5)
+            err = max(err, rwkv_bwd_case(
+                torch, krw, f"rwkv_scan_bwd {kind} hd={hd} T={T} "
+                f"{'views' if views else 'contiguous'}", args, dout, ds))
+    for kind in K6_KINDS[:2]:
+        seed += 10
+        args = rwkv_inputs(torch, seed, 3, 12, 3 * C + 5, 64, True, True,
+                           kind)
+        dout = randn(torch, seed + 6, (3, 3 * C + 5, 12, 64),
+                     args[0].dtype).transpose(1, 2)
+        ds = randn(torch, seed + 7, (3, 12, 64, 64), torch.float32, 0.5)
+        _, _, ck = krw.rwkv_scan(*args, checkpoints=True)
+        for name, fn in rwkv_bwd_faults(torch, krw):
+            try:
+                check_rwkv_bwd(torch, f"{kind} ({name})",
+                               fn(*args, dout, ds, checkpoints=ck), args,
+                               dout, ds)
+            except SmokeFailure:
+                faults += 1
+                continue
+            check(False, f"rwkv_scan_bwd {kind}: the planted fault '{name}' "
+                         f"stays within check_rwkv_bwd's bound")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"train kernels: rwkv_scan_bwd within the stated bound of its plain "
+        f"version at B=3 H=12 hd in {{16, 32, 64}} x T in {set(Ts)} x "
+        f"state0 and dstate_T in {{no, yes}} x {{float32, bf16 r, k, v}}, "
+        f"and at T={3 * C + 5} on views in the model's layout (hd 16, 64) "
+        f"and hd 5, 48 for {set(K6_KINDS)}; one launch a call, the same "
+        f"bits from two calls, the forward's bits the same with its "
+        f"checkpoints (every {C} steps) (max |err| {err:.3g}); {faults} "
+        f"planted faults beyond the bound")
+    return err
+
+
+def rwkv_train_config(torch):
+    """The RWKV6 training path's model, training config and batch:
+    RWKV6-1.6B at its published widths and all its layers, bf16 compute,
+    remat, no balancer (no experts); a TRAIN_B x TRAIN_S batch from
+    ``SkewAwarePipeline`` fed ``zipf_doc_lengths``, as ``train_config``
+    builds OLMoE's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
+                                  zipf_doc_lengths)
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("rwkv6-1.6b")
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_STEPS),
+                     remat=True, moe_balancer=None)
+    pipe = SkewAwarePipeline(PipelineConfig(
+        seq_len=TRAIN_S, batch_per_shard=max(TRAIN_B // 8, 1), n_shards=8,
+        vocab=cfg.vocab))
+    pipe.ingest(zipf_doc_lengths(64, TRAIN_S, seed=0))
+    nb = pipe.next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
+             for k in ("tokens", "labels")}
+    return cfg, tc, batch
+
+
+def rwkv_train_phase(torch, k4, k5, k6):
+    """TRAIN_STEPS steps of RWKV6-1.6B at full width on one repeated
+    batch, every kernel's count set to 0 just before and read just after:
+    the loss finite at every step and lower at the last than the first;
+    K6's forward twice a layer a step (remat runs each block's forward
+    again in the backward) and its backward once a layer a step; K4 and K5
+    (forward and backward) never.  Returns (launches, a summary, the
+    recorders of K6's forward and backward)."""
+    from repro_torch.train import Trainer
+    from repro_torch.train import optimizer as topt
+
+    cfg, tc, batch = rwkv_train_config(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(tr.params))
+    check(not tr.use_balancer and not tr.balancers,
+          "train: the RWKV6 trainer armed a balancer")
+    update = topt.update
+    spent = [0.0, 0]
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - start
+        spent[1] += 1
+        return out
+
+    names = [(k4, "segment_matmul"), (k4, "segment_matmul_backward"),
+             (k5, "flash_attention"), (k5, "flash_attention_bwd"),
+             (k6, "rwkv_scan"), (k6, "rwkv_scan_bwd")]
+    recs = {name: Recorder(mod, name) for mod, name in names[4:]}
+    for mod, name in names:
+        getattr(mod, name).launches = 0
+    losses, times = [], []
+    with contextlib.ExitStack() as stack:
+        for rec in recs.values():
+            stack.enter_context(rec)
+        stack.enter_context(StandIn(topt, "update", timed_update))
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            losses.append(m["loss"])
+            check(math.isfinite(m["loss"]),
+                  f"train: RWKV6 non-finite loss at step {step}")
+            log(f"train: RWKV6 step {step}: loss {m['loss']:.5f}, "
+                f"{times[-1]:.3f} s")
+    launches = {name: getattr(mod, name).launches for mod, name in names}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L, S = cfg.n_layers, TRAIN_STEPS
+    want = {n: 0 for _, n in names[:4]}
+    want.update(rwkv_scan=2 * L * S, rwkv_scan_bwd=L * S)
+    check(launches == want,
+          f"train: RWKV6 launched {launches} over {S} steps of {L} layers, "
+          f"not {want} (remat runs each forward twice a step)")
+    check(losses[-1] < losses[0],
+          f"train: the RWKV6 loss did not fall ({losses[0]:.5f} -> "
+          f"{losses[-1]:.5f})")
+    steady = times[1:]
+    summary = dict(n_params=n_params, init_s=init_s, losses=losses,
+                   times=times, step_s=sum(steady) / len(steady),
+                   tokens=TRAIN_B * TRAIN_S,
+                   update_s=spent[0] / max(spent[1], 1), peak_gib=peak,
+                   n_layers=L)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, summary, recs
+
+
+def rwkv_train_replay_phase(torch, k6, recs):
+    """K6's forward and backward against their plain versions on the
+    inputs the RWKV6 training path gave them (each recorder's first call):
+    the forward the same bits with and without its checkpoints and within
+    ``check_rwkv``, the backward within ``check_rwkv_bwd``, timed (CUDA
+    events) beside its plain version and ``k6_bwd_bound``; then the
+    backward at RWKV6's context, 1 x 4096 tokens in the model's layout and
+    types, checked and timed alike (a shape the path does not run).
+    Returns (the largest errors of the forward and the backward, the JSON
+    record's numbers from the path's call)."""
+    from repro_torch.kernels import ref
+    errs = {"rwkv_scan": 0.0, "rwkv_scan_bwd": 0.0}
+    for (args, kw) in recs["rwkv_scan"].first.values():
+        B, H, T, hd = args[0].shape
+        what = (f"rwkv_scan on the RWKV6 training path's B={B} H={H} T={T} "
+                f"hd={hd}")
+        check(kw == {"checkpoints": True},
+              f"{what}: called with {kw}, not for checkpoints")
+        out, fin, _ = k6.rwkv_scan(*args, checkpoints=True)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (out, fin), k6.rwkv_scan(*args))),
+              f"{what}: other bits with its checkpoints")
+        errs["rwkv_scan"] = max(errs["rwkv_scan"], check_rwkv(
+            torch, what, (out, fin), args)[0])
+        with_ck = time_ms(torch, lambda *a: k6.rwkv_scan(
+            *a, checkpoints=True), args, 20)
+        b_ms, b_by = k6_bound(B, H, T, hd, args[5] is not None,
+                              args[0].element_size(), args[3].element_size())
+        log(f"replay: {what}: {with_ck:.5f} ms with its checkpoints, "
+            f"{time_ms(torch, k6.rwkv_scan, args, 20):.5f} ms without "
+            f"(bound without {b_ms:.5f} ms by {b_by}; the checkpoints add "
+            f"{4 * B * H * -(-T // k6.CHECKPOINT_EVERY) * hd * hd / 2**20:.0f}"
+            f" MiB of writes)")
+    main = None
+    C = k6.CHECKPOINT_EVERY
+    long_args = rwkv_inputs(torch, 95, 1, 32, RWKV_CONTEXT, 64, False, True,
+                            K6_KINDS[1])
+    long_dout = randn(torch, 96, (1, RWKV_CONTEXT, 32, 64), torch.bfloat16
+                      ).transpose(1, 2)
+    _, _, long_ck = k6.rwkv_scan(*long_args, checkpoints=True)
+    firsts = [(args, kw) for args, kw in recs["rwkv_scan_bwd"].first.values()]
+    cases = [(a[:6], a[6], a[7], kw["checkpoints"], True) for a, kw in firsts]
+    cases.append((long_args, long_dout, None, long_ck, False))
+    for args, dout, ds, ck, on_path in cases:
+        B, H, T, hd = args[0].shape
+        what = (f"rwkv_scan_bwd on the RWKV6 training path's B={B} H={H} "
+                f"T={T} hd={hd}" if on_path else
+                f"rwkv_scan_bwd at RWKV6's context, B={B} H={H} T={T}")
+        check(ck is not None and ck.shape[2] == -(-T // C),
+              f"{what}: no checkpoints")
+        got = k6.rwkv_scan_bwd(*args, dout, ds, checkpoints=ck)
+        errs["rwkv_scan_bwd"] = max(errs["rwkv_scan_bwd"], check_rwkv_bwd(
+            torch, what, got, args, dout, ds))
+        del got
+        ms = time_ms(torch, lambda *a: k6.rwkv_scan_bwd(
+            *a, checkpoints=ck), (*args, dout, ds), 10)
+        plain_ms = time_ms(torch, ref.rwkv_scan_bwd, (*args, dout, ds), 2)
+        b_ms, b_by = k6_bwd_bound(B, H, T, hd, args[0].element_size(),
+                                  args[3].element_size(),
+                                  args[5] is not None, ds is not None)
+        log(f"replay: {what} (r, k, v, dout {args[0].dtype}, w "
+            f"{args[3].dtype}): {ms:.5f} ms (plain {plain_ms:.5f} ms, "
+            f"bound {b_ms:.5f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it; "
+            f"library: none, no single PyTorch call computes this "
+            f"recurrence's gradients)")
+        if on_path and main is None:
+            main = (ms, plain_ms, b_ms, b_by)
+    check(main is not None, "replay: K6's backward was not recorded on the "
+                            "RWKV6 training path")
+    del long_args, long_dout, long_ck, cases
+    torch.cuda.empty_cache()
+    return errs, main
+
+
+def rwkv_train_slice_model(torch, seed: int):
+    """RWKV6-1.6B at full width and TRAIN_SLICE_LAYERS layers, float32
+    compute, weights from ``seed`` on the card and a copy on the host, and
+    a TRAIN_SLICE_B x TRAIN_SLICE_S batch from ``seed + 1``.  Returns
+    (cfg, card params, host params, batch)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                              n_layers=TRAIN_SLICE_LAYERS,
+                              compute_dtype="float32")
+    gpu = init_params(cfg, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_SLICE_B, TRAIN_SLICE_S))) for k in
+        ("tokens", "labels")}
+    return cfg, gpu, _to_cpu(gpu), batch
+
+
+def rwkv_train_slice_phase(torch):
+    """The RWKV6 training path's gradient at 2 layers, card against host:
+    one ``loss_fn`` gradient (remat) of the same weights (seed 0) and
+    batch through K6's forward and backward on the card (float32) and
+    their plain versions on the host.  The loss within
+    RWKV_TRAIN_SLICE_LOSS_TOL, every gradient leaf within
+    RWKV_TRAIN_SLICE_TOL of its largest entry.  Returns a summary dict."""
+    from repro_torch.kernels import rwkv_scan as krw
+
+    cfg, gpu, cpu, batch = rwkv_train_slice_model(torch, 0)
+    before = (krw.rwkv_scan.launches, krw.rwkv_scan_bwd.launches)
+    card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+    took = (krw.rwkv_scan.launches - before[0],
+            krw.rwkv_scan_bwd.launches - before[1])
+    L = TRAIN_SLICE_LAYERS
+    check(took == (2 * L, L),
+          f"train slice: the RWKV6 card side launched K6's forward and "
+          f"backward {took} times, not {(2 * L, L)}")
+    t0 = time.perf_counter()
+    host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
+                                         for g in card[1]),
+          "train slice: RWKV6 non-finite loss or gradient on the card")
+    r = train_slice_compare(card, host)
+    check(r["loss_err"] <= RWKV_TRAIN_SLICE_LOSS_TOL,
+          f"train slice: RWKV6 card and host losses differ by "
+          f"{r['loss_err']:.3g} (> {RWKV_TRAIN_SLICE_LOSS_TOL})")
+    check(r["grad_rel"] <= RWKV_TRAIN_SLICE_TOL,
+          f"train slice: an RWKV6 gradient leaf differs by "
+          f"{r['grad_rel']:.3g} of its largest entry (> "
+          f"{RWKV_TRAIN_SLICE_TOL})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def rwkv_train_slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings RWKV_TRAIN_SLICE_TOL and RWKV_TRAIN_SLICE_LOSS_TOL are
+    set from: at each seed, the card against the host, sound and with each
+    planted fault of K6's backward (``rwkv_bwd_faults``) and forward
+    (``rwkv_planted_faults``) on the card's side."""
+    from repro_torch.kernels import rwkv_scan as krw
+
+    runs = {}
+    for seed in seeds:
+        cfg, gpu, cpu, batch = rwkv_train_slice_model(torch, seed)
+        host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
+        stand_ins = [("sound", contextlib.nullcontext())] + [
+            (n, StandIn(krw, "rwkv_scan_bwd", f))
+            for n, f in rwkv_bwd_faults(torch, krw)] + [
+            (n, StandIn(m, a, f))
+            for n, m, a, f in rwkv_planted_faults(torch, krw)
+            if n != "K6 ignores state0"]      # training passes no state0
+        for name, stand_in in stand_ins:
+            with stand_in:
+                card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+            r = train_slice_compare(card, host)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: rwkv train slice seed {seed}: {name}: |loss "
+                f"diff| {r['loss_err']:.3g} (loss {r['loss']:.5f}), "
+                f"gradients within {r['grad_rel']:.3g} of each leaf's "
+                f"largest entry over {r['leaves']} leaves")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: rwkv train slice {name} over seeds {list(seeds)}: "
+            f"|loss diff| up to {max(r['loss_err'] for r in rs):.3g}, "
+            f"gradients {min(r['grad_rel'] for r in rs):.3g} to "
+            f"{max(r['grad_rel'] for r in rs):.3g}")
+    log(f"readings: rwkv train slice limits: RWKV_TRAIN_SLICE_TOL "
+        f"{RWKV_TRAIN_SLICE_TOL}, RWKV_TRAIN_SLICE_LOSS_TOL "
+        f"{RWKV_TRAIN_SLICE_LOSS_TOL}")
+    return runs
+
+
+def log_rwkv_train(tn, launches, smi: str) -> None:
+    log(f"train: RWKV6-1.6B at full width, {tn['n_layers']} layers "
+        f"({tn['n_params']:,} float32 params from seed 0 in "
+        f"{tn['init_s']:.1f} s), no balancer, batch {TRAIN_B} x {TRAIN_S}, "
+        f"{TRAIN_STEPS} steps with remat: loss {tn['losses'][0]:.5f} -> "
+        f"{tn['losses'][-1]:.5f}; {tn['step_s']:.4f} s a step after the "
+        f"first ({tn['times'][0]:.3f} s), {tn['tokens'] / tn['step_s']:.1f} "
+        f"tokens/s, the AdamW update {tn['update_s']:.4f} s a step "
+        f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
+        f"{tn['peak_gib']:.2f} GiB; launches {launches} | {smi}")
+
+
+def rwkv_train_phases(torch, kseg, kfa, krw, kernel_err: float, smi: str):
+    """Phase 10's RWKV6 half after its kernel checks: the training path,
+    K6 replayed on its inputs, the 2-layer slice.  Returns (the JSON record
+    of K6's backward, the largest error of K6's forward in this phase)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, tn, recs = rwkv_train_phase(torch, kseg, kfa, krw)
+    log_rwkv_train(tn, launches, smi)
+    errs, (ms, plain_ms, b_ms, b_by) = rwkv_train_replay_phase(torch, krw,
+                                                               recs)
+    del recs
+    sl = rwkv_train_slice_phase(torch)
+    log(f"train slice: RWKV6-1.6B at {TRAIN_SLICE_LAYERS} layers, float32, "
+        f"a {TRAIN_SLICE_B} x {TRAIN_SLICE_S} batch, card vs host: |loss "
+        f"diff| {sl['loss_err']:.3g} (allowed {RWKV_TRAIN_SLICE_LOSS_TOL}; "
+        f"loss {sl['loss']:.5f}), every one of {sl['leaves']} gradient "
+        f"leaves within {sl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{RWKV_TRAIN_SLICE_TOL}); host side {sl['cpu_s']:.2f} s")
+    log(f"train: RWKV6 phase in {time.perf_counter() - t0:.1f} s")
+    record = dict(
+        name="rwkv_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv_scan.cu",
+        replaces="src/repro/kernels/rwkv_scan.py:40 (its autodiff: the "
+                 "lax.scan of src/repro/models/ssm.py:99-110)",
+        launches=launches["rwkv_scan_bwd"],
+        max_abs_err=max(kernel_err, errs["rwkv_scan_bwd"]), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return record, errs["rwkv_scan"]
+
+
+# --------------------------------------------------------------------- #
 # Readings: ``python3 chip_smoke.py --readings``                          #
 # --------------------------------------------------------------------- #
 def planted_faults(ksm, kfa):
@@ -3676,24 +4308,24 @@ def rwkv_planted_faults(torch, krw):
     module, wrapper name, stand-in)."""
     k6 = krw.rwkv_scan
 
-    def no_bonus(r, k, v, w, u, state0=None):
-        return k6(r, k, v, w, torch.zeros_like(u), state0)
+    def no_bonus(r, k, v, w, u, state0=None, **kw):
+        return k6(r, k, v, w, torch.zeros_like(u), state0, **kw)
 
-    def decay_after_add(r, k, v, w, u, state0=None):
+    def decay_after_add(r, k, v, w, u, state0=None, **kw):
         # S <- diag(w) (S + k v^T): the kernel on w * k carries that state;
         # out_t still takes the bonus of the unscaled k, added back here.
-        out, state = k6(r, torch.mul(w, k, out=torch.empty_like(k)), v, w,
-                        u, state0)
+        got = k6(r, torch.mul(w, k, out=torch.empty_like(k)), v, w, u, state0,
+                 **kw)
         bonus = (r * u[None, :, None, :] * k * (1 - w)).sum(-1, keepdim=True)
-        return out + bonus * v, state
+        return (got[0] + bonus * v,) + tuple(got[1:])
 
-    def state0_ignored(r, k, v, w, u, state0=None):
-        return k6(r, k, v, w, u, None)
+    def state0_ignored(r, k, v, w, u, state0=None, **kw):
+        return k6(r, k, v, w, u, None, **kw)
 
-    def last_term_dropped(r, k, v, w, u, state0=None):
+    def last_term_dropped(r, k, v, w, u, state0=None, **kw):
         r = r.clone()
         r[..., -1] = 0.0
-        return k6(r, k, v, w, u, state0)
+        return k6(r, k, v, w, u, state0, **kw)
 
     return [("K6 drops u's bonus", krw, "rwkv_scan", no_bonus),
             ("K6 decays after the add", krw, "rwkv_scan", decay_after_add),
@@ -4017,6 +4649,7 @@ def readings() -> int:
     rwkv_slice_readings(torch)
     rwkv_decode_readings(torch)
     train_slice_readings(torch)
+    rwkv_train_slice_readings(torch)
     log(f"readings: done in {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -4114,9 +4747,10 @@ def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
 
 
 def train_only() -> int:
-    """``--train``: build K4 and K5 (their ``-Xptxas -v`` lines and
+    """``--train``: build K4, K5 and K6 (their ``-Xptxas -v`` lines and
     ``check_sass``), then phase 10 alone (the backward kernels' checks, the
-    training path, its replay and the slice).  Not part of the smoke."""
+    two training paths, their replays and slices).  Not part of the
+    smoke."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4126,6 +4760,7 @@ def train_only() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rwkv_scan as krw
     from repro_torch.kernels import segment_matmul as kseg
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4136,11 +4771,14 @@ def train_only() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build_logged(_build, ("segment_matmul", "flash_attention"))
+    build_logged(_build, ("segment_matmul", "flash_attention", "rwkv_scan"))
     check_sass()
     errs = train_kernel_phase(torch, kseg, kfa)
-    print(json.dumps({"kernels": train_phases(torch, kseg, kfa, errs,
-                                               smi)[0]}))
+    rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
+    records = train_phases(torch, kseg, kfa, errs, smi)[0]
+    records.append(rwkv_train_phases(torch, kseg, kfa, krw, rwkv_bwd_err,
+                                     smi)[0])
+    print(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -4182,6 +4820,7 @@ def main() -> int:
     model_errs = model_kernel_phase(torch, kseg, kfa)
     train_errs = train_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
+    rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
     ctrl_kernel_phase(torch, kctrl, ref, tdev)
     t0 = time.perf_counter()
     launches, first, path_calls, ctrl_kept = main_path(torch, kpart, kctrl)
@@ -4262,10 +4901,12 @@ def main() -> int:
         library_ms=None))
     records.append(ctrl_record)
     train_records, fwd_errs = train_phases(torch, kseg, kfa, train_errs, smi)
+    rwkv_record, fwd_errs["rwkv_scan"] = rwkv_train_phases(
+        torch, kseg, kfa, krw, rwkv_bwd_err, smi)
     for rec in records:
         if rec["name"] in fwd_errs:
             rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
-    records += train_records
+    records += train_records + [rwkv_record]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -365,7 +365,7 @@ def k6(torch, cs, _build) -> None:
                   {"first design (scalar loads, float32 only)": {}})
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for lib in libs.values():
-        lib.repro_rwkv_scan.argtypes = ([ptr] * 8 + [i32] * 5 + [i64] * 6
+        lib.repro_rwkv_scan.argtypes = ([ptr] * 9 + [i32] * 5 + [i64] * 6
                                         + [i32, ptr])
         lib.repro_rwkv_scan.restype = i32
     for lib in first.values():
@@ -383,7 +383,7 @@ def k6(torch, cs, _build) -> None:
         code = lib.repro_rwkv_scan(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), out.data_ptr(), state.data_ptr(),
-            B, H, T, hd, kinds[(r.dtype, w.dtype)], *r.stride()[:3],
+            None, B, H, T, hd, kinds[(r.dtype, w.dtype)], *r.stride()[:3],
             *out.stride()[:3], *_build.device_and_stream(r.device))
         cs.check(code == 0, f"launch failed: CUDA error {code}")
         return out, state

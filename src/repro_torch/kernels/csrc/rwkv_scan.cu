@@ -71,6 +71,64 @@
 // at hd 64, about twice its issue time (what stalls it is not measured).
 // No tensor cores: the chunked form that would put the intra-chunk
 // products on them is later work.
+//
+// The backward (rwkv_scan_bwd_kernel) replaces no TPU kernel: the JAX
+// package differentiates the lax.scan of ssm.py:99-110 (its Pallas kernel
+// has no vjp).  With G_t the gradient of the state after step t (G_{T-1}
+// = dstate_T, zeros when null), beta_t = sum_k r_t,k u_k k_t,k and
+// vd_t = v_t . dout_t, per (b, h), for t = T-1 down to 0:
+//   dr_t = S_{t-1} dout_t + u * k_t vd_t       dk_t = G_t v_t + u * r_t vd_t
+//   dv_t = G_t^T k_t + dout_t beta_t           dw_t[k] = sum_c G_t S_{t-1}
+//   du  += r_t * k_t vd_t                      G_{t-1} = diag(w_t) G_t +
+//                                                        r_t dout_t^T
+// and dstate0 = G_{-1}.  Types: dr, dk and dv in r's type, dw in w's, each
+// rounded once from float32; du and dstate0 float32.
+//
+// Bound on an H100: about 12 hd^2 float32 operations a step of each (b, h)
+// (a multiply-add per state entry for each of G's update, dk, dv, dw, dr
+// and the recomputed state) at 67 TFLOP/s, against r, k, v, w and dout
+// read once, dr, dk, dv and dw written once and the checkpoints read once
+// at 3.35 TB/s.  At the RWKV6-1.6B training shape (B 4, H 32, T 512, hd
+// 64, bf16 r, k, v and dout, float32 w) the bytes set it, ~0.068 ms, of
+// which the checkpoints (134 MB) are 0.040 ms; the operations ~0.048 ms.
+//
+// Design of the backward (a first design: right and simple).  One block
+// per (b, h), as the forward, walks t down from T-1 with G in registers,
+// a thread holding a kRows x NC tile (the forward's 4 x 4 at hd 64, 256
+// threads; no helper warps: each phase of a chunk ends at __syncthreads).
+// dr_t and dw_t need S_{t-1} while G runs backwards, and S_{t-1} is never
+// had by dividing by w_t (w = exp(-exp(.)) may come near 0 once trained):
+// the forward, asked with a checkpoint buffer, writes its state before
+// every kCk-th step (float32 [B, H, ceil(T / kCk), hd, hd]; 134 MB a layer
+// at the training shape, and under remat one layer holds it at a time; a
+// null buffer runs the forward's kernel as it was, the same bits).  Per
+// chunk of kCk = 8 steps, last chunk first, the block:
+//   1. stages the chunk's rows of r, k, v, w and dout (widened to float32,
+//      zeros past hd and past T) in shared memory from registers, where
+//      each thread fetched its share a chunk ahead (the loads of the next
+//      chunk go out here and land while this one is computed: staged by a
+//      loop of dependent loads instead, a call at the training shape took
+//      1.01 ms on an H100 against 0.655, PERF.md), and takes beta_t and
+//      vd_t, a warp a step;
+//   2. recomputes the chunk's states from its checkpoint with the
+//      forward's arithmetic (the same bits as the forward's states), each
+//      thread its own tile, and keeps them in shared memory: a thread only
+//      ever reads its own tile back, so no barrier guards them.  The
+//      chunk's kCk states take 128 KB at hd 64: registers would need 128 a
+//      thread, a workspace in device memory would be 2 GB of L2 traffic a
+//      call, and shared memory holds them with room for the rest (160 KB
+//      in all), which is why kCk is 8 and not 16;
+//   3. walks the chunk's steps down: a thread's row sums of G v, G . S and
+//      S dout (over its NC columns) go across its row group's CG lanes by a
+//      reduce-scatter of shuffles (15 at hd 64), each lane writing its one
+//      sum; its column sums G^T k across the warp's row groups by
+//      shuffles, one partial a warp; then G = diag(w) G + r dout^T;
+//   4. adds the bonus terms and the warps' partials and writes dr, dk, dv
+//      and dw in the inputs' layout (the model's [B, T, H hd] read as [B,
+//      H, T, hd], so its views' gradients need no copy).
+// du goes out as each (b, h)'s partial sum [B, H, hd], summed over t in
+// one order in the block and over B by the caller: no atomics, so two
+// runs give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +151,11 @@ static_assert(kStages > kAhead, "the ring must hold the readied chunks");
 // they have computed one; kHelp orders the helpers among themselves.
 enum : int { kFull = 1, kDone = 2, kHelp = 3 };
 constexpr int kHelpers = 128;  // helper threads a block (four warps)
+// Steps between the checkpoints of the state the forward writes for the
+// backward (its state before steps 0, kCk, 2 kCk, ..), and the backward's
+// chunk: it holds a chunk's kCk states in shared memory.
+constexpr int kCk = 8;
+static_assert(kTC % kCk == 0, "a chunk holds whole checkpoint intervals");
 
 // Columns a thread holds, and compute threads a block (one a kRows x cols
 // tile of the state): 256 at hd 64, 64 at 32, 32 at 16; kHelpers more.
@@ -129,6 +192,7 @@ struct Args {
   const float* s0;             // [B, H, hd, hd] or null
   void* out;
   float* sT;
+  float* ck;                   // [B, H, ceil(T / kCk), hd, hd] or null
   int H, T, hd;
   bool vec;                    // rows 16-byte aligned: cp.async 16 bytes
   long long is[3], os[3];      // (b, h, t) strides of the inputs and out
@@ -338,7 +402,21 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[NC]) {
     *reinterpret_cast<float2*>(p + n) = make_float2(v[n], v[n + 1]);
 }
 
-template <int HDP, bool kBI, bool kBW>
+// A thread's kRows x NC tile of a state, rows r0 .., columns c0 .., into
+// the [hd, hd] state at dst (the padding rows and columns stay out).
+template <int NC>
+__device__ __forceinline__ void store_tile(float* dst,
+                                           const float (&S)[kRows][NC],
+                                           int r0, int c0, int hd) {
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      if (r0 + j < hd && c0 + n < hd)
+        dst[static_cast<size_t>(r0 + j) * hd + c0 + n] = S[j][n];
+}
+
+template <int HDP, bool kBI, bool kBW, bool kCkpt>
 __global__ void __launch_bounds__(threads<HDP>() + kHelpers, 1)
 rwkv_scan_kernel(const Args a) {
   using KS = Kernel<HDP, kBI, kBW>;
@@ -402,6 +480,8 @@ rwkv_scan_kernel(const Args a) {
   const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
   const int r0 = rg * kRows, c0 = cg * NC;
   const size_t st = static_cast<size_t>(bh) * hd * hd;
+  float* const ck =
+      kCkpt ? a.ck + st * ((a.T + kCk - 1) / kCk) : nullptr;
   float S[kRows][NC];
 #pragma unroll
   for (int j = 0; j < kRows; ++j)
@@ -440,6 +520,13 @@ rwkv_scan_kernel(const Args a) {
     load(0);
 #pragma unroll 2
     for (int tt = 0; tt < steps; ++tt) {
+      if constexpr (kCkpt) {
+        // The state before step t0 + tt, every kCk steps, for the backward.
+        if (tt % kCk == 0)
+          store_tile<NC>(ck + static_cast<size_t>((ch * kTC + tt) / kCk) *
+                                  hd * hd,
+                         S, r0, c0, hd);
+      }
       const float rr[kRows] = {r4.x, r4.y, r4.z, r4.w};
       const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
       const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
@@ -473,6 +560,327 @@ rwkv_scan_kernel(const Args a) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// The backward (see the note at the top of the file).
+// ---------------------------------------------------------------------------
+constexpr int kBwdCols = 4;    // gradient columns a thread holds above hd 16
+
+// Columns a backward thread holds, and its threads a block (one a kRows x
+// cols tile of G and of the states): 256 at hd 64, 64 at 32, 32 at 16.
+template <int HDP>
+__host__ __device__ constexpr int bwd_cols() {
+  return HDP == 16 ? 2 : kBwdCols;
+}
+template <int HDP>
+__host__ __device__ constexpr int bwd_threads() {
+  return (HDP / kRows) * (HDP / bwd_cols<HDP>());
+}
+
+// Shared memory, in order: the chunk's states [kCk][NC][NT] float4s (each
+// thread's tile as NC float4s, so a warp's accesses are consecutive), the
+// chunk's rows [5][kCk][HDP] (r, k, v, w, dout in float32), the row sums
+// [3][kCk][HDP] (G v, G . S, S dout), the column partial sums
+// [kCk][NW][HDP] (G^T k, a warp's row groups each), beta and v . dout
+// [2][kCk] and u [HDP]: 160 KB at hd 64.
+template <int HDP>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) *
+         (kCk * HDP * HDP + 5 * kCk * HDP + 3 * kCk * HDP +
+          kCk * (bwd_threads<HDP>() / 32) * HDP + 2 * kCk + HDP);
+}
+
+struct BwdArgs {
+  const void* in[4];           // r, k, v, w
+  const void* dout;            // r's type
+  const float* u;              // [H, hd]
+  const float* ck;             // [B, H, ceil(T / kCk), hd, hd]
+  const float* dsT;            // [B, H, hd, hd] or null
+  void* grad[4];               // dr, dk, dv (r's type), dw (w's type)
+  float* du;                   // [B, H, hd], a partial sum per (b, h)
+  float* ds0;                  // [B, H, hd, hd]
+  int H, T, hd;
+  long long is[3], ds[3], gs[3];  // (b, h, t) strides: inputs, dout, grads
+};
+
+template <typename T>
+__device__ __forceinline__ float load_wide(const void* base, long long off) {
+  return widen(static_cast<const T*>(base)[off]);
+}
+
+// Sums x over the CG lanes of a row group (lanes cg = lane % CG) and
+// scatters the sums: afterwards x[p] (p < 16 / CG) holds the sum of value
+// p + (16 / CG) cg.  log2(CG) rounds, 15 shuffles at CG = 16; each sum is
+// taken in the same order every call.
+template <int CG>
+__device__ __forceinline__ void reduce_scatter16(float (&x)[16], int cg) {
+  static_assert(CG >= 2 && CG <= 16 && (CG & (CG - 1)) == 0,
+                "a row group spans 2 .. 16 lanes");
+#pragma unroll
+  for (int s = 0; (1 << s) < CG; ++s) {
+    const int o = CG >> (s + 1), m = 8 >> s;
+    const bool up = (cg & o) != 0;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = up ? x[i] : x[i + m];
+      const float keep = up ? x[i + m] : x[i];
+      x[i] = keep + __shfl_xor_sync(~0u, send, o);
+    }
+  }
+}
+
+template <int HDP, bool kBI, bool kBW>
+__global__ void __launch_bounds__(bwd_threads<HDP>(), 1)
+rwkv_scan_bwd_kernel(const BwdArgs a) {
+  using TI = typename std::conditional<kBI, bf16, float>::type;
+  using TW = typename std::conditional<kBW, bf16, float>::type;
+  constexpr int NC = bwd_cols<HDP>(), CG = HDP / NC, RG = HDP / kRows;
+  constexpr int NT = RG * CG, NW = NT / 32;
+  constexpr int PER = 16 / CG;               // row sums a lane keeps
+  static_assert(NT % 32 == 0 && 32 % CG == 0 && NC % 2 == 0,
+                "a warp holds whole row groups");
+  extern __shared__ __align__(16) float smem[];
+  float4* states = reinterpret_cast<float4*>(smem);
+  float* xs = smem + kCk * HDP * HDP;        // [5][kCk][HDP]
+  float* rows = xs + 5 * kCk * HDP;          // [3][kCk][HDP]
+  float* cols = rows + 3 * kCk * HDP;        // [kCk][NW][HDP]
+  float* sc = cols + kCk * NW * HDP;         // beta [kCk], v . dout [kCk]
+  float* us = sc + 2 * kCk;                  // [HDP]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = tid % CG, rg = tid / CG;
+  const int r0 = rg * kRows, c0 = cg * NC;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int hd = a.hd, T = a.T;
+  const int n_ck = (T + kCk - 1) / kCk;
+  const size_t sq = static_cast<size_t>(bh) * hd * hd;
+
+  // r, k, v, w and dout at (b, h, t = 0, 0), and the gradients.
+  const void* src[5];
+  void* dst[4];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const bool w16 = i == 3 ? kBW : kBI;
+    const long long off = i == 4 ? b * a.ds[0] + h * a.ds[1]
+                                 : b * a.is[0] + h * a.is[1];
+    const void* base = i == 4 ? a.dout : a.in[i];
+    src[i] = static_cast<const char*>(base) + off * (w16 ? 2 : 4);
+    if (i < 4)
+      dst[i] = static_cast<char*>(a.grad[i]) +
+               (b * a.gs[0] + h * a.gs[1]) * (w16 ? 2 : 4);
+  }
+  for (int i = tid; i < HDP; i += NT) us[i] = i < hd ? a.u[h * hd + i] : 0.0f;
+
+  // G, the gradient of the state after the step at hand: dstate_T first.
+  float G[kRows][NC];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int row = r0 + j, col = c0 + n;
+      G[j][n] = (a.dsT != nullptr && row < hd && col < hd)
+                    ? a.dsT[sq + static_cast<size_t>(row) * hd + col]
+                    : 0.0f;
+    }
+  float du = 0.0f;                           // du[tid], for tid < hd
+
+  // A chunk's rows of the five arrays, widened to float32 (zeros past hd
+  // and past T), LOADS values a thread: value m of thread tid is xs[m NT +
+  // tid].  They are fetched into registers one chunk ahead, so a chunk's
+  // loads are in flight while the chunk before it is computed.
+  constexpr int PER_ARR = kCk * HDP;
+  constexpr int LOADS = 5 * PER_ARR / NT;
+  static_assert(PER_ARR % NT == 0, "a thread's values of a chunk lie in "
+                                   "known arrays");
+  float pre[LOADS];
+  auto fetch = [&](int ch) {
+    const int t0 = ch * kCk, n = min(kCk, T - t0);
+#pragma unroll
+    for (int m = 0; m < LOADS; ++m) {
+      const int arr = m * NT / PER_ARR;
+      const int e = (m * NT) % PER_ARR + tid;
+      const int tt = e / HDP, col = e % HDP;
+      float x = 0.0f;
+      if (tt < n && col < hd) {
+        const long long off =
+            static_cast<long long>(t0 + tt) * (arr == 4 ? a.ds[2] : a.is[2]) +
+            col;
+        x = arr == 3 ? load_wide<TW>(src[3], off)
+                     : load_wide<TI>(src[arr], off);
+      }
+      pre[m] = x;
+    }
+  };
+  if (n_ck > 0) fetch(n_ck - 1);
+
+  for (int ch = n_ck - 1; ch >= 0; --ch) {
+    const int t0 = ch * kCk, n = min(kCk, T - t0);
+    __syncthreads();                         // the last chunk's reads done
+#pragma unroll
+    for (int m = 0; m < LOADS; ++m) xs[m * NT + tid] = pre[m];
+    __syncthreads();
+    if (ch > 0) fetch(ch - 1);
+    const float* R = xs;
+    const float* K = xs + kCk * HDP;
+    const float* V = K + kCk * HDP;
+    const float* W = V + kCk * HDP;
+    const float* D = W + kCk * HDP;
+    // beta_t = sum_k r_k u_k k_k and v_t . dout_t, a warp a step.
+    for (int tt = warp; tt < n; tt += NW) {
+      float bs = 0.0f, vd = 0.0f;
+      for (int i = lane; i < HDP; i += 32) {
+        bs = fmaf(R[tt * HDP + i] * us[i], K[tt * HDP + i], bs);
+        vd = fmaf(V[tt * HDP + i], D[tt * HDP + i], vd);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        bs += __shfl_xor_sync(~0u, bs, o);
+        vd += __shfl_xor_sync(~0u, vd, o);
+      }
+      if (lane == 0) {
+        sc[tt] = bs;
+        sc[kCk + tt] = vd;
+      }
+    }
+    // The chunk's states S_{t-1}, the thread's tile of each, recomputed
+    // from the checkpoint as the forward computed them (the same bits).
+    {
+      float S[kRows][NC];
+      const float* ck = a.ck + (static_cast<size_t>(bh) * n_ck + ch) * hd * hd;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          const int row = r0 + j, col = c0 + m;
+          S[j][m] = (row < hd && col < hd)
+                        ? ck[static_cast<size_t>(row) * hd + col]
+                        : 0.0f;
+        }
+      for (int tt = 0; tt < n; ++tt) {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) {
+          const int f = 4 * q;               // flat index f .. f + 3
+          states[(tt * NC + q) * NT + tid] = make_float4(
+              S[f / NC][f % NC], S[(f + 1) / NC][(f + 1) % NC],
+              S[(f + 2) / NC][(f + 2) % NC], S[(f + 3) / NC][(f + 3) % NC]);
+        }
+        if (tt + 1 < n) {
+          const float4 k4 = reinterpret_cast<const float4*>(K + tt * HDP)[rg];
+          const float4 w4 = reinterpret_cast<const float4*>(W + tt * HDP)[rg];
+          const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
+          const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
+          float vv[NC];
+          load_cols<NC>(V + tt * HDP + c0, vv);
+#pragma unroll
+          for (int j = 0; j < kRows; ++j)
+#pragma unroll
+            for (int m = 0; m < NC; ++m) {
+              const float kv = kk[j] * vv[m];
+              S[j][m] = fmaf(ww[j], S[j][m], kv);
+            }
+        }
+      }
+    }
+    __syncthreads();                         // beta and v . dout visible
+    for (int tt = n - 1; tt >= 0; --tt) {
+      const float4 r4 = reinterpret_cast<const float4*>(R + tt * HDP)[rg];
+      const float4 k4 = reinterpret_cast<const float4*>(K + tt * HDP)[rg];
+      const float4 w4 = reinterpret_cast<const float4*>(W + tt * HDP)[rg];
+      const float rr[kRows] = {r4.x, r4.y, r4.z, r4.w};
+      const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
+      const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
+      float vv[NC], dd[NC], S[kRows][NC];
+      load_cols<NC>(V + tt * HDP + c0, vv);
+      load_cols<NC>(D + tt * HDP + c0, dd);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        const float4 x = states[(tt * NC + q) * NT + tid];
+        const int f = 4 * q;
+        S[f / NC][f % NC] = x.x;
+        S[(f + 1) / NC][(f + 1) % NC] = x.y;
+        S[(f + 2) / NC][(f + 2) % NC] = x.z;
+        S[(f + 3) / NC][(f + 3) % NC] = x.w;
+      }
+      // Row sums over the thread's columns: x[4 q + j] for row j of G v
+      // (q 0), G . S_{t-1} (q 1) and S_{t-1} dout (q 2); q 3 is padding.
+      float x[16], dv[NC];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        float gv = 0.0f, gs = 0.0f, sd = 0.0f;
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          gv = fmaf(G[j][m], vv[m], gv);
+          gs = fmaf(G[j][m], S[j][m], gs);
+          sd = fmaf(S[j][m], dd[m], sd);
+        }
+        x[j] = gv;
+        x[4 + j] = gs;
+        x[8 + j] = sd;
+        x[12 + j] = 0.0f;
+      }
+      // Column sums over the thread's rows: G^T k.
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) acc = fmaf(G[j][m], kk[j], acc);
+        dv[m] = acc;
+      }
+      // G_{t-1} = diag(w_t) G_t + r_t dout_t^T.
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+#pragma unroll
+        for (int m = 0; m < NC; ++m) G[j][m] = fmaf(ww[j], G[j][m], rr[j] * dd[m]);
+      reduce_scatter16<CG>(x, cg);
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int idx = p + PER * cg, q = idx >> 2;
+        if (q < 3) rows[(q * kCk + tt) * HDP + r0 + (idx & 3)] = x[p];
+      }
+      // The warp's row groups' column sums, then one lane a column group
+      // writes them.
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+#pragma unroll
+        for (int o = CG; o < 32; o <<= 1)
+          dv[m] += __shfl_xor_sync(~0u, dv[m], o);
+      if (lane < CG) store_cols<NC>(cols + (tt * NW + warp) * HDP + c0, dv);
+    }
+    __syncthreads();
+    // The chunk's gradients: the row and column sums and the bonus terms.
+    for (int i = tid; i < n * HDP; i += NT) {
+      const int tt = i / HDP, c = i % HDP;
+      if (c >= hd) continue;
+      const float beta = sc[tt], vd = sc[kCk + tt];
+      float dv = 0.0f;
+#pragma unroll
+      for (int g = 0; g < NW; ++g) dv += cols[(tt * NW + g) * HDP + c];
+      const float grads[4] = {
+          fmaf(us[c] * K[i], vd, rows[(2 * kCk + tt) * HDP + c]),   // dr
+          fmaf(us[c] * R[i], vd, rows[tt * HDP + c]),               // dk
+          fmaf(D[i], beta, dv),                                     // dv
+          rows[(kCk + tt) * HDP + c]};                              // dw
+      const long long off = static_cast<long long>(t0 + tt) * a.gs[2] + c;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) narrow(static_cast<TI*>(dst[g]) + off, grads[g]);
+      narrow(static_cast<TW*>(dst[3]) + off, grads[3]);
+    }
+    // du[k] += r_t,k k_t,k (v_t . dout_t), steps in descending order.
+    if (tid < hd)
+      for (int tt = n - 1; tt >= 0; --tt)
+        du = fmaf(R[tt * HDP + tid] * K[tt * HDP + tid], sc[kCk + tt], du);
+  }
+
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int m = 0; m < NC; ++m) {
+      const int row = r0 + j, col = c0 + m;
+      if (row < hd && col < hd)
+        a.ds0[sq + static_cast<size_t>(row) * hd + col] = G[j][m];
+    }
+  if (tid < hd) a.du[static_cast<size_t>(bh) * hd + tid] = du;
+}
+
 // Makes `device` current if it is not (the stream belongs to it).
 cudaError_t use_device(int device) {
   int current = -1;
@@ -481,12 +889,11 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-template <int HDP, bool kBI, bool kBW>
-cudaError_t launch(const Args& a, int B, int device, cudaStream_t stream) {
-  auto kernel = rwkv_scan_kernel<HDP, kBI, kBW>;
-  constexpr size_t smem = smem_bytes<HDP, kBI, kBW>();
-  // The shared-memory opt-in, once a device.
-  static bool allowed[64];
+// Sets a kernel's shared-memory opt-in (once a device and kernel: each
+// instantiation of a caller has its own `allowed`).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, bool (&allowed)[64],
+                       int device) {
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (!allowed[device]) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -495,15 +902,51 @@ cudaError_t launch(const Args& a, int B, int device, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     allowed[device] = true;
   }
+  return cudaSuccess;
+}
+
+template <int HDP, bool kBI, bool kBW, bool kCkpt>
+cudaError_t launch(const Args& a, int B, int device, cudaStream_t stream) {
+  auto kernel = rwkv_scan_kernel<HDP, kBI, kBW, kCkpt>;
+  constexpr size_t smem = smem_bytes<HDP, kBI, kBW>();
+  static bool allowed[64];
+  cudaError_t err = allow_smem(kernel, smem, allowed, device);
+  if (err != cudaSuccess) return err;
   kernel<<<B * a.H, threads<HDP>() + kHelpers, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool kBI, bool kBW, bool kCkpt>
+cudaError_t dispatch(const Args& a, int B, int device, cudaStream_t s) {
+  if (a.hd <= 16) return launch<16, kBI, kBW, kCkpt>(a, B, device, s);
+  if (a.hd <= 32) return launch<32, kBI, kBW, kCkpt>(a, B, device, s);
+  return launch<64, kBI, kBW, kCkpt>(a, B, device, s);
+}
+
 template <bool kBI, bool kBW>
 cudaError_t dispatch(const Args& a, int B, int device, cudaStream_t s) {
-  if (a.hd <= 16) return launch<16, kBI, kBW>(a, B, device, s);
-  if (a.hd <= 32) return launch<32, kBI, kBW>(a, B, device, s);
-  return launch<64, kBI, kBW>(a, B, device, s);
+  if (a.ck != nullptr) return dispatch<kBI, kBW, true>(a, B, device, s);
+  return dispatch<kBI, kBW, false>(a, B, device, s);
+}
+
+template <int HDP, bool kBI, bool kBW>
+cudaError_t launch_bwd(const BwdArgs& a, int B, int device,
+                       cudaStream_t stream) {
+  auto kernel = rwkv_scan_bwd_kernel<HDP, kBI, kBW>;
+  constexpr size_t smem = bwd_smem_bytes<HDP>();
+  static bool allowed[64];
+  cudaError_t err = allow_smem(kernel, smem, allowed, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * a.H, bwd_threads<HDP>(), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kBI, bool kBW>
+cudaError_t dispatch_bwd(const BwdArgs& a, int B, int device,
+                         cudaStream_t s) {
+  if (a.hd <= 16) return launch_bwd<16, kBI, kBW>(a, B, device, s);
+  if (a.hd <= 32) return launch_bwd<32, kBI, kBW>(a, B, device, s);
+  return launch_bwd<64, kBI, kBW>(a, B, device, s);
 }
 
 }  // namespace
@@ -514,19 +957,24 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Steps between the forward's checkpoints (the backward's chunk).
+int repro_rwkv_checkpoint_every(void) { return kCk; }
+
 // r, k, v, w and out [B, H, T, hd], at element strides (b, h, t)
 // `sb, sh, st` for r, k, v and w and `ob, oh, ot` for out, hd's stride 1;
 // `kinds` 0: all float32; 1: r, k, v and out bf16, w float32; 2: r, k, v,
 // w and out bf16.  u [H, hd], state0 [B, H, hd, hd] (or null: zeros) and
-// state [B, H, hd, hd] float32, contiguous.  1 <= hd <= 64, T >= 0.
-// Returns a cudaError_t (0 on success); one launch, asynchronous on
-// `stream`.
+// state [B, H, hd, hd] float32, contiguous.  `ckpt` null, or float32
+// [B, H, ceil(T / kCk), hd, hd] contiguous: the state before every kCk-th
+// step, for the backward (out and state are the same bits either way).
+// 1 <= hd <= 64, T >= 0.  Returns a cudaError_t (0 on success); one
+// launch, asynchronous on `stream`.
 int repro_rwkv_scan(const void* r, const void* k, const void* v,
                     const void* w, const float* u, const float* state0,
-                    void* out, float* state, int B, int H, int T_len, int hd,
-                    int kinds, long long sb, long long sh, long long st,
-                    long long ob, long long oh, long long ot, int device,
-                    void* stream) {
+                    void* out, float* state, float* ckpt, int B, int H,
+                    int T_len, int hd, int kinds, long long sb, long long sh,
+                    long long st, long long ob, long long oh, long long ot,
+                    int device, void* stream) {
   if (B < 1 || H < 1 || T_len < 0 || hd < 1 || hd > 64 || kinds < 0 ||
       kinds > 2 || static_cast<long long>(B) * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -541,6 +989,7 @@ int repro_rwkv_scan(const void* r, const void* k, const void* v,
   a.s0 = state0;
   a.out = out;
   a.sT = state;
+  a.ck = ckpt;
   a.H = H;
   a.T = T_len;
   a.hd = hd;
@@ -563,6 +1012,62 @@ int repro_rwkv_scan(const void* r, const void* k, const void* v,
   if (kinds == 0) return dispatch<false, false>(a, B, device, s);
   if (kinds == 1) return dispatch<true, false>(a, B, device, s);
   return dispatch<true, true>(a, B, device, s);
+}
+
+// The backward: from r, k, v, w (as the forward takes them, strides `sb,
+// sh, st`), u, the forward's checkpoints `ckpt`, dout (r's type, strides
+// `db, dh, dt`, hd's 1) and dstate (the final state's gradient, float32
+// [B, H, hd, hd] contiguous, or null: zeros), writes dr, dk, dv (r's type)
+// and dw (w's type) at strides `gb, gh, gt` (hd's 1), du_part float32
+// [B, H, hd] (each (b, h)'s share of du; the caller sums over B) and
+// dstate0 float32 [B, H, hd, hd].  Same `kinds` and limits as the forward.
+// Returns a cudaError_t (0 on success); one launch, asynchronous on
+// `stream`.
+int repro_rwkv_scan_bwd(const void* r, const void* k, const void* v,
+                        const void* w, const float* u, const float* ckpt,
+                        const void* dout, const float* dstate, void* dr,
+                        void* dk, void* dv, void* dw, float* du_part,
+                        float* dstate0, int B, int H, int T_len, int hd,
+                        int kinds, long long sb, long long sh, long long st,
+                        long long db, long long dh, long long dt,
+                        long long gb, long long gh, long long gt, int device,
+                        void* stream) {
+  if (B < 1 || H < 1 || T_len < 0 || hd < 1 || hd > 64 || kinds < 0 ||
+      kinds > 2 || static_cast<long long>(B) * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return err;
+  BwdArgs a{};
+  a.in[0] = r;
+  a.in[1] = k;
+  a.in[2] = v;
+  a.in[3] = w;
+  a.dout = dout;
+  a.u = u;
+  a.ck = ckpt;
+  a.dsT = dstate;
+  a.grad[0] = dr;
+  a.grad[1] = dk;
+  a.grad[2] = dv;
+  a.grad[3] = dw;
+  a.du = du_part;
+  a.ds0 = dstate0;
+  a.H = H;
+  a.T = T_len;
+  a.hd = hd;
+  a.is[0] = sb;
+  a.is[1] = sh;
+  a.is[2] = st;
+  a.ds[0] = db;
+  a.ds[1] = dh;
+  a.ds[2] = dt;
+  a.gs[0] = gb;
+  a.gs[1] = gh;
+  a.gs[2] = gt;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kinds == 0) return dispatch_bwd<false, false>(a, B, device, s);
+  if (kinds == 1) return dispatch_bwd<true, false>(a, B, device, s);
+  return dispatch_bwd<true, true>(a, B, device, s);
 }
 
 }  // extern "C"

@@ -266,6 +266,54 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(r.dtype), s
 
 
+def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state0: Optional[torch.Tensor], dout: torch.Tensor,
+                  dstate_T: Optional[torch.Tensor] = None):
+    """The gradients of :func:`rwkv_scan`, the vjp of
+    ``repro.kernels.ref.rwkv_scan``: from the inputs, ``dout`` (the
+    gradient at out) and ``dstate_T`` (at the final state; zeros when
+    None), in float32, one step at a time backwards.  With G_t the
+    gradient of the state after step t, beta_t = sum_k r_t u k_t and
+    vd_t = v_t . dout_t:
+
+        dr_t = S_{t-1} dout_t + u k_t vd_t     dk_t = G_t v_t + u r_t vd_t
+        dv_t = G_t^T k_t + dout_t beta_t       dw_t = rowsum(G_t * S_{t-1})
+        du   = sum_{b,t} r_t k_t vd_t          G_{t-1} = w_t G_t + r_t dout_t^T
+
+    and dstate0 = G_{-1}.  The states S_{t-1} are recomputed forward from
+    state0 (never by dividing by w_t, which may come near 0).  Returns
+    (dr, dk, dv in r's dtype, dw in w's, du ``[H, hd]`` and dstate0
+    ``[B, H, hd, hd]`` float32), as JAX's vjp of the casts rounds them."""
+    B, H, T, hd = r.shape
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()                                             # [H, hd]
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    states = []                                # S_{t-1} for each step t
+    for t in range(T):
+        states.append(s)
+        s = wf[:, :, t, :, None] * s + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    g = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if dstate_T is None else dstate_T.float().clone())
+    dr, dk, dv, dw = (torch.empty((B, H, T, hd), dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dt = (x[:, :, t] for x in (rf, kf, vf, wf, df))
+        sp = states[t]
+        vd = (vt * dt).sum(-1, keepdim=True)                   # [B, H, 1]
+        beta = (rt * uf * kt).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhkc,bhc->bhk", sp, dt) + uf * kt * vd
+        dk[:, :, t] = torch.einsum("bhkc,bhc->bhk", g, vt) + uf * rt * vd
+        dv[:, :, t] = torch.einsum("bhkc,bhk->bhc", g, kt) + dt * beta
+        dw[:, :, t] = (g * sp).sum(-1)
+        du += (rt * kt * vd).sum(0)
+        g = wt[..., None] * g + rt[..., None] * dt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, g)
+
+
 # ---------------------------------------------------------------------------
 # The in-dispatch skew controller's arithmetic (plain version of ctrl_step)
 # ---------------------------------------------------------------------------

@@ -34,6 +34,20 @@ the bonus as one dot product a step, and four helper warps that stage
 16-step chunks into a ring of four buffers by asynchronous copies and add
 the partial sums while the recurrence runs; the source note in the ``.cu``
 file has the details.
+
+The backward, :func:`rwkv_scan_bwd` (a kernel of the same source; the JAX
+package differentiates its ``lax.scan``, and the Pallas kernel has no
+vjp): dr, dk, dv, dw, du and dstate0 from the inputs, the gradient at out
+and at the final state, and the forward's checkpoints (its state before
+every ``CHECKPOINT_EVERY``-th step, which ``rwkv_scan(...,
+checkpoints=True)`` writes; without them the forward's call is the one it
+was, the same bits).  One block per (b, h) walks t down with the state's
+gradient in registers and recomputes each 8-step chunk's states from its
+checkpoint into shared memory; no atomics (du leaves each (b, h)'s share,
+summed over B here), so two calls give the same bits.  Bound: about 12
+hd^2 float32 operations a step of each (b, h), or r, k, v, w, dout, the
+gradients and the checkpoints moved once.  ``.launches`` counts its
+launches.  :func:`rwkv_scan_ad` is the autograd function the model calls.
 """
 from __future__ import annotations
 
@@ -52,20 +66,47 @@ _KINDS = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.float32): 1,
           (torch.bfloat16, torch.bfloat16): 2}
 
-_call = None
+#: Steps between the forward's checkpoints of the state for the backward
+#: (``kCk`` in the source; the backward's chunk).
+CHECKPOINT_EVERY = 8
+
+_calls = {}
+
+
+def _library():
+    """The library, checked once against CHECKPOINT_EVERY."""
+    lib = _build.load("rwkv_scan")
+    if "lib" not in _calls:
+        every = lib.repro_rwkv_checkpoint_every()
+        if every != CHECKPOINT_EVERY:
+            raise RuntimeError(f"csrc/rwkv_scan.cu checkpoints every {every} "
+                               f"steps, the wrapper every {CHECKPOINT_EVERY}")
+        _calls["lib"] = lib
+    return lib
 
 
 def _entry():
-    """The kernel's entry point, its argument types set (once)."""
-    global _call
-    if _call is None:
-        lib = _build.load("rwkv_scan")
+    """The forward's entry point, its argument types set (once)."""
+    if "fwd" not in _calls:
+        lib = _library()
         fn = lib.repro_rwkv_scan
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 6 + [i32, ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 5 + [i64] * 6 + [i32, ptr]
         fn.restype = i32
-        _call = (lib, fn)
-    return _call
+        _calls["fwd"] = (lib, fn)
+    return _calls["fwd"]
+
+
+def _bwd_entry():
+    """The backward's entry point, its argument types set (once)."""
+    if "bwd" not in _calls:
+        lib = _library()
+        fn = lib.repro_rwkv_scan_bwd
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ptr] * 14 + [i32] * 5 + [i64] * 9 + [i32, ptr]
+        fn.restype = i32
+        _calls["bwd"] = (lib, fn)
+    return _calls["bwd"]
 
 
 def _refuse(r, k, v, w, u, state0):
@@ -113,16 +154,10 @@ def _same_layout(r, k, v, w) -> bool:
                     for d in live))
 
 
-def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor,
-              state0: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out ``[B, H, T, hd]`` in r's type, on the card in r's layout, and
-    the final state ``[B, H, hd, hd]`` float32).  r, k, v and w of one
-    shape and one layout with hd's stride 1; u and state0 (zeros when None)
-    contiguous; everything on one device; hd <= 64."""
-    # One pass of the checks a call needs; any failure goes to _refuse,
-    # which finds and names it.
+def _kinds(r, k, v, w, u, state0) -> Optional[int]:
+    """The kernel's type code when the inputs are ones it takes (one pass
+    of the checks a call needs), else None (:func:`_refuse` then finds and
+    names the fault)."""
     shape, stride, dev = r.shape, r.stride(), r.device
     kinds = _KINDS.get((r.dtype, w.dtype))
     ok = (kinds is not None and k.dtype is r.dtype and v.dtype is r.dtype
@@ -141,30 +176,169 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     and w.stride() == stride
                     and (stride[3] == 1 or hd == 1))
                    or _same_layout(r, k, v, w)))
-    if not ok or not r.is_cuda:
-        if not ok or not r.is_cpu:
+    return kinds if ok else None
+
+
+def _out_stride(r: torch.Tensor):
+    """r's strides where they are the model's layout ([B, T, H, hd] read as
+    [B, H, T, hd]), else contiguous: the layout out and the gradients are
+    written in."""
+    B, H, T, hd = r.shape
+    if r.stride() == (T * H * hd, hd, H * hd, 1):
+        return r.stride()
+    return (H * T * hd, T * hd, hd, 1)
+
+
+def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state0: Optional[torch.Tensor] = None, *,
+              checkpoints: bool = False):
+    """(out ``[B, H, T, hd]`` in r's type, on the card in r's layout, and
+    the final state ``[B, H, hd, hd]`` float32).  r, k, v and w of one
+    shape and one layout with hd's stride 1; u and state0 (zeros when None)
+    contiguous; everything on one device; hd <= 64.
+
+    With ``checkpoints`` it also returns the buffer the backward reads, the
+    state before every ``CHECKPOINT_EVERY``-th step, float32
+    ``[B, H, ceil(T / CHECKPOINT_EVERY), hd, hd]`` (None on the CPU, whose
+    plain backward recomputes from state0); out and the state are the same
+    bits either way."""
+    kinds = _kinds(r, k, v, w, u, state0)
+    if kinds is None or not r.is_cuda:
+        if kinds is None or not r.is_cpu:
             _refuse(r, k, v, w, u, state0)
-        return ref.rwkv_scan(r, k, v, w, u, state0)
-    # out in r's layout where that is the model's ([B, T, H, hd] read as
-    # [B, H, T, hd]), else contiguous.  Two allocations: carving out and the
-    # state from one buffer costs the host more (two view ops) than a
-    # second allocation from PyTorch's cache.
-    out_stride = (H * T * hd, T * hd, hd, 1)
-    if stride == (T * H * hd, hd, H * hd, 1):
-        out_stride = stride
-    out = torch.empty_strided(shape, out_stride, dtype=r.dtype, device=dev)
+        out, state = ref.rwkv_scan(r, k, v, w, u, state0)
+        return (out, state, None) if checkpoints else (out, state)
+    B, H, T, hd = r.shape
+    dev = r.device
+    # Two allocations (three with checkpoints): carving out and the state
+    # from one buffer costs the host more (two view ops) than a second
+    # allocation from PyTorch's cache.
+    out_stride = _out_stride(r)
+    out = torch.empty_strided(r.shape, out_stride, dtype=r.dtype, device=dev)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    ck = (torch.empty((B, H, -(-T // CHECKPOINT_EVERY), hd, hd),
+                      dtype=torch.float32, device=dev)
+          if checkpoints else None)
     if state.numel() == 0:
-        return out, state
+        return (out, state, ck) if checkpoints else (out, state)
     lib, fn = _entry()
     code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
               u.data_ptr(), None if state0 is None else state0.data_ptr(),
-              out.data_ptr(), state.data_ptr(), B, H, T, hd, kinds,
-              *stride[:3], *out_stride[:3], *_build.device_and_stream(dev))
+              out.data_ptr(), state.data_ptr(),
+              None if ck is None else ck.data_ptr(), B, H, T, hd, kinds,
+              *r.stride()[:3], *out_stride[:3],
+              *_build.device_and_stream(dev))
     if code:
         _build.raise_on(lib, code, "rwkv_scan")
     rwkv_scan.launches += 1
-    return out, state
+    return (out, state, ck) if checkpoints else (out, state)
 
 
 rwkv_scan.launches = 0
+
+
+def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state0: Optional[torch.Tensor], dout: torch.Tensor,
+                  dstate_T: Optional[torch.Tensor] = None, *,
+                  checkpoints: Optional[torch.Tensor] = None):
+    """K6's backward: (dr, dk, dv in r's type, dw in w's, du ``[H, hd]``
+    and dstate0 ``[B, H, hd, hd]`` float32) from the forward's inputs,
+    ``dout`` (r's type and shape; hd's stride 1 is read in place, any
+    other layout is copied first) and ``dstate_T`` (float32 ``[B, H, hd,
+    hd]``, zeros when None).  On the card it needs the forward's
+    ``checkpoints`` (``rwkv_scan(..., checkpoints=True)``) and writes dr,
+    dk, dv and dw in r's layout where that is the model's; on the CPU it
+    runs the plain version, which recomputes the states from state0."""
+    kinds = _kinds(r, k, v, w, u, state0)
+    if kinds is None or not (r.is_cuda or r.is_cpu):
+        _refuse(r, k, v, w, u, state0)
+    B, H, T, hd = r.shape
+    if (dout.shape != r.shape or dout.dtype != r.dtype
+            or dout.device != r.device):
+        raise ValueError(f"dout must be like out ({tuple(r.shape)} "
+                         f"{r.dtype} on {r.device}), got {tuple(dout.shape)} "
+                         f"{dout.dtype} on {dout.device}")
+    if dstate_T is not None and (
+            dstate_T.dtype != torch.float32 or not dstate_T.is_contiguous()
+            or dstate_T.shape != (B, H, hd, hd)
+            or dstate_T.device != r.device):
+        raise ValueError(f"dstate_T must be float32 [B, H, hd, hd] "
+                         f"contiguous on r's device, got "
+                         f"{tuple(dstate_T.shape)} {dstate_T.dtype}")
+    if r.is_cpu:
+        return ref.rwkv_scan_bwd(r, k, v, w, u, state0, dout, dstate_T)
+    n_ck = -(-T // CHECKPOINT_EVERY)
+    if (checkpoints is None or checkpoints.dtype != torch.float32
+            or checkpoints.shape != (B, H, n_ck, hd, hd)
+            or not checkpoints.is_contiguous()
+            or checkpoints.device != r.device):
+        raise ValueError(f"the backward on the card needs the forward's "
+                         f"checkpoints, float32 {(B, H, n_ck, hd, hd)} "
+                         f"contiguous (rwkv_scan(..., checkpoints=True))")
+    if dout.stride(3) != 1 and hd > 1:
+        dout = dout.contiguous()
+    dev = r.device
+    g_stride = _out_stride(r)
+    dr, dk, dv = (torch.empty_strided(r.shape, g_stride, dtype=r.dtype,
+                                      device=dev) for _ in range(3))
+    dw = torch.empty_strided(r.shape, g_stride, dtype=w.dtype, device=dev)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    dstate0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    if dstate0.numel() == 0:
+        return dr, dk, dv, dw, du_part.sum(0), dstate0
+    lib, fn = _bwd_entry()
+    code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+              u.data_ptr(), checkpoints.data_ptr(), dout.data_ptr(),
+              None if dstate_T is None else dstate_T.data_ptr(),
+              dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+              du_part.data_ptr(), dstate0.data_ptr(), B, H, T, hd, kinds,
+              *r.stride()[:3], *dout.stride()[:3], *g_stride[:3],
+              *_build.device_and_stream(dev))
+    if code:
+        _build.raise_on(lib, code, "rwkv_scan_bwd")
+    rwkv_scan_bwd.launches += 1
+    # Each (b, h)'s share of du, summed over B by PyTorch's reduction (no
+    # atomics: the same order, and bits, every call).
+    return dr, dk, dv, dw, du_part.sum(0), dstate0
+
+
+rwkv_scan_bwd.launches = 0
+
+
+class _RwkvScan(torch.autograd.Function):
+    """K6 with :func:`rwkv_scan_bwd` as its backward, the forward's
+    checkpoints saved for it (recomputed with the forward under remat)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        out, state, ck = rwkv_scan(r, k, v, w, u, state0, checkpoints=True)
+        ctx.save_for_backward(r, k, v, w, u, state0, ck)
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state0, ck = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = rwkv_scan_bwd(
+            r, k, v, w, u, state0, dout,
+            None if dstate is None else dstate.contiguous(), checkpoints=ck)
+        return dr, dk, dv, dw, du, None if state0 is None else ds0
+
+
+def rwkv_scan_ad(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 state0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv_scan` as an autograd function (the model's call),
+    differentiable in r, k, v, w, u and state0.  With no gradient to take
+    (grad mode off, or no input that requires one: the serve) it is
+    :func:`rwkv_scan` itself, which then writes no checkpoints."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (r, k, v, w, u, state0)):
+        return _RwkvScan.apply(r, k, v, w, u, state0)
+    return rwkv_scan(r, k, v, w, u, state0)

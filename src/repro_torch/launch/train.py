@@ -7,8 +7,11 @@ The port of ``repro.launch.train`` with its flags, plus ``--device``
 (default ``cuda``; without a card it raises).  ``--smoke`` runs the
 reduced same-family config; without it the published config is used,
 which for OLMoE-1B-7B does not fit one card (its 16 layers need about
-138 GB of float32 params, grads and AdamW moments); ``chip_smoke.py``
-trains it at 6 layers.  Weights are random, drawn from seed 0 on the
+138 GB of float32 params, grads and AdamW moments; ``chip_smoke.py``
+trains it at 6 layers) and for RWKV6-1.6B does (~23.7 GB: ``--arch
+rwkv6-1.6b`` trains all 24 layers, the recurrence's backward on K6's
+backward kernel; the ssm family has no experts, so ``--balancer`` is a
+no-op there).  Weights are random, drawn from seed 0 on the
 device.  Checkpoints are written atomically every ``--ckpt-every`` steps
 (the JAX package's layout) and training resumes from the newest one.
 """

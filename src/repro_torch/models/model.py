@@ -26,8 +26,8 @@ Python (:func:`repro_torch.models.convert.params_from_jax` unstacks a JAX
 tree).  ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, where JAX takes ``jax.checkpoint``), so the
 kernels' forwards launch twice a step.  :func:`loss_fn` is differentiable
-for the GQA families: K4 and K5 have their backward (both kernels); the
-ssm family raises there until K6 has one.  Entry points
+for every ported family: K4, K5 and K6 have their backward (each a
+kernel).  Entry points
 take ``device`` (default ``"cuda"``), resolved by
 :func:`repro_torch.devices.resolve_device`.
 """
@@ -234,10 +234,6 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     positions' logits against ``batch["labels"]`` ``[B, n_text]``, plus
     ``aux_weight`` times the MoE load-balance loss where there are
     experts (``repro.models.model.loss_fn``)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the ssm family needs K6's backward, "
-            "which is not ported yet (ROADMAP.md)")
     logits, stats = forward(params, cfg, batch, remat=remat,
                             moe_routing=moe_routing)
     labels = batch["labels"]

@@ -9,10 +9,11 @@ simplified but recurrence-faithful): per head, with a data-dependent decay
 
 Where the JAX layer runs the recurrence with ``lax.scan`` (``ssm.py:99-110``)
 the port makes one call of K6
-(:func:`repro_torch.kernels.rwkv_scan.rwkv_scan`, through its module so a
-recorder can stand in for it) on r, k and v in the compute dtype and the
-float32 w, passed as ``[B, H, S, hd]`` views of the ``[B, S, D]``
-activations.  K6 widens each value to float32 as it reads it, which gives
+(:func:`repro_torch.kernels.rwkv_scan.rwkv_scan_ad`, through its module; it
+calls the module's ``rwkv_scan``, so a recorder can stand in for it, and
+takes K6's backward, ``rwkv_scan_bwd``, where JAX differentiates the scan)
+on r, k and v in the compute dtype and the float32 w, passed as
+``[B, H, S, hd]`` views of the ``[B, S, D]`` activations.  K6 widens each value to float32 as it reads it, which gives
 exactly JAX's casts (``ssm.py:95-97``), and writes ``out`` in r's dtype
 (one rounding of the float32 sum, as JAX's ``.astype``) and in that
 layout, so no cast and no copy goes in or out.
@@ -114,8 +115,9 @@ def rwkv6_apply(
 
     wkv0 = None if state is None else state["wkv"].float()
     # r, k and v in the compute dtype and w in float32, as they come: K6
-    # widens each value as it reads it and writes out in r's dtype.
-    out, wkv_fin = k6.rwkv_scan(
+    # widens each value as it reads it and writes out in r's dtype; its
+    # backward writes the gradients in the views' layout.
+    out, wkv_fin = k6.rwkv_scan_ad(
         *(_heads(t, B, S, H, hd) for t in (r, k, v, w)),
         p["u"].float().contiguous(), wkv0)
     out = out.transpose(1, 2).reshape(B, S, D)

@@ -4,9 +4,10 @@ The JAX model's weights (``repro.models.init_params``, seed 0) are carried
 into the port with ``params_from_jax`` (and an AdamW state with
 ``adamw_state_from_jax``); tokens come from numpy seeds and go to both.
 Smoke configurations of ``olmoe-1b-7b`` (K4 on its path, forward and
-backward; with and without 4 replica slots and an SBR routing table) and
-``llama3.2-3b`` (K5's GQA grouping, forward and backward), on the port's
-CPU path, where K4 and K5 run their plain versions.
+backward; with and without 4 replica slots and an SBR routing table),
+``llama3.2-3b`` (K5's GQA grouping, forward and backward) and
+``rwkv6-1.6b`` (K6, forward and backward; no balancer), on the port's CPU
+path, where K4, K5 and K6 run their plain versions.
 
 Tolerances, stated from the arithmetic:
 
@@ -18,7 +19,14 @@ Tolerances, stated from the arithmetic:
   through every layer, so the loss agrees within ``1e-3`` and each
   gradient leaf within ``0.05`` of its largest entry (measured: 0.025).
   The MoE is left out in bf16: a near-tie of router logits that rounds the
-  other way moves a token's experts, and then its gradients are others;
+  other way moves a token's experts, and then its gradients are others.
+  RWKV6's loss in bf16 agrees within ``1e-3`` relative (``6e-3`` at its
+  loss of ~6.1): XLA fuses the jitted model's bf16 elementwise ops and
+  rounds at the fusions' outputs, the port (and JAX run op by op) rounds
+  each op, and the recurrence carries a flipped rounding over every later
+  step; JAX's own jitted and op-by-op losses differ by ``2.0e-3`` on this
+  case, the port's lies ``1.4e-3`` from the jitted one (its layers equal
+  JAX's op by op bit for bit, ``tests/test_torch_rwkv.py``);
 * the optimizer: ``schedule`` within one float32 ulp (the libraries'
   ``cos`` and ``pow``), an update within ``1e-6`` (XLA fuses the moments'
   multiply-adds, the port rounds each op), compression bit for bit;
@@ -143,7 +151,9 @@ def _jax_value_and_grad(case):
 CASES = {"olmoe": ("olmoe-1b-7b", "float32", 0, False),
          "olmoe-sbr-replicas": ("olmoe-1b-7b", "float32", 4, True),
          "llama": ("llama3.2-3b", "float32", 0, False),
-         "llama-bf16": ("llama3.2-3b", "bfloat16", 0, False)}
+         "llama-bf16": ("llama3.2-3b", "bfloat16", 0, False),
+         "rwkv": ("rwkv6-1.6b", "float32", 0, False),
+         "rwkv-bf16": ("rwkv6-1.6b", "bfloat16", 0, False)}
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
@@ -163,19 +173,20 @@ def test_loss_and_grads_match_jax(case, remat):
     it = iter(grads)
     tgrads = tree_map(lambda _: next(it), live)
     bf16 = dtype == "bfloat16"
-    assert abs(loss.item() - jloss) <= (1e-3 if bf16 else 1e-5 * jloss)
+    loss_tol = (1e-5 * jloss if not bf16 else
+                1e-3 * jloss if tcfg.family == "ssm" else 1e-3)
+    assert abs(loss.item() - jloss) <= loss_tol
     assert _compare_trees(jgrads, tgrads, tcfg.n_layers,
                           rel=0.05 if bf16 else 1e-5) == len(leaves(tgrads))
     if routed:                 # the split tables reached the replica slots
         assert stats["tokens_per_slot_layers"][:, 8:10].sum().item() > 0
 
 
-def test_remat_recomputes_the_same_gradients():
-    """Recomputing each block in the backward changes no bit."""
-    _, tcfg = _cfgs("olmoe-1b-7b", "bfloat16", moe_replica_slots=4)
+def _remat_grads(tcfg, routing):
+    """``loss_fn``'s gradients without and with remat, the same weights
+    (seed 3) and batch (seed 5)."""
     tp = tm.init_params(tcfg, 3, "cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab, 5).items()}
-    routing = torch.from_numpy(_sbr_tables(tcfg.n_layers, tcfg.n_experts, 4))
     out = []
     for remat in (False, True):
         live = tree_map(lambda t: t.detach().clone().requires_grad_(True),
@@ -183,16 +194,25 @@ def test_remat_recomputes_the_same_gradients():
         loss, _ = tm.loss_fn(live, tcfg, batch, remat=remat,
                              moe_routing=routing)
         out.append(torch.autograd.grad(loss, leaves(live)))
-    for a, b in zip(*out):
+    return out
+
+
+def test_remat_recomputes_the_same_gradients():
+    """Recomputing each block in the backward changes no bit."""
+    _, tcfg = _cfgs("olmoe-1b-7b", "bfloat16", moe_replica_slots=4)
+    routing = torch.from_numpy(_sbr_tables(tcfg.n_layers, tcfg.n_experts, 4))
+    for a, b in zip(*_remat_grads(tcfg, routing)):
         assert torch.equal(a, b)
 
 
-def test_loss_fn_refuses_the_ssm_family_and_accepts_replica_slots():
-    cfg = get_smoke("rwkv6-1.6b")
-    params = tm.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="K6"):
-        tm.loss_fn(params, cfg, {k: torch.from_numpy(v) for k, v in
-                                 _batch(cfg.vocab).items()})
+def test_remat_recomputes_the_same_gradients_rwkv():
+    """The same for RWKV6 (K6's forward runs again in the backward)."""
+    _, tcfg = _cfgs("rwkv6-1.6b", "bfloat16")
+    for a, b in zip(*_remat_grads(tcfg, None)):
+        assert torch.equal(a, b)
+
+
+def test_loss_fn_accepts_replica_slots():
     cfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), moe_replica_slots=3)
     p = tm.init_params(cfg, 0, "cpu")
     assert p["blocks"][0]["moe"]["w_up"].shape[0] == 11
@@ -348,6 +368,41 @@ def test_three_trainer_steps_match_jax():
     assert any(e[1] == "sbr_replicate" for e in events(tt))
 
 
+def test_three_trainer_steps_match_jax_rwkv():
+    """Both trainers from one state (JAX's init), rwkv6-smoke with no
+    balancer (no experts): the same losses, and params within the stated
+    tolerance after each step."""
+    lr = 1e-3
+    opt = dict(lr=lr, warmup_steps=1, total_steps=40)
+    jcfg, tcfg = _cfgs("rwkv6-1.6b")
+    jt = jtrainer.Trainer(jcfg, jtrainer.TrainConfig(
+        opt=jopt.AdamWConfig(**opt), remat=False))
+    tt = ttrainer.Trainer(tcfg, ttrainer.TrainConfig(
+        opt=topt.AdamWConfig(**opt), remat=True), device="cpu")
+    assert not tt.use_balancer and tt.moe_routing() is None
+    tt.params = params_from_jax(jax.tree.map(np.asarray, jt.params), tcfg,
+                                "cpu")
+    tt.opt_state = adamw_state_from_jax(
+        jax.tree.map(np.asarray, tuple(jt.opt_state)), tcfg, "cpu")
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab, (4, 32)).astype(
+        np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    lr_sum = 0.0
+    for step in range(3):
+        a = jt.train_step({k: jnp.asarray(v) for k, v in batch.items()})
+        b = tt.train_step(batch)
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-4)
+        lr_sum += float(jopt.schedule(jt.tc.opt, jnp.asarray(step + 1)))
+
+        def check(name, got, want):
+            err = np.abs(got - want)
+            assert err.max() <= 2 * lr_sum * (1 + 1e-3), name
+            assert np.mean(err <= 1e-5) >= 0.99, name
+
+        _compare_trees(jax.tree.map(np.asarray, jt.params), tt.params,
+                       tcfg.n_layers, check=check)
+
+
 def test_microbatches_accumulate_the_full_batch_gradient():
     """``train_microbatch = 2`` takes the mean of two halves' float32
     gradients: for a dense model (a mean loss) one step lands where the
@@ -405,6 +460,14 @@ def test_train_cli_on_the_cpu(capsys):
     log = tlaunch.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
                         "--steps", "4", "--balancer", "--log-every", "1"])
     assert len(log) == 4 and log[-1]["loss"] < log[0]["loss"]
+    assert "done on cpu" in capsys.readouterr().out
+
+
+def test_train_cli_trains_rwkv_on_the_cpu(capsys):
+    log = tlaunch.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                        "--steps", "4", "--log-every", "1"])
+    assert len(log) == 4 and log[-1]["loss"] < log[0]["loss"]
+    assert all(np.isfinite(m["loss"]) for m in log)
     assert "done on cpu" in capsys.readouterr().out
 
 
