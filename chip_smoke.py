@@ -3703,7 +3703,9 @@ def check_rwkv_bwd(torch, what: str, got, args, dout, dstate=None) -> float:
     exactly) in other orders: the kernel recomputes the states from the
     forward's checkpoints with the forward's arithmetic, sums a row over
     its thread's columns by multiply-adds and across the row group by a
-    reduce-scatter of shuffles, a column across the warps' partials, takes
+    reduce-scatter of shuffles (all in one block of the cluster: a block
+    owns 32 rows), a column across the warps' partials (the cluster's
+    warps in order, in the block that owns the column), takes
     v . dout and beta by a warp's multiply-adds and shuffles, and G's
     update as one multiply-add on r dout.  To first order, with eps =
     2^-24 and the envelopes of ``rwkv_bwd_envelope``: either version's
@@ -3784,9 +3786,25 @@ def rwkv_bwd_faults(torch, krw):
                   checkpoints=None if ck is None else ck[:1])
         return out[:4] + (one[4], out[5])
 
+    def dv_without_band0(r, k, v, w, u, state0, dout, dstate_T=None, **kw):
+        # dv_t = G_t^T k_t + dout_t beta_t, and G does not depend on k: with
+        # k's first 32 rows (the cluster's band 0) zeroed, dv less dout_t
+        # beta'_t plus dout_t beta_t is G_t^T k_t without band 0's share.
+        out = bwd(r, k, v, w, u, state0, dout, dstate_T, **kw)
+        k0 = k.clone()
+        k0[..., :32] = 0
+        dv = bwd(r, k0, v, w, u, state0, dout, dstate_T, **kw)[2]
+        rf = r.float()
+        beta = (rf * u[None, :, None, :] * k.float()).sum(-1, keepdim=True)
+        beta0 = (rf * u[None, :, None, :] * k0.float()).sum(-1, keepdim=True)
+        dv = (dv.float() + dout.float() * (beta - beta0)).to(out[2].dtype)
+        return out[:2] + (dv,) + out[3:]
+
     return [("K6 backward: G not decayed", g_not_decayed),
             ("K6 backward: dw reads S_t for S_{t-1}", dw_reads_s_t),
-            ("K6 backward: du of one batch row", du_one_row)]
+            ("K6 backward: du of one batch row", du_one_row),
+            ("K6 backward: dv without one row band's share",
+             dv_without_band0)]
 
 
 def k6_bwd_bound(B: int, H: int, T: int, hd: int, in_bytes: int = 2,
@@ -3839,10 +3857,13 @@ def rwkv_bwd_kernel_phase(torch, krw) -> float:
     bound (``rwkv_bwd_case``): hd 16, 32 and 64, float32 and the model's
     bf16 r, k, v (w float32), T = 1, C - 1, C, C + 1 and 3C + 5 (C the
     checkpoint interval), without and with state0 and dstate_T; then the
-    model's [B, T, H, hd] views at hd 64 and 16 and odd hd 5 and 48, all
-    three type kinds, at T = 3C + 5; the planted faults
-    (``rwkv_bwd_faults``) beyond the bound at B 3, T 3C + 5, hd 64 in
-    float32 and the model's types.  Returns the largest error."""
+    model's [B, T, H, hd] views at hd 64 and 16 and odd hd 5, 40 and 48
+    (a row band part padding), all three type kinds, at T = 3C + 5,
+    and at B 5, H 7 and B 1, H 32 (grids that are no multiple of the SM
+    count); the planted faults (``rwkv_bwd_faults``) beyond the bound at
+    B 3, T 3C + 5, hd 64 (a cluster of two blocks of 32 rows a (b, h),
+    past two chunks) in float32 and the model's types.  Returns the largest
+    error."""
     C = krw.CHECKPOINT_EVERY
     Ts = (1, C - 1, C, C + 1, 3 * C + 5)
     err, seed, faults = 0.0, 700, 0
@@ -3860,19 +3881,25 @@ def rwkv_bwd_kernel_phase(torch, krw) -> float:
                     err = max(err, rwkv_bwd_case(
                         torch, krw, f"rwkv_scan_bwd {kind} hd={hd} T={T} "
                         f"state0/dstate={with_state}", args, dout, ds))
-    for kind in K6_KINDS:
-        for hd, views in ((64, True), (16, True), (5, False), (48, False)):
-            seed += 10
-            T = 3 * C + 5
-            args = rwkv_inputs(torch, seed, 2, 7, T, hd, True, views, kind)
-            dout = randn(torch, seed + 6, (2, T, 7, hd) if views
-                         else (2, 7, T, hd), args[0].dtype)
-            if views:
-                dout = dout.transpose(1, 2)
-            ds = randn(torch, seed + 7, (2, 7, hd, hd), torch.float32, 0.5)
-            err = max(err, rwkv_bwd_case(
-                torch, krw, f"rwkv_scan_bwd {kind} hd={hd} T={T} "
-                f"{'views' if views else 'contiguous'}", args, dout, ds))
+    # The model's layout, odd hd (ragged row bands: hd 40 and 48 leave the
+    # second band part padding) and grids of B H bands blocks that are no
+    # multiple of the SM count (B 2, H 7; B 5, H 7; B 1, H 32: 64 blocks).
+    T = 3 * C + 5
+    cases = [(kind, 2, 7, hd, views) for kind in K6_KINDS
+             for hd, views in ((64, True), (16, True), (5, False),
+                               (40, False), (48, False))]
+    cases += [(K6_KINDS[1], 5, 7, 64, True), (K6_KINDS[1], 1, 32, 64, True)]
+    for kind, B, H, hd, views in cases:
+        seed += 10
+        args = rwkv_inputs(torch, seed, B, H, T, hd, True, views, kind)
+        dout = randn(torch, seed + 6, (B, T, H, hd) if views
+                     else (B, H, T, hd), args[0].dtype)
+        if views:
+            dout = dout.transpose(1, 2)
+        ds = randn(torch, seed + 7, (B, H, hd, hd), torch.float32, 0.5)
+        err = max(err, rwkv_bwd_case(
+            torch, krw, f"rwkv_scan_bwd {kind} B={B} H={H} hd={hd} T={T} "
+            f"{'views' if views else 'contiguous'}", args, dout, ds))
     for kind in K6_KINDS[:2]:
         seed += 10
         args = rwkv_inputs(torch, seed, 3, 12, 3 * C + 5, 64, True, True,
@@ -3897,7 +3924,8 @@ def rwkv_bwd_kernel_phase(torch, krw) -> float:
         f"version at B=3 H=12 hd in {{16, 32, 64}} x T in {set(Ts)} x "
         f"state0 and dstate_T in {{no, yes}} x {{float32, bf16 r, k, v}}, "
         f"and at T={3 * C + 5} on views in the model's layout (hd 16, 64) "
-        f"and hd 5, 48 for {set(K6_KINDS)}; one launch a call, the same "
+        f"and hd 5, 40, 48 for {set(K6_KINDS)}, and at B 5, H 7 and B 1, "
+        f"H 32 (hd 64); one launch a call, the same "
         f"bits from two calls, the forward's bits the same with its "
         f"checkpoints (every {C} steps) (max |err| {err:.3g}); {faults} "
         f"planted faults beyond the bound")

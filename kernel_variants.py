@@ -14,6 +14,9 @@
                                      # route
     python3 kernel_variants.py k4bwd # K4's backward: the copies and K4
                                      # against the dx and dw forms
+    python3 kernel_variants.py k6bwd # K6's backward: the step split of its
+                                     # first design and of today's, the
+                                     # two held bit for bit
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -62,7 +65,19 @@ C 320, D / F 2048 / 1024 both ways, rows drawn in [0, C]): its first
 design (``torch.where``, contiguous transposes and two K4 launches)
 against the tiles kernel's dx and dw forms, each within
 ``check_seg_bwd``, beside ``torch.bmm`` and the bound, with the device
-memory each call allocates at its peak.  Prints one line a timing.
+memory each call allocates at its peak.  K6's backward (``k6bwd``) at the
+RWKV6 training shape (B 4, H 32, T 512, hd 64) and at RWKV6's context (1 x
+4096), from ``chip_smoke.rwkv_inputs`` in the model's ``[B, T, H, hd]``
+views: its first design (``csrc/variants/rwkv_scan_bwd_first.cu``, one
+block a (b, h)) and the source as it is, each with edits that take one
+phase of a chunk away or change one constant (the split of a step:
+recompute, gradient writes, the row-sum exchange, the walk, the helpers'
+work, the staging; bands of 16 rows, four partial buffers); both designs
+fed the
+checkpoints of one forward call and held bit for bit in all six outputs
+(three type kinds, without and with state0 and dstate_T), the variants
+that keep the arithmetic too; timed in turns beside ``k6_bwd_bound``.
+Prints one line a timing.
 Not part of the smoke: it chose the constants in the sources.
 """
 from __future__ import annotations
@@ -107,9 +122,10 @@ K5_VARIANTS = {
 }
 
 
-def build(_build, source: str, variants):
+def build(_build, source: str, variants, only: str = ""):
     """One library a variant of ``csrc/<source>.cu``, all nvcc processes at
-    once: {name: CDLL}.  Prints each variant's ``-Xptxas -v`` lines."""
+    once: {name: CDLL}.  Prints each variant's ``-Xptxas -v`` lines (of
+    the kernels whose mangled names hold ``only``)."""
     src = (_build.CSRC / f"{source}.cu").read_text()
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -137,7 +153,7 @@ def build(_build, source: str, variants):
         for line in log.splitlines():
             if "Compiling entry" in line:
                 fn = line.split("'")[1]
-            elif "Used" in line or "spill" in line:
+            elif ("Used" in line or "spill" in line) and only in fn:
                 print(f"{name}: {fn}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
@@ -429,6 +445,276 @@ def k6(torch, cs, _build) -> None:
             torch.cuda.empty_cache()
 
 
+#: Edits of K6's backward as first designed
+#: (csrc/variants/rwkv_scan_bwd_first.cu) that each take one phase of a
+#: chunk away, or fetch the checkpoint a chunk ahead: the split of its step.
+K6BWD_FIRST_SPLIT = {
+    "first design": {},
+    "first design, no recompute (states read as the checkpoint)": {
+        "        if (tt + 1 < n) {\n          const float4 k4":
+        "        if (false) {\n          const float4 k4"},
+    "first design, no gradient writes": {
+        "    for (int i = tid; i < n * HDP; i += NT) {":
+        "    for (int i = tid; i < 0; i += NT) {"},
+    "first design, no du walk": {
+        "      for (int tt = n - 1; tt >= 0; --tt)\n        du = fmaf":
+        "      for (int tt = n - 1; tt >= n; --tt)\n        du = fmaf"},
+    # The lane adds its own 16 sums: the sums stay live, the shuffles go.
+    "first design, reduce-scatter without shuffles": {
+        "      reduce_scatter16<CG>(x, cg);\n":
+        "#pragma unroll\n      for (int i = 1; i < 16; ++i) x[0] += x[i];\n"},
+    "first design, no steps": {
+        "    for (int tt = n - 1; tt >= 0; --tt) {\n      const float4 r4":
+        "    for (int tt = n - 1; tt >= n; --tt) {\n      const float4 r4"},
+    "first design, no beta and v . dout": {
+        "    for (int tt = warp; tt < n; tt += NW) {":
+        "    for (int tt = warp; tt < 0; tt += NW) {"},
+    "first design, no fetch of the next chunk's rows": {
+        "    if (ch > 0) fetch(ch - 1);\n": ""},
+    # The same bits: the checkpoint read into registers a chunk ahead.
+    "first design, checkpoint fetched a chunk ahead": {
+        "  if (n_ck > 0) fetch(n_ck - 1);\n":
+        "  if (n_ck > 0) fetch(n_ck - 1);\n"
+        "  float ckn[kRows][NC];\n"
+        "  auto fetch_ck = [&](int c) {\n"
+        "    const float* ck = a.ck + (static_cast<size_t>(bh) * n_ck + c)"
+        " * hd * hd;\n"
+        "#pragma unroll\n"
+        "    for (int j = 0; j < kRows; ++j)\n"
+        "#pragma unroll\n"
+        "      for (int m = 0; m < NC; ++m)\n"
+        "        ckn[j][m] = (r0 + j < hd && c0 + m < hd)\n"
+        "                        ? ck[static_cast<size_t>(r0 + j) * hd + c0"
+        " + m]\n"
+        "                        : 0.0f;\n"
+        "  };\n"
+        "  if (n_ck > 0) fetch_ck(n_ck - 1);\n",
+        "      const float* ck = a.ck + (static_cast<size_t>(bh) * n_ck + ch)"
+        " * hd * hd;\n"
+        "#pragma unroll\n"
+        "      for (int j = 0; j < kRows; ++j)\n"
+        "#pragma unroll\n"
+        "        for (int m = 0; m < NC; ++m) {\n"
+        "          const int row = r0 + j, col = c0 + m;\n"
+        "          S[j][m] = (row < hd && col < hd)\n"
+        "                        ? ck[static_cast<size_t>(row) * hd + col]\n"
+        "                        : 0.0f;\n"
+        "        }\n":
+        "#pragma unroll\n"
+        "      for (int j = 0; j < kRows; ++j)\n"
+        "#pragma unroll\n"
+        "        for (int m = 0; m < NC; ++m) S[j][m] = ckn[j][m];\n"
+        "      if (ch > 0) fetch_ck(ch - 1);\n"},
+}
+
+#: Edits of K6's backward (csrc/rwkv_scan.cu) that each take one phase of a
+#: chunk away or change one constant: the split of its step.
+K6BWD_EXCHANGE = """#pragma unroll
+      for (int e = 0; e < kSums; e += 4)
+        *reinterpret_cast<float4*>(xme + e) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+      __syncwarp();
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int idx = p + PER * cg;
+        if (idx < kSums) {
+          float v[CG];
+#pragma unroll
+          for (int Lg = 0; Lg < CG; ++Lg) v[Lg] = xrg[Lg * kSums + idx];
+          sm90::st_async(
+              rs_i + (((idx >> 2) * kCk + tt) * KB + (idx & 3)) * 4u,
+              tree_sum<CG>(v), rs_bar_i);
+        }
+      }
+      __syncwarp();
+"""
+K6BWD_ZEROS = """        if (lane < CG) {
+          if constexpr (NC == 4)
+            sm90::st_async(push_i + tt * kPushStep, 0.f, 0.f, 0.f, 0.f, bar_i);
+          else
+            sm90::st_async(push_i + tt * kPushStep, 0.f, 0.f, bar_i);
+        }
+#pragma unroll
+        for (int p = 0; p < PER; ++p) {
+          const int idx = p + PER * cg;
+          if (idx < kSums)
+            sm90::st_async(
+                rs_i + (((idx >> 2) * kCk + tt) * KB + (idx & 3)) * 4u, 0.f,
+                rs_bar_i);
+        }
+"""
+K6BWD_SPLIT = {
+    "as is": {},
+    # The same bits: the first design's reduce-scatter of 15 shuffles.
+    "row sums by shuffles": {K6BWD_EXCHANGE: """      float y[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) y[e] = e < kSums ? x[e] : 0.0f;
+#pragma unroll
+      for (int r = 0; (1 << r) < CG; ++r) {
+        const int o = CG >> (r + 1), m = 8 >> r;
+        const bool up = (cg & o) != 0;
+#pragma unroll
+        for (int e = 0; e < m; ++e) {
+          const float send = up ? y[e] : y[e + m];
+          const float keep = up ? y[e + m] : y[e];
+          y[e] = keep + __shfl_xor_sync(~0u, send, o);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int idx = p + PER * cg;
+        if (idx < kSums)
+          sm90::st_async(
+              rs_i + (((idx >> 2) * kCk + tt) * KB + (idx & 3)) * 4u, y[p],
+              rs_bar_i);
+      }
+"""},
+    # Each lane leaves its own partial as the row group's sum (the same
+    # stores, no exchange).
+    "row sums not exchanged": {K6BWD_EXCHANGE: """#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int idx = p + PER * cg;
+        if (idx < kSums)
+          sm90::st_async(
+              rs_i + (((idx >> 2) * kCk + tt) * KB + (idx & 3)) * 4u, x[idx],
+              rs_bar_i);
+      }
+"""},
+    # The same bits: bands of 16 rows, four blocks a (b, h) at hd 64.
+    "bands of 16 rows": {
+        "  return HDP < 32 ? HDP : 32;": "  return 16;"},
+    "partials in 4 buffers": {"kBwdParts = 2;": "kBwdParts = 4;"},
+    "no recompute (states read as the checkpoint)": {
+        "        if (tt + 1 < n) {\n          const float4 k4":
+        "        if (false) {\n          const float4 k4"},
+    # The gradients are taken but not stored (the compiler cannot tell).
+    "no gradient writes": {
+        "        const long long off = g_off + (t0 + tt) * a.gs[2] + x;\n":
+        "        const long long off = g_off + (t0 + tt) * a.gs[2] + x;\n"
+        "        if (off >= 0) continue;\n"},
+    # Each step only leaves zeros for the owners and its row sums (the
+    # barriers count the bytes).
+    "no steps": {
+        "      for (int tt = kCk - 1; tt >= 0; --tt) step(tt);\n":
+        "      for (int tt = kCk - 1; tt >= 0; --tt) {\n" + K6BWD_ZEROS
+        + "      }\n",
+        "      for (int tt = n - 1; tt >= 0; --tt) step(tt);\n":
+        "      for (int tt = n - 1; tt >= 0; --tt) {\n" + K6BWD_ZEROS
+        + "      }\n"},
+    "no beta and v . dout": {
+        "        for (int q = 0; q < (HDP + 31) / 32; ++q) {":
+        "        for (int q = 0; q < 0; ++q) {",
+        "      for (int o = 16; o > 0; o >>= 1)":
+        "      for (int o = 16; o > 16; o >>= 1)"},
+    # The helpers only stage the rows and pass the barriers.
+    "helpers only stage": {
+        "        for (int q = 0; q < (HDP + 31) / 32; ++q) {":
+        "        for (int q = 0; q < 0; ++q) {",
+        "      for (int o = 16; o > 0; o >>= 1)":
+        "      for (int o = 16; o > 16; o >>= 1)",
+        "        if (tt >= n || x >= hd) continue;\n        float dv = 0.0f;":
+        "        if (true) continue;\n        float dv = 0.0f;",
+        "        if (tt >= n || x >= hd) continue;\n        const long long off":
+        "        if (true) continue;\n        const long long off",
+        "      if (hw == 0 && lane < KB && lo + lane < hd)\n        for (int tt":
+        "      if (false)\n        for (int tt"},
+}
+
+#: The split variants whose outputs must equal the first design's bit for
+#: bit (the others leave a phase out).
+K6BWD_SAME_BITS = ("first design", "first design, checkpoint fetched a "
+                   "chunk ahead", "as is", "row sums by shuffles",
+                   "bands of 16 rows", "partials in 4 buffers")
+
+
+def k6bwd(torch, cs, _build) -> None:
+    from repro_torch.kernels import rwkv_scan as krw
+    model = "rwkv_scan_bwd_kernelILi64E"   # hd 64
+    libs = dict(build(_build, "variants/rwkv_scan_bwd_first",
+                      K6BWD_FIRST_SPLIT, model))
+    libs.update(build(_build, "rwkv_scan", K6BWD_SPLIT, model))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for lib in libs.values():
+        lib.repro_rwkv_scan_bwd.argtypes = ([ptr] * 14 + [i32] * 5
+                                            + [i64] * 9 + [i32, ptr])
+        lib.repro_rwkv_scan_bwd.restype = i32
+    kinds = {(torch.float32, torch.float32): 0,
+             (torch.bfloat16, torch.float32): 1,
+             (torch.bfloat16, torch.bfloat16): 2}
+
+    def call(lib, r, k, v, w, u, s0, dout, ds, ck):
+        """One backward as ``rwkv_scan_bwd`` makes it, on ``lib``."""
+        B, H, T, hd = r.shape
+        gs = krw._out_stride(r)
+        grads = [torch.empty_strided(r.shape, gs, dtype=x.dtype,
+                                     device="cuda") for x in (r, r, r, w)]
+        du = torch.empty((B, H, hd), device="cuda")
+        ds0 = torch.empty((B, H, hd, hd), device="cuda")
+        code = lib.repro_rwkv_scan_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), ck.data_ptr(), dout.data_ptr(),
+            None if ds is None else ds.data_ptr(),
+            *(g.data_ptr() for g in grads), du.data_ptr(), ds0.data_ptr(),
+            B, H, T, hd, kinds[(r.dtype, w.dtype)], *r.stride()[:3],
+            *dout.stride()[:3], *gs[:3], *_build.device_and_stream(r.device))
+        cs.check(code == 0, f"launch failed: CUDA error {code}")
+        return (*grads, du.sum(0), ds0)
+
+    def inputs(seed, B, T, with_state, kind):
+        args = cs.rwkv_inputs(torch, seed, B, 32, T, 64, with_state, True,
+                              kind)
+        dout = cs.randn(torch, seed + 6, (B, T, 32, 64),
+                        args[0].dtype).transpose(1, 2)
+        ds = (cs.randn(torch, seed + 7, (B, 32, 64, 64), torch.float32, 0.5)
+              if with_state else None)
+        _, _, ck = krw.rwkv_scan(*args, checkpoints=True)
+        return args, dout, ds, ck
+
+    def bits(x):
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16
+                else cs.bits(torch, x))
+
+    first = libs["first design"]
+    same = [n for n in K6BWD_SAME_BITS if n in libs and n != "first design"]
+    for B, T in ((cs.TRAIN_B, cs.TRAIN_S), (1, cs.RWKV_CONTEXT)):
+        # Each design fed the checkpoints of one forward call; the same
+        # bits as the first design in all six outputs.
+        for kind in cs.K6_KINDS:
+            for with_state in (False, True):
+                args, dout, ds, ck = inputs(600 + T + B, B, T, with_state,
+                                            kind)
+                want = call(first, *args, dout, ds, ck)
+                for name in same:
+                    got = call(libs[name], *args, dout, ds, ck)
+                    cs.check(all(torch.equal(bits(a), bits(b))
+                                 for a, b in zip(got, want)),
+                             f"{name}: other bits than the first design at "
+                             f"B={B} T={T} {kind} state0/dstate_T="
+                             f"{with_state}")
+                del args, dout, ds, ck, want
+        print(f"B={B} H=32 T={T} hd=64: {', '.join(same)} the same bits as "
+              f"the first design in dr, dk, dv, dw, du and dstate0 (three "
+              f"type kinds, without and with state0 and dstate_T)",
+              flush=True)
+        # The step split: the model's types (bf16 r, k, v and dout as
+        # views, float32 w), no state0 or dstate_T, as the training path.
+        args, dout, ds, ck = inputs(650 + T, B, T, False, cs.K6_KINDS[1])
+        bound, by = cs.k6_bwd_bound(B, 32, T, 64, 2, 4)
+        reps = 20 if T <= 512 else 5
+        for turn, names in enumerate((list(libs), list(libs)[::-1])):
+            for name in names:
+                lib = libs[name]
+                ms = cs.time_ms(torch, lambda *a: call(lib, *a),
+                                (*args, dout, ds, ck), reps)
+                print(f"{name}: K6 backward B={B} H=32 T={T} hd=64 bf16 r, "
+                      f"k, v, dout turn {turn}: {ms:.5f} ms a call, "
+                      f"{ms / T * 1e3:.4f} us a step (CUDA events, {reps} "
+                      f"calls; bound {bound:.5f} ms by {by}, "
+                      f"{100 * bound / ms:.1f}%)", flush=True)
+        del args, dout, ds, ck
+        torch.cuda.empty_cache()
+
+
 def w3_state(torch, cs, kctrl):
     """The inputs of the ``CTRL_PICK``-th ``ctrl_step`` call of W3 at SF1
     armed (``run()``, the smoke's "W3 resident armed" path), the run
@@ -662,9 +948,9 @@ def main() -> int:
     import torch
 
     if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"],
-                            ["k5bwd"], ["k4bwd"]):
+                            ["k5bwd"], ["k4bwd"], ["k6bwd"]):
         print("usage: python3 kernel_variants.py "
-              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd", file=sys.stderr)
+              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd|k6bwd", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -680,7 +966,8 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6, "ctrl": ctrl,
-     "k5bwd": k5bwd, "k4bwd": k4bwd}[sys.argv[1]](torch, cs, _build)
+     "k5bwd": k5bwd, "k4bwd": k4bwd, "k6bwd": k6bwd}[sys.argv[1]](
+         torch, cs, _build)
     return 0
 
 

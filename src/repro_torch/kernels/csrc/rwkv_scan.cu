@@ -92,49 +92,65 @@
 // 64, bf16 r, k, v and dout, float32 w) the bytes set it, ~0.068 ms, of
 // which the checkpoints (134 MB) are 0.040 ms; the operations ~0.048 ms.
 //
-// Design of the backward (a first design: right and simple).  One block
-// per (b, h), as the forward, walks t down from T-1 with G in registers,
-// a thread holding a kRows x NC tile (the forward's 4 x 4 at hd 64, 256
-// threads; no helper warps: each phase of a chunk ends at __syncthreads).
+// Design of the backward (the second; the first, one block a (b, h), is
+// csrc/variants/rwkv_scan_bwd_first.cu, and this one gives its bits).
 // dr_t and dw_t need S_{t-1} while G runs backwards, and S_{t-1} is never
 // had by dividing by w_t (w = exp(-exp(.)) may come near 0 once trained):
 // the forward, asked with a checkpoint buffer, writes its state before
 // every kCk-th step (float32 [B, H, ceil(T / kCk), hd, hd]; 134 MB a layer
 // at the training shape, and under remat one layer holds it at a time; a
-// null buffer runs the forward's kernel as it was, the same bits).  Per
-// chunk of kCk = 8 steps, last chunk first, the block:
-//   1. stages the chunk's rows of r, k, v, w and dout (widened to float32,
-//      zeros past hd and past T) in shared memory from registers, where
-//      each thread fetched its share a chunk ahead (the loads of the next
-//      chunk go out here and land while this one is computed: staged by a
-//      loop of dependent loads instead, a call at the training shape took
-//      1.01 ms on an H100 against 0.655, PERF.md), and takes beta_t and
-//      vd_t, a warp a step;
-//   2. recomputes the chunk's states from its checkpoint with the
-//      forward's arithmetic (the same bits as the forward's states), each
-//      thread its own tile, and keeps them in shared memory: a thread only
-//      ever reads its own tile back, so no barrier guards them.  The
-//      chunk's kCk states take 128 KB at hd 64: registers would need 128 a
-//      thread, a workspace in device memory would be 2 GB of L2 traffic a
-//      call, and shared memory holds them with room for the rest (160 KB
-//      in all), which is why kCk is 8 and not 16;
-//   3. walks the chunk's steps down: a thread's row sums of G v, G . S and
-//      S dout (over its NC columns) go across its row group's CG lanes by a
-//      reduce-scatter of shuffles (15 at hd 64), each lane writing its one
-//      sum; its column sums G^T k across the warp's row groups by
-//      shuffles, one partial a warp; then G = diag(w) G + r dout^T;
-//   4. adds the bonus terms and the warps' partials and writes dr, dk, dv
-//      and dw in the inputs' layout (the model's [B, T, H hd] read as [B,
-//      H, T, hd], so its views' gradients need no copy).
+// null buffer runs the forward's kernel as it was, the same bits).  Every
+// entry of G evolves on its own (G_{t-1}[k][c] = w_t[k] G_t[k][c] +
+// r_t[k] dout_t[c]), as does every entry of S, so the state splits by
+// rows: a cluster of HDP / KB blocks shares a (b, h), each block owning a
+// band of KB = 32 rows of G and of the states (hd 16: one band of 16), and
+// two blocks share an SM (B 4 x 32 heads at hd 64: 256 blocks, one wave;
+// B 1: 64 blocks, where one block a (b, h) took 32 of the 132 SMs; bands
+// of 16 rows, four blocks a (b, h), measured slower at B 1 and B 4).
+// A block: compute warps holding the first design's tiles (kRows x NC a
+// thread, 128 threads at hd 64) and two helper warps.  Per chunk of kCk =
+// 8 steps, last chunk first:
+//   * the first helper warp stages the chunk's rows (r, k, v and dout
+//     whole, w's band) as they are in memory by bulk copies a row into a
+//     ring of NS slots, NS chunks ahead, completed on the slot's mbarrier
+//     (element copies where a row is not 16-byte aligned); both take
+//     beta_t and v_t . dout_t, a butterfly of shuffles a step, the steps'
+//     butterflies sharing their rounds;
+//   * the compute threads recompute the chunk's states from its checkpoint
+//     with the forward's arithmetic (the same bits) into shared memory, a
+//     thread its own tile, the tile fetched NCK chunks ahead by
+//     asynchronous copies; then walk the chunk down.  A step's row sums of
+//     G v, G . S and S dout (over the thread's columns) cross the row
+//     group's lanes through a per-warp exchange in shared memory, each
+//     lane adding one sum's 16 terms in the butterfly order of the first
+//     design's reduce-scatter of shuffles (15 shuffles a step there, most
+//     of its step: kernel_variants.py k6bwd, PERF.md) -- complete in the
+//     band, so dr, dk, dw and du need no other block; the column sums G^T
+//     k go across the warp's row groups by shuffles, one partial a warp,
+//     which the lane stores with st.async into the shared memory of the
+//     block that owns those columns, as the row sums go to its own; then
+//     G = diag(w) G + r dout^T;
+//   * the helper warps of each block wait on that block's pushed barrier,
+//     whose transactions count the chunk's row sums and the cluster's
+//     partials of the band's columns, add the NWG warps' partials in warp
+//     order (the first design's order), add the bonus terms, release the
+//     buffers to every block of the cluster by remote arrivals on their
+//     freed barriers (so a compute warp runs up to NP chunks ahead) and
+//     write dr, dk, dv and dw in the inputs' layout, and walk du.
+// Every sum is taken in the first design's order, so the outputs are its
+// bits.  No cluster barrier in the loop: the release of a cluster barrier
+// fences all of a thread's memory traffic, and its wait invalidates L1.
 // du goes out as each (b, h)'s partial sum [B, H, hd], summed over t in
-// one order in the block and over B by the caller: no atomics, so two
-// runs give the same bits.
+// one order in the band and over B by the caller: no atomics, so two runs
+// give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -564,30 +580,82 @@ rwkv_scan_kernel(const Args a) {
 // The backward (see the note at the top of the file).
 // ---------------------------------------------------------------------------
 constexpr int kBwdCols = 4;    // gradient columns a thread holds above hd 16
+constexpr int kBwdHelperWarps = 2;  // helper warps a block
+// Buffers of column partials and row sums: a compute warp runs up to this
+// many chunks ahead of the helper warps that read them (4 pass two blocks
+// an SM and measured slower: kernel_variants.py k6bwd, PERF.md).
+constexpr int kBwdParts = 2;
+constexpr int kBwdSlots = 2;   // the ring's chunk slots
+constexpr int kBwdCks = 1;     // checkpoint tiles fetched ahead
+constexpr int kSums = 12;      // row sums a thread takes a step (3 x kRows)
 
-// Columns a backward thread holds, and its threads a block (one a kRows x
-// cols tile of G and of the states): 256 at hd 64, 64 at 32, 32 at 16.
+// A band of KB = 32 rows a block (hd 16: one band of 16): its compute
+// threads hold kRows x cols tiles of G and of the states (the first
+// design's tiles; 128 threads at hd 64), then the helper warps; a cluster
+// of HDP / KB blocks shares a (b, h).
+template <int HDP>
+__host__ __device__ constexpr int bwd_band() {
+  return HDP < 32 ? HDP : 32;
+}
 template <int HDP>
 __host__ __device__ constexpr int bwd_cols() {
   return HDP == 16 ? 2 : kBwdCols;
 }
 template <int HDP>
+__host__ __device__ constexpr int bwd_compute() {
+  return (bwd_band<HDP>() / kRows) * (HDP / bwd_cols<HDP>());
+}
+template <int HDP>
 __host__ __device__ constexpr int bwd_threads() {
-  return (HDP / kRows) * (HDP / bwd_cols<HDP>());
+  return bwd_compute<HDP>() + 32 * kBwdHelperWarps;
 }
 
-// Shared memory, in order: the chunk's states [kCk][NC][NT] float4s (each
-// thread's tile as NC float4s, so a warp's accesses are consecutive), the
-// chunk's rows [5][kCk][HDP] (r, k, v, w, dout in float32), the row sums
-// [3][kCk][HDP] (G v, G . S, S dout), the column partial sums
-// [kCk][NW][HDP] (G^T k, a warp's row groups each), beta and v . dout
-// [2][kCk] and u [HDP]: 160 KB at hd 64.
-template <int HDP>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) *
-         (kCk * HDP * HDP + 5 * kCk * HDP + 3 * kCk * HDP +
-          kCk * (bwd_threads<HDP>() / 32) * HDP + 2 * kCk + HDP);
-}
+// A block's shared memory, in order (byte offsets):
+//   the chunk's states [kCk][NC][NTC] float4s (each compute thread's tile
+//     as NC float4s, so a warp's accesses are consecutive), then the
+//     checkpoint tiles fetched ahead [NCK][NC][NTC];
+//   the ring [NS] of the chunk's rows as they are in memory: r, k, v and
+//     dout [kCk][HDP] in r's type and the band's w [kCk][KB] in w's;
+//   the column partial sums G^T k [NP][kCk][NWG][KB] that the cluster's
+//     NWG compute warps leave for the band's columns;
+//   the band's row sums [NP][3][kCk][KB] (G v, G . S, S dout);
+//   each compute warp's row-sum exchange [RGW][XS] (its row groups' lanes'
+//     kSums partial sums, XS = CG kSums + 12 floats a row group, so the
+//     two row groups of a read fall in other banks);
+//   beta and v . dout [NS][2][kCk], u [HDP] and the mbarriers: the ring's
+//     [NS] and, by partial buffer, pushed [NP] (the band's row sums and
+//     the cluster's partials of its columns landed) and freed [NP] (every
+//     owner has read this block's partials).
+// At hd 64 with the model's types: 111 KB (two blocks an SM).
+template <int HDP, bool kBI, bool kBW>
+struct BwdSmem {
+  static constexpr int KB = bwd_band<HDP>();
+  using TI = typename std::conditional<kBI, bf16, float>::type;
+  using TW = typename std::conditional<kBW, bf16, float>::type;
+  static constexpr int NC = bwd_cols<HDP>();
+  static constexpr int NTC = bwd_compute<HDP>();
+  static constexpr int CG = HDP / NC;        // column groups
+  static constexpr int RGW = 32 / CG;        // row groups a warp
+  static constexpr int XS = CG * kSums + 12;
+  static constexpr int NWG = HDP * HDP / (kRows * NC) / 32;  // warps a (b, h)
+  static constexpr int NS = kBwdSlots, NP = kBwdParts;
+  static constexpr int NCK = kBwdCks;
+  static constexpr size_t kRow = kCk * HDP * sizeof(TI);     // an array
+  static constexpr size_t kSlot = 4 * kRow + kCk * KB * sizeof(TW);
+  static constexpr size_t kStates = 0;
+  static constexpr size_t kCkTiles = kStates + sizeof(float4) * kCk * NC * NTC;
+  static constexpr size_t kRing = kCkTiles + sizeof(float4) * NCK * NC * NTC;
+  static constexpr size_t kCols = kRing + NS * kSlot;
+  static constexpr size_t kRowSums = kCols + sizeof(float) * NP * kCk * NWG * KB;
+  static constexpr size_t kXs = kRowSums + sizeof(float) * NP * 3 * kCk * KB;
+  static constexpr size_t kScal = kXs + sizeof(float) * (NTC / 32) * RGW * XS;
+  static constexpr size_t kU = kScal + sizeof(float) * NS * 2 * kCk;
+  static constexpr size_t kBars = kU + sizeof(float) * HDP;
+  static constexpr size_t kBytes = kBars + sizeof(uint64_t) * (NS + 2 * NP);
+  static_assert(kSlot % 16 == 0 && kRing % 16 == 0 && kCols % 16 == 0 &&
+                    kXs % 16 == 0 && XS % 4 == 0 && kBars % 8 == 0,
+                "bulk copies and vector accesses land 16-byte aligned");
+};
 
 struct BwdArgs {
   const void* in[4];           // r, k, v, w
@@ -599,177 +667,396 @@ struct BwdArgs {
   float* du;                   // [B, H, hd], a partial sum per (b, h)
   float* ds0;                  // [B, H, hd, hd]
   int H, T, hd;
+  bool vec;                    // rows 16-byte aligned: bulk copies
   long long is[3], ds[3], gs[3];  // (b, h, t) strides: inputs, dout, grads
 };
 
-template <typename T>
-__device__ __forceinline__ float load_wide(const void* base, long long off) {
-  return widen(static_cast<const T*>(base)[off]);
+// Four values of a row, widened to float32 (16-byte aligned for float32,
+// 8 for bf16).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Sums x over the CG lanes of a row group (lanes cg = lane % CG) and
-// scatters the sums: afterwards x[p] (p < 16 / CG) holds the sum of value
-// p + (16 / CG) cg.  log2(CG) rounds, 15 shuffles at CG = 16; each sum is
-// taken in the same order every call.
+// A thread's NC (2 or 4) values of a row, widened to float32.
+template <int NC, typename T>
+__device__ __forceinline__ void ld_cols(const T* p, float (&v)[NC]) {
+  if constexpr (NC == 4) {
+    const float4 x = ld4(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  }
+}
+
+// The sum of v[0 .. CG-1] (v[L] from the lane of column group L) in the
+// order of a butterfly over the lanes, xor CG / 2 first and xor 1 last:
+// the first design's reduce-scatter of shuffles, whose sums (a + b = b + a
+// exactly) this gives bit for bit.
 template <int CG>
-__device__ __forceinline__ void reduce_scatter16(float (&x)[16], int cg) {
-  static_assert(CG >= 2 && CG <= 16 && (CG & (CG - 1)) == 0,
-                "a row group spans 2 .. 16 lanes");
+__device__ __forceinline__ float tree_sum(const float (&v)[CG]) {
+  if constexpr (CG == 1) {
+    return v[0];
+  } else {
+    float h[CG / 2];
 #pragma unroll
-  for (int s = 0; (1 << s) < CG; ++s) {
-    const int o = CG >> (s + 1), m = 8 >> s;
-    const bool up = (cg & o) != 0;
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      const float send = up ? x[i] : x[i + m];
-      const float keep = up ? x[i + m] : x[i];
-      x[i] = keep + __shfl_xor_sync(~0u, send, o);
-    }
+    for (int L = 0; L < CG / 2; ++L) h[L] = v[L] + v[L + CG / 2];
+    return tree_sum<CG / 2>(h);
   }
 }
 
 template <int HDP, bool kBI, bool kBW>
-__global__ void __launch_bounds__(bwd_threads<HDP>(), 1)
+__global__ void __launch_bounds__(bwd_threads<HDP>(), 2)
 rwkv_scan_bwd_kernel(const BwdArgs a) {
-  using TI = typename std::conditional<kBI, bf16, float>::type;
-  using TW = typename std::conditional<kBW, bf16, float>::type;
-  constexpr int NC = bwd_cols<HDP>(), CG = HDP / NC, RG = HDP / kRows;
-  constexpr int NT = RG * CG, NW = NT / 32;
-  constexpr int PER = 16 / CG;               // row sums a lane keeps
-  static_assert(NT % 32 == 0 && 32 % CG == 0 && NC % 2 == 0,
-                "a warp holds whole row groups");
-  extern __shared__ __align__(16) float smem[];
-  float4* states = reinterpret_cast<float4*>(smem);
-  float* xs = smem + kCk * HDP * HDP;        // [5][kCk][HDP]
-  float* rows = xs + 5 * kCk * HDP;          // [3][kCk][HDP]
-  float* cols = rows + 3 * kCk * HDP;        // [kCk][NW][HDP]
-  float* sc = cols + kCk * NW * HDP;         // beta [kCk], v . dout [kCk]
-  float* us = sc + 2 * kCk;                  // [HDP]
+  using L = BwdSmem<HDP, kBI, kBW>;
+  using TI = typename L::TI;
+  using TW = typename L::TW;
+  constexpr int NC = L::NC, NTC = L::NTC, NWG = L::NWG, CG = L::CG;
+  constexpr int NS = L::NS, NP = L::NP, NCK = L::NCK, KB = L::KB;
+  constexpr int PER = 16 / CG;               // row sums a lane adds up
+  constexpr int NB = HDP / KB;               // blocks a cluster
+  constexpr int ALL = bwd_threads<HDP>();
+  static_assert(NTC % 32 == 0 && 32 % CG == 0 && NC % 2 == 0 &&
+                    NWG == NB * (NTC / 32) && PER * CG == 16,
+                "a warp holds whole row groups of one band");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* states = reinterpret_cast<float4*>(smem_raw + L::kStates);
+  float4* ck_tiles = reinterpret_cast<float4*>(smem_raw + L::kCkTiles);
+  unsigned char* ring = smem_raw + L::kRing;
+  float* cols = reinterpret_cast<float*>(smem_raw + L::kCols);
+  float* rsum = reinterpret_cast<float*>(smem_raw + L::kRowSums);
+  float* xs = reinterpret_cast<float*>(smem_raw + L::kXs);
+  float* scal = reinterpret_cast<float*>(smem_raw + L::kScal);
+  float* us = reinterpret_cast<float*>(smem_raw + L::kU);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + L::kBars);
+  uint64_t* pushed = full + NS;              // [NP], chunk i's is i % NP
+  uint64_t* freed = pushed + NP;             // [NP]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid % CG, rg = tid / CG;
-  const int r0 = rg * kRows, c0 = cg * NC;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int band = static_cast<int>(sm90::cluster_rank());
+  const int bh = blockIdx.x / NB, b = bh / a.H, h = bh % a.H;
   const int hd = a.hd, T = a.T;
   const int n_ck = (T + kCk - 1) / kCk;
+  const int lo = band * KB;                  // the band's first row
   const size_t sq = static_cast<size_t>(bh) * hd * hd;
 
-  // r, k, v, w and dout at (b, h, t = 0, 0), and the gradients.
-  const void* src[5];
-  void* dst[4];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const bool w16 = i == 3 ? kBW : kBI;
-    const long long off = i == 4 ? b * a.ds[0] + h * a.ds[1]
-                                 : b * a.is[0] + h * a.is[1];
-    const void* base = i == 4 ? a.dout : a.in[i];
-    src[i] = static_cast<const char*>(base) + off * (w16 ? 2 : 4);
-    if (i < 4)
-      dst[i] = static_cast<char*>(a.grad[i]) +
-               (b * a.gs[0] + h * a.gs[1]) * (w16 ? 2 : 4);
-  }
-  for (int i = tid; i < HDP; i += NT) us[i] = i < hd ? a.u[h * hd + i] : 0.0f;
+  // The ring's slot s: r, k, v, dout, then the band's w.
+  auto slot_in = [&](int s, int arr) {
+    return reinterpret_cast<const TI*>(ring + s * L::kSlot + arr * L::kRow);
+  };
+  auto slot_w = [&](int s) {
+    return reinterpret_cast<const TW*>(ring + s * L::kSlot + 4 * L::kRow);
+  };
 
-  // G, the gradient of the state after the step at hand: dstate_T first.
-  float G[kRows][NC];
+  // Zero the ring once: the columns past hd stay zero (the copies write
+  // hd of them), as the walk reads padding columns.
+  for (int i = tid; i < static_cast<int>(NS * L::kSlot / 16); i += ALL)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < HDP; i += ALL) us[i] = i < hd ? a.u[h * hd + i] : 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) sm90::mbar_init(&full[s], 32);
+    for (int p = 0; p < NP; ++p) {
+      sm90::mbar_init(&pushed[p], 1);
+      sm90::mbar_init(&freed[p], NB);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::fence_proxy_async();                 // the zeros before the copies
+  // Every block of the cluster running and initialised before any writes
+  // another's shared memory or arrives on its barriers.
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+
+  if (tid >= NTC) {
+    // The helper warps: the first stages the chunks; together they take
+    // beta and v . dout, add the cluster's column partials of the band's
+    // columns and write the band's gradients and du.
+    constexpr int NH = 32 * kBwdHelperWarps;
+    const int hid = tid - NTC, hw = hid / 32;
+    auto helpers_sync = [&] { sm90::named_barrier(1, NH); };
+    const long long in_off = b * a.is[0] + h * a.is[1];
+    const long long d_off = b * a.ds[0] + h * a.ds[1];
+    const long long g_off = b * a.gs[0] + h * a.gs[1];
+    const int wrows = max(0, min(KB, hd - lo));  // the band's real rows
+    // Row t of array arr (r, k, v, dout, then w at the band's rows),
+    // picked by branches: an index into the launch's parameters would put
+    // them in local memory.
+    auto row = [&](int arr, long long t) -> const char* {
+      if (arr == 3)
+        return static_cast<const char*>(a.dout) +
+               (d_off + t * a.ds[2]) * sizeof(TI);
+      if (arr == 4)
+        return static_cast<const char*>(a.in[3]) +
+               (in_off + t * a.is[2] + lo) * sizeof(TW);
+      const void* base = arr == 0 ? a.in[0] : arr == 1 ? a.in[1] : a.in[2];
+      return static_cast<const char*>(base) +
+             (in_off + t * a.is[2]) * sizeof(TI);
+    };
+
+    // Chunk j (in walking order: chunk n_ck - 1 - j) into slot j % NS.
+    auto issue = [&](int j) {
+      const int ch = n_ck - 1 - j;
+      if (ch < 0) return;
+      const int s = j % NS, t0 = ch * kCk, n = min(kCk, T - t0);
+      unsigned char* slot = ring + s * L::kSlot;
+      if (a.vec) {
+        const uint32_t row_b = hd * sizeof(TI), w_b = wrows * sizeof(TW);
+        if (lane == 0)
+          sm90::mbar_arrive_expect_tx(&full[s], n * (4 * row_b + w_b));
+        __syncwarp();
+        for (int c = lane; c < 5 * n; c += 32) {
+          const int arr = c / n, tt = c % n;
+          if (arr < 4)
+            sm90::bulk_load(slot + arr * L::kRow + tt * HDP * sizeof(TI),
+                            row(arr, t0 + tt), row_b, &full[s]);
+          else if (w_b > 0)
+            sm90::bulk_load(slot + 4 * L::kRow + tt * KB * sizeof(TW),
+                            row(4, t0 + tt), w_b, &full[s]);
+        }
+        if (lane != 0) sm90::mbar_arrive(&full[s]);
+      } else {
+        for (int e = lane; e < n * (4 * hd + wrows); e += 32) {
+          const int tt = e / (4 * hd + wrows), f = e % (4 * hd + wrows);
+          if (f < 4 * hd) {
+            const int arr = f / hd, col = f % hd;
+            reinterpret_cast<TI*>(slot + arr * L::kRow)[tt * HDP + col] =
+                reinterpret_cast<const TI*>(row(arr, t0 + tt))[col];
+          } else {
+            const int k = f - 4 * hd;
+            reinterpret_cast<TW*>(slot + 4 * L::kRow)[tt * KB + k] =
+                reinterpret_cast<const TW*>(row(4, t0 + tt))[k];
+          }
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    };
+
+    if (hw == 0)
+      for (int j = 0; j < NS; ++j) issue(j);
+    float du = 0.0f;                         // du[lo + lane] in warp 0
+    for (int i = 0; i < n_ck; ++i) {
+      const int s = i % NS, p = i % NP, ch = n_ck - 1 - i;
+      const int t0 = ch * kCk, n = min(kCk, T - t0);
+      const TI* R = slot_in(s, 0);
+      const TI* K = slot_in(s, 1);
+      const TI* V = slot_in(s, 2);
+      const TI* D = slot_in(s, 3);
+      float* beta = scal + s * 2 * kCk;
+      float* vd = beta + kCk;
+      sm90::mbar_wait(&full[s], (i / NS) & 1);
+      // beta_t = sum_k r_k u_k k_k and v_t . dout_t, a warp's lanes over k
+      // and a butterfly of shuffles, the warps taking every other step; the
+      // steps' butterflies share their rounds.
+      constexpr int SPW = kCk / kBwdHelperWarps;  // steps a helper warp
+      float bs[SPW], vs[SPW];
+#pragma unroll
+      for (int c = 0; c < SPW; ++c) {
+        const int tt = hw + kBwdHelperWarps * c;
+        bs[c] = 0.0f;
+        vs[c] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < (HDP + 31) / 32; ++q) {
+          const int e = lane + 32 * q;
+          if (e < HDP) {
+            bs[c] = fmaf(widen(R[tt * HDP + e]) * us[e],
+                         widen(K[tt * HDP + e]), bs[c]);
+            vs[c] = fmaf(widen(V[tt * HDP + e]), widen(D[tt * HDP + e]),
+                         vs[c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int c = 0; c < SPW; ++c) {
+          bs[c] += __shfl_xor_sync(~0u, bs[c], o);
+          vs[c] += __shfl_xor_sync(~0u, vs[c], o);
+        }
+      if (lane == 0)
+#pragma unroll
+        for (int c = 0; c < SPW; ++c) {
+          beta[hw + kBwdHelperWarps * c] = bs[c];
+          vd[hw + kBwdHelperWarps * c] = vs[c];
+        }
+      helpers_sync();
+      // Chunk i walked: the band's row sums and every warp's column
+      // partials of the band's columns landed (n steps of 3 KB and NWG x KB
+      // floats; a step's stores follow its reads of the ring, so slot s is
+      // read too).
+      if (hid == 0)
+        sm90::mbar_arrive_expect_tx(&pushed[p],
+                                    n * (3 + NWG) * KB * sizeof(float));
+      sm90::mbar_wait_cluster(&pushed[p], (i / NP) & 1);
+      const float* P = cols + p * kCk * NWG * KB;
+      const float* RS = rsum + p * 3 * kCk * KB;
+      // The chunk's gradients of the band's rows and columns, into
+      // registers first: the buffers are released before the stores.
+      constexpr int IPL = kCk * KB / NH;     // items a helper thread
+      float go[IPL][4];
+#pragma unroll
+      for (int c = 0; c < IPL; ++c) {
+        const int e = hid + NH * c, tt = e / KB, j = e % KB, x = lo + j;
+        if (tt >= n || x >= hd) continue;
+        float dv = 0.0f;                     // the warps' partials, in order
+#pragma unroll
+        for (int g = 0; g < NWG; ++g) dv += P[(tt * NWG + g) * KB + j];
+        go[c][0] = fmaf(us[x] * widen(K[tt * HDP + x]), vd[tt],
+                        RS[(2 * kCk + tt) * KB + j]);             // dr
+        go[c][1] = fmaf(us[x] * widen(R[tt * HDP + x]), vd[tt],
+                        RS[tt * KB + j]);                         // dk
+        go[c][2] = fmaf(widen(D[tt * HDP + x]), beta[tt], dv);    // dv
+        go[c][3] = RS[(kCk + tt) * KB + j];                       // dw
+      }
+      // du[k] += r_t,k k_t,k (v_t . dout_t), steps in descending order.
+      if (hw == 0 && lane < KB && lo + lane < hd)
+        for (int tt = n - 1; tt >= 0; --tt)
+          du = fmaf(widen(R[tt * HDP + lo + lane]) *
+                        widen(K[tt * HDP + lo + lane]),
+                    vd[tt], du);
+      helpers_sync();
+      // The band's partials and row sums of chunk i read: each block of the
+      // cluster may write chunk i + NP's (if it has one); slot s is free.
+      if (hw == 0) {
+        if (i + NP < n_ck && lane < NB)
+          sm90::mbar_arrive_cluster(sm90::cluster_map(&freed[p], lane));
+        issue(i + NS);
+      }
+#pragma unroll
+      for (int c = 0; c < IPL; ++c) {
+        const int e = hid + NH * c, tt = e / KB, x = lo + e % KB;
+        if (tt >= n || x >= hd) continue;
+        const long long off = g_off + (t0 + tt) * a.gs[2] + x;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          narrow(static_cast<TI*>(a.grad[g]) + off, go[c][g]);
+        narrow(static_cast<TW*>(a.grad[3]) + off, go[c][3]);
+      }
+    }
+    if (hw == 0 && lane < KB && lo + lane < hd)
+      a.du[static_cast<size_t>(bh) * hd + lo + lane] = du;
+    sm90::cluster_arrive_relaxed();          // no block leaves while another
+    sm90::cluster_wait();                    // may still reach its memory
+    return;
+  }
+
+  // A compute thread (row group of the band, column group cg) holds rows
+  // r0 .. r0 + 3 and columns c0 .. c0 + NC - 1 of G and of the states; a
+  // warp spans RGW row groups and all columns.  Its warp is warp `gw` of
+  // the (b, h)'s NWG, the order the column partials are added in.
+  const int cg = tid % CG, rl = (tid / CG) * kRows;
+  const int r0 = lo + rl, c0 = cg * NC;
+  const int gw = band * (NTC / 32) + tid / 32;
+  // The warp's row-sum exchange: this lane's kSums sums, and the row
+  // group's.
+  float* const xrg = xs + (tid / 32) * L::RGW * L::XS + (lane / CG) * L::XS;
+  float* const xme = xrg + cg * kSums;
+  // Where this lane leaves its warp's column partials: the block that owns
+  // columns c0 .., at (buffer 0, step 0, warp gw), and that block's pushed
+  // barriers.
+  const uint32_t push = sm90::cluster_map(cols + gw * KB + c0 % KB, c0 / KB);
+  const uint32_t push_bar = sm90::cluster_map(pushed, c0 / KB);
+  // The row sums go to this block's buffers the same way, on its own
+  // pushed barriers (so the compute warps signal nothing else a chunk).
+  const uint32_t rs_at = sm90::cluster_map(rsum + rl, band);
+  const uint32_t rs_bar = sm90::cluster_map(pushed, band);
+  constexpr uint32_t kPushStep = NWG * KB * sizeof(float);
+  constexpr uint32_t kPushBuf = kCk * kPushStep;
+
+  float G[kRows][NC];                        // dstate_T first
 #pragma unroll
   for (int j = 0; j < kRows; ++j)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int row = r0 + j, col = c0 + n;
-      G[j][n] = (a.dsT != nullptr && row < hd && col < hd)
+    for (int m = 0; m < NC; ++m) {
+      const int row = r0 + j, col = c0 + m;
+      G[j][m] = (a.dsT != nullptr && row < hd && col < hd)
                     ? a.dsT[sq + static_cast<size_t>(row) * hd + col]
                     : 0.0f;
     }
-  float du = 0.0f;                           // du[tid], for tid < hd
 
-  // A chunk's rows of the five arrays, widened to float32 (zeros past hd
-  // and past T), LOADS values a thread: value m of thread tid is xs[m NT +
-  // tid].  They are fetched into registers one chunk ahead, so a chunk's
-  // loads are in flight while the chunk before it is computed.
-  constexpr int PER_ARR = kCk * HDP;
-  constexpr int LOADS = 5 * PER_ARR / NT;
-  static_assert(PER_ARR % NT == 0, "a thread's values of a chunk lie in "
-                                   "known arrays");
-  float pre[LOADS];
-  auto fetch = [&](int ch) {
-    const int t0 = ch * kCk, n = min(kCk, T - t0);
+  // The thread's tile of chunk j's checkpoint (in walking order: chunk
+  // n_ck - 1 - j) into checkpoint tile j % NCK (zeros past hd), by
+  // asynchronous copies, one commit group a chunk (empty past the last):
+  // fetched NCK chunks ahead.
+  auto fetch_ck = [&](int j) {
+    const int ch = n_ck - 1 - j;
+    if (ch >= 0) {
+      const float* ck =
+          a.ck + (static_cast<size_t>(bh) * n_ck + ch) * hd * hd;
 #pragma unroll
-    for (int m = 0; m < LOADS; ++m) {
-      const int arr = m * NT / PER_ARR;
-      const int e = (m * NT) % PER_ARR + tid;
-      const int tt = e / HDP, col = e % HDP;
-      float x = 0.0f;
-      if (tt < n && col < hd) {
-        const long long off =
-            static_cast<long long>(t0 + tt) * (arr == 4 ? a.ds[2] : a.is[2]) +
-            col;
-        x = arr == 3 ? load_wide<TW>(src[3], off)
-                     : load_wide<TI>(src[arr], off);
-      }
-      pre[m] = x;
+      for (int q = 0; q < NC; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = 4 * q + e, row = r0 + f / NC, col = c0 + f % NC;
+          const bool in = row < hd && col < hd;
+          const uint32_t d = sm90::smem_u32(
+              reinterpret_cast<float*>(
+                  &ck_tiles[((j % NCK) * NC + q) * NTC + tid]) + e);
+          asm volatile(
+              "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+              "l"(in ? ck + static_cast<size_t>(row) * hd + col : a.ck),
+              "r"(in ? 4 : 0)
+              : "memory");
+        }
     }
+    cp_async_commit();
   };
-  if (n_ck > 0) fetch(n_ck - 1);
+  for (int j = 0; j < NCK; ++j) fetch_ck(j);
 
-  for (int ch = n_ck - 1; ch >= 0; --ch) {
-    const int t0 = ch * kCk, n = min(kCk, T - t0);
-    __syncthreads();                         // the last chunk's reads done
-#pragma unroll
-    for (int m = 0; m < LOADS; ++m) xs[m * NT + tid] = pre[m];
-    __syncthreads();
-    if (ch > 0) fetch(ch - 1);
-    const float* R = xs;
-    const float* K = xs + kCk * HDP;
-    const float* V = K + kCk * HDP;
-    const float* W = V + kCk * HDP;
-    const float* D = W + kCk * HDP;
-    // beta_t = sum_k r_k u_k k_k and v_t . dout_t, a warp a step.
-    for (int tt = warp; tt < n; tt += NW) {
-      float bs = 0.0f, vd = 0.0f;
-      for (int i = lane; i < HDP; i += 32) {
-        bs = fmaf(R[tt * HDP + i] * us[i], K[tt * HDP + i], bs);
-        vd = fmaf(V[tt * HDP + i], D[tt * HDP + i], vd);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        bs += __shfl_xor_sync(~0u, bs, o);
-        vd += __shfl_xor_sync(~0u, vd, o);
-      }
-      if (lane == 0) {
-        sc[tt] = bs;
-        sc[kCk + tt] = vd;
-      }
-    }
+  for (int i = 0; i < n_ck; ++i) {
+    const int s = i % NS, b = i % NP, ch = n_ck - 1 - i;
+    const int n = min(kCk, T - ch * kCk);
+    const TI* R = slot_in(s, 0);
+    const TI* K = slot_in(s, 1);
+    const TI* V = slot_in(s, 2);
+    const TI* D = slot_in(s, 3);
+    const TW* W = slot_w(s);
+    sm90::mbar_wait(&full[s], (i / NS) & 1);   // chunk i staged
     // The chunk's states S_{t-1}, the thread's tile of each, recomputed
     // from the checkpoint as the forward computed them (the same bits).
     {
+      cp_async_wait<NCK - 1>();              // chunk i's tile landed
       float S[kRows][NC];
-      const float* ck = a.ck + (static_cast<size_t>(bh) * n_ck + ch) * hd * hd;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j)
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const int row = r0 + j, col = c0 + m;
-          S[j][m] = (row < hd && col < hd)
-                        ? ck[static_cast<size_t>(row) * hd + col]
-                        : 0.0f;
-        }
-      for (int tt = 0; tt < n; ++tt) {
+      for (int q = 0; q < NC; ++q) {
+        const float4 x = ck_tiles[((i % NCK) * NC + q) * NTC + tid];
+        const int f = 4 * q;
+        S[f / NC][f % NC] = x.x;
+        S[(f + 1) / NC][(f + 1) % NC] = x.y;
+        S[(f + 2) / NC][(f + 2) % NC] = x.z;
+        S[(f + 3) / NC][(f + 3) % NC] = x.w;
+      }
+      auto rstep = [&](int tt) {
 #pragma unroll
         for (int q = 0; q < NC; ++q) {
           const int f = 4 * q;               // flat index f .. f + 3
-          states[(tt * NC + q) * NT + tid] = make_float4(
+          states[(tt * NC + q) * NTC + tid] = make_float4(
               S[f / NC][f % NC], S[(f + 1) / NC][(f + 1) % NC],
               S[(f + 2) / NC][(f + 2) % NC], S[(f + 3) / NC][(f + 3) % NC]);
         }
         if (tt + 1 < n) {
-          const float4 k4 = reinterpret_cast<const float4*>(K + tt * HDP)[rg];
-          const float4 w4 = reinterpret_cast<const float4*>(W + tt * HDP)[rg];
+          const float4 k4 = ld4(K + tt * HDP + r0);
+          const float4 w4 = ld4(W + tt * KB + rl);
           const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
           const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
           float vv[NC];
-          load_cols<NC>(V + tt * HDP + c0, vv);
+          ld_cols<NC>(V + tt * HDP + c0, vv);
 #pragma unroll
           for (int j = 0; j < kRows; ++j)
 #pragma unroll
@@ -778,22 +1065,38 @@ rwkv_scan_bwd_kernel(const BwdArgs a) {
               S[j][m] = fmaf(ww[j], S[j][m], kv);
             }
         }
+      };
+      // Once the first state is stored (the tile read), the tile takes
+      // chunk i + NCK's checkpoint.
+      rstep(0);
+      fetch_ck(i + NCK);
+      if (n == kCk) {
+#pragma unroll
+        for (int tt = 1; tt < kCk; ++tt) rstep(tt);
+      } else {
+        for (int tt = 1; tt < n; ++tt) rstep(tt);
       }
     }
-    __syncthreads();                         // beta and v . dout visible
-    for (int tt = n - 1; tt >= 0; --tt) {
-      const float4 r4 = reinterpret_cast<const float4*>(R + tt * HDP)[rg];
-      const float4 k4 = reinterpret_cast<const float4*>(K + tt * HDP)[rg];
-      const float4 w4 = reinterpret_cast<const float4*>(W + tt * HDP)[rg];
+    // The owners have read chunk i - NP's partials and row sums from the
+    // buffers this chunk writes.
+    if (i >= NP) sm90::mbar_wait_cluster(&freed[b], (i / NP - 1) & 1);
+    const uint32_t rs_i = rs_at + b * 3 * kCk * KB * sizeof(float);
+    const uint32_t rs_bar_i = rs_bar + b * sizeof(uint64_t);
+    const uint32_t push_i = push + b * kPushBuf;
+    const uint32_t bar_i = push_bar + b * sizeof(uint64_t);
+    auto step = [&](int tt) {
+      const float4 r4 = ld4(R + tt * HDP + r0);
+      const float4 k4 = ld4(K + tt * HDP + r0);
+      const float4 w4 = ld4(W + tt * KB + rl);
       const float rr[kRows] = {r4.x, r4.y, r4.z, r4.w};
       const float kk[kRows] = {k4.x, k4.y, k4.z, k4.w};
       const float ww[kRows] = {w4.x, w4.y, w4.z, w4.w};
       float vv[NC], dd[NC], S[kRows][NC];
-      load_cols<NC>(V + tt * HDP + c0, vv);
-      load_cols<NC>(D + tt * HDP + c0, dd);
+      ld_cols<NC>(V + tt * HDP + c0, vv);
+      ld_cols<NC>(D + tt * HDP + c0, dd);
 #pragma unroll
       for (int q = 0; q < NC; ++q) {
-        const float4 x = states[(tt * NC + q) * NT + tid];
+        const float4 x = states[(tt * NC + q) * NTC + tid];
         const int f = 4 * q;
         S[f / NC][f % NC] = x.x;
         S[(f + 1) / NC][(f + 1) % NC] = x.y;
@@ -801,8 +1104,8 @@ rwkv_scan_bwd_kernel(const BwdArgs a) {
         S[(f + 3) / NC][(f + 3) % NC] = x.w;
       }
       // Row sums over the thread's columns: x[4 q + j] for row j of G v
-      // (q 0), G . S_{t-1} (q 1) and S_{t-1} dout (q 2); q 3 is padding.
-      float x[16], dv[NC];
+      // (q 0), G . S_{t-1} (q 1) and S_{t-1} dout (q 2).
+      float x[kSums], dv[NC];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
         float gv = 0.0f, gs = 0.0f, sd = 0.0f;
@@ -815,7 +1118,6 @@ rwkv_scan_bwd_kernel(const BwdArgs a) {
         x[j] = gv;
         x[4 + j] = gs;
         x[8 + j] = sd;
-        x[12 + j] = 0.0f;
       }
       // Column sums over the thread's rows: G^T k.
 #pragma unroll
@@ -829,45 +1131,51 @@ rwkv_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll
       for (int j = 0; j < kRows; ++j)
 #pragma unroll
-        for (int m = 0; m < NC; ++m) G[j][m] = fmaf(ww[j], G[j][m], rr[j] * dd[m]);
-      reduce_scatter16<CG>(x, cg);
+        for (int m = 0; m < NC; ++m)
+          G[j][m] = fmaf(ww[j], G[j][m], rr[j] * dd[m]);
+      // The row sums across the row group's CG lanes: each lane leaves its
+      // kSums in the warp's exchange and adds one sum's CG terms (sum idx
+      // = 4 q + j of the group; lanes past kSums / PER add none).
+#pragma unroll
+      for (int e = 0; e < kSums; e += 4)
+        *reinterpret_cast<float4*>(xme + e) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+      __syncwarp();
 #pragma unroll
       for (int p = 0; p < PER; ++p) {
-        const int idx = p + PER * cg, q = idx >> 2;
-        if (q < 3) rows[(q * kCk + tt) * HDP + r0 + (idx & 3)] = x[p];
+        const int idx = p + PER * cg;
+        if (idx < kSums) {
+          float v[CG];
+#pragma unroll
+          for (int Lg = 0; Lg < CG; ++Lg) v[Lg] = xrg[Lg * kSums + idx];
+          sm90::st_async(
+              rs_i + (((idx >> 2) * kCk + tt) * KB + (idx & 3)) * 4u,
+              tree_sum<CG>(v), rs_bar_i);
+        }
       }
+      __syncwarp();
       // The warp's row groups' column sums, then one lane a column group
-      // writes them.
+      // leaves them with the block that owns the columns.
 #pragma unroll
       for (int m = 0; m < NC; ++m)
 #pragma unroll
         for (int o = CG; o < 32; o <<= 1)
           dv[m] += __shfl_xor_sync(~0u, dv[m], o);
-      if (lane < CG) store_cols<NC>(cols + (tt * NW + warp) * HDP + c0, dv);
+      if (lane < CG) {
+        const uint32_t at = push_i + tt * kPushStep;
+        if constexpr (NC == 4)
+          sm90::st_async(at, dv[0], dv[1], dv[2], dv[3], bar_i);
+        else
+          sm90::st_async(at, dv[0], dv[1], bar_i);
+      }
+    };
+    // The walk, t down.
+    if (n == kCk) {
+#pragma unroll 2
+      for (int tt = kCk - 1; tt >= 0; --tt) step(tt);
+    } else {
+      for (int tt = n - 1; tt >= 0; --tt) step(tt);
     }
-    __syncthreads();
-    // The chunk's gradients: the row and column sums and the bonus terms.
-    for (int i = tid; i < n * HDP; i += NT) {
-      const int tt = i / HDP, c = i % HDP;
-      if (c >= hd) continue;
-      const float beta = sc[tt], vd = sc[kCk + tt];
-      float dv = 0.0f;
-#pragma unroll
-      for (int g = 0; g < NW; ++g) dv += cols[(tt * NW + g) * HDP + c];
-      const float grads[4] = {
-          fmaf(us[c] * K[i], vd, rows[(2 * kCk + tt) * HDP + c]),   // dr
-          fmaf(us[c] * R[i], vd, rows[tt * HDP + c]),               // dk
-          fmaf(D[i], beta, dv),                                     // dv
-          rows[(kCk + tt) * HDP + c]};                              // dw
-      const long long off = static_cast<long long>(t0 + tt) * a.gs[2] + c;
-#pragma unroll
-      for (int g = 0; g < 3; ++g) narrow(static_cast<TI*>(dst[g]) + off, grads[g]);
-      narrow(static_cast<TW*>(dst[3]) + off, grads[3]);
-    }
-    // du[k] += r_t,k k_t,k (v_t . dout_t), steps in descending order.
-    if (tid < hd)
-      for (int tt = n - 1; tt >= 0; --tt)
-        du = fmaf(R[tt * HDP + tid] * K[tt * HDP + tid], sc[kCk + tt], du);
   }
 
 #pragma unroll
@@ -878,7 +1186,8 @@ rwkv_scan_bwd_kernel(const BwdArgs a) {
       if (row < hd && col < hd)
         a.ds0[sq + static_cast<size_t>(row) * hd + col] = G[j][m];
     }
-  if (tid < hd) a.du[static_cast<size_t>(bh) * hd + tid] = du;
+  sm90::cluster_arrive_relaxed();
+  sm90::cluster_wait();
 }
 
 // Makes `device` current if it is not (the stream belongs to it).
@@ -929,15 +1238,29 @@ cudaError_t dispatch(const Args& a, int B, int device, cudaStream_t s) {
   return dispatch<kBI, kBW, false>(a, B, device, s);
 }
 
+// One cluster of HDP / KB blocks a (b, h): two at hd 64, one below.
 template <int HDP, bool kBI, bool kBW>
 cudaError_t launch_bwd(const BwdArgs& a, int B, int device,
                        cudaStream_t stream) {
   auto kernel = rwkv_scan_bwd_kernel<HDP, kBI, kBW>;
-  constexpr size_t smem = bwd_smem_bytes<HDP>();
+  using L = BwdSmem<HDP, kBI, kBW>;
   static bool allowed[64];
-  cudaError_t err = allow_smem(kernel, smem, allowed, device);
+  cudaError_t err = allow_smem(kernel, L::kBytes, allowed, device);
   if (err != cudaSuccess) return err;
-  kernel<<<B * a.H, bwd_threads<HDP>(), smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.H * (HDP / L::KB));
+  cfg.blockDim = dim3(bwd_threads<HDP>());
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = HDP / L::KB;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1033,7 +1356,7 @@ int repro_rwkv_scan_bwd(const void* r, const void* k, const void* v,
                         long long gb, long long gh, long long gt, int device,
                         void* stream) {
   if (B < 1 || H < 1 || T_len < 0 || hd < 1 || hd > 64 || kinds < 0 ||
-      kinds > 2 || static_cast<long long>(B) * H > 0x7fffffffLL)
+      kinds > 2 || static_cast<long long>(B) * H * 4 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
@@ -1064,6 +1387,15 @@ int repro_rwkv_scan_bwd(const void* r, const void* k, const void* v,
   a.gs[0] = gb;
   a.gs[1] = gh;
   a.gs[2] = gt;
+  // Bulk copies need every row start and a row's hd values a multiple of
+  // 16 bytes: 8 elements for bf16 r, k, v and dout, 4 for float32 (w's
+  // rows are then aligned too).
+  const long long per = kinds == 0 ? 4 : 8;
+  bool vec = hd % per == 0;
+  for (long long x : {sb, sh, st, db, dh, dt}) vec = vec && x % per == 0;
+  for (const void* p : {r, k, v, w, dout})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kinds == 0) return dispatch_bwd<false, false>(a, B, device, s);
   if (kinds == 1) return dispatch_bwd<true, false>(a, B, device, s);

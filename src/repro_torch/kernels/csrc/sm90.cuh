@@ -1,4 +1,6 @@
-// Hopper (sm_90a) building blocks, raw PTX: mbarriers, TMA tensor copies,
+// Hopper (sm_90a) building blocks, raw PTX: mbarriers, TMA tensor and bulk
+// copies, the cluster barrier, remote mbarrier arrivals and asynchronous
+// stores to another block's shared memory,
 // wgmma shared-memory descriptors and the wgmma instructions the kernels
 // use (shared-memory A, and register A for 16-bit types), and the
 // host-side encoding of 3-D and 4-D TMA tensor maps.  Included by the
@@ -123,6 +125,111 @@ DEV void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 DEV void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory; they complete a transaction on `bar`.
+DEV void bulk_load(void* dst, const void* src, uint32_t bytes,
+                   uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- thread-block clusters ------------------------------------------------
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives and later waits (acquire) until all have arrived; a thread
+// alternates the two, each warp converged.  The release arrival orders
+// the thread's writes before it (at the cost of a fence over all of its
+// memory traffic); the relaxed one orders nothing.
+DEV void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+DEV void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+DEV void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// This block's rank in its cluster.
+DEV uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of the shared-memory word at `p` in the
+// block of rank `rank` (the same offset in its shared memory).
+DEV uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+DEV uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// mbar_wait at cluster scope: it acquires what blocks of the cluster
+// released into the phase (remote arrivals, st_async transactions).  A
+// wait past two seconds of the global timer traps (a launch error, not a
+// hung card: a sound pipeline waits microseconds).
+DEV void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t start = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if ((tries & 1023) == 0) {
+      const uint64_t now = global_ns();
+      if (start == 0) start = now;
+      else if (now - start > 2000000000ull) __trap();
+    }
+  }
+}
+
+// One arrival on the mbarrier at shared::cluster address `bar` (in any
+// block of the cluster), releasing this thread's accesses before it.
+DEV void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar) : "memory");
+}
+
+// Stores to shared::cluster address `addr` (any block of the cluster) that
+// complete their bytes as a transaction on the mbarrier at `bar` there.
+DEV void st_async(uint32_t addr, float a, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr), "f"(a), "r"(bar) : "memory");
+}
+
+DEV void st_async(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr), "f"(a), "f"(b), "r"(bar) : "memory");
+}
+
+DEV void st_async(uint32_t addr, float a, float b, float c, float d,
+                  uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+      "f"(d), "r"(bar) : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -41,10 +41,16 @@ vjp): dr, dk, dv, dw, du and dstate0 from the inputs, the gradient at out
 and at the final state, and the forward's checkpoints (its state before
 every ``CHECKPOINT_EVERY``-th step, which ``rwkv_scan(...,
 checkpoints=True)`` writes; without them the forward's call is the one it
-was, the same bits).  One block per (b, h) walks t down with the state's
-gradient in registers and recomputes each 8-step chunk's states from its
-checkpoint into shared memory; no atomics (du leaves each (b, h)'s share,
-summed over B here), so two calls give the same bits.  Bound: about 12
+was, the same bits).  A thread-block cluster shares each (b, h), a block
+owning a band of 32 rows of the state's gradient (hd 16: one band of
+16) in registers, two blocks an SM: its compute warps recompute
+each 8-step chunk's states from the checkpoint into shared memory and
+walk t down, and two helper warps stage the chunks by bulk copies and
+write the gradients.  Row sums stay in a block; the column sums of dv
+cross the cluster through distributed shared memory and are added in the
+first design's order, so the gradients are its bits.  No atomics (du
+leaves each (b, h)'s share, summed over B here), so two calls give the
+same bits.  Bound: about 12
 hd^2 float32 operations a step of each (b, h), or r, k, v, w, dout, the
 gradients and the checkpoints moved once.  ``.launches`` counts its
 launches.  :func:`rwkv_scan_ad` is the autograd function the model calls.

@@ -22,7 +22,8 @@ Tolerances, stated from the arithmetic:
 * ``chip_smoke.py``'s ``check_rwkv_bwd``, the bound the card is held to:
   the exact gradients (float64) rounded to the outputs' types stay within
   it, and each planted fault ("G not decayed", "dw reads S_t for S_{t-1}",
-  "du of one batch row") lands beyond it.
+  "du of one batch row", "dv without one row band's share") lands beyond
+  it.
 """
 import importlib.util
 from pathlib import Path
@@ -230,7 +231,9 @@ def _exact(args, dout, ds, fault=None):
         sp = states[t]
         dr[:, :, t] = torch.einsum("bhkc,bhc->bhk", sp, dt) + u * kt * vd
         dk[:, :, t] = torch.einsum("bhkc,bhc->bhk", g, vt) + u * rt * vd
-        dv[:, :, t] = (torch.einsum("bhkc,bhk->bhc", g, kt)
+        lo = 32 if fault == "dv without band 0" else 0
+        dv[:, :, t] = (torch.einsum("bhkc,bhk->bhc", g[:, :, lo:],
+                                    kt[:, :, lo:])
                        + dt * (rt * u * kt).sum(-1, keepdim=True))
         after = wt[..., None] * sp + kt[..., None] * vt[..., None, :]
         dw[:, :, t] = (g * (after if fault == "dw reads S_t" else sp)).sum(-1)
@@ -242,13 +245,22 @@ def _exact(args, dout, ds, fault=None):
             dw.to(args[3].dtype), du.float(), g.float())
 
 
+#: The faults planted in the backward: the exact gradients with one term
+#: wrong (``_exact``), as ``chip_smoke.rwkv_bwd_faults`` plants them in the
+#: wrapper.
+FAULTS = ("G not decayed", "dw reads S_t", "du of one batch row",
+          "dv without band 0")
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("kind", ["float32", "bf16 r, k, v", "bf16"])
 @pytest.mark.parametrize("hd", [16, 64])
 def test_check_rwkv_bwd_admits_the_exact_gradients_and_no_planted_fault(
-        hd, kind):
+        hd, kind, fault):
     """``chip_smoke.py``'s bound of K6's backward against its plain version
     admits the exact gradients (each side of the check lies within half of
-    it), and each planted fault lands beyond it."""
+    it), and the planted fault lands beyond it ("dv without band 0": G^T k
+    without the first 32 rows, the share of the cluster's first block)."""
     cs = _smoke()
     r, k, v, w, u, s0, dout, ds = _inputs(3, 2, 2 * 8 + 5, hd, seed=hd)
     args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
@@ -259,25 +271,28 @@ def test_check_rwkv_bwd_admits_the_exact_gradients_and_no_planted_fault(
     d = torch.from_numpy(dout).to(args[0].dtype)
     dst = torch.from_numpy(ds)
     cs.check_rwkv_bwd(torch, "exact", _exact(args, d, dst), args, d, dst)
-    for fault in ("G not decayed", "dw reads S_t", "du of one batch row"):
-        with pytest.raises(cs.SmokeFailure):
-            cs.check_rwkv_bwd(torch, fault, _exact(args, d, dst, fault), args,
-                              d, dst)
+    with pytest.raises(cs.SmokeFailure):
+        cs.check_rwkv_bwd(torch, fault, _exact(args, d, dst, fault), args,
+                          d, dst)
 
 
-def test_smoke_faults_stand_in_for_the_backward_and_break_the_bound():
-    """The faults ``chip_smoke.py`` plants in the backward's wrapper (each
-    still calls the wrapper, here its plain version) take its signature
-    and land beyond ``check_rwkv_bwd``'s bound."""
+@pytest.mark.parametrize("which", range(len(FAULTS)))
+def test_smoke_faults_stand_in_for_the_backward_and_break_the_bound(which):
+    """Each fault ``chip_smoke.py`` plants in the backward's wrapper (it
+    still calls the wrapper, here its plain version) takes its signature
+    and lands beyond ``check_rwkv_bwd``'s bound."""
     cs = _smoke()
+    faults = cs.rwkv_bwd_faults(torch, k6)
+    assert len(faults) == len(FAULTS)
+    name, fn = faults[which]
     r, k, v, w, u, s0, dout, ds = _inputs(2, 2, 13, 16, seed=5)
     args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
     d, dst = torch.from_numpy(dout), torch.from_numpy(ds)
-    for name, fn in cs.rwkv_bwd_faults(torch, k6):
-        with pytest.raises(cs.SmokeFailure):
-            cs.check_rwkv_bwd(torch, name,
-                              fn(*args, d, dst, checkpoints=None), args, d,
-                              dst)
+    got = fn(*args, d, dst, checkpoints=None)
+    assert [g.dtype for g in got] == [g.dtype for g in
+                                     k6.rwkv_scan_bwd(*args, d, dst)]
+    with pytest.raises(cs.SmokeFailure):
+        cs.check_rwkv_bwd(torch, name, got, args, d, dst)
 
 
 @pytest.mark.gpu
@@ -287,12 +302,16 @@ def test_cuda_rwkv_scan_bwd_matches_plain_version():
     call; the forward gives the same out and state bits with and without
     its checkpoints.  hd 16, 32 and 64 (and 5), T = 1, 7, 8, 9 and 29,
     with and without state0 and dstate_T, the three type kinds, contiguous
-    and as views in the model's layout."""
+    and as views in the model's layout; and B 1, H 32, hd 64, T 29 (the
+    cluster's case: 64 blocks, past two chunks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cs = _smoke()
+    # (1, 32, 29, 64): a cluster of two blocks a (b, h), 64 of them, past
+    # two chunks.
     for B, H, T, hd in ((1, 1, 1, 64), (2, 3, 7, 64), (2, 3, 8, 32),
-                        (3, 2, 9, 16), (2, 2, 29, 64), (1, 2, 29, 5)):
+                        (3, 2, 9, 16), (2, 2, 29, 64), (1, 2, 29, 5),
+                        (1, 32, 29, 64)):
         r, k, v, w, u, s0, dout, ds = _inputs(B, H, T, hd, seed=T + hd)
         for kind in ("float32", "bf16 r, k, v", "bf16"):
             for with_state in (False, True):
