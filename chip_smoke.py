@@ -186,6 +186,18 @@ Phases, in order; any failure exits non-zero before the last line:
            every position of a 2 x 64 prompt and 4 teacher-forced decode
            steps within ``RWKV_SLICE_TOL``, greedy tokens equal wherever
            the card's top-2 margin exceeds it;
+9b. vlm    InternVL2-2B at its published 24 layers (~1.89e9 float32
+           weights from seed 0, bf16 compute) behind ``ServeEngine`` with
+           the serve's constants: the engine puts its 1,024 zero patch
+           rows ahead of each prompt, so each prefill is one causal K5
+           call a layer at S 1,088-1,536 (GQA, two query heads a KV head);
+           every kernel's count set to 0 just before and read just after:
+           K5 once a layer a prefill, every call on its wgmma kernel, K4
+           and K6 never; K5 replayed on the prefills' inputs; then the
+           slice check at 2 layers, card against host, every text position
+           of a 2 x 64 prompt behind 1,024 seeded patch rows and 4
+           teacher-forced decode steps within ``VLM_SLICE_TOL``, greedy
+           tokens equal wherever the card's top-2 margin exceeds it;
 10. train  (its kernel checks run after phase 6) K5's backward
            (``flash_attention_bwd``, ``csrc/flash_attention.cu``: the wgmma
            route, a prep pass, ``flash_bwd_dkv_wgmma`` and
@@ -231,8 +243,16 @@ Phases, in order; any failure exits non-zero before the last line:
            8 replica slots and a split table, one ``loss_fn`` gradient of a
            2 x 64 batch on the card against the host: the loss within
            ``TRAIN_SLICE_LOSS_TOL``, every gradient leaf within
-           ``TRAIN_SLICE_TOL`` of its largest entry.  RWKV6 (its kernel
-           checks run after phase 6's K6 checks): K6's backward
+           ``TRAIN_SLICE_TOL`` of its largest entry.  Then the same OLMoE
+           path with the DP-local MoE dispatch over ``TRAIN_GROUPS`` = 4
+           token groups (512 tokens a group), from a fresh trainer: the
+           same checks, its step beside the first path's, K4's forward
+           ``rows`` summed against the live rows (kept token-slot pairs;
+           the dead rows inside each slot's prefix are the zero sentinel
+           row), K4 forward and backward replayed on its inputs (the
+           forward also timed with each slot's live count as its rows),
+           and its 2-layer float32 slice within the same limits.  RWKV6
+           (its kernel checks run after phase 6's K6 checks): K6's backward
            (``rwkv_scan_bwd``, ``csrc/rwkv_scan.cu``) against its plain
            version within the bound ``check_rwkv_bwd`` states, at hd 16,
            32 and 64, float32 and the model's bf16 r, k, v, T = 1, C - 1,
@@ -256,10 +276,21 @@ Phases, in order; any failure exits non-zero before the last line:
            plain version and ``k6_bwd_bound``.  Then the RWKV6 train slice:
            2 layers at full width in float32, one ``loss_fn`` gradient of
            a 2 x 64 batch, card against host, within
-           ``RWKV_TRAIN_SLICE_LOSS_TOL`` and ``RWKV_TRAIN_SLICE_TOL``;
+           ``RWKV_TRAIN_SLICE_LOSS_TOL`` and ``RWKV_TRAIN_SLICE_TOL``.
+           Then InternVL2-2B at its published 24 layers (~30.2 GB of
+           training state), no balancer, ``TRAIN_STEPS`` steps on one
+           batch of 4 x (1,024 seeded patch rows + 512 tokens from
+           ``SkewAwarePipeline``): the loss finite and falling, K5's
+           forward twice a layer a step and its backward once, all on
+           their wgmma routes, K4 and K6 never; K5 forward and backward
+           replayed on the path's inputs (S 1,536, two query heads a KV
+           head); the 2-layer float32 gradient slice, card against host,
+           within ``VLM_TRAIN_SLICE_LOSS_TOL`` and
+           ``VLM_TRAIN_SLICE_TOL``;
 11. report one JSON line of kernels (K1-K6, ctrl_step and K4's, K5's
-           and K6's backward), the card line, and the ``{"ok": ...}`` line
-           last.
+           and K6's backward; a forward kernel's launches are its serves'
+           and training paths' together, a backward's its training
+           paths'), the card line, and the ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -267,7 +298,8 @@ non-zero and prints no result.  It imports nothing of JAX.
     python3 chip_smoke.py --readings   # not part of the smoke
 
 builds the kernels and prints the readings behind ``SLICE_TOL``,
-``RWKV_SLICE_TOL``, ``TRAIN_SLICE_TOL`` and ``RWKV_TRAIN_SLICE_TOL``
+``RWKV_SLICE_TOL``, ``TRAIN_SLICE_TOL``, ``RWKV_TRAIN_SLICE_TOL`` and the
+two InternVL2-2B limits
 (each slice check at three seeds, sound and with planted kernel faults,
 the RWKV6 one sound at seven more; the train slices' faults in the
 backward) and one decode step of
@@ -423,6 +455,32 @@ TRAIN_SLICE_TOL, TRAIN_SLICE_LOSS_TOL = 0.007, 1e-4
 RWKV_TRAIN_SLICE_TOL, RWKV_TRAIN_SLICE_LOSS_TOL = 1.3e-4, 4e-6
 #: The context K6's backward is also replayed at, one sequence.
 RWKV_CONTEXT = 4096
+#: The OLMoE training path again with the DP-local MoE dispatch: the same
+#: model, batch, steps and rate over TRAIN_GROUPS token groups (512 tokens
+#: a group), and its train slice at TRAIN_GROUPS (the same limits).
+TRAIN_GROUPS = 4
+#: InternVL2-2B (the vlm family: InternLM2-1.8B behind a stubbed vision
+#: tower).  Its serve takes the serve's requests behind the engine's
+#: 1,024 zero patch rows; its training path TRAIN_STEPS steps of TRAIN_B x
+#: (1,024 seeded patch rows at VLM_PATCH_STD, the embedding table's scale,
+#: + TRAIN_S tokens) at TRAIN_LR, remat, no balancer.  Its serve slice
+#: (full width, 2 layers, seeded patches at VLM_PATCH_STD ahead of the
+#: SLICE_B x SLICE_S prompt, SLICE_STEPS decode steps): the largest |logit
+#: difference| at a text position or decode step (VLM_SLICE_TOL); its
+#: train slice (2 layers, float32, the patches ahead of a TRAIN_SLICE_B x
+#: TRAIN_SLICE_S batch): the largest gradient difference relative to its
+#: leaf's largest entry and |loss difference| (VLM_TRAIN_SLICE_TOL,
+#: VLM_TRAIN_SLICE_LOSS_TOL).  Each set from ``python3 chip_smoke.py
+#: --readings`` near the geometric mean of what sound runs reached at
+#: seeds 0-2 and the nearest planted K5 fault (H100): logits 0.0469 at
+#: every seed against 0.861 (K5 fed q with its last of hd's terms zeroed;
+#: the mask off 2.76, q scaled twice 5.45); gradients 5.01e-6 against
+#: 0.195 (the same fault; the backward's faults 0.32-2.19); the loss
+#: 9.54e-7 (one float32 ulp at ~11.9) against 0.00238 (q scaled twice;
+#: the backward's faults leave the loss as it is).
+VLM_ARCH, VLM_PATCH_STD = "internvl2-2b", 0.02
+VLM_SLICE_TOL = 0.2
+VLM_TRAIN_SLICE_TOL, VLM_TRAIN_SLICE_LOSS_TOL = 1e-3, 5e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1356,6 +1414,21 @@ class PathRecorder(Recorder):
 
     def key(self, *args):
         return (self.label,)
+
+
+class RowsRecorder(Recorder):
+    """The recorder of K4's forward that also adds up the ``rows`` of every
+    call, on the card (no readback until it is read)."""
+
+    def __init__(self, module, name: str):
+        super().__init__(module, name)
+        self.rows = 0
+
+    def __call__(self, *args, **kw):
+        rows = args[2] if len(args) > 2 else kw.get("rows")
+        if rows is not None:
+            self.rows = self.rows + rows.long().sum()
+        return super().__call__(*args, **kw)
 
 
 class FoldRecorder(Recorder):
@@ -2528,10 +2601,12 @@ def _leaves(tree):
         yield tree
 
 
-def model_replay_phase(torch, k4, k5, k4_first, k5_first):
+def model_replay_phase(torch, k4, k5, k4_first, k5_first,
+                       long_context: bool = True):
     """K4 and K5 against their plain versions on the inputs the serve gave
     them, timed beside the plain versions, one library call each and the
-    bound.  Returns (max errors, the JSON records' numbers per kernel)."""
+    bound; with ``long_context`` K5 also at OLMoE's 4096 tokens.  Returns
+    (max errors, the JSON records' numbers per kernel)."""
     errs = {"segment_matmul": 0.0, "flash_attention": 0.0}
     main = {}
     for key, ((x, w, rows), _) in k4_first.items():
@@ -2581,6 +2656,8 @@ def model_replay_phase(torch, k4, k5, k4_first, k5_first):
             f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound; the host submits "
             f"a call in {submit_ms:.5f} ms)")
         main.setdefault("flash_attention", t)
+    if not long_context:
+        return errs, main
     # OLMoE's context, 4096 tokens, at the serve's batch and heads.
     q, k, v = (randn(torch, 70 + i, (SERVE_BATCH, 16, 4096, 128),
                      torch.bfloat16) for i in range(3))
@@ -2646,12 +2723,14 @@ def slice_model(torch, seed: int, arch: str = "olmoe-1b-7b"):
     return cfg, gpu, _to_cpu(gpu), toks
 
 
-def slice_logits(torch, cfg, params, toks, dev: str):
-    """The prefill of the first SLICE_S tokens at every position, then
-    SLICE_STEPS decode steps fed the next tokens (teacher forcing).
-    Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]`` and each
-    token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]`` (sorted
-    within a layer; None for a model without experts), on the host."""
+def slice_logits(torch, cfg, params, toks, dev: str, patches=None):
+    """The prefill of the first SLICE_S tokens at every position (behind
+    ``patches``, the vlm family's patch rows, whose positions are not
+    returned), then SLICE_STEPS decode steps fed the next tokens (teacher
+    forcing).  Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]``
+    and each token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]``
+    (sorted within a layer; None for a model without experts), on the
+    host."""
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.models import moe as moe_lib
 
@@ -2670,15 +2749,18 @@ def slice_logits(torch, cfg, params, toks, dev: str):
             calls.clear()
 
     out, routes = [], []
+    batch = {"tokens": toks[:, :SLICE_S].to(dev)}
+    n0 = 0
+    if patches is not None:
+        batch["patches"] = patches.to(dev)
+        n0 = patches.shape[1]
     with StandIn(moe_lib, "router_topk", routed):
-        cache = init_cache(cfg, SLICE_B, SLICE_S + SLICE_STEPS, dev)
-        logits, cache = prefill(params, cfg,
-                                {"tokens": toks[:, :SLICE_S].to(dev)}, cache,
-                                all_positions=True)
-        take(logits, SLICE_S)
+        cache = init_cache(cfg, SLICE_B, n0 + SLICE_S + SLICE_STEPS, dev)
+        logits, cache = prefill(params, cfg, batch, cache, all_positions=True)
+        take(logits[:, n0:], SLICE_S)
         for i in range(SLICE_S, SLICE_S + SLICE_STEPS):
             logits, cache = decode_step(params, cfg, toks[:, i:i + 1].to(dev),
-                                        cache, i)
+                                        cache, n0 + i)
             take(logits, 1)
     return torch.cat(out, dim=1), (torch.cat(routes, dim=1) if routes
                                    else None)
@@ -2783,15 +2865,14 @@ def rwkv_replay_phase(torch, k6, first):
     return err, main
 
 
-def rwkv_slice_compare(card, host):
+def rwkv_slice_compare(card, host, tol: float = RWKV_SLICE_TOL):
     """Card against host at every token: the largest |logit difference|
     (over the prompt's positions and per decode step), and the greedy
-    tokens, compared where the card's top-2 margin exceeds
-    RWKV_SLICE_TOL."""
+    tokens, compared where the card's top-2 margin exceeds ``tol``."""
     lc, lh = card[0], host[0]
     err = (lc - lh).abs().amax(dim=-1)                  # [B, P]
     top2 = lc.topk(2, dim=-1).values
-    sure = (top2[..., 0] - top2[..., 1]) > RWKV_SLICE_TOL
+    sure = (top2[..., 0] - top2[..., 1]) > tol
     same = lc.argmax(-1) == lh.argmax(-1)
     return dict(err=float(err.max()), prompt_err=float(err[:, :SLICE_S].max()),
                 steps=[float(e) for e in err[:, SLICE_S:].amax(dim=0)],
@@ -3180,12 +3261,13 @@ def train_kernel_phase(torch, k4, k5) -> dict:
     return errs
 
 
-def train_config(torch):
+def train_config(torch, groups: int = 1):
     """The training path's model, its training config and its batch: the
     published OLMoE-1B-7B widths at TRAIN_LAYERS layers with TRAIN_SLOTS
-    spare replica slots, bf16 compute, remat, the balancer on 4 shards;
-    TRAIN_B x TRAIN_S tokens from ``SkewAwarePipeline`` fed
-    ``zipf_doc_lengths``, as ``launch/train.py`` builds a batch."""
+    spare replica slots and ``groups`` token groups in its MoE dispatch,
+    bf16 compute, remat, the balancer on 4 shards; TRAIN_B x TRAIN_S
+    tokens from ``SkewAwarePipeline`` fed ``zipf_doc_lengths``, as
+    ``launch/train.py`` builds a batch."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.moe_balancer import MoEBalancerConfig
@@ -3196,7 +3278,8 @@ def train_config(torch):
 
     cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
                               n_layers=TRAIN_LAYERS,
-                              moe_replica_slots=TRAIN_SLOTS)
+                              moe_replica_slots=TRAIN_SLOTS,
+                              moe_token_groups=groups)
     tc = TrainConfig(
         opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                         total_steps=TRAIN_STEPS),
@@ -3231,12 +3314,15 @@ def replicas_equal(torch, tr) -> int:
     return n
 
 
-def train_phase(torch, k4, k5):
-    """TRAIN_STEPS steps of the training path on one repeated batch, a hot
-    expert planted in every layer's router (``tests/test_moe_balancer.py``'s
-    ``_skewed_moe``), every kernel's count set to 0 just before and read
-    just after.  Requires a finite loss, lower at the last step than the
-    first; an ``sbr_replicate``; every replica equal to its primary after
+def train_phase(torch, k4, k5, groups: int = 1):
+    """TRAIN_STEPS steps of the training path (``groups`` token groups in
+    its MoE dispatch) on one repeated batch, a hot expert planted in every
+    layer's router (``tests/test_moe_balancer.py``'s ``_skewed_moe``),
+    every kernel's count set to 0 just before and read just after.  K4's
+    forward ``rows`` (the rows it computes) are summed against the kept
+    (token, slot) pairs of the layers' slot tables (the live rows).
+    Requires a finite loss, lower at the last step than the first; an
+    ``sbr_replicate``; every replica equal to its primary after
     every step; K4's forward launches 3 a layer per forward run (twice a
     step under remat), all on its tiles kernel, and its backward 6 a layer a
     step, on the tiles kernel's dx and dw forms (3 each); K5's forward one a
@@ -3244,10 +3330,11 @@ def train_phase(torch, k4, k5):
     a step on its wgmma route (the prep pass, ``flash_bwd_dkv_wgmma``,
     ``flash_bwd_dq_wgmma``).  Returns (launches, a summary, the recorders,
     whose ``first`` holds the first call of each kernel at each shape)."""
+    from repro_torch.models import moe as moe_lib
     from repro_torch.train import Trainer
     from repro_torch.train import optimizer as topt
 
-    cfg, tc, batch = train_config(torch)
+    cfg, tc, batch = train_config(torch, groups)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, tc, seed=0, device="cuda")
@@ -3276,14 +3363,23 @@ def train_phase(torch, k4, k5):
                     "flash_attention": k5.routes,
                     "flash_attention_bwd": k5.bwd_routes}
     recs = {name: Recorder(mod, name) for mod, name in names}
+    recs["segment_matmul"] = RowsRecorder(k4, "segment_matmul")
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    tables = moe_lib.slot_tables
+
+    def counted_tables(keep, *args):
+        live.add_(keep.sum())
+        return tables(keep, *args)
+
     for mod, name in names:
         getattr(mod, name).launches = 0
     before = {n: dict(t) for n, t in route_tables.items()}
-    losses, times = [], []
+    losses, times, dropped = [], [], []
     with contextlib.ExitStack() as stack:
         for rec in recs.values():
             stack.enter_context(rec)
         stack.enter_context(StandIn(topt, "update", timed_update))
+        stack.enter_context(StandIn(moe_lib, "slot_tables", counted_tables))
         for step in range(TRAIN_STEPS):
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -3291,10 +3387,11 @@ def train_phase(torch, k4, k5):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - start)
             losses.append(m["loss"])
+            dropped.append(m["dropped_frac"])
             check(math.isfinite(m["loss"]),
                   f"train: non-finite loss at step {step}")
             n_replicas = replicas_equal(torch, tr)
-            log(f"train: step {step}: loss {m['loss']:.5f}, dropped "
+            log(f"train: G{groups} step {step}: loss {m['loss']:.5f}, dropped "
                 f"{m['dropped_frac']:.4f}, representativeness "
                 f"{m['representativeness']:.4f}, {times[-1]:.3f} s, "
                 f"{n_replicas} replica slots equal to their primaries")
@@ -3329,13 +3426,20 @@ def train_phase(torch, k4, k5):
         step_s=sum(steady) / len(steady), tokens=tokens,
         update_s=spent[0] / max(spent[1], 1), peak_gib=peak,
         events=[(e.tick, e.kind) for e in events], routes=routes,
-        bytes_migrated=bytes_migrated, n_layers=L)
+        bytes_migrated=bytes_migrated, n_layers=L, groups=groups,
+        dropped=dropped,
+        # three K4 forward calls a layer a forward run share one rows
+        rows=int(recs["segment_matmul"].rows) // 3, live=int(live))
+    check(summary["rows"] >= summary["live"] > 0,
+          f"train: K4's rows sum {summary['rows']} does not cover the "
+          f"{summary['live']} live rows")
     del tr
     torch.cuda.empty_cache()
     return launches, summary, recs
 
 
-def train_replay_phase(torch, k4, k5, recs):
+def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
+                       long_context: bool = True):
     """K4 and K5, forward and backward, against their plain versions on
     the inputs the training path gave them (each recorder's first call at
     each shape), each on the route the path took (the backward's: K4's dx
@@ -3343,9 +3447,10 @@ def train_replay_phase(torch, k4, k5, recs):
     backward timed beside the plain version, the library's (``torch.bmm``
     for dx and dw; SDPA's backward through ``torch.autograd.grad``, a
     yardstick never on the path) and the bound of its route, the forward
-    logged beside its own.  Then K5's backward at OLMoE's context, 1 x 4096
-    tokens through the model's views with the forward's lse, checked and
-    timed alike (a shape the path does not run).  Returns (max errors, the
+    logged beside its own.  Then, with ``long_context``, K5's backward at
+    OLMoE's context, 1 x 4096 tokens through the model's views with the
+    forward's lse, checked and timed alike (a shape the path does not
+    run).  ``label`` names the path in the log.  Returns (max errors, the
     JSON records' numbers per kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -3354,8 +3459,7 @@ def train_replay_phase(torch, k4, k5, recs):
     for key, ((x, w, rows), _) in recs["segment_matmul"].first.items():
         E, C, D = x.shape
         Fo = w.shape[2]
-        what = (f"segment_matmul on the training path's x {(E, C, D)} w "
-                f"{(E, D, Fo)}")
+        what = f"segment_matmul on the {label}'s x {(E, C, D)} w {(E, D, Fo)}"
         before = dict(k4.routes)
         got = k4.segment_matmul(x, w, rows)
         took = [r for r in k4.ROUTES if k4.routes[r] > before[r]]
@@ -3369,7 +3473,7 @@ def train_replay_phase(torch, k4, k5, recs):
             f"live bound {t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of "
             f"it)")
     for key, ((q, k, v), kw) in recs["flash_attention"].first.items():
-        what = f"flash_attention on the training path's q {tuple(q.shape)}"
+        what = f"flash_attention on the {label}'s q {tuple(q.shape)}"
         kw = {n: a for n, a in kw.items() if n != "return_lse"}
         scale = kw.get("scale")
         scale = q.shape[-1] ** -0.5 if scale is None else scale
@@ -3384,8 +3488,8 @@ def train_replay_phase(torch, k4, k5, recs):
             recs["segment_matmul_backward"].first.items()):
         E, C, D = x.shape
         Fo = w.shape[2]
-        what = (f"segment_matmul_backward on the training path's x "
-                f"{(E, C, D)} w {(E, D, Fo)}")
+        what = (f"segment_matmul_backward on the {label}'s x {(E, C, D)} w "
+                f"{(E, D, Fo)}")
         before = dict(k4.bwd_routes)
         got = k4.segment_matmul_backward(dout, x, w, rows)
         took = [r for r in k4.BWD_ROUTES if k4.bwd_routes[r] > before[r]]
@@ -3411,19 +3515,24 @@ def train_replay_phase(torch, k4, k5, recs):
         if D > Fo and "segment_matmul_backward" not in main:
             main["segment_matmul_backward"] = (ms, plain_ms, lib_ms, b_ms,
                                                b_by)
-    # OLMoE's context in the model's [B, S, H, hd] layout, one sequence.
-    q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, 16, 128), torch.bfloat16)
-                   .transpose(1, 2) for i in range(3))
-    out4, lse4 = k5.flash_attention(q4, k4_, v4, causal=True, return_lse=True)
-    long_ctx = ((q4, k4_, v4, out4,
-                 randn(torch, 93, (1, 16, 4096, 128), torch.float32)),
-                {"causal": True, "lse": lse4})
     firsts = list(recs["flash_attention_bwd"].first.values())
-    for i, ((q, k, v, out, dout), kw) in enumerate(firsts + [long_ctx]):
+    extra = []
+    if long_context:
+        # OLMoE's context in the model's [B, S, H, hd] layout, one sequence.
+        q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, 16, 128),
+                             torch.bfloat16).transpose(1, 2)
+                       for i in range(3))
+        out4, lse4 = k5.flash_attention(q4, k4_, v4, causal=True,
+                                        return_lse=True)
+        extra.append(((q4, k4_, v4, out4,
+                       randn(torch, 93, (1, 16, 4096, 128), torch.float32)),
+                      {"causal": True, "lse": lse4}))
+        del q4, k4_, v4, out4, lse4
+    for i, ((q, k, v, out, dout), kw) in enumerate(firsts + extra):
         B, H, S, hd = q.shape
         KV, T = k.shape[1], k.shape[2]
-        what = (f"flash_attention_bwd on the training path's q "
-                f"{tuple(q.shape)}" if i < len(firsts) else
+        what = (f"flash_attention_bwd on the {label}'s q {tuple(q.shape)}"
+                if i < len(firsts) else
                 f"flash_attention_bwd at OLMoE's context, q {tuple(q.shape)}")
         causal, scale = kw.get("causal", True), kw.get("scale")
         scale = hd ** -0.5 if scale is None else scale
@@ -3440,7 +3549,8 @@ def train_replay_phase(torch, k4, k5, recs):
             *a, **plain_kw), (q, k, v, out, dout), 3)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              scale=scale)
+                                              scale=scale,
+                                              enable_gqa=KV != H)
         g = dout.to(sdpa.dtype)
         lib_ms = time_ms(torch, lambda: torch.autograd.grad(
             sdpa, (qg, kg, vg), g, retain_graph=True), (), 10)
@@ -3453,16 +3563,71 @@ def train_replay_phase(torch, k4, k5, recs):
             main.setdefault("flash_attention_bwd", (ms, plain_ms, lib_ms,
                                                     b_ms, b_by))
         del sdpa, qg, kg, vg
-    del long_ctx, q4, k4_, v4, out4, lse4
+    del extra
     torch.cuda.empty_cache()
     return errs, main
 
 
-def train_slice_model(torch, seed: int):
+def grouped_replay_phase(torch, k4, recs):
+    """K4's forward and backward against their plain versions on the
+    inputs the path with TRAIN_GROUPS token groups gave them (the first
+    call at each shape: each slot's queues of all groups, ``rows`` reaching
+    the last live row of its last live group, dead sentinel rows inside),
+    each on the tiles kernel; the forward timed with the path's ``rows``
+    beside the same call with each slot's live count as its ``rows`` (the
+    rows a form with ``rows`` per (slot, group) would compute).  Returns
+    (max errors, [(rows sum, live sum, ms, ms at the live counts)] per
+    forward shape)."""
+    errs = {"segment_matmul": 0.0, "segment_matmul_backward": 0.0}
+    dead = []
+    for (x, w, rows), _ in recs["segment_matmul"].first.values():
+        E, C, D = x.shape
+        Fo = w.shape[2]
+        what = (f"segment_matmul on the G{TRAIN_GROUPS} training path's x "
+                f"{(E, C, D)} w {(E, D, Fo)}")
+        errs["segment_matmul"] = max(errs["segment_matmul"],
+                                     check_segment_matmul(
+                                         torch, what,
+                                         k4.segment_matmul(x, w, rows), x, w,
+                                         rows))
+        live = (x.abs().amax(dim=-1) > 0).sum(dim=1).to(torch.int32)
+        ms = time_ms(torch, k4.segment_matmul, (x, w, rows), 20)
+        live_ms = time_ms(torch, k4.segment_matmul, (x, w, live), 20)
+        n_rows, n_live = int(rows.sum()), int(live.sum())
+        dead.append((n_rows, n_live, ms, live_ms))
+        log(f"replay: {what}: rows sum {n_rows} over {n_live} live rows "
+            f"({100 * (n_rows / n_live - 1):.2f}% dead inside the "
+            f"prefixes): {ms:.5f} ms, {live_ms:.5f} ms with each slot's "
+            f"live count as its rows (the dead rows "
+            f"{100 * (1 - live_ms / ms):.1f}% of the call)")
+    for (dout, x, w, rows), _ in (
+            recs["segment_matmul_backward"].first.values()):
+        E, C, D = x.shape
+        Fo = w.shape[2]
+        what = (f"segment_matmul_backward on the G{TRAIN_GROUPS} training "
+                f"path's x {(E, C, D)} w {(E, D, Fo)}")
+        before = dict(k4.bwd_routes)
+        got = k4.segment_matmul_backward(dout, x, w, rows)
+        took = [r for r in k4.BWD_ROUTES if k4.bwd_routes[r] > before[r]]
+        check(took == ["dx_tiles", "dw_tiles"],
+              f"{what}: ran {took}, not the path's dx and dw forms")
+        errs["segment_matmul_backward"] = max(
+            errs["segment_matmul_backward"], check_seg_bwd(
+                torch, k4, what, got, dout, x, w, rows))
+        ms = time_ms(torch, k4.segment_matmul_backward, (dout, x, w, rows),
+                     10)
+        log(f"replay: {what} (rows sum {int(rows.sum())} of {E * C}): "
+            f"{ms:.5f} ms a call of two launches")
+        del got
+    torch.cuda.empty_cache()
+    return errs, dead
+
+
+def train_slice_model(torch, seed: int, groups: int = 1):
     """OLMoE-1B-7B at full width and TRAIN_SLICE_LAYERS layers, float32
-    compute (K4 and K5 on their fma routes), TRAIN_SLOTS replica slots and
-    a split routing table (expert 0 over its slot and the first spare, at
-    0.6 / 0.4, every layer), weights from ``seed`` on the card and a copy
+    compute (K4 and K5 on their fma routes), TRAIN_SLOTS replica slots,
+    ``groups`` token groups and a split routing table (expert 0 over its
+    slot and the first spare, at 0.6 / 0.4, every layer), weights from ``seed`` on the card and a copy
     on the host, and a TRAIN_SLICE_B x TRAIN_SLICE_S batch from
     ``seed + 1``.  Returns (cfg, card params, host params, batch,
     routing)."""
@@ -3473,6 +3638,7 @@ def train_slice_model(torch, seed: int):
     cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
                               n_layers=TRAIN_SLICE_LAYERS,
                               moe_replica_slots=TRAIN_SLOTS,
+                              moe_token_groups=groups,
                               compute_dtype="float32")
     gpu = init_params(cfg, seed, "cuda")
     rng = np.random.default_rng(seed + 1)
@@ -3509,8 +3675,9 @@ def train_slice_compare(card, host):
                 leaves=len(gh))
 
 
-def train_slice_phase(torch):
-    """The training path's gradient at 2 layers, card against host: one
+def train_slice_phase(torch, groups: int = 1):
+    """The training path's gradient at 2 layers (``groups`` token groups),
+    card against host: one
     ``loss_fn`` gradient of the same weights (seed 0) and batch through
     K4's and K5's forward and backward on the card, and through their
     plain versions on the host.  The loss must agree within
@@ -3519,7 +3686,7 @@ def train_slice_phase(torch):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import segment_matmul as ksm
 
-    cfg, gpu, cpu, batch, routing = train_slice_model(torch, 0)
+    cfg, gpu, cpu, batch, routing = train_slice_model(torch, 0, groups)
     tables = (ksm.routes, ksm.bwd_routes, kfa.routes, kfa.bwd_routes)
     before = [dict(t) for t in tables]
     bwd = kfa.flash_attention_bwd.launches
@@ -3621,7 +3788,8 @@ def train_slice_readings(torch, seeds=(0, 1, 2)):
 
 def log_train(tn, launches, smi: str) -> None:
     log(f"train: OLMoE-1B-7B at full width, {tn['n_layers']} layers, "
-        f"{TRAIN_SLOTS} replica slots ({tn['n_params']:,} float32 params "
+        f"{TRAIN_SLOTS} replica slots, {tn['groups']} token group(s) "
+        f"({tn['n_params']:,} float32 params "
         f"from seed 0 in {tn['init_s']:.1f} s), batch {TRAIN_B} x {TRAIN_S}, "
         f"{TRAIN_STEPS} steps with remat: loss {tn['losses'][0]:.5f} -> "
         f"{tn['losses'][-1]:.5f}; {tn['step_s']:.4f} s a step after the "
@@ -3629,8 +3797,11 @@ def log_train(tn, launches, smi: str) -> None:
         f"tokens/s, the AdamW update {tn['update_s']:.4f} s a step "
         f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
         f"{tn['peak_gib']:.2f} GiB; balancer events {tn['events']}, "
-        f"{tn['bytes_migrated'] / 2**20:.1f} MiB migrated; launches "
-        f"{launches} by route {tn['routes']} | {smi}")
+        f"{tn['bytes_migrated'] / 2**20:.1f} MiB migrated; dropped "
+        f"{tn['dropped'][0]:.4f} -> {tn['dropped'][-1]:.4f}; K4's forward "
+        f"rows sum {tn['rows']:,} over {tn['live']:,} live rows "
+        f"({100 * (tn['rows'] / tn['live'] - 1):.2f}% dead rows inside the "
+        f"prefixes); launches {launches} by route {tn['routes']} | {smi}")
 
 
 # --------------------------------------------------------------------- #
@@ -3959,18 +4130,19 @@ def rwkv_train_config(torch):
     return cfg, tc, batch
 
 
-def rwkv_train_phase(torch, k4, k5, k6):
-    """TRAIN_STEPS steps of RWKV6-1.6B at full width on one repeated
-    batch, every kernel's count set to 0 just before and read just after:
-    the loss finite at every step and lower at the last than the first;
-    K6's forward twice a layer a step (remat runs each block's forward
-    again in the backward) and its backward once a layer a step; K4 and K5
-    (forward and backward) never.  Returns (launches, a summary, the
-    recorders of K6's forward and backward)."""
+def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
+                      want, want_routes=None):
+    """TRAIN_STEPS steps of a training path without a balancer on one
+    repeated batch, every count of ``names`` ((module, wrapper name)
+    pairs) set to 0 just before and read just after, the wrappers named in
+    ``recorded`` recorded: the loss finite at every step and lower at the
+    last than the first, the launches equal to ``want`` and, for each
+    wrapper in ``want_routes``, by route (its module's ``routes`` or
+    ``bwd_routes`` table).  Returns (launches, a summary, the
+    recorders)."""
     from repro_torch.train import Trainer
     from repro_torch.train import optimizer as topt
 
-    cfg, tc, batch = rwkv_train_config(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, tc, seed=0, device="cuda")
@@ -3978,7 +4150,7 @@ def rwkv_train_phase(torch, k4, k5, k6):
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(tr.params))
     check(not tr.use_balancer and not tr.balancers,
-          "train: the RWKV6 trainer armed a balancer")
+          f"train: the {label} trainer armed a balancer")
     update = topt.update
     spent = [0.0, 0]
 
@@ -3991,12 +4163,14 @@ def rwkv_train_phase(torch, k4, k5, k6):
         spent[1] += 1
         return out
 
-    names = [(k4, "segment_matmul"), (k4, "segment_matmul_backward"),
-             (k5, "flash_attention"), (k5, "flash_attention_bwd"),
-             (k6, "rwkv_scan"), (k6, "rwkv_scan_bwd")]
-    recs = {name: Recorder(mod, name) for mod, name in names[4:]}
+    recs = {name: Recorder(mod, name) for mod, name in names
+            if name in recorded}
+    tables = {name: getattr(mod, "bwd_routes" if name.endswith("_bwd")
+                            else "routes")
+              for mod, name in names if name in (want_routes or {})}
     for mod, name in names:
         getattr(mod, name).launches = 0
+    before = {n: dict(t) for n, t in tables.items()}
     losses, times = [], []
     with contextlib.ExitStack() as stack:
         for rec in recs.values():
@@ -4010,29 +4184,50 @@ def rwkv_train_phase(torch, k4, k5, k6):
             times.append(time.perf_counter() - start)
             losses.append(m["loss"])
             check(math.isfinite(m["loss"]),
-                  f"train: RWKV6 non-finite loss at step {step}")
-            log(f"train: RWKV6 step {step}: loss {m['loss']:.5f}, "
+                  f"train: {label} non-finite loss at step {step}")
+            log(f"train: {label} step {step}: loss {m['loss']:.5f}, "
                 f"{times[-1]:.3f} s")
     launches = {name: getattr(mod, name).launches for mod, name in names}
+    routes = {n: {r: t[r] - before[n][r] for r in t if t[r] > before[n][r]}
+              for n, t in tables.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     L, S = cfg.n_layers, TRAIN_STEPS
-    want = {n: 0 for _, n in names[:4]}
-    want.update(rwkv_scan=2 * L * S, rwkv_scan_bwd=L * S)
-    check(launches == want,
-          f"train: RWKV6 launched {launches} over {S} steps of {L} layers, "
-          f"not {want} (remat runs each forward twice a step)")
+    check(launches == want and routes == (want_routes or {}),
+          f"train: {label} launched {launches} by route {routes} over {S} "
+          f"steps of {L} layers, not {want} by route {want_routes} (remat "
+          f"runs each forward twice a step)")
     check(losses[-1] < losses[0],
-          f"train: the RWKV6 loss did not fall ({losses[0]:.5f} -> "
+          f"train: the {label} loss did not fall ({losses[0]:.5f} -> "
           f"{losses[-1]:.5f})")
     steady = times[1:]
+    B, T = batch["tokens"].shape
+    if "patches" in batch:
+        T += batch["patches"].shape[1]
     summary = dict(n_params=n_params, init_s=init_s, losses=losses,
                    times=times, step_s=sum(steady) / len(steady),
-                   tokens=TRAIN_B * TRAIN_S,
-                   update_s=spent[0] / max(spent[1], 1), peak_gib=peak,
-                   n_layers=L)
+                   tokens=B * T, update_s=spent[0] / max(spent[1], 1),
+                   peak_gib=peak, n_layers=L, routes=routes)
     del tr
     torch.cuda.empty_cache()
     return launches, summary, recs
+
+
+def rwkv_train_phase(torch, k4, k5, k6):
+    """TRAIN_STEPS steps of RWKV6-1.6B at full width on one repeated
+    batch (``model_train_phase``): K6's forward twice a layer a step
+    (remat runs each block's forward again in the backward) and its
+    backward once a layer a step; K4 and K5 (forward and backward) never.
+    Returns (launches, a summary, the recorders of K6's forward and
+    backward)."""
+    cfg, tc, batch = rwkv_train_config(torch)
+    names = [(k4, "segment_matmul"), (k4, "segment_matmul_backward"),
+             (k5, "flash_attention"), (k5, "flash_attention_bwd"),
+             (k6, "rwkv_scan"), (k6, "rwkv_scan_bwd")]
+    L, S = cfg.n_layers, TRAIN_STEPS
+    want = {n: 0 for _, n in names[:4]}
+    want.update(rwkv_scan=2 * L * S, rwkv_scan_bwd=L * S)
+    return model_train_phase(torch, "RWKV6", cfg, tc, batch, names,
+                             ("rwkv_scan", "rwkv_scan_bwd"), want)
 
 
 def rwkv_train_replay_phase(torch, k6, recs):
@@ -4219,9 +4414,10 @@ def log_rwkv_train(tn, launches, smi: str) -> None:
 
 
 def rwkv_train_phases(torch, kseg, kfa, krw, kernel_err: float, smi: str):
-    """Phase 10's RWKV6 half after its kernel checks: the training path,
+    """Phase 10's RWKV6 part after its kernel checks: the training path,
     K6 replayed on its inputs, the 2-layer slice.  Returns (the JSON record
-    of K6's backward, the largest error of K6's forward in this phase)."""
+    of K6's backward, the largest error of K6's forward in this phase, K6's
+    forward launches on the path)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches, tn, recs = rwkv_train_phase(torch, kseg, kfa, krw)
@@ -4245,7 +4441,331 @@ def rwkv_train_phases(torch, kseg, kfa, krw, kernel_err: float, smi: str):
         launches=launches["rwkv_scan_bwd"],
         max_abs_err=max(kernel_err, errs["rwkv_scan_bwd"]), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    return record, errs["rwkv_scan"]
+    return record, errs["rwkv_scan"], launches["rwkv_scan"]
+
+
+# --------------------------------------------------------------------- #
+# 9b and 10c. InternVL2-2B, the vlm family: serve, train, slices          #
+# --------------------------------------------------------------------- #
+def vlm_slice_model(torch, seed: int):
+    """InternVL2-2B at full width and 2 layers with weights from ``seed``
+    on the card and a copy on the host, SLICE_B x (SLICE_S + SLICE_STEPS)
+    tokens from ``seed + 1`` and SLICE_B x n_patches float32 patch rows at
+    VLM_PATCH_STD from ``seed + 2``, on the host.  Returns (cfg, card
+    params, host params, tokens, patches)."""
+    cfg, gpu, cpu, toks = slice_model(torch, seed, VLM_ARCH)
+    patches = randn(torch, seed + 2, (SLICE_B, cfg.n_patches, cfg.d_model),
+                    torch.float32, VLM_PATCH_STD).cpu()
+    return cfg, gpu, cpu, toks, patches
+
+
+def vlm_slice_phase(torch):
+    """InternVL2-2B at full width and 2 layers, the same weights (seed 0)
+    on the card (K5: one causal call a layer over the patches and the
+    prompt, S = n_patches + SLICE_S, a ragged last tile) and on the host
+    (its plain version), over every text position of a SLICE_B x SLICE_S
+    prefill behind seeded patches and SLICE_STEPS decode steps: logits
+    within VLM_SLICE_TOL everywhere, greedy tokens equal where the card's
+    top-2 margin exceeds it.  Returns a summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    cfg, gpu, cpu, toks, patches = vlm_slice_model(torch, 0)
+    before = dict(kfa.routes)
+    card = slice_logits(torch, cfg, gpu, toks, "cuda", patches)
+    took = {r: kfa.routes[r] - before[r] for r in kfa.ROUTES
+            if kfa.routes[r] > before[r]}
+    check(took == {"wgmma": cfg.n_layers},
+          f"slice: the InternVL2-2B card side ran K5 {took}, not once a "
+          f"layer on its wgmma kernel")
+    t0 = time.perf_counter()
+    host = slice_logits(torch, cfg, cpu, toks, "cpu", patches)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card[0]).all() and torch.isfinite(host[0]).all()),
+          "slice: InternVL2-2B non-finite logits")
+    r = rwkv_slice_compare(card, host, VLM_SLICE_TOL)
+    check(r["err"] <= VLM_SLICE_TOL,
+          f"slice: InternVL2-2B card and host logits differ by "
+          f"{r['err']:.4g} (> {VLM_SLICE_TOL})")
+    check(r["agree"] == r["decided"],
+          f"slice: InternVL2-2B greedy tokens differ at "
+          f"{r['decided'] - r['agree']} of the {r['decided']} tokens whose "
+          f"top-2 margin exceeds {VLM_SLICE_TOL}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"], r["n_patches"] = cpu_s, cfg.n_patches
+    return r
+
+
+def vlm_phase(torch, kseg, kfa, kernel_mods, smi: str):
+    """Phase 9b: the InternVL2-2B serve at its published 24 layers behind
+    the engine's zero patch rows (K5 once a layer a prefill, every call on
+    its wgmma kernel; K4 and K6 never), K5 replayed on its prefills'
+    inputs and the slice check.  Returns (K5's launches in the serve, the
+    largest replay error, the replay's numbers of K5)."""
+    recs = (Recorder(kseg, "segment_matmul"), Recorder(kfa, "flash_attention"))
+    launches, sv = serve_phase(torch, kernel_mods, VLM_ARCH, recs)
+    log_serve("InternVL2-2B", sv, launches, smi)
+    want = {"fma": 0, "wgmma": sv["n_layers"] * sv["prefill"][1]}
+    got = sv["routes"]["flash_attention"]
+    check(launches["flash_attention"] == want["wgmma"] and got == want,
+          f"serve: InternVL2-2B ran flash_attention {got} over "
+          f"{sv['prefill'][1]} prefills, not {want}")
+    check(launches["segment_matmul"] == 0 and launches["rwkv_scan"] == 0,
+          f"serve: the InternVL2-2B serve launched K4 or K6: {launches}")
+    errs, main = model_replay_phase(torch, kseg, kfa, {}, recs[1].first,
+                                    long_context=False)
+    del recs
+    torch.cuda.empty_cache()
+    sl = vlm_slice_phase(torch)
+    log(f"slice: InternVL2-2B at 2 layers, card vs host over {sl['tokens']} "
+        f"tokens ({SLICE_B} x {SLICE_S} prompt positions behind "
+        f"{sl['n_patches']} patch rows, {SLICE_STEPS} decode steps): max "
+        f"|logit diff| "
+        f"{sl['err']:.5f} (allowed {VLM_SLICE_TOL}; prompt "
+        f"{sl['prompt_err']:.5f}, per decode step "
+        f"{[round(e, 5) for e in sl['steps']]}); greedy tokens equal at "
+        f"{sl['agree']} of the {sl['decided']} whose top-2 margin exceeds "
+        f"{VLM_SLICE_TOL}, and at {sl['equal']} of all {sl['tokens']}; "
+        f"host side {sl['cpu_s']:.2f} s")
+    return (launches["flash_attention"], errs["flash_attention"],
+            main["flash_attention"])
+
+
+def vlm_train_config(torch):
+    """The InternVL2-2B training path's model, training config and batch:
+    the published config whole, bf16 compute, remat, no balancer (no
+    experts); TRAIN_B x TRAIN_S tokens from ``SkewAwarePipeline`` (as
+    ``rwkv_train_config`` builds them) behind TRAIN_B x 1,024 bf16 patch
+    rows at VLM_PATCH_STD from seed 0, made on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
+                                  zipf_doc_lengths)
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(VLM_ARCH)
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_STEPS),
+                     remat=True, moe_balancer=None)
+    pipe = SkewAwarePipeline(PipelineConfig(
+        seq_len=TRAIN_S, batch_per_shard=max(TRAIN_B // 8, 1), n_shards=8,
+        vocab=cfg.vocab))
+    pipe.ingest(zipf_doc_lengths(64, TRAIN_S, seed=0))
+    nb = pipe.next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
+             for k in ("tokens", "labels")}
+    batch["patches"] = randn(torch, 0, (TRAIN_B, cfg.n_patches, cfg.d_model),
+                             torch.bfloat16, VLM_PATCH_STD)
+    return cfg, tc, batch
+
+
+def vlm_train_slice_model(torch, seed: int):
+    """InternVL2-2B at full width and TRAIN_SLICE_LAYERS layers, float32
+    compute (K5 on its fma routes), weights from ``seed`` on the card and a
+    copy on the host, a TRAIN_SLICE_B x TRAIN_SLICE_S batch from ``seed +
+    1`` behind float32 patch rows at VLM_PATCH_STD from ``seed + 2``.
+    Returns (cfg, card params, host params, batch)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              n_layers=TRAIN_SLICE_LAYERS,
+                              compute_dtype="float32")
+    gpu = init_params(cfg, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_SLICE_B, TRAIN_SLICE_S))) for k in
+        ("tokens", "labels")}
+    batch["patches"] = randn(torch, seed + 2, (TRAIN_SLICE_B, cfg.n_patches,
+                                               cfg.d_model), torch.float32,
+                             VLM_PATCH_STD).cpu()
+    return cfg, gpu, _to_cpu(gpu), batch
+
+
+def vlm_train_slice_phase(torch):
+    """The InternVL2-2B training path's gradient at 2 layers, card against
+    host: one ``loss_fn`` gradient (remat) of the same weights (seed 0) and
+    batch through K5's forward and backward on the card (float32, the fma
+    routes) and their plain versions on the host.  The loss within
+    VLM_TRAIN_SLICE_LOSS_TOL, every gradient leaf within
+    VLM_TRAIN_SLICE_TOL of its largest entry.  Returns a summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    cfg, gpu, cpu, batch = vlm_train_slice_model(torch, 0)
+    tables = (kfa.routes, kfa.bwd_routes)
+    before = [dict(t) for t in tables]
+    bwd = kfa.flash_attention_bwd.launches
+    card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+    took = [{r: t[r] - b[r] for r in t if t[r] > b[r]}
+            for t, b in zip(tables, before)]
+    bwd = kfa.flash_attention_bwd.launches - bwd
+    L = TRAIN_SLICE_LAYERS
+    check(took == [{"fma": 2 * L}, {"fma": 2 * L}] and bwd == 2 * L,
+          f"train slice: the InternVL2-2B card side ran K5 / its backward "
+          f"on {took} with {bwd} backward launches, not on the fma routes "
+          f"(forward twice a layer under remat, backward once: two "
+          f"launches)")
+    t0 = time.perf_counter()
+    host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
+                                         for g in card[1]),
+          "train slice: InternVL2-2B non-finite loss or gradient on the card")
+    r = train_slice_compare(card, host)
+    check(r["loss_err"] <= VLM_TRAIN_SLICE_LOSS_TOL,
+          f"train slice: InternVL2-2B card and host losses differ by "
+          f"{r['loss_err']:.3g} (> {VLM_TRAIN_SLICE_LOSS_TOL})")
+    check(r["grad_rel"] <= VLM_TRAIN_SLICE_TOL,
+          f"train slice: an InternVL2-2B gradient leaf differs by "
+          f"{r['grad_rel']:.3g} of its largest entry (> "
+          f"{VLM_TRAIN_SLICE_TOL})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def vlm_train_phases(torch, kseg, kfa, krw, smi: str):
+    """Phase 10's InternVL2-2B part: InternVL2-2B at its published 24
+    layers trained TRAIN_STEPS steps (K5's forward twice a layer a step
+    and its backward once, all on the wgmma routes; K4 and K6 never), K5
+    forward and backward replayed on the path's own inputs (GQA, two query
+    heads a KV head, S = 1,536) and the 2-layer float32 gradient slice.
+    Returns (the path's launches, the replay's largest errors, the
+    replay's numbers of K5's backward)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, tc, batch = vlm_train_config(torch)
+    names = [(kseg, "segment_matmul"), (kseg, "segment_matmul_backward"),
+             (kfa, "flash_attention"), (kfa, "flash_attention_bwd"),
+             (krw, "rwkv_scan"), (krw, "rwkv_scan_bwd")]
+    L, S = cfg.n_layers, TRAIN_STEPS
+    bwd = kfa.BWD_LAUNCHES["wgmma"] * L * S
+    want = dict(segment_matmul=0, segment_matmul_backward=0,
+                flash_attention=2 * L * S, flash_attention_bwd=bwd,
+                rwkv_scan=0, rwkv_scan_bwd=0)
+    launches, tn, recs = model_train_phase(
+        torch, "InternVL2-2B", cfg, tc, batch, names,
+        [n for _, n in names[:4]], want,
+        {"flash_attention": {"wgmma": 2 * L * S},
+         "flash_attention_bwd": {"wgmma": bwd}})
+    del batch
+    log(f"train: InternVL2-2B at full width, {tn['n_layers']} layers "
+        f"({tn['n_params']:,} float32 params from seed 0 in "
+        f"{tn['init_s']:.1f} s), no balancer, batch {TRAIN_B} x "
+        f"({cfg.n_patches} patch rows + {TRAIN_S} tokens), {TRAIN_STEPS} "
+        f"steps with remat: loss {tn['losses'][0]:.5f} -> "
+        f"{tn['losses'][-1]:.5f}; {tn['step_s']:.4f} s a step after the "
+        f"first ({tn['times'][0]:.3f} s), {tn['tokens'] / tn['step_s']:.1f} "
+        f"positions/s ({TRAIN_B * TRAIN_S / tn['step_s']:.1f} text "
+        f"tokens/s), the AdamW update {tn['update_s']:.4f} s a step "
+        f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
+        f"{tn['peak_gib']:.2f} GiB; launches {launches} by route "
+        f"{tn['routes']} | {smi}")
+    errs, main = train_replay_phase(torch, kseg, kfa, recs,
+                                    "InternVL2-2B training path",
+                                    long_context=False)
+    del recs
+    sl = vlm_train_slice_phase(torch)
+    log(f"train slice: InternVL2-2B at {TRAIN_SLICE_LAYERS} layers, float32, "
+        f"a {TRAIN_SLICE_B} x ({cfg.n_patches} + {TRAIN_SLICE_S}) batch, card "
+        f"vs host: |loss diff| {sl['loss_err']:.3g} (allowed "
+        f"{VLM_TRAIN_SLICE_LOSS_TOL}; loss {sl['loss']:.5f}), every one of "
+        f"{sl['leaves']} gradient leaves within {sl['grad_rel']:.3g} of its "
+        f"largest entry (allowed {VLM_TRAIN_SLICE_TOL}); host side "
+        f"{sl['cpu_s']:.2f} s")
+    log(f"train: InternVL2-2B phase in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, main.get("flash_attention_bwd")
+
+
+def vlm_planted_faults(ksm, kfa):
+    """The K5 faults of ``planted_faults`` and one nearer the sound runs:
+    K5 fed q with its last of hd's terms zeroed (the call keeps its
+    route)."""
+    k5 = kfa.flash_attention
+
+    def last_hd_dropped(q, k, v, **kw):
+        q = q.clone()
+        q[..., -1] = 0
+        return k5(q, k, v, **kw)
+
+    return [f for f in planted_faults(ksm, kfa) if f[1] is kfa] + [
+        ("K5 drops the last of hd's terms in q", kfa, "flash_attention",
+         last_hd_dropped)]
+
+
+def vlm_slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings VLM_SLICE_TOL is set from: at each seed, the
+    InternVL2-2B slice's card against its host as the check compares
+    them, sound and with each of ``vlm_planted_faults`` on the card's
+    side."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    runs = {}
+    for seed in seeds:
+        cfg, gpu, cpu, toks, patches = vlm_slice_model(torch, seed)
+        host = slice_logits(torch, cfg, cpu, toks, "cpu", patches)
+        for name, stand_in in [("sound", contextlib.nullcontext())] + [
+                (n, StandIn(m, a, f))
+                for n, m, a, f in vlm_planted_faults(ksm, kfa)]:
+            with stand_in:
+                card = slice_logits(torch, cfg, gpu, toks, "cuda", patches)
+            r = rwkv_slice_compare(card, host, VLM_SLICE_TOL)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: vlm slice seed {seed}: {name}: max |card - "
+                f"host| {r['err']:.6f} (prompt {r['prompt_err']:.6f}; per "
+                f"decode step {[round(e, 6) for e in r['steps']]}); greedy "
+                f"equal at {r['equal']} of {r['tokens']}, and at "
+                f"{r['agree']} of the {r['decided']} with a top-2 margin "
+                f"above {VLM_SLICE_TOL}")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: vlm slice {name} over seeds {list(seeds)}: max "
+            f"|diff| {min(r['err'] for r in rs):.6f} to "
+            f"{max(r['err'] for r in rs):.6f}")
+    log(f"readings: vlm slice limit: VLM_SLICE_TOL {VLM_SLICE_TOL}")
+    return runs
+
+
+def vlm_train_slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings VLM_TRAIN_SLICE_TOL and VLM_TRAIN_SLICE_LOSS_TOL are
+    set from: at each seed, the card against the host, sound and with each
+    of ``vlm_planted_faults`` and the K5 backward's planted faults on the
+    card's side."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    runs = {}
+    faults = vlm_planted_faults(ksm, kfa) + [
+        f for f in train_planted_faults(ksm, kfa) if f[1] is kfa]
+    for seed in seeds:
+        cfg, gpu, cpu, batch = vlm_train_slice_model(torch, seed)
+        host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
+        for name, stand_in in [("sound", contextlib.nullcontext())] + [
+                (n, StandIn(m, a, f)) for n, m, a, f in faults]:
+            with stand_in:
+                card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+            r = train_slice_compare(card, host)
+            runs.setdefault(name, []).append(r)
+            log(f"readings: vlm train slice seed {seed}: {name}: |loss "
+                f"diff| {r['loss_err']:.3g} (loss {r['loss']:.5f}), "
+                f"gradients within {r['grad_rel']:.3g} of each leaf's "
+                f"largest entry over {r['leaves']} leaves")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+    for name, rs in runs.items():
+        log(f"readings: vlm train slice {name} over seeds {list(seeds)}: "
+            f"|loss diff| up to {max(r['loss_err'] for r in rs):.3g}, "
+            f"gradients {min(r['grad_rel'] for r in rs):.3g} to "
+            f"{max(r['grad_rel'] for r in rs):.3g}")
+    log(f"readings: vlm train slice limits: VLM_TRAIN_SLICE_TOL "
+        f"{VLM_TRAIN_SLICE_TOL}, VLM_TRAIN_SLICE_LOSS_TOL "
+        f"{VLM_TRAIN_SLICE_LOSS_TOL}")
+    return runs
 
 
 # --------------------------------------------------------------------- #
@@ -4548,6 +5068,113 @@ def decode_readings(torch):
                 others_ms=others_ms)
 
 
+def vlm_decode_readings(torch):
+    """One decode step of the full-width InternVL2-2B serve (batch
+    SERVE_BATCH behind its 1,024 zero patch rows and a 445-token prompt,
+    the serve's longest) taken apart: the step (CUDA events over 10
+    steps), the host's time to submit one, every weight's float32 -> bf16
+    cast timed alone, and a profiler trace of one step (device busy share,
+    the ops with the most device time).  Returns the times."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    cfg = get_config(VLM_ARCH)
+    params = init_params(cfg, 0, "cuda")
+    B, S = SERVE_BATCH, 445
+    n = cfg.n_patches + S
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, S + 1))).cuda()
+    patches = torch.zeros((B, cfg.n_patches, cfg.d_model),
+                          dtype=torch.bfloat16, device="cuda")
+    cache = init_cache(cfg, B, n + 1, "cuda")
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :S],
+                                     "patches": patches}, cache)
+
+    def step():
+        return decode_step(params, cfg, toks[:, S:], cache, n)[0]
+
+    step_ms = time_ms(torch, step, (), 10)
+    submit = submit_ms(torch, step, (), 10)
+    weights = [t for t in _leaves(params) if t.dtype == torch.float32]
+    casts_ms = time_ms(
+        torch, lambda: [t.to(torch.bfloat16) for t in weights], (), 5)
+    prof, spans, busy_us = profile_busy(torch, step)
+    line = (f"readings: InternVL2-2B decode step (batch {B}, context "
+            f"{n + 1}): {step_ms:.4f} ms (CUDA events, 10 steps), the host "
+            f"submits one in {submit:.4f} ms; every weight's float32 -> "
+            f"bf16 cast timed alone {casts_ms:.4f} ms "
+            f"({sum(t.numel() for t in weights) * 6 / 1e9:.2f} GB moved)")
+    if spans:
+        ops = sorted(((device_us(e, own=True), e.count, e.key)
+                      for e in prof.key_averages()
+                      if device_us(e, own=True) > 0), reverse=True)[:6]
+        wall_us = spans[-1][1] - spans[0][0]
+        line += (f"; under the profiler {len(spans)} device spans, busy "
+                 f"{busy_us / 1e3:.4f} ms of {wall_us / 1e3:.4f} ms "
+                 f"({100 * busy_us / wall_us:.1f}%); most device time: "
+                 + "; ".join(f"{key[:60]} {us / 1e3:.4f} ms ({c} calls)"
+                             for us, c, key in ops))
+    else:
+        line += "; the profiler sees no device spans: not measured"
+    log(line)
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, submit_ms=submit, casts_ms=casts_ms)
+
+
+def grouped_step_readings(torch):
+    """One OLMoE training step (the training path's model and batch, the
+    hot expert planted, no balancer decisions after two warm steps) at one
+    and at TRAIN_GROUPS token groups, each under the profiler: the step's
+    wall (host clock, synchronised), the host's time to submit it, the
+    device's busy share and its spans, and the CPU operators whose counts
+    the groups change most.  Returns the readings by group count."""
+    from repro_torch.train import Trainer
+
+    out, counts = {}, {}
+    for groups in (1, TRAIN_GROUPS):
+        cfg, tc, batch = train_config(torch, groups)
+        tr = Trainer(cfg, tc, seed=0, device="cuda")
+        for block in tr.params["blocks"]:
+            block["moe"]["router"][:, TRAIN_HOT] += TRAIN_BOOST
+        for _ in range(2):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof, spans, busy_us = profile_busy(torch,
+                                            lambda: tr.train_step(batch))
+        counts[groups] = {e.key: (e.count, e.self_cpu_time_total,
+                                  device_us(e, own=True))
+                          for e in prof.key_averages()}
+        cpu_ops = sum(c for c, _, _ in counts[groups].values())
+        wall_us = spans[-1][1] - spans[0][0] if spans else 0.0
+        out[groups] = dict(wall=wall, spans=len(spans), busy_us=busy_us,
+                           wall_us=wall_us, cpu_ops=cpu_ops)
+        log(f"readings: OLMoE train step at {groups} token group(s): "
+            f"{wall:.4f} s (host clock); under the profiler "
+            f"{len(spans)} device spans, busy {busy_us / 1e3:.2f} ms of "
+            f"{wall_us / 1e3:.2f} ms ({100 * busy_us / max(wall_us, 1):.1f}"
+            f"%), {cpu_ops} CPU operator calls")
+        del tr
+        torch.cuda.empty_cache()
+    a, b = counts[1], counts[TRAIN_GROUPS]
+    zero = (0, 0.0, 0.0)
+    for what, i in (("CPU operators' self", 1), ("device", 2)):
+        diff = sorted(((b.get(k, zero)[0] - a.get(k, zero)[0],
+                        b.get(k, zero)[i] - a.get(k, zero)[i], k)
+                       for k in set(a) | set(b)),
+                      key=lambda t: -abs(t[1]))[:8]
+        log(f"readings: G{TRAIN_GROUPS} against G1, the {what} time that "
+            f"moved most: " + "; ".join(
+                f"{k[:70]} {dc:+d} calls, {dt / 1e3:+.2f} ms"
+                for dc, dt, k in diff))
+    return out
+
+
 def rwkv_decode_readings(torch):
     """One decode step of the full-width RWKV6 serve (batch SERVE_BATCH
     after a 256-token prefill) taken apart on the card: the step (CUDA
@@ -4678,6 +5305,10 @@ def readings() -> int:
     rwkv_decode_readings(torch)
     train_slice_readings(torch)
     rwkv_train_slice_readings(torch)
+    vlm_slice_readings(torch)
+    vlm_train_slice_readings(torch)
+    vlm_decode_readings(torch)
+    grouped_step_readings(torch)
     log(f"readings: done in {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -4736,10 +5367,12 @@ def build_logged(_build, names=None) -> None:
 
 
 def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
-    """Phase 10 after its kernel checks: the training path, the kernels
-    replayed on its inputs, the 2-layer slice.  Returns (the JSON records
-    of K5's and K4's backward, the largest errors of K4's and K5's forward
-    in this phase)."""
+    """Phase 10's OLMoE part after its kernel checks: the training path,
+    the kernels replayed on its inputs, the 2-layer slice; then the same
+    path with TRAIN_GROUPS token groups in the same call, K4 replayed on
+    its inputs and its slice.  Returns (the JSON records of K5's and K4's
+    backward, the largest errors of K4's and K5's forward in this phase,
+    the forward launches of both paths)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches, tn, recs = train_phase(torch, kseg, kfa)
@@ -4755,6 +5388,24 @@ def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
         f"within {sl['grad_rel']:.3g} of its largest entry (allowed "
         f"{TRAIN_SLICE_TOL}); host side {sl['cpu_s']:.2f} s")
     log(f"train: phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g_launches, gn, grecs = train_phase(torch, kseg, kfa, TRAIN_GROUPS)
+    log_train(gn, g_launches, smi)
+    g_errs, dead = grouped_replay_phase(torch, kseg, grecs)
+    del grecs
+    gsl = train_slice_phase(torch, TRAIN_GROUPS)
+    log(f"train slice: OLMoE-1B-7B at {TRAIN_SLICE_LAYERS} layers with "
+        f"{TRAIN_GROUPS} token groups, float32, card vs host: |loss diff| "
+        f"{gsl['loss_err']:.3g} (allowed {TRAIN_SLICE_LOSS_TOL}; loss "
+        f"{gsl['loss']:.5f}), every one of {gsl['leaves']} gradient leaves "
+        f"within {gsl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{TRAIN_SLICE_TOL}); host side {gsl['cpu_s']:.2f} s")
+    log(f"train: G{TRAIN_GROUPS} against G1 in one call: "
+        f"{gn['step_s']:.4f} s a step against {tn['step_s']:.4f}; K4's "
+        f"forward rows {gn['rows']:,} against {tn['rows']:,} over "
+        f"{gn['live']:,} / {tn['live']:,} live rows; the dead rows "
+        f"{[round(100 * (1 - lm / m), 1) for _, _, m, lm in dead]}% of K4's "
+        f"forward calls; phase in {time.perf_counter() - t0:.1f} s")
     records = []
     for name, src, replaces in (
             ("flash_attention_bwd", "flash_attention",
@@ -4765,19 +5416,51 @@ def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
         records.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
-            replaces=replaces, launches=launches[name],
-            max_abs_err=max(kernel_errs[name], errs[name]), ms=ms,
+            replaces=replaces, launches=launches[name] + g_launches[name],
+            max_abs_err=max(kernel_errs[name], errs[name],
+                            g_errs.get(name, 0.0)), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
-    return records, {"segment_matmul": errs["segment_matmul"],
+    fwd = {n: launches[n] + g_launches[n]
+           for n in ("segment_matmul", "flash_attention")}
+    return records, {"segment_matmul": max(errs["segment_matmul"],
+                                           g_errs["segment_matmul"]),
                      "flash_attention": max(kernel_errs["flash_attention"],
-                                            errs["flash_attention"])}
+                                            errs["flash_attention"])}, fwd
+
+
+def all_train_phases(torch, kseg, kfa, krw, train_errs, rwkv_bwd_err: float,
+                     smi: str):
+    """Phase 10 after its kernel checks: the OLMoE paths (one and
+    TRAIN_GROUPS token groups), RWKV6's and InternVL2-2B's, each with its
+    replays and slice, one after another (each trainer freed before the
+    next is built).  Returns (the JSON records of the backward kernels,
+    the largest errors of the forward kernels in this phase, the forward
+    kernels' launches over the training paths)."""
+    records, fwd_errs, fwd = train_phases(torch, kseg, kfa, train_errs, smi)
+    rwkv_record, fwd_errs["rwkv_scan"], fwd["rwkv_scan"] = rwkv_train_phases(
+        torch, kseg, kfa, krw, rwkv_bwd_err, smi)
+    v_launches, v_errs, v_bwd = vlm_train_phases(torch, kseg, kfa, krw, smi)
+    for rec in records:
+        if rec["name"] == "flash_attention_bwd":
+            rec["launches"] += v_launches["flash_attention_bwd"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     v_errs["flash_attention_bwd"])
+    fwd["flash_attention"] += v_launches["flash_attention"]
+    fwd_errs["flash_attention"] = max(fwd_errs["flash_attention"],
+                                      v_errs["flash_attention"])
+    check(v_bwd is not None, "replay: K5's backward was not recorded on the "
+                             "InternVL2-2B training path")
+    log(f"train: K5's backward on the InternVL2-2B path's shape: "
+        f"{v_bwd[0]:.5f} ms (plain {v_bwd[1]:.5f} ms, SDPA's backward "
+        f"{v_bwd[2]:.5f} ms, bound {v_bwd[3]:.5f} ms by {v_bwd[4]})")
+    return records + [rwkv_record], fwd_errs, fwd
 
 
 def train_only() -> int:
     """``--train``: build K4, K5 and K6 (their ``-Xptxas -v`` lines and
     ``check_sass``), then phase 10 alone (the backward kernels' checks, the
-    two training paths, their replays and slices).  Not part of the
+    four training paths, their replays and slices).  Not part of the
     smoke."""
     import torch
 
@@ -4803,9 +5486,8 @@ def train_only() -> int:
     check_sass()
     errs = train_kernel_phase(torch, kseg, kfa)
     rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
-    records = train_phases(torch, kseg, kfa, errs, smi)[0]
-    records.append(rwkv_train_phases(torch, kseg, kfa, krw, rwkv_bwd_err,
-                                     smi)[0])
+    records = all_train_phases(torch, kseg, kfa, krw, errs, rwkv_bwd_err,
+                               smi)[0]
     print(json.dumps({"kernels": records}))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     return 0
@@ -4927,14 +5609,23 @@ def main() -> int:
         launches=rwkv_launches, max_abs_err=max(rwkv_err, replay_k6_err),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
+    vlm_launches, vlm_err, vlm_main = vlm_phase(torch, kseg, kfa,
+                                                kernel_mods, smi)
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["launches"] += vlm_launches
+            rec["max_abs_err"] = max(rec["max_abs_err"], vlm_err)
+    log(f"serve: K5 on the InternVL2-2B prefill's shape: {vlm_main[0]:.5f} "
+        f"ms (plain {vlm_main[1]:.5f} ms, scaled_dot_product_attention "
+        f"{vlm_main[2]:.5f} ms, bound {vlm_main[3]:.5f} ms by {vlm_main[4]})")
     records.append(ctrl_record)
-    train_records, fwd_errs = train_phases(torch, kseg, kfa, train_errs, smi)
-    rwkv_record, fwd_errs["rwkv_scan"] = rwkv_train_phases(
-        torch, kseg, kfa, krw, rwkv_bwd_err, smi)
+    train_records, fwd_errs, fwd = all_train_phases(
+        torch, kseg, kfa, krw, train_errs, rwkv_bwd_err, smi)
     for rec in records:
         if rec["name"] in fwd_errs:
             rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
-    records += train_records + [rwkv_record]
+        rec["launches"] += fwd.get(rec["name"], 0)
+    records += train_records
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)

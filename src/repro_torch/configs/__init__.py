@@ -33,6 +33,7 @@ _MODULES: Dict[str, str] = {
     "rwkv6-1.6b": "rwkv6_1_6b",
     "yi-6b": "yi_6b",
     "granite-8b": "granite_8b",
+    "internvl2-2b": "internvl2_2b",
 }
 
 #: The architectures the port serves.

@@ -11,9 +11,12 @@ which for OLMoE-1B-7B does not fit one card (its 16 layers need about
 trains it at 6 layers) and for RWKV6-1.6B does (~23.7 GB: ``--arch
 rwkv6-1.6b`` trains all 24 layers, the recurrence's backward on K6's
 backward kernel; the ssm family has no experts, so ``--balancer`` is a
-no-op there).  Weights are random, drawn from seed 0 on the
-device.  Checkpoints are written atomically every ``--ckpt-every`` steps
-(the JAX package's layout) and training resumes from the newest one.
+no-op there), as for InternVL2-2B (~30.2 GB; the vlm family's stubbed
+vision tower gets zero bf16 patches ``[batch, n_patches, d_model]`` ahead
+of each batch's tokens, as the JAX launcher gives it).  Weights are
+random, drawn from seed 0 on the device.  Checkpoints are written
+atomically every ``--ckpt-every`` steps (the JAX package's layout) and
+training resumes from the newest one.
 """
 from __future__ import annotations
 
@@ -85,6 +88,9 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
         nb = pipe.next_batch()
         batch = {"tokens": torch.from_numpy(nb["tokens"][:args.batch]),
                  "labels": torch.from_numpy(nb["labels"][:args.batch])}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((args.batch, cfg.n_patches,
+                                            cfg.d_model), dtype=torch.bfloat16)
         metrics = tr.train_step(batch)
         log.append(metrics)
         if step % args.log_every == 0 or step == args.steps - 1:

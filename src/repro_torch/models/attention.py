@@ -111,9 +111,14 @@ def gqa_apply(
         cache["v"][:, offset:offset + S] = v.to(cache["v"].dtype)
         if S > 1:
             if offset:
+                # JAX's gqa_apply attends such a segment within itself
+                # only (q_offset = offset), which its two-segment vlm
+                # prefill meets; the port's vlm prefill is one segment at
+                # 0, so no path of the port writes one.
                 raise NotImplementedError(
-                    "a multi-token segment after a filled cache (the JAX "
-                    "model's VLM prefix path) is not ported")
+                    "a multi-token segment after a filled cache: the port "
+                    "prefills the vlm family's patches and text as one "
+                    "segment at 0, so nothing takes this path")
             out = _prefill_attention(q, k, v)
         else:
             out = decode_attention(q, cache["k"], cache["v"], offset + S)

@@ -10,15 +10,26 @@ the attention-free RWKV6 family:
     logits, cache = prefill(params, cfg, batch, cache)
     logits, cache = decode_step(params, cfg, tokens, cache, cache_len)
 
-``family`` is ``"dense"`` (SwiGLU) or ``"moe"``, with ``attn="gqa"``, or
-``"ssm"`` (RWKV6 time-mix and channel-mix, the recurrence through K6) with
-``attn="none"``; RMS norms.  The ssm family's cache is a float32 recurrent
-state per layer (``wkv`` and the two token-shift carries), so ``max_len``
-does not size it.  The other families (hybrid, encdec, vlm), MLA,
-first-k-dense prefixes and shared experts are not ported yet and raise
-(:func:`check_supported`).  MoE configurations may carry spare replica
-slots (``moe_replica_slots``) and :func:`forward` the Reshape balancer's
-routing tables (``moe_routing``, one ``[E, P]`` table a layer).
+``family`` is ``"dense"`` (SwiGLU), ``"moe"`` or ``"vlm"`` (the dense
+decoder behind stubbed patch embeddings, ``batch["patches"]`` ``[B,
+n_patches, d_model]`` prepended to the token embeddings), with
+``attn="gqa"``, or ``"ssm"`` (RWKV6 time-mix and channel-mix, the
+recurrence through K6) with ``attn="none"``; RMS norms.  The ssm family's
+cache is a float32 recurrent state per layer (``wkv`` and the two
+token-shift carries), so ``max_len`` does not size it.  The hybrid and
+encdec families, MLA, first-k-dense prefixes and shared experts are not
+ported yet and raise (:func:`check_supported`).
+
+The vlm prefill departs from JAX's (``ROADMAP.md`` §3): JAX ingests the
+patches and the text as two segments, and its ``gqa_apply`` lets the
+second attend only within itself, so its text never sees the image and
+its ``prefill`` disagrees with its ``forward``.  The port ingests
+``cat(patches, embed[tokens])`` as one segment at 0, JAX's
+``decode_step(..., embeds=joined)``, which equals JAX's ``forward``.
+
+MoE configurations may carry spare replica slots (``moe_replica_slots``)
+and :func:`forward` the Reshape balancer's routing tables
+(``moe_routing``, one ``[E, P]`` table a layer).
 
 Where JAX stacks the per-layer params for ``lax.scan``, the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops over it in
@@ -56,9 +67,11 @@ from .layers import (
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet."""
+    """Raise ``NotImplementedError`` for what the port does not serve yet:
+    the hybrid and encdec families (and their LayerNorm / GELU), MLA,
+    first-k-dense layers and shared experts."""
     missing = []
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "vlm"):
         missing.append(f"family {cfg.family!r}")
     if cfg.attn != ("none" if cfg.family == "ssm" else "gqa"):
         missing.append(f"attn {cfg.attn!r} in family {cfg.family!r}")
@@ -191,6 +204,8 @@ def forward(params: Params, cfg: ModelConfig,
     check_supported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][batch["tokens"]].to(cdt)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     dev = x.device
     n_e = max(cfg.n_experts, 1)
     n_slots = moe_routing.shape[-1] if moe_routing is not None else n_e
@@ -273,15 +288,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for _ in range(cfg.n_layers)]}
 
 
-def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Params, cache_len: int, *,
+def decode_step(params: Params, cfg: ModelConfig,
+                tokens: Optional[torch.Tensor], cache: Params, cache_len: int,
+                *, embeds: Optional[torch.Tensor] = None,
                 all_positions: bool = False) -> Tuple[torch.Tensor, Params]:
-    """One serve step: append ``tokens [B, S_new]`` at ``cache_len`` and
-    return the last position's logits ``[B, 1, V]`` (every new position's,
-    ``[B, S_new, V]``, with ``all_positions``) and the cache (updated in
-    place: the attention caches' tensors, the recurrent state's entries)."""
+    """One serve step: append ``tokens [B, S_new]`` (or the pre-embedded
+    segment ``embeds [B, S_new, D]``, the vlm prefill's patches and text)
+    at ``cache_len`` and return the last position's logits ``[B, 1, V]``
+    (every new position's, ``[B, S_new, V]``, with ``all_positions``) and
+    the cache (updated in place: the attention caches' tensors, the
+    recurrent state's entries)."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cdt)
+    x = (embeds.to(cdt) if embeds is not None
+         else params["embed"][tokens].to(cdt))
     cache_len = int(cache_len)
     for bp, bc in zip(params["blocks"], cache["blocks"]):
         x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
@@ -293,6 +312,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             cache: Params, *,
             all_positions: bool = False) -> Tuple[torch.Tensor, Params]:
-    """Prompt ingestion: the decode path with the whole prompt at 0."""
+    """Prompt ingestion: the decode path with the whole prompt at 0.  For
+    the vlm family the prompt is ``batch["patches"]`` followed by the
+    tokens, one segment of ``n_patches + S`` positions (one causal K5 call
+    a layer), so the next token goes at ``n_patches + S``."""
+    if cfg.family == "vlm":
+        cdt = dtype_of(cfg.compute_dtype)
+        joined = torch.cat([batch["patches"].to(cdt),
+                            params["embed"][batch["tokens"]].to(cdt)], dim=1)
+        return decode_step(params, cfg, None, cache, 0, embeds=joined,
+                           all_positions=all_positions)
     return decode_step(params, cfg, batch["tokens"], cache, 0,
                        all_positions=all_positions)

@@ -12,9 +12,12 @@ row-stochastic) maps the logical experts onto ``P = E + R`` physical
 slots, ``R`` of them spare slots for replicas (``moe_init(...,
 n_replica_slots=R)``); a token of a split expert goes to the slot its
 float32 Weyl number ``u = mod((n + 1) * 0.618033988749895, 1)`` picks
-against the row's CDF, as in JAX.  Not ported yet (it raises): the
-DP-local dispatch (``token_groups > 1``).  Shared experts are not ported
-either (no ported configuration has them).
+against the row's CDF, as in JAX.  ``token_groups = G > 1`` is JAX's
+DP-local dispatch (``moe.py:191-286``): capacity, queue positions and
+slot tables per group of ``N / G`` tokens, each expert product one K4 call
+over the groups' queues laid slot by slot (the weights are not repeated
+per group).  Shared experts are not ported (no ported configuration has
+them).
 
 Three choices keep the bits of the JAX layer:
 
@@ -85,22 +88,29 @@ def moe_apply(
     return_stats: bool = False,
     token_groups: int = 1,
 ):
-    """Capacity-bounded top-k MoE (``repro.models.moe.moe_apply`` with
-    ``token_groups = 1``).
+    """Capacity-bounded top-k MoE (``repro.models.moe.moe_apply``).
 
     ``expert_routing``: optional row-stochastic ``[E, P]`` table from the
     Reshape balancer remapping logical experts to physical slots (SBK: a
     row's 1 moved; SBR: a row split between a primary and a replica slot,
     the hot expert's tokens divided by a low-discrepancy record split).
-    Without it the logical experts are slots ``0 .. E-1`` of ``P``."""
-    if token_groups != 1:
-        raise NotImplementedError(
-            "the DP-local dispatch (token_groups > 1) is not ported "
-            "(ROADMAP.md)")
+    Without it the logical experts are slots ``0 .. E-1`` of ``P``.
+
+    ``token_groups``: G > 1 is JAX's DP-local dispatch
+    (``_moe_apply_grouped``; its ``maybe_shard`` layout hints mean nothing
+    on one card and are dropped): the ``N`` tokens split into G groups of
+    ``N / G`` (``ValueError`` where G does not divide N), each with its
+    own capacity ``round(cf * N / G * k / E)``, queue positions and slot
+    tables.  Router, top-k and the slot pick's Weyl numbers run over all
+    N tokens.  G = 1 is the global dispatch."""
     orig_shape = x.shape
     D = x.shape[-1]
     xf = x.reshape(-1, D)
     N = xf.shape[0]
+    G = int(token_groups)
+    if G < 1 or N % G:
+        raise ValueError(f"{N} tokens do not split into {G} token groups")
+    Nl = N // G
     P = p["w_gate"].shape[0]                           # physical slots
     E = p["router"].shape[1]                           # logical experts
     dt = x.dtype
@@ -112,7 +122,8 @@ def moe_apply(
     gates_full = gates_full.scatter(1, idx, weights)   # [N, E]
     if expert_routing is not None:
         # Each token's expert e lands in slot pick[n, e] (a split expert's
-        # tokens spread over its slots); a slot holds one expert.
+        # tokens spread over its slots, by the token's number among all
+        # N); a slot holds one expert.
         pick = slot_pick(expert_routing, N)            # [N, E] slot of e
         combine = torch.zeros((N, P), dtype=torch.float32, device=dev)
         combine = combine.scatter_add(1, pick, gates_full)
@@ -121,46 +132,72 @@ def moe_apply(
         combine = F.pad(gates_full, (0, P - E))
         chosen = idx
 
-    # Capacity per physical slot; each token's position in its slot queue
-    # by arrival order.
-    cap = int(max(1, round(capacity_factor * N * top_k / E)))
-    dispatch = (combine > 0).to(torch.int32)
-    pos = torch.cumsum(dispatch, dim=0, dtype=torch.int32) - dispatch
-    keep = dispatch.bool() & (pos < cap)
-    combine_c = combine * keep
-    dropped = (combine > 0) & ~keep
+    # Capacity per physical slot and group; each token's position in its
+    # group's slot queue by arrival order.
+    cap = int(max(1, round(capacity_factor * Nl * top_k / E)))
+    cg = combine.reshape(G, Nl, P)
+    dispatch = (cg > 0).to(torch.int32)
+    pos = torch.cumsum(dispatch, dim=1, dtype=torch.int32) - dispatch
+    keep = dispatch.bool() & (pos < cap)               # [G, Nl, P]
+    cg_c = cg * keep
+    dropped = (cg > 0) & ~keep
 
-    token_for_slot, gate_for_slot = slot_tables(keep, pos, combine_c, cap)
-    # The kept tokens of slot e fill its rows 0 .. rows[e] - 1 (pos counts
-    # them in arrival order); every later row is the zero sentinel row, and
-    # stays zero through silu(gate) * up, so K4 computes only the first
-    # rows[e] rows and zeroes the rest.
-    rows = keep.sum(0).to(torch.int32)                 # [P], on the device
+    live = keep.sum(1, dtype=torch.int32)              # [G, P]
+    keep, pos, cg_c = (t.reshape(N, P) for t in (keep, pos, cg_c))
 
+    # The groups' slot tables in one call: token n queues in column
+    # g * P + p of its own group g = n // Nl, so the tables lie side by side
+    # ([G * P, cap], global token numbers, N the zero sentinel row).  K4
+    # takes them slot by slot, [P, G * cap]: slot p's rows g * cap ..
+    # g * cap + cap - 1 are group g's queue, its kept tokens first.  K4
+    # computes each slot's rows up to the last live one of its last live
+    # group (``rows``); the dead rows before it are the sentinel, zero
+    # through silu(gate) * up and the down product, so only their compute
+    # is spent.
+    group = torch.arange(N, device=dev)[:, None] // Nl
+    tables_in = (keep, pos, cg_c)
+    if G > 1:
+        own = group == torch.arange(G, device=dev)     # [N, G]
+        tables_in = ((own[:, :, None] & keep[:, None]).reshape(N, G * P),
+                     pos.repeat(1, G), cg_c.repeat(1, G))
+    token_for_slot, gate_for_slot = slot_tables(*tables_in, cap)
+    token_for_slot, gate_for_slot = (
+        t.reshape(G, P, cap).transpose(0, 1).reshape(P, G * cap)
+        for t in (token_for_slot, gate_for_slot))
+    ends = torch.arange(G, device=dev, dtype=torch.int32)[:, None] * cap
+    rows = torch.where(live > 0, ends + live, 0).amax(0).to(torch.int32)
+
+    # The gathers here are embedding lookups with the sentinel as their
+    # padding row: the backward adds each token's k rows and skips the
+    # sentinel's, where an indexing backward adds the (tens of thousands
+    # of) dead or dropped rows into the sentinel one after another.
     xf_pad = torch.cat([xf, xf.new_zeros((1, D))], dim=0)
-    h_in = xf_pad[token_for_slot].to(dt)               # [P, cap, D]
+    h_in = F.embedding(token_for_slot, xf_pad,
+                       padding_idx=N).to(dt)           # [P, G * cap, D]
     gate = k4.segment_matmul_ad(h_in, p["w_gate"].to(dt), rows)
     up = k4.segment_matmul_ad(h_in, p["w_up"].to(dt), rows)
-    act = F.silu(gate) * up                            # [P, cap, F]
+    act = F.silu(gate) * up                            # [P, G * cap, F]
     out_e = k4.segment_matmul_ad(act, p["w_down"].to(dt), rows)
     out_e = out_e * gate_for_slot[..., None].to(dt)
 
     # Combine: each token adds its kept slots by ascending slot, in dt.
     chosen = torch.sort(chosen, dim=1).values
     kept = torch.gather(keep, 1, chosen)
-    slots = torch.where(kept, chosen * cap + torch.gather(pos, 1, chosen),
-                        P * cap)
-    out_rows = torch.cat([out_e.reshape(P * cap, D),
+    slots = torch.where(
+        kept, chosen * (G * cap) + group * cap + torch.gather(pos, 1, chosen),
+        P * G * cap)
+    out_rows = torch.cat([out_e.reshape(P * G * cap, D),
                           out_e.new_zeros((1, D))])
+    picked = F.embedding(slots, out_rows, padding_idx=P * G * cap)
     out = torch.zeros((N, D), dtype=dt, device=dev)
     for j in range(slots.shape[1]):
-        out = out + out_rows[slots[:, j]]
+        out = out + picked[:, j]
 
     out = out.reshape(orig_shape)
     if not return_stats:
         return out
     stats = {
-        "tokens_per_expert": combine_c.sum(0),                 # post-mitigation
+        "tokens_per_expert": cg_c.sum(0),                      # post-mitigation
         "tokens_per_expert_router": gates_full.sum(0),         # router's truth
         "dropped_frac": dropped.float().mean(),
         "load_std": combine.sum(0).std(unbiased=False),
@@ -218,20 +255,23 @@ def slot_pick(expert_routing: torch.Tensor, n: int) -> torch.Tensor:
 def slot_tables(keep: torch.Tensor, pos: torch.Tensor,
                 combine_c: torch.Tensor, cap: int):
     """``[P, cap]`` token of each slot (``N`` = empty) and its gate, from
-    the kept (token, slot) pairs ``keep [N, P]`` at queue positions ``pos``;
-    the sentinel cell ``P * cap`` takes the writes of dropped pairs, as
-    JAX's ``mode="drop"``."""
+    the kept (token, slot) pairs ``keep [N, P]`` at queue positions ``pos``.
+    The other pairs' writes go past the tables, each to a cell of its own,
+    and are dropped, as JAX's ``mode="drop"`` drops them: one shared
+    sentinel cell would take them all, one after another."""
     N, P = keep.shape
     dev = keep.device
     arange_p = torch.arange(P, device=dev, dtype=torch.int64)
-    flat_slot = torch.where(keep, arange_p[None, :] * cap + pos, P * cap)
+    spare = P * cap + torch.arange(N * P, device=dev).reshape(N, P)
+    flat_slot = torch.where(keep, arange_p[None, :] * cap + pos,
+                            spare).reshape(-1)
     token_ids = torch.arange(N, device=dev, dtype=torch.int64)[:, None]
-    token_for_slot = torch.full((P * cap + 1,), N, dtype=torch.int64,
+    token_for_slot = torch.full((P * cap + N * P,), N, dtype=torch.int64,
                                 device=dev)
-    token_for_slot[flat_slot.reshape(-1)] = token_ids.expand(N, P).reshape(-1)
-    gate_for_slot = torch.zeros((P * cap + 1,), dtype=torch.float32,
+    token_for_slot[flat_slot] = token_ids.expand(N, P).reshape(-1)
+    gate_for_slot = torch.zeros((P * cap + N * P,), dtype=torch.float32,
                                 device=dev)
-    gate_for_slot[flat_slot.reshape(-1)] = combine_c.reshape(-1)
+    gate_for_slot[flat_slot] = combine_c.reshape(-1)
     return (token_for_slot[:P * cap].reshape(P, cap),
             gate_for_slot[:P * cap].reshape(P, cap))
 

@@ -7,16 +7,24 @@ the whole batch again (continuous-batching-lite).  Prompts are padded on
 the left with token 0, with no mask, exactly as the JAX engine does.
 Temperature sampling draws from an explicit ``torch.Generator`` seeded
 from ``seed``; its numbers differ from ``jax.random``'s.
+
+The vlm family gets JAX's stub, zero patch embeddings ``[B, n_patches,
+d_model]`` in the compute dtype ahead of the padded prompts, and departs
+from JAX's engine where that cannot serve (``ROADMAP.md`` §3): the cache
+holds ``n_patches + S + max_len`` positions (JAX's ``S + max_len`` cannot
+take the patches once ``n_patches`` passes ``max_len``) and decoding
+starts at ``n_patches + S`` (JAX's starts at ``S``, over the prompt's
+rows).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, dtype_of
 from ..devices import DeviceSpec, resolve_device
 from ..models import model as model_lib
 
@@ -61,16 +69,16 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         self.waiting.append(req)
 
-    def _prefill(self, tokens: torch.Tensor, cache: Any):
-        return model_lib.prefill(self.params, self.cfg, {"tokens": tokens},
-                                 cache)
+    def _prefill(self, batch: Dict[str, torch.Tensor], cache: Any):
+        return model_lib.prefill(self.params, self.cfg, batch, cache)
 
     def _step(self, tokens: torch.Tensor, cache: Any, pos: int):
         return model_lib.decode_step(self.params, self.cfg, tokens, cache, pos)
 
     # ------------------------------------------------------------------ #
     def _fill_batch(self) -> Tuple[torch.Tensor, Any, int]:
-        """Right-align all active prompts into one padded prefill batch."""
+        """Right-align all active prompts into one padded prefill batch;
+        returns (its logits, the cache, the next position)."""
         prompts = []
         for i in range(self.B):
             if self.active[i] is None and self.waiting:
@@ -81,11 +89,17 @@ class ServeEngine:
         toks = np.zeros((self.B, S), dtype=np.int64)
         for i, p in enumerate(prompts):
             toks[i, S - len(p):] = p      # right-aligned: last pos = last tok
-        cache = model_lib.init_cache(self.cfg, self.B, S + self.max_len,
-                                     self.device)
-        logits, cache = self._prefill(torch.from_numpy(toks).to(self.device),
-                                      cache)
-        return logits, cache, S
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        n_prefix = 0
+        if self.cfg.family == "vlm":
+            n_prefix = self.cfg.n_patches
+            batch["patches"] = torch.zeros(
+                (self.B, n_prefix, self.cfg.d_model),
+                dtype=dtype_of(self.cfg.compute_dtype), device=self.device)
+        cache = model_lib.init_cache(self.cfg, self.B,
+                                     n_prefix + S + self.max_len, self.device)
+        logits, cache = self._prefill(batch, cache)
+        return logits, cache, n_prefix + S
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         last = logits[:, -1]

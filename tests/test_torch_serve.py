@@ -250,15 +250,21 @@ def test_moe_rows_count_each_slots_tokens(monkeypatch):
 
 def test_moe_refuses_what_the_training_slice_brings():
     """The training slice brought the balancer's routing table (an
-    identity table changes nothing); the DP-local dispatch still
-    raises."""
+    identity table changes nothing); the DP-local dispatch is ported too
+    (``tests/test_torch_moe_grouped.py`` holds it against JAX): drop-free,
+    two token groups give the global dispatch's output, and a group count
+    that does not divide the tokens is refused."""
     p = tmoe.moe_init(torch.Generator().manual_seed(0), 16, 8, 4)
-    x = torch.randn(3, 16, generator=torch.Generator().manual_seed(1))
+    x = torch.randn(4, 16, generator=torch.Generator().manual_seed(1))
     assert torch.equal(
         tmoe.moe_apply(p, x, top_k=2, expert_routing=torch.eye(4)),
         tmoe.moe_apply(p, x, top_k=2))
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_apply(p, x, top_k=2, token_groups=2)
+    torch.testing.assert_close(
+        tmoe.moe_apply(p, x, top_k=2, capacity_factor=2.0, token_groups=2),
+        tmoe.moe_apply(p, x, top_k=2, capacity_factor=2.0), rtol=0,
+        atol=1e-6)
+    with pytest.raises(ValueError):
+        tmoe.moe_apply(p, x[:3], top_k=2, token_groups=2)
 
 
 # --------------------------------------------------------------------- #

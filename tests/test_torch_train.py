@@ -4,10 +4,12 @@ The JAX model's weights (``repro.models.init_params``, seed 0) are carried
 into the port with ``params_from_jax`` (and an AdamW state with
 ``adamw_state_from_jax``); tokens come from numpy seeds and go to both.
 Smoke configurations of ``olmoe-1b-7b`` (K4 on its path, forward and
-backward; with and without 4 replica slots and an SBR routing table),
-``llama3.2-3b`` (K5's GQA grouping, forward and backward) and
-``rwkv6-1.6b`` (K6, forward and backward; no balancer), on the port's CPU
-path, where K4, K5 and K6 run their plain versions.
+backward; with and without 4 replica slots and an SBR routing table, and
+with the DP-local dispatch over 4 token groups), ``llama3.2-3b`` (K5's GQA
+grouping, forward and backward), ``rwkv6-1.6b`` (K6, forward and
+backward; no balancer) and ``internvl2-2b`` (the vlm family: seeded patch
+embeddings ahead of the tokens, the loss on the text positions), on the
+port's CPU path, where K4, K5 and K6 run their plain versions.
 
 Tolerances, stated from the arithmetic:
 
@@ -75,10 +77,21 @@ def _cfgs(arch, compute_dtype="float32", **kw):
                                 **kw))
 
 
-def _batch(vocab, seed=0, shape=(2, 16)):
+def _batch(vocab, seed=0, shape=(2, 16), patches=None):
+    """Tokens and labels; for the vlm family (``patches = (n_patches,
+    d_model)``) also float32 patch embeddings at the embedding table's
+    scale (std 0.02), drawn after them."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, shape).astype(np.int32),
-            "labels": rng.integers(0, vocab, shape).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, shape).astype(np.int32),
+           "labels": rng.integers(0, vocab, shape).astype(np.int32)}
+    if patches:
+        out["patches"] = (0.02 * rng.standard_normal(
+            (shape[0],) + tuple(patches))).astype(np.float32)
+    return out
+
+
+def _patches(cfg):
+    return (cfg.n_patches, cfg.d_model) if cfg.family == "vlm" else None
 
 
 def _sbr_tables(L, E, R):
@@ -134,10 +147,11 @@ _JAX_GRADS = {}
 def _jax_value_and_grad(case):
     """JAX's loss and gradients for a case, computed once a module."""
     if case not in _JAX_GRADS:
-        arch, dtype, R, routed = case
-        jcfg, _ = _cfgs(arch, dtype, moe_replica_slots=R)
+        arch, dtype, R, routed, G = case
+        jcfg, _ = _cfgs(arch, dtype, moe_replica_slots=R, moe_token_groups=G)
         jp = jm.init_params(jcfg, KEY)
-        batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.vocab).items()}
+        batch = {k: jnp.asarray(v) for k, v in
+                 _batch(jcfg.vocab, patches=_patches(jcfg)).items()}
         routing = (jnp.asarray(_sbr_tables(jcfg.n_layers, jcfg.n_experts, R))
                    if routed else None)
         (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -148,23 +162,29 @@ def _jax_value_and_grad(case):
     return _JAX_GRADS[case]
 
 
-CASES = {"olmoe": ("olmoe-1b-7b", "float32", 0, False),
-         "olmoe-sbr-replicas": ("olmoe-1b-7b", "float32", 4, True),
-         "llama": ("llama3.2-3b", "float32", 0, False),
-         "llama-bf16": ("llama3.2-3b", "bfloat16", 0, False),
-         "rwkv": ("rwkv6-1.6b", "float32", 0, False),
-         "rwkv-bf16": ("rwkv6-1.6b", "bfloat16", 0, False)}
+#: (arch, compute dtype, replica slots, an SBR table, token groups)
+CASES = {"olmoe": ("olmoe-1b-7b", "float32", 0, False, 1),
+         "olmoe-sbr-replicas": ("olmoe-1b-7b", "float32", 4, True, 1),
+         "olmoe-g4": ("olmoe-1b-7b", "float32", 0, False, 4),
+         "olmoe-g4-sbr-replicas": ("olmoe-1b-7b", "float32", 4, True, 4),
+         "llama": ("llama3.2-3b", "float32", 0, False, 1),
+         "llama-bf16": ("llama3.2-3b", "bfloat16", 0, False, 1),
+         "rwkv": ("rwkv6-1.6b", "float32", 0, False, 1),
+         "rwkv-bf16": ("rwkv6-1.6b", "bfloat16", 0, False, 1),
+         "internvl": ("internvl2-2b", "float32", 0, False, 1),
+         "internvl-bf16": ("internvl2-2b", "bfloat16", 0, False, 1)}
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_loss_and_grads_match_jax(case, remat):
-    arch, dtype, R, routed = CASES[case]
+    arch, dtype, R, routed, G = CASES[case]
     jp, jloss, jgrads = _jax_value_and_grad(CASES[case])
-    _, tcfg = _cfgs(arch, dtype, moe_replica_slots=R)
+    _, tcfg = _cfgs(arch, dtype, moe_replica_slots=R, moe_token_groups=G)
     tp = params_from_jax(jp, tcfg, "cpu")
     live = tree_map(lambda t: t.requires_grad_(True), tp)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab).items()}
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(tcfg.vocab, patches=_patches(tcfg)).items()}
     routing = (torch.from_numpy(_sbr_tables(tcfg.n_layers, tcfg.n_experts,
                                             R)) if routed else None)
     loss, stats = tm.loss_fn(live, tcfg, batch, remat=remat,
@@ -387,6 +407,39 @@ def test_three_trainer_steps_match_jax_rwkv():
     toks = np.random.default_rng(2).integers(0, jcfg.vocab, (4, 32)).astype(
         np.int32)
     batch = {"tokens": toks, "labels": toks}
+    lr_sum = 0.0
+    for step in range(3):
+        a = jt.train_step({k: jnp.asarray(v) for k, v in batch.items()})
+        b = tt.train_step(batch)
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-4)
+        lr_sum += float(jopt.schedule(jt.tc.opt, jnp.asarray(step + 1)))
+
+        def check(name, got, want):
+            err = np.abs(got - want)
+            assert err.max() <= 2 * lr_sum * (1 + 1e-3), name
+            assert np.mean(err <= 1e-5) >= 0.99, name
+
+        _compare_trees(jax.tree.map(np.asarray, jt.params), tt.params,
+                       tcfg.n_layers, check=check)
+
+
+def test_three_trainer_steps_match_jax_internvl():
+    """Both trainers from one state (JAX's init), internvl2-smoke (the vlm
+    family, no balancer) with seeded patches ahead of the tokens: the same
+    losses, and params within the stated tolerance after each step."""
+    lr = 1e-3
+    opt = dict(lr=lr, warmup_steps=1, total_steps=40)
+    jcfg, tcfg = _cfgs("internvl2-2b")
+    jt = jtrainer.Trainer(jcfg, jtrainer.TrainConfig(
+        opt=jopt.AdamWConfig(**opt), remat=False))
+    tt = ttrainer.Trainer(tcfg, ttrainer.TrainConfig(
+        opt=topt.AdamWConfig(**opt), remat=True), device="cpu")
+    assert not tt.use_balancer
+    tt.params = params_from_jax(jax.tree.map(np.asarray, jt.params), tcfg,
+                                "cpu")
+    tt.opt_state = adamw_state_from_jax(
+        jax.tree.map(np.asarray, tuple(jt.opt_state)), tcfg, "cpu")
+    batch = _batch(jcfg.vocab, 3, (4, 24), _patches(jcfg))
     lr_sum = 0.0
     for step in range(3):
         a = jt.train_step({k: jnp.asarray(v) for k, v in batch.items()})
