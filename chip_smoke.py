@@ -329,6 +329,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -481,6 +482,38 @@ TRAIN_GROUPS = 4
 VLM_ARCH, VLM_PATCH_STD = "internvl2-2b", 0.02
 VLM_SLICE_TOL = 0.2
 VLM_TRAIN_SLICE_TOL, VLM_TRAIN_SLICE_LOSS_TOL = 1e-3, 5e-5
+
+#: The MLA models (multi-head latent attention: K5 at (dk, dv) = (96, 64)
+#: and (192, 128)): MiniCPM3-4B (dense, a q_lora query path) and
+#: DeepSeek-V2-Lite (64 routed experts top 6, 2 shared, a dense first
+#: layer).  Each serves the serve's requests at its published depth and
+#: trains TRAIN_STEPS steps of a TRAIN_B x TRAIN_S batch at TRAIN_LR with
+#: remat, cut in depth to MLA_TRAIN_LAYERS (float32 params, grads and
+#: AdamW moments, 16 bytes a parameter: MiniCPM3's 62 layers would need
+#: ~68 GB before activations, DeepSeek's 27 ~250 GB); DeepSeek with
+#: TRAIN_SLOTS replica slots a MoE layer, a balancer on each and the hot
+#: expert planted as on the OLMoE path.  Their train slices (2 layers,
+#: float32: DeepSeek's dense first layer and one MoE layer with TRAIN_SLOTS
+#: replica slots and the OLMoE slice's split table) are held to
+#: TRAIN_SLICE_TOL and TRAIN_SLICE_LOSS_TOL.  Their serve slices (full
+#: width, 2 layers, the serve slice's prompt and steps) to MLA_SLICE_TOL
+#: (MiniCPM3: the largest |logit difference| at any token) and
+#: MLA_MOE_SLICE (DeepSeek: as SLICE_TOL, SLICE_MOVED and SLICE_CAP are
+#: for OLMoE), each set from ``python3 chip_smoke.py --mla`` (its
+#: readings) near the geometric mean of what sound runs reached at seeds
+#: 0-2 and what the nearest planted kernel fault gave (H100): MiniCPM3
+#: 0.0469-0.0508 against 0.758 (K5 fed q with its last of dk's terms
+#: zeroed; q scaled twice 4.55, the mask off 6.30); DeepSeek's stayed
+#: tokens 0.0471-0.0508 against 0.109 (K4 dropping the last of D's terms;
+#: K4's bf16-tile fault, 0.0498-0.0547, hides in the sound runs' reach),
+#: 3-7 moved tokens against 41 (q's last term zeroed; K5's other faults
+#: 131-136), moved tokens 0.486 against 5.23 (q scaled twice).
+MLA_ARCHS = ("minicpm3-4b", "deepseek-v2-lite-16b")
+MLA_NAMES = {"minicpm3-4b": "MiniCPM3-4B",
+             "deepseek-v2-lite-16b": "DeepSeek-V2-Lite"}
+MLA_TRAIN_LAYERS = {"minicpm3-4b": 40, "deepseek-v2-lite-16b": 5}
+MLA_SLICE_TOL = 0.2
+MLA_MOE_SLICE = (0.075, 16, 1.6)
 
 
 class SmokeFailure(RuntimeError):
@@ -2033,24 +2066,27 @@ def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows=None):
 
 
 def k5_bound(B: int, H: int, KV: int, S: int, T: int, hd: int, causal: bool,
-             dtype_bytes: int):
+             dtype_bytes: int, dv: Optional[int] = None):
     """Least time: the operations per visible (query, key) pair vs q, k, v
-    read once and the float32 output written once.  bf16 at hd 128 (the
-    wgmma route): 2 hd for Q K^T and 4 hd for P V (P is float32, split into
-    bf16 hi and lo: two products), all at the bf16 tensor-core rate.  Other
-    calls (the fma route): 2 hd for Q K^T, at the bf16 tensor-core rate for
-    bf16 inputs (their products are exact in float32) and the float32
-    CUDA-core rate for float32 ones, and 2 hd for P V at the float32
-    rate."""
-    pairs = S * (S + 1) // 2 if causal else S * T
-    ops = 2.0 * hd * pairs * B * H
-    if dtype_bytes == 2 and hd == 128:
-        t_ops = 3 * ops / BF16_TC_OPS_PER_S * 1e3
+    read once (q and k ``hd`` wide, v ``dv``, default ``hd``) and the
+    float32 output (``dv`` wide) written once.  bf16 at a pair of the wgmma
+    route (``WGMMA_WIDTHS``): 2 hd for Q K^T and 4 dv for P V (P is
+    float32, split into bf16 hi and lo: two products), all at the bf16
+    tensor-core rate.  Other calls (the fma route): 2 hd for Q K^T, at the
+    bf16 tensor-core rate for bf16 inputs (their products are exact in
+    float32) and the float32 CUDA-core rate for float32 ones, and 2 dv for
+    P V at the float32 rate."""
+    from repro_torch.kernels.flash_attention import WGMMA_WIDTHS
+    dv = hd if dv is None else dv
+    pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
+    qk, pv = 2.0 * hd * pairs, 2.0 * dv * pairs
+    if dtype_bytes == 2 and (hd, dv) in WGMMA_WIDTHS:
+        t_ops = (qk + 2 * pv) / BF16_TC_OPS_PER_S * 1e3
     else:
         qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-        t_ops = (ops / qk_rate + ops / FP32_OPS_PER_S) * 1e3
-    t_bytes = (dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
-               + 4 * B * H * S * hd) / HBM_BYTES_PER_S * 1e3
+        t_ops = (qk / qk_rate + pv / FP32_OPS_PER_S) * 1e3
+    t_bytes = (dtype_bytes * (hd * (B * H * S + B * KV * T) + dv * B * KV * T)
+               + 4 * B * H * S * dv) / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2243,11 +2279,12 @@ def time_k4(torch, k4, x, w, reps: int, rows=None):
 
 def time_k5(torch, k5, q, k, v, reps: int):
     """(kernel ms, plain ms, scaled_dot_product_attention ms, bound ms,
-    bound_by), causal."""
+    bound_by), causal, at q's scale (``hd ** -0.5``, q and k ``hd`` wide,
+    v ``dv``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     B, H, S, hd = q.shape
-    KV, T = k.shape[1], k.shape[2]
+    KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
     ms = time_ms(torch, lambda *a: k5.flash_attention(*a, causal=True),
                  (q, k, v), reps)
     plain_ms = time_ms(torch, lambda *a: ref.flash_attention(*a, causal=True),
@@ -2258,7 +2295,7 @@ def time_k5(torch, k5, q, k, v, reps: int):
     lib_ms = time_ms(torch, lambda *a: F.scaled_dot_product_attention(*a, **kw),
                      (q, k, v), reps)
     return (ms, plain_ms, lib_ms) + k5_bound(B, H, KV, S, T, hd, True,
-                                             q.element_size())
+                                             q.element_size(), dv)
 
 
 # --------------------------------------------------------------------- #
@@ -3014,7 +3051,7 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
             * torch.einsum("bhst,bhsd->bhtd", P, do.abs())]
     del term, P
     if rep > 1:
-        tols[1:] = [t.reshape(B, KV, rep, T, hd).sum(2) for t in tols[1:]]
+        tols[1:] = [t.reshape(B, KV, rep, T, -1).sum(2) for t in tols[1:]]
     err = 0.0
     for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, tols):
         check(g.shape == w.shape and g.dtype == w.dtype,
@@ -3033,26 +3070,30 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
 
 
 def k5_bwd_bound(B: int, H: int, KV: int, S: int, T: int, hd: int,
-                 causal: bool, dtype_bytes: int, route: str = "fma"):
-    """Least time of K5's backward: on the ``fma`` route, per visible
-    (query, key) pair, the scores once (2 hd, at the bf16 tensor-core rate
-    for bf16 inputs, whose products are exact in float32, else the float32
-    rate) and dO v, dS k, dS^T q and P^T dO (8 hd on float32 operands, at
-    the float32 rate); on the ``wgmma`` route the products it does, each
-    once, at the bf16 tensor-core rate: S 2 hd, dP 4 hd (dO's hi and lo),
-    dV 6 hd (three of P's and dO's four hi / lo pairs), dK 4 hd and dQ 4 hd
-    (dS's hi and lo), 20 hd a pair; or q, k, v read and dq, dk, dv written
-    in their dtype, out and dout read in float32 (and the lse on the wgmma
-    route), once."""
+                 causal: bool, dtype_bytes: int, route: str = "fma",
+                 dv: Optional[int] = None):
+    """Least time of K5's backward, q and k ``hd`` wide and v ``dv``
+    (default ``hd``): on the ``fma`` route, per visible (query, key) pair,
+    the scores once (2 hd, at the bf16 tensor-core rate for bf16 inputs,
+    whose products are exact in float32, else the float32 rate) and dO v
+    (2 dv), dS k and dS^T q (2 hd each) and P^T dO (2 dv) on float32
+    operands, at the float32 rate; on the ``wgmma`` route the products it
+    does, each once, at the bf16 tensor-core rate: S 2 hd, dP 4 dv (dO's hi
+    and lo), dV 6 dv (three of P's and dO's four hi / lo pairs), dK 4 hd
+    and dQ 4 hd (dS's hi and lo), 10 hd + 10 dv a pair; or q, k, v read and
+    dq, dk, dv written in their dtype, out and dout read in float32 (and
+    the lse on the wgmma route), once."""
+    dv = hd if dv is None else dv
     pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
     if route == "wgmma":
-        t_ops = 20.0 * hd * pairs / BF16_TC_OPS_PER_S * 1e3
+        t_ops = (10.0 * hd + 10.0 * dv) * pairs / BF16_TC_OPS_PER_S * 1e3
     else:
         qk_rate = BF16_TC_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
         t_ops = (2.0 * hd * pairs / qk_rate
-                 + 8.0 * hd * pairs / FP32_OPS_PER_S) * 1e3
-    t_bytes = (2 * dtype_bytes * hd * (B * H * S + 2 * B * KV * T)
-               + 2 * 4 * B * H * S * hd
+                 + (4.0 * hd + 4.0 * dv) * pairs / FP32_OPS_PER_S) * 1e3
+    t_bytes = (2 * dtype_bytes * (hd * (B * H * S + B * KV * T)
+                                  + dv * B * KV * T)
+               + 2 * 4 * B * H * S * dv
                + (4 * B * H * S if route == "wgmma" else 0)) \
         / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -3261,6 +3302,119 @@ def train_kernel_phase(torch, k4, k5) -> dict:
     return errs
 
 
+def mla_kernel_phase(torch, k4, k5) -> dict:
+    """K5 forward and backward at MLA's (dk, dv) pairs (MiniCPM3-4B's
+    (96, 64), DeepSeek-V2-Lite's (192, 128), the smoke configurations'
+    (24, 16)) against their plain versions, each route the pair has:
+    bf16 through the model's ``[B, S, H, d]`` views (S 1, 63, 445, 512,
+    causal; the forward on ``wgmma`` where ``WGMMA_WIDTHS`` holds the pair,
+    with its lse within ``check_lse``'s bound and its output the same bits
+    without it), bf16 with 2 query heads a KV head, full (S 300), and
+    float32 (S 200, causal; the fma kernels).  The backward on the route
+    ``bwd_route`` gives (``wgmma`` for bf16 at (96, 64) and (192, 128),
+    ``fma`` otherwise), its launches counted by route and two calls the
+    same bits, within ``check_flash_bwd``'s bound; on ``wgmma`` the planted
+    faults "drops D" and "mask off" must pass that route's bound.  Returns
+    the largest error of each."""
+    errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    seed, faults, cases = 500, 0, 0
+    for dk, dv in k5.MLA_WIDTHS:
+        for B, H, KV, S, dtype, views, causal in (
+                (2, 8, 8, 1, torch.bfloat16, True, True),
+                (2, 8, 8, 63, torch.bfloat16, True, True),
+                (2, 8, 8, 445, torch.bfloat16, True, True),
+                (2, 8, 8, 512, torch.bfloat16, True, True),
+                (2, 8, 4, 300, torch.bfloat16, False, False),
+                (2, 8, 8, 200, torch.float32, False, True)):
+            seed += 4
+            shapes = [(B, S, h, d) if views else (B, h, S, d)
+                      for h, d in ((H, dk), (KV, dk), (KV, dv))]
+            q, k, v = (randn(torch, seed + i, s, dtype) for i, s in
+                       enumerate(shapes))
+            if views:
+                q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            scale = dk ** -0.5
+            what = (f"flash_attention (dk, dv) = ({dk}, {dv}) B={B} H={H} "
+                    f"KV={KV} S={S} {dtype}{' views' if views else ''} "
+                    f"causal={causal}")
+            route = ("wgmma" if dtype == torch.bfloat16
+                     and (dk, dv) in k5.WGMMA_WIDTHS else "fma")
+            out, lse = k5_call(k5, what, route, q, k, v, causal=causal,
+                               scale=scale, return_lse=True)
+            check(out.shape == (B, H, S, dv), f"{what}: out "
+                                              f"{tuple(out.shape)}")
+            check(torch.equal(k5_call(k5, what, route, q, k, v,
+                                      causal=causal, scale=scale), out),
+                  f"{what}: the forward gives other bits with its lse")
+            check((lse is None) == (route == "fma"),
+                  f"{what}: the {route} forward's lse is {lse}")
+            if lse is not None:
+                check_lse(torch, what, lse, q, k, v, causal, scale)
+            errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+                torch, what, out, q, k, v, causal, scale))
+            if views:
+                copies = [t.contiguous() for t in (q, k, v)]
+                check(torch.equal(k5_call(k5, what, route, *copies,
+                                          causal=causal, scale=scale), out),
+                      f"{what}: a [B, S, H, d] view gives other bits than "
+                      f"its contiguous copy")
+                del copies
+            dout = randn(torch, seed + 3, (B, H, S, dv), torch.float32)
+            kw = dict(lse=lse, causal=causal, scale=scale)
+            broute = k5.bwd_route(q, k, v)
+            want = ("wgmma" if dtype == torch.bfloat16
+                    and (dk, dv) in k5.WGMMA_WIDTHS else "fma")
+            check(broute == want, f"{what}: the backward takes {broute}, not "
+                                  f"{want}")
+            before = (k5.flash_attention_bwd.launches, dict(k5.bwd_routes))
+            got = k5.flash_attention_bwd(q, k, v, out, dout, **kw)
+            n = k5.BWD_LAUNCHES[broute]
+            took = {r: c - before[1][r] for r, c in k5.bwd_routes.items()
+                    if c > before[1][r]}
+            check(k5.flash_attention_bwd.launches == before[0] + n
+                  and took == {broute: n},
+                  f"{what}: the backward launched {took}, not {n} on the "
+                  f"{broute} route")
+            check(tuple(got[0].shape) == (B, H, S, dk)
+                  and tuple(got[1].shape) == (B, KV, S, dk)
+                  and tuple(got[2].shape) == (B, KV, S, dv),
+                  f"{what}: gradients {[tuple(g.shape) for g in got]}")
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, k5.flash_attention_bwd(q, k, v, out, dout, **kw))),
+                  f"{what}: two backward calls give other bits")
+            errs["flash_attention_bwd"] = max(
+                errs["flash_attention_bwd"],
+                check_flash_bwd(torch, what, got, q, k, v, out, dout, causal,
+                                scale, broute))
+            cases += 1
+            if broute == "wgmma" and views and S == 512:
+                for name, _, _, fault in train_planted_faults(k4, k5)[:2]:
+                    try:
+                        check_flash_bwd(torch, f"{what} ({name})",
+                                        fault(q, k, v, out, dout, **kw), q, k,
+                                        v, out, dout, causal, scale, broute)
+                    except SmokeFailure:
+                        faults += 1
+                        continue
+                    check(False, f"{what}: the planted fault '{name}' stays "
+                                 f"within the wgmma route's bound")
+            del q, k, v, out, lse, dout, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    want = 2 * sum(p in k5.WGMMA_WIDTHS for p in k5.MLA_WIDTHS)
+    check(faults == want, f"mla kernels: {faults} of the {want} planted "
+                          f"faults passed the wgmma backward's bound")
+    log(f"mla kernels: flash_attention at (dk, dv) in {k5.MLA_WIDTHS}, "
+        f"{cases} cases (bf16 [B, S, H, d] views S 1-512 causal, rep 2 full, "
+        f"float32), forward within check_flash's bound (max |err| "
+        f"{errs['flash_attention']:.3g}; wgmma at {k5.WGMMA_WIDTHS}, its lse "
+        f"within check_lse's and the same bits without it), backward within "
+        f"check_flash_bwd's (max |err| {errs['flash_attention_bwd']:.3g}; "
+        f"wgmma at the same pairs, fma elsewhere), two calls the same "
+        f"bits; {faults} planted faults beyond the wgmma backward's bound")
+    return errs
+
+
 def train_config(torch, groups: int = 1):
     """The training path's model, its training config and its batch: the
     published OLMoE-1B-7B widths at TRAIN_LAYERS layers with TRAIN_SLOTS
@@ -3439,7 +3593,7 @@ def train_phase(torch, k4, k5, groups: int = 1):
 
 
 def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
-                       long_context: bool = True):
+                       long_context: bool = True, context=(16, 128, 128)):
     """K4 and K5, forward and backward, against their plain versions on
     the inputs the training path gave them (each recorder's first call at
     each shape), each on the route the path took (the backward's: K4's dx
@@ -3448,10 +3602,12 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
     for dx and dw; SDPA's backward through ``torch.autograd.grad``, a
     yardstick never on the path) and the bound of its route, the forward
     logged beside its own.  Then, with ``long_context``, K5's backward at
-    OLMoE's context, 1 x 4096 tokens through the model's views with the
-    forward's lse, checked and timed alike (a shape the path does not
-    run).  ``label`` names the path in the log.  Returns (max errors, the
-    JSON records' numbers per kernel)."""
+    1 x 4096 tokens with ``context`` = (heads, dk, dv) (OLMoE's by
+    default) through the model's views with the forward's lse, checked and
+    timed alike (a shape the path does not run).  K5's backward must take
+    the route ``bwd_route`` gives its widths (``wgmma`` at hd 128).
+    ``label`` names the path in the log.  Returns (max errors, the JSON
+    records' numbers per kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     errs = dict.fromkeys(recs, 0.0)
@@ -3484,6 +3640,7 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
         log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
             f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms "
             f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+        main.setdefault("flash_attention", t)
     for key, ((dout, x, w, rows), _) in (
             recs["segment_matmul_backward"].first.items()):
         E, C, D = x.shape
@@ -3518,27 +3675,30 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
     firsts = list(recs["flash_attention_bwd"].first.values())
     extra = []
     if long_context:
-        # OLMoE's context in the model's [B, S, H, hd] layout, one sequence.
-        q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, 16, 128),
+        # 4096 tokens in the model's [B, S, H, hd] layout, one sequence.
+        ch, cdk, cdv = context
+        q4, k4_, v4 = (randn(torch, 90 + i, (1, 4096, ch, d),
                              torch.bfloat16).transpose(1, 2)
-                       for i in range(3))
+                       for i, d in enumerate((cdk, cdk, cdv)))
         out4, lse4 = k5.flash_attention(q4, k4_, v4, causal=True,
                                         return_lse=True)
         extra.append(((q4, k4_, v4, out4,
-                       randn(torch, 93, (1, 16, 4096, 128), torch.float32)),
+                       randn(torch, 93, (1, ch, 4096, cdv), torch.float32)),
                       {"causal": True, "lse": lse4}))
         del q4, k4_, v4, out4, lse4
     for i, ((q, k, v, out, dout), kw) in enumerate(firsts + extra):
         B, H, S, hd = q.shape
-        KV, T = k.shape[1], k.shape[2]
+        KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
         what = (f"flash_attention_bwd on the {label}'s q {tuple(q.shape)}"
                 if i < len(firsts) else
-                f"flash_attention_bwd at OLMoE's context, q {tuple(q.shape)}")
+                f"flash_attention_bwd at 1 x 4096, q {tuple(q.shape)} v "
+                f"{tuple(v.shape)}")
         causal, scale = kw.get("causal", True), kw.get("scale")
         scale = hd ** -0.5 if scale is None else scale
         plain_kw = {n: a for n, a in kw.items() if n != "lse"}
         route = k5.bwd_route(q, k, v)
-        check(route == "wgmma", f"{what}: takes the {route} route")
+        want = "wgmma" if (hd, dv) in k5.WGMMA_WIDTHS else "fma"
+        check(route == want, f"{what}: takes the {route} route, not {want}")
         errs["flash_attention_bwd"] = max(
             errs["flash_attention_bwd"], check_flash_bwd(
                 torch, what, k5.flash_attention_bwd(q, k, v, out, dout, **kw),
@@ -3555,7 +3715,7 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
         lib_ms = time_ms(torch, lambda: torch.autograd.grad(
             sdpa, (qg, kg, vg), g, retain_graph=True), (), 10)
         b_ms, b_by = k5_bwd_bound(B, H, KV, S, T, hd, causal,
-                                  q.element_size(), route)
+                                  q.element_size(), route, dv)
         log(f"replay: {what}: {ms:.5f} ms (plain {plain_ms:.5f} ms, SDPA's "
             f"backward {lib_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
             f"{100 * b_ms / ms:.1f}% of it)")
@@ -4132,25 +4292,37 @@ def rwkv_train_config(torch):
 
 def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
                       want, want_routes=None):
-    """TRAIN_STEPS steps of a training path without a balancer on one
-    repeated batch, every count of ``names`` ((module, wrapper name)
-    pairs) set to 0 just before and read just after, the wrappers named in
-    ``recorded`` recorded: the loss finite at every step and lower at the
-    last than the first, the launches equal to ``want`` and, for each
-    wrapper in ``want_routes``, by route (its module's ``routes`` or
-    ``bwd_routes`` table).  Returns (launches, a summary, the
-    recorders)."""
+    """TRAIN_STEPS steps of a training path on one repeated batch, every
+    count of ``names`` ((module, wrapper name) pairs) set to 0 just before
+    and read just after, the wrappers named in ``recorded`` recorded: the
+    loss finite at every step and lower at the last than the first, the
+    launches equal to ``want`` and, for each wrapper in ``want_routes``,
+    by route (its module's ``routes`` or ``bwd_routes`` table).  With
+    ``tc.moe_balancer`` (a MoE model) a balancer on each MoE layer of
+    ``blocks`` and a hot expert planted in their routers as ``train_phase``
+    plants it: every replica equal to its primary after every step, and an
+    ``sbr_replicate``; else no balancer.  Returns (launches, a summary,
+    the recorders)."""
     from repro_torch.train import Trainer
     from repro_torch.train import optimizer as topt
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, tc, seed=0, device="cuda")
+    balanced = tc.moe_balancer is not None
+    if balanced:
+        check(tr.use_balancer and len(tr.balancers)
+              == cfg.n_layers - cfg.first_k_dense,
+              f"train: the {label} trainer has {len(tr.balancers)} "
+              f"balancers, not one a MoE layer")
+        for block in tr.params["blocks"]:
+            block["moe"]["router"][:, TRAIN_HOT] += TRAIN_BOOST
+    else:
+        check(not tr.use_balancer and not tr.balancers,
+              f"train: the {label} trainer armed a balancer")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(tr.params))
-    check(not tr.use_balancer and not tr.balancers,
-          f"train: the {label} trainer armed a balancer")
     update = topt.update
     spent = [0.0, 0]
 
@@ -4165,8 +4337,8 @@ def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
 
     recs = {name: Recorder(mod, name) for mod, name in names
             if name in recorded}
-    tables = {name: getattr(mod, "bwd_routes" if name.endswith("_bwd")
-                            else "routes")
+    tables = {name: getattr(mod, "bwd_routes" if name.endswith(
+                                ("_bwd", "_backward")) else "routes")
               for mod, name in names if name in (want_routes or {})}
     for mod, name in names:
         getattr(mod, name).launches = 0
@@ -4185,8 +4357,14 @@ def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
             losses.append(m["loss"])
             check(math.isfinite(m["loss"]),
                   f"train: {label} non-finite loss at step {step}")
+            more = ""
+            if balanced:
+                more = (f", dropped {m['dropped_frac']:.4f}, "
+                        f"representativeness {m['representativeness']:.4f}, "
+                        f"{replicas_equal(torch, tr)} replica slots equal to "
+                        f"their primaries")
             log(f"train: {label} step {step}: loss {m['loss']:.5f}, "
-                f"{times[-1]:.3f} s")
+                f"{times[-1]:.3f} s{more}")
     launches = {name: getattr(mod, name).launches for mod, name in names}
     routes = {n: {r: t[r] - before[n][r] for r in t if t[r] > before[n][r]}
               for n, t in tables.items()}
@@ -4207,6 +4385,13 @@ def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
                    times=times, step_s=sum(steady) / len(steady),
                    tokens=B * T, update_s=spent[0] / max(spent[1], 1),
                    peak_gib=peak, n_layers=L, routes=routes)
+    if balanced:
+        events = [e for b in tr.balancers for e in b.state.events]
+        check(any(e.kind == "sbr_replicate" for e in events),
+              f"train: the {label} balancer never replicated the hot expert")
+        summary["events"] = [(e.tick, e.kind) for e in events]
+        summary["bytes_migrated"] = sum(b.state.bytes_migrated
+                                        for b in tr.balancers)
     del tr
     torch.cuda.empty_cache()
     return launches, summary, recs
@@ -4678,6 +4863,387 @@ def vlm_train_phases(torch, kseg, kfa, krw, smi: str):
         f"{sl['cpu_s']:.2f} s")
     log(f"train: InternVL2-2B phase in {time.perf_counter() - t0:.1f} s")
     return launches, errs, main.get("flash_attention_bwd")
+
+
+# --------------------------------------------------------------------- #
+# 11. MLA: MiniCPM3-4B and DeepSeek-V2-Lite, serve and train             #
+# --------------------------------------------------------------------- #
+def mla_slice_compare(arch: str, card, host):
+    """The serve slice's comparison of ``arch``: with experts (DeepSeek)
+    ``slice_compare``'s (moved experts judged apart), else
+    ``rwkv_slice_compare``'s at MLA_SLICE_TOL."""
+    if arch == "deepseek-v2-lite-16b":
+        return slice_compare(card, host)
+    return rwkv_slice_compare(card, host, MLA_SLICE_TOL)
+
+
+def mla_slice_phase(torch, arch: str):
+    """``arch`` at full width and 2 layers, the same weights (seed 0) on
+    the card (K5 once a layer on its wgmma kernel at the model's widths;
+    DeepSeek's MoE layer through K4) and on the host (their plain
+    versions), over every token of a SLICE_B x SLICE_S prefill and
+    SLICE_STEPS decode steps (the weight-absorbed path, plain PyTorch on
+    both sides).  MiniCPM3: logits within MLA_SLICE_TOL everywhere, greedy
+    tokens equal where the card's top-2 margin exceeds it; DeepSeek:
+    within MLA_MOE_SLICE as ``slice_phase`` holds OLMoE.  Returns a
+    summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    name = MLA_NAMES[arch]
+    cfg, gpu, cpu, toks = slice_model(torch, 0, arch)
+    before, k4_before = dict(kfa.routes), ksm.segment_matmul.launches
+    card = slice_logits(torch, cfg, gpu, toks, "cuda")
+    took = {r: kfa.routes[r] - before[r] for r in kfa.ROUTES
+            if kfa.routes[r] > before[r]}
+    check(took == {"wgmma": cfg.n_layers},
+          f"slice: the {name} card side ran K5 {took}, not once a layer on "
+          f"its wgmma kernel")
+    check((ksm.segment_matmul.launches > k4_before) == bool(cfg.n_experts),
+          f"slice: the {name} card side's K4 launches do not fit its "
+          f"experts")
+    t0 = time.perf_counter()
+    host = slice_logits(torch, cfg, cpu, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card[0]).all()
+               and torch.isfinite(host[0]).all()),
+          f"slice: {name} non-finite logits")
+    r = mla_slice_compare(arch, card, host)
+    if cfg.n_experts:
+        tol, moved, cap = MLA_MOE_SLICE
+        check(r["stayed_err"] <= tol,
+              f"slice: {name} card and host logits differ by "
+              f"{r['stayed_err']:.4g} (> {tol}) at a token whose experts did "
+              f"not move")
+        check(r["moved"] <= moved and r["moved_err"] <= cap,
+              f"slice: {name}: the experts of {r['moved']} tokens moved "
+              f"(allowed {moved}), their logits by {r['moved_err']:.4g} "
+              f"(allowed {cap})")
+    else:
+        check(r["err"] <= MLA_SLICE_TOL,
+              f"slice: {name} card and host logits differ by "
+              f"{r['err']:.4g} (> {MLA_SLICE_TOL})")
+    check(r["agree"] == r["decided"],
+          f"slice: {name} greedy tokens differ at "
+          f"{r['decided'] - r['agree']} of the {r['decided']} tokens whose "
+          f"top-2 margin exceeds the limit")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def log_mla_slice(arch: str, sl) -> None:
+    name = MLA_NAMES[arch]
+    if "stayed_err" in sl:
+        tol, moved, cap = MLA_MOE_SLICE
+        log(f"slice: {name} at 2 layers (the dense first layer and a MoE "
+            f"layer), card vs host over {sl['tokens']} tokens ({SLICE_B} x "
+            f"{SLICE_S} prompt positions, {SLICE_STEPS} decode steps): "
+            f"experts moved at {sl['moved']} (allowed {moved}); max |logit "
+            f"diff| {sl['stayed_err']:.5f} at the others (allowed {tol}), "
+            f"{sl['moved_err']:.5f} at the moved (allowed {cap}); per decode "
+            f"step {[round(e, 5) for e in sl['steps']]}; greedy tokens equal "
+            f"at {sl['agree']} of the {sl['decided']} decided, {sl['equal']} "
+            f"of all {sl['tokens']}; host side {sl['cpu_s']:.2f} s")
+    else:
+        log(f"slice: {name} at 2 layers, card vs host over {sl['tokens']} "
+            f"tokens ({SLICE_B} x {SLICE_S} prompt positions, {SLICE_STEPS} "
+            f"decode steps): max |logit diff| {sl['err']:.5f} (allowed "
+            f"{MLA_SLICE_TOL}; prompt {sl['prompt_err']:.5f}, per decode "
+            f"step {[round(e, 5) for e in sl['steps']]}); greedy tokens "
+            f"equal at {sl['agree']} of the {sl['decided']} decided, "
+            f"{sl['equal']} of all {sl['tokens']}; host side "
+            f"{sl['cpu_s']:.2f} s")
+
+
+def mla_context_replay(torch, k5, arch: str):
+    """K5's forward at 1 x 4096 tokens with ``arch``'s heads and widths
+    (bf16, the model's [B, S, H, d] views, causal, the wgmma kernel)
+    against its plain version, timed beside SDPA and its bound.  Returns
+    (max error, the timing tuple)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    dk, dv = cfg.qk_nope + cfg.qk_rope, cfg.v_head
+    q, k, v = (randn(torch, 95 + i, (1, 4096, cfg.n_heads, d),
+                     torch.bfloat16).transpose(1, 2)
+               for i, d in enumerate((dk, dk, dv)))
+    what = (f"flash_attention at 1 x 4096, {MLA_NAMES[arch]}'s q "
+            f"{tuple(q.shape)}")
+    err = check_flash(torch, what, k5_call(k5, what, "wgmma", q, k, v), q, k,
+                      v, True, dk ** -0.5)
+    t = time_k5(torch, k5, q, k, v, 10)
+    log(f"replay: {what} v {tuple(v.shape)}: {t[0]:.5f} ms (plain "
+        f"{t[1]:.5f} ms, scaled_dot_product_attention {t[2]:.5f} ms, bound "
+        f"{t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return err, t
+
+
+def mla_phase(torch, kseg, kfa, kernel_mods, arch: str, smi: str):
+    """Phase 11 for ``arch``: the serve at its published depth (K5 once a
+    layer a prefill, every call on its wgmma kernel at the model's widths;
+    DeepSeek's K4 three a MoE layer a model call, the prefills' on its
+    tiles kernel and the decode steps' on its stream kernel; K6 never), K5
+    (and K4) replayed on the serve's inputs, K5 at 1 x 4096 and the
+    2-layer slice.  Returns (the serve's launches, the largest replay
+    errors, the replay's numbers, the serve's summary)."""
+    from repro_torch.configs import get_config
+
+    name, cfg = MLA_NAMES[arch], get_config(arch)
+    t0 = time.perf_counter()
+    recs = (Recorder(kseg, "segment_matmul"), Recorder(kfa, "flash_attention"))
+    launches, sv = serve_phase(torch, kernel_mods, arch, recs)
+    log_serve(name, sv, launches, smi)
+    want = {"fma": 0, "wgmma": sv["n_layers"] * sv["prefill"][1]}
+    got = sv["routes"]["flash_attention"]
+    check(launches["flash_attention"] == want["wgmma"] and got == want,
+          f"serve: {name} ran flash_attention {got} over {sv['prefill'][1]} "
+          f"prefills, not {want}")
+    per_call = 3 * (cfg.n_layers - cfg.first_k_dense) if cfg.n_experts else 0
+    want4 = {"tiles": per_call * sv["prefill"][1],
+             "stream": per_call * sv["decode"][1]}
+    got4 = sv["routes"]["segment_matmul"]
+    check(launches["segment_matmul"] == per_call * sv["calls"]
+          and {r: n for r, n in got4.items() if n}
+          == {r: n for r, n in want4.items() if n}
+          and launches["rwkv_scan"] == 0,
+          f"serve: {name} launched K4 {got4} and K6 {launches['rwkv_scan']} "
+          f"times over {sv['calls']} model calls, not K4 {want4} and K6 "
+          f"never")
+    log(f"serve: {name}: K5 launches by route {got}, K4 by route "
+        f"{ {r: n for r, n in got4.items() if n} }")
+    errs, main = model_replay_phase(
+        torch, kseg, kfa, recs[0].first if cfg.n_experts else {},
+        recs[1].first, long_context=False)
+    del recs
+    torch.cuda.empty_cache()
+    err, ctx = mla_context_replay(torch, kfa, arch)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    sl = mla_slice_phase(torch, arch)
+    log_mla_slice(arch, sl)
+    log(f"serve: {name} phase in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, main, sv
+
+
+def mla_train_config(torch, arch: str):
+    """``arch``'s training path: its published widths cut to
+    MLA_TRAIN_LAYERS layers, bf16 compute, remat; DeepSeek with
+    TRAIN_SLOTS replica slots and the balancer on 4 shards (as
+    ``train_config``); the OLMoE path's batch (``SkewAwarePipeline``)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_balancer import MoEBalancerConfig
+    from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
+                                  zipf_doc_lengths)
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=MLA_TRAIN_LAYERS[arch])
+    bal = None
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_replica_slots=TRAIN_SLOTS)
+        bal = MoEBalancerConfig(
+            n_experts=cfg.n_experts, n_slots=cfg.n_experts + TRAIN_SLOTS,
+            n_shards=4, min_steps_between=2)
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_STEPS),
+                     remat=True, moe_balancer=bal)
+    pipe = SkewAwarePipeline(PipelineConfig(
+        seq_len=TRAIN_S, batch_per_shard=max(TRAIN_B // 8, 1), n_shards=8,
+        vocab=cfg.vocab))
+    pipe.ingest(zipf_doc_lengths(64, TRAIN_S, seed=0))
+    nb = pipe.next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
+             for k in ("tokens", "labels")}
+    return cfg, tc, batch
+
+
+def mla_train_slice_model(torch, seed: int, arch: str):
+    """``arch`` at full width and TRAIN_SLICE_LAYERS layers, float32
+    compute (K5 and K4 on their fma routes), weights from ``seed`` on the
+    card and a copy on the host, a TRAIN_SLICE_B x TRAIN_SLICE_S batch
+    from ``seed + 1``; DeepSeek with TRAIN_SLOTS replica slots and
+    ``train_slice_model``'s split table on its MoE layer.  Returns (cfg,
+    card params, host params, batch, routing)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_SLICE_LAYERS,
+                              compute_dtype="float32")
+    routing = None
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_replica_slots=TRAIN_SLOTS)
+        E, P = cfg.n_experts, cfg.n_experts + TRAIN_SLOTS
+        routing = torch.zeros((cfg.n_layers - cfg.first_k_dense, E, P))
+        routing[:, torch.arange(E), torch.arange(E)] = 1.0
+        routing[:, 0, 0], routing[:, 0, E] = 0.6, 0.4
+    gpu = init_params(cfg, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_SLICE_B, TRAIN_SLICE_S))) for k in
+        ("tokens", "labels")}
+    return cfg, gpu, _to_cpu(gpu), batch, routing
+
+
+def mla_train_slice_phase(torch, arch: str):
+    """``arch``'s training gradient at 2 layers, card against host: one
+    ``loss_fn`` gradient (remat) of the same weights (seed 0) and batch
+    through K5's (and DeepSeek's K4's) forward and backward on the card
+    (float32: the fma routes) and their plain versions on the host; the
+    loss within TRAIN_SLICE_LOSS_TOL, every gradient leaf within
+    TRAIN_SLICE_TOL of its largest entry.  Returns a summary dict."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    name = MLA_NAMES[arch]
+    cfg, gpu, cpu, batch, routing = mla_train_slice_model(torch, 0, arch)
+    tables = (kfa.routes, kfa.bwd_routes, ksm.routes, ksm.bwd_routes)
+    before = [dict(t) for t in tables]
+    card = train_slice_grads(torch, cfg, gpu, batch, routing, "cuda")
+    took = [{r: t[r] - b[r] for r in t if t[r] > b[r]}
+            for t, b in zip(tables, before)]
+    L = TRAIN_SLICE_LAYERS
+    want = [{"fma": 2 * L}, {"fma": 2 * L}]
+    if cfg.n_experts:
+        moe = L - cfg.first_k_dense
+        want += [{"fma": 3 * 2 * moe}, {"fma": 2 * 3 * moe}]
+    else:
+        want += [{}, {}]
+    check(took == want, f"train slice: the {name} card side ran K5 / its "
+                        f"backward / K4 / its backward on {took}, not {want}")
+    t0 = time.perf_counter()
+    host = train_slice_grads(torch, cfg, cpu, batch, routing, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
+                                         for g in card[1]),
+          f"train slice: {name} non-finite loss or gradient on the card")
+    r = train_slice_compare(card, host)
+    check(r["loss_err"] <= TRAIN_SLICE_LOSS_TOL,
+          f"train slice: {name} card and host losses differ by "
+          f"{r['loss_err']:.3g} (> {TRAIN_SLICE_LOSS_TOL})")
+    check(r["grad_rel"] <= TRAIN_SLICE_TOL,
+          f"train slice: a {name} gradient leaf differs by "
+          f"{r['grad_rel']:.3g} of its largest entry (> {TRAIN_SLICE_TOL})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    r["cpu_s"] = cpu_s
+    return r
+
+
+def mla_train_phase(torch, kseg, kfa, krw, arch: str, smi: str):
+    """Phase 10's part for ``arch``: MLA_TRAIN_LAYERS layers trained
+    TRAIN_STEPS steps (``model_train_phase``): K5's forward twice a layer
+    a step on its wgmma kernel and its backward once a layer on the route
+    of its widths (wgmma at both); DeepSeek's K4
+    forward three a MoE layer a forward run on its tiles kernel and its
+    backward on the dx and dw forms, the balancer replicating the hot
+    expert; K6 never.  Then K5 (and K4) forward and backward replayed on
+    the path's inputs, K5's backward at 1 x 4096 with the model's heads
+    and widths, and the 2-layer float32 gradient slice.  Returns (the
+    path's launches, the replay's largest errors, the replay's numbers,
+    the path's summary)."""
+    name = MLA_NAMES[arch]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, tc, batch = mla_train_config(torch, arch)
+    names = [(kseg, "segment_matmul"), (kseg, "segment_matmul_backward"),
+             (kfa, "flash_attention"), (kfa, "flash_attention_bwd"),
+             (krw, "rwkv_scan"), (krw, "rwkv_scan_bwd")]
+    L, S = cfg.n_layers, TRAIN_STEPS
+    dk, dv = cfg.qk_nope + cfg.qk_rope, cfg.v_head
+    broute = "wgmma" if (dk, dv) in kfa.WGMMA_WIDTHS else "fma"
+    bwd = kfa.BWD_LAUNCHES[broute] * L * S
+    moe = (L - cfg.first_k_dense) if cfg.n_experts else 0
+    want = dict(segment_matmul=3 * moe * 2 * S,
+                segment_matmul_backward=2 * 3 * moe * S,
+                flash_attention=2 * L * S, flash_attention_bwd=bwd,
+                rwkv_scan=0, rwkv_scan_bwd=0)
+    routes = {"flash_attention": {"wgmma": 2 * L * S},
+              "flash_attention_bwd": {broute: bwd}}
+    if moe:
+        routes["segment_matmul"] = {"tiles": 3 * moe * 2 * S}
+        routes["segment_matmul_backward"] = {"dx_tiles": 3 * moe * S,
+                                             "dw_tiles": 3 * moe * S}
+    launches, tn, recs = model_train_phase(
+        torch, name, cfg, tc, batch, names, [n for _, n in names[:4]], want,
+        routes)
+    del batch
+    more = ""
+    if moe:
+        more = (f", {TRAIN_SLOTS} replica slots and a balancer on each of "
+                f"the {moe} MoE layers (events {tn['events']}, "
+                f"{tn['bytes_migrated']:,} bytes migrated)")
+    log(f"train: {name} at full width, {tn['n_layers']} layers "
+        f"({tn['n_params']:,} float32 params from seed 0 in "
+        f"{tn['init_s']:.1f} s){more}, batch {TRAIN_B} x {TRAIN_S}, "
+        f"{TRAIN_STEPS} steps with remat: loss {tn['losses'][0]:.5f} -> "
+        f"{tn['losses'][-1]:.5f} ({[round(x, 5) for x in tn['losses']]}); "
+        f"{tn['step_s']:.4f} s a step after the first ({tn['times'][0]:.3f} "
+        f"s), {tn['tokens'] / tn['step_s']:.1f} tokens/s, the AdamW update "
+        f"{tn['update_s']:.4f} s a step "
+        f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
+        f"{tn['peak_gib']:.2f} GiB; launches {launches} by route "
+        f"{tn['routes']} | {smi}")
+    errs, main = train_replay_phase(torch, kseg, kfa, recs,
+                                    f"{name} training path",
+                                    context=(cfg.n_heads, dk, dv))
+    del recs
+    sl = mla_train_slice_phase(torch, arch)
+    log(f"train slice: {name} at {TRAIN_SLICE_LAYERS} layers, float32, a "
+        f"{TRAIN_SLICE_B} x {TRAIN_SLICE_S} batch, card vs host: |loss diff| "
+        f"{sl['loss_err']:.3g} (allowed {TRAIN_SLICE_LOSS_TOL}; loss "
+        f"{sl['loss']:.5f}), every one of {sl['leaves']} gradient leaves "
+        f"within {sl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{TRAIN_SLICE_TOL}); host side {sl['cpu_s']:.2f} s")
+    log(f"train: {name} phase in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, main, tn
+
+
+def mla_slice_readings(torch, seeds=(0, 1, 2)):
+    """The readings MLA_SLICE_TOL and MLA_MOE_SLICE are set from: at each
+    seed, each MLA model's serve slice, the card against the host as the
+    check compares them, sound and with each planted fault on the card's
+    side (``vlm_planted_faults``: K5's mask off, q scaled twice, q's last
+    of dk's terms dropped; DeepSeek also K4's faults).  Returns the
+    readings by (arch, run name), a list per seed."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    runs = {}
+    faults = vlm_planted_faults(ksm, kfa) + [
+        f for f in planted_faults(ksm, kfa) if f[1] is ksm]
+    for arch in MLA_ARCHS:
+        for seed in seeds:
+            cfg, gpu, cpu, toks = slice_model(torch, seed, arch)
+            host = slice_logits(torch, cfg, cpu, toks, "cpu")
+            for name, mod, attr, fn in [("sound", None, None, None)] + faults:
+                if mod is ksm and not cfg.n_experts:
+                    continue
+                with (StandIn(mod, attr, fn) if mod is not None
+                      else contextlib.nullcontext()):
+                    card = slice_logits(torch, cfg, gpu, toks, "cuda")
+                r = mla_slice_compare(arch, card, host)
+                runs.setdefault((arch, name), []).append(r)
+                log(f"readings: {MLA_NAMES[arch]} slice seed {seed}: {name}: "
+                    f"{ {k: v for k, v in r.items() if k != 'steps'} }")
+            del gpu, cpu, host
+            torch.cuda.empty_cache()
+    for (arch, name), rs in runs.items():
+        key = "stayed_err" if "stayed_err" in rs[0] else "err"
+        more = (f"; tokens moved {min(r['moved'] for r in rs)} to "
+                f"{max(r['moved'] for r in rs)}, moved-token max |diff| up "
+                f"to {max(r['moved_err'] for r in rs):.6f}"
+                if key == "stayed_err" else "")
+        log(f"readings: {MLA_NAMES[arch]} slice {name} over seeds "
+            f"{list(seeds)}: max |diff| {min(r[key] for r in rs):.6f} to "
+            f"{max(r[key] for r in rs):.6f}{more}")
+    log(f"readings: MLA slice limits: MLA_SLICE_TOL {MLA_SLICE_TOL}, "
+        f"MLA_MOE_SLICE {MLA_MOE_SLICE}")
+    return runs
 
 
 def vlm_planted_faults(ksm, kfa):
@@ -5430,13 +5996,14 @@ def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
 
 
 def all_train_phases(torch, kseg, kfa, krw, train_errs, rwkv_bwd_err: float,
-                     smi: str):
+                     smi: str, mla_errs):
     """Phase 10 after its kernel checks: the OLMoE paths (one and
-    TRAIN_GROUPS token groups), RWKV6's and InternVL2-2B's, each with its
-    replays and slice, one after another (each trainer freed before the
-    next is built).  Returns (the JSON records of the backward kernels,
-    the largest errors of the forward kernels in this phase, the forward
-    kernels' launches over the training paths)."""
+    TRAIN_GROUPS token groups), RWKV6's, InternVL2-2B's and the two MLA
+    models', each with its replays and slice, one after another (each
+    trainer freed before the next is built).  Returns (the JSON records of
+    the backward kernels, the largest errors of the forward kernels in
+    this phase, the forward kernels' launches over the training paths,
+    K5's runs at MLA's widths)."""
     records, fwd_errs, fwd = train_phases(torch, kseg, kfa, train_errs, smi)
     rwkv_record, fwd_errs["rwkv_scan"], fwd["rwkv_scan"] = rwkv_train_phases(
         torch, kseg, kfa, krw, rwkv_bwd_err, smi)
@@ -5454,7 +6021,17 @@ def all_train_phases(torch, kseg, kfa, krw, train_errs, rwkv_bwd_err: float,
     log(f"train: K5's backward on the InternVL2-2B path's shape: "
         f"{v_bwd[0]:.5f} ms (plain {v_bwd[1]:.5f} ms, SDPA's backward "
         f"{v_bwd[2]:.5f} ms, bound {v_bwd[3]:.5f} ms by {v_bwd[4]})")
-    return records + [rwkv_record], fwd_errs, fwd
+    mla_runs, mla_k4, mla_k4_errs = mla_phases(
+        torch, kseg, kfa, krw, None, smi, False, True, mla_errs)
+    for rec in records:
+        if rec["name"] == "segment_matmul_backward":
+            rec["launches"] += mla_k4["segment_matmul_backward"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     mla_k4_errs["segment_matmul_backward"])
+    fwd["segment_matmul"] += mla_k4["segment_matmul"]
+    fwd_errs["segment_matmul"] = max(fwd_errs["segment_matmul"],
+                                     mla_k4_errs["segment_matmul"])
+    return records + [rwkv_record], fwd_errs, fwd, mla_runs
 
 
 def train_only() -> int:
@@ -5485,10 +6062,126 @@ def train_only() -> int:
     build_logged(_build, ("segment_matmul", "flash_attention", "rwkv_scan"))
     check_sass()
     errs = train_kernel_phase(torch, kseg, kfa)
+    mla_errs = mla_kernel_phase(torch, kseg, kfa)
     rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
-    records = all_train_phases(torch, kseg, kfa, krw, errs, rwkv_bwd_err,
-                               smi)[0]
-    print(json.dumps({"kernels": records}))
+    records, _, _, mla_runs = all_train_phases(
+        torch, kseg, kfa, krw, errs, rwkv_bwd_err, smi, mla_errs)
+    print(json.dumps({"kernels": records + mla_records(kfa, mla_runs)}))
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def mla_records(kfa, runs) -> list:
+    """The JSON records of K5 at MLA's widths, one a (direction, widths,
+    route): ``runs`` maps (name, dk, dv, route) to (launches, max error,
+    (ms, plain ms, library ms, bound ms, bound_by))."""
+    out = []
+    for (name, dk, dv, route), (n, err, t) in runs.items():
+        ms, plain_ms, lib_ms, b_ms, b_by = t
+        out.append(dict(
+            name=f"{name} dk{dk} dv{dv} {route}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:72", launches=n,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms))
+    return out
+
+
+def mla_phases(torch, kseg, kfa, krw, kernel_mods, smi: str, serve: bool,
+               train: bool, kernel_errs):
+    """Phase 11 (``serve``) and phase 10's MLA part (``train``) for both
+    MLA models, one after another, each model freed before the next is
+    built.  Returns (K5's runs at MLA's widths, as ``mla_records`` takes
+    them, the launches of K4's forward and backward over these paths, K4's
+    largest errors)."""
+    from repro_torch.configs import get_config
+
+    runs, k4 = {}, {"segment_matmul": 0, "segment_matmul_backward": 0}
+    k4_errs = {"segment_matmul": 0.0, "segment_matmul_backward": 0.0}
+    for arch in MLA_ARCHS:
+        cfg = get_config(arch)
+        dk, dv = cfg.qk_nope + cfg.qk_rope, cfg.v_head
+        if serve:
+            launches, errs, main, _ = mla_phase(torch, kseg, kfa,
+                                                kernel_mods, arch, smi)
+            runs[("flash_attention", dk, dv, "wgmma")] = (
+                launches["flash_attention"],
+                max(errs["flash_attention"],
+                    kernel_errs["flash_attention"]),
+                main["flash_attention"])
+            k4["segment_matmul"] += launches["segment_matmul"]
+            k4_errs["segment_matmul"] = max(k4_errs["segment_matmul"],
+                                            errs["segment_matmul"])
+        if train:
+            launches, errs, main, _ = mla_train_phase(torch, kseg, kfa, krw,
+                                                      arch, smi)
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          kernel_errs["flash_attention"])
+            route = "wgmma" if (dk, dv) in kfa.WGMMA_WIDTHS else "fma"
+            key = ("flash_attention_bwd", dk, dv, route)
+            runs[key] = (launches["flash_attention_bwd"],
+                         max(errs["flash_attention_bwd"],
+                             kernel_errs["flash_attention_bwd"]),
+                         main["flash_attention_bwd"])
+            runs = merge_runs(runs, {("flash_attention", dk, dv, "wgmma"): (
+                launches["flash_attention"], errs["flash_attention"],
+                main.get("flash_attention"))})
+            for name in k4:
+                k4[name] += launches[name]
+                k4_errs[name] = max(k4_errs[name], errs.get(name, 0.0))
+    return runs, k4, k4_errs
+
+
+def merge_runs(a, b):
+    """Two ``mla_phases`` runs as one: launches added, the larger error,
+    the first timing that exists (the serve's, where it ran)."""
+    out = dict(a)
+    for key, (n, e, t) in b.items():
+        if key in out:
+            n0, e0, t0 = out[key]
+            out[key] = (n0 + n, max(e0, e), t0 or t)
+        else:
+            out[key] = (n, e, t)
+    return out
+
+
+def mla_only() -> int:
+    """``--mla``: build K4 and K5 (their ``-Xptxas -v`` lines and
+    ``check_sass``), then the MLA phases alone: K5 at MLA's widths, both
+    MLA models' serves, training paths, replays and slices, and the
+    readings MLA_SLICE_TOL and MLA_MOE_SLICE are set from.  Not part of
+    the smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import partition as kpart
+    from repro_torch.kernels import rwkv_scan as krw
+    from repro_torch.kernels import segment_matmul as kseg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build_logged(_build, ("segment_matmul", "flash_attention"))
+    check_sass()
+    errs = mla_kernel_phase(torch, kseg, kfa)
+    kernel_mods = [(kpart, name) for name in KERNELS] + [
+        (kseg, "segment_matmul"), (kfa, "flash_attention"),
+        (krw, "rwkv_scan")]
+    runs = mla_phases(torch, kseg, kfa, krw, kernel_mods, smi, True, True,
+                      errs)[0]
+    mla_slice_readings(torch)
+    print(json.dumps({"kernels": mla_records(kfa, runs)}))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -5529,6 +6222,7 @@ def main() -> int:
     records, small_ms = kernel_phase(torch, kpart, ref)
     model_errs = model_kernel_phase(torch, kseg, kfa)
     train_errs = train_kernel_phase(torch, kseg, kfa)
+    mla_errs = mla_kernel_phase(torch, kseg, kfa)
     rwkv_err = rwkv_kernel_phase(torch, krw)
     rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
     ctrl_kernel_phase(torch, kctrl, ref, tdev)
@@ -5618,14 +6312,22 @@ def main() -> int:
     log(f"serve: K5 on the InternVL2-2B prefill's shape: {vlm_main[0]:.5f} "
         f"ms (plain {vlm_main[1]:.5f} ms, scaled_dot_product_attention "
         f"{vlm_main[2]:.5f} ms, bound {vlm_main[3]:.5f} ms by {vlm_main[4]})")
+    mla_runs, mla_k4, mla_k4_errs = mla_phases(
+        torch, kseg, kfa, krw, kernel_mods, smi, True, False, mla_errs)
+    for rec in records:
+        if rec["name"] == "segment_matmul":
+            rec["launches"] += mla_k4["segment_matmul"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     mla_k4_errs["segment_matmul"])
     records.append(ctrl_record)
-    train_records, fwd_errs, fwd = all_train_phases(
-        torch, kseg, kfa, krw, train_errs, rwkv_bwd_err, smi)
+    train_records, fwd_errs, fwd, mla_train_runs = all_train_phases(
+        torch, kseg, kfa, krw, train_errs, rwkv_bwd_err, smi, mla_errs)
     for rec in records:
         if rec["name"] in fwd_errs:
             rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
         rec["launches"] += fwd.get(rec["name"], 0)
-    records += train_records
+    records += train_records + mla_records(
+        kfa, merge_runs(mla_runs, mla_train_runs))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -5636,5 +6338,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--readings": readings, "--armed": armed,
-              "--train": train_only}.get(
+              "--train": train_only, "--mla": mla_only}.get(
         " ".join(sys.argv[1:]), main)())

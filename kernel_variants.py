@@ -213,7 +213,7 @@ def k5(torch, cs, _build) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for lib in libs.values():
         lib.repro_flash_attention.argtypes = (
-            [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
@@ -226,7 +226,7 @@ def k5(torch, cs, _build) -> None:
         code = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
             B, H,
-            k.shape[1], S, S, hd, hd ** -0.5, 1, 1,
+            k.shape[1], S, S, hd, hd, hd ** -0.5, 1, 1,
             (ctypes.c_longlong * 9)(*strides),
             *_build.device_and_stream(q.device), ctypes.byref(route))
         cs.check(code == 0 and route.value == 1,
@@ -867,8 +867,8 @@ def k5bwd(torch, cs, _build) -> None:
         code = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, hd, hd ** -0.5, 1,
-            1, (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
+            dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, hd, hd, hd ** -0.5,
+            1, 1, (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
                                          + kfa._strides(v))),
             kfa.ROUTES.index(route), *_build.device_and_stream(q.device))
         cs.check(code == 0, f"{route}: launch failed: CUDA error {code}")

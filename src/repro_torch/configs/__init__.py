@@ -34,6 +34,8 @@ _MODULES: Dict[str, str] = {
     "yi-6b": "yi_6b",
     "granite-8b": "granite_8b",
     "internvl2-2b": "internvl2_2b",
+    "minicpm3-4b": "minicpm3_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 #: The architectures the port serves.

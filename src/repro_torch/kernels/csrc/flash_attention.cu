@@ -3,12 +3,15 @@
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py
 // (wrapper flash_attention :72, kernel _flash_kernel :26), the computation
 // of repro/models/attention.py::flash_attention_ref on the prefill path
-// (attention.py:174 and :180):
+// (attention.py:174 and :180, and MLA's expanded path, :296):
 //   out[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h/rep, j])
 //                  * v[b, h/rep, j]
-// for q [B, H, S, hd], k and v [B, H/rep, T, hd] (bf16 or float32, all
-// alike; any element strides over batch, head and row, the last dimension
-// contiguous), out [B, H, S, hd] float32 and contiguous; causal masks
+// for q [B, H, S, dk], k [B, H/rep, T, dk] and v [B, H/rep, T, dv] (bf16 or
+// float32, all alike; any element strides over batch, head and row, the
+// last dimension contiguous), out [B, H, S, dv] float32 and contiguous;
+// (dk, dv) one of REPRO_K5_WIDTHS: equal widths 16, 32, 64, 128, or MLA's
+// pairs, qk_nope + qk_rope and v_head (the smoke configurations' (24, 16),
+// MiniCPM3-4B's (96, 64), DeepSeek-V2-Lite's (192, 128)); causal masks
 // j > i (S == T: the wrapper refuses a causal call with S != T).  The
 // arithmetic is the TPU kernel's, in float32: masked scores take the value
 // -2^30 (not -inf), the running max m, sum l and accumulator acc are
@@ -19,7 +22,8 @@
 // h / rep; the KV heads are never repeated in memory.
 //
 // Two kernels:
-//   "wgmma" (bf16, hd 128; the model's prefill): Q K^T and P V on the
+//   "wgmma" (bf16 at (dk, dv) = (128, 128), (96, 64), (192, 128); the
+//            models' prefills and training forwards): Q K^T and P V on the
 //            tensor cores.  P stays float32, as in the reference: it is
 //            split into hi = bf16(p) and lo = bf16(p - hi) (p - hi is exact
 //            in float32), and P V is the two products hi V + lo V into one
@@ -33,24 +37,25 @@
 //            1e-6 relative at the scores that weigh), inside the tolerance
 //            the kernel is held to (chip_smoke.py::check_flash) and faster
 //            than expf (kernel_variants.py k5; PERF.md).
-//   "fma"    (float32, and bf16 at hd 16, 32, 64): float32 on the CUDA
-//            cores, the first, simple design (below).
+//   "fma"    (float32, and bf16 at the other widths): float32 on the CUDA
+//            cores, the first, simple design (below), templated on
+//            (dk, dv): q and k rows dk wide, v, out and dO rows dv.
 // The wgmma kernel also writes each row's log-sum-exp of the scaled scores,
 // m + log(max(l, 1e-20)), when given a buffer for it (the training
 // forward; the serve passes none and its output's bits do not change).
 // The backward has two routes of its own, each described where it is
 // defined: "fma" (flash_bwd_dq, flash_bwd_dkv: CUDA cores, any call) and
-// "wgmma" (bf16 at hd 128: flash_bwd_prep, flash_bwd_dkv_wgmma,
-// flash_bwd_dq_wgmma, which read that log-sum-exp).
+// "wgmma" (bf16 at the same widths as the forward's: flash_bwd_prep,
+// flash_bwd_dkv_wgmma, flash_bwd_dq_wgmma, which read that log-sum-exp).
 //
 // Bound on an H100 (NVIDIA H100 SXM data sheet), per visible (query, key)
-// pair (S T pairs, S (S + 1) / 2 when causal and S == T): wgmma, 2 hd
-// operations for Q K^T and 4 hd for P V (hi and lo) at the bf16
-// tensor-core rate (989 TFLOP/s dense); fma, 2 hd for Q K^T (at the bf16
+// pair (S T pairs, S (S + 1) / 2 when causal and S == T): wgmma, 2 dk
+// operations for Q K^T and 4 dv for P V (hi and lo) at the bf16
+// tensor-core rate (989 TFLOP/s dense); fma, 2 dk for Q K^T (at the bf16
 // tensor-core rate for bf16 inputs, whose products are exact in float32,
-// else at the 67 TFLOP/s of float32) and 2 hd for P V at the float32 rate.
+// else at the 67 TFLOP/s of float32) and 2 dv for P V at the float32 rate.
 // The bytes are q, k and v read once and the float32 output written once,
-// against 3.35 TB/s.  The serve's prefills (S = 202 and 445) are bound by
+// each at its width, against 3.35 TB/s.  The serve's prefills (S = 202 and 445) are bound by
 // the bytes on the wgmma route; OLMoE's 4096-token context by operations.
 //
 // Design of "wgmma".  The TPU kernel keeps the q tile and (acc, m, l) in
@@ -60,15 +65,19 @@
 // loads the q tile once by TMA and streams 128-key K and V tiles through a
 // 2-stage ring on mbarriers (K and V on barriers of their own, so Q K^T
 // starts before V lands); two consumer warpgroups own 64 rows each.  A
-// 128-wide bf16 row is 256 bytes, past the 128-byte swizzle, so every tile
-// arrives as two 64-column boxes one box apart.  The tensor maps are 4-D
+// bf16 row wider than 64 is past the 128-byte swizzle, so every tile
+// arrives as 64-column boxes one box apart: dk / 64 rounded up for q and
+// K (at dk 96 the second box's last 32 columns lie past the tensor, TMA
+// writes zeros there and no product reads them: the K steps stop at dk),
+// dv / 64 for V.  At (192, 128) the q tile and a 2-stage ring of K and V
+// take 48 + 2 (48 + 32) = 208 KB of the 227.  The tensor maps are 4-D
 // over (hd, rows, heads, batch) with the tensors' own strides, so the
 // model's [B, S, H, hd] activations are read in place through a transposed
 // view, and GQA picks KV head h / rep by the map's coordinate.  Per tile:
-// S = Q K^T by 8 wgmma m64n128k16 (q and K both K-major from shared
+// S = Q K^T by dk / 16 wgmma m64n128k16 (q and K both K-major from shared
 // memory), the online softmax in registers on the accumulator layout (a
 // row lies in the 4 lanes of a quad: two shuffles), the mask only on the
-// diagonal and ragged tiles, then P V by 16 wgmma m64n128k16 with P's hi
+// diagonal and ragged tiles, then P V by 16 wgmma m64n{dv}k16 with P's hi
 // and lo fragments in registers (the float32 accumulator of S packs into
 // the A fragment of the next product without a shuffle) and V N-major
 // (transpose bit set).  The output is written from registers, rows past S
@@ -109,17 +118,27 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-// ---- bf16, hd 128: wgmma on a TMA ring -------------------------------------
-constexpr int kHD = 128;
+// ---- bf16 at (dk, dv) = (128, 128), (96, 64), (192, 128): wgmma on a TMA ring
 constexpr int kBM = 128;                  // query rows a block
 constexpr int kBN = 128;                  // keys a tile
 constexpr int kStages = 2;
 constexpr int kWThreads = 288;            // 2 warpgroups + 1 producer warp
 constexpr uint32_t kBox = 128 * 128;      // 128 rows x 64 bf16, 16 KB
-constexpr uint32_t kTile = 2 * kBox;      // 128 rows x hd 128, 32 KB
-constexpr uint32_t kStage = 2 * kTile;    // a K and a V tile
-constexpr size_t kWSmem =
-    kTile + kStages * kStage + (1 + 3 * kStages) * 8 + 1024;
+
+// The forward's tiles at (DK, DV): q and k in kQB 64-column boxes (the
+// last one past DK read as zeros by TMA and never multiplied: DK 96 is one
+// and a half boxes), v in kVB.
+template <int DK, int DV>
+struct FwdShape {
+  static_assert(DK % 16 == 0 && (DV == 64 || DV == 128), "wgmma widths");
+  static constexpr int kQB = (DK + 63) / 64;
+  static constexpr int kVB = DV / 64;
+  static constexpr uint32_t kQTile = kQB * kBox;   // q, and a K tile
+  static constexpr uint32_t kVTile = kVB * kBox;   // a V tile
+  static constexpr uint32_t kStage = kQTile + kVTile;
+  static constexpr size_t kSmem =
+      kQTile + kStages * kStage + (1 + 3 * kStages) * 8 + 1024;
+};
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   uint32_t u;
@@ -127,16 +146,18 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return u;
 }
 
+template <int DK, int DV>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma(__grid_constant__ const CUtensorMap tq,
             __grid_constant__ const CUtensorMap tk,
             __grid_constant__ const CUtensorMap tv, float* __restrict__ out,
             float* __restrict__ lse, int S, int T_len, int H, int rep,
             float scale, int causal) {
+  using Sh = FwdShape<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* ring = smem + kTile;           // the q tile first
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint8_t* ring = smem + Sh::kQTile;      // the q tile first
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * Sh::kStage);
   uint64_t* kfull = qbar + 1;
   uint64_t* vfull = kfull + kStages;
   uint64_t* empty = vfull + kStages;
@@ -162,20 +183,21 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
   if (warp == 8) {                        // the producer
     if (threadIdx.x % 32 == 0) {
       const int kvh = h / rep;
-      sm90::mbar_arrive_expect_tx(qbar, kTile);
-      sm90::tma_load_4d(smem, &tq, qbar, 0, q0, h, b);
-      sm90::tma_load_4d(smem + kBox, &tq, qbar, 64, q0, h, b);
+      sm90::mbar_arrive_expect_tx(qbar, Sh::kQTile);
+      for (int x = 0; x < Sh::kQB; ++x)
+        sm90::tma_load_4d(smem + x * kBox, &tq, qbar, 64 * x, q0, h, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         if (j >= kStages) sm90::mbar_wait(&empty[s], (j / kStages - 1) & 1);
-        uint8_t* st = ring + s * kStage;
+        uint8_t* st = ring + s * Sh::kStage;
         const int k0 = j * kBN;
-        sm90::mbar_arrive_expect_tx(&kfull[s], kTile);
-        sm90::tma_load_4d(st, &tk, &kfull[s], 0, k0, kvh, b);
-        sm90::tma_load_4d(st + kBox, &tk, &kfull[s], 64, k0, kvh, b);
-        sm90::mbar_arrive_expect_tx(&vfull[s], kTile);
-        sm90::tma_load_4d(st + kTile, &tv, &vfull[s], 0, k0, kvh, b);
-        sm90::tma_load_4d(st + kTile + kBox, &tv, &vfull[s], 64, k0, kvh, b);
+        sm90::mbar_arrive_expect_tx(&kfull[s], Sh::kQTile);
+        for (int x = 0; x < Sh::kQB; ++x)
+          sm90::tma_load_4d(st + x * kBox, &tk, &kfull[s], 64 * x, k0, kvh, b);
+        sm90::mbar_arrive_expect_tx(&vfull[s], Sh::kVTile);
+        for (int x = 0; x < Sh::kVB; ++x)
+          sm90::tma_load_4d(st + Sh::kQTile + x * kBox, &tv, &vfull[s],
+                            64 * x, k0, kvh, b);
       }
     }
     return;
@@ -188,9 +210,9 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
   const int row_lo = q0 + 64 * wg;
   const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[64];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   sm90::fence_regs(acc);
   const uint32_t qa = sm90::smem_u32(smem) + wg * 64 * 128;
   sm90::mbar_wait(qbar, 0);
@@ -198,11 +220,11 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
   for (int j = 0; j < n_kv; ++j) {
     const int s = j % kStages;
     const uint32_t phase = (j / kStages) & 1;
-    const uint32_t kb = sm90::smem_u32(ring + s * kStage);
-    const uint32_t vb = kb + kTile;
+    const uint32_t kb = sm90::smem_u32(ring + s * Sh::kStage);
+    const uint32_t vb = kb + Sh::kQTile;
     const int k0 = j * kBN;
 
-    // S = Q K^T: hd in 8 steps of 16, the second 64 columns one box on.
+    // S = Q K^T: dk in steps of 16, each next 64 columns one box on.
     float sc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
@@ -210,7 +232,7 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
     sm90::mbar_wait(&kfull[s], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
       sm90::wgmma_m64n128k16<0, 0>(sc, sm90::desc_sw128(qa + off, 16, 1024),
                                    sm90::desc_sw128(kb + off, 16, 1024));
@@ -262,7 +284,7 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
       m[r] = mx[r];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
     // P = hi + lo, packed into the A fragments of the 16-key steps.
     uint32_t hi[8][4], lo[8][4];
@@ -278,15 +300,15 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
       }
     }
 
-    // acc += hi V + lo V: keys in 8 steps of 16 (2048 bytes each), V
-    // N-major with its second 64 columns one box on.
+    // acc += hi V + lo V: keys in 8 steps of 16 (2048 bytes each), n = dv,
+    // V N-major with each next 64 columns one box on.
     sm90::mbar_wait(&vfull[s], phase);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t dv = sm90::desc_sw128(vb + 2048 * kk, kBox, 1024);
-      sm90::wgmma_m64n128k16_rs<1>(acc, hi[kk], dv);
-      sm90::wgmma_m64n128k16_rs<1>(acc, lo[kk], dv);
+      sm90::wgmma_rs<DV, 1>(acc, hi[kk], dv);
+      sm90::wgmma_rs<DV, 1>(acc, lo[kk], dv);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -299,15 +321,15 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
     if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  float* ob = out + static_cast<size_t>(bh) * S * kHD + 2 * quad;
+  float* ob = out + static_cast<size_t>(bh) * S * DV + 2 * quad;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-20f);
-    float* orow = ob + static_cast<size_t>(row) * kHD;
+    float* orow = ob + static_cast<size_t>(row) * DV;
 #pragma unroll
-    for (int g = 0; g < 16; ++g)
+    for (int g = 0; g < DV / 8; ++g)
       *reinterpret_cast<float2*>(orow + 8 * g) =
           make_float2(acc[4 * g + 2 * r] / denom,
                       acc[4 * g + 2 * r + 1] / denom);
@@ -318,7 +340,7 @@ flash_wgmma(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-// ---- float32, and bf16 at hd 16, 32, 64: CUDA cores ------------------------
+// ---- float32 at every width, and bf16 at those without wgmma: CUDA cores --
 constexpr int kFBQ = 64;
 constexpr int kFBK = 64;
 constexpr int kFThreads = 256;
@@ -328,25 +350,27 @@ __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t fma_smem() {
-  return sizeof(float) * (3 * 64 * (HD + 1) + 64 * (kFBK + 1));
+  return sizeof(float) *
+         (2 * 64 * (DK + 1) + 64 * (DV + 1) + 64 * (kFBK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kFThreads)
 flash_fma(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, float* __restrict__ out, Strides st,
           int S, int T_len, int H, int rep, float scale, int causal) {
-  constexpr int LD = HD + 1;
+  constexpr int LDK = DK + 1;
+  constexpr int LDV = DV + 1;
   constexpr int LP = kFBK + 1;
-  constexpr int DPT = HD / 4;        // accumulator columns a thread owns
+  constexpr int DPT = DV / 4;        // accumulator columns a thread owns
   constexpr int SPT = kFBK / 4;      // scores a thread computes a tile
   extern __shared__ float smem[];
-  float* Qs = smem;                  // [kFBQ][LD]
-  float* Ks = Qs + kFBQ * LD;        // [kFBK][LD]
-  float* Vs = Ks + kFBK * LD;        // [kFBK][LD]
-  float* Ps = Vs + kFBK * LD;        // [kFBQ][LP]
+  float* Qs = smem;                  // [kFBQ][LDK]
+  float* Ks = Qs + kFBQ * LDK;       // [kFBK][LDK]
+  float* Vs = Ks + kFBK * LDK;       // [kFBK][LDV]
+  float* Ps = Vs + kFBK * LDV;       // [kFBQ][LP]
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;            // query row within the tile
@@ -359,10 +383,10 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * st.k[0] + kvh * st.k[1];
   const T* vp = v + b * st.v[0] + kvh * st.v[1];
 
-  for (int i = tid; i < kFBQ * HD; i += kFThreads) {
-    const int rr = i / HD, c = i % HD;
+  for (int i = tid; i < kFBQ * DK; i += kFThreads) {
+    const int rr = i / DK, c = i % DK;
     const int qi = q0 + rr;
-    Qs[rr * LD + c] = qi < S ? to_float(qp[qi * st.q[2] + c]) * scale : 0.0f;
+    Qs[rr * LDK + c] = qi < S ? to_float(qp[qi * st.q[2] + c]) * scale : 0.0f;
   }
 
   const int qrow = q0 + r;
@@ -375,23 +399,26 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(T_len, q0 + kFBQ) : T_len;
   for (int k0 = 0; k0 < kv_end; k0 += kFBK) {
     __syncthreads();   // the q tile is in; the last tile's readers are done
-    for (int i = tid; i < kFBK * HD; i += kFThreads) {
-      const int rr = i / HD, c = i % HD;
+    for (int i = tid; i < kFBK * DK; i += kFThreads) {
+      const int rr = i / DK, c = i % DK;
       const int kj = k0 + rr;
-      const bool in = kj < T_len;
-      Ks[rr * LD + c] = in ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
-      Vs[rr * LD + c] = in ? to_float(vp[kj * st.v[2] + c]) : 0.0f;
+      Ks[rr * LDK + c] = kj < T_len ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
+    }
+    for (int i = tid; i < kFBK * DV; i += kFThreads) {
+      const int rr = i / DV, c = i % DV;
+      const int kj = k0 + rr;
+      Vs[rr * LDV + c] = kj < T_len ? to_float(vp[kj * st.v[2] + c]) : 0.0f;
     }
     __syncthreads();
 
     float s[SPT];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) s[j] = 0.0f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * LD + d];
+    for (int d = 0; d < DK; ++d) {
+      const float qd = Qs[r * LDK + d];
 #pragma unroll
       for (int j = 0; j < SPT; ++j)
-        s[j] = fmaf(qd, Ks[(t + 4 * j) * LD + d], s[j]);
+        s[j] = fmaf(qd, Ks[(t + 4 * j) * LDK + d], s[j]);
     }
     float mx = m;
 #pragma unroll
@@ -424,20 +451,22 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
       const float p = Ps[r * LP + j];
 #pragma unroll
       for (int d = 0; d < DPT; ++d)
-        acc[d] = fmaf(p, Vs[j * LD + t + 4 * d], acc[d]);
+        acc[d] = fmaf(p, Vs[j * LDV + t + 4 * d], acc[d]);
     }
   }
 
   if (qrow < S) {
     const float denom = fmaxf(l, 1e-20f);
-    float* op = out + (static_cast<size_t>(bh) * S + qrow) * HD;
+    float* op = out + (static_cast<size_t>(bh) * S + qrow) * DV;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) op[t + 4 * d] = acc[d] / denom;
   }
 }
 
 // ---- the backward, "fma" route: float32 on the CUDA cores ----------------
-// (float32, bf16 at hd 16, 32, 64, and bf16 at hd 128 that TMA cannot map.)
+// (float32, bf16 at the widths without the wgmma backward, and bf16 that
+// TMA cannot map.)  Templated on
+// (dk, dv) as flash_fma; the comments below say hd where dk = dv.
 // dQ, dK and dV of out = softmax(scale q k^T) v (masked as the forward),
 // given out (the forward's float32 output) and dO = dL/d out (float32):
 //   P = exp(s - lse) with s = (scale q) . k and lse = m + log(l) of the row,
@@ -469,14 +498,17 @@ flash_fma(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kBB = 64;               // rows a tile, both kernels
 constexpr int kBThreads = 256;
 
-template <int HD>
+// q and k rows are DK wide (padded by one word), v, out and dO rows DV.
+template <int DK, int DV>
 constexpr size_t bwd_dq_smem() {
-  return sizeof(float) * (4 * kBB * (HD + 1) + kBB * (kBB + 1));
+  return sizeof(float) *
+         (2 * kBB * (DK + 1) + 2 * kBB * (DV + 1) + kBB * (kBB + 1));
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t bwd_dkv_smem() {
-  return sizeof(float) * (4 * kBB * (HD + 1) + 2 * kBB * (kBB + 1) + 2 * kBB);
+  return sizeof(float) * (2 * kBB * (DK + 1) + 2 * kBB * (DV + 1) +
+                          2 * kBB * (kBB + 1) + 2 * kBB);
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -484,23 +516,25 @@ __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kBThreads)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ o,
              const float* __restrict__ dout, T* __restrict__ dq,
              float* __restrict__ ws, Strides st, int S, int T_len, int H,
              int rep, float scale, int causal, int BHS) {
-  constexpr int LD = HD + 1;
+  constexpr int LDK = DK + 1;
+  constexpr int LDV = DV + 1;
   constexpr int LP = kBB + 1;
-  constexpr int DPT = HD / 4;
+  constexpr int DPK = DK / 4;        // dQ columns a thread owns
+  constexpr int DPV = DV / 4;
   constexpr int SPT = kBB / 4;
   extern __shared__ float smem[];
-  float* Qs = smem;                  // [kBB][LD], scale q
-  float* dOs = Qs + kBB * LD;        // [kBB][LD]
-  float* Ks = dOs + kBB * LD;        // [kBB][LD]
-  float* Vs = Ks + kBB * LD;         // [kBB][LD]
-  float* Ps = Vs + kBB * LD;         // [kBB][LP], dS
+  float* Qs = smem;                  // [kBB][LDK], scale q
+  float* dOs = Qs + kBB * LDK;       // [kBB][LDV]
+  float* Ks = dOs + kBB * LDV;       // [kBB][LDK]
+  float* Vs = Ks + kBB * LDK;        // [kBB][LDV]
+  float* Ps = Vs + kBB * LDV;        // [kBB][LP], dS
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;
@@ -514,12 +548,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + b * st.v[0] + kvh * st.v[1];
   const size_t row0 = static_cast<size_t>(bh) * S;   // rows of out, dO, dq
 
-  for (int i = tid; i < kBB * HD; i += kBThreads) {
-    const int rr = i / HD, c = i % HD;
+  for (int i = tid; i < kBB * DK; i += kBThreads) {
+    const int rr = i / DK, c = i % DK;
     const int qi = q0 + rr;
-    const bool in = qi < S;
-    Qs[rr * LD + c] = in ? to_float(qp[qi * st.q[2] + c]) * scale : 0.0f;
-    dOs[rr * LD + c] = in ? dout[(row0 + qi) * HD + c] : 0.0f;
+    Qs[rr * LDK + c] = qi < S ? to_float(qp[qi * st.q[2] + c]) * scale : 0.0f;
+  }
+  for (int i = tid; i < kBB * DV; i += kBThreads) {
+    const int rr = i / DV, c = i % DV;
+    const int qi = q0 + rr;
+    dOs[rr * LDV + c] = qi < S ? dout[(row0 + qi) * DV + c] : 0.0f;
   }
   const int qrow = q0 + r;
   const int kv_end = causal ? min(T_len, q0 + kBB) : T_len;
@@ -528,20 +565,20 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   float m = kNegInf, l = 0.0f;
   for (int k0 = 0; k0 < kv_end; k0 += kBB) {
     __syncthreads();
-    for (int i = tid; i < kBB * HD; i += kBThreads) {
-      const int rr = i / HD, c = i % HD;
+    for (int i = tid; i < kBB * DK; i += kBThreads) {
+      const int rr = i / DK, c = i % DK;
       const int kj = k0 + rr;
-      Ks[rr * LD + c] = kj < T_len ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
+      Ks[rr * LDK + c] = kj < T_len ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
     }
     __syncthreads();
     float s[SPT];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) s[j] = 0.0f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * LD + d];
+    for (int d = 0; d < DK; ++d) {
+      const float qd = Qs[r * LDK + d];
 #pragma unroll
       for (int j = 0; j < SPT; ++j)
-        s[j] = fmaf(qd, Ks[(t + 4 * j) * LD + d], s[j]);
+        s[j] = fmaf(qd, Ks[(t + 4 * j) * LDK + d], s[j]);
     }
     float mx = m;
 #pragma unroll
@@ -567,10 +604,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const float lse = m + logf(fmaxf(l, 1e-20f));
   float dd = 0.0f;
   if (qrow < S) {
-    const float* orow = o + (row0 + qrow) * HD;
+    const float* orow = o + (row0 + qrow) * DV;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      dd = fmaf(dOs[r * LD + t + 4 * c], orow[t + 4 * c], dd);
+    for (int c = 0; c < DPV; ++c)
+      dd = fmaf(dOs[r * LDV + t + 4 * c], orow[t + 4 * c], dd);
   }
   dd += __shfl_xor_sync(0xffffffffu, dd, 1);
   dd += __shfl_xor_sync(0xffffffffu, dd, 2);
@@ -580,30 +617,36 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Pass 2: dS row by row, dQ += dS k.
-  float acc[DPT];
+  float acc[DPK];
 #pragma unroll
-  for (int c = 0; c < DPT; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < DPK; ++c) acc[c] = 0.0f;
   for (int k0 = 0; k0 < kv_end; k0 += kBB) {
     __syncthreads();
-    for (int i = tid; i < kBB * HD; i += kBThreads) {
-      const int rr = i / HD, c = i % HD;
+    for (int i = tid; i < kBB * DK; i += kBThreads) {
+      const int rr = i / DK, c = i % DK;
       const int kj = k0 + rr;
-      const bool in = kj < T_len;
-      Ks[rr * LD + c] = in ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
-      Vs[rr * LD + c] = in ? to_float(vp[kj * st.v[2] + c]) : 0.0f;
+      Ks[rr * LDK + c] = kj < T_len ? to_float(kp[kj * st.k[2] + c]) : 0.0f;
+    }
+    for (int i = tid; i < kBB * DV; i += kBThreads) {
+      const int rr = i / DV, c = i % DV;
+      const int kj = k0 + rr;
+      Vs[rr * LDV + c] = kj < T_len ? to_float(vp[kj * st.v[2] + c]) : 0.0f;
     }
     __syncthreads();
     float s[SPT], dp[SPT];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * LD + d];
-      const float gd = dOs[r * LD + d];
+    for (int d = 0; d < DK; ++d) {
+      const float qd = Qs[r * LDK + d];
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        s[j] = fmaf(qd, Ks[(t + 4 * j) * LD + d], s[j]);
-        dp[j] = fmaf(gd, Vs[(t + 4 * j) * LD + d], dp[j]);
-      }
+      for (int j = 0; j < SPT; ++j)
+        s[j] = fmaf(qd, Ks[(t + 4 * j) * LDK + d], s[j]);
+    }
+    for (int d = 0; d < DV; ++d) {
+      const float gd = dOs[r * LDV + d];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j)
+        dp[j] = fmaf(gd, Vs[(t + 4 * j) * LDV + d], dp[j]);
     }
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
@@ -616,34 +659,36 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBB; ++j) {
       const float ds = Ps[r * LP + j];
 #pragma unroll
-      for (int c = 0; c < DPT; ++c)
-        acc[c] = fmaf(ds, Ks[j * LD + t + 4 * c], acc[c]);
+      for (int c = 0; c < DPK; ++c)
+        acc[c] = fmaf(ds, Ks[j * LDK + t + 4 * c], acc[c]);
     }
   }
   if (qrow < S) {
-    T* drow = dq + (row0 + qrow) * HD;
+    T* drow = dq + (row0 + qrow) * DK;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) store(drow + t + 4 * c, acc[c] * scale);
+    for (int c = 0; c < DPK; ++c) store(drow + t + 4 * c, acc[c] * scale);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kBThreads)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ ws, T* __restrict__ dk,
               T* __restrict__ dv, Strides st, int S, int T_len, int H,
               int KV, int rep, float scale, int causal, int BHS) {
-  constexpr int LD = HD + 1;
+  constexpr int LDK = DK + 1;
+  constexpr int LDV = DV + 1;
   constexpr int LP = kBB + 1;
-  constexpr int DPT = HD / 4;
+  constexpr int DPK = DK / 4;
+  constexpr int DPV = DV / 4;
   constexpr int SPT = kBB / 4;
   extern __shared__ float smem[];
-  float* Ks = smem;                  // [kBB][LD]
-  float* Vs = Ks + kBB * LD;         // [kBB][LD]
-  float* Qs = Vs + kBB * LD;         // [kBB][LD], scale q
-  float* dOs = Qs + kBB * LD;        // [kBB][LD]
-  float* Ps = dOs + kBB * LD;        // [kBB keys][LP]: P^T
+  float* Ks = smem;                  // [kBB][LDK]
+  float* Vs = Ks + kBB * LDK;        // [kBB][LDV]
+  float* Qs = Vs + kBB * LDV;        // [kBB][LDK], scale q
+  float* dOs = Qs + kBB * LDK;       // [kBB][LDV]
+  float* Ps = dOs + kBB * LDV;       // [kBB keys][LP]: P^T
   float* Ds = Ps + kBB * LP;         // [kBB keys][LP]: dS^T
   float* lses = Ds + kBB * LP;       // [kBB]
   float* dds = lses + kBB;           // [kBB]
@@ -657,17 +702,22 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * st.k[0] + kvh * st.k[1];
   const T* vp = v + b * st.v[0] + kvh * st.v[1];
 
-  for (int i = tid; i < kBB * HD; i += kBThreads) {
-    const int rr = i / HD, cc = i % HD;
+  for (int i = tid; i < kBB * DK; i += kBThreads) {
+    const int rr = i / DK, cc = i % DK;
     const int kj = k0 + rr;
-    const bool in = kj < T_len;
-    Ks[rr * LD + cc] = in ? to_float(kp[kj * st.k[2] + cc]) : 0.0f;
-    Vs[rr * LD + cc] = in ? to_float(vp[kj * st.v[2] + cc]) : 0.0f;
+    Ks[rr * LDK + cc] = kj < T_len ? to_float(kp[kj * st.k[2] + cc]) : 0.0f;
+  }
+  for (int i = tid; i < kBB * DV; i += kBThreads) {
+    const int rr = i / DV, cc = i % DV;
+    const int kj = k0 + rr;
+    Vs[rr * LDV + cc] = kj < T_len ? to_float(vp[kj * st.v[2] + cc]) : 0.0f;
   }
   const int krow = k0 + c;
-  float adk[DPT], adv[DPT];
+  float adk[DPK], adv[DPV];
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) adk[d] = adv[d] = 0.0f;
+  for (int d = 0; d < DPK; ++d) adk[d] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < DPV; ++d) adv[d] = 0.0f;
 
   // Causal: query tiles from the one holding the diagonal (tiles align).
   const int q_start = causal ? k0 : 0;
@@ -677,13 +727,16 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
     for (int q0 = q_start; q0 < S; q0 += kBB) {
       __syncthreads();   // the last tile's readers are done
-      for (int i = tid; i < kBB * HD; i += kBThreads) {
-        const int rr = i / HD, cc = i % HD;
+      for (int i = tid; i < kBB * DK; i += kBThreads) {
+        const int rr = i / DK, cc = i % DK;
         const int qi = q0 + rr;
-        const bool in = qi < S;
-        Qs[rr * LD + cc] = in ? to_float(qp[qi * st.q[2] + cc]) * scale
-                              : 0.0f;
-        dOs[rr * LD + cc] = in ? dout[(row0 + qi) * HD + cc] : 0.0f;
+        Qs[rr * LDK + cc] = qi < S ? to_float(qp[qi * st.q[2] + cc]) * scale
+                                   : 0.0f;
+      }
+      for (int i = tid; i < kBB * DV; i += kBThreads) {
+        const int rr = i / DV, cc = i % DV;
+        const int qi = q0 + rr;
+        dOs[rr * LDV + cc] = qi < S ? dout[(row0 + qi) * DV + cc] : 0.0f;
       }
       if (tid < kBB) {
         const int qi = q0 + tid;
@@ -694,14 +747,17 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       float s[SPT], dp[SPT];
 #pragma unroll
       for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.0f;
-      for (int d = 0; d < HD; ++d) {
-        const float kd = Ks[c * LD + d];
-        const float vd = Vs[c * LD + d];
+      for (int d = 0; d < DK; ++d) {
+        const float kd = Ks[c * LDK + d];
 #pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          s[j] = fmaf(Qs[(t + 4 * j) * LD + d], kd, s[j]);
-          dp[j] = fmaf(dOs[(t + 4 * j) * LD + d], vd, dp[j]);
-        }
+        for (int j = 0; j < SPT; ++j)
+          s[j] = fmaf(Qs[(t + 4 * j) * LDK + d], kd, s[j]);
+      }
+      for (int d = 0; d < DV; ++d) {
+        const float vd = Vs[c * LDV + d];
+#pragma unroll
+        for (int j = 0; j < SPT; ++j)
+          dp[j] = fmaf(dOs[(t + 4 * j) * LDV + d], vd, dp[j]);
       }
 #pragma unroll
       for (int j = 0; j < SPT; ++j) {
@@ -717,27 +773,36 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
         const float p = Ps[c * LP + i];
         const float ds = Ds[c * LP + i];
 #pragma unroll
-        for (int d = 0; d < DPT; ++d) {
-          adv[d] = fmaf(p, dOs[i * LD + t + 4 * d], adv[d]);
-          adk[d] = fmaf(ds, Qs[i * LD + t + 4 * d], adk[d]);
-        }
+        for (int d = 0; d < DPV; ++d)
+          adv[d] = fmaf(p, dOs[i * LDV + t + 4 * d], adv[d]);
+#pragma unroll
+        for (int d = 0; d < DPK; ++d)
+          adk[d] = fmaf(ds, Qs[i * LDK + t + 4 * d], adk[d]);
       }
     }
   }
   if (krow < T_len) {
-    const size_t off = ((static_cast<size_t>(b) * KV + kvh) * T_len + krow)
-                       * HD;
+    const size_t row = (static_cast<size_t>(b) * KV + kvh) * T_len + krow;
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) {
-      store(dk + off + t + 4 * d, adk[d]);
-      store(dv + off + t + 4 * d, adv[d]);
-    }
+    for (int d = 0; d < DPK; ++d) store(dk + row * DK + t + 4 * d, adk[d]);
+#pragma unroll
+    for (int d = 0; d < DPV; ++d) store(dv + row * DV + t + 4 * d, adv[d]);
   }
 }
 
-// ---- the backward, bf16 at hd 128: wgmma on TMA rings ----------------------
-// The same function as the fma pair above, for bf16 q, k, v at hd 128 whose
-// strides TMA can map (the model's training calls).  Three launches:
+// ---- the backward, bf16 at the forward's wgmma widths: wgmma on TMA rings -
+// The same function as the fma pair above, for bf16 q, k, v at those widths
+// whose strides TMA can map (the models' training calls), templated on
+// (dk, dv) as the forward: q and K rows in 64-column boxes, the last past
+// dk read as zeros; dK and dQ are m64n128 products at dk 96 (their N-major
+// operand is whole boxes), whose last 32 columns multiply those zeros and
+// are not written (12.5% more work than the pair needs at (96, 64)).  At
+// (192, 128) the dK and dQ accumulators (m64n192: 96 registers a thread)
+// beside S, dP and the fragments do not fit the 168 registers a thread of
+// a 288-thread block may hold: those blocks take a whole producer
+// warpgroup (384 threads) that gives its registers to the consumers by
+// setmaxnreg (24 / 240; BwdShape::kRegs).  Three launches (the comments
+// say hd where dk = dv = 128):
 //   flash_bwd_prep  a warp a row: D_i = sum_d dO out (float32, as the fma
 //                   pair), dO split into bf16 hi = bf16(dO) and lo =
 //                   bf16(dO - hi) ([B, H, S, hd] each; dO - hi is exact in
@@ -797,17 +862,44 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kRows = 64;                     // a warpgroup's rows, a ring tile
 constexpr int kBlockRows = 128;               // dq: a block's own queries
 constexpr uint32_t kBox64 = 64 * 128;         // 64 rows x 64 bf16, 8 KB
-constexpr uint32_t kTile64 = 2 * kBox64;      // 64 rows x hd 128, 16 KB
 constexpr int kBStages = 2;
-constexpr uint32_t kKVStage = 3 * kTile64;    // Q, dO hi, dO lo: 48 KB
 constexpr int kPBuf = 32 * 128;               // P^T of a tile, float32
-constexpr int kKVThreads = 288;               // 2 consumer wgs + 1 warp
-constexpr size_t kKVSmem = 2 * kTile64 + kBStages * kKVStage +
-                           2 * kPBuf * 4 + (1 + 2 * kBStages) * 8 + 1024;
-constexpr uint32_t kQStage = 2 * kTile64;     // K, V: 32 KB
-constexpr int kQThreads = 288;                // 2 consumer wgs + 1 warp
-constexpr size_t kQSmem =
-    3 * kTile + kBStages * kQStage + (1 + 2 * kBStages) * 8 + 1024;
+
+// The backward's tiles at (DK, DV): q and k rows in kQB 64-column boxes
+// (past DK read as zeros), v and dO rows in kVB.  dK and dQ are products
+// with N = NQ = 64 kQB (q and k are their N-major operands, whole boxes):
+// at DK 96 their last 32 columns multiply the zeros and are not written.
+template <int DK, int DV>
+struct BwdShape {
+  static_assert(DK % 16 == 0 && (DV == 64 || DV == 128), "wgmma widths");
+  static constexpr int kQB = (DK + 63) / 64;
+  static constexpr int kVB = DV / 64;
+  static constexpr int NQ = 64 * kQB;
+  static_assert(NQ == 64 || NQ == 128 || NQ == 192,
+                "dK and dQ are m64n64, m64n128 or m64n192");
+  // At NQ 192 the dK and dQ accumulators (96 registers a thread) do not fit
+  // beside S, dP and the fragments in the 168 registers a thread of a
+  // 288-thread block may hold: the block takes a whole producer warpgroup
+  // (384 threads) that gives its registers to the two consumer warpgroups
+  // (setmaxnreg: 24 for the producer, 240 for each consumer).
+  static constexpr bool kRegs = NQ > 128;
+  static constexpr int kThreads = kRegs ? 384 : 288;
+  // dkv: K and V of the block's 64 keys, a ring of Q, dO hi, dO lo tiles of
+  // 64 queries, P^T's two buffers.
+  static constexpr uint32_t kKTile64 = kQB * kBox64;
+  static constexpr uint32_t kVTile64 = kVB * kBox64;
+  static constexpr uint32_t kKVStage = kKTile64 + 2 * kVTile64;
+  static constexpr size_t kKVSmem = kKTile64 + kVTile64 +
+                                    kBStages * kKVStage + 2 * kPBuf * 4 +
+                                    (1 + 2 * kBStages) * 8 + 1024;
+  // dq: Q, dO hi, dO lo of the block's 128 queries, a ring of K, V tiles of
+  // 64 keys.
+  static constexpr uint32_t kQStage = kKTile64 + kVTile64;
+  static constexpr size_t kQSmem = kQB * kBox + 2 * kVB * kBox +
+                                   kBStages * kQStage +
+                                   (1 + 2 * kBStages) * 8 + 1024;
+  static constexpr int kAcc = (NQ > DV ? NQ : DV) / 2;
+};
 
 // Arrives on named barrier `id` (1..15) of `threads` threads without
 // waiting; a bar.sync of the same id by the other threads completes it.
@@ -841,11 +933,14 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
   for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(f[kk]);
 }
 
+// A warp a row of DV columns, DV / 32 a lane (DV 64 or 128).
+template <int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep(const float* __restrict__ out, const float* __restrict__ dout,
                const float* __restrict__ lse, bf16* __restrict__ dhi,
                bf16* __restrict__ dlo, float* __restrict__ lse_p,
                float* __restrict__ d_p, int S, int Sp, long long rows) {
+  constexpr int E = DV / 32;
   const long long row = static_cast<long long>(blockIdx.x) * 8 +
                         threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -859,27 +954,36 @@ flash_bwd_prep(const float* __restrict__ out, const float* __restrict__ dout,
     }
     return;
   }
-  const size_t at = (static_cast<size_t>(bh) * S + i) * kHD + 4 * lane;
-  const float4 o = *reinterpret_cast<const float4*>(out + at);
-  const float4 g = *reinterpret_cast<const float4*>(dout + at);
-  float dd = fmaf(g.w, o.w, fmaf(g.z, o.z, fmaf(g.y, o.y, g.x * o.x)));
+  const size_t at = (static_cast<size_t>(bh) * S + i) * DV + E * lane;
+  float o[E], g[E];
+#pragma unroll
+  for (int e = 0; e < E; e += 2) {
+    const float2 ov = *reinterpret_cast<const float2*>(out + at + e);
+    const float2 gv = *reinterpret_cast<const float2*>(dout + at + e);
+    o[e] = ov.x, o[e + 1] = ov.y, g[e] = gv.x, g[e + 1] = gv.y;
+  }
+  float dd = g[0] * o[0];
+#pragma unroll
+  for (int e = 1; e < E; ++e) dd = fmaf(g[e], o[e], dd);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     dd += __shfl_xor_sync(0xffffffffu, dd, off);
-  const __nv_bfloat162 h01 = __floats2bfloat162_rn(g.x, g.y);
-  const __nv_bfloat162 h23 = __floats2bfloat162_rn(g.z, g.w);
-  const float2 b01 = __bfloat1622float2(h01), b23 = __bfloat1622float2(h23);
-  *reinterpret_cast<uint2*>(dhi + at) = make_uint2(bits(h01), bits(h23));
-  *reinterpret_cast<uint2*>(dlo + at) = make_uint2(
-      bits(__floats2bfloat162_rn(g.x - b01.x, g.y - b01.y)),
-      bits(__floats2bfloat162_rn(g.z - b23.x, g.w - b23.y)));
+#pragma unroll
+  for (int e = 0; e < E; e += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(g[e], g[e + 1]);
+    const float2 bk = __bfloat1622float2(h);
+    *reinterpret_cast<__nv_bfloat162*>(dhi + at + e) = h;
+    *reinterpret_cast<__nv_bfloat162*>(dlo + at + e) =
+        __floats2bfloat162_rn(g[e] - bk.x, g[e + 1] - bk.y);
+  }
   if (lane == 0) {
     lse_p[row] = lse[static_cast<size_t>(bh) * S + i];
     d_p[row] = dd;
   }
 }
 
-__global__ void __launch_bounds__(kKVThreads, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(BwdShape<DK, DV>::kThreads, 1)
 flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
                     __grid_constant__ const CUtensorMap tk,
                     __grid_constant__ const CUtensorMap tv,
@@ -889,12 +993,13 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
                     const float* __restrict__ d_p, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int S, int Sp, int T_len, int H,
                     int KV, float scale, int causal) {
+  using Sh = BwdShape<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* ks = smem;                     // K [64 keys][hd]: two 8 KB boxes
-  uint8_t* vs = smem + kTile64;           // V alike
-  uint8_t* ring = smem + 2 * kTile64;     // stages of Q, dO hi, dO lo
-  float* pbuf = reinterpret_cast<float*>(ring + kBStages * kKVStage);
+  uint8_t* ks = smem;                     // K [64 keys][dk]: kQB 8 KB boxes
+  uint8_t* vs = smem + Sh::kKTile64;      // V [64 keys][dv]: kVB boxes
+  uint8_t* ring = vs + Sh::kVTile64;      // stages of Q, dO hi, dO lo
+  float* pbuf = reinterpret_cast<float*>(ring + kBStages * Sh::kKVStage);
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(pbuf + 2 * kPBuf);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + kBStages;
@@ -917,33 +1022,35 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == 8) {                        // the producer
-    if (threadIdx.x % 32 == 0) {
-      sm90::mbar_arrive_expect_tx(kvbar, 2 * kTile64);
-      sm90::tma_load_4d(ks, &tk, kvbar, 0, k0, kvh, b);
-      sm90::tma_load_4d(ks + kBox64, &tk, kvbar, 64, k0, kvh, b);
-      sm90::tma_load_4d(vs, &tv, kvbar, 0, k0, kvh, b);
-      sm90::tma_load_4d(vs + kBox64, &tv, kvbar, 64, k0, kvh, b);
+  if (warp >= 8) {                        // the producer
+    if constexpr (Sh::kRegs) sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(kvbar, Sh::kKTile64 + Sh::kVTile64);
+      for (int x = 0; x < Sh::kQB; ++x)
+        sm90::tma_load_4d(ks + x * kBox64, &tk, kvbar, 64 * x, k0, kvh, b);
+      for (int x = 0; x < Sh::kVB; ++x)
+        sm90::tma_load_4d(vs + x * kBox64, &tv, kvbar, 64 * x, k0, kvh, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kBStages;
         if (j >= kBStages) sm90::mbar_wait(&empty[s], (j / kBStages - 1) & 1);
-        uint8_t* st = ring + s * kKVStage;
+        uint8_t* st = ring + s * Sh::kKVStage;
         const int h = kvh * rep + j / n_q;
         const int q0 = q_start + (j % n_q) * kRows;
-        sm90::mbar_arrive_expect_tx(&full[s], kKVStage);
-        sm90::tma_load_4d(st, &tq, &full[s], 0, q0, h, b);
-        sm90::tma_load_4d(st + kBox64, &tq, &full[s], 64, q0, h, b);
-        sm90::tma_load_4d(st + kTile64, &tdh, &full[s], 0, q0, h, b);
-        sm90::tma_load_4d(st + kTile64 + kBox64, &tdh, &full[s], 64, q0, h,
-                          b);
-        sm90::tma_load_4d(st + 2 * kTile64, &tdl, &full[s], 0, q0, h, b);
-        sm90::tma_load_4d(st + 2 * kTile64 + kBox64, &tdl, &full[s], 64, q0,
-                          h, b);
+        sm90::mbar_arrive_expect_tx(&full[s], Sh::kKVStage);
+        for (int x = 0; x < Sh::kQB; ++x)
+          sm90::tma_load_4d(st + x * kBox64, &tq, &full[s], 64 * x, q0, h, b);
+        for (int x = 0; x < Sh::kVB; ++x) {
+          uint8_t* hb = st + Sh::kKTile64 + x * kBox64;
+          sm90::tma_load_4d(hb, &tdh, &full[s], 64 * x, q0, h, b);
+          sm90::tma_load_4d(hb + Sh::kVTile64, &tdl, &full[s], 64 * x, q0, h,
+                            b);
+        }
       }
     }
     return;
   }
 
+  if constexpr (Sh::kRegs) sm90::setmaxnreg_inc<240>();
   // The consumers, both on the block's 64 keys with the same accumulator
   // layout: this thread keys kr and kr + 8 (index i / 2) and, in S^T and
   // dP^T, queries q0 + 8 g + 2 quad + (0, 1).  Warpgroup 0 computes P^T and
@@ -952,9 +1059,9 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
   const int wg = warp / 4, lane = threadIdx.x % 32, quad = lane % 4;
   const int t = threadIdx.x % 128;
   const int kr = k0 + 16 * (warp % 4) + lane / 4;
-  float acc[64];                          // dV (wg 0) or dK (wg 1)
+  float acc[Sh::kAcc];                    // dV (wg 0, n = dv) or dK (wg 1)
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < Sh::kAcc; ++i) acc[i] = 0.0f;
   sm90::fence_regs(acc);
   const uint32_t ka = sm90::smem_u32(ks), va = sm90::smem_u32(vs);
   sm90::mbar_wait(kvbar, 0);
@@ -963,8 +1070,8 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
     const int s = j % kBStages, pb = j % 2;
     const size_t bh = static_cast<size_t>(b) * H + kvh * rep + j / n_q;
     const int q0 = q_start + (j % n_q) * kRows;
-    const uint32_t qb = sm90::smem_u32(ring + s * kKVStage);
-    const uint32_t hb = qb + kTile64, lb = qb + 2 * kTile64;
+    const uint32_t qb = sm90::smem_u32(ring + s * Sh::kKVStage);
+    const uint32_t hb = qb + Sh::kKTile64, lb = hb + Sh::kVTile64;
     float* pt = pbuf + pb * kPBuf + t;
     sm90::mbar_wait(&full[s], (j / kBStages) & 1);
     float sc[32];
@@ -975,7 +1082,7 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
     if (wg == 0) {
       // S^T = K Q^T.
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
         sm90::wgmma_m64n64k16<0, 0>(sc, sm90::desc_sw128(ka + off, 16, 1024),
                                     sm90::desc_sw128(qb + off, 16, 1024));
@@ -983,7 +1090,7 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
     } else {
       // dP^T = V dO_hi^T + V dO_lo^T.
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < DV / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
         const uint64_t dva = sm90::desc_sw128(va + off, 16, 1024);
         sm90::wgmma_m64n64k16<0, 0>(sc, dva,
@@ -1016,15 +1123,15 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
       uint32_t hi[4][4], lo[4][4];
       split_frags(sc, hi, lo);
       // dV += P_hi^T dO_hi + P_lo^T dO_hi + P_hi^T dO_lo: queries in 4
-      // steps of 16 (2048 bytes each), dO N-major, its second 64 columns
-      // one box on.
+      // steps of 16 (2048 bytes each), n = dv, dO N-major, each next 64
+      // columns one box on.
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
         const uint64_t dh = sm90::desc_sw128(hb + 2048 * kk, kBox64, 1024);
-        sm90::wgmma_m64n128k16_rs<1>(acc, hi[kk], dh);
-        sm90::wgmma_m64n128k16_rs<1>(acc, lo[kk], dh);
-        sm90::wgmma_m64n128k16_rs<1>(
+        sm90::wgmma_rs<DV, 1>(acc, hi[kk], dh);
+        sm90::wgmma_rs<DV, 1>(acc, lo[kk], dh);
+        sm90::wgmma_rs<DV, 1>(
             acc, hi[kk], sm90::desc_sw128(lb + 2048 * kk, kBox64, 1024));
       }
       sm90::wgmma_commit();
@@ -1042,13 +1149,14 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
       if (j + 2 < n_tiles) named_arrive(3 + pb, 256);
       uint32_t hi[4][4], lo[4][4];
       split_frags(sc, hi, lo);
-      // dK += dS_hi^T Q + dS_lo^T Q (times scale at the end), Q N-major.
+      // dK += dS_hi^T Q + dS_lo^T Q (times scale at the end), Q N-major,
+      // n = NQ.
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
         const uint64_t dq_ = sm90::desc_sw128(qb + 2048 * kk, kBox64, 1024);
-        sm90::wgmma_m64n128k16_rs<1>(acc, hi[kk], dq_);
-        sm90::wgmma_m64n128k16_rs<1>(acc, lo[kk], dq_);
+        sm90::wgmma_rs<Sh::NQ, 1>(acc, hi[kk], dq_);
+        sm90::wgmma_rs<Sh::NQ, 1>(acc, lo[kk], dq_);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -1059,24 +1167,28 @@ flash_bwd_dkv_wgmma(__grid_constant__ const CUtensorMap tq,
     if (t == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  // dV (wg 0) and dK = scale dS^T Q (wg 1), rounded once to bf16, rows
-  // past T not written.
+  // dV (wg 0, dv columns) and dK = scale dS^T Q (wg 1, dk columns), rounded
+  // once to bf16, rows past T not written.
   bf16* grad = wg == 0 ? dv : dk;
   const float mul = wg == 0 ? 1.0f : scale;
+  const int width = wg == 0 ? DV : DK;
   const size_t base = (static_cast<size_t>(b) * KV + kvh) * T_len;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kr + 8 * r;
     if (key >= T_len) continue;
-    bf16* row = grad + (base + key) * kHD + 2 * quad;
+    bf16* row = grad + (base + key) * width + 2 * quad;
 #pragma unroll
-    for (int g = 0; g < 16; ++g)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * g) = __floats2bfloat162_rn(
-          acc[4 * g + 2 * r] * mul, acc[4 * g + 2 * r + 1] * mul);
+    for (int g = 0; g < Sh::kAcc / 4; ++g)
+      if (8 * g < width)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * g) =
+            __floats2bfloat162_rn(acc[4 * g + 2 * r] * mul,
+                                  acc[4 * g + 2 * r + 1] * mul);
   }
 }
 
-__global__ void __launch_bounds__(kQThreads, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(BwdShape<DK, DV>::kThreads, 1)
 flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
                    __grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
@@ -1086,13 +1198,14 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
                    const float* __restrict__ d_p, bf16* __restrict__ dq,
                    int S, int Sp, int T_len, int H, int KV, float scale,
                    int causal) {
+  using Sh = BwdShape<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* qs = smem;                     // Q [128 queries][hd]
-  uint8_t* hs = smem + kTile;             // dO hi
-  uint8_t* ls = smem + 2 * kTile;         // dO lo
-  uint8_t* ring = smem + 3 * kTile;       // stages of K and V, 64 keys
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kBStages * kQStage);
+  uint8_t* qs = smem;                     // Q [128 queries][dk]
+  uint8_t* hs = qs + Sh::kQB * kBox;      // dO hi [128][dv]
+  uint8_t* ls = hs + Sh::kVB * kBox;      // dO lo
+  uint8_t* ring = ls + Sh::kVB * kBox;    // stages of K and V, 64 keys
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kBStages * Sh::kQStage);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + kBStages;
 
@@ -1113,31 +1226,34 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == 8) {                        // the producer
-    if (threadIdx.x % 32 == 0) {
-      sm90::mbar_arrive_expect_tx(qbar, 3 * kTile);
-      sm90::tma_load_4d(qs, &tq, qbar, 0, q0, h, b);
-      sm90::tma_load_4d(qs + kBox, &tq, qbar, 64, q0, h, b);
-      sm90::tma_load_4d(hs, &tdh, qbar, 0, q0, h, b);
-      sm90::tma_load_4d(hs + kBox, &tdh, qbar, 64, q0, h, b);
-      sm90::tma_load_4d(ls, &tdl, qbar, 0, q0, h, b);
-      sm90::tma_load_4d(ls + kBox, &tdl, qbar, 64, q0, h, b);
+  if (warp >= 8) {                        // the producer
+    if constexpr (Sh::kRegs) sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(qbar, (Sh::kQB + 2 * Sh::kVB) * kBox);
+      for (int x = 0; x < Sh::kQB; ++x)
+        sm90::tma_load_4d(qs + x * kBox, &tq, qbar, 64 * x, q0, h, b);
+      for (int x = 0; x < Sh::kVB; ++x) {
+        sm90::tma_load_4d(hs + x * kBox, &tdh, qbar, 64 * x, q0, h, b);
+        sm90::tma_load_4d(ls + x * kBox, &tdl, qbar, 64 * x, q0, h, b);
+      }
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kBStages;
         if (j >= kBStages) sm90::mbar_wait(&empty[s], (j / kBStages - 1) & 1);
-        uint8_t* st = ring + s * kQStage;
+        uint8_t* st = ring + s * Sh::kQStage;
         const int k0 = j * kRows;
-        sm90::mbar_arrive_expect_tx(&full[s], kQStage);
-        sm90::tma_load_4d(st, &tk, &full[s], 0, k0, kvh, b);
-        sm90::tma_load_4d(st + kBox64, &tk, &full[s], 64, k0, kvh, b);
-        sm90::tma_load_4d(st + kTile64, &tv, &full[s], 0, k0, kvh, b);
-        sm90::tma_load_4d(st + kTile64 + kBox64, &tv, &full[s], 64, k0, kvh,
-                          b);
+        sm90::mbar_arrive_expect_tx(&full[s], Sh::kQStage);
+        for (int x = 0; x < Sh::kQB; ++x)
+          sm90::tma_load_4d(st + x * kBox64, &tk, &full[s], 64 * x, k0, kvh,
+                            b);
+        for (int x = 0; x < Sh::kVB; ++x)
+          sm90::tma_load_4d(st + Sh::kKTile64 + x * kBox64, &tv, &full[s],
+                            64 * x, k0, kvh, b);
       }
     }
     return;
   }
 
+  if constexpr (Sh::kRegs) sm90::setmaxnreg_inc<240>();
   // The consumers: warpgroup wg owns queries [row_lo, row_lo + 64); this
   // thread rows r0 and r0 + 8 and, in S, keys k0 + 8 g + 2 quad + (0, 1).
   const int wg = warp / 4, lane = threadIdx.x % 32, quad = lane % 4;
@@ -1147,9 +1263,9 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
   const float* drow = d_p + static_cast<size_t>(bh) * Sp;
   const float lse[2] = {lrow[r0], lrow[r0 + 8]};
   const float dd[2] = {drow[r0], drow[r0 + 8]};
-  float adq[64];
+  float adq[Sh::NQ / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) adq[i] = 0.0f;
+  for (int i = 0; i < Sh::NQ / 2; ++i) adq[i] = 0.0f;
   sm90::fence_regs(adq);
   const uint32_t qa = sm90::smem_u32(qs) + wg * kRows * 128;
   const uint32_t ha = sm90::smem_u32(hs) + wg * kRows * 128;
@@ -1161,8 +1277,8 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
     const int k0 = j * kRows;
     sm90::mbar_wait(&full[s], (j / kBStages) & 1);
     if (!causal || k0 <= row_lo + kRows - 1) {
-      const uint32_t kb = sm90::smem_u32(ring + s * kQStage);
-      const uint32_t vb = kb + kTile64;
+      const uint32_t kb = sm90::smem_u32(ring + s * Sh::kQStage);
+      const uint32_t vb = kb + Sh::kKTile64;
       float st[32], dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.0f;
@@ -1170,14 +1286,14 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
       sm90::fence_regs(dp);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t oa = (kk / 4) * kBox + (kk % 4) * 32;
         const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
         sm90::wgmma_m64n64k16<0, 0>(st, sm90::desc_sw128(qa + oa, 16, 1024),
                                     sm90::desc_sw128(kb + ob, 16, 1024));
       }
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < DV / 16; ++kk) {
         const uint32_t oa = (kk / 4) * kBox + (kk % 4) * 32;
         const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
         const uint64_t dvb = sm90::desc_sw128(vb + ob, 16, 1024);
@@ -1209,13 +1325,13 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
       uint32_t sh[4][4], sl[4][4];
       split_frags(dp, sh, sl);
 
-      // dQ += dS K: keys in 4 steps of 16, K N-major.
+      // dQ += dS K: keys in 4 steps of 16, K N-major, n = NQ.
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
         const uint64_t bk = sm90::desc_sw128(kb + 2048 * kk, kBox64, 1024);
-        sm90::wgmma_m64n128k16_rs<1>(adq, sh[kk], bk);
-        sm90::wgmma_m64n128k16_rs<1>(adq, sl[kk], bk);
+        sm90::wgmma_rs<Sh::NQ, 1>(adq, sh[kk], bk);
+        sm90::wgmma_rs<Sh::NQ, 1>(adq, sl[kk], bk);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -1230,9 +1346,9 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= S) continue;
-    bf16* drow_ = dq + (static_cast<size_t>(bh) * S + row) * kHD + 2 * quad;
+    bf16* drow_ = dq + (static_cast<size_t>(bh) * S + row) * DK + 2 * quad;
 #pragma unroll
-    for (int g = 0; g < 16; ++g)
+    for (int g = 0; g < DK / 8; ++g)
       *reinterpret_cast<__nv_bfloat162*>(drow_ + 8 * g) =
           __floats2bfloat162_rn(adq[4 * g + 2 * r] * scale,
                                 adq[4 * g + 2 * r + 1] * scale);
@@ -1254,12 +1370,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, int device,
   return err;
 }
 
-// A map of q, k or v as (hd, rows, heads, batch) with its own strides, read
-// in 64-column boxes of `box_rows` rows (128, or 64 for the backward's
-// 64-row tiles).
+// A map of q, k, v or dO (`width` columns) as (width, rows, heads, batch)
+// with its own strides, read in 64-column boxes of `box_rows` rows (128,
+// or 64 for the backward's 64-row tiles); a box past `width` reads zeros.
 bool head_map(CUtensorMap* map, const void* base, const long long (&st)[3],
-              int rows, int heads, int B, int box_rows = 128) {
-  const uint64_t dims[4] = {kHD, static_cast<uint64_t>(rows),
+              int width, int rows, int heads, int B, int box_rows = 128) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(width),
+                            static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(heads),
                             static_cast<uint64_t>(B)};
   const uint64_t bytes[3] = {static_cast<uint64_t>(st[2]) * 2,
@@ -1268,86 +1385,86 @@ bool head_map(CUtensorMap* map, const void* base, const long long (&st)[3],
   return sm90::tensor_map_bf16_4d(map, base, dims, bytes, 64, box_rows);
 }
 
+template <int DK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          float* out, float* lse, int B, int H, int KV, int S,
                          int T_len, float scale, int causal,
                          const Strides& st, int device, cudaStream_t s) {
   static bool done[kMaxDevices] = {};
+  constexpr size_t smem = FwdShape<DK, DV>::kSmem;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, q, st.q, S, H, B) ||
-      !head_map(&tk, k, st.k, T_len, KV, B) ||
-      !head_map(&tv, v, st.v, T_len, KV, B))
+  if (!head_map(&tq, q, st.q, DK, S, H, B) ||
+      !head_map(&tk, k, st.k, DK, T_len, KV, B) ||
+      !head_map(&tv, v, st.v, DV, T_len, KV, B))
     return cudaErrorNotSupported;
-  cudaError_t err = allow_smem(flash_wgmma, kWSmem, device, done);
+  auto kernel = flash_wgmma<DK, DV>;
+  cudaError_t err = allow_smem(kernel, smem, device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
-  flash_wgmma<<<grid, kWThreads, kWSmem, s>>>(tq, tk, tv, out, lse, S, T_len,
-                                              H, H / KV, scale, causal);
+  kernel<<<grid, kWThreads, smem, s>>>(tq, tk, tv, out, lse, S, T_len, H,
+                                       H / KV, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        float* out, int B, int H, int rep, int S, int T_len,
                        float scale, int causal, const Strides& st,
                        int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  auto kernel = flash_fma<T, HD>;
-  cudaError_t err = allow_smem(kernel, fma_smem<HD>(), device, done);
+  auto kernel = flash_fma<T, DK, DV>;
+  cudaError_t err = allow_smem(kernel, fma_smem<DK, DV>(), device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kFBQ - 1) / kFBQ, B * H);
-  kernel<<<grid, kFThreads, fma_smem<HD>(), stream>>>(
+  kernel<<<grid, kFThreads, fma_smem<DK, DV>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), out, st, S, T_len, H, rep, scale, causal);
   return cudaGetLastError();
 }
 
+// The (dk, dv) pairs the kernels are compiled for: the equal widths, the
+// smoke configurations' MLA pair (24, 16) and the published MLA pairs of
+// MiniCPM3-4B (96, 64) and DeepSeek-V2-Lite (192, 128).
+#define REPRO_K5_WIDTHS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(24, 16) X(96, 64) X(192, 128)
+
 template <typename T>
 cudaError_t dispatch_fma(const void* q, const void* k, const void* v,
                          float* out, int B, int H, int rep, int S, int T_len,
-                         int hd, float scale, int causal, const Strides& st,
-                         int device, cudaStream_t s) {
-  switch (hd) {
-    case 16:
-      return launch_fma<T, 16>(q, k, v, out, B, H, rep, S, T_len, scale,
-                               causal, st, device, s);
-    case 32:
-      return launch_fma<T, 32>(q, k, v, out, B, H, rep, S, T_len, scale,
-                               causal, st, device, s);
-    case 64:
-      return launch_fma<T, 64>(q, k, v, out, B, H, rep, S, T_len, scale,
-                               causal, st, device, s);
-    case 128:
-      return launch_fma<T, 128>(q, k, v, out, B, H, rep, S, T_len, scale,
-                                causal, st, device, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                         int dk, int dv, float scale, int causal,
+                         const Strides& st, int device, cudaStream_t s) {
+#define X(DK, DV)                                                          \
+  if (dk == DK && dv == DV)                                                \
+    return launch_fma<T, DK, DV>(q, k, v, out, B, H, rep, S, T_len, scale, \
+                                 causal, st, device, s);
+  REPRO_K5_WIDTHS(X)
+#undef X
+  return cudaErrorInvalidValue;
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const float* o, const float* dout, void* dq, void* dk,
                        void* dv, float* ws, int B, int H, int KV, int S,
                        int T_len, float scale, int causal, const Strides& st,
                        int device, cudaStream_t stream) {
   static bool done_dq[kMaxDevices] = {}, done_dkv[kMaxDevices] = {};
-  auto kdq = flash_bwd_dq<T, HD>;
-  auto kdkv = flash_bwd_dkv<T, HD>;
-  cudaError_t err = allow_smem(kdq, bwd_dq_smem<HD>(), device, done_dq);
+  auto kdq = flash_bwd_dq<T, DK, DV>;
+  auto kdkv = flash_bwd_dkv<T, DK, DV>;
+  cudaError_t err = allow_smem(kdq, bwd_dq_smem<DK, DV>(), device, done_dq);
   if (err == cudaSuccess)
-    err = allow_smem(kdkv, bwd_dkv_smem<HD>(), device, done_dkv);
+    err = allow_smem(kdkv, bwd_dkv_smem<DK, DV>(), device, done_dkv);
   if (err != cudaSuccess) return err;
   const int rep = H / KV;
   const int bhs = B * H * S;
-  kdq<<<dim3((S + kBB - 1) / kBB, B * H), kBThreads, bwd_dq_smem<HD>(),
+  kdq<<<dim3((S + kBB - 1) / kBB, B * H), kBThreads, bwd_dq_smem<DK, DV>(),
         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), o, dout, static_cast<T*>(dq), ws,
                   st, S, T_len, H, rep, scale, causal, bhs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kdkv<<<dim3((T_len + kBB - 1) / kBB, B * KV), kBThreads,
-         bwd_dkv_smem<HD>(), stream>>>(
+         bwd_dkv_smem<DK, DV>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, ws, static_cast<T*>(dk),
       static_cast<T*>(dv), st, S, T_len, H, KV, rep, scale, causal, bhs);
@@ -1358,70 +1475,65 @@ template <typename T>
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
                          const float* o, const float* dout, void* dq,
                          void* dk, void* dv, float* ws, int B, int H, int KV,
-                         int S, int T_len, int hd, float scale, int causal,
-                         const Strides& st, int device, cudaStream_t s) {
-  switch (hd) {
-    case 16:
-      return launch_bwd<T, 16>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
-                               T_len, scale, causal, st, device, s);
-    case 32:
-      return launch_bwd<T, 32>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
-                               T_len, scale, causal, st, device, s);
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, S,
-                               T_len, scale, causal, st, device, s);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV,
-                                S, T_len, scale, causal, st, device, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                         int S, int T_len, int dk_, int dv_, float scale,
+                         int causal, const Strides& st, int device,
+                         cudaStream_t s) {
+#define X(DK, DV)                                                           \
+  if (dk_ == DK && dv_ == DV)                                               \
+    return launch_bwd<T, DK, DV>(q, k, v, o, dout, dq, dk, dv, ws, B, H, KV, \
+                                 S, T_len, scale, causal, st, device, s);
+  REPRO_K5_WIDTHS(X)
+#undef X
+  return cudaErrorInvalidValue;
 }
 
 // The workspace of the wgmma backward, in floats: lse and D padded to Sp
-// rows a (b, h), then dO hi and dO lo, bf16 [B, H, S, hd] each.
+// rows a (b, h), then dO hi and dO lo, bf16 [B, H, S, dv] each.
 int padded_rows(int S) { return (S + kBlockRows - 1) / kBlockRows * kBlockRows; }
 
+template <int DK, int DV>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              const float* o, const float* dout,
                              const float* lse, void* dq, void* dk, void* dv,
                              float* ws, int B, int H, int KV, int S,
                              int T_len, float scale, int causal,
                              const Strides& st, int device, cudaStream_t s) {
+  using Sh = BwdShape<DK, DV>;
   static bool done_kv[kMaxDevices] = {}, done_q[kMaxDevices] = {};
   const int Sp = padded_rows(S);
   const long long rows = static_cast<long long>(B) * H * Sp;
   float* lse_p = ws;
   float* d_p = ws + rows;
   bf16* dhi = reinterpret_cast<bf16*>(ws + 2 * rows);
-  bf16* dlo = dhi + static_cast<size_t>(B) * H * S * kHD;
-  const long long dst[3] = {static_cast<long long>(H) * S * kHD,
-                            static_cast<long long>(S) * kHD, kHD};
+  bf16* dlo = dhi + static_cast<size_t>(B) * H * S * DV;
+  const long long dst[3] = {static_cast<long long>(H) * S * DV,
+                            static_cast<long long>(S) * DV, DV};
   CUtensorMap tq64, tq128, tk64, tv64, th64, th128, tl64, tl128;
-  if (!head_map(&tq64, q, st.q, S, H, B, 64) ||
-      !head_map(&tq128, q, st.q, S, H, B, 128) ||
-      !head_map(&tk64, k, st.k, T_len, KV, B, 64) ||
-      !head_map(&tv64, v, st.v, T_len, KV, B, 64) ||
-      !head_map(&th64, dhi, dst, S, H, B, 64) ||
-      !head_map(&th128, dhi, dst, S, H, B, 128) ||
-      !head_map(&tl64, dlo, dst, S, H, B, 64) ||
-      !head_map(&tl128, dlo, dst, S, H, B, 128))
+  if (!head_map(&tq64, q, st.q, DK, S, H, B, 64) ||
+      !head_map(&tq128, q, st.q, DK, S, H, B, 128) ||
+      !head_map(&tk64, k, st.k, DK, T_len, KV, B, 64) ||
+      !head_map(&tv64, v, st.v, DV, T_len, KV, B, 64) ||
+      !head_map(&th64, dhi, dst, DV, S, H, B, 64) ||
+      !head_map(&th128, dhi, dst, DV, S, H, B, 128) ||
+      !head_map(&tl64, dlo, dst, DV, S, H, B, 64) ||
+      !head_map(&tl128, dlo, dst, DV, S, H, B, 128))
     return cudaErrorNotSupported;
-  cudaError_t err = allow_smem(flash_bwd_dkv_wgmma, kKVSmem, device, done_kv);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_wgmma, kQSmem, device, done_q);
+  auto kdkv = flash_bwd_dkv_wgmma<DK, DV>;
+  auto kdq = flash_bwd_dq_wgmma<DK, DV>;
+  cudaError_t err = allow_smem(kdkv, Sh::kKVSmem, device, done_kv);
+  if (err == cudaSuccess) err = allow_smem(kdq, Sh::kQSmem, device, done_q);
   if (err != cudaSuccess) return err;
-  flash_bwd_prep<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+  flash_bwd_prep<DV><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
       o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_wgmma<<<dim3(B * KV, (T_len + kRows - 1) / kRows),
-                        kKVThreads, kKVSmem, s>>>(
-      tq64, tk64, tv64, th64, tl64, lse_p, d_p, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, Sp, T_len, H, KV, scale, causal);
+  kdkv<<<dim3(B * KV, (T_len + kRows - 1) / kRows), Sh::kThreads,
+         Sh::kKVSmem, s>>>(tq64, tk64, tv64, th64, tl64, lse_p, d_p,
+              static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sp, T_len, H,
+              KV, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma<<<dim3(B * H, Sp / kBlockRows), kQThreads, kQSmem, s>>>(
+  kdq<<<dim3(B * H, Sp / kBlockRows), Sh::kThreads, Sh::kQSmem, s>>>(
       tq128, tk64, tv64, th128, tl128, lse_p, d_p, static_cast<bf16*>(dq), S,
       Sp, T_len, H, KV, scale, causal);
   return cudaGetLastError();
@@ -1433,6 +1545,12 @@ bool tma_ready(const void* p, const long long (&st)[3]) {
          st[2] > 0;
 }
 
+// The pairs the wgmma kernels take, forward and backward.
+bool wgmma_pair(int dk, int dv) {
+  return (dk == 128 && dv == 128) || (dk == 96 && dv == 64) ||
+         (dk == 192 && dv == 128);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1441,20 +1559,20 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q [B, H, S, hd], k and v [B, KV, T, hd] with element strides `strides`
-// (q's batch, head and row strides, then k's, then v's; each row
-// contiguous), out [B, H, S, hd] float32 contiguous; dtype 0 = float32,
-// 1 = bf16 (q, k and v alike); hd in {16, 32, 64, 128}; H a multiple of
-// KV; causal needs S == T.  bf16 at hd 128 runs the wgmma kernel (its
-// strides multiples of 8 and its bases 16-byte aligned, or an error),
-// which also writes each row's log-sum-exp of the scaled scores to lse
-// (float32 [B, H, S]) unless lse is null; every other call runs the fma
-// kernel and leaves lse alone.  *route is set to the kernel (0 fma,
-// 1 wgmma).  Returns a cudaError_t (0 on success); launches
-// asynchronously on `stream`.
+// q [B, H, S, dk], k [B, KV, T, dk] and v [B, KV, T, dv] with element
+// strides `strides` (q's batch, head and row strides, then k's, then v's;
+// each row contiguous), out [B, H, S, dv] float32 contiguous; dtype 0 =
+// float32, 1 = bf16 (q, k and v alike); (dk, dv) one of REPRO_K5_WIDTHS;
+// H a multiple of KV; causal needs S == T.  bf16 at (128, 128), (96, 64)
+// and (192, 128) runs the wgmma kernel (its strides multiples of 8 and its
+// bases 16-byte aligned, or an error), which also writes each row's
+// log-sum-exp of the scaled scores to lse (float32 [B, H, S]) unless lse
+// is null; every other call runs the fma kernel and leaves lse alone.
+// *route is set to the kernel (0 fma, 1 wgmma).  Returns a cudaError_t
+// (0 on success); launches asynchronously on `stream`.
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           float* out, float* lse, int B, int H, int KV, int S,
-                          int T_len, int hd, float scale, int causal,
+                          int T_len, int dk, int dv, float scale, int causal,
                           int dtype, const long long* strides, int device,
                           void* stream, int* route) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || T_len < 1 ||
@@ -1469,42 +1587,48 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && hd == kHD) {
+  if (dtype == 1 && wgmma_pair(dk, dv)) {
     *route = kWgmma;
     if ((S + kBM - 1) / kBM > 65535 || !tma_ready(q, st.q) ||
         !tma_ready(k, st.k) || !tma_ready(v, st.v))
       return cudaErrorInvalidValue;
-    return launch_wgmma(q, k, v, out, lse, B, H, KV, S, T_len, scale, causal,
-                        st, device, s);
+    if (dk == 128)
+      return launch_wgmma<128, 128>(q, k, v, out, lse, B, H, KV, S, T_len,
+                                    scale, causal, st, device, s);
+    if (dk == 96)
+      return launch_wgmma<96, 64>(q, k, v, out, lse, B, H, KV, S, T_len,
+                                  scale, causal, st, device, s);
+    return launch_wgmma<192, 128>(q, k, v, out, lse, B, H, KV, S, T_len,
+                                  scale, causal, st, device, s);
   }
   *route = kFma;
   if (static_cast<long long>(B) * H > 65535) return cudaErrorInvalidValue;
   const int rep = H / KV;
   if (dtype == 1)
-    return dispatch_fma<bf16>(q, k, v, out, B, H, rep, S, T_len, hd, scale,
-                              causal, st, device, s);
-  return dispatch_fma<float>(q, k, v, out, B, H, rep, S, T_len, hd, scale,
+    return dispatch_fma<bf16>(q, k, v, out, B, H, rep, S, T_len, dk, dv,
+                              scale, causal, st, device, s);
+  return dispatch_fma<float>(q, k, v, out, B, H, rep, S, T_len, dk, dv, scale,
                              causal, st, device, s);
 }
 
 // The backward of repro_flash_attention: q, k, v as there (same strides,
-// dtype, hd, causal rule), out and dout [B, H, S, hd] float32 contiguous
-// (the forward's output and the gradient at it), dq [B, H, S, hd] and dk,
-// dv [B, KV, T, hd] contiguous in q's dtype; no atomics.  route 0 (fma,
-// any call): ws a float32 workspace of 2 B H S, two launches (dq, then dk
-// and dv), lse unread.  route 1 (wgmma: bf16 at hd 128 with strides that
-// are multiples of 8 and 16-byte-aligned bases): lse the forward's
-// log-sum-exp, float32 [B, H, S], ws a float32 workspace of
-// 2 B H Sp + B H S hd floats (Sp = S rounded up to 128; 16-byte aligned),
-// three launches (the prep pass, dk and dv, dq).  Launches on `stream`;
-// returns a cudaError_t.
+// dtype, widths, causal rule), out and dout [B, H, S, dv] float32
+// contiguous (the forward's output and the gradient at it), dq
+// [B, H, S, dk], dk [B, KV, T, dk] and dv [B, KV, T, dv] contiguous in q's
+// dtype; no atomics.  route 0 (fma, any call): ws a float32 workspace of
+// 2 B H S, two launches (dq, then dk and dv), lse unread.  route 1
+// (wgmma: bf16 at (128, 128), (96, 64) or (192, 128) with strides that
+// are multiples of 8 and 16-byte-aligned bases): lse the forward's log-sum-exp, float32
+// [B, H, S], ws a float32 workspace of 2 B H Sp + B H S dv floats (Sp = S
+// rounded up to 128; 16-byte aligned), three launches (the prep pass, dk
+// and dv, dq).  Launches on `stream`; returns a cudaError_t.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const float* out, const float* dout,
                               const float* lse, void* dq, void* dk, void* dv,
                               float* ws, int B, int H, int KV, int S,
-                              int T_len, int hd, float scale, int causal,
-                              int dtype, const long long* strides, int route,
-                              int device, void* stream) {
+                              int T_len, int dk_w, int dv_w, float scale,
+                              int causal, int dtype, const long long* strides,
+                              int route, int device, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || T_len < 1 ||
       (causal && S != T_len) || (dtype != 0 && dtype != 1) ||
       static_cast<long long>(B) * H > 65535 ||
@@ -1520,21 +1644,30 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kWgmma) {
-    if (dtype != 1 || hd != kHD || lse == nullptr ||
+    if (dtype != 1 || !wgmma_pair(dk_w, dv_w) || lse == nullptr ||
         padded_rows(S) / kBlockRows > 65535 ||
         (T_len + kRows - 1) / kRows > 65535 || !tma_ready(q, st.q) ||
         !tma_ready(k, st.k) || !tma_ready(v, st.v) ||
         (reinterpret_cast<uintptr_t>(ws) & 15) != 0)
       return cudaErrorInvalidValue;
-    return launch_bwd_wgmma(q, k, v, out, dout, lse, dq, dk, dv, ws, B, H, KV,
-                            S, T_len, scale, causal, st, device, s);
+    if (dk_w == 128)
+      return launch_bwd_wgmma<128, 128>(q, k, v, out, dout, lse, dq, dk, dv,
+                                        ws, B, H, KV, S, T_len, scale, causal,
+                                        st, device, s);
+    if (dk_w == 96)
+      return launch_bwd_wgmma<96, 64>(q, k, v, out, dout, lse, dq, dk, dv,
+                                      ws, B, H, KV, S, T_len, scale, causal,
+                                      st, device, s);
+    return launch_bwd_wgmma<192, 128>(q, k, v, out, dout, lse, dq, dk, dv, ws,
+                                      B, H, KV, S, T_len, scale, causal, st,
+                                      device, s);
   }
   if (route != kFma) return cudaErrorInvalidValue;
   if (dtype == 1)
     return dispatch_bwd<bf16>(q, k, v, out, dout, dq, dk, dv, ws, B, H, KV, S,
-                              T_len, hd, scale, causal, st, device, s);
+                              T_len, dk_w, dv_w, scale, causal, st, device, s);
   return dispatch_bwd<float>(q, k, v, out, dout, dq, dk, dv, ws, B, H, KV, S,
-                             T_len, hd, scale, causal, st, device, s);
+                             T_len, dk_w, dv_w, scale, causal, st, device, s);
 }
 
 }  // extern "C"

@@ -3,13 +3,16 @@
 Counterpart of the Pallas kernel ``repro.kernels.flash_attention``
 (``flash_attention.py:72``) and of the prefill attention of
 ``repro.models.attention`` (``flash_attention_ref``, called at
-``attention.py:174`` and ``:180``).  The JAX layout is kept: q
-``[B, H, S, hd]``, k and v ``[B, KV, T, hd]`` with ``H`` a multiple of
-``KV``; query head ``h`` reads KV head ``h // (H // KV)``, so the KV heads
-are never repeated in memory.  Each may be a view whose last dimension has
-stride 1, such as the model's ``[B, S, H, hd]`` seen through
-``.transpose(1, 2)``: the kernels read it in place.  The output is float32
-``[B, H, S, hd]``; the model casts it, as the JAX model does.
+``attention.py:174``, ``:180`` and in MLA's expanded path, ``:296``).  The
+JAX layout is kept: q ``[B, H, S, dk]``, k ``[B, KV, T, dk]`` and v
+``[B, KV, T, dv]`` with ``H`` a multiple of ``KV``; query head ``h`` reads
+KV head ``h // (H // KV)``, so the KV heads are never repeated in memory.
+``(dk, dv)`` is one of ``WIDTHS``: equal widths of 16, 32, 64 or 128, or
+MLA's pairs (``MLA_WIDTHS``: q and k ``qk_nope + qk_rope`` wide, v
+``v_head``).  Each may be a view whose last dimension has stride 1, such
+as the model's ``[B, S, H, d]`` seen through ``.transpose(1, 2)``: the
+kernels read it in place.  The output is float32 ``[B, H, S, dv]``; the
+model casts it, as the JAX model does.
 
 Causal attention needs ``S == T`` (query ``i`` sees keys ``j <= i``): the
 JAX package's two forms align a causal mask with ``S != T`` differently
@@ -21,18 +24,21 @@ For CUDA tensors the wrapper launches a kernel of
 raises; for CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref` on contiguous copies, so a view and its copy
 give the same bits.  ``.launches`` counts the calls that launched a kernel
-and the module's ``routes`` which one: ``wgmma`` (bf16 at hd 128, the
-model's prefill: Q K^T and a split-bf16 P V on the tensor cores, K and V
-on a TMA ring; its strides must be multiples of 8 elements) and ``fma``
-(float32, and bf16 at the other head widths: float32 on the CUDA cores).
+and the module's ``routes`` which one: ``wgmma`` (bf16 at a pair of
+``WGMMA_WIDTHS``: (128, 128), MiniCPM3's (96, 64) and DeepSeek-V2's
+(192, 128), the models' prefills and training forwards: Q K^T and a
+split-bf16 P V on the tensor cores, K and V on a TMA ring; its strides
+must be multiples of 8 elements) and ``fma`` (float32, and bf16 at the
+other widths: float32 on the CUDA cores).
 
-Bound on an H100, per visible (query, key) pair: ``wgmma`` ``2 hd``
-operations for ``Q K^T`` and ``4 hd`` for ``P V`` (P split into bf16 hi
-and lo, two products) at the bf16 tensor-core rate; ``fma`` ``2 hd`` for
+Bound on an H100, per visible (query, key) pair: ``wgmma`` ``2 dk``
+operations for ``Q K^T`` and ``4 dv`` for ``P V`` (P split into bf16 hi
+and lo, two products) at the bf16 tensor-core rate; ``fma`` ``2 dk`` for
 ``Q K^T`` (at the bf16 tensor-core rate for bf16 inputs, whose products
-are exact in float32, else the float32 rate) and ``2 hd`` for ``P V`` at
-the float32 rate; or q, k, v and the output moved once against the
-memory rate.  The source note in the ``.cu`` file has the design.
+are exact in float32, else the float32 rate) and ``2 dv`` for ``P V`` at
+the float32 rate; or q, k, v and the output moved once, each at its own
+width, against the memory rate.  The source note in the ``.cu`` file has
+the design.
 
 ``flash_attention(..., return_lse=True)`` also returns each row's
 log-sum-exp of the scaled scores, float32 ``[B, H, S]``: the ``wgmma``
@@ -46,19 +52,23 @@ kernels of the same source, none with atomics (recomputing a step gives
 the same bits); ``.launches`` counts its launches and the module's
 ``bwd_routes`` them by route (``BWD_LAUNCHES`` a call):
 
-* ``wgmma`` (bf16 at hd 128 whose strides TMA can map, the model's
-  training calls): three launches, a prep pass (D_i and dO split into bf16
-  hi + lo, once a call), ``flash_bwd_dkv_wgmma`` and ``flash_bwd_dq_wgmma``
-  (every product on the tensor cores, P and dS split into hi + lo in
-  registers; the source note has the design).  Bound: 20 hd operations a
-  visible pair at the bf16 tensor-core rate (S 2 hd, dP 4, dV 6, dK 4,
-  dQ 4), or q, k, v, out, dout and lse read and dq, dk, dv written once;
-* ``fma`` (every other call: float32, the other head widths, strides TMA
-  cannot map): two CUDA-core kernels (``flash_bwd_dq`` recomputes the
-  row's log-sum-exp, then ``flash_bwd_dkv``), 16 hd float32 operations a
-  pair.  Bound: the least work, 10 hd a pair (the scores' 2 hd at the bf16
-  tensor-core rate for bf16 inputs, else the float32 rate, and 8 hd at the
-  float32 rate), or the bytes as above, whichever is longer.
+* ``wgmma`` (bf16 at a pair of ``WGMMA_WIDTHS``, as the forward, whose
+  strides TMA can map, the models' training
+  calls; at (192, 128) a block of 384 threads whose producer warpgroup
+  gives its registers to the consumers): three
+  launches, a prep pass (D_i and dO split into bf16 hi + lo, once a call),
+  ``flash_bwd_dkv_wgmma`` and ``flash_bwd_dq_wgmma`` (every product on the
+  tensor cores, P and dS split into hi + lo in registers; the source note
+  has the design).  Bound: 10 dk + 10 dv operations a visible pair at the
+  bf16 tensor-core rate (S 2 dk, dP 4 dv, dV 6 dv, dK 4 dk, dQ 4 dk), or
+  q, k, v, out, dout and lse read and dq, dk, dv written once;
+* ``fma`` (every other call: float32, the other widths, strides TMA
+  cannot map): two CUDA-core kernels
+  (``flash_bwd_dq`` recomputes the row's log-sum-exp, then
+  ``flash_bwd_dkv``), 10 dk + 6 dv float32 operations a pair.  Bound: the
+  least work (the scores' 2 dk at the bf16 tensor-core rate for bf16
+  inputs, else the float32 rate, and 4 dk + 4 dv at the float32 rate), or
+  the bytes as above, whichever is longer.
 
 For CPU tensors its plain version (which recomputes P and reads no lse).
 :func:`flash_attention_ad` is K5 as a ``torch.autograd.Function`` whose
@@ -76,8 +86,16 @@ import torch
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Head widths the kernels are compiled for.
+#: Head widths the kernels are compiled for with q, k and v alike.
 HEAD_DIMS = (16, 32, 64, 128)
+#: The (dk, dv) pairs of MLA: q and k ``dk`` wide, v and the output ``dv``
+#: (``qk_nope + qk_rope`` and ``v_head``): the smoke configurations'
+#: (24, 16), MiniCPM3-4B's (96, 64) and DeepSeek-V2-Lite's (192, 128).
+MLA_WIDTHS = ((24, 16), (96, 64), (192, 128))
+#: Every (dk, dv) pair the kernels take.
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + MLA_WIDTHS
+#: The pairs of the ``wgmma`` kernels (bf16), forward and backward.
+WGMMA_WIDTHS = ((128, 128), (96, 64), (192, 128))
 ROUTES = ("fma", "wgmma")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)
@@ -94,12 +112,12 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
         lib.repro_flash_attention_bwd.argtypes = (
-            [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
             + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
         lib.repro_flash_attention_bwd.restype = i32
         _lib = lib
@@ -122,21 +140,23 @@ def _tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool):
-    """Raise on what the kernels do not take; (B, H, S, hd, KV, T)."""
+    """Raise on what the kernels do not take; (B, H, S, dk, KV, T, dv)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must all be bfloat16 or all float32, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q [B, H, S, hd] and k, v [B, KV, T, hd], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"need q [B, H, S, dk], k [B, KV, T, dk] and v "
+                         f"[B, KV, T, dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, hd = q.shape
-    KV, T = k.shape[1], k.shape[2]
+    KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != hd or KV < 1 or H % KV:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H must be a multiple of KV)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if (hd, dv) not in WIDTHS:
+        raise ValueError(f"(dk, dv) = ({hd}, {dv}) is not a pair the kernels "
+                         f"take: {WIDTHS}")
     if causal and S != T:
         raise ValueError(f"causal attention needs S == T, got S={S} T={T}")
     if not (q.device == k.device == v.device) or q.device.type not in (
@@ -144,24 +164,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must share one cpu or cuda device")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must have hd innermost (stride 1)")
-    return B, H, S, hd, KV, T
+    return B, H, S, hd, KV, T, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     return_lse: bool = False):
-    """Softmax attention, float32 ``[B, H, S, hd]``; ``scale`` multiplies
-    the float32 scores (default ``hd ** -0.5``).  With ``return_lse``,
+    """Softmax attention, float32 ``[B, H, S, dv]``; ``scale`` multiplies
+    the float32 scores (default ``dk ** -0.5``).  With ``return_lse``,
     ``(out, lse)``: lse the float32 ``[B, H, S]`` log-sum-exp of each row's
     scaled scores, or None on the ``fma`` route."""
-    B, H, S, hd, KV, T = _check(q, k, v, causal)
+    B, H, S, hd, KV, T, dv = _check(q, k, v, causal)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal, scale=scale,
                                    return_lse=return_lse)
-    wgmma = q.dtype == torch.bfloat16 and hd == 128
-    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=q.device)
+    wgmma = q.dtype == torch.bfloat16 and (hd, dv) in WGMMA_WIDTHS
+    out = torch.empty((B, H, S, dv), dtype=torch.float32, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse and wgmma else None)
     if out.numel() == 0 or T == 0:
@@ -172,9 +192,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = _strides(q) + _strides(k) + _strides(v)
     if wgmma:
         if not _tma_ready(q, k, v):
-            raise ValueError("bf16 q, k and v at hd 128 need strides that "
-                             "are multiples of 8 elements and 16-byte "
-                             "aligned data (the kernel reads them by TMA)")
+            raise ValueError(f"bf16 q, k and v at (dk, dv) = ({hd}, {dv}) "
+                             "need strides that are multiples of 8 elements "
+                             "and 16-byte aligned data (the kernel reads "
+                             "them by TMA)")
         if S > 65535 * 128:
             raise ValueError(f"S = {S} is past the kernel's grid")
     elif B * H > 65535:
@@ -183,8 +204,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route = ctypes.c_int(-1)
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, KV, S, T, hd, scale,
-        int(causal), _DTYPES[q.dtype], (ctypes.c_longlong * 9)(*strides),
+        None if lse is None else lse.data_ptr(), B, H, KV, S, T, hd, dv,
+        scale, int(causal), _DTYPES[q.dtype],
+        (ctypes.c_longlong * 9)(*strides),
         *_build.device_and_stream(q.device), ctypes.byref(route))
     _build.raise_on(lib, code, "flash_attention")
     flash_attention.launches += 1
@@ -196,9 +218,10 @@ flash_attention.launches = 0
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The backward's route for CUDA tensors: ``wgmma`` for bf16 at hd 128
-    whose strides TMA can map, else ``fma``."""
-    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] == 128
+    """The backward's route for CUDA tensors: ``wgmma`` for bf16 at a pair
+    of ``WGMMA_WIDTHS`` whose strides TMA can map, else ``fma``."""
+    return ("wgmma" if q.dtype == torch.bfloat16
+            and (q.shape[-1], v.shape[-1]) in WGMMA_WIDTHS
             and _tma_ready(q, k, v) else "fma")
 
 
@@ -208,15 +231,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None):
     """(dq, dk, dv) of ``out = flash_attention(q, k, v, causal=causal,
     scale=scale)`` at ``dout``: q, k and v as the forward takes them (views
-    too), ``out`` its float32 ``[B, H, S, hd]``, ``dout`` the gradient at
+    too), ``out`` its float32 ``[B, H, S, dv]``, ``dout`` the gradient at
     it (made float32 and contiguous here) and ``lse`` the forward's
     log-sum-exp (``return_lse=True``), which the ``wgmma`` route needs and
-    the others do not read.  dq ``[B, H, S, hd]`` in q's dtype, dk and dv
-    ``[B, KV, T, hd]`` in k's, contiguous; float32 sums, dk and dv over the
-    query heads of each KV head."""
-    B, H, S, hd, KV, T = _check(q, k, v, causal)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"out and dout must be {list(q.shape)}, got "
+    the others do not read.  dq ``[B, H, S, dk]`` in q's dtype, dk
+    ``[B, KV, T, dk]`` and dv ``[B, KV, T, dv]`` in k's, contiguous; float32
+    sums, dk and dv over the query heads of each KV head."""
+    B, H, S, hd, KV, T, dv_w = _check(q, k, v, causal)
+    want = (B, H, S, dv_w)
+    if out.shape != want or dout.shape != want:
+        raise ValueError(f"out and dout must be {list(want)}, got "
                          f"{list(out.shape)} and {list(dout.shape)}")
     if out.device != q.device or dout.device != q.device:
         raise ValueError(f"out and dout must lie on {q.device}")
@@ -229,7 +253,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout = dout.float().contiguous()
     dq = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, KV, T, hd), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, KV, T, hd), dtype=v.dtype, device=q.device)
+    dv = torch.empty((B, KV, T, dv_w), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     if B * H > 65535 or B * H * S > 1 << 30:
@@ -246,8 +270,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
                      for t in (out, dout))
         sp = -(-S // 128) * 128
-        ws = torch.empty(2 * B * H * sp + B * H * S * hd, dtype=torch.float32,
-                         device=q.device)
+        ws = torch.empty(2 * B * H * sp + B * H * S * dv_w,
+                         dtype=torch.float32, device=q.device)
     else:
         ws = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
     lib = _library()
@@ -255,7 +279,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), None if route == "fma" else lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, H, KV,
-        S, T, hd, scale, int(causal), _DTYPES[q.dtype],
+        S, T, hd, dv_w, scale, int(causal), _DTYPES[q.dtype],
         (ctypes.c_longlong * 9)(*(_strides(q) + _strides(k) + _strides(v))),
         ROUTES.index(route), *_build.device_and_stream(q.device))
     _build.raise_on(lib, code, "flash_attention_bwd")

@@ -3,9 +3,11 @@
 :func:`params_from_jax` takes the JAX params pytree as nested dicts (and
 lists) of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``, and
 returns the port's params: the scan-stacked ``blocks`` (a leading layer
-axis on every leaf, ``repro/models/model.py:109``) become a list of
-per-layer dicts, and every array a tensor on ``device``; a MoE layer's
-expert stacks keep their physical slot axis (``P = E + R``).
+axis on every leaf, ``repro/models/model.py:109``, ``n_layers -
+first_k_dense`` layers) become a list of per-layer dicts, the unstacked
+``dense_blocks`` stay a list, and every array becomes a tensor on
+``device``; a MoE layer's expert stacks keep their physical slot axis
+(``P = E + R``) and its ``shared`` experts their dict.
 :func:`adamw_state_from_jax` carries an AdamW state across the same way
 (``step``, and ``m`` and ``v`` shaped as the params), so both packages
 can take a step from one state.  It imports no JAX; the tests use it to
@@ -51,7 +53,7 @@ def params_from_jax(tree: Any, cfg: ModelConfig,
     dev = resolve_device(device)
     out = {k: _convert(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_convert(_layer(tree["blocks"], i), dev)
-                     for i in range(cfg.n_layers)]
+                     for i in range(cfg.n_layers - cfg.first_k_dense)]
     return out
 
 

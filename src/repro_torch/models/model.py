@@ -10,14 +10,18 @@ the attention-free RWKV6 family:
     logits, cache = prefill(params, cfg, batch, cache)
     logits, cache = decode_step(params, cfg, tokens, cache, cache_len)
 
-``family`` is ``"dense"`` (SwiGLU), ``"moe"`` or ``"vlm"`` (the dense
-decoder behind stubbed patch embeddings, ``batch["patches"]`` ``[B,
-n_patches, d_model]`` prepended to the token embeddings), with
-``attn="gqa"``, or ``"ssm"`` (RWKV6 time-mix and channel-mix, the
-recurrence through K6) with ``attn="none"``; RMS norms.  The ssm family's
-cache is a float32 recurrent state per layer (``wkv`` and the two
-token-shift carries), so ``max_len`` does not size it.  The hybrid and
-encdec families, MLA, first-k-dense prefixes and shared experts are not
+``family`` is ``"dense"`` (SwiGLU) or ``"moe"`` with ``attn="gqa"`` or
+``"mla"`` (MiniCPM3, DeepSeek-V2: a compressed latent cache ``{"c_kv",
+"k_pe"}``), ``"vlm"`` (the dense GQA decoder behind stubbed patch
+embeddings, ``batch["patches"]`` ``[B, n_patches, d_model]`` prepended to
+the token embeddings), or ``"ssm"`` (RWKV6 time-mix and channel-mix, the
+recurrence through K6) with ``attn="none"``; RMS norms.  A MoE model may
+have shared experts (``n_shared``) and ``first_k_dense`` SwiGLU layers
+ahead of the MoE ones, kept in ``params["dense_blocks"]`` (and
+``cache["dense_blocks"]``) as JAX keeps them; ``blocks`` holds the other
+``n_layers - first_k_dense``.  The ssm family's cache is a float32
+recurrent state per layer (``wkv`` and the two token-shift carries), so
+``max_len`` does not size it.  The hybrid and encdec families are not
 ported yet and raise (:func:`check_supported`).
 
 The vlm prefill departs from JAX's (``ROADMAP.md`` §3): JAX ingests the
@@ -29,7 +33,7 @@ its ``prefill`` disagrees with its ``forward``.  The port ingests
 
 MoE configurations may carry spare replica slots (``moe_replica_slots``)
 and :func:`forward` the Reshape balancer's routing tables
-(``moe_routing``, one ``[E, P]`` table a layer).
+(``moe_routing``, one ``[E, P]`` table a MoE layer of ``blocks``).
 
 Where JAX stacks the per-layer params for ``lax.scan``, the port keeps
 ``params["blocks"]`` as a list of per-layer dicts and loops over it in
@@ -66,21 +70,21 @@ from .layers import (
 )
 
 
+#: The attention each ported family takes.
+ATTN = {"dense": ("gqa", "mla"), "moe": ("gqa", "mla"), "vlm": ("gqa",),
+        "ssm": ("none",)}
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet:
-    the hybrid and encdec families (and their LayerNorm / GELU), MLA,
-    first-k-dense layers and shared experts."""
+    the hybrid and encdec families (and their LayerNorm / GELU)."""
     missing = []
-    if cfg.family not in ("dense", "moe", "ssm", "vlm"):
+    if cfg.family not in ATTN:
         missing.append(f"family {cfg.family!r}")
-    if cfg.attn != ("none" if cfg.family == "ssm" else "gqa"):
+    elif cfg.attn not in ATTN[cfg.family]:
         missing.append(f"attn {cfg.attn!r} in family {cfg.family!r}")
     if cfg.norm != "rms" or cfg.act != "swiglu":
         missing.append(f"norm {cfg.norm!r} / act {cfg.act!r}")
-    if cfg.first_k_dense:
-        missing.append("first_k_dense layers")
-    if cfg.n_shared:
-        missing.append("shared experts")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet "
@@ -90,7 +94,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # ===================================================================== #
 # Parameter initialization                                               #
 # ===================================================================== #
-def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def _block_init(cfg: ModelConfig, gen: torch.Generator, *,
+                dense_ffn: bool = False) -> Params:
+    """One layer's params; ``dense_ffn``: a SwiGLU of ``d_ff`` in place of
+    the MoE (the first_k_dense layers)."""
     dt = dtype_of(cfg.param_dtype)
     dev = gen.device
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, dev)}
@@ -99,12 +106,19 @@ def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Params:
         p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
         p["cmix"] = ssm_lib.rwkv6_cmix_init(gen, cfg.d_model, cfg.d_ff, dt)
         return p
-    p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
-                                  cfg.n_kv_heads, cfg.hd, dt)
+    if cfg.attn == "mla":
+        p["attn"] = attn_lib.mla_init(
+            gen, cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora,
+            qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+            q_lora=cfg.q_lora, dtype=dt)
+    else:
+        p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.hd, dt)
     p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
-    if cfg.n_experts:
+    if cfg.n_experts and not dense_ffn:
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_expert,
-                                    cfg.n_experts,
+                                    cfg.n_experts, n_shared=cfg.n_shared,
+                                    d_shared=cfg.d_shared or None,
                                     n_replica_slots=cfg.moe_replica_slots,
                                     dtype=dt)
     else:
@@ -122,7 +136,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt)}
-    p["blocks"] = [_block_init(cfg, gen) for _ in range(cfg.n_layers)]
+    p["blocks"] = [_block_init(cfg, gen)
+                   for _ in range(cfg.n_layers - cfg.first_k_dense)]
+    if cfg.first_k_dense:
+        p["dense_blocks"] = [_block_init(cfg, gen, dense_ffn=True)
+                             for _ in range(cfg.first_k_dense)]
     p["ln_f"] = rmsnorm_init(cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt,
@@ -142,8 +160,8 @@ def _block_apply(
     cache_len: int = 0,
     moe_routing: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
-    """One decoder block (GQA attention + MoE or SwiGLU, or RWKV6 time-mix
-    + channel-mix).  Returns (x, the new cache, moe_stats)."""
+    """One decoder block (GQA or MLA attention + MoE or SwiGLU, or RWKV6
+    time-mix + channel-mix).  Returns (x, the new cache, moe_stats)."""
     stats: Dict[str, torch.Tensor] = {}
     h = rmsnorm(x, bp["ln1"])
     if cfg.family == "ssm":
@@ -162,10 +180,16 @@ def _block_apply(
                          "cshift": new_clast}
         return x, new_cache, stats
     attn_cache = None if cache is None else cache["attn"]
-    a_out, new_attn = attn_lib.gqa_apply(
-        bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.hd, rope_theta=cfg.rope_theta, cache=attn_cache,
-        cache_len=cache_len)
+    if cfg.attn == "mla":
+        a_out, new_attn = attn_lib.mla_apply(
+            bp["attn"], h, n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
+            qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope, v_head=cfg.v_head,
+            rope_theta=cfg.rope_theta, cache=attn_cache, cache_len=cache_len)
+    else:
+        a_out, new_attn = attn_lib.gqa_apply(
+            bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta, cache=attn_cache,
+            cache_len=cache_len)
     new_cache = None if cache is None else {"attn": new_attn}
     x = x + a_out
 
@@ -197,10 +221,11 @@ def forward(params: Params, cfg: ModelConfig,
             moe_routing: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence logits ``[B, S, V]`` and aux stats (the train /
-    prefill forward, without a cache).  ``moe_routing``: the balancer's
-    ``[L, E, P]`` tables (a layer's table is its block's
-    ``expert_routing``); ``remat`` recomputes each block in the backward
-    when gradients are taken."""
+    prefill forward, without a cache): ``dense_blocks`` first, then
+    ``blocks``.  ``moe_routing``: the balancer's ``[L, E, P]`` tables, one
+    for each of the ``L`` layers of ``blocks`` (a layer's table is its
+    block's ``expert_routing``); ``remat`` recomputes each block in the
+    backward when gradients are taken."""
     check_supported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][batch["tokens"]].to(cdt)
@@ -222,13 +247,17 @@ def forward(params: Params, cfg: ModelConfig,
                    torch.zeros((n_slots,), dtype=torch.float32, device=dev)),
         )
 
+    def run(fn, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    for bp in params.get("dense_blocks", []):
+        x = run(lambda bp, x: _block_apply(cfg, bp, x)[0], bp, x)
     aux: List[Tuple[torch.Tensor, ...]] = []
     for i, bp in enumerate(params["blocks"]):
         routing = None if moe_routing is None else moe_routing[i]
-        if remat and torch.is_grad_enabled():
-            x, st = checkpoint(block, bp, x, routing, use_reentrant=False)
-        else:
-            x, st = block(bp, x, routing)
+        x, st = run(block, bp, x, routing)
         aux.append(st)
     aux_l, drop_f, tpe_router, tpe_slot = (torch.stack(t) for t in zip(*aux))
     logits = _logits(params, cfg, x)
@@ -270,22 +299,35 @@ def _ssm_cache(cfg: ModelConfig, batch: int, dev: torch.device) -> Params:
                                   dtype=torch.float32, device=dev)}
 
 
+def _block_cache(cfg: ModelConfig, batch: int, max_len: int,
+                 dev: torch.device) -> Params:
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg, batch, dev)
+    cdt = dtype_of(cfg.compute_dtype)
+    if cfg.attn == "mla":
+        return {"attn": attn_lib.mla_cache_init(batch, max_len, cfg.kv_lora,
+                                                cfg.qk_rope, cdt, dev)}
+    return {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
+                                            cfg.hd, cdt, dev)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceSpec = "cuda") -> Params:
     """One ``{"attn": {"k", "v"}}`` per layer, ``[batch, max_len, KV,
-    hd]`` in the compute dtype; for the ssm family one float32
-    ``{"wkv": [batch, H, hd, hd], "shift", "cshift": [batch, 1, D]}`` per
-    layer, whatever ``max_len``."""
+    hd]`` in the compute dtype (MLA: ``{"attn": {"c_kv": [batch, max_len,
+    kv_lora], "k_pe": [batch, max_len, qk_rope]}}``), under ``blocks`` and
+    the first_k_dense layers' under ``dense_blocks``; for the ssm family
+    one float32 ``{"wkv": [batch, H, hd, hd], "shift", "cshift": [batch,
+    1, D]}`` per layer, whatever ``max_len``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "ssm":
-        return {"blocks": [_ssm_cache(cfg, batch, dev)
-                           for _ in range(cfg.n_layers)]}
-    cdt = dtype_of(cfg.compute_dtype)
-    return {"blocks": [
-        {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
-                                         cfg.hd, cdt, dev)}
-        for _ in range(cfg.n_layers)]}
+    cache: Params = {"blocks": [
+        _block_cache(cfg, batch, max_len, dev)
+        for _ in range(cfg.n_layers - cfg.first_k_dense)]}
+    if cfg.first_k_dense:
+        cache["dense_blocks"] = [_block_cache(cfg, batch, max_len, dev)
+                                 for _ in range(cfg.first_k_dense)]
+    return cache
 
 
 def decode_step(params: Params, cfg: ModelConfig,
@@ -302,10 +344,11 @@ def decode_step(params: Params, cfg: ModelConfig,
     x = (embeds.to(cdt) if embeds is not None
          else params["embed"][tokens].to(cdt))
     cache_len = int(cache_len)
-    for bp, bc in zip(params["blocks"], cache["blocks"]):
-        x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
-                                       cache_len=cache_len)
-        bc.update(new_cache)
+    for name in ("dense_blocks", "blocks"):
+        for bp, bc in zip(params.get(name, []), cache.get(name, [])):
+            x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
+                                           cache_len=cache_len)
+            bc.update(new_cache)
     return _logits(params, cfg, x if all_positions else x[:, -1:]), cache
 
 

@@ -16,8 +16,10 @@ against the row's CDF, as in JAX.  ``token_groups = G > 1`` is JAX's
 DP-local dispatch (``moe.py:191-286``): capacity, queue positions and
 slot tables per group of ``N / G`` tokens, each expert product one K4 call
 over the groups' queues laid slot by slot (the weights are not repeated
-per group).  Shared experts are not ported (no ported configuration has
-them).
+per group).  Shared experts (``moe_init(..., n_shared=...)``, DeepSeek-V2's)
+are a SwiGLU on every token added after the combine in both dispatches, as
+JAX adds them (``moe.py:172-176``, ``:269-273``): plain matmuls outside any
+kernel, as in JAX.
 
 Three choices keep the bits of the JAX layer:
 
@@ -42,17 +44,20 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import segment_matmul as k4
-from .layers import Params, dense_init, truncated_normal
+from .layers import Params, dense_init, swiglu, truncated_normal
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_expert: int,
-             n_experts: int, *, n_replica_slots: int = 0,
+             n_experts: int, *, n_shared: int = 0,
+             d_shared: Optional[int] = None, n_replica_slots: int = 0,
              dtype=torch.float32) -> Params:
     """The router ``[D, E]`` (logical experts) and the expert weights
     stacked on a leading physical slot axis of ``P = E + n_replica_slots``
-    (the spare slots the balancer installs replicas into)."""
+    (the spare slots the balancer installs replicas into); with
+    ``n_shared``, ``shared``: one SwiGLU of width ``d_shared`` (default
+    ``d_expert * n_shared``) that every token passes."""
     P = n_experts + n_replica_slots
-    return {
+    p: Params = {
         "router": dense_init(gen, d_model, n_experts, dtype, scale=0.02),
         "w_gate": truncated_normal((P, d_model, d_expert), gen,
                                    std=d_model ** -0.5, dtype=dtype),
@@ -61,6 +66,14 @@ def moe_init(gen: torch.Generator, d_model: int, d_expert: int,
         "w_down": truncated_normal((P, d_expert, d_model), gen,
                                    std=d_expert ** -0.5, dtype=dtype),
     }
+    if n_shared > 0:
+        ds = d_shared or d_expert * n_shared
+        p["shared"] = {
+            "w_gate": dense_init(gen, d_model, ds, dtype),
+            "w_up": dense_init(gen, d_model, ds, dtype),
+            "w_down": dense_init(gen, ds, d_model, dtype, scale=ds ** -0.5),
+        }
+    return p
 
 
 def router_topk(logits: torch.Tensor, top_k: int, *,
@@ -192,6 +205,8 @@ def moe_apply(
     out = torch.zeros((N, D), dtype=dt, device=dev)
     for j in range(slots.shape[1]):
         out = out + picked[:, j]
+    if "shared" in p:
+        out = out + swiglu(xf, p["shared"])
 
     out = out.reshape(orig_shape)
     if not return_stats:

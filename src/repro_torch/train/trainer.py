@@ -53,21 +53,27 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
 
 
-def _moe_layers(tree: Any):
-    """The per-layer ``moe`` dicts of a params or gradient tree."""
-    return [b["moe"] for b in tree.get("blocks", []) if "moe" in b]
+def _moe_layers(tree: Any, merge_map: torch.Tensor):
+    """The per-layer ``moe`` dicts of a params or gradient tree: those of
+    ``blocks`` (the scanned layers; the first_k_dense layers of
+    ``dense_blocks`` have none), one a row of ``merge_map``."""
+    moes = [b["moe"] for b in tree.get("blocks", []) if "moe" in b]
+    if len(moes) != merge_map.shape[0]:
+        raise ValueError(f"a merge map of {merge_map.shape[0]} layers for "
+                         f"{len(moes)} MoE layers")
+    return moes
 
 
 def merge_replica_grads(grads: Any, merge_map: torch.Tensor) -> Any:
     """Sum replica-slot MoE grads into their primary slot, in place.
 
-    ``merge_map``: ``[L, P]`` -> primary slot per layer (identity when
-    unreplicated).  Each primary's gradient becomes the sum of its slots'
-    in ascending slot order and a replica's becomes 0, as JAX's
-    ``zeros_like(g).at[m].add(g)``.  Returns ``grads``."""
+    ``merge_map``: ``[L, P]`` -> primary slot per MoE layer of ``blocks``
+    (identity when unreplicated).  Each primary's gradient becomes the sum
+    of its slots' in ascending slot order and a replica's becomes 0, as
+    JAX's ``zeros_like(g).at[m].add(g)``.  Returns ``grads``."""
     mm = merge_map.cpu().tolist()
     with torch.no_grad():
-        for li, moe in enumerate(_moe_layers(grads)):
+        for li, moe in enumerate(_moe_layers(grads, merge_map)):
             moved = [(s, m) for s, m in enumerate(mm[li]) if m != s]
             for name in EXPERT_LEAVES:
                 g = moe[name]
@@ -83,7 +89,7 @@ def broadcast_replicas(params: Any, merge_map: torch.Tensor) -> Any:
     primary so replicas never drift (in place).  Returns ``params``."""
     mm = merge_map.cpu().tolist()
     with torch.no_grad():
-        for li, moe in enumerate(_moe_layers(params)):
+        for li, moe in enumerate(_moe_layers(params, merge_map)):
             for s, m in enumerate(mm[li]):
                 if m != s:
                     for name in EXPERT_LEAVES:
@@ -168,7 +174,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
 # --------------------------------------------------------------------- #
 class Trainer:
     """One device's training loop: params from ``seed`` on ``device``,
-    AdamW, and with ``tc.moe_balancer`` a balancer a MoE layer."""
+    AdamW, and with ``tc.moe_balancer`` a balancer a MoE layer (each of
+    the ``n_layers - first_k_dense`` layers of ``blocks``, as JAX keeps
+    one a scanned layer)."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, *, seed: int = 0,
                  device: DeviceSpec = "cuda"):
@@ -186,7 +194,8 @@ class Trainer:
         self.use_balancer = tc.moe_balancer is not None and cfg.n_experts > 0
         if self.use_balancer:
             self.balancers = [MoEReshapeBalancer(tc.moe_balancer)
-                              for _ in range(cfg.n_layers)]
+                              for _ in range(cfg.n_layers
+                                             - cfg.first_k_dense)]
         self._step_fn = make_train_step(cfg, tc,
                                         use_balancer=self.use_balancer)
 
