@@ -325,6 +325,7 @@ import dataclasses
 import enum
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -2096,10 +2097,12 @@ def randn(torch, seed: int, shape, dtype, scale: float = 1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def hgmma_counts(source: str):
-    """HGMMA (wgmma) instructions in each kernel function of the library of
-    ``csrc/<source>.cu``, from ``cuobjdump -sass`` beside nvcc:
-    {mangled name: count}."""
+def sass_counts(source: str):
+    """Per kernel function of the library of ``csrc/<source>.cu``, from
+    ``cuobjdump -sass`` beside nvcc: its HGMMA (wgmma) instructions, its
+    local-memory loads and stores (LDL / STL: spills), and the highest
+    register it names plus one (past the count ptxas reports where
+    setmaxnreg raised it): {mangled name: (hgmma, local, registers)}."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
@@ -2109,30 +2112,46 @@ def hgmma_counts(source: str):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            counts[fn] = [0, 0, 0]
+        elif fn is not None:
+            c = counts[fn]
+            c[0] += "HGMMA" in line
+            c[1] += bool(re.search(r"\b(LDL|STL)\b", line))
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            c[2] = max([c[2]] + [r + 1 for r in regs])
+    return {fn: tuple(c) for fn, c in counts.items()}
+
+
+#: K5's wgmma kernels and the (dk, dv) instances of each the build holds.
+K5_WGMMA_KERNELS = ("flash_wgmma", "flash_bwd_dkv_wgmma",
+                    "flash_bwd_dq_wgmma")
 
 
 def check_sass() -> None:
     """K4's tiles kernel (each of its forms: the forward, dx and dw), each
-    width of its stream kernel, K5's wgmma kernel and the two kernels of
-    its backward's wgmma route run wgmma."""
+    width of its stream kernel, and K5's wgmma kernel and the two kernels
+    of its backward's wgmma route at each pair of ``WGMMA_WIDTHS`` run
+    wgmma; each kernel's spills and registers are logged."""
+    from repro_torch.kernels.flash_attention import WGMMA_WIDTHS
     for source, kernels in (("segment_matmul", ("seg_mm_tiles",
                                                 "seg_mm_stream")),
-                            ("flash_attention", ("flash_wgmma",
-                                                 "flash_bwd_dkv_wgmma",
-                                                 "flash_bwd_dq_wgmma"))):
-        counts = hgmma_counts(source)
+                            ("flash_attention", K5_WGMMA_KERNELS)):
+        counts = sass_counts(source)
         for kernel in kernels:
-            found = {fn: n for fn, n in counts.items() if kernel in fn}
-            check(found and all(n > 0 for n in found.values()),
+            found = {fn: c for fn, c in counts.items() if kernel in fn}
+            check(found and all(c[0] > 0 for c in found.values()),
                   f"build: {kernel} has no wgmma (HGMMA) in its SASS: "
                   f"{found}")
-            for fn, n in found.items():
+            if source == "flash_attention":
+                for dk, dv in WGMMA_WIDTHS:
+                    tag = f"ILi{dk}ELi{dv}E"
+                    check(any(tag in fn for fn in found),
+                          f"build: no {kernel} at ({dk}, {dv}) in the "
+                          f"library: {list(found)}")
+            for fn, (n, local, regs) in found.items():
                 log(f"build: {source}: {n} HGMMA (wgmma) instructions in "
-                    f"{fn}")
+                    f"{fn}; {local} local loads / stores; registers up to "
+                    f"R{regs - 1}")
 
 
 def k4_rows_cases(torch, E: int, C: int, seed: int):
@@ -5928,7 +5947,7 @@ def build_logged(_build, names=None) -> None:
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("Compiling entry", "Used", "spill",
-                                       "warning")):
+                                       "warning", "Performance Loss")):
                 log(f"build: {name}: {line.strip()}")
 
 

@@ -28,7 +28,14 @@ reverse order).  K4 at OLMoE-1B-7B's expert products: the serve's longest
 prefill (C = 1780) and a decode batch (C = 4), dense and with serve-like
 ``rows``.  K5 at the serve's prefill shapes (B 4, H 16, hd 128, bf16,
 causal; S = 202, 445) and OLMoE's 4096-token context, from the model's
-``[B, S, H, hd]`` layout.  K1 and K2 at the smoke's real shape (N = 2^24,
+``[B, S, H, hd]`` layout; and at MLA's widths, MiniCPM3-4B's (96, 64, H
+40) and DeepSeek-V2-Lite's (192, 128, H 16) at the serve's B 4, S 445 and
+at 1 x 4096: the source as it is against its first design there
+(``csrc/variants/flash_attention_mla_first.cu``), old, new, new, old,
+each also with its exponentials replaced by a copy (wrong numbers, timed
+only), out and lse held bit for bit between the two designs at those
+shapes and at ``chip_smoke.mla_kernel_phase``'s, with the card's own
+time (profiler) and the host's submit time beside the CUDA-event time.  K1 and K2 at the smoke's real shape (N = 2^24,
 1% of keys split, K2 with 10% dead lanes) at W = 20, 48, 64 and 1024 (K =
 65,536; 4,096 at W = 1024), where each variant's integers must equal the
 source as it is and K2's sums pass ``check_fold``; and at the main paths'
@@ -59,7 +66,12 @@ training shape (B 4, H 16, S 512, hd 128, bf16 from the model's views,
 causal) and at OLMoE's context (1 x 4096): the fma pair forced at bf16 hd
 128 (its first design, the route those calls took before the wgmma
 route) against the wgmma route, each within its route's
-``check_flash_bwd`` bound, beside SDPA's backward and each route's bound.
+``check_flash_bwd`` bound, beside SDPA's backward and each route's bound;
+and at (96, 64) (MiniCPM3-4B's B 4, H 40, S 512 and 1 x 4096) the first
+design against the source as it is, in turns, each whole and stopped
+after its prep pass or after dkv (the split of a call by CUDA events),
+with the profiler's time of each of the three kernels, dq, dk and dv held
+bit for bit between the designs and across two calls.
 K4's backward (``k4bwd``) at the training path's expert products (E 72,
 C 320, D / F 2048 / 1024 both ways, rows drawn in [0, C]): its first
 design (``torch.where``, contiguous transposes and two K4 launches)
@@ -116,27 +128,33 @@ K5_VARIANTS = {
         "  if (warp >= 8) {\n"
         "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 24;\\n\");\n"
         "    if (threadIdx.x == 256) {",
-        "  // The consumers: warpgroup wg owns":
+        "  // The consumers: warpgroup wg owns rows":
         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\");\n"
-        "  // The consumers: warpgroup wg owns"},
+        "  // The consumers: warpgroup wg owns rows"},
 }
+
+
+def apply_edits(src: str, edits, name: str = "") -> str:
+    """``src`` with each ``old: new`` of ``edits`` made in turn; raises
+    unless every ``old`` is in the text exactly once when its turn comes."""
+    for old, new in edits.items():
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not once in the source")
+        src = src.replace(old, new)
+    return src
 
 
 def build(_build, source: str, variants, only: str = ""):
     """One library a variant of ``csrc/<source>.cu``, all nvcc processes at
-    once: {name: CDLL}.  Prints each variant's ``-Xptxas -v`` lines (of
-    the kernels whose mangled names hold ``only``)."""
+    once: {name: CDLL}.  Prints each variant's ``-Xptxas -v`` lines and
+    ptxas's warnings that it serialized wgmma (of the kernels whose
+    mangled names hold ``only``)."""
     src = (_build.CSRC / f"{source}.cu").read_text()
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edits in variants.items():
-        text = src
-        for old, new in edits.items():
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not once in the "
-                                   f"source")
-            text = text.replace(old, new)
+        text = apply_edits(src, edits, name)
         tag = re.sub(r"\W+", "_", f"{source}_{name}").strip("_")
         cu, so = out / f"{tag}.cu", out / f"lib{tag}.so"
         cu.write_text(text)
@@ -155,6 +173,8 @@ def build(_build, source: str, variants, only: str = ""):
                 fn = line.split("'")[1]
             elif ("Used" in line or "spill" in line) and only in fn:
                 print(f"{name}: {fn}: {line.strip()}", flush=True)
+            elif "Performance Loss" in line and only in line:
+                print(f"{name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
@@ -207,31 +227,118 @@ def k4(torch, cs, _build) -> None:
                           f"{ms:.5f} ms", flush=True)
 
 
-def k5(torch, cs, _build) -> None:
-    from repro_torch.kernels import flash_attention as kfa
-    libs = build(_build, "flash_attention", K5_VARIANTS)
+#: Edits of K5's source, and of its first design at MLA's widths
+#: (``csrc/variants/flash_attention_mla_first.cu``), that replace the
+#: forward's exponentials by a copy of their argument: wrong numbers,
+#: timed only, for the share of a tile the serialized softmax costs.
+K5_EXP_COPY = {"sc[i] = __expf(sc[i] - mx[(i >> 1) & 1]);":
+               "sc[i] = sc[i] - mx[(i >> 1) & 1];",
+               "corr[r] = __expf(m[r] - mx[r]);": "corr[r] = m[r] - mx[r];"}
+K5_MLA_FIRST = {"first MLA design": {},
+                "first MLA design, exponentials a copy": K5_EXP_COPY}
+K5_MLA_NOW = {"as is, exponentials a copy": K5_EXP_COPY}
+#: The MLA variants whose numbers are wrong by design (timed only).
+K5_WRONG = ("first MLA design, exponentials a copy",
+            "as is, exponentials a copy")
+
+
+def k5_lib(lib):
+    """``lib``'s two entries typed as ``flash_attention._library`` types
+    them; returns ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_flash_attention.argtypes = (
+        [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+        + [ctypes.POINTER(ctypes.c_longlong), i32, ptr, ctypes.POINTER(i32)])
+    lib.repro_flash_attention.restype = i32
+    lib.repro_flash_attention_bwd.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+        + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
+    lib.repro_flash_attention_bwd.restype = i32
+    return lib
+
+
+def k5_fwd(torch, cs, _build, lib, q, k, v, causal=True, lse=False):
+    """One forward on ``lib`` as ``flash_attention`` makes it (bf16, the
+    wgmma route): out, or (out, lse)."""
+    from repro_torch.kernels import flash_attention as kfa
+    B, H, S, dk = q.shape
+    KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, H, S, dv), dtype=torch.float32, device="cuda")
+    lse_t = (torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+             if lse else None)
+    route = ctypes.c_int(-1)
+    code = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse_t is None else lse_t.data_ptr(), B, H, KV, S, T, dk, dv,
+        dk ** -0.5, int(causal), 1,
+        (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
+                                  + kfa._strides(v))),
+        *_build.device_and_stream(q.device), ctypes.byref(route))
+    cs.check(code == 0 and route.value == 1,
+             f"launch failed: CUDA error {code}, route {route.value}")
+    return (out, lse_t) if lse else out
+
+
+def k5_bwd(torch, cs, _build, lib, route, q, k, v, out, dout, lse,
+           causal=True):
+    """One backward on ``lib`` and ``route`` as ``flash_attention_bwd``
+    makes it: (dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as kfa
+    B, H, S, dk_w = q.shape
+    KV, T, dv_w = k.shape[1], k.shape[2], v.shape[3]
+    dq = torch.empty((B, H, S, dk_w), dtype=q.dtype, device="cuda")
+    dk = torch.empty((B, KV, T, dk_w), dtype=k.dtype, device="cuda")
+    dv = torch.empty((B, KV, T, dv_w), dtype=v.dtype, device="cuda")
+    n = (2 * B * H * -(-S // 128) * 128 + B * H * S * dv_w
+         if route == "wgmma" else 2 * B * H * S)
+    ws = torch.empty(n, dtype=torch.float32, device="cuda")
+    code = lib.repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, dk_w, dv_w,
+        dk_w ** -0.5, int(causal), 1,
+        (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
+                                  + kfa._strides(v))),
+        kfa.ROUTES.index(route), *_build.device_and_stream(q.device))
+    cs.check(code == 0, f"{route}: launch failed: CUDA error {code}")
+    return dq, dk, dv
+
+
+def same_bits(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def mla_bit_cases(torch, cs, dk: int, dv: int):
+    """The bf16 calls ``chip_smoke.mla_kernel_phase`` makes at (dk, dv)
+    (also made at hd 128 here): [(what, q, k, v, causal)], from the
+    model's views where it uses them."""
+    cases, seed = [], 700
+    for B, H, KV, S, views, causal in ((2, 8, 8, 1, True, True),
+                                       (2, 8, 8, 63, True, True),
+                                       (2, 8, 8, 445, True, True),
+                                       (2, 8, 8, 512, True, True),
+                                       (2, 8, 4, 300, False, False)):
+        seed += 4
+        shapes = [(B, S, h, d) if views else (B, h, S, d)
+                  for h, d in ((H, dk), (KV, dk), (KV, dv))]
+        q, k, v = (cs.randn(torch, seed + i, s, torch.bfloat16)
+                   for i, s in enumerate(shapes))
+        if views:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        cases.append((f"({dk}, {dv}) B={B} H={H} KV={KV} S={S} "
+                      f"causal={causal}", q, k, v, causal))
+    return cases
+
+
+def k5(torch, cs, _build) -> None:
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    libs = build(_build, "flash_attention", K5_VARIANTS)
     for lib in libs.values():
-        lib.repro_flash_attention.argtypes = (
-            [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
-            + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
-               ctypes.POINTER(i32)])
-        lib.repro_flash_attention.restype = i32
+        k5_lib(lib)
 
     def call(lib, q, k, v):
-        B, H, S, hd = q.shape
-        out = torch.empty((B, H, S, hd), dtype=torch.float32, device="cuda")
-        strides = kfa._strides(q) + kfa._strides(k) + kfa._strides(v)
-        route = ctypes.c_int(-1)
-        code = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            B, H,
-            k.shape[1], S, S, hd, hd, hd ** -0.5, 1, 1,
-            (ctypes.c_longlong * 9)(*strides),
-            *_build.device_and_stream(q.device), ctypes.byref(route))
-        cs.check(code == 0 and route.value == 1,
-                 f"launch failed: CUDA error {code}, route {route.value}")
-        return out
+        return k5_fwd(torch, cs, _build, lib, q, k, v)
 
     for S in (202, 445, 4096):
         q, k, v = (cs.randn(torch, 70 + i, (4, S, 16, 128),
@@ -247,6 +354,62 @@ def k5(torch, cs, _build) -> None:
                                 reps)
                 print(f"{name}: B=4 H=16 S={S} hd=128 causal turn {turn}: "
                       f"{ms:.5f} ms (max |err| {err:.3g})", flush=True)
+
+    # MLA's widths: the first design against the source as it is.
+    mla = {n: k5_lib(lib) for n, lib in build(
+        _build, "variants/flash_attention_mla_first", K5_MLA_FIRST,
+        "flash_wgmma").items()}
+    mla["as is"] = libs[next(iter(K5_VARIANTS))]
+    mla.update({n: k5_lib(lib) for n, lib in build(
+        _build, "flash_attention", K5_MLA_NOW, "flash_wgmma").items()})
+    first, now = mla["first MLA design"], mla["as is"]
+    for dk, dv in ((96, 64), (192, 128), (128, 128)):
+        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
+            got, want = (k5_fwd(torch, cs, _build, lib, q, k, v, causal,
+                                True) for lib in (now, first))
+            ok = same_bits(torch, got, want)
+            print(f"K5 forward {what}: out and lse "
+                  f"{'the same bits as' if ok else 'DIFFER from'} the first "
+                  f"MLA design (max |out diff| "
+                  f"{float((got[0] - want[0]).abs().max()):.3g})", flush=True)
+    for arch in cs.MLA_ARCHS:
+        cfg = get_config(arch)
+        dk, dv, H = cfg.qk_nope + cfg.qk_rope, cfg.v_head, cfg.n_heads
+        for B, S in ((cs.SERVE_BATCH, 445), (1, 4096)):
+            q, k, v = (cs.randn(torch, 90 + i, (B, S, H, d),
+                                torch.bfloat16).transpose(1, 2)
+                       for i, d in enumerate((dk, dk, dv)))
+            reps = 10 if S == 4096 else 50
+            want = k5_fwd(torch, cs, _build, first, q, k, v, lse=True)
+            sdpa_ms = cs.time_ms(torch, lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=True), (q, k, v), reps)
+            bound, by = cs.k5_bound(B, H, H, S, S, dk, True, 2, dv)
+            shape = f"{cs.MLA_NAMES[arch]} ({dk}, {dv}) B={B} H={H} S={S}"
+            for turn, names in enumerate((list(mla), list(mla)[::-1])):
+                for name in names:
+                    lib = mla[name]
+                    got = k5_fwd(torch, cs, _build, lib, q, k, v, lse=True)
+                    tail = ""
+                    if name not in K5_WRONG:
+                        err = cs.check_flash(torch, name, got[0], q, k, v,
+                                             True, dk ** -0.5)
+                        tail = (f"; max |err| {err:.3g}; out and lse "
+                                f"{'the same bits as' if same_bits(torch, got, want) else 'OTHER bits than'}"
+                                f" the first MLA design")
+                    ms = cs.time_ms(torch, lambda *a: k5_fwd(
+                        torch, cs, _build, lib, *a), (q, k, v), reps)
+                    dev = cs.device_ms(torch, lambda *a: k5_fwd(
+                        torch, cs, _build, lib, *a), (q, k, v), min(reps, 20))
+                    sub = cs.submit_ms(torch, lambda *a: k5_fwd(
+                        torch, cs, _build, lib, *a), (q, k, v), reps)
+                    print(f"{name}: K5 forward {shape} causal turn {turn}: "
+                          f"{ms:.5f} ms a call (CUDA events, {reps} calls; "
+                          f"bound {bound:.5f} ms by {by}, "
+                          f"{100 * bound / ms:.1f}%; SDPA {sdpa_ms:.5f} ms); "
+                          f"device {dev} a call (profiler); submitted in "
+                          f"{sub:.5f} ms{tail}", flush=True)
+            del q, k, v, want
+            torch.cuda.empty_cache()
 
 
 #: Edits of K1 and K2's source (csrc/partition.cu) that make each variant.
@@ -848,31 +1011,64 @@ def ctrl(torch, cs, _build) -> None:
             del runs
 
 
+#: Edits of K5's backward (the source as it is, and its first design at
+#: MLA's widths) that stop a wgmma-route call after its first launch or
+#: its first two: the split of a call's time (prep, dkv, dq) by CUDA
+#: events, beside the profiler's time of each kernel.
+K5BWD_SPLIT = {
+    "whole": {},
+    "prep only": {
+        "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n":
+        "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n"
+        "  return cudaGetLastError();\n"},
+    "prep and dkv": {
+        "              KV, scale, causal);\n  err = cudaGetLastError();\n"
+        "  if (err != cudaSuccess) return err;\n  kdq<<<":
+        "              KV, scale, causal);\n  return cudaGetLastError();\n"
+        "  kdq<<<"},
+}
+#: Edits of K5's source that change the (96, 64) backward's dkv blocks.
+K5BWD_NOW = {
+    # No producer warpgroup, no setmaxnreg: ptxas caps a thread of either
+    # block at 168 registers.
+    "as is, dkv at 288 threads, whole": {
+        "static constexpr bool kKVRegs = kRegs || kOwnKeys;":
+        "static constexpr bool kKVRegs = kRegs;"},
+}
+#: The wgmma backward's kernels, by the name the profiler gives them.
+K5BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkv_wgmma",
+                 "flash_bwd_dq_wgmma")
+
+
+def kernel_ms(torch, fn, args, reps: int, names):
+    """The card's own time a call of each kernel in ``names`` (profiler
+    spans whose name holds it, summed over ``reps`` calls, over reps)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            for name in names:
+                if name in e.name:
+                    spans[name] += e.time_range.end - e.time_range.start
+    return {n: t / reps / 1e3 for n, t in spans.items()}
+
+
 def k5bwd(torch, cs, _build) -> None:
     import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
     lib = kfa._library()
 
     def call(route, q, k, v, out, dout, lse):
         """K5's backward on ``route`` (the fma pair may be forced at bf16
         hd 128), as ``flash_attention_bwd`` calls it."""
-        B, H, S, hd = q.shape
-        KV, T = k.shape[1], k.shape[2]
-        dq = torch.empty((B, H, S, hd), dtype=q.dtype, device="cuda")
-        dk = torch.empty((B, KV, T, hd), dtype=k.dtype, device="cuda")
-        dv = torch.empty_like(dk)
-        n = (2 * B * H * -(-S // 128) * 128 + B * H * S * hd
-             if route == "wgmma" else 2 * B * H * S)
-        ws = torch.empty(n, dtype=torch.float32, device="cuda")
-        code = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, hd, hd, hd ** -0.5,
-            1, 1, (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
-                                         + kfa._strides(v))),
-            kfa.ROUTES.index(route), *_build.device_and_stream(q.device))
-        cs.check(code == 0, f"{route}: launch failed: CUDA error {code}")
-        return dq, dk, dv
+        return k5_bwd(torch, cs, _build, lib, route, q, k, v, out, dout, lse)
 
     for B, S in ((cs.TRAIN_B, cs.TRAIN_S), (1, 4096)):
         q, k, v = (cs.randn(torch, 80 + i, (B, S, 16, 128),
@@ -900,6 +1096,80 @@ def k5bwd(torch, cs, _build) -> None:
                       f"backward {sdpa_ms:.5f} ms; max |err| {err:.3g})",
                       flush=True)
         del q, k, v, out, lse, dout, qg, kg, vg, sdpa
+        torch.cuda.empty_cache()
+
+    # MLA's widths: the first design against the source as it is, each
+    # whole and stopped after its first launch or two.
+    designs = {}
+    for label, source in (("first MLA design",
+                           "variants/flash_attention_mla_first"),
+                          ("as is", "flash_attention")):
+        table = {f"{label}, {n}": e for n, e in K5BWD_SPLIT.items()}
+        if source == "flash_attention":
+            table.update(K5BWD_NOW)
+        designs.update({n: k5_lib(lib) for n, lib in build(
+            _build, source, table, "wgmma").items()})
+    first, now = designs["first MLA design, whole"], designs["as is, whole"]
+    for dk, dv in ((96, 64), (192, 128), (128, 128)):
+        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
+            out, lse = kfa.flash_attention(q, k, v, causal=causal,
+                                           scale=dk ** -0.5, return_lse=True)
+            dout = cs.randn(torch, 9, out.shape, torch.float32)
+            got, want = (k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v,
+                                out, dout, lse, causal) for lib in (now, first))
+            again = k5_bwd(torch, cs, _build, now, "wgmma", q, k, v, out,
+                           dout, lse, causal)
+            err = cs.check_flash_bwd(torch, what, got, q, k, v, out, dout,
+                                     causal, dk ** -0.5, "wgmma")
+            print(f"K5 backward {what}: dq, dk, dv "
+                  f"{'the same bits as' if same_bits(torch, got, want) else 'OTHER bits than'}"
+                  f" the first MLA design; two calls "
+                  f"{'the same bits' if same_bits(torch, got, again) else 'OTHER bits'}"
+                  f"; max |err| {err:.3g} (within check_flash_bwd)",
+                  flush=True)
+    cfg = get_config("minicpm3-4b")
+    dk, dv, H = cfg.qk_nope + cfg.qk_rope, cfg.v_head, cfg.n_heads
+    for B, S in ((cs.TRAIN_B, cs.TRAIN_S), (1, 4096)):
+        q, k, v = (cs.randn(torch, 85 + i, (B, S, H, d),
+                            torch.bfloat16).transpose(1, 2)
+                   for i, d in enumerate((dk, dk, dv)))
+        out, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        dout = cs.randn(torch, 88, (B, H, S, dv), torch.float32)
+        args = (q, k, v, out, dout, lse)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              scale=dk ** -0.5)
+        sdpa_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (),
+            10)
+        bound, by = cs.k5_bwd_bound(B, H, H, S, S, dk, True, 2, "wgmma", dv)
+        want = k5_bwd(torch, cs, _build, first, "wgmma", *args)
+        shape = f"MiniCPM3-4B ({dk}, {dv}) B={B} H={H} S={S}"
+        reps = 20 if S <= 512 else 5
+        for turn, names in enumerate((list(designs), list(designs)[::-1])):
+            for name in names:
+                lib = designs[name]
+
+                def fn(*a):
+                    return k5_bwd(torch, cs, _build, lib, "wgmma", *a)
+
+                tail = ""
+                if name.endswith("whole"):
+                    got = fn(*args)
+                    err = cs.check_flash_bwd(torch, name, got, q, k, v, out,
+                                             dout, True, dk ** -0.5, "wgmma")
+                    split = kernel_ms(torch, fn, args, reps, K5BWD_KERNELS)
+                    tail = (f"; profiler: " + ", ".join(
+                        f"{n} {t:.5f} ms" for n, t in split.items())
+                        + f"; max |err| {err:.3g}; "
+                        + ("the same bits as" if same_bits(torch, got, want)
+                           else "OTHER bits than") + " the first MLA design")
+                ms = cs.time_ms(torch, fn, args, reps)
+                print(f"{name}: K5 backward {shape} causal turn {turn}: "
+                      f"{ms:.5f} ms a call (CUDA events, {reps} calls; bound "
+                      f"{bound:.5f} ms by {by}, {100 * bound / ms:.1f}%; "
+                      f"SDPA's backward {sdpa_ms:.5f} ms){tail}", flush=True)
+        del q, k, v, out, lse, dout, qg, kg, vg, sdpa, args, want
         torch.cuda.empty_cache()
 
 
@@ -942,6 +1212,22 @@ def k4bwd(torch, cs, _build) -> None:
                       f"peak; max |err| {err:.3g})", flush=True)
         del x, w, dout
         torch.cuda.empty_cache()
+
+
+#: Every table of edits above and the source under ``csrc/`` whose text
+#: it edits (``tests/test_torch_kernel_variants.py`` applies each to the
+#: sources as they are, so a table cannot go stale unseen).
+TABLES = (("segment_matmul", K4_VARIANTS),
+          ("flash_attention", K5_VARIANTS),
+          ("variants/flash_attention_mla_first", K5_MLA_FIRST),
+          ("flash_attention", K5_MLA_NOW),
+          ("partition", K1K2_VARIANTS),
+          ("rwkv_scan", K6_VARIANTS),
+          ("variants/rwkv_scan_bwd_first", K6BWD_FIRST_SPLIT),
+          ("rwkv_scan", K6BWD_SPLIT),
+          ("flash_attention", K5BWD_SPLIT),
+          ("flash_attention", K5BWD_NOW),
+          ("variants/flash_attention_mla_first", K5BWD_SPLIT))
 
 
 def main() -> int:

@@ -410,6 +410,32 @@ DEV void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(kTransB));
 }
 
+// The same at N = 96 (a 64 x 96 tile of d).
+template <int kTransB>
+DEV void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTransB));
+}
+
 // The same at N = 192 (a 64 x 192 tile of d).
 template <int kTransB>
 DEV void wgmma_m64n192k16_rs(float (&d)[96], const uint32_t (&a)[4],
@@ -450,16 +476,18 @@ DEV void wgmma_m64n192k16_rs(float (&d)[96], const uint32_t (&a)[4],
         "n"(kTransB));
 }
 
-// d += A B in the RS form at N = 64, 128 or 192 (the first N / 2 entries
-// of d).
+// d += A B in the RS form at N = 64, 96, 128 or 192 (the first N / 2
+// entries of d).
 template <int N, int kTransB, int R>
 DEV void wgmma_rs(float (&d)[R], const uint32_t (&a)[4], uint64_t db) {
-  static_assert((N == 64 || N == 128 || N == 192) && R >= N / 2,
-                "wgmma_rs: N 64, 128 or 192");
+  static_assert((N == 64 || N == 96 || N == 128 || N == 192) && R >= N / 2,
+                "wgmma_rs: N 64, 96, 128 or 192");
   if constexpr (N == 192)
     wgmma_m64n192k16_rs<kTransB>(*reinterpret_cast<float(*)[96]>(d), a, db);
   else if constexpr (N == 128)
     wgmma_m64n128k16_rs<kTransB>(*reinterpret_cast<float(*)[64]>(d), a, db);
+  else if constexpr (N == 96)
+    wgmma_m64n96k16_rs<kTransB>(*reinterpret_cast<float(*)[48]>(d), a, db);
   else
     wgmma_m64n64k16_rs<kTransB>(*reinterpret_cast<float(*)[32]>(d), a, db);
 }

@@ -27,9 +27,10 @@ give the same bits.  ``.launches`` counts the calls that launched a kernel
 and the module's ``routes`` which one: ``wgmma`` (bf16 at a pair of
 ``WGMMA_WIDTHS``: (128, 128), MiniCPM3's (96, 64) and DeepSeek-V2's
 (192, 128), the models' prefills and training forwards: Q K^T and a
-split-bf16 P V on the tensor cores, K and V on a TMA ring; its strides
-must be multiples of 8 elements) and ``fma`` (float32, and bf16 at the
-other widths: float32 on the CUDA cores).
+split-bf16 P V on the tensor cores, K and V on a TMA ring, at MLA's
+widths the two consumer warpgroups taking turns on the tensor cores; its
+strides must be multiples of 8 elements) and ``fma`` (float32, and bf16
+at the other widths: float32 on the CUDA cores).
 
 Bound on an H100, per visible (query, key) pair: ``wgmma`` ``2 dk``
 operations for ``Q K^T`` and ``4 dv`` for ``P V`` (P split into bf16 hi
@@ -54,8 +55,9 @@ the same bits); ``.launches`` counts its launches and the module's
 
 * ``wgmma`` (bf16 at a pair of ``WGMMA_WIDTHS``, as the forward, whose
   strides TMA can map, the models' training
-  calls; at (192, 128) a block of 384 threads whose producer warpgroup
-  gives its registers to the consumers): three
+  calls; at (192, 128), and in the dk / dv kernel at (96, 64), blocks of
+  384 threads whose producer warpgroup gives its registers to the
+  consumers; at (96, 64) dK and dQ are ``m64n96`` products): three
   launches, a prep pass (D_i and dO split into bf16 hi + lo, once a call),
   ``flash_bwd_dkv_wgmma`` and ``flash_bwd_dq_wgmma`` (every product on the
   tensor cores, P and dS split into hi + lo in registers; the source note

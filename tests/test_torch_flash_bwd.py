@@ -218,40 +218,46 @@ def _bwd_bound(q, k, v, out, dout, causal, scale, route="fma"):
     tol_dv = (e_p + 2 * n * eps + dv_split) * torch.einsum(
         "bhst,bhsd->bhtd", P, do.abs())
     if rep > 1:
-        tol_dk = tol_dk.reshape(B, KV, rep, T, hd).sum(2)
-        tol_dv = tol_dv.reshape(B, KV, rep, T, hd).sum(2)
+        tol_dk = tol_dk.reshape(B, KV, rep, T, -1).sum(2)
+        tol_dv = tol_dv.reshape(B, KV, rep, T, -1).sum(2)
     return tol_dq, tol_dk, tol_dv
 
 
 @pytest.mark.gpu
 def test_cuda_flash_attention_bwd_matches_plain_version():
     """K5's backward kernels on the card against the plain backward within
-    :func:`_bwd_bound` of the route each call takes (bf16 at hd 128:
-    wgmma, three launches; the rest: fma, two), float32 and bf16, causal
-    and full, rep 1, 2 and 3, ragged S and the model's [B, S, H, hd]
-    views, and the same bits from two calls."""
+    :func:`_bwd_bound` of the route each call takes (bf16 at a pair of
+    ``WGMMA_WIDTHS``: wgmma, three launches; the rest: fma, two), float32
+    and bf16, causal and full, rep 1, 2 and 3, ragged S and the model's
+    [B, S, H, d] views, at equal widths and at MLA's (dk, dv) pairs
+    (MiniCPM3-4B's (96, 64), DeepSeek-V2-Lite's (192, 128)), and the same
+    bits from two calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for B, H, KV, S, hd, views in ((1, 1, 1, 1, 16, False),
-                                   (2, 3, 1, 63, 64, False),
-                                   (1, 6, 2, 130, 128, False),
-                                   (2, 4, 4, 445, 64, True),
-                                   (2, 16, 16, 512, 128, True)):
+    for B, H, KV, S, dk, dv, views in ((1, 1, 1, 1, 16, 16, False),
+                                       (2, 3, 1, 63, 64, 64, False),
+                                       (1, 6, 2, 130, 128, 128, False),
+                                       (2, 4, 4, 445, 64, 64, True),
+                                       (2, 16, 16, 512, 128, 128, True),
+                                       (2, 4, 4, 445, 96, 64, True),
+                                       (1, 6, 2, 130, 96, 64, False),
+                                       (2, 4, 4, 300, 192, 128, True),
+                                       (1, 6, 3, 63, 192, 128, False)):
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
-                shapes = [(B, S, h, hd) if views else (B, h, S, hd)
-                          for h in (H, KV, KV)]
+                shapes = [(B, S, h, d) if views else (B, h, S, d)
+                          for h, d in ((H, dk), (KV, dk), (KV, dv))]
                 q, k, v = (torch.from_numpy(_normal(i, s)).to("cuda", dtype)
                            for i, s in enumerate(shapes))
                 if views:
                     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-                scale = hd ** -0.5
+                scale = dk ** -0.5
                 out, lse = k5.flash_attention(q, k, v, causal=causal,
                                               scale=scale, return_lse=True)
-                dout = torch.from_numpy(_normal(9, (B, H, S, hd))).cuda()
+                dout = torch.from_numpy(_normal(9, (B, H, S, dv))).cuda()
                 route = k5.bwd_route(q, k, v)
                 assert route == ("wgmma" if dtype == torch.bfloat16
-                                 and hd == 128 else "fma")
+                                 and (dk, dv) in k5.WGMMA_WIDTHS else "fma")
                 launches = k5.flash_attention_bwd.launches
                 got = k5.flash_attention_bwd(q, k, v, out, dout, lse=lse,
                                              causal=causal, scale=scale)

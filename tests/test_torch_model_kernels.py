@@ -407,8 +407,10 @@ def test_cuda_flash_attention_matches_plain_version():
     causal and full, rep 1 and 3, ragged S.  bf16 at hd 128 takes the
     wgmma route, also at S = 64, 445 and 4096 and from the model's
     ``[B, S, H, hd]`` layout through ``.transpose(1, 2)``, which gives
-    the same bits as its contiguous copy; every other call the fma
-    route."""
+    the same bits as its contiguous copy; so do MLA's (dk, dv) pairs of
+    ``WGMMA_WIDTHS`` (MiniCPM3-4B's (96, 64), DeepSeek-V2-Lite's
+    (192, 128)) at S = 63, 445 and 1,024, rep 1 and 2; every other call
+    the fma route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
 
@@ -444,4 +446,17 @@ def test_cuda_flash_attention_matches_plain_version():
             copies = [t.contiguous() for t in (q, k, v)]
             torch.testing.assert_close(run(*copies, causal, "wgmma"), got,
                                        atol=0, rtol=0)
+    for dk, dv in k5.MLA_WIDTHS:
+        if (dk, dv) not in k5.WGMMA_WIDTHS:
+            continue
+        for B, H, KV, S in ((2, 4, 4, 63), (2, 8, 4, 445), (1, 8, 8, 1024)):
+            for causal in (True, False):
+                q, k, v = (torch.from_numpy(_normal(60 + i, s)).to(
+                    "cuda", torch.bfloat16).transpose(1, 2) for i, s in
+                    enumerate([(B, S, H, dk), (B, S, KV, dk),
+                               (B, S, KV, dv)]))
+                got = run(q, k, v, causal, "wgmma")
+                copies = [t.contiguous() for t in (q, k, v)]
+                torch.testing.assert_close(run(*copies, causal, "wgmma"),
+                                           got, atol=0, rtol=0)
     torch.cuda.synchronize()
