@@ -514,6 +514,12 @@ MLA_NAMES = {"minicpm3-4b": "MiniCPM3-4B",
              "deepseek-v2-lite-16b": "DeepSeek-V2-Lite"}
 MLA_TRAIN_LAYERS = {"minicpm3-4b": 40, "deepseek-v2-lite-16b": 5}
 MLA_SLICE_TOL = 0.2
+#: ``mla_kernel_phase``'s cases on the edges of K5's backward at (192,
+#: 128), whose dkv blocks each walk several 64-key items (the next one's
+#: K and V loaded during this one's last tiles): causal, KV < H (rep 3 and
+#: 2), T 161 and 200 (the last item ragged), the diagonal inside the
+#: first tile of every item: (B, H, KV, S, [B, S, H, d] views), bf16.
+MLA_BWD_EDGES = ((1, 6, 2, 161, True), (2, 4, 2, 200, False))
 MLA_MOE_SLICE = (0.075, 16, 1.6)
 
 
@@ -3333,18 +3339,22 @@ def mla_kernel_phase(torch, k4, k5) -> dict:
     ``bwd_route`` gives (``wgmma`` for bf16 at (96, 64) and (192, 128),
     ``fma`` otherwise), its launches counted by route and two calls the
     same bits, within ``check_flash_bwd``'s bound; on ``wgmma`` the planted
-    faults "drops D" and "mask off" must pass that route's bound.  Returns
-    the largest error of each."""
+    faults "drops D" and "mask off" must pass that route's bound (at S 512,
+    and at (192, 128) also at ``MLA_BWD_EDGES``).  Returns the largest
+    error of each."""
     errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
-    seed, faults, cases = 500, 0, 0
+    seed, faults, cases, tried = 500, 0, 0, 0
     for dk, dv in k5.MLA_WIDTHS:
+        edges = tuple((B, H, KV, S, torch.bfloat16, views, True)
+                      for B, H, KV, S, views in MLA_BWD_EDGES
+                      if (dk, dv) == (192, 128))
         for B, H, KV, S, dtype, views, causal in (
                 (2, 8, 8, 1, torch.bfloat16, True, True),
                 (2, 8, 8, 63, torch.bfloat16, True, True),
                 (2, 8, 8, 445, torch.bfloat16, True, True),
                 (2, 8, 8, 512, torch.bfloat16, True, True),
                 (2, 8, 4, 300, torch.bfloat16, False, False),
-                (2, 8, 8, 200, torch.float32, False, True)):
+                (2, 8, 8, 200, torch.float32, False, True)) + edges:
             seed += 4
             shapes = [(B, S, h, d) if views else (B, h, S, d)
                       for h, d in ((H, dk), (KV, dk), (KV, dv))]
@@ -3406,7 +3416,9 @@ def mla_kernel_phase(torch, k4, k5) -> dict:
                 check_flash_bwd(torch, what, got, q, k, v, out, dout, causal,
                                 scale, broute))
             cases += 1
-            if broute == "wgmma" and views and S == 512:
+            if broute == "wgmma" and ((views and S == 512) or (
+                    (B, H, KV, S, dtype, views, causal) in edges)):
+                tried += 2
                 for name, _, _, fault in train_planted_faults(k4, k5)[:2]:
                     try:
                         check_flash_bwd(torch, f"{what} ({name})",
@@ -3420,12 +3432,14 @@ def mla_kernel_phase(torch, k4, k5) -> dict:
             del q, k, v, out, lse, dout, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    want = 2 * sum(p in k5.WGMMA_WIDTHS for p in k5.MLA_WIDTHS)
-    check(faults == want, f"mla kernels: {faults} of the {want} planted "
-                          f"faults passed the wgmma backward's bound")
+    check(tried == 2 * (sum(p in k5.WGMMA_WIDTHS for p in k5.MLA_WIDTHS)
+                        + len(MLA_BWD_EDGES)),
+          f"mla kernels: {tried} planted faults tried")
+    check(faults == tried, f"mla kernels: {faults} of the {tried} planted "
+                           f"faults passed the wgmma backward's bound")
     log(f"mla kernels: flash_attention at (dk, dv) in {k5.MLA_WIDTHS}, "
         f"{cases} cases (bf16 [B, S, H, d] views S 1-512 causal, rep 2 full, "
-        f"float32), forward within check_flash's bound (max |err| "
+        f"float32; at (192, 128) also {MLA_BWD_EDGES}), forward within check_flash's bound (max |err| "
         f"{errs['flash_attention']:.3g}; wgmma at {k5.WGMMA_WIDTHS}, its lse "
         f"within check_lse's and the same bits without it), backward within "
         f"check_flash_bwd's (max |err| {errs['flash_attention_bwd']:.3g}; "
@@ -5949,6 +5963,11 @@ def build_logged(_build, names=None) -> None:
             if any(w in line for w in ("Compiling entry", "Used", "spill",
                                        "warning", "Performance Loss")):
                 log(f"build: {name}: {line.strip()}")
+    serial = [line for text in logs.values() for line in text.splitlines()
+              if "serialized" in line and "Li192ELi128E" in line
+              and "flash_bwd_d" in line]
+    check(not serial, f"build: ptxas serializes the wgmma of K5's backward "
+                      f"at (192, 128): {serial}")
 
 
 def train_phases(torch, kseg, kfa, kernel_errs, smi: str):

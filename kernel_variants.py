@@ -67,11 +67,15 @@ causal) and at OLMoE's context (1 x 4096): the fma pair forced at bf16 hd
 128 (its first design, the route those calls took before the wgmma
 route) against the wgmma route, each within its route's
 ``check_flash_bwd`` bound, beside SDPA's backward and each route's bound;
-and at (96, 64) (MiniCPM3-4B's B 4, H 40, S 512 and 1 x 4096) the first
-design against the source as it is, in turns, each whole and stopped
+and at MLA's widths, (96, 64) (MiniCPM3-4B's B 4, H 40, S 512 and 1 x
+4096) and (192, 128) (DeepSeek-V2-Lite's B 4, H 16, S 512 and 1 x 4096),
+with hd 128 (OLMoE-1B-7B's, the same shapes) in the same call, the first
+MLA design against the source as it is, in turns, each whole and stopped
 after its prep pass or after dkv (the split of a call by CUDA events),
-with the profiler's time of each of the three kernels, dq, dk and dv held
-bit for bit between the designs and across two calls.
+and the source with one lever of a redesign undone (``K5BWD_NOW``), with
+the profiler's time of each of the three kernels, SDPA's backward and
+``k5_bwd_bound``; dq, dk and dv held bit for bit between the designs (at
+every ``mla_bit_cases`` case of the three widths) and across two calls.
 K4's backward (``k4bwd``) at the training path's expert products (E 72,
 C 320, D / F 2048 / 1024 both ways, rows drawn in [0, C]): its first
 design (``torch.where``, contiguous transposes and two K4 launches)
@@ -310,14 +314,18 @@ def same_bits(torch, a, b) -> bool:
 
 def mla_bit_cases(torch, cs, dk: int, dv: int):
     """The bf16 calls ``chip_smoke.mla_kernel_phase`` makes at (dk, dv)
-    (also made at hd 128 here): [(what, q, k, v, causal)], from the
-    model's views where it uses them."""
+    (also made at hd 128 here; at (192, 128) with ``MLA_BWD_EDGES``):
+    [(what, q, k, v, causal)], from the model's views where it uses
+    them."""
     cases, seed = [], 700
+    edges = tuple((B, H, KV, S, views, True)
+                  for B, H, KV, S, views in cs.MLA_BWD_EDGES
+                  if (dk, dv) == (192, 128))
     for B, H, KV, S, views, causal in ((2, 8, 8, 1, True, True),
                                        (2, 8, 8, 63, True, True),
                                        (2, 8, 8, 445, True, True),
                                        (2, 8, 8, 512, True, True),
-                                       (2, 8, 4, 300, False, False)):
+                                       (2, 8, 4, 300, False, False)) + edges:
         seed += 4
         shapes = [(B, S, h, d) if views else (B, h, S, d)
                   for h, d in ((H, dk), (KV, dk), (KV, dv))]
@@ -1011,29 +1019,51 @@ def ctrl(torch, cs, _build) -> None:
             del runs
 
 
-#: Edits of K5's backward (the source as it is, and its first design at
-#: MLA's widths) that stop a wgmma-route call after its first launch or
+#: Edits of K5's backward (its first design at MLA's widths, and the
+#: source as it is) that stop a wgmma-route call after its first launch or
 #: its first two: the split of a call's time (prep, dkv, dq) by CUDA
 #: events, beside the profiler's time of each kernel.
-K5BWD_SPLIT = {
+K5BWD_PREP_ONLY = {
+    "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n":
+    "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n"
+    "  return cudaGetLastError();\n"}
+K5BWD_SPLIT_FIRST = {
     "whole": {},
-    "prep only": {
-        "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n":
-        "      o, dout, lse, dhi, dlo, lse_p, d_p, S, Sp, rows);\n"
-        "  return cudaGetLastError();\n"},
+    "prep only": K5BWD_PREP_ONLY,
     "prep and dkv": {
         "              KV, scale, causal);\n  err = cudaGetLastError();\n"
         "  if (err != cudaSuccess) return err;\n  kdq<<<":
         "              KV, scale, causal);\n  return cudaGetLastError();\n"
         "  kdq<<<"},
 }
-#: Edits of K5's source that change the (96, 64) backward's dkv blocks.
+K5BWD_SPLIT = {
+    "whole": {},
+    "prep only": K5BWD_PREP_ONLY,
+    "prep and dkv": {
+        "  if (err != cudaSuccess) return err;\n  return launch_early(kdq":
+        "  return err;\n  return launch_early(kdq"},
+}
+#: Edits of K5's source that try or undo one lever of a backward's
+#: redesign.
 K5BWD_NOW = {
-    # No producer warpgroup, no setmaxnreg: ptxas caps a thread of either
-    # block at 168 registers.
+    # (96, 64): no producer warpgroup, no setmaxnreg (ptxas caps a thread
+    # of either block at 168 registers).
     "as is, dkv at 288 threads, whole": {
         "static constexpr bool kKVRegs = kRegs || kOwnKeys;":
         "static constexpr bool kKVRegs = kRegs;"},
+    # (192, 128): dkv a block an item, not persistent.
+    "as is, dkv a block an item, whole": {
+        "static constexpr bool kPersist = DK == 192;":
+        "static constexpr bool kPersist = false;"},
+    # Every width: dkv and dq launched to start only when the kernel ahead
+    # of each has finished.
+    "as is, launched in order, whole": {
+        "  attr[0].val.programmaticStreamSerializationAllowed = 1;":
+        "  attr[0].val.programmaticStreamSerializationAllowed = 0;"},
+    # (192, 128): dq's S and dP in one commit, P in registers.
+    "as is, dq with P in registers, whole": {
+        "static constexpr bool kPSmem = NQ > 128;":
+        "static constexpr bool kPSmem = false;"},
 }
 #: The wgmma backward's kernels, by the name the profiler gives them.
 K5BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkv_wgmma",
@@ -1101,10 +1131,11 @@ def k5bwd(torch, cs, _build) -> None:
     # MLA's widths: the first design against the source as it is, each
     # whole and stopped after its first launch or two.
     designs = {}
-    for label, source in (("first MLA design",
-                           "variants/flash_attention_mla_first"),
-                          ("as is", "flash_attention")):
-        table = {f"{label}, {n}": e for n, e in K5BWD_SPLIT.items()}
+    for label, source, split in (("first MLA design",
+                                  "variants/flash_attention_mla_first",
+                                  K5BWD_SPLIT_FIRST),
+                                 ("as is", "flash_attention", K5BWD_SPLIT)):
+        table = {f"{label}, {n}": e for n, e in split.items()}
         if source == "flash_attention":
             table.update(K5BWD_NOW)
         designs.update({n: k5_lib(lib) for n, lib in build(
@@ -1127,9 +1158,13 @@ def k5bwd(torch, cs, _build) -> None:
                   f"{'the same bits' if same_bits(torch, got, again) else 'OTHER bits'}"
                   f"; max |err| {err:.3g} (within check_flash_bwd)",
                   flush=True)
-    cfg = get_config("minicpm3-4b")
-    dk, dv, H = cfg.qk_nope + cfg.qk_rope, cfg.v_head, cfg.n_heads
-    for B, S in ((cs.TRAIN_B, cs.TRAIN_S), (1, 4096)):
+    for arch, B, S in ((arch, B, S) for arch in (
+            "minicpm3-4b", "deepseek-v2-lite-16b", "olmoe-1b-7b")
+            for B, S in ((cs.TRAIN_B, cs.TRAIN_S), (1, 4096))):
+        cfg = get_config(arch)
+        H = cfg.n_heads
+        dk, dv = ((cfg.qk_nope + cfg.qk_rope, cfg.v_head) if cfg.v_head
+                  else (cfg.hd, cfg.hd))
         q, k, v = (cs.randn(torch, 85 + i, (B, S, H, d),
                             torch.bfloat16).transpose(1, 2)
                    for i, d in enumerate((dk, dk, dv)))
@@ -1144,7 +1179,8 @@ def k5bwd(torch, cs, _build) -> None:
             10)
         bound, by = cs.k5_bwd_bound(B, H, H, S, S, dk, True, 2, "wgmma", dv)
         want = k5_bwd(torch, cs, _build, first, "wgmma", *args)
-        shape = f"MiniCPM3-4B ({dk}, {dv}) B={B} H={H} S={S}"
+        shape = (f"{cs.MLA_NAMES.get(arch, 'OLMoE-1B-7B')} ({dk}, {dv}) "
+                 f"B={B} H={H} S={S}")
         reps = 20 if S <= 512 else 5
         for turn, names in enumerate((list(designs), list(designs)[::-1])):
             for name in names:
@@ -1227,7 +1263,7 @@ TABLES = (("segment_matmul", K4_VARIANTS),
           ("rwkv_scan", K6BWD_SPLIT),
           ("flash_attention", K5BWD_SPLIT),
           ("flash_attention", K5BWD_NOW),
-          ("variants/flash_attention_mla_first", K5BWD_SPLIT))
+          ("variants/flash_attention_mla_first", K5BWD_SPLIT_FIRST))
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks, raw PTX: mbarriers, TMA tensor and bulk
-// copies, the cluster barrier, remote mbarrier arrivals and asynchronous
-// stores to another block's shared memory,
+// copies, programmatic dependent launch, the cluster barrier, remote
+// mbarrier arrivals and asynchronous stores to another block's shared
+// memory,
 // wgmma shared-memory descriptors and the wgmma instructions the kernels
 // use (shared-memory A, and register A for 16-bit types), and the
 // host-side encoding of 3-D and 4-D TMA tensor maps.  Included by the
@@ -136,6 +137,20 @@ DEV void bulk_load(void* dst, const void* src, uint32_t bytes,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ---- programmatic dependent launch ---------------------------------------
+// A kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// may start before the kernel ahead of it on the stream has finished.
+// griddep_wait: this thread waits until that kernel has completed and its
+// memory operations are visible (at once when launched without the
+// attribute).  griddep_launch: this block lets the next such kernel start.
+DEV void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+DEV void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---- thread-block clusters ------------------------------------------------

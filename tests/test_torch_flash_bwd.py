@@ -231,7 +231,10 @@ def test_cuda_flash_attention_bwd_matches_plain_version():
     and bf16, causal and full, rep 1, 2 and 3, ragged S and the model's
     [B, S, H, d] views, at equal widths and at MLA's (dk, dv) pairs
     (MiniCPM3-4B's (96, 64), DeepSeek-V2-Lite's (192, 128)), and the same
-    bits from two calls."""
+    bits from two calls.  At (192, 128) each dkv block walks several
+    64-key items: T 200, 97 and 161 leave the last item ragged, the causal
+    diagonal lies inside each item's first tile, and KV < H at rep 2 and
+    3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for B, H, KV, S, dk, dv, views in ((1, 1, 1, 1, 16, 16, False),
@@ -242,7 +245,10 @@ def test_cuda_flash_attention_bwd_matches_plain_version():
                                        (2, 4, 4, 445, 96, 64, True),
                                        (1, 6, 2, 130, 96, 64, False),
                                        (2, 4, 4, 300, 192, 128, True),
-                                       (1, 6, 3, 63, 192, 128, False)):
+                                       (1, 6, 3, 63, 192, 128, False),
+                                       (1, 4, 2, 200, 192, 128, True),
+                                       (2, 2, 2, 97, 192, 128, False),
+                                       (1, 3, 1, 161, 192, 128, False)):
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 shapes = [(B, S, h, d) if views else (B, h, S, d)

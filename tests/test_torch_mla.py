@@ -14,7 +14,8 @@ Tolerances, stated from the arithmetic:
   (magnitude ~1) agrees within ``atol = 2e-5, rtol = 1e-5``, logits too
   (about 40 float32 ulps at their magnitude of a few units, as
   ``tests/test_torch_serve.py`` states), and greedy tokens are identical;
-  gradients of ``mla_apply`` within ``1e-5`` of each leaf's largest entry
+  gradients of ``mla_apply``, and K5's plain backward against ``jax.vjp``
+  of ``flash_attention_ref``, within ``1e-5`` of each leaf's largest entry
   (``tests/test_torch_train.py``'s rule);
 * ``bfloat16``: one rounding of a matmul output may land on the other
   side (2^-8 relative) and spreads, so outputs and logits agree within
@@ -88,32 +89,54 @@ def _mla(q_lora, compute_dtype):
 # --------------------------------------------------------------------- #
 # K5 at MLA's widths                                                     #
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("dk,dv", [(24, 16), (96, 64), (192, 128)])
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_flash_with_dv_apart_matches_jax(dk, dv, causal):
-    """K5's plain version with v narrower than q and k against JAX's
-    ``flash_attention_ref`` (which takes ``dv != hd``), in the model's
-    ``[B, S, H, d]`` layout read through ``.transpose(1, 2)``, a block
-    smaller than S, 2 query heads a KV head."""
-    rng = np.random.default_rng(dk)
-    B, S, H, KV = 2, 37, 4, 2
+def _plain_flash_against_jax(dk, dv, causal, B, S, H, KV, seed):
+    """K5's plain forward and backward at (dk, dv) against JAX's
+    ``flash_attention_ref`` (which takes ``dv != hd``) and ``jax.vjp`` of
+    it, in the model's ``[B, S, H, d]`` layout read through
+    ``.transpose(1, 2)``, a block of 16 (smaller than S), float32, the
+    inputs drawn from numpy's ``seed``."""
+    rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, H, dk)).astype(np.float32)
     k = rng.standard_normal((B, S, KV, dk)).astype(np.float32)
     v = rng.standard_normal((B, S, KV, dv)).astype(np.float32)
+    dout = rng.standard_normal((B, S, H, dv)).astype(np.float32)
     scale = dk ** -0.5
-    want = np.asarray(jattn.flash_attention_ref(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        block=16, scale=scale))
+    want, vjp = jax.vjp(
+        lambda q, k, v: jattn.flash_attention_ref(
+            q, k, v, causal=causal, block=16, scale=scale),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(dout))
     tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
     got = k5.flash_attention(tq, tk, tv, causal=causal, scale=scale)
     assert got.shape == (B, H, S, dv) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, atol=3e-5,
-                               rtol=1e-4)
-    dq, dkk, dvv = k5.flash_attention_bwd(tq, tk, tv, got,
-                                          torch.ones_like(got), causal=causal,
-                                          scale=scale)
-    assert (dq.shape, dkk.shape, dvv.shape) == (
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               atol=3e-5, rtol=1e-4)
+    grads = k5.flash_attention_bwd(
+        tq, tk, tv, got, torch.from_numpy(dout).transpose(1, 2).contiguous(),
+        causal=causal, scale=scale)
+    assert tuple(g.shape for g in grads) == (
         (B, H, S, dk), (B, KV, S, dk), (B, KV, S, dv))
+    for g, jg in zip(grads, jgrads):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), jg, rtol=0,
+                                   atol=1e-5 * float(np.abs(jg).max()))
+
+
+@pytest.mark.parametrize("dk,dv", [(24, 16), (96, 64), (192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_with_dv_apart_matches_jax(dk, dv, causal):
+    """K5's plain forward and backward with v narrower than q and k against
+    JAX (``_plain_flash_against_jax``): S 37, 2 query heads a KV head."""
+    _plain_flash_against_jax(dk, dv, causal, B=2, S=37, H=4, KV=2, seed=dk)
+
+
+@pytest.mark.parametrize("dk,dv", [(96, 64), (192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_flash_bwd_at_mla_widths_matches_jax_vjp(dk, dv, causal):
+    """The same at the published MLA widths with one query head a KV head
+    (the models' own layout) and S 70, past four of JAX's blocks."""
+    _plain_flash_against_jax(dk, dv, causal, B=1, S=70, H=3, KV=3,
+                             seed=dk + 1)
 
 
 @pytest.mark.parametrize("dk,dv", [(96, 64), (192, 128), (24, 16),
