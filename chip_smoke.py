@@ -287,8 +287,31 @@ Phases, in order; any failure exits non-zero before the last line:
            head); the 2-layer float32 gradient slice, card against host,
            within ``VLM_TRAIN_SLICE_LOSS_TOL`` and
            ``VLM_TRAIN_SLICE_TOL``;
-11. report one JSON line of kernels (K1-K6, ctrl_step and K4's, K5's
-           and K6's backward; a forward kernel's launches are its serves'
+12. whisper  (its kernel checks run after phase 6) K5 at Whisper's (64,
+           64), bf16 on its wgmma route through the model's views, forward
+           and backward against their plain versions at
+           ``WHISPER_K5_CASES`` (the cross attention's S 1, 63 and 512
+           against T 1,500; the encoder's S = T = 1,500; the decoder's
+           causal S 512; S 445 with two query heads a KV head), the lse,
+           views and two calls bit for bit, the planted backward faults
+           beyond the bound, and both timed at ``WHISPER_K5_TIMED`` beside
+           their bounds, plain versions and SDPA; ``scalar_constants_check``
+           (the layers' scalar constants: JAX's rounding, no wait for the
+           stream).  Then Whisper-medium at
+           its published 24 + 24 layers behind ``ServeEngine`` with the
+           serve's constants and the engine's zero frames: K5 72 times a
+           prefill (24 encoder, 24 causal, 24 cross) and 24 a decode step
+           (the cross attention of one query row), all on wgmma, K4 and K6
+           never; K5 replayed on the serve's inputs; the 2 + 2 layer slice
+           behind seeded frames within ``WHISPER_SLICE_TOL``; then the
+           training path (4 x (1,500 zero frames + 512 tokens), remat, 8
+           steps, no balancer; K5 forward 1,152 and backward 1,728
+           launches, all wgmma), K5 forward and backward replayed on its
+           inputs, and the 2 + 2 layer float32 gradient slice within
+           ``WHISPER_TRAIN_SLICE_TOL`` and ``WHISPER_TRAIN_SLICE_LOSS_TOL``;
+13. report one JSON line of kernels (K1-K6, ctrl_step and K4's, K5's
+           and K6's backward, and K5's forward and backward at MLA's and
+           Whisper's widths; a forward kernel's launches are its serves'
            and training paths' together, a backward's its training
            paths'), the card line, and the ``{"ok": ...}`` line last.
 
@@ -311,6 +334,12 @@ layout copies K6 does without and with ``F.silu`` for the gate's silu).
 
 builds K4, K5 and K6 and runs phase 10 alone.
 
+    python3 chip_smoke.py --whisper    # not part of the smoke
+
+builds K4 and K5 and runs phase 12 alone, then the readings behind
+``WHISPER_SLICE_TOL`` and the two Whisper train slice limits (each slice at
+three seeds, sound and with planted K5 faults).
+
     python3 chip_smoke.py --armed      # not part of the smoke
 
 times W3 at SF1 resident, with the in-dispatch controller armed, armed by
@@ -330,7 +359,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -521,6 +550,90 @@ MLA_SLICE_TOL = 0.2
 #: first tile of every item: (B, H, KV, S, [B, S, H, d] views), bf16.
 MLA_BWD_EDGES = ((1, 6, 2, 161, True), (2, 4, 2, 200, False))
 MLA_MOE_SLICE = (0.075, 16, 1.6)
+#: Whisper-medium (the encdec family: 24 encoder layers of full attention
+#: over 1,500 stubbed frames, 24 decoder layers with causal self and cross
+#: attention; K5 at (64, 64)).  Its serve takes the serve's requests behind
+#: the engine's zero frames, its training path TRAIN_STEPS steps of TRAIN_B
+#: x (1,500 zero frames + TRAIN_S tokens) at TRAIN_LR with remat, both at
+#: the published 24 + 24 layers.  Its slices run 2 + 2 layers at full
+#: width behind seeded frames at WHISPER_FRAME_STD (zero frames would give
+#: every batch row the same encoder output): the serve slice's largest
+#: |logit difference| at a prompt position or decode step
+#: (WHISPER_SLICE_TOL); the float32 train slice's gradient difference
+#: relative to its leaf's largest entry and |loss difference|
+#: (WHISPER_TRAIN_SLICE_TOL, WHISPER_TRAIN_SLICE_LOSS_TOL).  Each set from
+#: ``python3 chip_smoke.py --whisper`` (its readings) near the geometric
+#: mean of what sound runs reached at seeds 0-2 and the nearest planted K5
+#: fault (H100): logits 0.03125-0.0352 against 0.344 (K5 fed q with its
+#: last of hd's terms zeroed; q scaled twice 2.05, the mask off 4.97);
+#: gradients 3.02e-6 to 4.46e-6 against 0.21 (the same fault; the
+#: backward's faults 2.28-9.87); the loss up to 9.54e-7 (one float32 ulp
+#: at ~11.3) against 2.09e-4 (the same fault; the backward's faults leave
+#: the loss as it is).
+WHISPER_ARCH, WHISPER_FRAME_STD = "whisper-medium", 1.0
+WHISPER_SLICE_TOL = 0.11
+WHISPER_TRAIN_SLICE_TOL, WHISPER_TRAIN_SLICE_LOSS_TOL = 1e-3, 1.4e-5
+#: K5's checks at (64, 64), bf16 through the model's views: (B, H, KV, S,
+#: T, causal): the cross attention (S 1, 63 and 512 against T 1,500), the
+#: encoder (S = T = 1,500, a ragged last tile), the decoder (S = T = 512,
+#: causal) and two query heads a KV head (S = T = 445); and the shapes it is
+#: timed at (B 4, H 16): (name, S, T, causal).
+WHISPER_K5_CASES = ((2, 4, 4, 1, 1500, False), (2, 4, 4, 63, 1500, False),
+                    (2, 4, 4, 512, 1500, False), (2, 4, 4, 1500, 1500, False),
+                    (2, 4, 4, 512, 512, True), (2, 6, 3, 445, 445, True),
+                    (2, 6, 3, 445, 445, False))
+WHISPER_K5_TIMED = (("encoder", 1500, 1500, False),
+                    ("cross attention", 512, 1500, False),
+                    ("decoder", 512, 512, True))
+
+
+class Family(NamedTuple):
+    """A model whose decoder reads rows ahead of its text, as the
+    ``family_*`` phases run it: InternVL2-2B's patch rows in the decoder's
+    own sequence, Whisper-medium's frames through its encoder.  ``extra``
+    is the batch's key for the rows and ``rows`` the config's field that
+    counts them (``rows_name`` in the logs); the slices seed them at
+    ``std``, the training path makes them with ``train_rows(torch,
+    shape)`` (``train_rows_name``); ``prefill_k5`` and ``step_k5`` count
+    K5's forward calls, from the config, in a model call over a whole
+    sequence and in a decode step; then the slice limits."""
+    arch: str
+    label: str
+    extra: str
+    rows: str
+    rows_name: str
+    train_rows_name: str
+    std: float
+    train_rows: Callable
+    prefill_k5: Callable
+    step_k5: Callable
+    slice_tol: float
+    train_slice_tol: float
+    train_slice_loss_tol: float
+
+
+VLM = Family(
+    arch=VLM_ARCH, label="InternVL2-2B", extra="patches", rows="n_patches",
+    rows_name="patch rows", train_rows_name="seeded patch rows",
+    std=VLM_PATCH_STD,
+    train_rows=lambda torch, shape: randn(torch, 0, shape, torch.bfloat16,
+                                          VLM_PATCH_STD),
+    prefill_k5=lambda cfg: cfg.n_layers, step_k5=lambda cfg: 0,
+    slice_tol=VLM_SLICE_TOL, train_slice_tol=VLM_TRAIN_SLICE_TOL,
+    train_slice_loss_tol=VLM_TRAIN_SLICE_LOSS_TOL)
+#: Whisper runs K5 once an encoder layer and twice a decoder layer (its
+#: causal self attention and its cross attention), and in a decode step
+#: once a decoder layer (the cross attention of one query row).
+WHISPER = Family(
+    arch=WHISPER_ARCH, label="Whisper-medium", extra="frames",
+    rows="enc_seq", rows_name="frames", train_rows_name="zero frames",
+    std=WHISPER_FRAME_STD,
+    train_rows=lambda torch, shape: torch.zeros(shape, dtype=torch.bfloat16,
+                                                device="cuda"),
+    prefill_k5=lambda cfg: cfg.n_enc_layers + 2 * cfg.n_layers,
+    step_k5=lambda cfg: cfg.n_layers,
+    slice_tol=WHISPER_SLICE_TOL, train_slice_tol=WHISPER_TRAIN_SLICE_TOL,
+    train_slice_loss_tol=WHISPER_TRAIN_SLICE_LOSS_TOL)
 
 
 class SmokeFailure(RuntimeError):
@@ -2302,24 +2415,24 @@ def time_k4(torch, k4, x, w, reps: int, rows=None):
         None if rows is None else rows.tolist())
 
 
-def time_k5(torch, k5, q, k, v, reps: int):
+def time_k5(torch, k5, q, k, v, reps: int, causal: bool = True):
     """(kernel ms, plain ms, scaled_dot_product_attention ms, bound ms,
-    bound_by), causal, at q's scale (``hd ** -0.5``, q and k ``hd`` wide,
-    v ``dv``)."""
+    bound_by), causal or full, at q's scale (``hd ** -0.5``, q and k
+    ``hd`` wide, v ``dv``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     B, H, S, hd = q.shape
     KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
-    ms = time_ms(torch, lambda *a: k5.flash_attention(*a, causal=True),
+    ms = time_ms(torch, lambda *a: k5.flash_attention(*a, causal=causal),
                  (q, k, v), reps)
-    plain_ms = time_ms(torch, lambda *a: ref.flash_attention(*a, causal=True),
-                       (q, k, v), max(reps // 4, 3))
-    kw = dict(is_causal=True)
+    plain_ms = time_ms(torch, lambda *a: ref.flash_attention(
+        *a, causal=causal), (q, k, v), max(reps // 4, 3))
+    kw = dict(is_causal=causal)
     if KV != H:
         kw["enable_gqa"] = True
     lib_ms = time_ms(torch, lambda *a: F.scaled_dot_product_attention(*a, **kw),
                      (q, k, v), reps)
-    return (ms, plain_ms, lib_ms) + k5_bound(B, H, KV, S, T, hd, True,
+    return (ms, plain_ms, lib_ms) + k5_bound(B, H, KV, S, T, hd, causal,
                                              q.element_size(), dv)
 
 
@@ -2707,7 +2820,7 @@ def model_replay_phase(torch, k4, k5, k4_first, k5_first,
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
             torch, what, k5_call(k5, what, "wgmma", q, k, v, **kw), q, k, v,
             kw.get("causal", True), kw.get("scale") or q.shape[-1] ** -0.5))
-        t = time_k5(torch, k5, q, k, v, 50)
+        t = time_k5(torch, k5, q, k, v, 50, kw.get("causal", True))
         start = time.perf_counter()
         for _ in range(50):
             k5.flash_attention(q, k, v, **kw)
@@ -2778,18 +2891,21 @@ def slice_model(torch, seed: int, arch: str = "olmoe-1b-7b"):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=2,
+                              n_enc_layers=min(cfg.n_enc_layers, 2))
     gpu = init_params(cfg, seed, "cuda")
     toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (SLICE_B, SLICE_S + SLICE_STEPS)))
     return cfg, gpu, _to_cpu(gpu), toks
 
 
-def slice_logits(torch, cfg, params, toks, dev: str, patches=None):
+def slice_logits(torch, cfg, params, toks, dev: str, patches=None,
+                 frames=None):
     """The prefill of the first SLICE_S tokens at every position (behind
     ``patches``, the vlm family's patch rows, whose positions are not
-    returned), then SLICE_STEPS decode steps fed the next tokens (teacher
-    forcing).  Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]``
+    returned; over ``frames``, the encdec family's encoder input), then
+    SLICE_STEPS decode steps fed the next tokens (teacher forcing).  Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]``
     and each token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]``
     (sorted within a layer; None for a model without experts), on the
     host."""
@@ -2816,6 +2932,8 @@ def slice_logits(torch, cfg, params, toks, dev: str, patches=None):
     if patches is not None:
         batch["patches"] = patches.to(dev)
         n0 = patches.shape[1]
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
     with StandIn(moe_lib, "router_topk", routed):
         cache = init_cache(cfg, SLICE_B, n0 + SLICE_S + SLICE_STEPS, dev)
         logits, cache = prefill(params, cfg, batch, cache, all_positions=True)
@@ -3194,8 +3312,10 @@ def train_kernel_phase(torch, k4, k5) -> dict:
     ``bwd_routes`` and the same bits from two calls: ``wgmma`` (bf16 at hd
     128) at the training shape (B 4, H 16, S 512 through the model's
     ``[B, S, H, hd]`` views) and at S 445 with 3 query heads a KV head,
-    causal and full; ``fma`` at the training shape in float32 and at S 445,
-    hd 64, 2 query heads a KV head (bf16 and float32).  The forward fed to
+    causal and full, and at S 445, hd 64, 2 query heads a KV head (bf16,
+    Whisper's width); ``fma`` at the training shape in float32 and at S
+    445, 2 query heads a KV head, hd 32 in bf16 (no wgmma width) and hd 64
+    in float32.  The forward fed to
     it is held against K5's plain version, gives the same output bits with
     and without its lse, and (wgmma) its lse is within ``check_lse``'s
     bound; the planted faults "K5 backward drops D" and "K5 backward mask
@@ -3217,6 +3337,7 @@ def train_kernel_phase(torch, k4, k5) -> dict:
             (2, 6, 2, 445, 128, torch.bfloat16, False, True),
             (2, 6, 2, 445, 128, torch.bfloat16, False, False),
             (2, 6, 3, 445, 64, torch.bfloat16, False, True),
+            (2, 6, 3, 445, 32, torch.bfloat16, False, True),
             (2, 6, 3, 445, 64, torch.float32, False, True)):
         seed += 3
         shapes = [(B, S, h, hd) if views else (B, h, S, hd)
@@ -3228,7 +3349,8 @@ def train_kernel_phase(torch, k4, k5) -> dict:
         scale = hd ** -0.5
         what = (f"flash_attention_bwd B={B} H={H} KV={KV} S={S} hd={hd} "
                 f"{dtype}{' views' if views else ''} causal={causal}")
-        route = "wgmma" if dtype == torch.bfloat16 and hd == 128 else "fma"
+        route = ("wgmma" if dtype == torch.bfloat16
+                 and (hd, hd) in k5.WGMMA_WIDTHS else "fma")
         out, lse = k5_call(k5, what, route, q, k, v, causal=causal,
                            scale=scale, return_lse=True)
         check(torch.equal(k5_call(k5, what, route, q, k, v, causal=causal,
@@ -3313,8 +3435,9 @@ def train_kernel_phase(torch, k4, k5) -> dict:
     log(f"train kernels: flash_attention_bwd within the stated bound of its "
         f"plain version on the wgmma route at B={TRAIN_B} H=16 S={TRAIN_S} "
         f"hd=128 (bf16 from [B, S, H, hd] views) and S=445 rep 3 (causal "
-        f"and full), and on the fma route at the training shape in float32 "
-        f"and S=445 hd=64 rep 2 (bf16, float32), the same bits from two "
+        f"and full) and S=445 hd=64 rep 2 (bf16), and on the fma route at "
+        f"the training shape in float32 and S=445 rep 2 at hd=32 (bf16) and "
+        f"hd=64 (float32), the same bits from two "
         f"calls, the forward's bits the same with its lse (max |err| "
         f"{errs['flash_attention_bwd']:.3g}; the forward fed to it "
         f"{errs['flash_attention']:.3g}); {faults} planted faults beyond the "
@@ -3669,7 +3792,7 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
             torch, what, k5_call(k5, what, "wgmma", q, k, v, **kw), q, k, v,
             kw.get("causal", True), scale))
-        t = time_k5(torch, k5, q, k, v, 20)
+        t = time_k5(torch, k5, q, k, v, 20, kw.get("causal", True))
         log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, "
             f"scaled_dot_product_attention {t[2]:.5f} ms, bound {t[3]:.5f} ms "
             f"by {t[4]}, {100 * t[3] / t[0]:.1f}% of bound)")
@@ -3741,7 +3864,7 @@ def train_replay_phase(torch, k4, k5, recs, label: str = "training path",
         plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
             *a, **plain_kw), (q, k, v, out, dout), 3)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                               scale=scale,
                                               enable_gqa=KV != H)
         g = dout.to(sdpa.dtype)
@@ -4663,98 +4786,120 @@ def rwkv_train_phases(torch, kseg, kfa, krw, kernel_err: float, smi: str):
 
 
 # --------------------------------------------------------------------- #
-# 9b and 10c. InternVL2-2B, the vlm family: serve, train, slices          #
+# 9b, 10c and 12. Decoders that read rows ahead of their text:            #
+# InternVL2-2B (vlm) and Whisper-medium (encdec): serve, train, slices    #
 # --------------------------------------------------------------------- #
-def vlm_slice_model(torch, seed: int):
-    """InternVL2-2B at full width and 2 layers with weights from ``seed``
-    on the card and a copy on the host, SLICE_B x (SLICE_S + SLICE_STEPS)
-    tokens from ``seed + 1`` and SLICE_B x n_patches float32 patch rows at
-    VLM_PATCH_STD from ``seed + 2``, on the host.  Returns (cfg, card
-    params, host params, tokens, patches)."""
-    cfg, gpu, cpu, toks = slice_model(torch, seed, VLM_ARCH)
-    patches = randn(torch, seed + 2, (SLICE_B, cfg.n_patches, cfg.d_model),
-                    torch.float32, VLM_PATCH_STD).cpu()
-    return cfg, gpu, cpu, toks, patches
+def depth(cfg) -> str:
+    """A model's layers as the logs give them: an encoder's first."""
+    return (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.n_enc_layers
+            else str(cfg.n_layers))
 
 
-def vlm_slice_phase(torch):
-    """InternVL2-2B at full width and 2 layers, the same weights (seed 0)
-    on the card (K5: one causal call a layer over the patches and the
-    prompt, S = n_patches + SLICE_S, a ragged last tile) and on the host
-    (its plain version), over every text position of a SLICE_B x SLICE_S
-    prefill behind seeded patches and SLICE_STEPS decode steps: logits
-    within VLM_SLICE_TOL everywhere, greedy tokens equal where the card's
-    top-2 margin exceeds it.  Returns a summary dict."""
+def family_rows(torch, fam: Family, cfg, seed: int, batch: int):
+    """``batch`` x ``fam.rows`` float32 rows at ``fam.std`` from ``seed``,
+    on the host."""
+    return randn(torch, seed, (batch, getattr(cfg, fam.rows), cfg.d_model),
+                 torch.float32, fam.std).cpu()
+
+
+def family_slice_model(torch, fam: Family, seed: int):
+    """``fam`` at full width and 2 layers (``slice_model``) with weights
+    from ``seed`` on the card and a copy on the host, SLICE_B x (SLICE_S +
+    SLICE_STEPS) tokens from ``seed + 1`` and SLICE_B seeded rows from
+    ``seed + 2``, on the host.  Returns (cfg, card params, host params,
+    tokens, the batch's rows as a dict)."""
+    cfg, gpu, cpu, toks = slice_model(torch, seed, fam.arch)
+    extra = {fam.extra: family_rows(torch, fam, cfg, seed + 2, SLICE_B)}
+    return cfg, gpu, cpu, toks, extra
+
+
+def family_slice_phase(torch, fam: Family):
+    """``fam`` at full width and 2 layers, the same weights (seed 0) on the
+    card (K5 on its wgmma kernel, ``fam.prefill_k5`` calls for the prefill
+    and ``fam.step_k5`` a decode step) and on the host (its plain version),
+    behind seeded rows: every text position of a SLICE_B x SLICE_S prefill
+    and SLICE_STEPS teacher-forced decode steps within ``fam.slice_tol``,
+    greedy tokens equal where the card's top-2 margin exceeds it.  Returns
+    a summary dict."""
     from repro_torch.kernels import flash_attention as kfa
 
-    cfg, gpu, cpu, toks, patches = vlm_slice_model(torch, 0)
+    cfg, gpu, cpu, toks, extra = family_slice_model(torch, fam, 0)
     before = dict(kfa.routes)
-    card = slice_logits(torch, cfg, gpu, toks, "cuda", patches)
+    card = slice_logits(torch, cfg, gpu, toks, "cuda", **extra)
     took = {r: kfa.routes[r] - before[r] for r in kfa.ROUTES
             if kfa.routes[r] > before[r]}
-    check(took == {"wgmma": cfg.n_layers},
-          f"slice: the InternVL2-2B card side ran K5 {took}, not once a "
-          f"layer on its wgmma kernel")
+    want = fam.prefill_k5(cfg) + SLICE_STEPS * fam.step_k5(cfg)
+    check(took == {"wgmma": want},
+          f"slice: the {fam.label} card side ran K5 {took}, not {want} "
+          f"times on its wgmma kernel")
     t0 = time.perf_counter()
-    host = slice_logits(torch, cfg, cpu, toks, "cpu", patches)
+    host = slice_logits(torch, cfg, cpu, toks, "cpu", **extra)
     cpu_s = time.perf_counter() - t0
-    check(bool(torch.isfinite(card[0]).all() and torch.isfinite(host[0]).all()),
-          "slice: InternVL2-2B non-finite logits")
-    r = rwkv_slice_compare(card, host, VLM_SLICE_TOL)
-    check(r["err"] <= VLM_SLICE_TOL,
-          f"slice: InternVL2-2B card and host logits differ by "
-          f"{r['err']:.4g} (> {VLM_SLICE_TOL})")
+    check(bool(torch.isfinite(card[0]).all()
+               and torch.isfinite(host[0]).all()),
+          f"slice: {fam.label} non-finite logits")
+    tol = fam.slice_tol
+    r = rwkv_slice_compare(card, host, tol)
+    check(r["err"] <= tol, f"slice: {fam.label} card and host logits differ "
+                           f"by {r['err']:.4g} (> {tol})")
     check(r["agree"] == r["decided"],
-          f"slice: InternVL2-2B greedy tokens differ at "
+          f"slice: {fam.label} greedy tokens differ at "
           f"{r['decided'] - r['agree']} of the {r['decided']} tokens whose "
-          f"top-2 margin exceeds {VLM_SLICE_TOL}")
+          f"top-2 margin exceeds {tol}")
     del gpu, cpu
     torch.cuda.empty_cache()
-    r["cpu_s"], r["n_patches"] = cpu_s, cfg.n_patches
+    r.update(cpu_s=cpu_s, depth=depth(cfg), rows=getattr(cfg, fam.rows))
     return r
 
 
-def vlm_phase(torch, kseg, kfa, kernel_mods, smi: str):
-    """Phase 9b: the InternVL2-2B serve at its published 24 layers behind
-    the engine's zero patch rows (K5 once a layer a prefill, every call on
-    its wgmma kernel; K4 and K6 never), K5 replayed on its prefills'
-    inputs and the slice check.  Returns (K5's launches in the serve, the
-    largest replay error, the replay's numbers of K5)."""
+def family_serve_phase(torch, fam: Family, kseg, kfa, kernel_mods, smi: str):
+    """``fam``'s serve at its published depth behind the engine's zero rows
+    (K5 ``fam.prefill_k5`` times a prefill and ``fam.step_k5`` times a
+    decode step, every call on its wgmma kernel; K4 and K6 never), K5
+    replayed on the serve's inputs and the slice check.  Returns (K5's
+    launches in the serve, the largest replay error, the replay's numbers
+    of K5)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(fam.arch)
     recs = (Recorder(kseg, "segment_matmul"), Recorder(kfa, "flash_attention"))
-    launches, sv = serve_phase(torch, kernel_mods, VLM_ARCH, recs)
-    log_serve("InternVL2-2B", sv, launches, smi)
-    want = {"fma": 0, "wgmma": sv["n_layers"] * sv["prefill"][1]}
+    launches, sv = serve_phase(torch, kernel_mods, fam.arch, recs)
+    log_serve(fam.label, sv, launches, smi)
+    per_prefill, per_step = fam.prefill_k5(cfg), fam.step_k5(cfg)
+    n = per_prefill * sv["prefill"][1] + per_step * sv["decode"][1]
     got = sv["routes"]["flash_attention"]
-    check(launches["flash_attention"] == want["wgmma"] and got == want,
-          f"serve: InternVL2-2B ran flash_attention {got} over "
-          f"{sv['prefill'][1]} prefills, not {want}")
+    check(launches["flash_attention"] == n and got == {"fma": 0, "wgmma": n},
+          f"serve: {fam.label} ran flash_attention {got} over "
+          f"{sv['prefill'][1]} prefills and {sv['decode'][1]} decode steps, "
+          f"not {per_prefill} a prefill and {per_step} a step on wgmma")
     check(launches["segment_matmul"] == 0 and launches["rwkv_scan"] == 0,
-          f"serve: the InternVL2-2B serve launched K4 or K6: {launches}")
+          f"serve: the {fam.label} serve launched K4 or K6: {launches}")
     errs, main = model_replay_phase(torch, kseg, kfa, {}, recs[1].first,
                                     long_context=False)
     del recs
     torch.cuda.empty_cache()
-    sl = vlm_slice_phase(torch)
-    log(f"slice: InternVL2-2B at 2 layers, card vs host over {sl['tokens']} "
-        f"tokens ({SLICE_B} x {SLICE_S} prompt positions behind "
-        f"{sl['n_patches']} patch rows, {SLICE_STEPS} decode steps): max "
-        f"|logit diff| "
-        f"{sl['err']:.5f} (allowed {VLM_SLICE_TOL}; prompt "
-        f"{sl['prompt_err']:.5f}, per decode step "
+    sl = family_slice_phase(torch, fam)
+    log(f"slice: {fam.label} at {sl['depth']} layers, card vs host over "
+        f"{sl['tokens']} tokens ({SLICE_B} x {SLICE_S} prompt positions "
+        f"behind {sl['rows']} seeded {fam.rows_name}, {SLICE_STEPS} decode "
+        f"steps): max |logit diff| {sl['err']:.5f} (allowed "
+        f"{fam.slice_tol}; prompt {sl['prompt_err']:.5f}, per decode step "
         f"{[round(e, 5) for e in sl['steps']]}); greedy tokens equal at "
         f"{sl['agree']} of the {sl['decided']} whose top-2 margin exceeds "
-        f"{VLM_SLICE_TOL}, and at {sl['equal']} of all {sl['tokens']}; "
+        f"{fam.slice_tol}, and at {sl['equal']} of all {sl['tokens']}; "
         f"host side {sl['cpu_s']:.2f} s")
+    log(f"serve: {fam.label} phase in {time.perf_counter() - t0:.1f} s")
     return (launches["flash_attention"], errs["flash_attention"],
             main["flash_attention"])
 
 
-def vlm_train_config(torch):
-    """The InternVL2-2B training path's model, training config and batch:
-    the published config whole, bf16 compute, remat, no balancer (no
-    experts); TRAIN_B x TRAIN_S tokens from ``SkewAwarePipeline`` (as
-    ``rwkv_train_config`` builds them) behind TRAIN_B x 1,024 bf16 patch
-    rows at VLM_PATCH_STD from seed 0, made on the card."""
+def family_train_config(torch, fam: Family):
+    """``fam``'s training path's model, training config and batch: the
+    published config whole, bf16 compute, remat, no balancer (no experts);
+    TRAIN_B x TRAIN_S tokens from ``SkewAwarePipeline`` (as
+    ``rwkv_train_config`` builds them) behind TRAIN_B rows from
+    ``fam.train_rows``, made on the card."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
@@ -4762,7 +4907,7 @@ def vlm_train_config(torch):
     from repro_torch.train import TrainConfig
     from repro_torch.train.optimizer import AdamWConfig
 
-    cfg = get_config(VLM_ARCH)
+    cfg = get_config(fam.arch)
     tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                                      total_steps=TRAIN_STEPS),
                      remat=True, moe_balancer=None)
@@ -4773,129 +4918,196 @@ def vlm_train_config(torch):
     nb = pipe.next_batch()
     batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
              for k in ("tokens", "labels")}
-    batch["patches"] = randn(torch, 0, (TRAIN_B, cfg.n_patches, cfg.d_model),
-                             torch.bfloat16, VLM_PATCH_STD)
+    batch[fam.extra] = fam.train_rows(
+        torch, (TRAIN_B, getattr(cfg, fam.rows), cfg.d_model))
     return cfg, tc, batch
 
 
-def vlm_train_slice_model(torch, seed: int):
-    """InternVL2-2B at full width and TRAIN_SLICE_LAYERS layers, float32
-    compute (K5 on its fma routes), weights from ``seed`` on the card and a
-    copy on the host, a TRAIN_SLICE_B x TRAIN_SLICE_S batch from ``seed +
-    1`` behind float32 patch rows at VLM_PATCH_STD from ``seed + 2``.
-    Returns (cfg, card params, host params, batch)."""
+def family_train_slice_runs(torch, fam: Family, seed: int, runs):
+    """``loss_fn`` gradients (remat) of ``fam`` at full width and
+    TRAIN_SLICE_LAYERS layers (an encoder cut to as many) in float32 (K5 on
+    its fma routes), weights from ``seed``, a TRAIN_SLICE_B x TRAIN_SLICE_S
+    batch from ``seed + 1`` behind seeded rows from ``seed + 2``: on the
+    card once for each of ``runs`` ((name, [(module, wrapper name,
+    stand-in)]) pairs, the stand-ins in place) and once on the host.
+    Returns ({name: (card result, the card's K5 launches by route, its
+    backward's launches)}, host result, cfg)."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config(VLM_ARCH),
-                              n_layers=TRAIN_SLICE_LAYERS,
-                              compute_dtype="float32")
+    cfg = get_config(fam.arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=TRAIN_SLICE_LAYERS,
+        n_enc_layers=min(cfg.n_enc_layers, TRAIN_SLICE_LAYERS),
+        compute_dtype="float32")
     gpu = init_params(cfg, seed, "cuda")
     rng = np.random.default_rng(seed + 1)
     batch = {k: torch.from_numpy(rng.integers(
         0, cfg.vocab, (TRAIN_SLICE_B, TRAIN_SLICE_S))) for k in
         ("tokens", "labels")}
-    batch["patches"] = randn(torch, seed + 2, (TRAIN_SLICE_B, cfg.n_patches,
-                                               cfg.d_model), torch.float32,
-                             VLM_PATCH_STD).cpu()
-    return cfg, gpu, _to_cpu(gpu), batch
+    batch[fam.extra] = family_rows(torch, fam, cfg, seed + 2, TRAIN_SLICE_B)
+    tables = (kfa.routes, kfa.bwd_routes)
+    out = {}
+    for name, faults in runs:
+        before = [dict(t) for t in tables]
+        bwd = kfa.flash_attention_bwd.launches
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in faults:
+                stack.enter_context(StandIn(mod, attr, fn))
+            card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+        out[name] = (card, [{r: t[r] - b[r] for r in t if t[r] > b[r]}
+                            for t, b in zip(tables, before)],
+                     kfa.flash_attention_bwd.launches - bwd)
+    host = train_slice_grads(torch, cfg, _to_cpu(gpu), batch, None, "cpu")
+    del gpu
+    torch.cuda.empty_cache()
+    return out, host, cfg
 
 
-def vlm_train_slice_phase(torch):
-    """The InternVL2-2B training path's gradient at 2 layers, card against
-    host: one ``loss_fn`` gradient (remat) of the same weights (seed 0) and
-    batch through K5's forward and backward on the card (float32, the fma
-    routes) and their plain versions on the host.  The loss within
-    VLM_TRAIN_SLICE_LOSS_TOL, every gradient leaf within
-    VLM_TRAIN_SLICE_TOL of its largest entry.  Returns a summary dict."""
+def family_train_slice_phase(torch, fam: Family):
+    """``fam``'s training path's gradient at TRAIN_SLICE_LAYERS layers,
+    card against host (``family_train_slice_runs``, seed 0): K5's forward
+    twice a call under remat and its backward once, all on the fma routes;
+    the loss within ``fam.train_slice_loss_tol`` and every gradient leaf
+    (an encoder's and a cross attention's included) within
+    ``fam.train_slice_tol`` of its largest entry.  Returns a summary
+    dict."""
     from repro_torch.kernels import flash_attention as kfa
 
-    cfg, gpu, cpu, batch = vlm_train_slice_model(torch, 0)
-    tables = (kfa.routes, kfa.bwd_routes)
-    before = [dict(t) for t in tables]
-    bwd = kfa.flash_attention_bwd.launches
-    card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
-    took = [{r: t[r] - b[r] for r in t if t[r] > b[r]}
-            for t, b in zip(tables, before)]
-    bwd = kfa.flash_attention_bwd.launches - bwd
-    L = TRAIN_SLICE_LAYERS
-    check(took == [{"fma": 2 * L}, {"fma": 2 * L}] and bwd == 2 * L,
-          f"train slice: the InternVL2-2B card side ran K5 / its backward "
-          f"on {took} with {bwd} backward launches, not on the fma routes "
-          f"(forward twice a layer under remat, backward once: two "
-          f"launches)")
     t0 = time.perf_counter()
-    host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
-    cpu_s = time.perf_counter() - t0
+    runs, host, cfg = family_train_slice_runs(torch, fam, 0, [("sound", [])])
+    card, took, bwd = runs["sound"]
+    n = fam.prefill_k5(cfg)
+    want = [{"fma": 2 * n}, {"fma": kfa.BWD_LAUNCHES["fma"] * n}]
+    check(took == want and bwd == want[1]["fma"],
+          f"train slice: the {fam.label} card side ran K5 / its backward "
+          f"on {took} with {bwd} backward launches, not {want} (forward "
+          f"twice a call under remat, backward once)")
     check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
                                          for g in card[1]),
-          "train slice: InternVL2-2B non-finite loss or gradient on the card")
+          f"train slice: {fam.label} non-finite loss or gradient on the card")
     r = train_slice_compare(card, host)
-    check(r["loss_err"] <= VLM_TRAIN_SLICE_LOSS_TOL,
-          f"train slice: InternVL2-2B card and host losses differ by "
-          f"{r['loss_err']:.3g} (> {VLM_TRAIN_SLICE_LOSS_TOL})")
-    check(r["grad_rel"] <= VLM_TRAIN_SLICE_TOL,
-          f"train slice: an InternVL2-2B gradient leaf differs by "
+    check(r["loss_err"] <= fam.train_slice_loss_tol,
+          f"train slice: {fam.label} card and host losses differ by "
+          f"{r['loss_err']:.3g} (> {fam.train_slice_loss_tol})")
+    check(r["grad_rel"] <= fam.train_slice_tol,
+          f"train slice: a {fam.label} gradient leaf differs by "
           f"{r['grad_rel']:.3g} of its largest entry (> "
-          f"{VLM_TRAIN_SLICE_TOL})")
-    del gpu, cpu
-    torch.cuda.empty_cache()
-    r["cpu_s"] = cpu_s
+          f"{fam.train_slice_tol})")
+    r.update(s=time.perf_counter() - t0, depth=depth(cfg),
+             rows=getattr(cfg, fam.rows))
     return r
 
 
-def vlm_train_phases(torch, kseg, kfa, krw, smi: str):
-    """Phase 10's InternVL2-2B part: InternVL2-2B at its published 24
-    layers trained TRAIN_STEPS steps (K5's forward twice a layer a step
-    and its backward once, all on the wgmma routes; K4 and K6 never), K5
-    forward and backward replayed on the path's own inputs (GQA, two query
-    heads a KV head, S = 1,536) and the 2-layer float32 gradient slice.
-    Returns (the path's launches, the replay's largest errors, the
-    replay's numbers of K5's backward)."""
+def family_train_phases(torch, fam: Family, kseg, kfa, krw, smi: str):
+    """``fam`` at its published depth trained TRAIN_STEPS steps (K5's
+    forward twice a call a step under remat, its backward once, all on the
+    wgmma routes; K4 and K6 never), K5 forward and backward replayed on the
+    path's own inputs and the float32 gradient slice.  Returns (the path's
+    launches, the replay's largest errors, the replay's numbers of K5's
+    backward)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, tc, batch = vlm_train_config(torch)
+    cfg, tc, batch = family_train_config(torch, fam)
     names = [(kseg, "segment_matmul"), (kseg, "segment_matmul_backward"),
              (kfa, "flash_attention"), (kfa, "flash_attention_bwd"),
              (krw, "rwkv_scan"), (krw, "rwkv_scan_bwd")]
-    L, S = cfg.n_layers, TRAIN_STEPS
-    bwd = kfa.BWD_LAUNCHES["wgmma"] * L * S
+    n, S = fam.prefill_k5(cfg), TRAIN_STEPS
+    bwd = kfa.BWD_LAUNCHES["wgmma"] * n * S
     want = dict(segment_matmul=0, segment_matmul_backward=0,
-                flash_attention=2 * L * S, flash_attention_bwd=bwd,
+                flash_attention=2 * n * S, flash_attention_bwd=bwd,
                 rwkv_scan=0, rwkv_scan_bwd=0)
     launches, tn, recs = model_train_phase(
-        torch, "InternVL2-2B", cfg, tc, batch, names,
-        [n for _, n in names[:4]], want,
-        {"flash_attention": {"wgmma": 2 * L * S},
+        torch, fam.label, cfg, tc, batch, names,
+        [name for _, name in names[:4]], want,
+        {"flash_attention": {"wgmma": 2 * n * S},
          "flash_attention_bwd": {"wgmma": bwd}})
     del batch
-    log(f"train: InternVL2-2B at full width, {tn['n_layers']} layers "
+    log(f"train: {fam.label} at full width, {depth(cfg)} layers "
         f"({tn['n_params']:,} float32 params from seed 0 in "
         f"{tn['init_s']:.1f} s), no balancer, batch {TRAIN_B} x "
-        f"({cfg.n_patches} patch rows + {TRAIN_S} tokens), {TRAIN_STEPS} "
-        f"steps with remat: loss {tn['losses'][0]:.5f} -> "
-        f"{tn['losses'][-1]:.5f}; {tn['step_s']:.4f} s a step after the "
-        f"first ({tn['times'][0]:.3f} s), {tn['tokens'] / tn['step_s']:.1f} "
-        f"positions/s ({TRAIN_B * TRAIN_S / tn['step_s']:.1f} text "
-        f"tokens/s), the AdamW update {tn['update_s']:.4f} s a step "
+        f"({getattr(cfg, fam.rows)} {fam.train_rows_name} + {TRAIN_S} "
+        f"tokens), {TRAIN_STEPS} steps with remat: loss "
+        f"{tn['losses'][0]:.5f} -> {tn['losses'][-1]:.5f} "
+        f"({[round(x, 5) for x in tn['losses']]}); {tn['step_s']:.4f} s a "
+        f"step after the first ({tn['times'][0]:.3f} s), "
+        f"{tn['tokens'] / tn['step_s']:.1f} decoder positions/s "
+        f"({TRAIN_B * TRAIN_S / tn['step_s']:.1f} text tokens/s), the AdamW "
+        f"update {tn['update_s']:.4f} s a step "
         f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
         f"{tn['peak_gib']:.2f} GiB; launches {launches} by route "
         f"{tn['routes']} | {smi}")
     errs, main = train_replay_phase(torch, kseg, kfa, recs,
-                                    "InternVL2-2B training path",
+                                    f"{fam.label} training path",
                                     long_context=False)
     del recs
-    sl = vlm_train_slice_phase(torch)
-    log(f"train slice: InternVL2-2B at {TRAIN_SLICE_LAYERS} layers, float32, "
-        f"a {TRAIN_SLICE_B} x ({cfg.n_patches} + {TRAIN_SLICE_S}) batch, card "
-        f"vs host: |loss diff| {sl['loss_err']:.3g} (allowed "
-        f"{VLM_TRAIN_SLICE_LOSS_TOL}; loss {sl['loss']:.5f}), every one of "
-        f"{sl['leaves']} gradient leaves within {sl['grad_rel']:.3g} of its "
-        f"largest entry (allowed {VLM_TRAIN_SLICE_TOL}); host side "
-        f"{sl['cpu_s']:.2f} s")
-    log(f"train: InternVL2-2B phase in {time.perf_counter() - t0:.1f} s")
+    sl = family_train_slice_phase(torch, fam)
+    log(f"train slice: {fam.label} at {sl['depth']} layers, float32, a "
+        f"{TRAIN_SLICE_B} x ({sl['rows']} seeded {fam.rows_name} + "
+        f"{TRAIN_SLICE_S} tokens) batch, card vs host: |loss diff| "
+        f"{sl['loss_err']:.3g} (allowed {fam.train_slice_loss_tol}; loss "
+        f"{sl['loss']:.5f}), every one of {sl['leaves']} gradient leaves "
+        f"within {sl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{fam.train_slice_tol}); {sl['s']:.1f} s")
+    log(f"train: {fam.label} phase in {time.perf_counter() - t0:.1f} s")
     return launches, errs, main.get("flash_attention_bwd")
+
+
+def family_readings(torch, fam: Family, seeds=(0, 1, 2)):
+    """The readings ``fam``'s slice limits are set from: at each seed, the
+    serve slice's card against its host as the check compares them, sound
+    and with each of ``vlm_planted_faults`` on the card's side (K5's mask
+    off, q scaled twice, q's last of hd's terms dropped), and the train
+    slice's, sound and with those and K5's backward faults of
+    ``train_planted_faults``."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import segment_matmul as ksm
+
+    fwd_faults = vlm_planted_faults(ksm, kfa)
+    faults = fwd_faults + [f for f in train_planted_faults(ksm, kfa)
+                           if f[1] is kfa]
+    serve, train = {}, {}
+    for seed in seeds:
+        cfg, gpu, cpu, toks, extra = family_slice_model(torch, fam, seed)
+        host = slice_logits(torch, cfg, cpu, toks, "cpu", **extra)
+        for name, stand_in in [("sound", contextlib.nullcontext())] + [
+                (n, StandIn(m, a, f)) for n, m, a, f in fwd_faults]:
+            with stand_in:
+                card = slice_logits(torch, cfg, gpu, toks, "cuda", **extra)
+            r = rwkv_slice_compare(card, host, fam.slice_tol)
+            serve.setdefault(name, []).append(r["err"])
+            log(f"readings: {fam.label} slice seed {seed}: {name}: max "
+                f"|card - host| {r['err']:.6f} (prompt "
+                f"{r['prompt_err']:.6f}; per decode step "
+                f"{[round(e, 6) for e in r['steps']]}); greedy equal at "
+                f"{r['equal']} of {r['tokens']}, and at {r['agree']} of the "
+                f"{r['decided']} with a top-2 margin above {fam.slice_tol}")
+        del gpu, cpu, host
+        torch.cuda.empty_cache()
+        runs, host, _ = family_train_slice_runs(
+            torch, fam, seed, [("sound", [])] + [(n, [(m, a, f)])
+                                                 for n, m, a, f in faults])
+        for name, (card, _, _) in runs.items():
+            r = train_slice_compare(card, host)
+            train.setdefault(name, []).append((r["grad_rel"],
+                                               r["loss_err"]))
+            log(f"readings: {fam.label} train slice seed {seed}: {name}: "
+                f"|loss diff| {r['loss_err']:.3g} (loss {r['loss']:.5f}), "
+                f"gradients within {r['grad_rel']:.3g} of each leaf's "
+                f"largest entry over {r['leaves']} leaves")
+    for name, errs in serve.items():
+        log(f"readings: {fam.label} slice {name} over seeds {list(seeds)}: "
+            f"max |diff| {min(errs):.6f} to {max(errs):.6f}")
+    for name, rs in train.items():
+        log(f"readings: {fam.label} train slice {name} over seeds "
+            f"{list(seeds)}: gradients {min(g for g, _ in rs):.3g} to "
+            f"{max(g for g, _ in rs):.3g}, |loss diff| "
+            f"{min(e for _, e in rs):.3g} to {max(e for _, e in rs):.3g}")
+    log(f"readings: {fam.label} limits: slice {fam.slice_tol}, train slice "
+        f"{fam.train_slice_tol}, its loss {fam.train_slice_loss_tol}")
+    return serve, train
 
 
 # --------------------------------------------------------------------- #
@@ -5293,78 +5505,6 @@ def vlm_planted_faults(ksm, kfa):
     return [f for f in planted_faults(ksm, kfa) if f[1] is kfa] + [
         ("K5 drops the last of hd's terms in q", kfa, "flash_attention",
          last_hd_dropped)]
-
-
-def vlm_slice_readings(torch, seeds=(0, 1, 2)):
-    """The readings VLM_SLICE_TOL is set from: at each seed, the
-    InternVL2-2B slice's card against its host as the check compares
-    them, sound and with each of ``vlm_planted_faults`` on the card's
-    side."""
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import segment_matmul as ksm
-
-    runs = {}
-    for seed in seeds:
-        cfg, gpu, cpu, toks, patches = vlm_slice_model(torch, seed)
-        host = slice_logits(torch, cfg, cpu, toks, "cpu", patches)
-        for name, stand_in in [("sound", contextlib.nullcontext())] + [
-                (n, StandIn(m, a, f))
-                for n, m, a, f in vlm_planted_faults(ksm, kfa)]:
-            with stand_in:
-                card = slice_logits(torch, cfg, gpu, toks, "cuda", patches)
-            r = rwkv_slice_compare(card, host, VLM_SLICE_TOL)
-            runs.setdefault(name, []).append(r)
-            log(f"readings: vlm slice seed {seed}: {name}: max |card - "
-                f"host| {r['err']:.6f} (prompt {r['prompt_err']:.6f}; per "
-                f"decode step {[round(e, 6) for e in r['steps']]}); greedy "
-                f"equal at {r['equal']} of {r['tokens']}, and at "
-                f"{r['agree']} of the {r['decided']} with a top-2 margin "
-                f"above {VLM_SLICE_TOL}")
-        del gpu, cpu, host
-        torch.cuda.empty_cache()
-    for name, rs in runs.items():
-        log(f"readings: vlm slice {name} over seeds {list(seeds)}: max "
-            f"|diff| {min(r['err'] for r in rs):.6f} to "
-            f"{max(r['err'] for r in rs):.6f}")
-    log(f"readings: vlm slice limit: VLM_SLICE_TOL {VLM_SLICE_TOL}")
-    return runs
-
-
-def vlm_train_slice_readings(torch, seeds=(0, 1, 2)):
-    """The readings VLM_TRAIN_SLICE_TOL and VLM_TRAIN_SLICE_LOSS_TOL are
-    set from: at each seed, the card against the host, sound and with each
-    of ``vlm_planted_faults`` and the K5 backward's planted faults on the
-    card's side."""
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import segment_matmul as ksm
-
-    runs = {}
-    faults = vlm_planted_faults(ksm, kfa) + [
-        f for f in train_planted_faults(ksm, kfa) if f[1] is kfa]
-    for seed in seeds:
-        cfg, gpu, cpu, batch = vlm_train_slice_model(torch, seed)
-        host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
-        for name, stand_in in [("sound", contextlib.nullcontext())] + [
-                (n, StandIn(m, a, f)) for n, m, a, f in faults]:
-            with stand_in:
-                card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
-            r = train_slice_compare(card, host)
-            runs.setdefault(name, []).append(r)
-            log(f"readings: vlm train slice seed {seed}: {name}: |loss "
-                f"diff| {r['loss_err']:.3g} (loss {r['loss']:.5f}), "
-                f"gradients within {r['grad_rel']:.3g} of each leaf's "
-                f"largest entry over {r['leaves']} leaves")
-        del gpu, cpu, host
-        torch.cuda.empty_cache()
-    for name, rs in runs.items():
-        log(f"readings: vlm train slice {name} over seeds {list(seeds)}: "
-            f"|loss diff| up to {max(r['loss_err'] for r in rs):.3g}, "
-            f"gradients {min(r['grad_rel'] for r in rs):.3g} to "
-            f"{max(r['grad_rel'] for r in rs):.3g}")
-    log(f"readings: vlm train slice limits: VLM_TRAIN_SLICE_TOL "
-        f"{VLM_TRAIN_SLICE_TOL}, VLM_TRAIN_SLICE_LOSS_TOL "
-        f"{VLM_TRAIN_SLICE_LOSS_TOL}")
-    return runs
 
 
 # --------------------------------------------------------------------- #
@@ -5904,8 +6044,7 @@ def readings() -> int:
     rwkv_decode_readings(torch)
     train_slice_readings(torch)
     rwkv_train_slice_readings(torch)
-    vlm_slice_readings(torch)
-    vlm_train_slice_readings(torch)
+    family_readings(torch, VLM)
     vlm_decode_readings(torch)
     grouped_step_readings(torch)
     log(f"readings: done in {time.perf_counter() - t0:.1f} s")
@@ -5952,6 +6091,264 @@ def armed() -> int:
     return 0
 
 
+# --------------------------------------------------------------------- #
+# 12. Whisper-medium: the encdec family, serve and train                 #
+# --------------------------------------------------------------------- #
+def whisper_k5_case(torch, k5, seed: int, B: int, H: int, KV: int, S: int,
+                    T: int, causal: bool):
+    """bf16 q ``[B, S, H, 64]``, k and v ``[B, T, KV, 64]`` from ``seed``
+    (the model's layout, seen through ``.transpose(1, 2)``), the forward on
+    ``wgmma`` with its lse and a float32 dO.  Returns (q, k, v, out, lse,
+    dout)."""
+    d = 64
+    shapes = [(B, S, H, d), (B, T, KV, d), (B, T, KV, d)]
+    q, k, v = (randn(torch, seed + i, s, torch.bfloat16).transpose(1, 2)
+               for i, s in enumerate(shapes))
+    what = (f"flash_attention (64, 64) B={B} H={H} KV={KV} S={S} T={T} "
+            f"causal={causal}")
+    out, lse = k5_call(k5, what, "wgmma", q, k, v, causal=causal,
+                       scale=d ** -0.5, return_lse=True)
+    dout = randn(torch, seed + 3, (B, H, S, d), torch.float32)
+    return q, k, v, out, lse, dout
+
+
+def whisper_kernel_phase(torch, k4, k5):
+    """K5 at Whisper's (64, 64), forward and backward, bf16 on the wgmma
+    route through the model's ``[B, S, H, hd]`` views, against its plain
+    versions at ``WHISPER_K5_CASES`` (S 1, 63 and 512 against T 1,500,
+    full: the cross attention; S = T = 1,500 full, a ragged last tile:
+    the encoder; S = T = 512 causal: the decoder; S = T = 445 with two
+    query heads a KV head, causal and full): the forward within
+    ``check_flash``'s bound, its lse within ``check_lse``'s and the same
+    output bits without it, a view the same bits as its contiguous copy;
+    the backward on ``wgmma`` (three launches, counted in ``bwd_routes``)
+    within ``check_flash_bwd``'s wgmma bound, two calls the same bits; the
+    planted faults "drops D" (and "mask off" where the call is causal)
+    beyond that bound at the decoder's and the cross attention's cases.
+    Then K5 forward and backward timed by CUDA events at
+    ``WHISPER_K5_TIMED`` (B 4, H 16) beside ``k5_bound`` /
+    ``k5_bwd_bound``, the plain versions and SDPA's forward and backward.
+    Returns (the largest errors, the timings by shape name: (forward
+    (ms, plain, SDPA, bound, by), backward (the same)))."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    seed, faults, tried = 900, 0, 0
+    for B, H, KV, S, T, causal in WHISPER_K5_CASES:
+        seed += 4
+        q, k, v, out, lse, dout = whisper_k5_case(torch, k5, seed, B, H, KV,
+                                                  S, T, causal)
+        what = (f"flash_attention (64, 64) B={B} H={H} KV={KV} S={S} T={T} "
+                f"causal={causal}")
+        scale = 64 ** -0.5
+        check(out.shape == (B, H, S, 64), f"{what}: out {tuple(out.shape)}")
+        check(torch.equal(k5_call(k5, what, "wgmma", q, k, v, causal=causal,
+                                  scale=scale), out),
+              f"{what}: the forward gives other bits with its lse")
+        copies = [t.contiguous() for t in (q, k, v)]
+        check(torch.equal(k5_call(k5, what, "wgmma", *copies, causal=causal,
+                                  scale=scale), out),
+              f"{what}: a [B, S, H, d] view gives other bits than its "
+              f"contiguous copy")
+        del copies
+        check_lse(torch, what, lse, q, k, v, causal, scale)
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, out, q, k, v, causal, scale))
+        kw = dict(lse=lse, causal=causal, scale=scale)
+        check(k5.bwd_route(q, k, v) == "wgmma",
+              f"{what}: the backward takes {k5.bwd_route(q, k, v)}")
+        before = (k5.flash_attention_bwd.launches, dict(k5.bwd_routes))
+        got = k5.flash_attention_bwd(q, k, v, out, dout, **kw)
+        n = k5.BWD_LAUNCHES["wgmma"]
+        took = {r: c - before[1][r] for r, c in k5.bwd_routes.items()
+                if c > before[1][r]}
+        check(k5.flash_attention_bwd.launches == before[0] + n
+              and took == {"wgmma": n},
+              f"{what}: the backward launched {took}, not {n} on wgmma")
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, k5.flash_attention_bwd(q, k, v, out, dout, **kw))),
+              f"{what}: two backward calls give other bits")
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"],
+            check_flash_bwd(torch, what, got, q, k, v, out, dout, causal,
+                            scale, "wgmma"))
+        if S == 512:
+            planted = train_planted_faults(k4, k5)[:2 if causal else 1]
+            for name, _, _, fault in planted:
+                tried += 1
+                try:
+                    check_flash_bwd(torch, f"{what} ({name})",
+                                    fault(q, k, v, out, dout, **kw), q, k, v,
+                                    out, dout, causal, scale, "wgmma")
+                except SmokeFailure:
+                    faults += 1
+                    continue
+                check(False, f"{what}: the planted fault '{name}' stays "
+                             f"within the wgmma route's bound")
+        del q, k, v, out, lse, dout, got
+    torch.cuda.empty_cache()
+    check(tried == 3 and faults == tried,
+          f"whisper kernels: {faults} of the {tried} planted faults passed "
+          f"the wgmma backward's bound")
+    log(f"whisper kernels: flash_attention at (64, 64), bf16 on wgmma from "
+        f"[B, S, H, d] views, at (B, H, KV, S, T, causal) in "
+        f"{WHISPER_K5_CASES}: forward within check_flash's bound (max |err| "
+        f"{errs['flash_attention']:.3g}), its lse within check_lse's and the "
+        f"same bits without it, views the bits of their copies; backward "
+        f"within check_flash_bwd's wgmma bound (max |err| "
+        f"{errs['flash_attention_bwd']:.3g}), two calls the same bits; "
+        f"{faults} planted faults beyond the bound")
+    timed = {}
+    for name, S, T, causal in WHISPER_K5_TIMED:
+        B, H = SERVE_BATCH, 16
+        q, k, v, out, lse, dout = whisper_k5_case(torch, k5, 950, B, H, H, S,
+                                                  T, causal)
+        fwd = time_k5(torch, k5, q, k, v, 20, causal=causal)
+        kw = dict(lse=lse, causal=causal, scale=64 ** -0.5)
+        ms = time_ms(torch, lambda *a: k5.flash_attention_bwd(*a, **kw),
+                     (q, k, v, out, dout), 20)
+        plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
+            *a, causal=causal, scale=64 ** -0.5), (q, k, v, out, dout), 3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        g = dout.to(sdpa.dtype)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), g, retain_graph=True), (), 20)
+        bwd = (ms, plain_ms, lib_ms) + k5_bwd_bound(B, H, H, S, T, 64, causal,
+                                                    2, "wgmma")
+        timed[name] = (fwd, bwd)
+        log(f"whisper kernels: K5 (64, 64) at the {name}'s B={B} H={H} S={S} "
+            f"T={T} causal={causal}: forward {fwd[0]:.5f} ms (plain "
+            f"{fwd[1]:.5f} ms, SDPA {fwd[2]:.5f} ms, bound {fwd[3]:.5f} ms by "
+            f"{fwd[4]}, {100 * fwd[3] / fwd[0]:.1f}% of it); backward "
+            f"{bwd[0]:.5f} ms (plain {bwd[1]:.5f} ms, SDPA's backward "
+            f"{bwd[2]:.5f} ms, bound {bwd[3]:.5f} ms by {bwd[4]}, "
+            f"{100 * bwd[3] / bwd[0]:.1f}% of it)")
+        del q, k, v, out, lse, dout, sdpa, qg, kg, vg, g
+        torch.cuda.empty_cache()
+    return errs, timed
+
+
+def scalar_constants_check(torch) -> None:
+    """``layers.scalar_mul``, ``gelu`` and ``apply_rope`` on the card, bf16
+    and float32: ``scalar_mul`` gives the bits of multiplying by a tensor
+    of x's dtype (JAX's rounding of a Python scalar), and once warm none of
+    the three waits for the stream.  Under ``set_sync_debug_mode("error")``
+    a host-to-device copy of a scalar raises; the check first shows that it
+    does."""
+    from repro_torch.models import layers
+
+    pos = torch.arange(16, device="cuda")[None]
+    for dt in (torch.bfloat16, torch.float32):
+        x = randn(torch, 7, (4, 16, 8, 64), dt, 3.0)
+        for c in (0.044715, math.sqrt(2 / math.pi), 64 ** -0.5):
+            want = x * torch.tensor(c, dtype=dt, device="cuda")
+            check(torch.equal(layers.scalar_mul(x, c), want),
+                  f"layers: scalar_mul({c}) in {dt} is not x times a {dt} "
+                  f"constant")
+        layers.gelu(x), layers.apply_rope(x, pos)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            try:
+                x * torch.tensor(0.5, dtype=dt, device="cuda")
+                seen = False
+            except RuntimeError:
+                seen = True
+            try:
+                layers.gelu(x), layers.apply_rope(x, pos)
+                layers.scalar_mul(x, 0.125)
+                waits = None
+            except RuntimeError as e:
+                waits = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(seen, "layers: the sync debug mode let a host-to-device copy "
+                    "of a scalar pass")
+        check(waits is None, f"layers: gelu, apply_rope or scalar_mul in {dt} "
+                             f"waits for the stream: {waits}")
+    log("layers: scalar_mul, gelu and apply_rope on the card (bf16, "
+        "float32): JAX's rounding of the constants, no wait for the stream")
+
+
+def whisper_records(launches, errs, timed) -> list:
+    """The JSON records of K5 at (64, 64), forward and backward: launches
+    over Whisper's serve and training paths, the largest errors of its
+    checks, the times at the encoder's shape (``whisper_kernel_phase``)."""
+    out = []
+    for i, name in enumerate(("flash_attention", "flash_attention_bwd")):
+        ms, plain_ms, lib_ms, b_ms, b_by = timed["encoder"][i]
+        out.append(dict(
+            name=f"{name} dk64 dv64 wgmma", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:72",
+            launches=launches[name], max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+    return out
+
+
+def whisper_phases(torch, kseg, kfa, krw, kernel_mods, smi: str,
+                   kernel_errs, timed) -> list:
+    """Phase 12 whole: the serve and its slice, then the training path, its
+    replays and its slice.  Returns ``whisper_records``."""
+    serve_n, serve_err, _ = family_serve_phase(torch, WHISPER, kseg, kfa,
+                                               kernel_mods, smi)
+    train, train_errs, _ = family_train_phases(torch, WHISPER, kseg, kfa,
+                                               krw, smi)
+    launches = {"flash_attention": serve_n + train["flash_attention"],
+                "flash_attention_bwd": train["flash_attention_bwd"]}
+    errs = {"flash_attention": max(kernel_errs["flash_attention"], serve_err,
+                                   train_errs["flash_attention"]),
+            "flash_attention_bwd": max(kernel_errs["flash_attention_bwd"],
+                                       train_errs["flash_attention_bwd"])}
+    return whisper_records(launches, errs, timed)
+
+
+def whisper_only() -> int:
+    """``--whisper``: build K4 and K5 (their ``-Xptxas -v`` lines, the
+    serialization check and ``check_sass``), then phase 12 alone: K5 at
+    (64, 64), Whisper-medium's serve and training paths, their replays and
+    slices, and the readings the Whisper slice limits are set from.  Not
+    part of the smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import partition as kpart
+    from repro_torch.kernels import rwkv_scan as krw
+    from repro_torch.kernels import segment_matmul as kseg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build_logged(_build, ("segment_matmul", "flash_attention"))
+    check_sass()
+    errs, timed = whisper_kernel_phase(torch, kseg, kfa)
+    scalar_constants_check(torch)
+    kernel_mods = [(kpart, name) for name in KERNELS] + [
+        (kseg, "segment_matmul"), (kfa, "flash_attention"),
+        (krw, "rwkv_scan")]
+    records = whisper_phases(torch, kseg, kfa, krw, kernel_mods, smi, errs,
+                             timed)
+    t1 = time.perf_counter()
+    family_readings(torch, WHISPER)
+    log(f"readings: whisper in {time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"kernels": records}))
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def build_logged(_build, names=None) -> None:
     """Builds the named sources (every one by default) and prints each
     kernel's ``-Xptxas -v`` lines: registers, shared memory, spills."""
@@ -5964,10 +6361,11 @@ def build_logged(_build, names=None) -> None:
                                        "warning", "Performance Loss")):
                 log(f"build: {name}: {line.strip()}")
     serial = [line for text in logs.values() for line in text.splitlines()
-              if "serialized" in line and "Li192ELi128E" in line
-              and "flash_bwd_d" in line]
-    check(not serial, f"build: ptxas serializes the wgmma of K5's backward "
-                      f"at (192, 128): {serial}")
+              if "serialized" in line and (
+                  "Li64ELi64E" in line
+                  or ("Li192ELi128E" in line and "flash_bwd_d" in line))]
+    check(not serial, f"build: ptxas serializes the wgmma of K5 at (64, "
+                      f"64) or of its backward at (192, 128): {serial}")
 
 
 def train_phases(torch, kseg, kfa, kernel_errs, smi: str):
@@ -6045,7 +6443,8 @@ def all_train_phases(torch, kseg, kfa, krw, train_errs, rwkv_bwd_err: float,
     records, fwd_errs, fwd = train_phases(torch, kseg, kfa, train_errs, smi)
     rwkv_record, fwd_errs["rwkv_scan"], fwd["rwkv_scan"] = rwkv_train_phases(
         torch, kseg, kfa, krw, rwkv_bwd_err, smi)
-    v_launches, v_errs, v_bwd = vlm_train_phases(torch, kseg, kfa, krw, smi)
+    v_launches, v_errs, v_bwd = family_train_phases(torch, VLM, kseg, kfa,
+                                                    krw, smi)
     for rec in records:
         if rec["name"] == "flash_attention_bwd":
             rec["launches"] += v_launches["flash_attention_bwd"]
@@ -6261,6 +6660,8 @@ def main() -> int:
     model_errs = model_kernel_phase(torch, kseg, kfa)
     train_errs = train_kernel_phase(torch, kseg, kfa)
     mla_errs = mla_kernel_phase(torch, kseg, kfa)
+    whisper_errs, whisper_timed = whisper_kernel_phase(torch, kseg, kfa)
+    scalar_constants_check(torch)
     rwkv_err = rwkv_kernel_phase(torch, krw)
     rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
     ctrl_kernel_phase(torch, kctrl, ref, tdev)
@@ -6341,8 +6742,8 @@ def main() -> int:
         launches=rwkv_launches, max_abs_err=max(rwkv_err, replay_k6_err),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
-    vlm_launches, vlm_err, vlm_main = vlm_phase(torch, kseg, kfa,
-                                                kernel_mods, smi)
+    vlm_launches, vlm_err, vlm_main = family_serve_phase(
+        torch, VLM, kseg, kfa, kernel_mods, smi)
     for rec in records:
         if rec["name"] == "flash_attention":
             rec["launches"] += vlm_launches
@@ -6358,6 +6759,10 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      mla_k4_errs["segment_matmul"])
     records.append(ctrl_record)
+    t0 = time.perf_counter()
+    whisper_recs = whisper_phases(torch, kseg, kfa, krw, kernel_mods, smi,
+                                  whisper_errs, whisper_timed)
+    log(f"whisper: serve and train in {time.perf_counter() - t0:.1f} s")
     train_records, fwd_errs, fwd, mla_train_runs = all_train_phases(
         torch, kseg, kfa, krw, train_errs, rwkv_bwd_err, smi, mla_errs)
     for rec in records:
@@ -6365,7 +6770,7 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
         rec["launches"] += fwd.get(rec["name"], 0)
     records += train_records + mla_records(
-        kfa, merge_runs(mla_runs, mla_train_runs))
+        kfa, merge_runs(mla_runs, mla_train_runs)) + whisper_recs
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -6376,5 +6781,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--readings": readings, "--armed": armed,
-              "--train": train_only, "--mla": mla_only}.get(
+              "--train": train_only, "--mla": mla_only,
+              "--whisper": whisper_only}.get(
         " ".join(sys.argv[1:]), main)())

@@ -3,8 +3,9 @@
 The port's counterpart of ``repro.configs``.  Each ``<arch>.py`` exports
 the published configuration (``config()``) and a reduced same-family
 configuration for the CPU tests (``smoke_config()``).  Only the
-architectures whose model path is ported have a file here; asking for any
-other raises ``NotImplementedError``.
+architectures whose model path is ported have a file here, every family
+but the hybrid one; asking for the other (``hymba-1.5b``) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ _MODULES: Dict[str, str] = {
     "internvl2-2b": "internvl2_2b",
     "minicpm3-4b": "minicpm3_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "whisper-medium": "whisper_medium",
 }
 
 #: The architectures the port serves.

@@ -22,8 +22,9 @@
 // h / rep; the KV heads are never repeated in memory.
 //
 // Two kernels:
-//   "wgmma" (bf16 at (dk, dv) = (128, 128), (96, 64), (192, 128); the
-//            models' prefills and training forwards): Q K^T and P V on the
+//   "wgmma" (bf16 at (dk, dv) = (128, 128), (64, 64), (96, 64), (192,
+//            128); the models' prefills, training forwards and Whisper's
+//            full and cross attention): Q K^T and P V on the
 //            tensor cores.  P stays float32, as in the reference: it is
 //            split into hi = bf16(p) and lo = bf16(p - hi) (p - hi is exact
 //            in float32), and P V is the two products hi V + lo V into one
@@ -123,7 +124,10 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-// ---- bf16 at (dk, dv) = (128, 128), (96, 64), (192, 128): wgmma on a TMA ring
+// ---- bf16 at (dk, dv) = (128, 128), (64, 64), (96, 64), (192, 128): wgmma on
+// a TMA ring.  S != T (the cross attention: 1 to 512 queries against 1,500
+// keys) needs nothing of its own: a q tile past S reads zeros by TMA and
+// its rows are never written, keys past T are masked on the ragged tile.
 constexpr int kBM = 128;                  // query rows a block
 constexpr int kBN = 128;                  // keys a tile
 constexpr int kStages = 2;
@@ -135,7 +139,8 @@ constexpr uint32_t kBox = 128 * 128;      // 128 rows x 64 bf16, 16 KB
 //           waits, the two unordered (hd 128);
 //   kTurns  the same, but the two take turns to issue a product (named
 //           barriers), so that one's softmax runs while the other's product
-//           holds the tensor cores, at no register's cost (MLA's widths).
+//           holds the tensor cores, at no register's cost (MLA's widths and
+//           hd 64).
 // Overlapping a warpgroup's own softmax of tile j with its P V of tile
 // j - 1 as well took longer at (96, 64), in both forms tried: P's
 // fragments held in registers while the next scores arrive need ~180
@@ -959,7 +964,8 @@ constexpr int kPBuf = 32 * 128;               // P^T of a tile, float32
 // with N = NQ: whole boxes at DK 64 kQB, and N = 96 at DK 96 (the N-major
 // operand spans a box and the first half of the next, the descriptor's
 // stride between boxes carrying the step), so no column multiplies the
-// zeros.
+// zeros.  At (64, 64) every tile is one box and both kernels take the
+// 288-thread forms (dkv's two warpgroups splitting a tile's products).
 template <int DK, int DV>
 struct BwdShape {
   static_assert(DK % 16 == 0 && (DV == 64 || DV == 128), "wgmma widths");
@@ -1978,8 +1984,8 @@ bool tma_ready(const void* p, const long long (&st)[3]) {
 
 // The pairs the wgmma kernels take, forward and backward.
 bool wgmma_pair(int dk, int dv) {
-  return (dk == 128 && dv == 128) || (dk == 96 && dv == 64) ||
-         (dk == 192 && dv == 128);
+  return (dk == 128 && dv == 128) || (dk == 64 && dv == 64) ||
+         (dk == 96 && dv == 64) || (dk == 192 && dv == 128);
 }
 
 }  // namespace
@@ -1994,8 +2000,8 @@ const char* repro_cuda_error_string(int code) {
 // strides `strides` (q's batch, head and row strides, then k's, then v's;
 // each row contiguous), out [B, H, S, dv] float32 contiguous; dtype 0 =
 // float32, 1 = bf16 (q, k and v alike); (dk, dv) one of REPRO_K5_WIDTHS;
-// H a multiple of KV; causal needs S == T.  bf16 at (128, 128), (96, 64)
-// and (192, 128) runs the wgmma kernel (its strides multiples of 8 and its
+// H a multiple of KV; causal needs S == T.  bf16 at (128, 128), (64, 64),
+// (96, 64) and (192, 128) runs the wgmma kernel (its strides multiples of 8 and its
 // bases 16-byte aligned, or an error), which also writes each row's
 // log-sum-exp of the scaled scores to lse (float32 [B, H, S]) unless lse
 // is null; every other call runs the fma kernel and leaves lse alone.
@@ -2026,6 +2032,9 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     if (dk == 128)
       return launch_wgmma<128, 128>(q, k, v, out, lse, B, H, KV, S, T_len,
                                     scale, causal, st, device, s);
+    if (dk == 64)
+      return launch_wgmma<64, 64>(q, k, v, out, lse, B, H, KV, S, T_len,
+                                  scale, causal, st, device, s);
     if (dk == 96)
       return launch_wgmma<96, 64>(q, k, v, out, lse, B, H, KV, S, T_len,
                                   scale, causal, st, device, s);
@@ -2048,8 +2057,9 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 // [B, H, S, dk], dk [B, KV, T, dk] and dv [B, KV, T, dv] contiguous in q's
 // dtype; no atomics.  route 0 (fma, any call): ws a float32 workspace of
 // 2 B H S, two launches (dq, then dk and dv), lse unread.  route 1
-// (wgmma: bf16 at (128, 128), (96, 64) or (192, 128) with strides that
-// are multiples of 8 and 16-byte-aligned bases): lse the forward's log-sum-exp, float32
+// (wgmma: bf16 at (128, 128), (64, 64), (96, 64) or (192, 128) with
+// strides that are multiples of 8 and 16-byte-aligned bases): lse the
+// forward's log-sum-exp, float32
 // [B, H, S], ws a float32 workspace of 2 B H Sp + B H S dv floats (Sp = S
 // rounded up to 128; 16-byte aligned), three launches (the prep pass, dk
 // and dv, dq).  Launches on `stream`; returns a cudaError_t.
@@ -2085,6 +2095,10 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
       return launch_bwd_wgmma<128, 128>(q, k, v, out, dout, lse, dq, dk, dv,
                                         ws, B, H, KV, S, T_len, scale, causal,
                                         st, device, s);
+    if (dk_w == 64)
+      return launch_bwd_wgmma<64, 64>(q, k, v, out, dout, lse, dq, dk, dv,
+                                      ws, B, H, KV, S, T_len, scale, causal,
+                                      st, device, s);
     if (dk_w == 96)
       return launch_bwd_wgmma<96, 64>(q, k, v, out, dout, lse, dq, dk, dv,
                                       ws, B, H, KV, S, T_len, scale, causal,

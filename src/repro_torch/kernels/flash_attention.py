@@ -17,7 +17,9 @@ model casts it, as the JAX model does.
 Causal attention needs ``S == T`` (query ``i`` sees keys ``j <= i``): the
 JAX package's two forms align a causal mask with ``S != T`` differently
 (``repro.kernels.ref`` bottom-right, the Pallas kernel top-left), and the
-model only ever calls it with ``S == T``, so the wrapper refuses it.
+model only ever calls it with ``S == T``, so the wrapper refuses it.  Full
+attention takes any S and T: Whisper's cross attention runs 1 to 512
+queries against the encoder's 1,500 keys.
 
 For CUDA tensors the wrapper launches a kernel of
 ``csrc/flash_attention.cu`` (built at first use) on the current stream, or
@@ -25,8 +27,9 @@ raises; for CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.ref` on contiguous copies, so a view and its copy
 give the same bits.  ``.launches`` counts the calls that launched a kernel
 and the module's ``routes`` which one: ``wgmma`` (bf16 at a pair of
-``WGMMA_WIDTHS``: (128, 128), MiniCPM3's (96, 64) and DeepSeek-V2's
-(192, 128), the models' prefills and training forwards: Q K^T and a
+``WGMMA_WIDTHS``: (128, 128), (64, 64), MiniCPM3's (96, 64) and
+DeepSeek-V2's (192, 128), the models' prefills and training forwards and
+Whisper's encoder, causal and cross attention: Q K^T and a
 split-bf16 P V on the tensor cores, K and V on a TMA ring, at MLA's
 widths the two consumer warpgroups taking turns on the tensor cores; its
 strides must be multiples of 8 elements) and ``fma`` (float32, and bf16
@@ -96,8 +99,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 MLA_WIDTHS = ((24, 16), (96, 64), (192, 128))
 #: Every (dk, dv) pair the kernels take.
 WIDTHS = tuple((d, d) for d in HEAD_DIMS) + MLA_WIDTHS
-#: The pairs of the ``wgmma`` kernels (bf16), forward and backward.
-WGMMA_WIDTHS = ((128, 128), (96, 64), (192, 128))
+#: The pairs of the ``wgmma`` kernels (bf16), forward and backward: hd 128,
+#: hd 64 (Whisper) and MLA's two published pairs.
+WGMMA_WIDTHS = ((128, 128), (64, 64), (96, 64), (192, 128))
 ROUTES = ("fma", "wgmma")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)

@@ -13,7 +13,10 @@ rwkv6-1.6b`` trains all 24 layers, the recurrence's backward on K6's
 backward kernel; the ssm family has no experts, so ``--balancer`` is a
 no-op there), as for InternVL2-2B (~30.2 GB; the vlm family's stubbed
 vision tower gets zero bf16 patches ``[batch, n_patches, d_model]`` ahead
-of each batch's tokens, as the JAX launcher gives it).  Weights are
+of each batch's tokens, as the JAX launcher gives it), and for
+Whisper-medium (~13 GB; the encdec family's stubbed audio frontend gets
+zero bf16 frames ``[batch, enc_seq, d_model]``, as the JAX launcher gives
+it; no experts, so no balancer).  Weights are
 random, drawn from seed 0 on the device.  Checkpoints are written
 atomically every ``--ckpt-every`` steps (the JAX package's layout) and
 training resumes from the newest one.
@@ -88,6 +91,9 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
         nb = pipe.next_batch()
         batch = {"tokens": torch.from_numpy(nb["tokens"][:args.batch]),
                  "labels": torch.from_numpy(nb["labels"][:args.batch])}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((args.batch, cfg.enc_seq,
+                                           cfg.d_model), dtype=torch.bfloat16)
         if cfg.family == "vlm":
             batch["patches"] = torch.zeros((args.batch, cfg.n_patches,
                                             cfg.d_model), dtype=torch.bfloat16)

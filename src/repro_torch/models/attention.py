@@ -5,8 +5,10 @@ The port of ``repro.models.attention`` but for its sliding windows.
 Prefill and training attention goes through K5
 (:func:`repro_torch.kernels.flash_attention.flash_attention_ad`)
 exactly where the JAX model calls its chunked-flash reference
-(``attention.py:174``, ``:180`` and MLA's expanded path, ``:296``): a CUDA
-tensor launches the kernel, a CPU tensor runs its plain version.  Decode
+(``attention.py:174``, ``:180``, MLA's expanded path, ``:296``, and the
+encdec family's cross attention, ``model.py:238``: :func:`cross_attention`,
+full with S != T): a CUDA tensor launches the kernel, a CPU tensor runs its
+plain version.  Decode
 (one new token against the cache) is plain PyTorch, as in JAX, where no
 Pallas kernel covers it: GQA's :func:`decode_attention` and MLA's
 weight-absorbed scores against the compressed cache.
@@ -66,11 +68,12 @@ def gqa_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
     }
 
 
-def _prefill_attention(q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a segment within itself through K5: q
-    ``[B, S, H, hd]``, k ``[B, S, KV, hd]``, v ``[B, S, KV, dv]`` -> float32
-    ``[B, S, H, dv]``.
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True) -> torch.Tensor:
+    """Attention through K5 of q ``[B, S, H, hd]`` over k ``[B, T, KV,
+    hd]`` and v ``[B, T, KV, dv]`` -> float32 ``[B, S, H, dv]``: a segment
+    within itself (causal, or full: the encoder), or with ``causal=False``
+    queries against other keys (T != S, :func:`cross_attention`).
 
     q is scaled by ``hd ** -0.5`` in its own dtype first
     (``attention.py:70``: with hd = 128 the scale is no power of two, so
@@ -81,7 +84,7 @@ def _prefill_attention(q: torch.Tensor, k: torch.Tensor,
     a forward without a cache is differentiable."""
     qs = scalar_mul(q, q.shape[-1] ** -0.5)
     out = k5.flash_attention_ad(qs.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True, scale=1.0)
+                                v.transpose(1, 2), causal=causal, scale=1.0)
     return out.transpose(1, 2)
 
 
@@ -95,10 +98,14 @@ def gqa_apply(
     rope_theta: float = 10_000.0,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: int = 0,
+    causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out ``[B, S, D]``, the cache).  With a cache, the segment
     is written at ``cache_len``: a prompt (``cache_len == 0``) attends
-    within itself through K5, one token (S = 1) attends to the cache."""
+    within itself through K5, one token (S = 1) attends to the cache.
+    ``causal=False`` (the encoder, which has no cache) lets every position
+    see the whole segment; RoPE is applied all the same, as JAX's
+    ``gqa_apply`` does."""
     B, S, _ = x.shape
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, n_heads, head_dim)
@@ -126,13 +133,29 @@ def gqa_apply(
                     "a multi-token segment after a filled cache: the port "
                     "prefills the vlm family's patches and text as one "
                     "segment at 0, so nothing takes this path")
-            out = _prefill_attention(q, k, v)
+            out = _prefill_attention(q, k, v, causal=causal)
         else:
             out = decode_attention(q, cache["k"], cache["v"], offset + S)
     else:
-        out = _prefill_attention(q, k, v)
+        out = _prefill_attention(q, k, v, causal=causal)
     out = out.reshape(B, S, n_heads * head_dim).to(dt)
     return out @ p["wo"].to(dt), cache
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
+                    n_heads: int, head_dim: int) -> torch.Tensor:
+    """Decoder -> encoder attention (Whisper, JAX's ``_cross_attention``):
+    x ``[B, S, D]`` against ``enc_out`` ``[B, enc_seq, D]``, no RoPE, no
+    mask; K and V projected from ``enc_out`` on every call, as JAX does, and
+    one K5 call, full, S != T (one query row in a decode step)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    e = enc_out.to(dt)
+    q = (x @ p["wq"].to(dt)).reshape(B, S, n_heads, head_dim)
+    k = (e @ p["wk"].to(dt)).reshape(B, -1, n_heads, head_dim)
+    v = (e @ p["wv"].to(dt)).reshape(B, -1, n_heads, head_dim)
+    out = _prefill_attention(q, k, v, causal=False)
+    return out.reshape(B, S, n_heads * head_dim).to(dt) @ p["wo"].to(dt)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

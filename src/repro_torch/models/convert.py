@@ -4,7 +4,8 @@
 lists) of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``, and
 returns the port's params: the scan-stacked ``blocks`` (a leading layer
 axis on every leaf, ``repro/models/model.py:109``, ``n_layers -
-first_k_dense`` layers) become a list of per-layer dicts, the unstacked
+first_k_dense`` layers) and the encdec family's ``enc_blocks``
+(``n_enc_layers``) become lists of per-layer dicts, the unstacked
 ``dense_blocks`` stay a list, and every array becomes a tensor on
 ``device``; a MoE layer's expert stacks keep their physical slot axis
 (``P = E + R``) and its ``shared`` experts their dict.
@@ -22,7 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..devices import DeviceSpec, resolve_device
-from .model import check_supported
+from .model import check_supported, stacked_depths
 
 
 def _tensor(a: Any, dev: torch.device) -> torch.Tensor:
@@ -51,9 +52,11 @@ def params_from_jax(tree: Any, cfg: ModelConfig,
     """The port's params holding the JAX params' values."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {k: _convert(v, dev) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_convert(_layer(tree["blocks"], i), dev)
-                     for i in range(cfg.n_layers - cfg.first_k_dense)]
+    layers = stacked_depths(cfg)
+    out = {}
+    for k, v in tree.items():
+        out[k] = ([_convert(_layer(v, i), dev) for i in range(layers[k])]
+                  if k in layers else _convert(v, dev))
     return out
 
 

@@ -14,10 +14,13 @@ the same seed; tests carry weights across with
 
 A Python float times a tensor is computed by PyTorch in float32 and then
 rounded, where JAX first rounds the float to the tensor's dtype;
-:func:`scalar_mul` does the JAX thing, so bf16 results match.
+:func:`scalar_mul` does the JAX thing, so bf16 results match.  It keeps
+the rounded constant a Python float: a tensor built from it on the card
+would be a host-to-device copy, which waits for the stream, on every call.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -59,10 +62,18 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
 def scalar_mul(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x * c`` with ``c`` first rounded to ``x.dtype``, as JAX does with a
-    Python scalar."""
-    return x * torch.tensor(c, dtype=x.dtype, device=x.device)
+    Python scalar.  PyTorch multiplies in float32 (float64 for a float64
+    x), where the product of two values of x's dtype is exact, and then
+    rounds once, so the bits are those of ``x * c`` in x's dtype."""
+    return x * _rounded(float(c), x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -73,6 +84,23 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (x32 * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"g": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """JAX's ``layernorm``: the mean and the population variance
+    (``jnp.var``; ``torch.var`` defaults to the unbiased one) in float32,
+    ``rsqrt(var + eps)``, then cast to x's dtype before ``* g + b`` in it."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * p["g"].to(dt) + p["b"].to(dt)
+
+
 # --------------------------------------------------------------------- #
 # Rotary position embeddings                                             #
 # --------------------------------------------------------------------- #
@@ -80,8 +108,7 @@ def rope_frequencies(head_dim: int, theta: float = 10_000.0,
                      device=None) -> torch.Tensor:
     expo = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), expo)
+    return 1.0 / torch.pow(theta, expo)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -110,6 +137,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as JAX computes it: ``x *
+    (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` with ``c = sqrt(2 /
+    pi)`` and the constants rounded to x's dtype, each op rounded to it.
+    ``F.gelu(x, approximate="tanh")`` rounds once, which in bf16 differs
+    at over 40% of the values; this form gives JAX's bf16 bits (float32:
+    within an ulp of ``tanh``, XLA's being its own approximation)."""
+    inner = x + scalar_mul(x * (x * x), 0.044715)
+    return x * (0.5 * (1 + torch.tanh(scalar_mul(inner,
+                                                 math.sqrt(2.0 / math.pi)))))
+
+
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
                 dtype=torch.float32) -> Params:
     return {
@@ -124,6 +163,23 @@ def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
     return (F.silu(g) * u) @ p["w_down"].to(dt)
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32) -> Params:
+    dev = gen.device
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_out": dense_init(gen, d_ff, d_model, dtype, scale=d_ff ** -0.5),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    dt = x.dtype
+    h = gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt))
+    return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
 
 
 # --------------------------------------------------------------------- #

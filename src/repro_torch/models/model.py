@@ -1,7 +1,7 @@
 """The model of the ported architectures, in PyTorch.
 
-The port of ``repro.models.model`` for the decoder-only GQA families and
-the attention-free RWKV6 family:
+The port of ``repro.models.model`` for the decoder-only GQA families,
+the attention-free RWKV6 family and the encoder-decoder family:
 
     params = init_params(cfg, seed, device)
     logits, stats = forward(params, cfg, batch)            # train / prefill
@@ -15,14 +15,27 @@ the attention-free RWKV6 family:
 "k_pe"}``), ``"vlm"`` (the dense GQA decoder behind stubbed patch
 embeddings, ``batch["patches"]`` ``[B, n_patches, d_model]`` prepended to
 the token embeddings), or ``"ssm"`` (RWKV6 time-mix and channel-mix, the
-recurrence through K6) with ``attn="none"``; RMS norms.  A MoE model may
+recurrence through K6) with ``attn="none"``, or ``"encdec"`` (Whisper: a
+bidirectional encoder over stubbed frame embeddings ``batch["frames"]``
+``[B, enc_seq, d_model]`` plus learned positions, and a decoder whose
+blocks also attend to the encoder's output, ``cache["enc_out"]`` when
+serving).  Norms are RMS or LayerNorm (``cfg.norm``), the dense FFN
+SwiGLU or a GELU MLP (``cfg.act``).  A MoE model may
 have shared experts (``n_shared``) and ``first_k_dense`` SwiGLU layers
 ahead of the MoE ones, kept in ``params["dense_blocks"]`` (and
 ``cache["dense_blocks"]``) as JAX keeps them; ``blocks`` holds the other
 ``n_layers - first_k_dense``.  The ssm family's cache is a float32
 recurrent state per layer (``wkv`` and the two token-shift carries), so
-``max_len`` does not size it.  The hybrid and encdec families are not
-ported yet and raise (:func:`check_supported`).
+``max_len`` does not size it.  The hybrid family is not ported yet and
+raises (:func:`check_supported`).
+
+The encdec family follows JAX's: the encoder's blocks (``enc_blocks``, a
+list like ``blocks``) run its self-attention through K5 with
+``causal=False`` (RoPE applied, as JAX's ``gqa_apply`` does), and each
+decoder block's cross attention (``attention.cross_attention``: no RoPE, no mask)
+projects K and V from the encoder's output on every call, decode steps
+too, and runs K5 full with S != T (one query row against ``enc_seq``
+keys in a decode step).
 
 The vlm prefill departs from JAX's (``ROADMAP.md`` §3): JAX ingests the
 patches and the text as two segments, and its ``gqa_apply`` lets the
@@ -63,6 +76,10 @@ from .layers import (
     cross_entropy,
     dense_init,
     embed_init,
+    gelu_mlp,
+    gelu_mlp_init,
+    layernorm,
+    layernorm_init,
     rmsnorm,
     rmsnorm_init,
     swiglu,
@@ -70,20 +87,31 @@ from .layers import (
 )
 
 
+#: The layer lists that the JAX package stacks for ``lax.scan`` (a leading
+#: layer axis on every leaf) and the port keeps as lists of per-layer dicts.
+STACKED = ("blocks", "enc_blocks")
+
+
+def stacked_depths(cfg: ModelConfig) -> Dict[str, int]:
+    """The layers each list of :data:`STACKED` holds under ``cfg``."""
+    return dict(zip(STACKED, (cfg.n_layers - cfg.first_k_dense,
+                              cfg.n_enc_layers)))
+
+
 #: The attention each ported family takes.
 ATTN = {"dense": ("gqa", "mla"), "moe": ("gqa", "mla"), "vlm": ("gqa",),
-        "ssm": ("none",)}
+        "ssm": ("none",), "encdec": ("gqa",)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet:
-    the hybrid and encdec families (and their LayerNorm / GELU)."""
+    the hybrid family."""
     missing = []
     if cfg.family not in ATTN:
         missing.append(f"family {cfg.family!r}")
     elif cfg.attn not in ATTN[cfg.family]:
         missing.append(f"attn {cfg.attn!r} in family {cfg.family!r}")
-    if cfg.norm != "rms" or cfg.act != "swiglu":
+    if cfg.norm not in ("rms", "ln") or cfg.act not in ("swiglu", "gelu"):
         missing.append(f"norm {cfg.norm!r} / act {cfg.act!r}")
     if missing:
         raise NotImplementedError(
@@ -94,16 +122,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # ===================================================================== #
 # Parameter initialization                                               #
 # ===================================================================== #
+def _norm_init(cfg: ModelConfig, d: int, dt, dev):
+    return (rmsnorm_init(d, dt, dev) if cfg.norm == "rms"
+            else layernorm_init(d, dt, dev))
+
+
+def _apply_norm(cfg: ModelConfig, x: torch.Tensor, p) -> torch.Tensor:
+    return rmsnorm(x, p) if cfg.norm == "rms" else layernorm(x, p)
+
+
 def _block_init(cfg: ModelConfig, gen: torch.Generator, *,
-                dense_ffn: bool = False) -> Params:
-    """One layer's params; ``dense_ffn``: a SwiGLU of ``d_ff`` in place of
-    the MoE (the first_k_dense layers)."""
+                dense_ffn: bool = False, cross: bool = False) -> Params:
+    """One layer's params; ``dense_ffn``: the dense FFN of ``d_ff`` in
+    place of the MoE (the first_k_dense layers); ``cross``: a decoder
+    block's cross attention (``ln_cross``, and ``cross``, a GQA layer with
+    ``n_heads`` KV heads)."""
     dt = dtype_of(cfg.param_dtype)
     dev = gen.device
-    p: Params = {"ln1": rmsnorm_init(cfg.d_model, dt, dev)}
+    p: Params = {"ln1": _norm_init(cfg, cfg.d_model, dt, dev)}
     if cfg.family == "ssm":
         p["tmix"] = ssm_lib.rwkv6_init(gen, cfg.d_model, cfg.n_heads, dt)
-        p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
+        p["ln2"] = _norm_init(cfg, cfg.d_model, dt, dev)
         p["cmix"] = ssm_lib.rwkv6_cmix_init(gen, cfg.d_model, cfg.d_ff, dt)
         return p
     if cfg.attn == "mla":
@@ -114,15 +153,21 @@ def _block_init(cfg: ModelConfig, gen: torch.Generator, *,
     else:
         p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.hd, dt)
-    p["ln2"] = rmsnorm_init(cfg.d_model, dt, dev)
+    if cross:
+        p["ln_cross"] = _norm_init(cfg, cfg.d_model, dt, dev)
+        p["cross"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
+                                       cfg.n_heads, cfg.hd, dt)
+    p["ln2"] = _norm_init(cfg, cfg.d_model, dt, dev)
     if cfg.n_experts and not dense_ffn:
         p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_expert,
                                     cfg.n_experts, n_shared=cfg.n_shared,
                                     d_shared=cfg.d_shared or None,
                                     n_replica_slots=cfg.moe_replica_slots,
                                     dtype=dt)
-    else:
+    elif cfg.act == "swiglu":
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
+    else:
+        p["mlp"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
 
 
@@ -136,12 +181,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dt)}
-    p["blocks"] = [_block_init(cfg, gen)
+    encdec = cfg.family == "encdec"
+    p["blocks"] = [_block_init(cfg, gen, cross=encdec)
                    for _ in range(cfg.n_layers - cfg.first_k_dense)]
     if cfg.first_k_dense:
         p["dense_blocks"] = [_block_init(cfg, gen, dense_ffn=True)
                              for _ in range(cfg.first_k_dense)]
-    p["ln_f"] = rmsnorm_init(cfg.d_model, dt, dev)
+    if encdec:
+        p["enc_blocks"] = [_block_init(cfg, gen)
+                           for _ in range(cfg.n_enc_layers)]
+        pos = torch.empty((cfg.enc_seq, cfg.d_model), dtype=torch.float32,
+                          device=dev)
+        p["enc_pos"] = pos.normal_(0.0, 1.0, generator=gen).mul_(0.01).to(dt)
+        p["ln_enc"] = _norm_init(cfg, cfg.d_model, dt, dev)
+    p["ln_f"] = _norm_init(cfg, cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt,
                                   scale=cfg.d_model ** -0.5)
@@ -158,19 +211,23 @@ def _block_apply(
     *,
     cache: Optional[Params] = None,
     cache_len: int = 0,
+    enc_out: Optional[torch.Tensor] = None,
+    causal: bool = True,
     moe_routing: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
-    """One decoder block (GQA or MLA attention + MoE or SwiGLU, or RWKV6
-    time-mix + channel-mix).  Returns (x, the new cache, moe_stats)."""
+    """One block (GQA or MLA attention, the cross attention over
+    ``enc_out`` where given, then a MoE or the dense FFN; or RWKV6
+    time-mix + channel-mix).  ``causal=False``: the encoder's full
+    self-attention.  Returns (x, the new cache, moe_stats)."""
     stats: Dict[str, torch.Tensor] = {}
-    h = rmsnorm(x, bp["ln1"])
+    h = _apply_norm(cfg, x, bp["ln1"])
     if cfg.family == "ssm":
         mix_state = None if cache is None else {
             "wkv": cache["wkv"], "shift": cache["shift"]}
         out, new_mix = ssm_lib.rwkv6_apply(bp["tmix"], h, n_heads=cfg.n_heads,
                                            state=mix_state)
         x = x + out
-        h2 = rmsnorm(x, bp["ln2"])
+        h2 = _apply_norm(cfg, x, bp["ln2"])
         clast = None if cache is None else cache["cshift"]
         out2, new_clast = ssm_lib.rwkv6_cmix_apply(bp["cmix"], h2, clast)
         x = x + out2
@@ -189,11 +246,16 @@ def _block_apply(
         a_out, new_attn = attn_lib.gqa_apply(
             bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_theta=cfg.rope_theta, cache=attn_cache,
-            cache_len=cache_len)
+            cache_len=cache_len, causal=causal)
     new_cache = None if cache is None else {"attn": new_attn}
     x = x + a_out
 
-    h2 = rmsnorm(x, bp["ln2"])
+    if enc_out is not None:
+        hc = _apply_norm(cfg, x, bp["ln_cross"])
+        x = x + attn_lib.cross_attention(bp["cross"], hc, enc_out,
+                                         n_heads=cfg.n_heads, head_dim=cfg.hd)
+
+    h2 = _apply_norm(cfg, x, bp["ln2"])
     if "moe" in bp:
         # Serving is drop-free: cap >= N (cf = E/k makes cap = N exactly).
         # The forward without a cache keeps the configured capacity factor.
@@ -204,14 +266,33 @@ def _block_apply(
             expert_routing=moe_routing, return_stats=True,
             token_groups=cfg.moe_token_groups)
         stats.update(mstats)
-    else:
+    elif cfg.act == "swiglu":
         f_out = swiglu(h2, bp["mlp"])
+    else:
+        f_out = gelu_mlp(h2, bp["mlp"])
     x = x + f_out
     return x, new_cache, stats
 
 
+def _plain(fn, *args):
+    return fn(*args)
+
+
+def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                 run=_plain) -> torch.Tensor:
+    """The encoder over ``frames`` ``[B, enc_seq, D]``: the frames plus
+    the learned positions in the compute dtype, the bidirectional blocks
+    (each through ``run``, the caller's remat), then ``ln_enc``."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = frames.to(cdt) + params["enc_pos"].to(cdt)[None]
+    for bp in params["enc_blocks"]:
+        x = run(lambda bp, x: _block_apply(cfg, bp, x, causal=False)[0],
+                bp, x)
+    return _apply_norm(cfg, x, params["ln_enc"])
+
+
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rmsnorm(x, params["ln_f"])
+    x = _apply_norm(cfg, x, params["ln_f"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 
@@ -222,10 +303,12 @@ def forward(params: Params, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence logits ``[B, S, V]`` and aux stats (the train /
     prefill forward, without a cache): ``dense_blocks`` first, then
-    ``blocks``.  ``moe_routing``: the balancer's ``[L, E, P]`` tables, one
-    for each of the ``L`` layers of ``blocks`` (a layer's table is its
-    block's ``expert_routing``); ``remat`` recomputes each block in the
-    backward when gradients are taken."""
+    ``blocks``, each attending to the encoder's output over
+    ``batch["frames"]`` in the encdec family.  ``moe_routing``: the
+    balancer's ``[L, E, P]`` tables, one for each of the ``L`` layers of
+    ``blocks`` (a layer's table is its block's ``expert_routing``);
+    ``remat`` recomputes each block (the encoder's too) in the backward
+    when gradients are taken."""
     check_supported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     x = params["embed"][batch["tokens"]].to(cdt)
@@ -236,8 +319,9 @@ def forward(params: Params, cfg: ModelConfig,
     n_slots = moe_routing.shape[-1] if moe_routing is not None else n_e
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def block(bp, x, routing):
-        x, _, st = _block_apply(cfg, bp, x, moe_routing=routing)
+    def block(bp, x, routing, enc_out):
+        x, _, st = _block_apply(cfg, bp, x, enc_out=enc_out,
+                                moe_routing=routing)
         return x, (
             st.get("aux_loss", zero),
             st.get("dropped_frac", zero),
@@ -252,12 +336,15 @@ def forward(params: Params, cfg: ModelConfig,
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(params, cfg, batch["frames"], run)
     for bp in params.get("dense_blocks", []):
         x = run(lambda bp, x: _block_apply(cfg, bp, x)[0], bp, x)
     aux: List[Tuple[torch.Tensor, ...]] = []
     for i, bp in enumerate(params["blocks"]):
         routing = None if moe_routing is None else moe_routing[i]
-        x, st = run(block, bp, x, routing)
+        x, st = run(block, bp, x, routing, enc_out)
         aux.append(st)
     aux_l, drop_f, tpe_router, tpe_slot = (torch.stack(t) for t in zip(*aux))
     logits = _logits(params, cfg, x)
@@ -318,7 +405,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     kv_lora], "k_pe": [batch, max_len, qk_rope]}}``), under ``blocks`` and
     the first_k_dense layers' under ``dense_blocks``; for the ssm family
     one float32 ``{"wkv": [batch, H, hd, hd], "shift", "cshift": [batch,
-    1, D]}`` per layer, whatever ``max_len``."""
+    1, D]}`` per layer, whatever ``max_len``; for the encdec family also
+    ``enc_out`` ``[batch, enc_seq, D]`` in the compute dtype (zeros until
+    :func:`prefill` runs the encoder)."""
     check_supported(cfg)
     dev = resolve_device(device)
     cache: Params = {"blocks": [
@@ -327,6 +416,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.first_k_dense:
         cache["dense_blocks"] = [_block_cache(cfg, batch, max_len, dev)
                                  for _ in range(cfg.first_k_dense)]
+    if cfg.family == "encdec":
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.enc_seq, cfg.d_model),
+            dtype=dtype_of(cfg.compute_dtype), device=dev)
     return cache
 
 
@@ -339,15 +432,18 @@ def decode_step(params: Params, cfg: ModelConfig,
     at ``cache_len`` and return the last position's logits ``[B, 1, V]``
     (every new position's, ``[B, S_new, V]``, with ``all_positions``) and
     the cache (updated in place: the attention caches' tensors, the
-    recurrent state's entries)."""
+    recurrent state's entries).  The encdec family's blocks attend to
+    ``cache["enc_out"]``."""
     cdt = dtype_of(cfg.compute_dtype)
     x = (embeds.to(cdt) if embeds is not None
          else params["embed"][tokens].to(cdt))
     cache_len = int(cache_len)
+    enc_out = cache.get("enc_out")
     for name in ("dense_blocks", "blocks"):
         for bp, bc in zip(params.get(name, []), cache.get(name, [])):
             x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
-                                           cache_len=cache_len)
+                                           cache_len=cache_len,
+                                           enc_out=enc_out)
             bc.update(new_cache)
     return _logits(params, cfg, x if all_positions else x[:, -1:]), cache
 
@@ -358,7 +454,12 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     """Prompt ingestion: the decode path with the whole prompt at 0.  For
     the vlm family the prompt is ``batch["patches"]`` followed by the
     tokens, one segment of ``n_patches + S`` positions (one causal K5 call
-    a layer), so the next token goes at ``n_patches + S``."""
+    a layer), so the next token goes at ``n_patches + S``.  For the encdec
+    family the encoder first runs over ``batch["frames"]`` into
+    ``cache["enc_out"]`` (in place)."""
+    if cfg.family == "encdec":
+        cache["enc_out"].copy_(
+            _run_encoder(params, cfg, batch["frames"]))
     if cfg.family == "vlm":
         cdt = dtype_of(cfg.compute_dtype)
         joined = torch.cat([batch["patches"].to(cdt),

@@ -14,7 +14,9 @@ from JAX's engine where that cannot serve (``ROADMAP.md`` §3): the cache
 holds ``n_patches + S + max_len`` positions (JAX's ``S + max_len`` cannot
 take the patches once ``n_patches`` passes ``max_len``) and decoding
 starts at ``n_patches + S`` (JAX's starts at ``S``, over the prompt's
-rows).
+rows).  The encdec family gets JAX's stub too, zero frame embeddings
+``[B, enc_seq, d_model]`` in the compute dtype, which the prefill runs the
+encoder over; its cache holds ``S + max_len`` decoder positions, as JAX's.
 """
 from __future__ import annotations
 
@@ -91,11 +93,16 @@ class ServeEngine:
             toks[i, S - len(p):] = p      # right-aligned: last pos = last tok
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         n_prefix = 0
+        cdt = dtype_of(self.cfg.compute_dtype)
+        if self.cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (self.B, self.cfg.enc_seq, self.cfg.d_model), dtype=cdt,
+                device=self.device)
         if self.cfg.family == "vlm":
             n_prefix = self.cfg.n_patches
             batch["patches"] = torch.zeros(
-                (self.B, n_prefix, self.cfg.d_model),
-                dtype=dtype_of(self.cfg.compute_dtype), device=self.device)
+                (self.B, n_prefix, self.cfg.d_model), dtype=cdt,
+                device=self.device)
         cache = model_lib.init_cache(self.cfg, self.B,
                                      n_prefix + S + self.max_len, self.device)
         logits, cache = self._prefill(batch, cache)

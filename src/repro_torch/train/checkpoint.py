@@ -10,9 +10,9 @@ The port of ``repro.train.checkpoint``:
 The npz layout is the JAX package's, so either package restores the
 other's checkpoints: the keys are the JAX tree's paths (``/``-joined dict
 keys, list indices and the ``AdamWState`` field names ``step``, ``m``,
-``v``), and the port's per-layer ``blocks`` list is stacked on a leading
-layer axis on save (``blocks/attn/wq`` is ``[L, ...]``) and unstacked on
-restore.  A bf16 leaf is written as float32 (numpy has no bf16) and cast
+``v``), and the port's per-layer ``blocks`` and ``enc_blocks`` lists (the
+JAX package's scanned stacks) are stacked on a leading layer axis on save
+(``blocks/attn/wq`` is ``[L, ...]``) and unstacked on restore.  A bf16 leaf is written as float32 (numpy has no bf16) and cast
 back on restore, as the JAX module's restore casts to the leaf's dtype.
 """
 from __future__ import annotations
@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models.model import STACKED
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
@@ -37,7 +39,7 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
     if isinstance(tree, dict):
         for k, v in tree.items():
             key = f"{prefix}{k}"
-            if k == "blocks" and isinstance(v, list):
+            if k in STACKED and isinstance(v, list):
                 stacked: Dict[str, list] = {}
                 for layer in v:
                     flat: Dict[str, np.ndarray] = {}
@@ -103,7 +105,7 @@ def _restore(tree: Any, data, key: str, layer: Optional[int]) -> Any:
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k == "blocks" and isinstance(v, list):
+            if k in STACKED and isinstance(v, list):
                 out[k] = [_restore(b, data, f"{key}{k}/", i)
                           for i, b in enumerate(v)]
             else:

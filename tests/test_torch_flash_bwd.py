@@ -20,9 +20,10 @@ Tolerances, stated from the arithmetic:
   ``n 2^-24`` of the sum of its magnitudes on either side, and P's
   relative error from the scores' hd-term dot products and the row's
   log-sum-exp, times the magnitude of each gradient term; for the
-  ``wgmma`` route (bf16 at hd 128) the terms ``chip_smoke.py``'s
-  ``check_flash_bwd`` adds for its split operands (dO, P and dS in bf16
-  hi + lo, each within ``2^-16`` of its value; the forward's lse).
+  ``wgmma`` route (bf16 at a pair of ``WGMMA_WIDTHS``) the terms
+  ``chip_smoke.py``'s ``check_flash_bwd`` adds for its split operands
+  (dO, P and dS in bf16 hi + lo, each within ``2^-16`` of its value; the
+  forward's lse).
 """
 import jax
 import jax.numpy as jnp

@@ -404,8 +404,9 @@ def test_cuda_flash_attention_matches_plain_version():
     """K5 on the card against its plain version (float32 arithmetic in both,
     sums in another order; the wgmma route's P split into bf16 hi and lo):
     ``atol = 3e-5, rtol = 1e-4`` from float32 and bf16 inputs alike,
-    causal and full, rep 1 and 3, ragged S.  bf16 at hd 128 takes the
-    wgmma route, also at S = 64, 445 and 4096 and from the model's
+    causal and full, rep 1 and 3, ragged S.  bf16 at hd 128 and 64 takes
+    the wgmma route, at hd 128 also at S = 64, 445 and 4096 and from the
+    model's
     ``[B, S, H, hd]`` layout through ``.transpose(1, 2)``, which gives
     the same bits as its contiguous copy; so do MLA's (dk, dv) pairs of
     ``WGMMA_WIDTHS`` (MiniCPM3-4B's (96, 64), DeepSeek-V2-Lite's
@@ -434,8 +435,8 @@ def test_cuda_flash_attention_matches_plain_version():
                            for i, s in enumerate([(B, H, S, hd),
                                                   (B, KV, S, hd),
                                                   (B, KV, S, hd)]))
-                route = ("wgmma" if dtype == torch.bfloat16 and hd == 128
-                         else "fma")
+                route = ("wgmma" if dtype == torch.bfloat16
+                         and (hd, hd) in k5.WGMMA_WIDTHS else "fma")
                 run(q, k, v, causal, route)
     for B, H, KV, S in ((2, 6, 2, 64), (4, 16, 16, 445), (1, 16, 16, 4096)):
         for causal in (True, False):
