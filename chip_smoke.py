@@ -294,8 +294,10 @@ Phases, in order; any failure exits non-zero before the last line:
            against T 1,500; the encoder's S = T = 1,500; the decoder's
            causal S 512; S 445 with two query heads a KV head), the lse,
            views and two calls bit for bit, the planted backward faults
-           beyond the bound, and both timed at ``WHISPER_K5_TIMED`` beside
-           their bounds, plain versions and SDPA; ``scalar_constants_check``
+           beyond the bound, and both held to the same bounds and timed at
+           ``WHISPER_K5_TIMED`` beside their bounds, plain versions and
+           SDPA (the build fails if ptxas serializes or spills a (64, 64)
+           wgmma kernel); ``scalar_constants_check``
            (the layers' scalar constants: JAX's rounding, no wait for the
            stream).  Then Whisper-medium at
            its published 24 + 24 layers behind ``ServeEngine`` with the
@@ -6125,11 +6127,13 @@ def whisper_kernel_phase(torch, k4, k5):
     within ``check_flash_bwd``'s wgmma bound, two calls the same bits; the
     planted faults "drops D" (and "mask off" where the call is causal)
     beyond that bound at the decoder's and the cross attention's cases.
-    Then K5 forward and backward timed by CUDA events at
-    ``WHISPER_K5_TIMED`` (B 4, H 16) beside ``k5_bound`` /
-    ``k5_bwd_bound``, the plain versions and SDPA's forward and backward.
-    Returns (the largest errors, the timings by shape name: (forward
-    (ms, plain, SDPA, bound, by), backward (the same)))."""
+    Then at ``WHISPER_K5_TIMED`` (B 4, H 16, where a block walks up to
+    24 tiles and the grids take several waves) the same bounds and two
+    backward calls the same bits, and K5 forward and backward timed by
+    CUDA events beside ``k5_bound`` / ``k5_bwd_bound``, the plain versions
+    and SDPA's forward and backward.  Returns (the largest errors, the
+    timings by shape name: (forward (ms, plain, SDPA, bound, by), backward
+    (the same)))."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
@@ -6203,8 +6207,24 @@ def whisper_kernel_phase(torch, k4, k5):
         B, H = SERVE_BATCH, 16
         q, k, v, out, lse, dout = whisper_k5_case(torch, k5, 950, B, H, H, S,
                                                   T, causal)
-        fwd = time_k5(torch, k5, q, k, v, 20, causal=causal)
+        # The timed shapes are held too: only there does a block walk up to
+        # 24 tiles and a grid take several waves.
+        what = (f"flash_attention (64, 64) B={B} H={H} S={S} T={T} "
+                f"causal={causal}")
         kw = dict(lse=lse, causal=causal, scale=64 ** -0.5)
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, out, q, k, v, causal, 64 ** -0.5))
+        check_lse(torch, what, lse, q, k, v, causal, 64 ** -0.5)
+        got = k5.flash_attention_bwd(q, k, v, out, dout, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, k5.flash_attention_bwd(q, k, v, out, dout, **kw))),
+              f"{what}: two backward calls give other bits")
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"],
+            check_flash_bwd(torch, what, got, q, k, v, out, dout, causal,
+                            64 ** -0.5, "wgmma"))
+        del got
+        fwd = time_k5(torch, k5, q, k, v, 20, causal=causal)
         ms = time_ms(torch, lambda *a: k5.flash_attention_bwd(*a, **kw),
                      (q, k, v, out, dout), 20)
         plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
@@ -6366,6 +6386,26 @@ def build_logged(_build, names=None) -> None:
                   or ("Li192ELi128E" in line and "flash_bwd_d" in line))]
     check(not serial, f"build: ptxas serializes the wgmma of K5 at (64, "
                       f"64) or of its backward at (192, 128): {serial}")
+    spills = spilled(logs.get("flash_attention", ""), K5_WGMMA_KERNELS,
+                     "Li64ELi64E")
+    check(not spills, f"build: ptxas spills in K5's wgmma kernels at (64, "
+                      f"64): {spills}")
+
+
+def spilled(log_text: str, kernels, tag: str) -> list:
+    """The kernels of ``kernels`` whose mangled names hold ``tag`` and to
+    which ptxas's ``-v`` lines in ``log_text`` give spill stores or loads:
+    [(mangled name, the line)]."""
+    out, fn = [], ""
+    for line in log_text.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+        if found:
+            fn = found.group(1)
+        elif (tag in fn and any(k in fn for k in kernels)
+              and re.search(r"[1-9]\d* bytes spill (stores|loads)", line)):
+            out.append((fn, line.strip()))
+    return out
 
 
 def train_phases(torch, kseg, kfa, kernel_errs, smi: str):

@@ -244,6 +244,47 @@ K5_MLA_NOW = {"as is, exponentials a copy": K5_EXP_COPY}
 #: The MLA variants whose numbers are wrong by design (timed only).
 K5_WRONG = ("first MLA design, exponentials a copy",
             "as is, exponentials a copy")
+#: K5 as it was first built at Whisper's (64, 64)
+#: (``csrc/variants/flash_attention_whisper_first.cu``), whole.
+K5_WHISPER_FIRST = {"first Whisper design": {}}
+#: Edits of K5's source that undo one lever of the (64, 64) forward's
+#: redesign: two or three consumer warpgroups a block at every shape (not
+#: three, or two where that leaves fewer waves of blocks; dq's too), a
+#: ring of 2 64-key tiles instead of 4.
+K5_WHISPER_NOW = {
+    "as is, two consumer warpgroups always": {
+        "return 100 * w2 < 122 * w3 ? 2 : 3;": "return 2;"},
+    "as is, three consumer warpgroups always": {
+        "return 100 * w2 < 122 * w3 ? 2 : 3;": "return 3;"},
+    "as is, a 2-stage ring": {
+        "constexpr int kOStages = 4;": "constexpr int kOStages = 2;"},
+}
+#: ptxas lines and the variants' builds of the (64, 64) kernels.
+WHISPER_ONLY = "Li64ELi64E"
+
+
+def whisper_shapes(cs, forward: bool):
+    """Whisper-medium's K5 calls at (64, 64) that are timed, B 4, H 16:
+    ``chip_smoke.WHISPER_K5_TIMED`` (the encoder, the cross attention, the
+    causal decoder) and, for the forward, a decode step's one query against
+    the 1,500 frames: [(name, S, T, causal)]."""
+    shapes = list(cs.WHISPER_K5_TIMED)
+    if forward and all(S != 1 for _, S, _, _ in shapes):
+        shapes.append(("decode step", 1, 1500, False))
+    return shapes
+
+
+def whisper_qkv(torch, cs, seed: int, B: int, H: int, S: int, T: int):
+    """bf16 q, k, v at (64, 64) through the model's ``[B, S, H, hd]``
+    views."""
+    return tuple(cs.randn(torch, seed + i, (B, n, H, 64),
+                          torch.bfloat16).transpose(1, 2)
+                 for i, n in enumerate((S, T, T)))
+
+
+def bits_word(torch, got, want) -> str:
+    return "the same bits as" if same_bits(torch, got, want) else \
+        "OTHER bits than"
 
 
 def k5_lib(lib):
@@ -418,6 +459,63 @@ def k5(torch, cs, _build) -> None:
                           f"{sub:.5f} ms{tail}", flush=True)
             del q, k, v, want
             torch.cuda.empty_cache()
+    k5_whisper(torch, cs, _build)
+
+
+def k5_whisper(torch, cs, _build) -> None:
+    """K5's forward at Whisper's (64, 64): the source as it is (and with
+    one lever of its redesign undone, ``K5_WHISPER_NOW``) against the first
+    design there, PR 31's source.  Out and lse at every other wgmma width
+    compared bit for bit with the first design at ``mla_bit_cases``, and at
+    (64, 64) held to ``check_flash`` / ``check_lse`` there; then each design
+    timed in turns at ``whisper_shapes`` beside SDPA and ``k5_bound``."""
+    import torch.nn.functional as F
+    designs = {n: k5_lib(lib) for n, lib in build(
+        _build, "variants/flash_attention_whisper_first", K5_WHISPER_FIRST,
+        WHISPER_ONLY).items()}
+    designs.update({n: k5_lib(lib) for n, lib in build(
+        _build, "flash_attention", {"as is": {}, **K5_WHISPER_NOW},
+        WHISPER_ONLY).items()})
+    first, now = designs["first Whisper design"], designs["as is"]
+    for dk, dv in ((128, 128), (96, 64), (192, 128), (64, 64)):
+        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
+            got, want = (k5_fwd(torch, cs, _build, lib, q, k, v, causal,
+                                True) for lib in (now, first))
+            err = cs.check_flash(torch, what, got[0], q, k, v, causal,
+                                 dk ** -0.5)
+            cs.check_lse(torch, what, got[1], q, k, v, causal, dk ** -0.5)
+            print(f"K5 forward {what}: out and lse "
+                  f"{bits_word(torch, got, want)} the first Whisper design "
+                  f"(max |err| {err:.3g}, within check_flash and "
+                  f"check_lse)", flush=True)
+    for name, S, T, causal in whisper_shapes(cs, True):
+        B, H = cs.SERVE_BATCH, 16
+        q, k, v = whisper_qkv(torch, cs, 950, B, H, S, T)
+        want = k5_fwd(torch, cs, _build, first, q, k, v, causal, True)
+        sdpa_ms = cs.time_ms(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=causal), (q, k, v), 50)
+        bound, by = cs.k5_bound(B, H, H, S, T, 64, causal, 2)
+        shape = f"(64, 64) {name} B={B} H={H} S={S} T={T} causal={causal}"
+        for turn, names in enumerate((list(designs), list(designs)[::-1])):
+            for n in names:
+                lib = designs[n]
+
+                def fn(*a):
+                    return k5_fwd(torch, cs, _build, lib, *a, causal)
+
+                got = k5_fwd(torch, cs, _build, lib, q, k, v, causal, True)
+                err = cs.check_flash(torch, n, got[0], q, k, v, causal,
+                                     64 ** -0.5)
+                ms = cs.time_ms(torch, fn, (q, k, v), 50)
+                dev = cs.device_ms(torch, fn, (q, k, v), 20)
+                print(f"{n}: K5 forward {shape} turn {turn}: {ms:.5f} ms a "
+                      f"call (CUDA events, 50 calls; bound {bound:.5f} ms by "
+                      f"{by}, {100 * bound / ms:.1f}%; SDPA {sdpa_ms:.5f} "
+                      f"ms); device {dev} a call (profiler); max |err| "
+                      f"{err:.3g}; out and lse {bits_word(torch, got, want)} "
+                      f"the first Whisper design", flush=True)
+        del q, k, v, want
+        torch.cuda.empty_cache()
 
 
 #: Edits of K1 and K2's source (csrc/partition.cu) that make each variant.
@@ -1049,7 +1147,7 @@ K5BWD_NOW = {
     # (96, 64): no producer warpgroup, no setmaxnreg (ptxas caps a thread
     # of either block at 168 registers).
     "as is, dkv at 288 threads, whole": {
-        "static constexpr bool kKVRegs = kRegs || kOwnKeys;":
+        "static constexpr bool kKVRegs = kRegs || (kOwnKeys && DK == 96);":
         "static constexpr bool kKVRegs = kRegs;"},
     # (192, 128): dkv a block an item, not persistent.
     "as is, dkv a block an item, whole": {
@@ -1064,6 +1162,29 @@ K5BWD_NOW = {
     "as is, dq with P in registers, whole": {
         "static constexpr bool kPSmem = NQ > 128;":
         "static constexpr bool kPSmem = false;"},
+}
+#: Edits of K5's source that undo one lever of the (64, 64) backward's
+#: redesign: dkv at 384 threads under setmaxnreg (not 288), its two
+#: warpgroups split by product (PR 31's form), lse and D read from L2 (not
+#: staged in shared memory); dq on two consumer warpgroups (128 queries a
+#: block) instead of three, or two where that leaves fewer waves; P by expf
+#: (PR 31's arithmetic and bits) instead of ex2.
+K5BWD_WHISPER = {
+    "as is, dkv at 384 threads, whole": {
+        "static constexpr bool kKVRegs = kRegs || (kOwnKeys && DK == 96);":
+        "static constexpr bool kKVRegs = kRegs || kOwnKeys;"},
+    "as is, dkv split by product, whole": {
+        "static constexpr bool kOwnKeys = DV == 64 && (DK == 96 || DK == 64);":
+        "static constexpr bool kOwnKeys = DK == 96 && DV == 64;"},
+    "as is, dkv reading lse and D from L2, whole": {
+        "static constexpr bool kStageLD = DK == 64 && DV == 64;":
+        "static constexpr bool kStageLD = false;"},
+    "as is, dq on two warpgroups, whole": {
+        "static constexpr int kQWGs = DK == 64 && DV == 64 ? 3 : 2;":
+        "static constexpr int kQWGs = 2;"},
+    "as is, P by expf (PR 31's bits), whole": {
+        "static constexpr bool kEx2 = DK == 64 && DV == 64;":
+        "static constexpr bool kEx2 = false;"},
 }
 #: The wgmma backward's kernels, by the name the profiler gives them.
 K5BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkv_wgmma",
@@ -1207,6 +1328,88 @@ def k5bwd(torch, cs, _build) -> None:
                       f"SDPA's backward {sdpa_ms:.5f} ms){tail}", flush=True)
         del q, k, v, out, lse, dout, qg, kg, vg, sdpa, args, want
         torch.cuda.empty_cache()
+    k5bwd_whisper(torch, cs, _build)
+
+
+def k5bwd_whisper(torch, cs, _build) -> None:
+    """K5's backward at Whisper's (64, 64): the first design there (PR
+    31's source) against the source as it is, each whole and stopped after
+    its prep pass or after dkv (``K5BWD_SPLIT``), and the source with one
+    lever of its redesign undone (``K5BWD_WHISPER``).  dq, dk, dv at every
+    other wgmma width compared bit for bit with the first design at
+    ``mla_bit_cases`` and held to ``check_flash_bwd`` (two calls the same
+    bits); then each timed in turns at ``whisper_shapes`` beside SDPA's
+    backward and ``k5_bwd_bound``, the whole calls with the profiler's time
+    of each of the three kernels."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    designs = {}
+    for label, source in (("first Whisper design",
+                           "variants/flash_attention_whisper_first"),
+                          ("as is", "flash_attention")):
+        table = {f"{label}, {n}": e for n, e in K5BWD_SPLIT.items()}
+        if source == "flash_attention":
+            table.update(K5BWD_WHISPER)
+        designs.update({n: k5_lib(lib) for n, lib in build(
+            _build, source, table, WHISPER_ONLY).items()})
+    first = designs["first Whisper design, whole"]
+    now = designs["as is, whole"]
+    for dk, dv in ((128, 128), (96, 64), (192, 128), (64, 64)):
+        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
+            out, lse = kfa.flash_attention(q, k, v, causal=causal,
+                                           scale=dk ** -0.5, return_lse=True)
+            dout = cs.randn(torch, 9, out.shape, torch.float32)
+            got, want, again = (k5_bwd(torch, cs, _build, lib, "wgmma", q, k,
+                                       v, out, dout, lse, causal)
+                                for lib in (now, first, now))
+            err = cs.check_flash_bwd(torch, what, got, q, k, v, out, dout,
+                                     causal, dk ** -0.5, "wgmma")
+            print(f"K5 backward {what}: dq, dk, dv "
+                  f"{bits_word(torch, got, want)} the first Whisper design; "
+                  f"two calls {bits_word(torch, got, again)} each other; max "
+                  f"|err| {err:.3g} (within check_flash_bwd)", flush=True)
+    for name, S, T, causal in whisper_shapes(cs, False):
+        B, H = cs.SERVE_BATCH, 16
+        q, k, v = whisper_qkv(torch, cs, 960, B, H, S, T)
+        out, lse = kfa.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+        dout = cs.randn(torch, 963, (B, H, S, 64), torch.float32)
+        args = (q, k, v, out, dout, lse)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        sdpa_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (),
+            20)
+        bound, by = cs.k5_bwd_bound(B, H, H, S, T, 64, causal, 2, "wgmma")
+        want = k5_bwd(torch, cs, _build, first, "wgmma", *args, causal)
+        shape = f"(64, 64) {name} B={B} H={H} S={S} T={T} causal={causal}"
+        for turn, names in enumerate((list(designs), list(designs)[::-1])):
+            for n in names:
+                lib = designs[n]
+
+                def fn(*a):
+                    return k5_bwd(torch, cs, _build, lib, "wgmma", *a, causal)
+
+                tail = ""
+                if n.endswith("whole"):
+                    got, again = fn(*args), fn(*args)
+                    err = cs.check_flash_bwd(torch, n, got, q, k, v, out,
+                                             dout, causal, 64 ** -0.5,
+                                             "wgmma")
+                    split = kernel_ms(torch, fn, args, 20, K5BWD_KERNELS)
+                    tail = ("; profiler: " + ", ".join(
+                        f"{k_} {t:.5f} ms" for k_, t in split.items())
+                        + f"; max |err| {err:.3g}; "
+                        + bits_word(torch, got, want)
+                        + " the first Whisper design; two calls "
+                        + bits_word(torch, got, again) + " each other")
+                ms = cs.time_ms(torch, fn, args, 20)
+                print(f"{n}: K5 backward {shape} turn {turn}: {ms:.5f} ms a "
+                      f"call (CUDA events, 20 calls; bound {bound:.5f} ms by "
+                      f"{by}, {100 * bound / ms:.1f}%; SDPA's backward "
+                      f"{sdpa_ms:.5f} ms){tail}", flush=True)
+        del q, k, v, out, lse, dout, qg, kg, vg, sdpa, args, want
+        torch.cuda.empty_cache()
 
 
 def k4bwd(torch, cs, _build) -> None:
@@ -1263,16 +1466,22 @@ TABLES = (("segment_matmul", K4_VARIANTS),
           ("rwkv_scan", K6BWD_SPLIT),
           ("flash_attention", K5BWD_SPLIT),
           ("flash_attention", K5BWD_NOW),
-          ("variants/flash_attention_mla_first", K5BWD_SPLIT_FIRST))
+          ("variants/flash_attention_mla_first", K5BWD_SPLIT_FIRST),
+          ("variants/flash_attention_whisper_first", K5_WHISPER_FIRST),
+          ("flash_attention", K5_WHISPER_NOW),
+          ("variants/flash_attention_whisper_first", K5BWD_SPLIT),
+          ("flash_attention", K5BWD_WHISPER))
 
 
 def main() -> int:
     import torch
 
     if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"],
-                            ["k5bwd"], ["k4bwd"], ["k6bwd"]):
+                            ["k5bwd"], ["k4bwd"], ["k6bwd"],
+                            ["k5", "whisper"], ["k5bwd", "whisper"]):
         print("usage: python3 kernel_variants.py "
-              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd|k6bwd", file=sys.stderr)
+              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd|k6bwd, or k5|k5bwd whisper",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -1288,8 +1497,9 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6, "ctrl": ctrl,
-     "k5bwd": k5bwd, "k4bwd": k4bwd, "k6bwd": k6bwd}[sys.argv[1]](
-         torch, cs, _build)
+     "k5bwd": k5bwd, "k4bwd": k4bwd, "k6bwd": k6bwd,
+     "k5 whisper": k5_whisper, "k5bwd whisper": k5bwd_whisper}[
+         " ".join(sys.argv[1:])](torch, cs, _build)
     return 0
 
 

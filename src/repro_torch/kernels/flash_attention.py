@@ -31,9 +31,13 @@ and the module's ``routes`` which one: ``wgmma`` (bf16 at a pair of
 DeepSeek-V2's (192, 128), the models' prefills and training forwards and
 Whisper's encoder, causal and cross attention: Q K^T and a
 split-bf16 P V on the tensor cores, K and V on a TMA ring, at MLA's
-widths the two consumer warpgroups taking turns on the tensor cores; its
-strides must be multiples of 8 elements) and ``fma`` (float32, and bf16
-at the other widths: float32 on the CUDA cores).
+widths the two consumer warpgroups taking turns on the tensor cores, at
+(64, 64) three consumer warpgroups on 64-key tiles, each with Q K^T of
+the next tile and P V of the last in flight beside its softmax, the
+scale folded into the exponent (other bits than the other widths' form,
+within the same bound); its strides must be multiples of 8 elements) and
+``fma`` (float32, and bf16 at the other widths: float32 on the CUDA
+cores).
 
 Bound on an H100, per visible (query, key) pair: ``wgmma`` ``2 dk``
 operations for ``Q K^T`` and ``4 dv`` for ``P V`` (P split into bf16 hi
@@ -60,7 +64,13 @@ the same bits); ``.launches`` counts its launches and the module's
   strides TMA can map, the models' training
   calls; at (192, 128), and in the dk / dv kernel at (96, 64), blocks of
   384 threads whose producer warpgroup gives its registers to the
-  consumers; at (96, 64) dK and dQ are ``m64n96`` products): three
+  consumers; at (96, 64) dK and dQ are ``m64n96`` products; at (96, 64)
+  and (64, 64) the dk / dv kernel's block owns 128 keys, each consumer
+  warpgroup all five products for its 64; at (64, 64) each ring tile
+  brings its rows' lse and D into shared memory, dq's block has three
+  consumer warpgroups (or two where that leaves fewer waves) and P is
+  2^(s scale log2 e - lse log2 e), one FFMA and one ex2 (other bits
+  than the other widths' form, within the same bound)): three
   launches, a prep pass (D_i and dO split into bf16 hi + lo, once a call),
   ``flash_bwd_dkv_wgmma`` and ``flash_bwd_dq_wgmma`` (every product on the
   tensor cores, P and dS split into hi + lo in registers; the source note
