@@ -311,11 +311,36 @@ Phases, in order; any failure exits non-zero before the last line:
            launches, all wgmma), K5 forward and backward replayed on its
            inputs, and the 2 + 2 layer float32 gradient slice within
            ``WHISPER_TRAIN_SLICE_TOL`` and ``WHISPER_TRAIN_SLICE_LOSS_TOL``;
-13. report one JSON line of kernels (K1-K6, ctrl_step and K4's, K5's
-           and K6's backward, and K5's forward and backward at MLA's and
-           Whisper's widths; a forward kernel's launches are its serves'
-           and training paths' together, a backward's its training
-           paths'), the card line, and the ``{"ok": ...}`` line last.
+13. hybrid (its kernel checks run after phase 12's) K5's sliding window
+           at Hymba's (64, 64) with 5 query heads a KV head, bf16 on
+           wgmma, forward and backward, against the windowed plain
+           versions at B 4, H 25, S = T = 2,048, window 1,024 and at the
+           edge windows 1, 63, 64, 65, 1,023 and past S, and on fma (hd 16,
+           float32); K7 ``mamba_scan`` (csrc/mamba_scan.cu, no Pallas
+           counterpart: ``mamba_apply``'s ``lax.scan``) forward and
+           backward at B 4, S 2,048, d_inner 1,600, N 16 and at a decode
+           step's S 1 with a state, within ``check_mamba`` /
+           ``check_mamba_bwd``'s error envelopes; planted faults (the
+           window one key wider or gone, the state or dh_fin not carried)
+           beyond the bounds; each timed beside its bound, its plain
+           version and (K5) SDPA with the window as a boolean mask.  Then
+           Hymba-1.5B at its published 32 layers behind ``ServeEngine``
+           with prompts of 1,100-2,048 tokens: K5 32 times a prefill, all
+           wgmma (29 windowed layers), K7 32 times a model call; K5 and K7
+           replayed on the serve's inputs; a 4-layer full-width slice
+           (layer 1 windowed) at 1,150 prompt positions and 4 decode steps
+           within ``HYBRID_SLICE_TOL``; the training path (4 x 2,048
+           tokens, remat, 8 steps; K5 forward 512 and backward 768
+           launches on wgmma, K7 forward 512 and backward 512), K5 and K7
+           replayed on its inputs, and the 4-layer float32 gradient slice
+           within ``HYBRID_TRAIN_SLICE_TOL`` and
+           ``HYBRID_TRAIN_SLICE_LOSS_TOL``;
+14. report one JSON line of kernels (K1-K7, ctrl_step and K4's, K5's,
+           K6's and K7's backward, and K5's forward and backward at MLA's
+           and Whisper's widths and with Hymba's window; a forward
+           kernel's launches are its serves' and training paths' together,
+           a backward's its training paths'), the card line, and the
+           ``{"ok": ...}`` line last.
 
 Without a card, or run from a directory that holds only this file, it exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -341,6 +366,12 @@ builds K4, K5 and K6 and runs phase 10 alone.
 builds K4 and K5 and runs phase 12 alone, then the readings behind
 ``WHISPER_SLICE_TOL`` and the two Whisper train slice limits (each slice at
 three seeds, sound and with planted K5 faults).
+
+    python3 chip_smoke.py --hybrid     # not part of the smoke
+
+builds K4, K5, K6 and K7 and runs phase 13 alone, then the readings behind
+``HYBRID_SLICE_TOL`` and the two Hymba train slice limits (each slice at
+three seeds, sound and with planted K5 and K7 faults).
 
     python3 chip_smoke.py --armed      # not part of the smoke
 
@@ -587,6 +618,57 @@ WHISPER_K5_CASES = ((2, 4, 4, 1, 1500, False), (2, 4, 4, 63, 1500, False),
 WHISPER_K5_TIMED = (("encoder", 1500, 1500, False),
                     ("cross attention", 512, 1500, False),
                     ("decoder", 512, 512, True))
+#: An H100 SXM's special-function (multi-function unit) rate: 16 results
+#: a clock an SM (the CUDA C++ guide's throughput table for compute
+#: capability 9.0), 132 SMs, 1.98 GHz: K7's exponentials.
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
+#: Hymba-1.5B (the hybrid family: a Mamba head beside GQA attention in
+#: each of its 32 layers, 25 query heads on 5 KV heads at hd 64, a sliding
+#: window of 1,024 on every layer but 0, 16 and 31; K5 at (64, 64) with the
+#: window, K7 on every Mamba head, d_inner 1,600, N 16).  Its serve takes
+#: the serve's batch and requests with prompts of HYBRID_PROMPT tokens
+#: (past the window, so its windowed layers mask); its training path
+#: TRAIN_STEPS steps of TRAIN_B x HYBRID_TRAIN_S packed tokens at TRAIN_LR
+#: with remat; both at the published 32 layers (~21 GB of training state).
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_PROMPT, HYBRID_TRAIN_S = (1100, 2048), 2048
+#: K5's window checks: at Hymba's width, bf16 on wgmma through the model's
+#: views, the timed shape (B, H, KV, S, window) and the edges (windows 1,
+#: 63, 64, 65, 1,023 and past S; 5, 1 and 5 query heads a KV head); on the
+#: fma route (B, H, KV, S, hd, dtype, window): hd 16 and float32.
+HYBRID_K5 = (4, 25, 5, 2048, 1024)
+HYBRID_K5_EDGES = ((1, 5, 1, 300, 1), (1, 5, 1, 300, 63), (1, 5, 1, 300, 64),
+                   (1, 5, 1, 300, 65), (2, 10, 2, 1100, 1023),
+                   (1, 5, 5, 700, 5000))
+HYBRID_K5_FMA = ((2, 4, 2, 200, 16, "float32", 8),
+                 (2, 4, 2, 200, 16, "bfloat16", 5),
+                 (2, 5, 1, 300, 64, "float32", 70))
+#: K7's checks (B, S, d_inner, N, with a state): Hymba's prefill (timed), a
+#: decode step, and float32 at N 4 and 16 across the checkpoint interval.
+HYBRID_K7 = ((4, 2048, 1600, 16, False), (4, 1, 1600, 16, True),
+             (2, 130, 40, 4, True), (1, 65, 8, 16, True))
+#: The Hymba slices: HYBRID_SLICE_LAYERS layers at full width (layer 1
+#: windowed).  The serve slice: SLICE_B x HYBRID_SLICE_S prompt positions
+#: (past the 1,024 window) and SLICE_STEPS decode steps: the decode
+#: steps' largest |logit difference| HYBRID_SLICE_TOL and the prompt
+#: positions' median largest |logit difference| HYBRID_SLICE_PROMPT_TOL
+#: (the prompt's largest is no limit: bf16 noise through the Mamba heads
+#: reaches 0.71-2.9 at a few positions in sound runs).  The train slice:
+#: float32, the window cut to HYBRID_TRAIN_SLICE_WINDOW so that it masks
+#: within TRAIN_SLICE_B x HYBRID_TRAIN_SLICE_S tokens; the largest
+#: gradient difference relative to its leaf's largest entry and |loss
+#: difference| (HYBRID_TRAIN_SLICE_TOL, HYBRID_TRAIN_SLICE_LOSS_TOL).
+#: Each set from ``python3 chip_smoke.py --hybrid`` (its readings: seeds
+#: 0-2, sound and with K5's window one key wider or K7's state not carried
+#: on the card's side) near the geometric mean of the sound runs' reach
+#: and the nearest fault's (H100): decode steps 0.206 against 3.42 (the
+#: state not carried; the window's fault moves the bf16 slice within its
+#: noise, the float32 train slice sees it); gradients 0.00555 against
+#: 0.473 (the window one key wider), the loss 9.54e-7 against 0.00171.
+HYBRID_SLICE_LAYERS, HYBRID_SLICE_S = 4, 1150
+HYBRID_SLICE_TOL, HYBRID_SLICE_PROMPT_TOL = 0.8, 0.3
+HYBRID_TRAIN_SLICE_S, HYBRID_TRAIN_SLICE_WINDOW = 128, 48
+HYBRID_TRAIN_SLICE_TOL, HYBRID_TRAIN_SLICE_LOSS_TOL = 0.05, 4e-5
 
 
 class Family(NamedTuple):
@@ -820,8 +902,11 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def time_ms(torch, fn, args, reps: int) -> float:
-    for _ in range(3):
+def time_ms(torch, fn, args, reps: int, warm: int = 3) -> float:
+    """``fn(*args)``'s time a call by CUDA events over ``reps`` calls, after
+    ``warm`` calls (a plain version that takes seconds a call needs
+    none)."""
+    for _ in range(warm):
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2148,15 +2233,17 @@ def check_segment_matmul(torch, what: str, got, x, w, rows=None) -> float:
 
 
 def check_flash(torch, what: str, got, q, k, v, causal: bool,
-                scale: float) -> float:
+                scale: float, window=None) -> float:
     """K5 against its plain version: both are float32 arithmetic on the
     same inputs; l and acc are float32 sums of up to T terms, each within
     T * 2^-24 of its exact value relative to the sum of magnitudes, so the
     outputs lie within 2 * T * 2^-24 * max|v| of each other, plus 3e-5 for
     the exponentials (``tests/test_kernels.py``'s absolute tolerance).
+    ``window``: a causal call's sliding window, the plain version's too.
     Returns max |got - plain|."""
     from repro_torch.kernels import ref
-    want = ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    want = ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window)
     check(got.shape == want.shape and got.dtype == torch.float32,
           f"{what}: {tuple(got.shape)} {got.dtype} vs plain "
           f"{tuple(want.shape)}")
@@ -2187,8 +2274,19 @@ def k4_bound(E: int, C: int, D: int, F: int, dtype_bytes: int, rows=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def visible_pairs(S: int, T: int, causal: bool, window=None) -> int:
+    """The (query, key) pairs attention computes on one head: S T full,
+    S (S + 1) / 2 causal, and with a sliding window W (causal, S == T)
+    W (W + 1) / 2 + (S - W) W, each row its last W keys."""
+    if not causal:
+        return S * T
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def k5_bound(B: int, H: int, KV: int, S: int, T: int, hd: int, causal: bool,
-             dtype_bytes: int, dv: Optional[int] = None):
+             dtype_bytes: int, dv: Optional[int] = None, window=None):
     """Least time: the operations per visible (query, key) pair vs q, k, v
     read once (q and k ``hd`` wide, v ``dv``, default ``hd``) and the
     float32 output (``dv`` wide) written once.  bf16 at a pair of the wgmma
@@ -2197,10 +2295,11 @@ def k5_bound(B: int, H: int, KV: int, S: int, T: int, hd: int, causal: bool,
     tensor-core rate.  Other calls (the fma route): 2 hd for Q K^T, at the
     bf16 tensor-core rate for bf16 inputs (their products are exact in
     float32) and the float32 CUDA-core rate for float32 ones, and 2 dv for
-    P V at the float32 rate."""
+    P V at the float32 rate.  With a sliding ``window`` only its visible
+    pairs count (``visible_pairs``)."""
     from repro_torch.kernels.flash_attention import WGMMA_WIDTHS
     dv = hd if dv is None else dv
-    pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
+    pairs = visible_pairs(S, T, causal, window) * B * H
     qk, pv = 2.0 * hd * pairs, 2.0 * dv * pairs
     if dtype_bytes == 2 and (hd, dv) in WGMMA_WIDTHS:
         t_ops = (qk + 2 * pv) / BF16_TC_OPS_PER_S * 1e3
@@ -2417,25 +2516,36 @@ def time_k4(torch, k4, x, w, reps: int, rows=None):
         None if rows is None else rows.tolist())
 
 
-def time_k5(torch, k5, q, k, v, reps: int, causal: bool = True):
+def time_k5(torch, k5, q, k, v, reps: int, causal: bool = True,
+            window=None):
     """(kernel ms, plain ms, scaled_dot_product_attention ms, bound ms,
     bound_by), causal or full, at q's scale (``hd ** -0.5``, q and k
-    ``hd`` wide, v ``dv``)."""
+    ``hd`` wide, v ``dv``); with a sliding ``window`` SDPA takes it as a
+    boolean mask (``window_mask``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     B, H, S, hd = q.shape
     KV, T, dv = k.shape[1], k.shape[2], v.shape[3]
-    ms = time_ms(torch, lambda *a: k5.flash_attention(*a, causal=causal),
-                 (q, k, v), reps)
+    ms = time_ms(torch, lambda *a: k5.flash_attention(
+        *a, causal=causal, window=window), (q, k, v), reps)
     plain_ms = time_ms(torch, lambda *a: ref.flash_attention(
-        *a, causal=causal), (q, k, v), max(reps // 4, 3))
+        *a, causal=causal, window=window), (q, k, v), max(reps // 4, 3))
     kw = dict(is_causal=causal)
+    if window is not None:
+        kw = dict(attn_mask=window_mask(torch, S, window, q.device))
     if KV != H:
         kw["enable_gqa"] = True
     lib_ms = time_ms(torch, lambda *a: F.scaled_dot_product_attention(*a, **kw),
                      (q, k, v), reps)
     return (ms, plain_ms, lib_ms) + k5_bound(B, H, KV, S, T, hd, causal,
-                                             q.element_size(), dv)
+                                             q.element_size(), dv, window)
+
+
+def window_mask(torch, S: int, window: int, device):
+    """[S, S] bool, True where query i sees key j (i - window < j <= i):
+    a sliding window as ``scaled_dot_product_attention`` takes it."""
+    i = torch.arange(S, device=device)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
 
 # --------------------------------------------------------------------- #
@@ -2671,13 +2781,14 @@ def rwkv_kernel_phase(torch, k6) -> float:
 # --------------------------------------------------------------------- #
 # 7. serve: a model at full width (OLMoE-1B-7B; RWKV6-1.6B in phase 9)    #
 # --------------------------------------------------------------------- #
-def serve_phase(torch, kernel_mods, arch: str, recs):
+def serve_phase(torch, kernel_mods, arch: str, recs, prompt=SERVE_PROMPT):
     """Serve SERVE_REQUESTS requests through ``arch`` at full width (every
     layer, float32 weights from seed 0, bf16 compute) with ``ServeEngine``
-    on the card, every kernel's count set to 0 just before and read just
-    after, the recorders ``recs`` standing in for their kernels (each keeps
-    the first call at each shape, labelled prefill or decode).  Returns
-    (launches per kernel, a summary dict)."""
+    on the card, prompts of ``prompt`` = (least, most) tokens, every
+    kernel's count set to 0 just before and read just after, the recorders
+    ``recs`` standing in for their kernels (each keeps the first call at
+    each shape, labelled prefill or decode).  Returns (launches per kernel,
+    a summary dict)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -2693,8 +2804,7 @@ def serve_phase(torch, kernel_mods, arch: str, recs):
     eng = ServeEngine(params, cfg, batch_size=SERVE_BATCH,
                       max_len=SERVE_NEW + 8, eos_id=-1, device="cuda")
     rng = np.random.default_rng(0)
-    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
-                           SERVE_REQUESTS)
+    lengths = rng.integers(prompt[0], prompt[1] + 1, SERVE_REQUESTS)
     for i, n in enumerate(lengths):
         eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
             np.int32), max_new_tokens=SERVE_NEW))
@@ -2903,12 +3013,13 @@ def slice_model(torch, seed: int, arch: str = "olmoe-1b-7b"):
 
 
 def slice_logits(torch, cfg, params, toks, dev: str, patches=None,
-                 frames=None):
-    """The prefill of the first SLICE_S tokens at every position (behind
-    ``patches``, the vlm family's patch rows, whose positions are not
-    returned; over ``frames``, the encdec family's encoder input), then
-    SLICE_STEPS decode steps fed the next tokens (teacher forcing).  Returns float32 logits ``[B, SLICE_S + SLICE_STEPS, V]``
-    and each token's experts ``[B, SLICE_S + SLICE_STEPS, layers * k]``
+                 frames=None, steps: int = SLICE_STEPS):
+    """The prefill of the first S = len(toks) - ``steps`` tokens (SLICE_S
+    by default) at every position (behind ``patches``, the vlm family's
+    patch rows, whose positions are not returned; over ``frames``, the
+    encdec family's encoder input), then ``steps`` decode steps fed the
+    next tokens (teacher forcing).  Returns float32 logits ``[B, S +
+    steps, V]`` and each token's experts ``[B, S + steps, layers * k]``
     (sorted within a layer; None for a model without experts), on the
     host."""
     from repro_torch.models import decode_step, init_cache, prefill
@@ -2921,15 +3032,17 @@ def slice_logits(torch, cfg, params, toks, dev: str, patches=None,
         calls.append(idx.sort(dim=-1).values.cpu())
         return weights, idx
 
+    B, S = toks.shape[0], toks.shape[1] - steps
+
     def take(logits, n):
         out.append(logits.float().cpu())
         if calls:
-            routes.append(torch.cat([c.reshape(SLICE_B, n, -1)
+            routes.append(torch.cat([c.reshape(B, n, -1)
                                      for c in calls], dim=-1))
             calls.clear()
 
     out, routes = [], []
-    batch = {"tokens": toks[:, :SLICE_S].to(dev)}
+    batch = {"tokens": toks[:, :S].to(dev)}
     n0 = 0
     if patches is not None:
         batch["patches"] = patches.to(dev)
@@ -2937,10 +3050,10 @@ def slice_logits(torch, cfg, params, toks, dev: str, patches=None,
     if frames is not None:
         batch["frames"] = frames.to(dev)
     with StandIn(moe_lib, "router_topk", routed):
-        cache = init_cache(cfg, SLICE_B, n0 + SLICE_S + SLICE_STEPS, dev)
+        cache = init_cache(cfg, B, n0 + S + steps, dev)
         logits, cache = prefill(params, cfg, batch, cache, all_positions=True)
-        take(logits[:, n0:], SLICE_S)
-        for i in range(SLICE_S, SLICE_S + SLICE_STEPS):
+        take(logits[:, n0:], S)
+        for i in range(S, S + steps):
             logits, cache = decode_step(params, cfg, toks[:, i:i + 1].to(dev),
                                         cache, n0 + i)
             take(logits, 1)
@@ -3047,17 +3160,18 @@ def rwkv_replay_phase(torch, k6, first):
     return err, main
 
 
-def rwkv_slice_compare(card, host, tol: float = RWKV_SLICE_TOL):
+def rwkv_slice_compare(card, host, tol: float = RWKV_SLICE_TOL,
+                       S: int = SLICE_S):
     """Card against host at every token: the largest |logit difference|
-    (over the prompt's positions and per decode step), and the greedy
+    (over the prompt's S positions and per decode step), and the greedy
     tokens, compared where the card's top-2 margin exceeds ``tol``."""
     lc, lh = card[0], host[0]
     err = (lc - lh).abs().amax(dim=-1)                  # [B, P]
     top2 = lc.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > tol
     same = lc.argmax(-1) == lh.argmax(-1)
-    return dict(err=float(err.max()), prompt_err=float(err[:, :SLICE_S].max()),
-                steps=[float(e) for e in err[:, SLICE_S:].amax(dim=0)],
+    return dict(err=float(err.max()), prompt_err=float(err[:, :S].max()),
+                steps=[float(e) for e in err[:, S:].amax(dim=0)],
                 decided=int(sure.sum()), agree=int((same & sure).sum()),
                 equal=int(same.sum()), tokens=int(err.numel()))
 
@@ -3129,7 +3243,7 @@ def rwkv_phase(torch, k6, kernel_mods, smi: str):
 # 10. train: K4's and K5's backward, OLMoE-1B-7B trained at full width   #
 # --------------------------------------------------------------------- #
 def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
-                    scale: float, route: str = "fma") -> float:
+                    scale: float, route: str = "fma", window=None) -> float:
     """K5's backward against its plain version (``ref.flash_attention_bwd``
     on the same inputs), both float32 arithmetic, entry by entry.  A float32
     sum of n terms in any order lies within n 2^-24 of the sum of its terms'
@@ -3158,10 +3272,11 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
       each within (2 + 1.173 x) units of 2^-23 relative at x = m - s <= 2
       max|s| (the CUDA guide's bound on __expf), so lse lies within
       (2 + 2.35 max|s|) 2^-23 of l's exact log, which e_p gains.
-    The fma route's bound is the first paragraph's, unchanged."""
+    The fma route's bound is the first paragraph's, unchanged.  A sliding
+    ``window`` masks the plain version's scores and the bound's alike."""
     from repro_torch.kernels import ref
     want = ref.flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                   scale=scale)
+                                   scale=scale, window=window)
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     rep = H // KV
@@ -3173,6 +3288,8 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
     s = torch.einsum("bhsd,bhtd->bhst", qs, kf)
     if causal:
         vis = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        if window is not None:
+            vis = window_mask(torch, S, window, q.device)
         s = torch.where(vis, s, float("-inf"))
     P = torch.softmax(s, -1)
     del s
@@ -3216,7 +3333,7 @@ def check_flash_bwd(torch, what: str, got, q, k, v, out, dout, causal: bool,
 
 def k5_bwd_bound(B: int, H: int, KV: int, S: int, T: int, hd: int,
                  causal: bool, dtype_bytes: int, route: str = "fma",
-                 dv: Optional[int] = None):
+                 dv: Optional[int] = None, window=None):
     """Least time of K5's backward, q and k ``hd`` wide and v ``dv``
     (default ``hd``): on the ``fma`` route, per visible (query, key) pair,
     the scores once (2 hd, at the bf16 tensor-core rate for bf16 inputs,
@@ -3227,9 +3344,10 @@ def k5_bwd_bound(B: int, H: int, KV: int, S: int, T: int, hd: int,
     and lo), dV 6 dv (three of P's and dO's four hi / lo pairs), dK 4 hd
     and dQ 4 hd (dS's hi and lo), 10 hd + 10 dv a pair; or q, k, v read and
     dq, dk, dv written in their dtype, out and dout read in float32 (and
-    the lse on the wgmma route), once."""
+    the lse on the wgmma route), once.  With a sliding ``window`` only its
+    visible pairs count (``visible_pairs``)."""
     dv = hd if dv is None else dv
-    pairs = (S * (S + 1) // 2 if causal else S * T) * B * H
+    pairs = visible_pairs(S, T, causal, window) * B * H
     if route == "wgmma":
         t_ops = (10.0 * hd + 10.0 * dv) * pairs / BF16_TC_OPS_PER_S * 1e3
     else:
@@ -3284,7 +3402,7 @@ def check_seg_bwd(torch, k4, what: str, got, dout, x, w, rows) -> float:
 
 
 def check_lse(torch, what: str, lse, q, k, v, causal: bool,
-              scale: float) -> float:
+              scale: float, window=None) -> float:
     """K5's log-sum-exp against its plain version's: the scores differ by
     at most 2 hd 2^-24 max sum|scale q k| (another order, the scale applied
     after the product), l by (2 + 2.35 max|s|) 2^-23 relative (the
@@ -3293,7 +3411,7 @@ def check_lse(torch, what: str, lse, q, k, v, causal: bool,
     error."""
     from repro_torch.kernels import ref
     _, want = ref.flash_attention(q, k, v, causal=causal, scale=scale,
-                                  return_lse=True)
+                                  return_lse=True, window=window)
     rep = q.shape[1] // k.shape[1]
     smax = float(torch.einsum("bhsd,bhtd->bhst", q.float().abs() * scale,
                               k.float().abs().repeat_interleave(rep, 1))
@@ -4449,13 +4567,14 @@ def rwkv_train_config(torch):
 
 
 def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
-                      want, want_routes=None):
+                      want, want_routes=None, make=None):
     """TRAIN_STEPS steps of a training path on one repeated batch, every
     count of ``names`` ((module, wrapper name) pairs) set to 0 just before
     and read just after, the wrappers named in ``recorded`` recorded: the
     loss finite at every step and lower at the last than the first, the
     launches equal to ``want`` and, for each wrapper in ``want_routes``,
-    by route (its module's ``routes`` or ``bwd_routes`` table).  With
+    by route (its module's ``routes`` or ``bwd_routes`` table); ``make``
+    builds each recorder (``Recorder`` by default).  With
     ``tc.moe_balancer`` (a MoE model) a balancer on each MoE layer of
     ``blocks`` and a hot expert planted in their routers as ``train_phase``
     plants it: every replica equal to its primary after every step, and an
@@ -4493,7 +4612,8 @@ def model_train_phase(torch, label: str, cfg, tc, batch, names, recorded,
         spent[1] += 1
         return out
 
-    recs = {name: Recorder(mod, name) for mod, name in names
+    make = Recorder if make is None else make
+    recs = {name: make(mod, name) for mod, name in names
             if name in recorded}
     tables = {name: getattr(mod, "bwd_routes" if name.endswith(
                                 ("_bwd", "_backward")) else "routes")
@@ -6369,6 +6489,1056 @@ def whisper_only() -> int:
     return 0
 
 
+# --------------------------------------------------------------------- #
+# 13. The hybrid family: Hymba-1.5B, serve and train; K5's window, K7    #
+# --------------------------------------------------------------------- #
+class WindowRecorder(Recorder):
+    """A recorder of K5 (forward or backward) that keeps the first call of
+    each (path, window, shapes): the hybrid family's full and windowed
+    layers call it at one shape."""
+
+    def __call__(self, *args, **kw):
+        key = self.key(*args) + (kw.get("window"),)
+        if key not in self.first:
+            self.first[key] = (tuple(None if t is None else t.clone()
+                                     for t in args), kw)
+        return self.kernel(*args, **kw)
+
+
+def k7_bound(B: int, S: int, DI: int, N: int, x_bytes: int,
+             with_state: bool):
+    """Least time of K7's forward: B S DI N exponentials at the
+    multi-function unit's rate and 5 float32 operations an entry at the
+    CUDA cores' (the slower of the two units), or x, delta, B, C, a and
+    d_skip read and y and the final state written once (h0 read with a
+    state)."""
+    entries = B * S * DI * N
+    t_ops = max(entries / MUFU_OPS_PER_S, 5.0 * entries / FP32_OPS_PER_S) * 1e3
+    t_bytes = (x_bytes * 2 * B * S * DI + 4 * B * S * DI + 8 * B * S * N
+               + 4 * (DI * N + DI) + 4 * B * DI * N * (2 if with_state else 1)
+               ) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k7_bwd_bound(B: int, S: int, DI: int, N: int, x_bytes: int):
+    """Least time of K7's backward: the forward's exponentials once and 12
+    float32 operations an entry (the slower unit), or x, delta, B, C, dy
+    and dh_fin read and dx, ddelta, dB, dC, da, dd_skip and dh0 written
+    once."""
+    entries = B * S * DI * N
+    t_ops = max(entries / MUFU_OPS_PER_S,
+                12.0 * entries / FP32_OPS_PER_S) * 1e3
+    t_bytes = (x_bytes * 3 * B * S * DI + 8 * B * S * DI + 16 * B * S * N
+               + 8 * (DI * N + DI) + 8 * B * DI * N) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mamba_inputs(torch, seed: int, B: int, S: int, DI: int, N: int,
+                 xdt, state: bool, dev: str = "cuda"):
+    """K7's inputs as the model makes them, from ``seed``: x ``[B, S, DI]``
+    in ``xdt``, delta = softplus of a standard normal, B and C standard
+    normal, a = -exp(log(1 .. N) + 0.2 z) (``mamba_init``'s, moved),
+    d_skip near 1, and with ``state`` a standard normal h0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = n(B, S, DI).to(xdt)
+    delta = torch.nn.functional.softplus(n(B, S, DI))
+    a = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev,
+                                          dtype=torch.float32))
+                   + 0.2 * n(DI, N))
+    d_skip = 1 + 0.2 * n(DI)
+    h0 = n(B, DI, N) if state else None
+    return x, delta, n(B, S, N), n(B, S, N), a, d_skip, h0
+
+
+def mamba_envelope(torch, x, delta, bmat, cmat, a, d_skip, h0):
+    """``check_mamba``'s bound, by the recurrence on magnitudes: A_t = da_t
+    A_{t-1} + |dbx_t| (A_{-1} = |h0|) bounds |h_t|, and E_t = da_t E_{t-1} +
+    8 2^-24 (da_t A_{t-1} + A_t) (E_{-1} = 0) the two versions' distance at
+    h_t: their exponentials (expf against the plain version's, each within
+    2 units in the last place) and each side's rounding of da h and of the
+    add, the rest of a step being the same operations on the same values.
+    y_t = sum_n h_t C_t + x_t d_skip: E_t through C_t, and each side's 16
+    products and their sums in another order (34 2^-24 sum_n A_t |C_t|),
+    and the last add (4 2^-24 (sum_n A_t |C_t| + |x d_skip|)).  Returns
+    (y's bound [B, S, DI], the final state's [B, DI, N])."""
+    eps = 2.0**-24
+    B, S, DI = x.shape
+    xf, af = x.float().abs(), a.float()
+    A = (torch.zeros((B, DI, a.shape[-1]), device=x.device) if h0 is None
+         else h0.float().abs())
+    E = torch.zeros_like(A)
+    tol = torch.empty((B, S, DI), device=x.device)
+    xd = xf * d_skip.float().abs()
+    for t in range(S):
+        da = torch.exp(delta[:, t, :, None] * af)
+        An = da * A + (delta[:, t, :, None] * bmat[:, t, None, :].abs()
+                       * xf[:, t, :, None])
+        E = da * E + 8 * eps * (da * A + An)
+        A = An
+        c = cmat[:, t, None, :].abs()
+        hc = (A * c).sum(-1)
+        tol[:, t] = (E * c).sum(-1) + 38 * eps * hc + 4 * eps * xd[:, t]
+    return tol + 2.0**-120, E + 2.0**-120
+
+
+def check_mamba(torch, what: str, got, args) -> float:
+    """K7's forward against its plain version on ``args`` (x, delta, B, C,
+    a, d_skip, h0): y within ``mamba_envelope``'s bound (a bf16 y adds one
+    rounding on each side, 2^-7 of the larger), the final state within
+    its own.  Returns max |y - plain|."""
+    from repro_torch.kernels import ref
+    y, h = got
+    want_y, want_h = ref.mamba_scan(*args)
+    tol_y, tol_h = mamba_envelope(torch, *args)
+    check(y.shape == want_y.shape and y.dtype == want_y.dtype
+          and h.shape == want_h.shape and h.dtype == torch.float32,
+          f"{what}: y {tuple(y.shape)} {y.dtype}, h {tuple(h.shape)} vs "
+          f"plain {tuple(want_y.shape)} {want_y.dtype}")
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+          f"{what}: non-finite output")
+    if y.dtype == torch.bfloat16:
+        tol_y = tol_y + 2.0**-7 * torch.maximum(y.float().abs(),
+                                                want_y.float().abs())
+    ey = (y.float() - want_y.float()).abs()
+    eh = (h - want_h).abs()
+    check(bool((ey <= tol_y).all()),
+          f"{what}: y beyond the stated bound of the plain version (max "
+          f"|err| {float(ey.max()):.3g}, bound there "
+          f"{float(tol_y.flatten()[ey.argmax()]):.3g})")
+    check(bool((eh <= tol_h).all()),
+          f"{what}: the final state beyond its bound (max |err| "
+          f"{float(eh.max()):.3g})")
+    return max(float(ey.max()), float(eh.max()))
+
+
+def mamba_bwd_magnitudes(torch, args, dy, dh):
+    """The backward's recurrence on magnitudes (``ref.mamba_scan_bwd`` with
+    every factor made non-negative: |x|, |B|, |C|, |a|, |d_skip|, |h0|,
+    |dy|, |dh_fin|, da and delta as they are): each gradient's sum of the
+    magnitudes of its terms, in the order (dx, ddelta, dB, dC, da,
+    dd_skip, dh0)."""
+    x, delta, bmat, cmat, a, d_skip, h0 = args
+    B, S, DI = x.shape
+    xf, bf, cf = (t.float().abs() for t in (x, bmat, cmat))
+    af, aa = a.float(), a.float().abs()
+    dyf = dy.float().abs()
+    A = (torch.zeros((B, DI, a.shape[-1]), device=x.device) if h0 is None
+         else h0.float().abs())
+    states = []
+    for t in range(S):
+        states.append(A)
+        A = (torch.exp(delta[:, t, :, None] * af) * A
+             + delta[:, t, :, None] * bf[:, t, None, :] * xf[:, t, :, None])
+    g = torch.zeros_like(A) if dh is None else dh.float().abs()
+    mx, mdl = (torch.empty((B, S, DI), device=x.device) for _ in range(2))
+    mb, mc = (torch.empty((B, S, a.shape[-1]), device=x.device)
+              for _ in range(2))
+    ma = torch.zeros_like(aa)
+    for t in reversed(range(S)):
+        hp = states[t]
+        da = torch.exp(delta[:, t, :, None] * af)
+        ht = da * hp + delta[:, t, :, None] * bf[:, t, None, :] \
+            * xf[:, t, :, None]
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        mc[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], ht)
+        gx = g * xf[:, t, :, None]
+        mb[:, t] = torch.einsum("bdn,bd->bn", gx, delta[:, t])
+        u = g * hp * da
+        ma += (u * delta[:, t, :, None]).sum(0)
+        mdl[:, t] = (u * aa).sum(-1) + (gx * bf[:, t, None, :]).sum(-1)
+        mx[:, t] = (g * (delta[:, t, :, None] * bf[:, t, None, :])).sum(-1) \
+            + dyf[:, t] * d_skip.float().abs()
+        g = g * da
+    msk = (dyf * xf).sum((0, 1))
+    return mx, mdl, mb, mc, ma, msk, g
+
+
+def check_mamba_bwd(torch, what: str, got, args, dy, dh) -> float:
+    """K7's backward against its plain version: both float32 arithmetic on
+    the same inputs in other orders (the kernel's sums over N by its
+    butterfly, over d and (b, t) by its partials; its exponentials expf's).
+    Along the recurrence each step rounds a few times on each side and
+    changes the exponential by 4 units in the last place: with M a
+    gradient's magnitude (``mamba_bwd_magnitudes``), within (16 S + 2 n +
+    16) 2^-24 M, n the terms of its own sum (N for dx and ddelta, DI for
+    dB and dC, B S for da and dd_skip); a bf16 dx adds one rounding on each
+    side, 2^-7 of the larger.  Returns max |got - plain|."""
+    from repro_torch.kernels import ref
+    want = ref.mamba_scan_bwd(*args, dy, dh)
+    mags = mamba_bwd_magnitudes(torch, args, dy, dh)
+    B, S, DI = args[0].shape
+    N = args[4].shape[-1]
+    names = ("dx", "ddelta", "dB", "dC", "da", "dd_skip", "dh0")
+    terms = (N, N, DI, DI, B * S, B * S, 0)
+    err = 0.0
+    for name, g, w, m, n in zip(names, got, want, mags, terms):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{what}: {name} {tuple(g.shape)} {g.dtype} vs plain "
+              f"{tuple(w.shape)} {w.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        tol = (16 * S + 2 * n + 16) * 2.0**-24 * m + 2.0**-120
+        if g.dtype == torch.bfloat16:
+            tol = tol + 2.0**-7 * torch.maximum(g.float().abs(),
+                                                w.float().abs())
+        e = (g.float() - w.float()).abs()
+        check(bool((e <= tol).all()),
+              f"{what}: {name} beyond the stated bound of the plain version "
+              f"(max |err| {float(e.max()):.3g})")
+        err = max(err, float(e.max()))
+    return err
+
+
+def time_k7(torch, k7, args, reps: int):
+    """(kernel ms, plain ms, None (no library call), bound ms, bound_by) of
+    K7's forward on ``args``."""
+    from repro_torch.kernels import ref
+    x = args[0]
+    B, S, DI = x.shape
+    ms = time_ms(torch, k7.mamba_scan, args, reps)
+    plain_ms = time_ms(torch, ref.mamba_scan, args, 1, warm=0)
+    return (ms, plain_ms, None) + k7_bound(B, S, DI, args[4].shape[-1],
+                                           x.element_size(),
+                                           args[6] is not None)
+
+
+def time_k7_bwd(torch, k7, args, dy, dh, ck, reps: int):
+    """The same for K7's backward (a call: its two launches)."""
+    from repro_torch.kernels import ref
+    x = args[0]
+    B, S, DI = x.shape
+    ms = time_ms(torch, lambda *a: k7.mamba_scan_bwd(*a, checkpoints=ck),
+                 args + (dy, dh), reps)
+    plain_ms = time_ms(torch, ref.mamba_scan_bwd, args + (dy, dh), 1, warm=0)
+    return (ms, plain_ms, None) + k7_bwd_bound(B, S, DI, args[4].shape[-1],
+                                               x.element_size())
+
+
+def hybrid_k5_case(torch, k5, seed: int, B: int, H: int, KV: int, S: int,
+                   window, dtype=None, d: int = 64):
+    """q ``[B, S, H, d]``, k and v ``[B, S, KV, d]`` from ``seed`` in
+    ``dtype`` (bf16 by default; the model's layout seen through
+    ``.transpose(1, 2)``), K5's causal windowed forward (on ``wgmma`` for
+    bf16 at d 64, else ``fma``) with its lse and a float32 dO.  Returns (q,
+    k, v, out, lse, dout, route)."""
+    dtype = torch.bfloat16 if dtype is None else dtype
+    shapes = [(B, S, H, d), (B, S, KV, d), (B, S, KV, d)]
+    q, k, v = (randn(torch, seed + i, s, dtype).transpose(1, 2)
+               for i, s in enumerate(shapes))
+    route = "wgmma" if (dtype == torch.bfloat16
+                        and (d, d) in k5.WGMMA_WIDTHS) else "fma"
+    what = (f"flash_attention ({d}, {d}) {dtype} B={B} H={H} KV={KV} S={S} "
+            f"window={window}")
+    out, lse = k5_call(k5, what, route, q, k, v, causal=True,
+                       scale=d ** -0.5, return_lse=True, window=window)
+    dout = randn(torch, seed + 3, (B, H, S, d), torch.float32)
+    return q, k, v, out, lse, dout, route
+
+
+def hybrid_window_faults(k5):
+    """K5 planted faults for the window checks: the window one key wider
+    ("window + 1") and taken away ("no window"), forward and backward,
+    each still launching the kernel: (name, forward, backward)."""
+    def wider(fn):
+        return lambda *a, window=None, **kw: fn(
+            *a, window=None if window is None else window + 1, **kw)
+
+    def gone(fn):
+        return lambda *a, window=None, **kw: fn(*a, **kw)
+
+    return [("window + 1", wider(k5.flash_attention),
+             wider(k5.flash_attention_bwd)),
+            ("no window", gone(k5.flash_attention),
+             gone(k5.flash_attention_bwd))]
+
+
+def hybrid_kernel_phase(torch, k5, k7):
+    """K5's sliding window and K7 against their plain versions on the card.
+
+    K5, causal with a window: at Hymba's width ((64, 64), bf16 on
+    ``wgmma``, 25 query heads on 5 KV heads) at ``HYBRID_K5`` (B 4, S =
+    T = 2,048, window 1,024) and at ``HYBRID_K5_EDGES`` (windows 1, 63,
+    64, 65, 1,023 and past S; rep 5, 1 and 5 with H 10), the forward
+    within ``check_flash``'s bound of the windowed plain version, its lse
+    within ``check_lse``'s and the same output bits without it, a view the
+    bits of its copy; the backward (three launches on ``wgmma``) within
+    ``check_flash_bwd``'s wgmma bound, two calls the same bits; the
+    planted "window + 1" and "no window" faults beyond those bounds, both
+    directions, at the timed shape and at window 63; the ``fma`` route
+    (hd 16 and float32, ``HYBRID_K5_FMA``) alike within its bounds.  At
+    the timed shape K5 forward and backward are timed beside ``k5_bound``
+    / ``k5_bwd_bound`` (the windowed pairs), the plain versions and SDPA
+    with the window as a boolean mask.
+
+    K7 at ``HYBRID_K7`` (Hymba's B 4, S 2,048, d_inner 1,600, N 16 in
+    bf16; a decode step's S 1 with a state; float32 at N 4 and 16 across
+    the checkpoint interval): the forward within ``check_mamba``'s bound,
+    the same bits with checkpoints and without, one launch a call; the
+    backward within ``check_mamba_bwd``'s (with and without dh_fin), two
+    launches a call, two calls the same bits; the planted "state not
+    carried" (h0 dropped) and "dh_fin dropped" beyond them; at the timed
+    shape both timed beside ``k7_bound`` / ``k7_bwd_bound`` and their plain
+    versions (no library call computes them).  Returns (the largest
+    errors by kernel name, the timings by kernel name: (ms, plain ms,
+    library ms, bound ms, bound_by))."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    errs = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                          "mamba_scan", "mamba_scan_bwd"), 0.0)
+    timed = {}
+    faults, tried = 0, 0
+    cases = [HYBRID_K5 + (None, 64)] + [c + (None, 64)
+                                        for c in HYBRID_K5_EDGES]
+    cases += [(B, H, KV, S, w, getattr(torch, dt), d)
+              for B, H, KV, S, d, dt, w in HYBRID_K5_FMA]
+    for i, (B, H, KV, S, window, dtype, d) in enumerate(cases):
+        q, k, v, out, lse, dout, route = hybrid_k5_case(
+            torch, k5, 1100 + 4 * i, B, H, KV, S, window, dtype, d)
+        what = (f"flash_attention ({d}, {d}) {q.dtype} B={B} H={H} KV={KV} "
+                f"S={S} window={window}")
+        scale = d ** -0.5
+        kw = dict(causal=True, scale=scale, window=window)
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, out, q, k, v, True, scale, window))
+        if route == "wgmma":
+            check(torch.equal(k5_call(k5, what, route, q, k, v, **kw), out),
+                  f"{what}: the forward gives other bits with its lse")
+            check_lse(torch, what, lse, q, k, v, True, scale, window)
+        copies = [t.contiguous() for t in (q, k, v)]
+        check(torch.equal(k5_call(k5, what, route, *copies, **kw), out),
+              f"{what}: a [B, S, H, d] view gives other bits than its copy")
+        del copies
+        check(k5.bwd_route(q, k, v) == route,
+              f"{what}: the backward takes {k5.bwd_route(q, k, v)}")
+        before = dict(k5.bwd_routes)
+        got = k5.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+        n = k5.BWD_LAUNCHES[route]
+        took = {r: c - before[r] for r, c in k5.bwd_routes.items()
+                if c > before[r]}
+        check(took == {route: n}, f"{what}: the backward launched {took}, "
+                                  f"not {n} on {route}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, k5.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw))),
+              f"{what}: two backward calls give other bits")
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"], check_flash_bwd(
+                torch, what, got, q, k, v, out, dout, True, scale, route,
+                window))
+        del got
+        if i == 0 or window == 63:
+            for name, fwd, bwd in hybrid_window_faults(k5):
+                for direction in ("forward", "backward"):
+                    tried += 1
+                    try:
+                        if direction == "forward":
+                            bad, bad_lse = fwd(q, k, v, return_lse=True,
+                                               **kw)
+                            check_flash(torch, f"{what} ({name})", bad, q,
+                                        k, v, True, scale, window)
+                        else:
+                            check_flash_bwd(
+                                torch, f"{what} ({name})",
+                                bwd(q, k, v, out, dout, lse=lse, **kw), q, k,
+                                v, out, dout, True, scale, route, window)
+                    except SmokeFailure:
+                        faults += 1
+                        continue
+                    check(False, f"{what}: the planted {direction} fault "
+                                 f"'{name}' stays within the bound")
+        if i == 0:
+            fwd_t = time_k5(torch, k5, q, k, v, 20, True, window)
+            ms = time_ms(torch, lambda *a: k5.flash_attention_bwd(
+                *a, lse=lse, **kw), (q, k, v, out, dout), 20)
+            plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
+                *a, **kw), (q, k, v, out, dout), 1)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=window_mask(torch, S, window, q.device),
+                enable_gqa=KV != H)
+            g = dout.to(sdpa.dtype)
+            lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), g, retain_graph=True), (), 20)
+            bwd_t = (ms, plain_ms, lib_ms) + k5_bwd_bound(
+                B, H, KV, S, S, d, True, 2, "wgmma", None, window)
+            timed["flash_attention"], timed["flash_attention_bwd"] = \
+                fwd_t, bwd_t
+            for label, t in (("forward", fwd_t), ("backward", bwd_t)):
+                log(f"hybrid kernels: K5 {label} at (64, 64), B={B} H={H} "
+                    f"KV={KV} S=T={S} window={window}: {t[0]:.5f} ms (plain "
+                    f"{t[1]:.5f} ms, SDPA with the window as a mask "
+                    f"{t[2]:.5f} ms, bound {t[3]:.5f} ms by {t[4]}, "
+                    f"{100 * t[3] / t[0]:.1f}% of it)")
+            del sdpa, qg, kg, vg, g
+        del q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    check(faults == tried == 8,
+          f"hybrid kernels: {faults} of the {tried} planted K5 window "
+          f"faults went beyond the bounds")
+    log(f"hybrid kernels: flash_attention with a window, causal, at "
+        f"{[c[:5] for c in cases]} (B, H, KV, S, window): forward within "
+        f"check_flash's bound (max |err| {errs['flash_attention']:.3g}), "
+        f"lse within check_lse's, views the bits of their copies; backward "
+        f"within check_flash_bwd's (max |err| "
+        f"{errs['flash_attention_bwd']:.3g}), two calls the same bits; "
+        f"{faults} planted window faults beyond the bounds")
+
+    faults, tried = 0, 0
+    for i, (B, S, DI, N, state) in enumerate(HYBRID_K7):
+        xdt = torch.bfloat16 if N == 16 and DI >= 1600 else torch.float32
+        args = mamba_inputs(torch, 1200 + i, B, S, DI, N, xdt, state)
+        what = f"mamba_scan B={B} S={S} d_inner={DI} N={N} {xdt} state={state}"
+        before = k7.mamba_scan.launches
+        got = k7.mamba_scan(*args)
+        y, h, ck = k7.mamba_scan(*args, checkpoints=True)
+        check(k7.mamba_scan.launches == before + 2,
+              f"{what}: {k7.mamba_scan.launches - before} launches for two "
+              f"calls")
+        check(torch.equal(y, got[0]) and torch.equal(h, got[1]),
+              f"{what}: other bits with checkpoints")
+        errs["mamba_scan"] = max(errs["mamba_scan"],
+                                 check_mamba(torch, what, got, args))
+        dy = randn(torch, 1250 + i, (B, S, DI), xdt)
+        dh = randn(torch, 1260 + i, (B, DI, N), torch.float32)
+        # Hymba's prefill shape once (its plain backward takes seconds),
+        # the small shapes with and without dh_fin.
+        for dhf in (dh,) if S > 1000 else (dh, None):
+            before = k7.mamba_scan_bwd.launches
+            g = k7.mamba_scan_bwd(*args, dy, dhf, checkpoints=ck)
+            check(k7.mamba_scan_bwd.launches == before + k7.BWD_LAUNCHES,
+                  f"{what}: the backward launched "
+                  f"{k7.mamba_scan_bwd.launches - before} kernels")
+            check(all(torch.equal(a, b) for a, b in zip(
+                g, k7.mamba_scan_bwd(*args, dy, dhf, checkpoints=ck))),
+                  f"{what}: two backward calls give other bits")
+            errs["mamba_scan_bwd"] = max(errs["mamba_scan_bwd"],
+                                         check_mamba_bwd(torch, what, g, args,
+                                                         dy, dhf))
+            del g
+        planted = []
+        if state:
+            planted.append(("state not carried", "forward",
+                            lambda: (check_mamba, (torch, what, k7.mamba_scan(
+                                *args[:6], None), args))))
+        if S < 1000:
+            planted.append(("dh_fin dropped", "backward",
+                            lambda: (check_mamba_bwd, (
+                                torch, what, k7.mamba_scan_bwd(
+                                    *args, dy, None, checkpoints=ck),
+                                args, dy, dh))))
+        for name, direction, make in planted:
+            tried += 1
+            fn, fargs = make()
+            try:
+                fn(*fargs)
+            except SmokeFailure:
+                faults += 1
+                continue
+            check(False, f"{what}: the planted {direction} fault '{name}' "
+                         f"stays within the bound")
+        if i == 0:
+            timed["mamba_scan"] = time_k7(torch, k7, args, 20)
+            timed["mamba_scan_bwd"] = time_k7_bwd(torch, k7, args, dy, dh,
+                                                  ck, 10)
+            for name in ("mamba_scan", "mamba_scan_bwd"):
+                t = timed[name]
+                log(f"hybrid kernels: {name} at B={B} S={S} d_inner={DI} "
+                    f"N={N} {xdt}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, bound "
+                    f"{t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of "
+                    f"it)")
+        del args, got, y, h, ck, dy, dh
+        torch.cuda.empty_cache()
+    check(faults == tried >= 4, f"hybrid kernels: {faults} of the {tried} "
+                                f"planted K7 faults went beyond the bounds")
+    log(f"hybrid kernels: mamba_scan at {HYBRID_K7} (B, S, d_inner, N, "
+        f"state): forward within check_mamba's bound (max |err| "
+        f"{errs['mamba_scan']:.3g}), the same bits with checkpoints; backward "
+        f"within check_mamba_bwd's (max |err| {errs['mamba_scan_bwd']:.3g}), "
+        f"two calls the same bits; {faults} planted faults beyond the bounds")
+    return errs, timed
+
+
+def hybrid_kernel_mods(kpart, kseg, kfa, krw, k7):
+    """The kernels whose counts a hybrid path reads."""
+    return [(kpart, name) for name in KERNELS] + [
+        (kseg, "segment_matmul"), (kfa, "flash_attention"),
+        (krw, "rwkv_scan"), (k7, "mamba_scan")]
+
+
+def hybrid_serve_phase(torch, kseg, kfa, k7, kernel_mods, smi: str):
+    """Hymba-1.5B's serve at its published 32 layers (``serve_phase`` with
+    prompts of ``HYBRID_PROMPT`` tokens): K5 once a layer a prefill, every
+    call on ``wgmma``, none in a decode step (plain attention over the
+    cache, as JAX's); K7 once a layer a model call, prefill and decode
+    step; K4 and K6 never.  Then K5 (a full layer's call and a windowed
+    one) and K7 (a prefill's and a decode step's) replayed on the serve's
+    inputs against their plain versions, timed beside their bounds.
+    Returns (launches by kernel, the largest replay errors, the prefill's
+    windowed K5 and K7 timings)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    recs = (WindowRecorder(kfa, "flash_attention"),
+            Recorder(k7, "mamba_scan"))
+    launches, sv = serve_phase(torch, kernel_mods, HYBRID_ARCH, recs,
+                               HYBRID_PROMPT)
+    log_serve("Hymba-1.5B", sv, launches, smi)
+    L = cfg.n_layers
+    pre, dec = sv["prefill"][1], sv["decode"][1]
+    got = sv["routes"]["flash_attention"]
+    check(launches["flash_attention"] == L * pre
+          and got == {"fma": 0, "wgmma": L * pre},
+          f"serve: Hymba-1.5B ran flash_attention {got} over {pre} prefills, "
+          f"not {L} a prefill on wgmma")
+    check(launches["mamba_scan"] == L * (pre + dec),
+          f"serve: Hymba-1.5B ran mamba_scan {launches['mamba_scan']} times "
+          f"over {pre} prefills and {dec} decode steps, not {L} a call")
+    check(launches["segment_matmul"] == 0 and launches["rwkv_scan"] == 0,
+          f"serve: the Hymba-1.5B serve launched K4 or K6: {launches}")
+    errs = {"flash_attention": 0.0, "mamba_scan": 0.0}
+    main = {}
+    windows = set()
+    for key, ((q, k, v), kw) in recs[0].first.items():
+        window = kw.get("window")
+        if window in windows:           # one full and one windowed call
+            continue
+        windows.add(window)
+        what = (f"flash_attention on the Hymba serve's {key[0]} q "
+                f"{tuple(q.shape)} window {window}")
+        scale = kw.get("scale") or q.shape[-1] ** -0.5
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, k5_call(kfa, what, "wgmma", q, k, v, **kw), q, k, v,
+            True, scale, window))
+        t = time_k5(torch, kfa, q, k, v, 20, True, window)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, SDPA "
+            f"{t[2]:.5f} ms, bound {t[3]:.5f} ms by {t[4]}, "
+            f"{100 * t[3] / t[0]:.1f}% of it)")
+        if window is not None:
+            main.setdefault("flash_attention", t)
+    check(windows == {None, cfg.swa_window},
+          f"serve: the Hymba prefills called K5 with windows {windows}")
+    labels = set()
+    for key, (args, _) in recs[1].first.items():
+        if key[0] in labels:            # a prefill's call and a step's
+            continue
+        labels.add(key[0])
+        B, S, DI = args[0].shape
+        what = (f"mamba_scan on the Hymba serve's {key[0]} x {(B, S, DI)} "
+                f"state {args[6] is not None}")
+        errs["mamba_scan"] = max(errs["mamba_scan"], check_mamba(
+            torch, what, k7.mamba_scan(*args), args))
+        t = time_k7(torch, k7, args, 20)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, bound "
+            f"{t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of it)")
+        if key[0] == "prefill":
+            main.setdefault("mamba_scan", t)
+    del recs
+    torch.cuda.empty_cache()
+    log(f"serve: Hymba-1.5B phase in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, main
+
+
+def hybrid_slice_model(torch, seed: int):
+    """Hymba-1.5B at full width and HYBRID_SLICE_LAYERS layers (layer 1
+    windowed at its 1,024) with weights from ``seed`` on the card and a
+    copy on the host, SLICE_B x (HYBRID_SLICE_S + SLICE_STEPS) tokens from
+    ``seed + 1``.  Returns (cfg, card params, host params, tokens)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=HYBRID_SLICE_LAYERS)
+    gpu = init_params(cfg, seed, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (SLICE_B, HYBRID_SLICE_S + SLICE_STEPS)))
+    return cfg, gpu, _to_cpu(gpu), toks
+
+
+def hybrid_planted_faults(kfa, k7):
+    """Faults planted on the card's side of the hybrid slices, each still
+    launching its kernel: (name, module, wrapper name, stand-in).  K5's
+    window one key off ("window + 1") and K7's state not carried (the
+    decode steps and the prefill start from zeros)."""
+    name, wider, _ = hybrid_window_faults(kfa)[0]
+    ms = k7.mamba_scan
+
+    def stateless(x, delta, bmat, cmat, a, d_skip, h0=None, **kw):
+        return ms(x, delta, bmat, cmat, a, d_skip, None, **kw)
+
+    return [(name, kfa, "flash_attention", wider),
+            ("state not carried", k7, "mamba_scan", stateless)]
+
+
+def hybrid_slice_runs(torch, seed: int, runs):
+    """Hymba-1.5B at full width and HYBRID_SLICE_LAYERS layers, the same
+    weights on the card (K5 on wgmma, a windowed layer among them; K7) and
+    on the host (their plain versions): every position of a SLICE_B x
+    HYBRID_SLICE_S prefill (past the window) and SLICE_STEPS decode steps
+    (each K7 from the cache's state), on the card once for each of
+    ``runs`` ((name, planted faults as ``hybrid_planted_faults`` gives
+    them)) and once on the host.  Returns {name: ``rwkv_slice_compare``'s
+    dict with the card's launches}."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as k7
+
+    cfg, gpu, cpu, toks = hybrid_slice_model(torch, seed)
+    cards = {}
+    for name, faults in runs:
+        before, n7 = dict(kfa.routes), k7.mamba_scan.launches
+        with contextlib.ExitStack() as stack:
+            for _, mod, attr, fn in faults:
+                stack.enter_context(StandIn(mod, attr, fn))
+            card = slice_logits(torch, cfg, gpu, toks, "cuda")
+        took = {r: kfa.routes[r] - before[r] for r in kfa.ROUTES
+                if kfa.routes[r] > before[r]}
+        cards[name] = (card, took, k7.mamba_scan.launches - n7)
+    del gpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = slice_logits(torch, cfg, cpu, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    out = {}
+    for name, (card, took, n7) in cards.items():
+        r = rwkv_slice_compare(card, host, HYBRID_SLICE_TOL, HYBRID_SLICE_S)
+        err = (card[0] - host[0]).abs().amax(dim=-1)         # [B, P]
+        lc = card[0][:, HYBRID_SLICE_S:]
+        top2 = lc.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > HYBRID_SLICE_TOL
+        same = lc.argmax(-1) == host[0][:, HYBRID_SLICE_S:].argmax(-1)
+        r.update(took=took, k7=n7, cpu_s=cpu_s,
+                 prompt_median=float(err[:, :HYBRID_SLICE_S].median()),
+                 steps_max=max(r["steps"]), steps_decided=int(sure.sum()),
+                 steps_agree=int((same & sure).sum()),
+                 finite=bool(torch.isfinite(card[0]).all()
+                             and torch.isfinite(host[0]).all()))
+        out[name] = r
+    return out
+
+
+def hybrid_slice_check(torch):
+    """``hybrid_slice_runs`` at seed 0 held to its limits: K5 on wgmma
+    once a layer in the prefill, K7 once a layer a model call; the decode
+    steps' logits within HYBRID_SLICE_TOL and their greedy tokens equal
+    where the card's top-2 margin exceeds it; the prompt positions' median
+    largest |logit difference| within HYBRID_SLICE_PROMPT_TOL.  (The
+    prompt's largest difference is no check: the two sides' bf16
+    roundings, one ulp apart at a block's output, reach ~3 at a few of
+    its 2,300 positions through the Mamba heads' step sizes, sound runs
+    and faulted alike: ``hybrid_readings``.)"""
+    r = hybrid_slice_runs(torch, 0, [("sound", ())])["sound"]
+    L = HYBRID_SLICE_LAYERS
+    check(r["took"] == {"wgmma": L} and r["k7"] == L * (1 + SLICE_STEPS),
+          f"slice: the Hymba card side ran K5 {r['took']} and K7 {r['k7']} "
+          f"times, not {L} on wgmma and {L * (1 + SLICE_STEPS)}")
+    check(r["finite"], "slice: Hymba non-finite logits")
+    check(r["steps_max"] <= HYBRID_SLICE_TOL,
+          f"slice: Hymba card and host decode steps' logits differ by "
+          f"{r['steps_max']:.4g} (> {HYBRID_SLICE_TOL})")
+    check(r["steps_agree"] == r["steps_decided"],
+          f"slice: Hymba decode steps' greedy tokens differ at "
+          f"{r['steps_decided'] - r['steps_agree']} of the "
+          f"{r['steps_decided']} whose top-2 margin exceeds "
+          f"{HYBRID_SLICE_TOL}")
+    check(r["prompt_median"] <= HYBRID_SLICE_PROMPT_TOL,
+          f"slice: Hymba prompt positions' median largest logit difference "
+          f"{r['prompt_median']:.4g} (> {HYBRID_SLICE_PROMPT_TOL})")
+    log(f"slice: Hymba-1.5B at {L} layers (layer 1 windowed), card vs host "
+        f"over {r['tokens']} tokens ({SLICE_B} x {HYBRID_SLICE_S} prompt "
+        f"positions, {SLICE_STEPS} decode steps): per decode step max "
+        f"|logit diff| {[round(e, 5) for e in r['steps']]} (allowed "
+        f"{HYBRID_SLICE_TOL}), greedy equal at {r['steps_agree']} of the "
+        f"{r['steps_decided']} step tokens whose top-2 margin exceeds it; "
+        f"prompt: median of the positions' largest |logit diff| "
+        f"{r['prompt_median']:.5f} (allowed {HYBRID_SLICE_PROMPT_TOL}), "
+        f"largest {r['prompt_err']:.5f}; greedy tokens equal at "
+        f"{r['equal']} of all {r['tokens']}; host side {r['cpu_s']:.2f} s")
+    return r
+
+
+def hybrid_train_config(torch):
+    """Hymba-1.5B's training path: the published config whole (32 layers,
+    bf16 compute, remat, no balancer), TRAIN_B x HYBRID_TRAIN_S tokens
+    from ``SkewAwarePipeline`` (as ``rwkv_train_config`` builds them)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import (PipelineConfig, SkewAwarePipeline,
+                                  zipf_doc_lengths)
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(HYBRID_ARCH)
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_STEPS),
+                     remat=True, moe_balancer=None)
+    pipe = SkewAwarePipeline(PipelineConfig(
+        seq_len=HYBRID_TRAIN_S, batch_per_shard=max(TRAIN_B // 8, 1),
+        n_shards=8, vocab=cfg.vocab))
+    pipe.ingest(zipf_doc_lengths(64, HYBRID_TRAIN_S, seed=0))
+    nb = pipe.next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(nb[k][:TRAIN_B]))
+             for k in ("tokens", "labels")}
+    return cfg, tc, batch
+
+
+def hybrid_train_replay(torch, kfa, k7, recs):
+    """K5 (a full layer's and a windowed layer's call) and K7, forward and
+    backward, against their plain versions on the inputs the Hymba
+    training path gave them, each backward timed beside the plain version,
+    its bound and (K5) SDPA's backward with the window as a mask.
+    Returns (max errors, the windowed K5's and K7's backward numbers)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    errs = dict.fromkeys(recs, 0.0)
+    main = {}
+    for key, ((q, k, v), kw) in recs["flash_attention"].first.items():
+        window = kw.get("window")
+        what = (f"flash_attention on the Hymba training path's q "
+                f"{tuple(q.shape)} window {window}")
+        kw = {n: a for n, a in kw.items() if n != "return_lse"}
+        scale = kw.get("scale") or q.shape[-1] ** -0.5
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            torch, what, k5_call(kfa, what, "wgmma", q, k, v, **kw), q, k, v,
+            True, scale, window))
+    for key, ((q, k, v, out, dout), kw) in (
+            recs["flash_attention_bwd"].first.items()):
+        window = kw.get("window")
+        B, H, S, hd = q.shape
+        KV = k.shape[1]
+        what = (f"flash_attention_bwd on the Hymba training path's q "
+                f"{tuple(q.shape)} window {window}")
+        scale = kw.get("scale") or hd ** -0.5
+        check(kfa.bwd_route(q, k, v) == "wgmma",
+              f"{what}: takes {kfa.bwd_route(q, k, v)}, not wgmma")
+        errs["flash_attention_bwd"] = max(
+            errs["flash_attention_bwd"], check_flash_bwd(
+                torch, what, kfa.flash_attention_bwd(q, k, v, out, dout, **kw),
+                q, k, v, out, dout, True, scale, "wgmma", window))
+        ms = time_ms(torch, lambda *a: kfa.flash_attention_bwd(*a, **kw),
+                     (q, k, v, out, dout), 10)
+        plain_kw = {n: a for n, a in kw.items() if n != "lse"}
+        plain_ms = time_ms(torch, lambda *a: ref.flash_attention_bwd(
+            *a, **plain_kw), (q, k, v, out, dout), 1, warm=0)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        mask = (window_mask(torch, S, window, q.device) if window is not None
+                else None)
+        sdpa = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask, is_causal=mask is None, scale=scale,
+            enable_gqa=KV != H)
+        g = dout.to(sdpa.dtype)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), g, retain_graph=True), (), 10)
+        b_ms, b_by = k5_bwd_bound(B, H, KV, S, S, hd, True, 2, "wgmma", None,
+                                  window)
+        log(f"replay: {what}: {ms:.5f} ms (plain {plain_ms:.5f} ms, SDPA's "
+            f"backward {lib_ms:.5f} ms, bound {b_ms:.5f} ms by {b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it)")
+        if window is not None:
+            main.setdefault("flash_attention_bwd",
+                            (ms, plain_ms, lib_ms, b_ms, b_by))
+        del sdpa, qg, kg, vg
+    for key, (args, kw) in recs["mamba_scan"].first.items():
+        what = f"mamba_scan on the Hymba training path's x {tuple(args[0].shape)}"
+        y, h, ck = k7.mamba_scan(*args, checkpoints=True)
+        errs["mamba_scan"] = max(errs["mamba_scan"],
+                                 check_mamba(torch, what, (y, h), args))
+    for key, (args, kw) in recs["mamba_scan_bwd"].first.items():
+        fwd_args, (dy, dh) = args[:7], args[7:9]
+        what = (f"mamba_scan_bwd on the Hymba training path's x "
+                f"{tuple(args[0].shape)}")
+        ck = kw["checkpoints"]
+        errs["mamba_scan_bwd"] = max(
+            errs["mamba_scan_bwd"], check_mamba_bwd(
+                torch, what, k7.mamba_scan_bwd(*args, checkpoints=ck),
+                fwd_args, dy, dh))
+        t = time_k7_bwd(torch, k7, fwd_args, dy, dh, ck, 10)
+        log(f"replay: {what}: {t[0]:.5f} ms (plain {t[1]:.5f} ms, bound "
+            f"{t[3]:.5f} ms by {t[4]}, {100 * t[3] / t[0]:.1f}% of it)")
+        main.setdefault("mamba_scan_bwd", t)
+    torch.cuda.empty_cache()
+    return errs, main
+
+
+def hybrid_train_slice_model(torch, seed: int):
+    """Hymba-1.5B at full width, HYBRID_SLICE_LAYERS layers, float32, its
+    window cut to HYBRID_TRAIN_SLICE_WINDOW (so layer 1 masks within the
+    slice's HYBRID_TRAIN_SLICE_S tokens) with weights from ``seed``, and a
+    TRAIN_SLICE_B x HYBRID_TRAIN_SLICE_S batch from ``seed + 1``.  Returns
+    (cfg, card params, host params, batch)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=HYBRID_SLICE_LAYERS,
+                              swa_window=HYBRID_TRAIN_SLICE_WINDOW,
+                              compute_dtype="float32")
+    gpu = init_params(cfg, seed, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_SLICE_B, HYBRID_TRAIN_SLICE_S))) for k in
+        ("tokens", "labels")}
+    return cfg, gpu, _to_cpu(gpu), batch
+
+
+def hybrid_train_slice_runs(torch, seed: int, runs):
+    """``loss_fn``'s gradients (remat) of ``hybrid_train_slice_model``, on
+    the card (K5 on its fma routes with the window, K7 forward twice a
+    layer under remat and backward once) once for each of ``runs`` ((name,
+    planted faults)) and once on the host.  Returns {name:
+    ``train_slice_compare``'s dict with the card's launches and result}."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as k7
+
+    cfg, gpu, cpu, batch = hybrid_train_slice_model(torch, seed)
+    tables = (kfa.routes, kfa.bwd_routes)
+    cards = {}
+    for name, faults in runs:
+        before = [dict(t) for t in tables]
+        n7 = (k7.mamba_scan.launches, k7.mamba_scan_bwd.launches)
+        with contextlib.ExitStack() as stack:
+            for _, mod, attr, fn in faults:
+                stack.enter_context(StandIn(mod, attr, fn))
+            card = train_slice_grads(torch, cfg, gpu, batch, None, "cuda")
+        took = [{r: t[r] - b[r] for r in t if t[r] > b[r]}
+                for t, b in zip(tables, before)]
+        cards[name] = (card, took, (k7.mamba_scan.launches - n7[0],
+                                    k7.mamba_scan_bwd.launches - n7[1]))
+    del gpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = train_slice_grads(torch, cfg, cpu, batch, None, "cpu")
+    cpu_s = time.perf_counter() - t0
+    out = {}
+    for name, (card, took, n7) in cards.items():
+        r = train_slice_compare(card, host)
+        r.update(took=took, k7=n7, cpu_s=cpu_s, card=card)
+        out[name] = r
+    return out
+
+
+def hybrid_train_phases(torch, kseg, kfa, krw, k7, smi: str):
+    """Hymba-1.5B at its published 32 layers trained TRAIN_STEPS steps of
+    TRAIN_B x HYBRID_TRAIN_S tokens (``model_train_phase``: K5 forward
+    twice a layer a step under remat and its backward once, all on
+    ``wgmma``; K7 forward twice a layer a step and its backward once (two
+    launches); K4 and K6 never; the loss falls), K5 and K7 replayed on the
+    path's inputs, and the float32 gradient slice within
+    HYBRID_TRAIN_SLICE_TOL / HYBRID_TRAIN_SLICE_LOSS_TOL.  Returns (the
+    path's launches, the replays' largest errors, their backward
+    numbers)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, tc, batch = hybrid_train_config(torch)
+    names = [(kseg, "segment_matmul"), (kseg, "segment_matmul_backward"),
+             (kfa, "flash_attention"), (kfa, "flash_attention_bwd"),
+             (krw, "rwkv_scan"), (krw, "rwkv_scan_bwd"),
+             (k7, "mamba_scan"), (k7, "mamba_scan_bwd")]
+    L, S = cfg.n_layers, TRAIN_STEPS
+    bwd = kfa.BWD_LAUNCHES["wgmma"] * L * S
+    want = dict(segment_matmul=0, segment_matmul_backward=0,
+                flash_attention=2 * L * S, flash_attention_bwd=bwd,
+                rwkv_scan=0, rwkv_scan_bwd=0, mamba_scan=2 * L * S,
+                mamba_scan_bwd=k7.BWD_LAUNCHES * L * S)
+    launches, tn, recs = model_train_phase(
+        torch, "Hymba-1.5B", cfg, tc, batch, names,
+        ["flash_attention", "flash_attention_bwd", "mamba_scan",
+         "mamba_scan_bwd"], want,
+        {"flash_attention": {"wgmma": 2 * L * S},
+         "flash_attention_bwd": {"wgmma": bwd}},
+        make=lambda mod, name: (WindowRecorder(mod, name)
+                                if mod is kfa else Recorder(mod, name)))
+    del batch
+    log(f"train: Hymba-1.5B at full width, {L} layers ({tn['n_params']:,} "
+        f"float32 params from seed 0 in {tn['init_s']:.1f} s), no balancer, "
+        f"batch {TRAIN_B} x {HYBRID_TRAIN_S} tokens, {TRAIN_STEPS} steps "
+        f"with remat: loss {tn['losses'][0]:.5f} -> {tn['losses'][-1]:.5f} "
+        f"({[round(x, 5) for x in tn['losses']]}); {tn['step_s']:.4f} s a "
+        f"step after the first ({tn['times'][0]:.3f} s), "
+        f"{tn['tokens'] / tn['step_s']:.1f} tokens/s, the AdamW update "
+        f"{tn['update_s']:.4f} s a step "
+        f"({100 * tn['update_s'] / tn['step_s']:.1f}%), peak "
+        f"{tn['peak_gib']:.2f} GiB; launches {launches} by route "
+        f"{tn['routes']} | {smi}")
+    errs, main = hybrid_train_replay(torch, kfa, k7, recs)
+    del recs
+    sl = hybrid_train_slice_runs(torch, 0, [("sound", ())])["sound"]
+    n = HYBRID_SLICE_LAYERS
+    want_took = [{"fma": 2 * n}, {"fma": kfa.BWD_LAUNCHES["fma"] * n}]
+    check(sl["took"] == want_took and sl["k7"] == (2 * n,
+                                                   k7.BWD_LAUNCHES * n),
+          f"train slice: the Hymba card side ran K5 / its backward on "
+          f"{sl['took']} and K7 / its backward {sl['k7']} times, not "
+          f"{want_took} and {(2 * n, k7.BWD_LAUNCHES * n)}")
+    card = sl.pop("card")
+    check(math.isfinite(card[0]) and all(bool(torch.isfinite(g).all())
+                                         for g in card[1]),
+          "train slice: Hymba non-finite loss or gradient on the card")
+    check(sl["loss_err"] <= HYBRID_TRAIN_SLICE_LOSS_TOL,
+          f"train slice: Hymba card and host losses differ by "
+          f"{sl['loss_err']:.3g} (> {HYBRID_TRAIN_SLICE_LOSS_TOL})")
+    check(sl["grad_rel"] <= HYBRID_TRAIN_SLICE_TOL,
+          f"train slice: a Hymba gradient leaf differs by "
+          f"{sl['grad_rel']:.3g} of its largest entry (> "
+          f"{HYBRID_TRAIN_SLICE_TOL})")
+    log(f"train slice: Hymba-1.5B at {n} layers, float32, window "
+        f"{HYBRID_TRAIN_SLICE_WINDOW} (layer 1), a {TRAIN_SLICE_B} x "
+        f"{HYBRID_TRAIN_SLICE_S} batch, card vs host: |loss diff| "
+        f"{sl['loss_err']:.3g} (allowed {HYBRID_TRAIN_SLICE_LOSS_TOL}; loss "
+        f"{sl['loss']:.5f}), every one of {sl['leaves']} gradient leaves "
+        f"within {sl['grad_rel']:.3g} of its largest entry (allowed "
+        f"{HYBRID_TRAIN_SLICE_TOL}); host side {sl['cpu_s']:.1f} s")
+    log(f"train: Hymba-1.5B phase in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, main
+
+
+def hybrid_records(launches, errs, timed) -> list:
+    """The JSON records of K5's window (forward and backward, at (64, 64))
+    and of K7 (forward and backward): launches over Hymba's serve and
+    training paths, the largest errors of their checks, the times at the
+    kernel phase's timed shapes (``hybrid_kernel_phase``)."""
+    out = []
+    for name, source, replaces in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:72"),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:72"),
+            ("mamba_scan", "mamba_scan.cu", "src/repro/models/ssm.py:193"),
+            ("mamba_scan_bwd", "mamba_scan.cu",
+             "src/repro/models/ssm.py:193")):
+        ms, plain_ms, lib_ms, b_ms, b_by = timed[name]
+        label = (f"{name} dk64 dv64 wgmma window"
+                 if name.startswith("flash") else name)
+        out.append(dict(
+            name=label, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms))
+    return out
+
+
+def hybrid_phases(torch, kseg, kfa, krw, k7, kernel_mods, smi: str,
+                  kernel_errs, timed) -> list:
+    """Phase 13 after its kernel checks: Hymba-1.5B's serve, its replays
+    and slice, then its training path, replays and slice.  Returns
+    ``hybrid_records``."""
+    t0 = time.perf_counter()
+    serve, serve_errs, _ = hybrid_serve_phase(torch, kseg, kfa, k7,
+                                              kernel_mods, smi)
+    hybrid_slice_check(torch)
+    log(f"hybrid: serve and slice in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train, train_errs, _ = hybrid_train_phases(torch, kseg, kfa, krw, k7,
+                                               smi)
+    log(f"hybrid: train in {time.perf_counter() - t0:.1f} s")
+    # K5's launches on Hymba's paths, its full layers' (without a window)
+    # and its windowed layers' together: the routes' counts do not tell
+    # them apart.
+    launches = {"flash_attention": (serve["flash_attention"]
+                                    + train["flash_attention"]),
+                "flash_attention_bwd": train["flash_attention_bwd"],
+                "mamba_scan": serve["mamba_scan"] + train["mamba_scan"],
+                "mamba_scan_bwd": train["mamba_scan_bwd"]}
+    errs = {name: max(kernel_errs[name], train_errs.get(name, 0.0),
+                      serve_errs.get(name, 0.0)) for name in kernel_errs}
+    return hybrid_records(launches, errs, timed)
+
+
+def hybrid_readings(torch, seeds=(0, 1, 2)):
+    """The readings HYBRID_SLICE_TOL and the Hymba train slice limits are
+    set from: at each seed the serve slice and the train slice, card
+    against host as the checks compare them, sound and with each of
+    ``hybrid_planted_faults`` on the card's side."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as k7
+
+    runs = [("sound", ())] + [(f[0], (f,))
+                              for f in hybrid_planted_faults(kfa, k7)]
+    serve, train, steps, medians = {}, {}, {}, {}
+    for seed in seeds:
+        for name, r in hybrid_slice_runs(torch, seed, runs).items():
+            serve.setdefault(name, []).append(r["err"])
+            log(f"readings: Hymba slice seed {seed}: {name}: max |card - "
+                f"host| {r['err']:.6f} (prompt {r['prompt_err']:.6f}, its "
+                f"median position {r['prompt_median']:.6f}; per decode step "
+                f"{[round(e, 6) for e in r['steps']]}); greedy equal at "
+                f"{r['equal']} of {r['tokens']}")
+            steps.setdefault(name, []).append(r["steps_max"])
+            medians.setdefault(name, []).append(r["prompt_median"])
+        for name, r in hybrid_train_slice_runs(torch, seed, runs).items():
+            train.setdefault(name, []).append((r["grad_rel"],
+                                               r["loss_err"]))
+            log(f"readings: Hymba train slice seed {seed}: {name}: |loss "
+                f"diff| {r['loss_err']:.3g} (loss {r['loss']:.5f}), "
+                f"gradients within {r['grad_rel']:.3g} of each leaf's "
+                f"largest entry over {r['leaves']} leaves")
+    for name, errs in serve.items():
+        log(f"readings: Hymba slice {name} over seeds {list(seeds)}: max "
+            f"|diff| {min(errs):.6f} to {max(errs):.6f}; decode steps "
+            f"{min(steps[name]):.6f} to {max(steps[name]):.6f}; the prompt's "
+            f"median position {min(medians[name]):.6f} to "
+            f"{max(medians[name]):.6f}")
+    for name, rs in train.items():
+        log(f"readings: Hymba train slice {name} over seeds {list(seeds)}: "
+            f"gradients {min(g for g, _ in rs):.3g} to "
+            f"{max(g for g, _ in rs):.3g}, |loss diff| "
+            f"{min(e for _, e in rs):.3g} to {max(e for _, e in rs):.3g}")
+    log(f"readings: Hymba limits: slice decode steps {HYBRID_SLICE_TOL}, "
+        f"prompt median {HYBRID_SLICE_PROMPT_TOL}, train slice "
+        f"{HYBRID_TRAIN_SLICE_TOL}, its loss {HYBRID_TRAIN_SLICE_LOSS_TOL}")
+    return serve, train
+
+
+def hybrid_only() -> int:
+    """``--hybrid``: build the kernels (their ``-Xptxas -v`` lines, the
+    serialization and spill checks and ``check_sass``), then phase 13
+    alone: K5's window and K7 against their plain versions, timed; the
+    readings the Hymba slice limits are set from; Hymba-1.5B's serve and
+    training paths, their replays and slices.  Not part of the smoke."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as k7
+    from repro_torch.kernels import partition as kpart
+    from repro_torch.kernels import rwkv_scan as krw
+    from repro_torch.kernels import segment_matmul as kseg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build_logged(_build, ("segment_matmul", "flash_attention", "rwkv_scan",
+                          "mamba_scan"))
+    check_sass()
+    errs, timed = hybrid_kernel_phase(torch, kfa, k7)
+    log(f"hybrid: kernels in {time.perf_counter() - t0:.1f} s")
+    # The readings first: they print what the slices' limits are set from
+    # even where a check below then fails.
+    t1 = time.perf_counter()
+    hybrid_readings(torch)
+    log(f"readings: hybrid in {time.perf_counter() - t1:.1f} s")
+    mods = hybrid_kernel_mods(kpart, kseg, kfa, krw, k7)
+    records = hybrid_phases(torch, kseg, kfa, krw, k7, mods, smi, errs,
+                            timed)
+    print(json.dumps({"kernels": records}))
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def build_logged(_build, names=None) -> None:
     """Builds the named sources (every one by default) and prints each
     kernel's ``-Xptxas -v`` lines: registers, shared memory, spills."""
@@ -6676,6 +7846,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ctrl_step as kctrl
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as k7
     from repro_torch.kernels import partition as kpart
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv_scan as krw
@@ -6702,6 +7873,9 @@ def main() -> int:
     mla_errs = mla_kernel_phase(torch, kseg, kfa)
     whisper_errs, whisper_timed = whisper_kernel_phase(torch, kseg, kfa)
     scalar_constants_check(torch)
+    t0 = time.perf_counter()
+    hybrid_errs, hybrid_timed = hybrid_kernel_phase(torch, kfa, k7)
+    log(f"hybrid: kernels in {time.perf_counter() - t0:.1f} s")
     rwkv_err = rwkv_kernel_phase(torch, krw)
     rwkv_bwd_err = rwkv_bwd_kernel_phase(torch, krw)
     ctrl_kernel_phase(torch, kctrl, ref, tdev)
@@ -6803,6 +7977,12 @@ def main() -> int:
     whisper_recs = whisper_phases(torch, kseg, kfa, krw, kernel_mods, smi,
                                   whisper_errs, whisper_timed)
     log(f"whisper: serve and train in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hybrid_recs = hybrid_phases(
+        torch, kseg, kfa, krw, k7,
+        hybrid_kernel_mods(kpart, kseg, kfa, krw, k7), smi, hybrid_errs,
+        hybrid_timed)
+    log(f"hybrid: serve and train in {time.perf_counter() - t0:.1f} s")
     train_records, fwd_errs, fwd, mla_train_runs = all_train_phases(
         torch, kseg, kfa, krw, train_errs, rwkv_bwd_err, smi, mla_errs)
     for rec in records:
@@ -6810,7 +7990,8 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"], fwd_errs[rec["name"]])
         rec["launches"] += fwd.get(rec["name"], 0)
     records += train_records + mla_records(
-        kfa, merge_runs(mla_runs, mla_train_runs)) + whisper_recs
+        kfa, merge_runs(mla_runs, mla_train_runs)) + whisper_recs \
+        + hybrid_recs
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -6822,5 +8003,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--readings": readings, "--armed": armed,
               "--train": train_only, "--mla": mla_only,
-              "--whisper": whisper_only}.get(
+              "--whisper": whisper_only, "--hybrid": hybrid_only}.get(
         " ".join(sys.argv[1:]), main)())

@@ -17,6 +17,10 @@
     python3 kernel_variants.py k6bwd # K6's backward: the step split of its
                                      # first design and of today's, the
                                      # two held bit for bit
+    python3 kernel_variants.py k7    # K7 (the Mamba scan): its constants
+    python3 kernel_variants.py k5 window  # K5's sliding window: bits
+                                     # without one against the source
+                                     # before it, tile skipping's share
 
 From the root of a checkout; needs one card.  Builds the kernel's source
 (``src/repro_torch/kernels/csrc/<name>.cu``) as it is and with each edit of
@@ -287,22 +291,38 @@ def bits_word(torch, got, want) -> str:
         "OTHER bits than"
 
 
-def k5_lib(lib):
+def k5_lib(lib, window: bool = True):
     """``lib``'s two entries typed as ``flash_attention._library`` types
-    them; returns ``lib``."""
+    them; returns ``lib``.  ``window``: the source takes K5's window
+    argument after ``causal`` (the sources since the hybrid family's
+    window; the designs kept under ``csrc/variants/`` are older and do
+    not)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    n = 3 if window else 2
     lib.repro_flash_attention.argtypes = (
-        [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+        [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * n
         + [ctypes.POINTER(ctypes.c_longlong), i32, ptr, ctypes.POINTER(i32)])
     lib.repro_flash_attention.restype = i32
     lib.repro_flash_attention_bwd.argtypes = (
-        [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+        [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * n
         + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
     lib.repro_flash_attention_bwd.restype = i32
+    lib.k5_window = window
     return lib
 
 
-def k5_fwd(torch, cs, _build, lib, q, k, v, causal=True, lse=False):
+def mask_args(lib, causal: bool, window=None):
+    """The mask arguments ``lib`` takes: (causal, window, dtype) or, from a
+    source without the window, (causal, dtype) (bf16, and no window)."""
+    if not lib.k5_window:
+        if window is not None:
+            raise ValueError("this source takes no window")
+        return int(causal), 1
+    return int(causal), window or 0, 1
+
+
+def k5_fwd(torch, cs, _build, lib, q, k, v, causal=True, lse=False,
+           window=None):
     """One forward on ``lib`` as ``flash_attention`` makes it (bf16, the
     wgmma route): out, or (out, lse)."""
     from repro_torch.kernels import flash_attention as kfa
@@ -315,7 +335,7 @@ def k5_fwd(torch, cs, _build, lib, q, k, v, causal=True, lse=False):
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse_t is None else lse_t.data_ptr(), B, H, KV, S, T, dk, dv,
-        dk ** -0.5, int(causal), 1,
+        dk ** -0.5, *mask_args(lib, causal, window),
         (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
                                   + kfa._strides(v))),
         *_build.device_and_stream(q.device), ctypes.byref(route))
@@ -325,7 +345,7 @@ def k5_fwd(torch, cs, _build, lib, q, k, v, causal=True, lse=False):
 
 
 def k5_bwd(torch, cs, _build, lib, route, q, k, v, out, dout, lse,
-           causal=True):
+           causal=True, window=None):
     """One backward on ``lib`` and ``route`` as ``flash_attention_bwd``
     makes it: (dq, dk, dv)."""
     from repro_torch.kernels import flash_attention as kfa
@@ -341,7 +361,7 @@ def k5_bwd(torch, cs, _build, lib, route, q, k, v, out, dout, lse,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), ws.data_ptr(), B, H, KV, S, T, dk_w, dv_w,
-        dk_w ** -0.5, int(causal), 1,
+        dk_w ** -0.5, *mask_args(lib, causal, window),
         (ctypes.c_longlong * 9)(*(kfa._strides(q) + kfa._strides(k)
                                   + kfa._strides(v))),
         kfa.ROUTES.index(route), *_build.device_and_stream(q.device))
@@ -405,7 +425,7 @@ def k5(torch, cs, _build) -> None:
                       f"{ms:.5f} ms (max |err| {err:.3g})", flush=True)
 
     # MLA's widths: the first design against the source as it is.
-    mla = {n: k5_lib(lib) for n, lib in build(
+    mla = {n: k5_lib(lib, False) for n, lib in build(
         _build, "variants/flash_attention_mla_first", K5_MLA_FIRST,
         "flash_wgmma").items()}
     mla["as is"] = libs[next(iter(K5_VARIANTS))]
@@ -470,7 +490,7 @@ def k5_whisper(torch, cs, _build) -> None:
     (64, 64) held to ``check_flash`` / ``check_lse`` there; then each design
     timed in turns at ``whisper_shapes`` beside SDPA and ``k5_bound``."""
     import torch.nn.functional as F
-    designs = {n: k5_lib(lib) for n, lib in build(
+    designs = {n: k5_lib(lib, False) for n, lib in build(
         _build, "variants/flash_attention_whisper_first", K5_WHISPER_FIRST,
         WHISPER_ONLY).items()}
     designs.update({n: k5_lib(lib) for n, lib in build(
@@ -516,6 +536,228 @@ def k5_whisper(torch, cs, _build) -> None:
                       f"the first Whisper design", flush=True)
         del q, k, v, want
         torch.cuda.empty_cache()
+
+
+#: K5 as it stood before the sliding window
+#: (``csrc/variants/flash_attention_window_first.cu``), whole.
+K5_WINDOW_FIRST = {"before the window": {}}
+#: Edits of K5's source that keep the window's mask but skip no tile: the
+#: overlap forward's walks, dkv's query tiles and dq's key tiles start
+#: (end) where a call without a window does (what skipping saves).
+K5_WINDOW_NOW = {
+    "as is, no tile skipped": {
+        "const int j_lo = kWin ? max(0, q0 - window + 1) / 64 : 0;":
+        "const int j_lo = 0;",
+        "  const int j_own = kWin && row_lo < S\n"
+        "                        ? max(j_lo, max(0, row_lo - window + 1) / 64)\n"
+        "                        : j_lo;":
+        "  const int j_own = j_lo;",
+        "    if constexpr (kWin)\n      it.n_q = (min(":
+        "    if constexpr (false)\n      it.n_q = (min(",
+        "  const int j_lo = kWin ? max(0, q0 - window + 1) / kRows : 0;":
+        "  const int j_lo = 0;",
+        "    if constexpr (kWin) live = live && k0 + kRows - 1 > row_lo - window;":
+        "    if constexpr (kWin) live = live && true;",
+        "      if constexpr (kWin) live = live && q0 < kw0 + kRows - 1 + window;":
+        "      if constexpr (kWin) live = live && true;"},
+}
+
+
+def hybrid_qkv(torch, cs, seed: int):
+    """bf16 q, k, v at Hymba's (64, 64), ``chip_smoke.HYBRID_K5``'s B, H,
+    KV and S, through the model's ``[B, S, H, hd]`` views."""
+    B, H, KV, S, _ = cs.HYBRID_K5
+    return tuple(cs.randn(torch, seed + i, (B, S, n, 64),
+                          torch.bfloat16).transpose(1, 2)
+                 for i, n in enumerate((H, KV, KV)))
+
+
+def k5_window(torch, cs, _build) -> None:
+    """K5's sliding window at Hymba's (64, 64): calls without a window held
+    bit for bit to the source before the window at every wgmma
+    width (``mla_bit_cases``, forward out and lse and backward dq, dk,
+    dv), and timed against it in turns without a window at Whisper's
+    encoder (B 4, H 16, S = T = 1,500, full) and at Hymba's shape (causal);
+    then at ``chip_smoke.HYBRID_K5`` (B 4, H 25, KV 5, S 2,048,
+    window 1,024) the source as it is, windowed and without a window
+    (causal over all 2,048 keys), and windowed with no tile skipped
+    (``K5_WINDOW_NOW``), forward and backward, each held to
+    ``check_flash`` / ``check_flash_bwd`` with the window and timed in
+    turns beside ``k5_bound`` / ``k5_bwd_bound`` of the windowed pairs and
+    SDPA with the window as a boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    # ptxas's lines for every kernel of both sources: the window's
+    # argument may move registers and spills at the other widths too.
+    first = k5_lib(build(_build, "variants/flash_attention_window_first",
+                         K5_WINDOW_FIRST, "flash")[
+        "before the window"], False)
+    libs = {n: k5_lib(lib) for n, lib in build(
+        _build, "flash_attention", {"as is": {}, **K5_WINDOW_NOW},
+        "flash").items()}
+    now = libs["as is"]
+    for dk, dv in ((128, 128), (96, 64), (192, 128), (64, 64)):
+        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
+            got, want = (k5_fwd(torch, cs, _build, lib, q, k, v, causal,
+                                True) for lib in (now, first))
+            dout = cs.randn(torch, 9, got[0].shape, torch.float32)
+            gb, wb = (k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v,
+                             got[0], dout, got[1], causal)
+                      for lib in (now, first))
+            print(f"K5 {what} without a window: forward out and lse "
+                  f"{bits_word(torch, got, want)}, backward dq, dk, dv "
+                  f"{bits_word(torch, gb, wb)} the source before the window",
+                  flush=True)
+    # Calls without a window, the source before it against as is, in
+    # turns: at Whisper's encoder and at Hymba's shape (full causal).
+    for name, B, H, KV, S, causal in (("Whisper's encoder", 4, 16, 16, 1500,
+                                       False),
+                                      ("Hymba's shape", *cs.HYBRID_K5[:4],
+                                       True)):
+        q, k, v = (cs.randn(torch, 1320 + i, (B, S, n, 64),
+                            torch.bfloat16).transpose(1, 2)
+                   for i, n in enumerate((H, KV, KV)))
+        out, lse = kfa.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+        dout = cs.randn(torch, 1323, out.shape, torch.float32)
+        libs2 = (("before the window", first), ("as is", now))
+        for turn, order in enumerate((libs2, libs2[::-1])):
+            for n, lib in order:
+                ms = cs.time_ms(torch, lambda *a: k5_fwd(
+                    torch, cs, _build, lib, *a, causal), (q, k, v), 20)
+                bms = cs.time_ms(torch, lambda *a: k5_bwd(
+                    torch, cs, _build, lib, "wgmma", *a, causal),
+                    (q, k, v, out, dout, lse), 10)
+                print(f"{n}: K5 (64, 64) without a window at {name} (B={B} "
+                      f"H={H} KV={KV} S=T={S} causal={causal}) turn {turn}: "
+                      f"forward {ms:.5f} ms, backward {bms:.5f} ms",
+                      flush=True)
+        del q, k, v, out, lse, dout
+    B, H, KV, S, W = cs.HYBRID_K5
+    q, k, v = hybrid_qkv(torch, cs, 1300)
+    scale = 64 ** -0.5
+    mask = cs.window_mask(torch, S, W, q.device)
+    sdpa_ms = cs.time_ms(torch, lambda *a: F.scaled_dot_product_attention(
+        *a, attn_mask=mask, enable_gqa=True), (q, k, v), 20)
+    out, lse = kfa.flash_attention(q, k, v, scale=scale, return_lse=True,
+                                   window=W)
+    dout = cs.randn(torch, 1303, out.shape, torch.float32)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                          enable_gqa=True)
+    sdpa_bwd_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+        sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (), 20)
+    turns = [("as is", W), ("as is, no window", None),
+             ("as is, no tile skipped", W)]
+    shape = f"(64, 64) B={B} H={H} KV={KV} S=T={S} causal"
+    for turn, names in enumerate((turns, turns[::-1])):
+        for n, win in names:
+            lib = libs[n.replace(", no window", "")]
+            o, l_ = k5_fwd(torch, cs, _build, lib, q, k, v, True, True, win)
+            err = cs.check_flash(torch, n, o, q, k, v, True, scale, win)
+            ms = cs.time_ms(torch, lambda *a: k5_fwd(
+                torch, cs, _build, lib, *a, True, False, win), (q, k, v), 20)
+            g = k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v, o, dout,
+                       l_, True, win)
+            berr = cs.check_flash_bwd(torch, n, g, q, k, v, o, dout, True,
+                                      scale, "wgmma", win)
+            bms = cs.time_ms(torch, lambda *a: k5_bwd(
+                torch, cs, _build, lib, "wgmma", *a, True, win),
+                (q, k, v, o, dout, l_), 10)
+            fb, fby = cs.k5_bound(B, H, KV, S, S, 64, True, 2, None, win)
+            bb, bby = cs.k5_bwd_bound(B, H, KV, S, S, 64, True, 2, "wgmma",
+                                      None, win)
+            print(f"{n}: K5 {shape} window {win} turn {turn}: forward "
+                  f"{ms:.5f} ms (bound {fb:.5f} by {fby}, "
+                  f"{100 * fb / ms:.1f}%; max |err| {err:.3g}), backward "
+                  f"{bms:.5f} ms (bound {bb:.5f} by {bby}, "
+                  f"{100 * bb / bms:.1f}%; max |err| {berr:.3g}); SDPA with "
+                  f"the window as a mask {sdpa_ms:.5f} ms, its backward "
+                  f"{sdpa_bwd_ms:.5f} ms", flush=True)
+            del o, l_, g
+    del q, k, v, out, lse, dout, qg, kg, vg, sdpa
+    torch.cuda.empty_cache()
+
+
+#: Edits of K7's source (csrc/mamba_scan.cu) that make each variant: its
+#: blocks held to a third as many registers (six blocks an SM: the grid in
+#: one wave), or the exponential by ``__expf`` (ex2.approx of x log2 e).
+K7_VARIANTS = {
+    "as is (expf, 128 threads, registers free)": {},
+    "six blocks an SM": {
+        "__global__ void __launch_bounds__(kThreads)\n"
+        "mamba_scan_kernel(":
+        "__global__ void __launch_bounds__(kThreads, 6)\n"
+        "mamba_scan_kernel("},
+    "__expf": {"  da = expf(__fmul_rn(dl, an));":
+               "  da = __expf(__fmul_rn(dl, an));"},
+}
+
+
+def k7(torch, cs, _build) -> None:
+    """K7 at Hymba's prefill (``chip_smoke.HYBRID_K7``'s first case: B 4,
+    S 2,048, d_inner 1,600, N 16, bf16 x): the source as it is and each of
+    ``K7_VARIANTS``, forward within ``check_mamba`` and backward within
+    ``check_mamba_bwd``, timed in turns (CUDA events) beside
+    ``k7_bound`` / ``k7_bwd_bound``."""
+    libs = build(_build, "mamba_scan", K7_VARIANTS, "mamba")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.repro_mamba_scan.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        lib.repro_mamba_scan.restype = i32
+        lib.repro_mamba_scan_bwd.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
+        lib.repro_mamba_scan_bwd.restype = i32
+        lib.repro_mamba_bwd_workspace.argtypes = [i32] * 4
+        lib.repro_mamba_bwd_workspace.restype = ctypes.c_longlong
+    B, S, DI, N, _ = cs.HYBRID_K7[0]
+    args = cs.mamba_inputs(torch, 1400, B, S, DI, N, torch.bfloat16, False)
+    x = args[0]
+    dev = _build.device_and_stream(x.device)
+
+    def fwd(lib, ck=None):
+        y = torch.empty_like(x)
+        h = torch.empty((B, DI, N), dtype=torch.float32, device="cuda")
+        code = lib.repro_mamba_scan(*(t.data_ptr() for t in args[:6]), None,
+                                    y.data_ptr(), h.data_ptr(),
+                                    None if ck is None else ck.data_ptr(),
+                                    B, S, DI, N, 1, *dev)
+        cs.check(code == 0, f"mamba_scan failed: CUDA error {code}")
+        return y, h
+
+    dy = cs.randn(torch, 1410, x.shape, torch.bfloat16)
+
+    def bwd(lib, ck):
+        outs = [torch.empty_like(x)] + [
+            torch.empty(s, dtype=torch.float32, device="cuda")
+            for s in ((B, S, DI), (B, S, N), (B, S, N), (DI, N), (DI,),
+                      (B, DI, N))]
+        ws = torch.empty(lib.repro_mamba_bwd_workspace(B, S, DI, N),
+                         dtype=torch.float32, device="cuda")
+        code = lib.repro_mamba_scan_bwd(
+            *(t.data_ptr() for t in args[:6]), ck.data_ptr(), dy.data_ptr(),
+            None, *(t.data_ptr() for t in outs), ws.data_ptr(), B, S, DI, N,
+            1, *dev)
+        cs.check(code == 0, f"mamba_scan_bwd failed: CUDA error {code}")
+        return outs
+
+    fb, fby = cs.k7_bound(B, S, DI, N, 2, False)
+    bb, bby = cs.k7_bwd_bound(B, S, DI, N, 2)
+    ck = torch.empty((B, -(-S // 64), DI, N), dtype=torch.float32,
+                     device="cuda")
+    for turn, names in enumerate((list(libs), list(libs)[::-1])):
+        for name in names:
+            lib = libs[name]
+            err = cs.check_mamba(torch, name, fwd(lib, ck), args)
+            berr = cs.check_mamba_bwd(torch, name, bwd(lib, ck), args, dy,
+                                      None)
+            ms = cs.time_ms(torch, lambda: fwd(lib), (), 20)
+            bms = cs.time_ms(torch, lambda: bwd(lib, ck), (), 10)
+            print(f"{name}: K7 B={B} S={S} d_inner={DI} N={N} bf16 turn "
+                  f"{turn}: forward {ms:.5f} ms (bound {fb:.5f} by {fby}, "
+                  f"{100 * fb / ms:.1f}%; max |err| {err:.3g}), backward "
+                  f"{bms:.5f} ms (bound {bb:.5f} by {bby}, "
+                  f"{100 * bb / bms:.1f}%; max |err| {berr:.3g})",
+                  flush=True)
 
 
 #: Edits of K1 and K2's source (csrc/partition.cu) that make each variant.
@@ -1259,8 +1501,9 @@ def k5bwd(torch, cs, _build) -> None:
         table = {f"{label}, {n}": e for n, e in split.items()}
         if source == "flash_attention":
             table.update(K5BWD_NOW)
-        designs.update({n: k5_lib(lib) for n, lib in build(
-            _build, source, table, "wgmma").items()})
+        designs.update({n: k5_lib(lib, source == "flash_attention")
+                        for n, lib in build(_build, source, table,
+                                            "wgmma").items()})
     first, now = designs["first MLA design, whole"], designs["as is, whole"]
     for dk, dv in ((96, 64), (192, 128), (128, 128)):
         for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
@@ -1350,8 +1593,9 @@ def k5bwd_whisper(torch, cs, _build) -> None:
         table = {f"{label}, {n}": e for n, e in K5BWD_SPLIT.items()}
         if source == "flash_attention":
             table.update(K5BWD_WHISPER)
-        designs.update({n: k5_lib(lib) for n, lib in build(
-            _build, source, table, WHISPER_ONLY).items()})
+        designs.update({n: k5_lib(lib, source == "flash_attention")
+                        for n, lib in build(_build, source, table,
+                                            WHISPER_ONLY).items()})
     first = designs["first Whisper design, whole"]
     now = designs["as is, whole"]
     for dk, dv in ((128, 128), (96, 64), (192, 128), (64, 64)):
@@ -1470,18 +1714,22 @@ TABLES = (("segment_matmul", K4_VARIANTS),
           ("variants/flash_attention_whisper_first", K5_WHISPER_FIRST),
           ("flash_attention", K5_WHISPER_NOW),
           ("variants/flash_attention_whisper_first", K5BWD_SPLIT),
-          ("flash_attention", K5BWD_WHISPER))
+          ("flash_attention", K5BWD_WHISPER),
+          ("variants/flash_attention_window_first", K5_WINDOW_FIRST),
+          ("flash_attention", K5_WINDOW_NOW),
+          ("mamba_scan", K7_VARIANTS))
 
 
 def main() -> int:
     import torch
 
     if sys.argv[1:] not in (["k4"], ["k5"], ["k1k2"], ["k6"], ["ctrl"],
-                            ["k5bwd"], ["k4bwd"], ["k6bwd"],
-                            ["k5", "whisper"], ["k5bwd", "whisper"]):
+                            ["k5bwd"], ["k4bwd"], ["k6bwd"], ["k7"],
+                            ["k5", "whisper"], ["k5bwd", "whisper"],
+                            ["k5", "window"]):
         print("usage: python3 kernel_variants.py "
-              "k4|k5|k1k2|k6|ctrl|k5bwd|k4bwd|k6bwd, or k5|k5bwd whisper",
-              file=sys.stderr)
+              "k4|k5|k1k2|k6|k7|ctrl|k5bwd|k4bwd|k6bwd, k5|k5bwd whisper, "
+              "or k5 window", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -1497,8 +1745,9 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     {"k4": k4, "k5": k5, "k1k2": k1k2, "k6": k6, "ctrl": ctrl,
-     "k5bwd": k5bwd, "k4bwd": k4bwd, "k6bwd": k6bwd,
-     "k5 whisper": k5_whisper, "k5bwd whisper": k5bwd_whisper}[
+     "k5bwd": k5bwd, "k4bwd": k4bwd, "k6bwd": k6bwd, "k7": k7,
+     "k5 whisper": k5_whisper, "k5bwd whisper": k5bwd_whisper,
+     "k5 window": k5_window}[
          " ".join(sys.argv[1:])](torch, cs, _build)
     return 0
 

@@ -3,9 +3,9 @@
 The port's counterpart of ``repro.configs``.  Each ``<arch>.py`` exports
 the published configuration (``config()``) and a reduced same-family
 configuration for the CPU tests (``smoke_config()``).  Only the
-architectures whose model path is ported have a file here, every family
-but the hybrid one; asking for the other (``hymba-1.5b``) raises
-``NotImplementedError``.
+architectures whose model path is ported have a file here: every
+architecture of the JAX package, each family included; an architecture
+without one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ _MODULES: Dict[str, str] = {
     "minicpm3-4b": "minicpm3_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "whisper-medium": "whisper_medium",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 #: The architectures the port serves.

@@ -19,7 +19,14 @@ JAX package's two forms align a causal mask with ``S != T`` differently
 (``repro.kernels.ref`` bottom-right, the Pallas kernel top-left), and the
 model only ever calls it with ``S == T``, so the wrapper refuses it.  Full
 attention takes any S and T: Whisper's cross attention runs 1 to 512
-queries against the encoder's 1,500 keys.
+queries against the encoder's 1,500 keys.  A causal call may take a
+sliding ``window`` (the hybrid family's windowed layers: query ``i`` also
+stops seeing keys ``j <= i - window``, the mask of
+``repro.models.attention``, ``attention.py:95-96``), on the ``fma`` route
+and on ``wgmma`` at (64, 64), Hymba-1.5B's width; the kernels skip the
+tiles wholly outside every row's window, so a window costs about ``S
+window`` pairs, not ``S^2 / 2``.  A window at the other ``wgmma`` widths,
+or without ``causal``, raises ``ValueError``.
 
 For CUDA tensors the wrapper launches a kernel of
 ``csrc/flash_attention.cu`` (built at first use) on the current stream, or
@@ -112,6 +119,8 @@ WIDTHS = tuple((d, d) for d in HEAD_DIMS) + MLA_WIDTHS
 #: The pairs of the ``wgmma`` kernels (bf16), forward and backward: hd 128,
 #: hd 64 (Whisper) and MLA's two published pairs.
 WGMMA_WIDTHS = ((128, 128), (64, 64), (96, 64), (192, 128))
+#: The one wgmma pair that takes a sliding window (Hymba-1.5B's heads).
+WINDOW_WGMMA = (64, 64)
 ROUTES = ("fma", "wgmma")
 #: Launches by kernel, in the order of ``ROUTES`` (the C side's codes).
 routes = dict.fromkeys(ROUTES, 0)
@@ -128,12 +137,12 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 5 + [i32] * 7 + [ctypes.c_float] + [i32] * 3
             + [ctypes.POINTER(ctypes.c_longlong), i32, ptr,
                ctypes.POINTER(i32)])
         lib.repro_flash_attention.restype = i32
         lib.repro_flash_attention_bwd.argtypes = (
-            [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 2
+            [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 3
             + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
         lib.repro_flash_attention_bwd.restype = i32
         _lib = lib
@@ -152,6 +161,25 @@ def _tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     strides = _strides(q) + _strides(k) + _strides(v)
     return not (any(s % 8 for s in strides)
                 or any(t.data_ptr() % 16 for t in (q, k, v)))
+
+
+def _window(window: Optional[int], causal: bool, q: torch.Tensor,
+            v: torch.Tensor) -> int:
+    """The kernels' window argument (0: none); raises on a window they do
+    not take."""
+    if window is None:
+        return 0
+    window = int(window)
+    if window < 1 or not causal:
+        raise ValueError(f"a sliding window needs causal attention and a "
+                         f"width of at least 1, got window={window}, "
+                         f"causal={causal}")
+    pair = (q.shape[-1], v.shape[-1])
+    if (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and pair in WGMMA_WIDTHS and pair != WINDOW_WGMMA):
+        raise ValueError(f"a sliding window at (dk, dv) = {pair} on the "
+                         f"wgmma route: only {WINDOW_WGMMA} takes one")
+    return window
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -185,17 +213,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, window: Optional[int] = None):
     """Softmax attention, float32 ``[B, H, S, dv]``; ``scale`` multiplies
-    the float32 scores (default ``dk ** -0.5``).  With ``return_lse``,
-    ``(out, lse)``: lse the float32 ``[B, H, S]`` log-sum-exp of each row's
-    scaled scores, or None on the ``fma`` route."""
+    the float32 scores (default ``dk ** -0.5``); ``window``: a causal
+    call's sliding window (None: none).  With ``return_lse``, ``(out,
+    lse)``: lse the float32 ``[B, H, S]`` log-sum-exp of each row's scaled
+    scores, or None on the ``fma`` route."""
     B, H, S, hd, KV, T, dv = _check(q, k, v, causal)
+    win = _window(window, causal, q, v)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal, scale=scale,
-                                   return_lse=return_lse)
+                                   return_lse=return_lse, window=window)
     wgmma = q.dtype == torch.bfloat16 and (hd, dv) in WGMMA_WIDTHS
     out = torch.empty((B, H, S, dv), dtype=torch.float32, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -221,7 +251,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, H, KV, S, T, hd, dv,
-        scale, int(causal), _DTYPES[q.dtype],
+        scale, int(causal), win, _DTYPES[q.dtype],
         (ctypes.c_longlong * 9)(*strides),
         *_build.device_and_stream(q.device), ctypes.byref(route))
     _build.raise_on(lib, code, "flash_attention")
@@ -244,9 +274,10 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
                         lse: Optional[torch.Tensor] = None,
-                        causal: bool = True, scale: Optional[float] = None):
+                        causal: bool = True, scale: Optional[float] = None,
+                        window: Optional[int] = None):
     """(dq, dk, dv) of ``out = flash_attention(q, k, v, causal=causal,
-    scale=scale)`` at ``dout``: q, k and v as the forward takes them (views
+    scale=scale, window=window)`` at ``dout``: q, k and v as the forward takes them (views
     too), ``out`` its float32 ``[B, H, S, dv]``, ``dout`` the gradient at
     it (made float32 and contiguous here) and ``lse`` the forward's
     log-sum-exp (``return_lse=True``), which the ``wgmma`` route needs and
@@ -254,6 +285,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, KV, T, dk]`` and dv ``[B, KV, T, dv]`` in k's, contiguous; float32
     sums, dk and dv over the query heads of each KV head."""
     B, H, S, hd, KV, T, dv_w = _check(q, k, v, causal)
+    win = _window(window, causal, q, v)
     want = (B, H, S, dv_w)
     if out.shape != want or dout.shape != want:
         raise ValueError(f"out and dout must be {list(want)}, got "
@@ -264,7 +296,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(
             q.contiguous(), k.contiguous(), v.contiguous(), out, dout,
-            causal=causal, scale=scale)
+            causal=causal, scale=scale, window=window)
     out = out.float().contiguous()
     dout = dout.float().contiguous()
     dq = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
@@ -295,7 +327,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), None if route == "fma" else lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, H, KV,
-        S, T, hd, dv_w, scale, int(causal), _DTYPES[q.dtype],
+        S, T, hd, dv_w, scale, int(causal), win, _DTYPES[q.dtype],
         (ctypes.c_longlong * 9)(*(_strides(q) + _strides(k) + _strides(v))),
         ROUTES.index(route), *_build.device_and_stream(q.device))
     _build.raise_on(lib, code, "flash_attention_bwd")
@@ -312,29 +344,31 @@ class _FlashAttention(torch.autograd.Function):
     lse saved for it (recomputed with the forward under remat)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, window):
         out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
-                                   return_lse=True)
+                                   return_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse=lse,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_ad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = True,
-                       scale: Optional[float] = None) -> torch.Tensor:
+                       causal: bool = True, scale: Optional[float] = None,
+                       window: Optional[int] = None) -> torch.Tensor:
     """:func:`flash_attention` as an autograd function (the model's call),
     differentiable in q, k and v.  With no gradient to take (grad mode
     off, or no input that requires one: the serve) it is
     :func:`flash_attention` itself, which then writes no lse."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, scale)
-    return flash_attention(q, k, v, causal=causal, scale=scale)
+        return _FlashAttention.apply(q, k, v, causal, scale, window)
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           window=window)

@@ -6,7 +6,8 @@ and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 They repeat the kernels' arithmetic and are no yardstick of speed: the
 row gather materializes ``[N, W]``, the grouped matmul upcasts its inputs
 to float32, attention materializes a ``[S, block]`` score tile per
-head, and the RWKV6 scan walks T in Python with a few ops a step.
+head, and the RWKV6 and Mamba scans walk T in Python with a few ops a
+step.
 """
 from __future__ import annotations
 
@@ -147,9 +148,17 @@ def segment_matmul_backward(dout: torch.Tensor, x: torch.Tensor,
 NEG_INF = -2.0 ** 30
 
 
+def _window_ok(window: Optional[int], causal: bool, S: int, T: int) -> None:
+    if window is not None and (not causal or S != T or window < 1):
+        raise ValueError(f"a window needs causal attention with S == T and "
+                         f"a width of at least 1, got window={window}, "
+                         f"causal={causal}, S={S}, T={T}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    block: int = 1024, return_lse: bool = False):
+                    block: int = 1024, return_lse: bool = False,
+                    window: Optional[int] = None):
     """Online-softmax attention over KV blocks, float32 ``[B, H, S, dv]``;
     with ``return_lse``, ``(out, lse)``, lse the float32 ``[B, H, S]``
     log-sum-exp of each row's scaled (masked) scores, ``m + log(max(l,
@@ -160,7 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``H`` a multiple of ``KV`` (query head ``h`` reads KV head
     ``h // (H // KV)``).  q is cast to float32 and then scaled (``scale``
     defaults to ``hd ** -0.5``); when causal, query ``i`` sees keys
-    ``j <= i``.
+    ``j <= i``, and with a sliding ``window`` (causal, S == T) only keys
+    ``j > i - window``, the mask of ``repro.models.attention`` (``:95-96``).
     Masked scores take :data:`NEG_INF`; the output is
     ``acc / max(l, 1e-20)``, as in ``repro.models.attention`` and the
     Pallas kernel.  Blocks wholly above the diagonal change nothing and
@@ -168,6 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, H, S, hd = q.shape
     KV, T, dv = k.shape[1], k.shape[2], v.shape[-1]
+    _window_ok(window, causal, S, T)
     rep = H // KV
     scale = scale if scale is not None else hd ** -0.5
     qf = q.float() * scale
@@ -186,7 +197,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.einsum("bhsd,bhtd->bhst", qf, kb)
         if causal:
             kv_pos = torch.arange(start, start + kb.shape[2], device=q.device)
-            s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+            vis = kv_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                vis = vis & (kv_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(vis, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -202,9 +216,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
                         causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None):
     """The backward of :func:`flash_attention`: (dq, dk, dv) at ``dout``,
-    the gradient at its float32 output ``out``.
+    the gradient at its float32 output ``out`` (``window`` as there).
 
     P is recomputed in float32 (``softmax`` of the scores masked as the
     forward masks them), ``D_i = sum_d dout[i, d] out[i, d]``,
@@ -216,6 +231,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     rep = H // KV
+    _window_ok(window, causal, S, T)
     scale = scale if scale is not None else hd ** -0.5
     qf = q.float() * scale
     kf, vf = k.float(), v.float()
@@ -224,8 +240,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = vf.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", qf, kf)
     if causal:
-        vis = (torch.arange(T, device=q.device)[None, :]
-               <= torch.arange(S, device=q.device)[:, None])
+        kv_pos = torch.arange(T, device=q.device)[None, :]
+        q_pos = torch.arange(S, device=q.device)[:, None]
+        vis = kv_pos <= q_pos
+        if window is not None:
+            vis = vis & (kv_pos > q_pos - window)
         s = torch.where(vis, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     do = dout.float()
@@ -312,6 +331,89 @@ def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         g = wt[..., None] * g + rt[..., None] * dt[..., None, :]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
             du, g)
+
+
+def mamba_scan(x: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan of ``repro.models.ssm.mamba_apply``
+    (``ssm.py:176-207``; its ``lax.scan``, ``:193-206``): x ``[B, S, DI]``, delta ``[B, S,
+    DI]``, bmat and cmat ``[B, S, N]``, a ``[DI, N]``, d_skip ``[DI]``,
+    h0 ``[B, DI, N]`` (zeros when None).  In float32, as JAX computes it:
+
+        da  = exp(delta a)            dbx = (delta B) x
+        h_t = da_t h_{t-1} + dbx_t    y_t = sum_n h_t C_t + x_t d_skip
+
+    Returns (y ``[B, S, DI]`` in x's dtype, the final state ``[B, DI, N]``
+    float32)."""
+    B, S, DI = x.shape
+    xf = x.float()
+    dl = delta.float()
+    bf, cf = bmat.float(), cmat.float()
+    da = torch.exp(dl[..., None] * a.float()[None, None])      # [B,S,DI,N]
+    dbx = dl[..., None] * bf[:, :, None, :] * xf[..., None]
+    h = (torch.zeros((B, DI, a.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float().clone())
+    ys = torch.empty((B, S, DI), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        h = da[:, t] * h + dbx[:, t]
+        ys[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t])
+    y = ys + xf * d_skip.float()
+    return y.to(x.dtype), h
+
+
+def mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   h0: Optional[torch.Tensor], dy: torch.Tensor,
+                   dh_fin: Optional[torch.Tensor] = None):
+    """The gradients of :func:`mamba_scan` at ``dy`` (the gradient at y)
+    and ``dh_fin`` (at the final state; zeros when None), in float32, one
+    step at a time backwards.  With G_t the gradient at h_t and h_{t-1}
+    the state before step t (recomputed forward from h0):
+
+        G_t     = dy_t C_t + da_{t+1} G_{t+1}     (G_{S-1} adds dh_fin)
+        dC_t    = sum_d dy_t h_t                  dB_t = sum_d G_t delta_t x_t
+        u_t     = G_t h_{t-1} da_t                (at delta_t a)
+        ddelta_t = sum_n (u_t a + G_t B_t x_t)    da = sum_{b,t} u_t delta_t
+        dx_t    = sum_n G_t delta_t B_t + dy_t d_skip
+        dd_skip = sum_{b,t} dy_t x_t              dh0 = da_0 G_0
+
+    Returns (dx in x's dtype, ddelta, dbmat, dcmat, da ``[DI, N]``,
+    dd_skip ``[DI]`` and dh0 ``[B, DI, N]``, float32)."""
+    B, S, DI = x.shape
+    xf, dl, bf, cf = (t.float() for t in (x, delta, bmat, cmat))
+    af = a.float()
+    dyf = dy.float()
+    h = (torch.zeros((B, DI, af.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    da = torch.exp(dl[..., None] * af[None, None])
+    dbx = dl[..., None] * bf[:, :, None, :] * xf[..., None]
+    states = []                                # h_{t-1} for each step t
+    for t in range(S):
+        states.append(h)
+        h = da[:, t] * h + dbx[:, t]
+    g = (torch.zeros_like(h) if dh_fin is None else dh_fin.float().clone())
+    dx, ddl = (torch.empty((B, S, DI), dtype=torch.float32, device=x.device)
+               for _ in range(2))
+    db, dc = (torch.empty((B, S, af.shape[-1]), dtype=torch.float32,
+                          device=x.device) for _ in range(2))
+    dA = torch.zeros_like(af)
+    for t in reversed(range(S)):
+        hp = states[t]
+        ht = da[:, t] * hp + dbx[:, t]
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        dc[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], ht)
+        gx = g * xf[:, t, :, None]
+        db[:, t] = torch.einsum("bdn,bd->bn", gx, dl[:, t])
+        u = g * hp * da[:, t]
+        dA += (u * dl[:, t, :, None]).sum(0)
+        ddl[:, t] = (u * af).sum(-1) + (gx * bf[:, t, None, :]).sum(-1)
+        dx[:, t] = (g * (dl[:, t, :, None] * bf[:, t, None, :])).sum(-1) \
+            + dyf[:, t] * d_skip.float()
+        g = g * da[:, t]
+    dskip = (dyf * xf).sum((0, 1))
+    return dx.to(x.dtype), ddl, db, dc, dA, dskip, g
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,9 @@ vision tower gets zero bf16 patches ``[batch, n_patches, d_model]`` ahead
 of each batch's tokens, as the JAX launcher gives it), and for
 Whisper-medium (~13 GB; the encdec family's stubbed audio frontend gets
 zero bf16 frames ``[batch, enc_seq, d_model]``, as the JAX launcher gives
-it; no experts, so no balancer).  Weights are
+it; no experts, so no balancer), and for Hymba-1.5B (~21 GB; its Mamba
+heads' backward on K7's backward kernel, its windowed attention on K5's;
+no experts).  Weights are
 random, drawn from seed 0 on the device.  Checkpoints are written
 atomically every ``--ckpt-every`` steps (the JAX package's layout) and
 training resumes from the newest one.

@@ -1,8 +1,10 @@
 """GQA attention (llama family) and MLA (DeepSeek-V2, MiniCPM3) with a KV
 cache, in PyTorch.
 
-The port of ``repro.models.attention`` but for its sliding windows.
-Prefill and training attention goes through K5
+The port of ``repro.models.attention``, its sliding windows included (the
+hybrid family's: query ``i`` sees keys ``i - window < j <= i``,
+``attention.py:95-96`` and ``:203-204``; ``window=None`` is JAX's full
+layer, its 2^30).  Prefill and training attention goes through K5
 (:func:`repro_torch.kernels.flash_attention.flash_attention_ad`)
 exactly where the JAX model calls its chunked-flash reference
 (``attention.py:174``, ``:180``, MLA's expanded path, ``:296``, and the
@@ -39,7 +41,8 @@ NEG_INF = kref.NEG_INF
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, block: int = 1024,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
     """The plain form of the model's attention: q ``[B, S, H, hd]``, k, v
     ``[B, T, KV, hd]`` -> float32 ``[B, S, H, dv]``.
 
@@ -53,7 +56,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = scalar_mul(q, scale).float()
     out = kref.flash_attention(
         qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, scale=1.0, block=block)
+        causal=causal, scale=1.0, block=block, window=window)
     return out.transpose(1, 2)
 
 
@@ -69,7 +72,8 @@ def gqa_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 
 def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, causal: bool = True) -> torch.Tensor:
+                       *, causal: bool = True,
+                       window: Optional[int] = None) -> torch.Tensor:
     """Attention through K5 of q ``[B, S, H, hd]`` over k ``[B, T, KV,
     hd]`` and v ``[B, T, KV, dv]`` -> float32 ``[B, S, H, dv]``: a segment
     within itself (causal, or full: the encoder), or with ``causal=False``
@@ -81,10 +85,12 @@ def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qk_rope) ** -0.5``, q's width too), and K5 runs with ``scale = 1``.
     K5 reads the ``[B, H, S, hd]`` views of the model's tensors in place,
     through its autograd form (its backward is K5's backward kernel), so
-    a forward without a cache is differentiable."""
+    a forward without a cache is differentiable.  ``window``: a causal
+    segment's sliding window (None: full)."""
     qs = scalar_mul(q, q.shape[-1] ** -0.5)
     out = k5.flash_attention_ad(qs.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal, scale=1.0)
+                                v.transpose(1, 2), causal=causal, scale=1.0,
+                                window=window)
     return out.transpose(1, 2)
 
 
@@ -99,13 +105,15 @@ def gqa_apply(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: int = 0,
     causal: bool = True,
+    window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out ``[B, S, D]``, the cache).  With a cache, the segment
     is written at ``cache_len``: a prompt (``cache_len == 0``) attends
     within itself through K5, one token (S = 1) attends to the cache.
     ``causal=False`` (the encoder, which has no cache) lets every position
     see the whole segment; RoPE is applied all the same, as JAX's
-    ``gqa_apply`` does."""
+    ``gqa_apply`` does.  ``window``: a sliding window (the hybrid family's
+    windowed layers), in K5 and in the decode alike."""
     B, S, _ = x.shape
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, S, n_heads, head_dim)
@@ -133,11 +141,12 @@ def gqa_apply(
                     "a multi-token segment after a filled cache: the port "
                     "prefills the vlm family's patches and text as one "
                     "segment at 0, so nothing takes this path")
-            out = _prefill_attention(q, k, v, causal=causal)
+            out = _prefill_attention(q, k, v, causal=causal, window=window)
         else:
-            out = decode_attention(q, cache["k"], cache["v"], offset + S)
+            out = decode_attention(q, cache["k"], cache["v"], offset + S,
+                                   window=window)
     else:
-        out = _prefill_attention(q, k, v, causal=causal)
+        out = _prefill_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, n_heads * head_dim).to(dt)
     return out @ p["wo"].to(dt), cache
 
@@ -159,11 +168,13 @@ def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, valid_len: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, valid_len: int, *,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Attention of a short segment over a (padded) cache buffer.
 
     q ``[B, S, H, hd]`` (S small), caches ``[B, Tmax, KV, hd]``; positions
-    ``>= valid_len`` are masked.  Float32 ``[B, S, H, hd]``."""
+    ``>= valid_len`` are masked, and with a ``window`` those at or below a
+    query's position less the window.  Float32 ``[B, S, H, hd]``."""
     B, S, H, hd = q.shape
     KV = k_cache.shape[2]
     rep = H // KV
@@ -174,6 +185,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     t_pos = torch.arange(k.shape[1], device=q.device)
     q_pos = valid_len - S + torch.arange(S, device=q.device)
     mask = t_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask = mask & (t_pos[None, :] > q_pos[:, None] - window)
     s = torch.where(mask[None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bthd->bhsd", w, v.float())

@@ -8,7 +8,9 @@ first_k_dense`` layers) and the encdec family's ``enc_blocks``
 (``n_enc_layers``) become lists of per-layer dicts, the unstacked
 ``dense_blocks`` stay a list, and every array becomes a tensor on
 ``device``; a MoE layer's expert stacks keep their physical slot axis
-(``P = E + R``) and its ``shared`` experts their dict.
+(``P = E + R``) and its ``shared`` experts their dict, and a hybrid
+layer's Mamba head (``ssm_in``, the ``ssm`` dict, ``ln_attn_out`` and
+``ln_ssm_out``) its leaves.
 :func:`adamw_state_from_jax` carries an AdamW state across the same way
 (``step``, and ``m`` and ``v`` shaped as the params), so both packages
 can take a step from one state.  It imports no JAX; the tests use it to

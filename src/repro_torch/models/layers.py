@@ -137,6 +137,34 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+class _Softplus(torch.autograd.Function):
+    """JAX's ``logaddexp(x, 0)`` op by op, with JAX's derivative
+    (``_logaddexp_jvp``: ``exp(x - softplus(x))``, each op in x's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as JAX computes it: ``logaddexp(x, 0)`` =
+    ``max(x, 0) + log1p(exp(-|x|))``, each op rounded to x's dtype (its
+    bf16 bits; below about -87.5 XLA's CPU flushes the subnormal ``exp``
+    to zero where PyTorch keeps it).  ``F.softplus`` rounds once and
+    differs at about 1.3% of the finite bf16 values (0.6953125 against
+    JAX's 0.69140625 near 4.3e-4).  Its gradient is JAX's, ``exp(x -
+    softplus(x))``.  The Mamba head's step size (``ssm.mamba_apply``)
+    uses it."""
+    return _Softplus.apply(x)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (its default tanh form) as JAX computes it: ``x *
     (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` with ``c = sqrt(2 /

@@ -1,7 +1,8 @@
 """The model of the ported architectures, in PyTorch.
 
-The port of ``repro.models.model`` for the decoder-only GQA families,
-the attention-free RWKV6 family and the encoder-decoder family:
+The port of ``repro.models.model`` for every family of the JAX package:
+the decoder-only GQA and MLA ones, the attention-free RWKV6 family, the
+encoder-decoder family and the hybrid one:
 
     params = init_params(cfg, seed, device)
     logits, stats = forward(params, cfg, batch)            # train / prefill
@@ -26,8 +27,14 @@ ahead of the MoE ones, kept in ``params["dense_blocks"]`` (and
 ``cache["dense_blocks"]``) as JAX keeps them; ``blocks`` holds the other
 ``n_layers - first_k_dense``.  The ssm family's cache is a float32
 recurrent state per layer (``wkv`` and the two token-shift carries), so
-``max_len`` does not size it.  The hybrid family is not ported yet and
-raises (:func:`check_supported`).
+``max_len`` does not size it.  The ``"hybrid"`` family (Hymba) runs a
+Mamba head beside GQA attention in every block (``ssm_in``, ``ssm``: the
+recurrence through K7) and averages the two outputs' RMS norms
+(``ln_attn_out``, ``ln_ssm_out``); its attention takes a sliding window of
+``swa_window`` on every layer but the first, the middle and the last
+(:func:`_layer_flags`; a full layer passes ``window=None``, where JAX
+passes 2^30), in K5 and in the decode alike, and its cache adds the
+Mamba state, float32 ``[B, d_model, ssm_state]`` a layer (``"ssm"``).
 
 The encdec family follows JAX's: the encoder's blocks (``enc_blocks``, a
 list like ``blocks``) run its self-attention through K5 with
@@ -54,7 +61,7 @@ Python (:func:`repro_torch.models.convert.params_from_jax` unstacks a JAX
 tree).  ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, where JAX takes ``jax.checkpoint``), so the
 kernels' forwards launch twice a step.  :func:`loss_fn` is differentiable
-for every ported family: K4, K5 and K6 have their backward (each a
+for every family: K4, K5, K6 and K7 have their backward (each a
 kernel).  Entry points
 take ``device`` (default ``"cuda"``), resolved by
 :func:`repro_torch.devices.resolve_device`.
@@ -100,12 +107,13 @@ def stacked_depths(cfg: ModelConfig) -> Dict[str, int]:
 
 #: The attention each ported family takes.
 ATTN = {"dense": ("gqa", "mla"), "moe": ("gqa", "mla"), "vlm": ("gqa",),
-        "ssm": ("none",), "encdec": ("gqa",)}
+        "ssm": ("none",), "encdec": ("gqa",), "hybrid": ("gqa",)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet:
-    the hybrid family."""
+    """Raise ``NotImplementedError`` for a configuration outside what the
+    JAX package builds: an unknown family, an attention its family does
+    not take, or another norm or activation."""
     missing = []
     if cfg.family not in ATTN:
         missing.append(f"family {cfg.family!r}")
@@ -153,6 +161,11 @@ def _block_init(cfg: ModelConfig, gen: torch.Generator, *,
     else:
         p["attn"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.hd, dt)
+    if cfg.family == "hybrid":
+        p["ssm_in"] = dense_init(gen, cfg.d_model, cfg.d_model, dt)
+        p["ssm"] = ssm_lib.mamba_init(gen, cfg.d_model, cfg.ssm_state, dt)
+        p["ln_attn_out"] = rmsnorm_init(cfg.d_model, dt, dev)
+        p["ln_ssm_out"] = rmsnorm_init(cfg.d_model, dt, dev)
     if cross:
         p["ln_cross"] = _norm_init(cfg, cfg.d_model, dt, dev)
         p["cross"] = attn_lib.gqa_init(gen, cfg.d_model, cfg.n_heads,
@@ -214,11 +227,14 @@ def _block_apply(
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
     moe_routing: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
-    """One block (GQA or MLA attention, the cross attention over
-    ``enc_out`` where given, then a MoE or the dense FFN; or RWKV6
-    time-mix + channel-mix).  ``causal=False``: the encoder's full
-    self-attention.  Returns (x, the new cache, moe_stats)."""
+    """One block (GQA or MLA attention, with the hybrid family's Mamba
+    head beside it, the cross attention over ``enc_out`` where given, then
+    a MoE or the dense FFN; or RWKV6 time-mix + channel-mix).
+    ``causal=False``: the encoder's full self-attention; ``window``: the
+    attention's sliding window (None: full).  Returns (x, the new cache,
+    moe_stats)."""
     stats: Dict[str, torch.Tensor] = {}
     h = _apply_norm(cfg, x, bp["ln1"])
     if cfg.family == "ssm":
@@ -246,8 +262,16 @@ def _block_apply(
         a_out, new_attn = attn_lib.gqa_apply(
             bp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_theta=cfg.rope_theta, cache=attn_cache,
-            cache_len=cache_len, causal=causal)
+            cache_len=cache_len, causal=causal, window=window)
     new_cache = None if cache is None else {"attn": new_attn}
+    if cfg.family == "hybrid":
+        s_in = h @ bp["ssm_in"].to(x.dtype)
+        s_out, new_ssm = ssm_lib.mamba_apply(
+            bp["ssm"], s_in, state=None if cache is None else cache["ssm"])
+        a_out = 0.5 * (rmsnorm(a_out, bp["ln_attn_out"])
+                       + rmsnorm(s_out, bp["ln_ssm_out"]))
+        if cache is not None:
+            new_cache["ssm"] = new_ssm
     x = x + a_out
 
     if enc_out is not None:
@@ -291,6 +315,25 @@ def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     return _apply_norm(cfg, x, params["ln_enc"])
 
 
+def _layer_flags(cfg: ModelConfig) -> List[bool]:
+    """Which layers of ``blocks`` attend fully: the hybrid family's first,
+    middle and last (JAX's ``_layer_flags``); none else."""
+    n = cfg.n_layers - cfg.first_k_dense
+    full = {0, n // 2, n - 1} if cfg.family == "hybrid" else set()
+    return [i in full for i in range(n)]
+
+
+def _windows(cfg: ModelConfig) -> List[Optional[int]]:
+    """Each layer of ``blocks``'s sliding window: the hybrid family's
+    ``max(swa_window, 1)`` on all but its full layers (JAX's windows,
+    where a full layer's 2^30 masks nothing: None here); None else."""
+    n = cfg.n_layers - cfg.first_k_dense
+    if cfg.family != "hybrid":
+        return [None] * n
+    return [None if full else max(cfg.swa_window, 1)
+            for full in _layer_flags(cfg)]
+
+
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = _apply_norm(cfg, x, params["ln_f"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -319,9 +362,9 @@ def forward(params: Params, cfg: ModelConfig,
     n_slots = moe_routing.shape[-1] if moe_routing is not None else n_e
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def block(bp, x, routing, enc_out):
+    def block(bp, x, routing, enc_out, window):
         x, _, st = _block_apply(cfg, bp, x, enc_out=enc_out,
-                                moe_routing=routing)
+                                moe_routing=routing, window=window)
         return x, (
             st.get("aux_loss", zero),
             st.get("dropped_frac", zero),
@@ -342,9 +385,9 @@ def forward(params: Params, cfg: ModelConfig,
     for bp in params.get("dense_blocks", []):
         x = run(lambda bp, x: _block_apply(cfg, bp, x)[0], bp, x)
     aux: List[Tuple[torch.Tensor, ...]] = []
-    for i, bp in enumerate(params["blocks"]):
+    for i, (bp, window) in enumerate(zip(params["blocks"], _windows(cfg))):
         routing = None if moe_routing is None else moe_routing[i]
-        x, st = run(block, bp, x, routing, enc_out)
+        x, st = run(block, bp, x, routing, enc_out, window)
         aux.append(st)
     aux_l, drop_f, tpe_router, tpe_slot = (torch.stack(t) for t in zip(*aux))
     logits = _logits(params, cfg, x)
@@ -394,8 +437,12 @@ def _block_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.attn == "mla":
         return {"attn": attn_lib.mla_cache_init(batch, max_len, cfg.kv_lora,
                                                 cfg.qk_rope, cdt, dev)}
-    return {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
-                                            cfg.hd, cdt, dev)}
+    c = {"attn": attn_lib.gqa_cache_init(batch, max_len, cfg.n_kv_heads,
+                                         cfg.hd, cdt, dev)}
+    if cfg.family == "hybrid":
+        c["ssm"] = torch.zeros((batch, cfg.d_model, cfg.ssm_state),
+                               dtype=torch.float32, device=dev)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -405,9 +452,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     kv_lora], "k_pe": [batch, max_len, qk_rope]}}``), under ``blocks`` and
     the first_k_dense layers' under ``dense_blocks``; for the ssm family
     one float32 ``{"wkv": [batch, H, hd, hd], "shift", "cshift": [batch,
-    1, D]}`` per layer, whatever ``max_len``; for the encdec family also
-    ``enc_out`` ``[batch, enc_seq, D]`` in the compute dtype (zeros until
-    :func:`prefill` runs the encoder)."""
+    1, D]}`` per layer, whatever ``max_len``; for the hybrid family also
+    the Mamba state ``"ssm"``, float32 ``[batch, D, ssm_state]`` a layer;
+    for the encdec family also ``enc_out`` ``[batch, enc_seq, D]`` in the
+    compute dtype (zeros until :func:`prefill` runs the encoder)."""
     check_supported(cfg)
     dev = resolve_device(device)
     cache: Params = {"blocks": [
@@ -440,10 +488,13 @@ def decode_step(params: Params, cfg: ModelConfig,
     cache_len = int(cache_len)
     enc_out = cache.get("enc_out")
     for name in ("dense_blocks", "blocks"):
-        for bp, bc in zip(params.get(name, []), cache.get(name, [])):
+        windows = (_windows(cfg) if name == "blocks"
+                   else [None] * cfg.first_k_dense)
+        for bp, bc, window in zip(params.get(name, []), cache.get(name, []),
+                                  windows):
             x, new_cache, _ = _block_apply(cfg, bp, x, cache=bc,
                                            cache_len=cache_len,
-                                           enc_out=enc_out)
+                                           enc_out=enc_out, window=window)
             bc.update(new_cache)
     return _logits(params, cfg, x if all_positions else x[:, -1:]), cache
 

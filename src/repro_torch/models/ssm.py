@@ -1,6 +1,7 @@
-"""RWKV6 ("Finch") time-mix and channel-mix, in PyTorch.
+"""RWKV6 ("Finch") time-mix and channel-mix, and the Mamba head of the
+hybrid family, in PyTorch.
 
-The port of the RWKV6 half of ``repro.models.ssm`` (arXiv:2404.05892,
+The port of ``repro.models.ssm``.  Its RWKV6 half (arXiv:2404.05892,
 simplified but recurrence-faithful): per head, with a data-dependent decay
 ``w_t = exp(-exp(w0 + tanh(x W_a) W_b))``,
 
@@ -22,7 +23,17 @@ W_b`` in the compute dtype and its ``exp(-exp(.))`` in float32, the RMS
 ``ln_x`` over all of D cast back before the ``ln_x`` product.  Decode
 carries ``{"wkv", "shift"}`` (O(1) state per token).
 
-The Mamba half (``ssm.py:162-207``) comes with the hybrid family.
+The Mamba half (``ssm.py:162-207``, Hymba's selective-SSM head):
+:func:`mamba_init` (``a_log = log(1 .. N)`` on every channel, as JAX's) and
+:func:`mamba_apply`, whose three projections (the step size ``delta =
+softplus(x W_dt + dt_bias)`` through :func:`repro_torch.models.layers.
+softplus`, JAX's bf16 bits, and B and C) stay plain products cast to
+float32, as JAX computes them outside any kernel, and whose ``lax.scan``
+(``:193-206``) is one call of K7
+(:func:`repro_torch.kernels.mamba_scan.mamba_scan_ad`, through its module,
+so a recorder can stand in for it; its backward is K7's backward kernel).
+With a state (the serve's cache, float32 ``[B, d_inner, N]``) it returns
+the state after the segment.
 """
 from __future__ import annotations
 
@@ -31,8 +42,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import mamba_scan as k7
 from ..kernels import rwkv_scan as k6
-from .layers import Params, dense_init, silu
+from .layers import Params, dense_init, silu, softplus
 
 
 # --------------------------------------------------------------------- #
@@ -168,3 +180,43 @@ def rwkv6_cmix_apply(p: Params, x: torch.Tensor,
     out = h @ p["wv"].to(dt)
     new_last = None if last is None else x[:, -1:, :].to(last.dtype)
     return out, new_last
+
+
+# --------------------------------------------------------------------- #
+# Mamba-style selective SSM head (for Hymba)                             #
+# --------------------------------------------------------------------- #
+def mamba_init(gen: torch.Generator, d_inner: int, d_state: int,
+               dtype=torch.float32) -> Params:
+    dev = gen.device
+    a_log = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
+                                   device=dev))
+    return {
+        # diagonal A (negative for stability), learned in log space
+        "a_log": a_log[None, :].repeat(d_inner, 1).to(dtype),
+        "w_dt": dense_init(gen, d_inner, d_inner, dtype, scale=0.01),
+        "dt_bias": torch.zeros((d_inner,), dtype=dtype, device=dev),
+        "w_b": dense_init(gen, d_inner, d_state, dtype),
+        "w_c": dense_init(gen, d_inner, d_state, dtype),
+        "d_skip": torch.ones((d_inner,), dtype=dtype, device=dev),
+    }
+
+
+def mamba_apply(
+    p: Params,
+    x: torch.Tensor,                          # [B, S, d_inner]
+    *,
+    state: Optional[torch.Tensor] = None,     # [B, d_inner, d_state]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (y ``[B, S, d_inner]`` in x's dtype, the new state or None
+    without one).  ``a = -exp(a_log)``, ``delta``, B and C in float32 as
+    JAX makes them; the recurrence and ``y = h . C + x d_skip`` in K7."""
+    dt = x.dtype
+    a = -torch.exp(p["a_log"].float())
+    delta = softplus(x @ p["w_dt"].to(dt) + p["dt_bias"].to(dt)).float()
+    bmat = (x @ p["w_b"].to(dt)).float()
+    cmat = (x @ p["w_c"].to(dt)).float()
+    h0 = None if state is None else state.float().contiguous()
+    y, h_fin = k7.mamba_scan_ad(x.contiguous(), delta, bmat, cmat, a,
+                                p["d_skip"].float().contiguous(), h0)
+    new_state = None if state is None else h_fin.to(state.dtype)
+    return y, new_state

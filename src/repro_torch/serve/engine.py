@@ -17,6 +17,9 @@ starts at ``n_patches + S`` (JAX's starts at ``S``, over the prompt's
 rows).  The encdec family gets JAX's stub too, zero frame embeddings
 ``[B, enc_seq, d_model]`` in the compute dtype, which the prefill runs the
 encoder over; its cache holds ``S + max_len`` decoder positions, as JAX's.
+The hybrid family's left padding runs through its Mamba heads too: the
+pads' steps feed each layer's recurrent state before the prompt's, as in
+JAX's engine.
 """
 from __future__ import annotations
 

@@ -12,7 +12,9 @@ other's checkpoints: the keys are the JAX tree's paths (``/``-joined dict
 keys, list indices and the ``AdamWState`` field names ``step``, ``m``,
 ``v``), and the port's per-layer ``blocks`` and ``enc_blocks`` lists (the
 JAX package's scanned stacks) are stacked on a leading layer axis on save
-(``blocks/attn/wq`` is ``[L, ...]``) and unstacked on restore.  A bf16 leaf is written as float32 (numpy has no bf16) and cast
+(``blocks/attn/wq`` is ``[L, ...]``, the hybrid family's
+``blocks/ssm/a_log`` ``[L, d_model, ssm_state]``) and unstacked on
+restore.  A bf16 leaf is written as float32 (numpy has no bf16) and cast
 back on restore, as the JAX module's restore casts to the leaf's dtype.
 """
 from __future__ import annotations

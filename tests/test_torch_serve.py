@@ -118,21 +118,32 @@ def test_initializers_draw_the_jax_distributions():
 
 
 def test_registry_ports_two_archs_and_refuses_the_rest():
-    """The ported architectures resolve (``whisper-medium`` too, since the
-    encdec family was ported); ``hymba-1.5b``, not ported yet, raises."""
+    """Every architecture of the JAX package resolves (``whisper-medium``
+    since the encdec family was ported, ``hymba-1.5b`` since the hybrid
+    one was) and passes ``check_supported``; an unknown name raises
+    ``KeyError`` and a family the JAX package does not build
+    ``NotImplementedError``."""
+    from repro_torch.configs import ARCH_IDS, PORTED
     assert get_config("olmoe-1b-7b").n_experts == 64
     assert get_config("llama3.2-3b").n_kv_heads == 8
     rwkv = get_config("rwkv6-1.6b")
     assert (rwkv.family, rwkv.attn, rwkv.hd) == ("ssm", "none", 64)
     whisper = get_config("whisper-medium")
     assert (whisper.family, whisper.n_enc_layers) == ("encdec", 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("hymba-1.5b")
+    hymba = get_config("hymba-1.5b")
+    assert (hymba.family, hymba.ssm_state, hymba.swa_window) == (
+        "hybrid", 16, 1024)
+    assert sorted(PORTED) == sorted(ARCH_IDS)
+    for arch in ARCH_IDS:
+        tm.check_supported(get_config(arch))
     with pytest.raises(KeyError):
         get_config("gpt-2")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.check_supported(dataclasses.replace(get_smoke("llama3.2-3b"),
+                                               family="retnet"))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["whisper-medium"])
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-medium", "hymba-1.5b"])
 def test_configs_are_the_jax_packages(arch):
     from repro.configs import get_config as jget_config
     for j, t in ((jget_config(arch), get_config(arch)),
@@ -141,19 +152,19 @@ def test_configs_are_the_jax_packages(arch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="hybrid"),
+    dict(family="hybrid", ssm_state=4, swa_window=4),
     dict(family="encdec", n_enc_layers=2, enc_seq=12), dict(norm="ln")])
 def test_unported_families_raise(change):
-    """The hybrid family, not ported yet, raises.  The encdec family and
-    LayerNorm, ported now, are taken on the OLMoE smoke configuration (an
-    encoder of MoE blocks over seeded frames; LayerNorm in place of RMS):
-    float32 logits within the float32 tolerance of JAX's ``forward``."""
+    """The families once unported now resolve and run: the hybrid family
+    (a Mamba head of 4 states beside the attention of every block, window
+    4), the encdec family and LayerNorm are taken on the OLMoE smoke
+    configuration (MoE blocks; an encoder of MoE blocks over seeded
+    frames; LayerNorm in place of RMS): float32 logits within the float32
+    tolerance of JAX's ``forward``, and the hybrid one served by
+    ``ServeEngine``."""
     tcfg = dataclasses.replace(get_smoke("olmoe-1b-7b"),
                                compute_dtype="float32", **change)
-    if tcfg.family == "hybrid":
-        with pytest.raises(NotImplementedError):
-            tm.init_params(tcfg, 0, "cpu")
-        return
+    tm.check_supported(tcfg)
     jcfg = dataclasses.replace(jget_smoke("olmoe-1b-7b"),
                                compute_dtype="float32", **change)
     jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
@@ -169,6 +180,14 @@ def test_unported_families_raise(change):
     jl, _ = jm.forward(jp, jcfg, jb, remat=False)
     tl, _ = tm.forward(tp, tcfg, tb, remat=False)
     np.testing.assert_allclose(_f32(tl), _f32(jl), **TOL["float32"])
+    if tcfg.family == "hybrid":
+        eng = teng.ServeEngine(tp, tcfg, batch_size=2, max_len=4,
+                               device="cpu")
+        for i in range(3):
+            eng.submit(teng.Request(uid=i, prompt=toks[i % 2, :5 + i],
+                                    max_new_tokens=3))
+        done = eng.run()
+        assert len(done) == 3 and all(len(r.out_tokens) >= 1 for r in done)
 
 
 def test_params_from_jax_unstacks_the_layers():
