@@ -318,9 +318,11 @@ Phases, in order; any failure exits non-zero before the last line:
            edge windows 1, 63, 64, 65, 1,023 and past S, and on fma (hd 16,
            float32); K7 ``mamba_scan`` (csrc/mamba_scan.cu, no Pallas
            counterpart: ``mamba_apply``'s ``lax.scan``) forward and
-           backward at B 4, S 2,048, d_inner 1,600, N 16 and at a decode
-           step's S 1 with a state, within ``check_mamba`` /
-           ``check_mamba_bwd``'s error envelopes; planted faults (the
+           backward at B 4, S 2,048, d_inner 1,600, N 16, at a decode
+           step's S 1 with a state and at ragged d_inner and N (element
+           copies into its ring), within ``check_mamba`` /
+           ``check_mamba_bwd``'s error envelopes (the build fails if ptxas
+           spills either K7 kernel); planted faults (the
            window one key wider or gone, the state or dh_fin not carried)
            beyond the bounds; each timed beside its bound, its plain
            version and (K5) SDPA with the window as a boolean mask.  Then
@@ -644,9 +646,13 @@ HYBRID_K5_FMA = ((2, 4, 2, 200, 16, "float32", 8),
                  (2, 4, 2, 200, 16, "bfloat16", 5),
                  (2, 5, 1, 300, 64, "float32", 70))
 #: K7's checks (B, S, d_inner, N, with a state): Hymba's prefill (timed), a
-#: decode step, and float32 at N 4 and 16 across the checkpoint interval.
+#: decode step, float32 at N 4 and 16 across the checkpoint interval, and
+#: d_inner past a whole block (32 channels) with element copies into the
+#: ring: bf16 at N 16 (d_inner not a multiple of 8), float32 at N 3
+#: (d_inner odd); S past a whole chunk and checkpoint interval.
 HYBRID_K7 = ((4, 2048, 1600, 16, False), (4, 1, 1600, 16, True),
-             (2, 130, 40, 4, True), (1, 65, 8, 16, True))
+             (2, 130, 40, 4, True), (1, 65, 8, 16, True),
+             (2, 77, 36, 16, True), (3, 77, 37, 3, True))
 #: The Hymba slices: HYBRID_SLICE_LAYERS layers at full width (layer 1
 #: windowed).  The serve slice: SLICE_B x HYBRID_SLICE_S prompt positions
 #: (past the 1,024 window) and SLICE_STEPS decode steps: the decode
@@ -2345,6 +2351,9 @@ def sass_counts(source: str):
 #: K5's wgmma kernels and the (dk, dv) instances of each the build holds.
 K5_WGMMA_KERNELS = ("flash_wgmma", "flash_bwd_dkv_wgmma",
                     "flash_bwd_dq_wgmma")
+#: K7's kernels, whose registers hold a lane's states (and in the backward
+#: a chunk's states and decays): the build fails if ptxas spills them.
+K7_KERNELS = ("mamba_scan_kernel", "mamba_scan_bwd_kernel")
 
 
 def check_sass() -> None:
@@ -6558,7 +6567,7 @@ def mamba_envelope(torch, x, delta, bmat, cmat, a, d_skip, h0):
     """``check_mamba``'s bound, by the recurrence on magnitudes: A_t = da_t
     A_{t-1} + |dbx_t| (A_{-1} = |h0|) bounds |h_t|, and E_t = da_t E_{t-1} +
     8 2^-24 (da_t A_{t-1} + A_t) (E_{-1} = 0) the two versions' distance at
-    h_t: their exponentials (expf against the plain version's, each within
+    h_t: their exponentials (ex2 against the plain version's, each within
     2 units in the last place) and each side's rounding of da h and of the
     add, the rest of a step being the same operations on the same values.
     y_t = sum_n h_t C_t + x_t d_skip: E_t through C_t, and each side's 16
@@ -6660,7 +6669,7 @@ def mamba_bwd_magnitudes(torch, args, dy, dh):
 def check_mamba_bwd(torch, what: str, got, args, dy, dh) -> float:
     """K7's backward against its plain version: both float32 arithmetic on
     the same inputs in other orders (the kernel's sums over N by its
-    butterfly, over d and (b, t) by its partials; its exponentials expf's).
+    butterfly, over d and (b, t) by its partials; its exponentials ex2's).
     Along the recurrence each step rounds a few times on each side and
     changes the exponential by 4 units in the last place: with M a
     gradient's magnitude (``mamba_bwd_magnitudes``), within (16 S + 2 n +
@@ -6887,7 +6896,8 @@ def hybrid_kernel_phase(torch, k5, k7):
 
     faults, tried = 0, 0
     for i, (B, S, DI, N, state) in enumerate(HYBRID_K7):
-        xdt = torch.bfloat16 if N == 16 and DI >= 1600 else torch.float32
+        xdt = (torch.bfloat16 if N == 16 and (DI >= 1600 or DI % 8)
+               else torch.float32)
         args = mamba_inputs(torch, 1200 + i, B, S, DI, N, xdt, state)
         what = f"mamba_scan B={B} S={S} d_inner={DI} N={N} {xdt} state={state}"
         before = k7.mamba_scan.launches
@@ -7541,7 +7551,9 @@ def hybrid_only() -> int:
 
 def build_logged(_build, names=None) -> None:
     """Builds the named sources (every one by default) and prints each
-    kernel's ``-Xptxas -v`` lines: registers, shared memory, spills."""
+    kernel's ``-Xptxas -v`` lines: registers, shared memory, spills.  Fails
+    where ptxas serializes or spills a K5 wgmma kernel at (64, 64) or
+    spills a K7 kernel."""
     t0 = time.perf_counter()
     logs = _build.build() if names is None else _build.build(names)
     log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
@@ -7560,6 +7572,8 @@ def build_logged(_build, names=None) -> None:
                      "Li64ELi64E")
     check(not spills, f"build: ptxas spills in K5's wgmma kernels at (64, "
                       f"64): {spills}")
+    spills = spilled(logs.get("mamba_scan", ""), K7_KERNELS, "mamba_scan")
+    check(not spills, f"build: ptxas spills in K7's kernels: {spills}")
 
 
 def spilled(log_text: str, kernels, tag: str) -> list:

@@ -17,7 +17,9 @@
     python3 kernel_variants.py k6bwd # K6's backward: the step split of its
                                      # first design and of today's, the
                                      # two held bit for bit
-    python3 kernel_variants.py k7    # K7 (the Mamba scan): its constants
+    python3 kernel_variants.py k7    # K7 (the Mamba scan): the first
+                                     # design against the redesign, its
+                                     # levers undone one at a time
     python3 kernel_variants.py k5 window  # K5's sliding window: bits
                                      # without one against the source
                                      # before it, tile skipping's share
@@ -679,11 +681,12 @@ def k5_window(torch, cs, _build) -> None:
     torch.cuda.empty_cache()
 
 
-#: Edits of K7's source (csrc/mamba_scan.cu) that make each variant: its
-#: blocks held to a third as many registers (six blocks an SM: the grid in
-#: one wave), or the exponential by ``__expf`` (ex2.approx of x log2 e).
+#: Edits of K7's first design (csrc/variants/mamba_scan_first.cu) that
+#: make each variant: its blocks held to a third as many registers (six
+#: blocks an SM: the grid in one wave), or the exponential by ``__expf``
+#: (ex2.approx of x log2 e).
 K7_VARIANTS = {
-    "as is (expf, 128 threads, registers free)": {},
+    "first (expf, 128 threads, registers free)": {},
     "six blocks an SM": {
         "__global__ void __launch_bounds__(kThreads)\n"
         "mamba_scan_kernel(":
@@ -693,14 +696,133 @@ K7_VARIANTS = {
                "  da = __expf(__fmul_rn(dl, an));"},
 }
 
+#: Edits of K7's first design that take one cost away (wrong numbers,
+#: timed only): what paces it.  Its walk with the global loads replaced
+#: by values already in registers, with the exponential replaced by a
+#: multiply, and its backward without the per-block partial writes and
+#: without the second launch.
+K7_FIRST_SPLIT = {
+    "first, loads from registers": {
+        "    dl[i] = in && w.chan ? delta[at] : 0.0f;\n"
+        "    xv[i] = in && w.chan ? widen(x[at]) : 0.0f;\n"
+        "    bv[i] = in && w.live ? bm[an] : 0.0f;\n"
+        "    cv[i] = in && w.live ? cm[an] : 0.0f;\n":
+        "    dl[i] = in && w.chan ? 0.5f + 0.001f * (t & 63) : 0.0f;\n"
+        "    xv[i] = in && w.chan ? 1.0f - 0.002f * (t & 31) : 0.0f;\n"
+        "    bv[i] = in && w.live ? 0.25f * (w.lane - 7) : 0.0f;\n"
+        "    cv[i] = in && w.live ? 0.125f * (i - 7) : 0.0f;\n"},
+    "first, exp by a multiply": {
+        "  da = expf(__fmul_rn(dl, an));":
+        "  da = __fmul_rn(__fmul_rn(dl, an), 0.01f);"},
+    "first, no partial writes or second launch": {
+        "          pb[at] = sb;\n          pc[at] = sc;\n":
+        "          if (sb == 1e-30f && sc == 1e-30f) pb[at] = sb;\n",
+        "  mamba_scan_bwd_sum<<<": "  if (total < 0) mamba_scan_bwd_sum<<<"},
+}
 
-def k7(torch, cs, _build) -> None:
-    """K7 at Hymba's prefill (``chip_smoke.HYBRID_K7``'s first case: B 4,
-    S 2,048, d_inner 1,600, N 16, bf16 x): the source as it is and each of
-    ``K7_VARIANTS``, forward within ``check_mamba`` and backward within
-    ``check_mamba_bwd``, timed in turns (CUDA events) beside
-    ``k7_bound`` / ``k7_bwd_bound``."""
-    libs = build(_build, "mamba_scan", K7_VARIANTS, "mamba")
+#: Edits of K7's source as it is (csrc/mamba_scan.cu), each undoing one
+#: lever of its redesign or trying another constant: the forward's
+#: exponential by exp2f (no longer one instruction); the backward's by
+#: expf, or by ex2 without its correction (faster, but at S 1 beyond
+#: ``check_mamba_bwd``'s dh0 bound); the forward's state update without
+#: contraction; the ring two chunks ahead; the forward's chunks of 16 or
+#: 64 steps; other lanes a channel (8: two states a lane, 16 channels a
+#: block; 16: one state a lane, 8 channels a block); checkpoints every 8
+#: steps; the backward's partials a block (no cluster); the cluster
+#: barrier released by the last warp, or by every warp; and a second
+#: exponential in the backward's walk down (the same bits).
+K7_NOW = {
+    "now (ex2, fma, ring 1 ahead, 4 lanes a channel, clusters)": {},
+    "forward exp2f": {
+        '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(r) : "f"(v));':
+        "  r = exp2f(v);"},
+    "backward expf": {"  da = exp_of(__fmul_rn(dl, an));":
+                      "  da = expf(__fmul_rn(dl, an));"},
+    "backward ex2 uncorrected": {
+        "  da = exp_of(__fmul_rn(dl, an));":
+        "  da = ex2(__fmul_rn(dl, __fmul_rn(an, kLog2e)));"},
+    "forward no contraction": {
+        "        h[s] = __fmaf_rn(ex2(__fmul_rn(dl, a2[s])), h[s],\n"
+        "                         __fmul_rn(__fmul_rn(dl, bv[s]), xv));":
+        "        h[s] = __fadd_rn(__fmul_rn(ex2(__fmul_rn(dl, a2[s])), h[s]),\n"
+        "                         __fmul_rn(__fmul_rn(dl, bv[s]), xv));"},
+    "ring 2 ahead": {"constexpr int kAhead = 1;": "constexpr int kAhead = 2;"},
+    "forward chunks of 16": {"constexpr int kChunk = 32;":
+                             "constexpr int kChunk = 16;"},
+    "forward chunks of 64": {"constexpr int kChunk = 32;":
+                             "constexpr int kChunk = 64;"},
+    "forward 8 lanes a channel": {"using FwdMap = Map<4>;":
+                                  "using FwdMap = Map<8>;"},
+    "forward 16 lanes a channel": {"using FwdMap = Map<4>;":
+                                   "using FwdMap = Map<16>;"},
+    "backward 8 lanes a channel": {"using BwdMap = Map<4>;":
+                                   "using BwdMap = Map<8>;"},
+    "checkpoints every 8": {"constexpr int kCk = 16;": "constexpr int kCk = 8;"},
+    "no cluster": {"  for (int k = kMaxCluster; k > 1; --k)":
+                   "  for (int k = 1; k > 1; --k)"},
+    "the last warp releases": {
+        "    if (tid < 32)\n      sm90::cluster_arrive();":
+        "    if (tid >= kThreads - 32)\n      sm90::cluster_arrive();"},
+    "every warp releases": {"    if (tid < 32)\n      sm90::cluster_arrive();":
+                            "    if (tid < kThreads)\n"
+                            "      sm90::cluster_arrive();"},
+    "exp again in the walk": {
+        "          const float ht = i + 1 < kCk ?":
+        "          da[i][s] = exp_of(__fmul_rn(dl, an[s]));\n"
+        "          const float ht = i + 1 < kCk ?"},
+}
+
+#: Edits of K7's source as it is that take one cost away (wrong numbers,
+#: timed only): the forward's or the backward's exponential replaced by a
+#: multiply-add; the forward's ring reads (values from registers); its
+#: butterfly; the backward's sums of dB and dC over the block's channels;
+#: the release of its cluster barrier a chunk (relaxed: the partial sums
+#: may be read stale); its stores of dx and ddelta.
+K7_NOW_SPLIT = {
+    "now, forward exp by a multiply": {
+        "        h[s] = __fmaf_rn(ex2(__fmul_rn(dl, a2[s])), h[s],":
+        "        h[s] = __fmaf_rn(__fmaf_rn(__fmul_rn(dl, a2[s]), 0.001f, "
+        "0.99f), h[s],"},
+    "now, backward exp by a multiply": {
+        "  da = exp_of(__fmul_rn(dl, an));":
+        "  da = __fmaf_rn(__fmul_rn(dl, an), 0.001f, 0.99f);"},
+    "now, forward without ring reads": {
+        "      const float dl = sdl[i * kDPB + w.c];\n"
+        "      const float xv = widen(sx[i * kDPB + w.c]);\n"
+        "      float bv[kSPL], cv[kSPL];\n"
+        "      load_states(sb + i * kMaxN + w.n0, bv);\n"
+        "      load_states(sc + i * kMaxN + w.n0, cv);\n":
+        "      const float dl = 0.5f + 0.001f * (i + w.c);\n"
+        "      const float xv = 1.0f - 0.002f * (i + w.q);\n"
+        "      float bv[kSPL], cv[kSPL];\n"
+        "      for (int s = 0; s < kSPL; ++s) {\n"
+        "        bv[s] = 0.25f * (s + w.q - 1.5f);\n"
+        "        cv[s] = 0.125f * (i - s - w.c);\n"
+        "      }\n"},
+    "now, forward without its butterfly": {
+        "    fold<M::kLPC / 2, kChunk>(yp, w.q);\n": ""},
+    "now, no sums over the block's channels": {
+        "    for (int gi = tid; gi < kGroups; gi += kThreads) {":
+        "    for (int gi = tid; gi < 0; gi += kThreads) {"},
+    "now, relaxed cluster arrivals": {
+        "    if (tid < 32)\n      sm90::cluster_arrive();":
+        "    if (tid < 0)\n      sm90::cluster_arrive();"},
+    "now, no dx or ddelta stores": {
+        "        if (w.chan && i < steps) {":
+        "        if (w.chan && i < steps && s1[j] + s2[j] == 1e-30f) {"},
+}
+
+#: K7's variants whose numbers are wrong by design: timed, not checked.
+K7_TIMED_ONLY = set(K7_FIRST_SPLIT) | set(K7_NOW_SPLIT)
+
+
+def k7_libs(_build):
+    """Every K7 library of ``k7``, typed: the first design and its edits,
+    then the source as it is and its edits, {name: CDLL} in that order."""
+    libs = build(_build, "variants/mamba_scan_first",
+                 {**K7_VARIANTS, **K7_FIRST_SPLIT}, "mamba")
+    libs.update(build(_build, "mamba_scan", {**K7_NOW, **K7_NOW_SPLIT},
+                      "mamba"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for lib in libs.values():
         lib.repro_mamba_scan.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
@@ -709,25 +831,49 @@ def k7(torch, cs, _build) -> None:
         lib.repro_mamba_scan_bwd.restype = i32
         lib.repro_mamba_bwd_workspace.argtypes = [i32] * 4
         lib.repro_mamba_bwd_workspace.restype = ctypes.c_longlong
-    B, S, DI, N, _ = cs.HYBRID_K7[0]
-    args = cs.mamba_inputs(torch, 1400, B, S, DI, N, torch.bfloat16, False)
-    x = args[0]
-    dev = _build.device_and_stream(x.device)
+    return libs
 
-    def fwd(lib, ck=None):
+
+def k7(torch, cs, _build) -> None:
+    """K7 at three of Hymba's shapes (bf16 x, d_inner 1,600, N 16): the
+    train path's B 4 x S 2,048 (``chip_smoke.HYBRID_K7``'s first case,
+    forward and backward), the serve's prefill S 1,907 and a decode step
+    (S 1 with a state; forward only).  Its first design
+    (``csrc/variants/mamba_scan_first.cu``) with ``K7_VARIANTS`` and the
+    step-0 split ``K7_FIRST_SPLIT``, then the source as it is with
+    ``K7_NOW`` and ``K7_NOW_SPLIT``, timed in turns (CUDA events; every
+    library, then every library in reverse order) beside ``k7_bound`` / ``k7_bwd_bound``; in
+    the first turn each checked library's forward within ``check_mamba``
+    and backward within ``check_mamba_bwd`` at the train shape, and two
+    backward calls the same bits.  Each library's checkpoints are as
+    often as its ``repro_mamba_checkpoint_every()``."""
+    libs = k7_libs(_build)
+    B, S, DI, N, _ = cs.HYBRID_K7[0]
+    shapes = (("train", B, S, False), ("serve", B, 1907, False),
+              ("decode", B, 1, True))
+    inputs = {tag: cs.mamba_inputs(torch, 1400 + i, b, s, DI, N,
+                                   torch.bfloat16, state)
+              for i, (tag, b, s, state) in enumerate(shapes)}
+    dev = _build.device_and_stream(torch.device("cuda"))
+
+    def fwd(lib, args, ck=None):
+        x = args[0]
+        b, s, _ = x.shape
         y = torch.empty_like(x)
-        h = torch.empty((B, DI, N), dtype=torch.float32, device="cuda")
-        code = lib.repro_mamba_scan(*(t.data_ptr() for t in args[:6]), None,
-                                    y.data_ptr(), h.data_ptr(),
-                                    None if ck is None else ck.data_ptr(),
-                                    B, S, DI, N, 1, *dev)
+        h = torch.empty((b, DI, N), dtype=torch.float32, device="cuda")
+        code = lib.repro_mamba_scan(
+            *(t.data_ptr() for t in args[:6]),
+            None if args[6] is None else args[6].data_ptr(), y.data_ptr(),
+            h.data_ptr(), None if ck is None else ck.data_ptr(), b, s, DI, N,
+            1, *dev)
         cs.check(code == 0, f"mamba_scan failed: CUDA error {code}")
         return y, h
 
-    dy = cs.randn(torch, 1410, x.shape, torch.bfloat16)
+    args = inputs["train"]
+    dy = cs.randn(torch, 1410, args[0].shape, torch.bfloat16)
 
     def bwd(lib, ck):
-        outs = [torch.empty_like(x)] + [
+        outs = [torch.empty_like(args[0])] + [
             torch.empty(s, dtype=torch.float32, device="cuda")
             for s in ((B, S, DI), (B, S, N), (B, S, N), (DI, N), (DI,),
                       (B, DI, N))]
@@ -740,24 +886,44 @@ def k7(torch, cs, _build) -> None:
         cs.check(code == 0, f"mamba_scan_bwd failed: CUDA error {code}")
         return outs
 
-    fb, fby = cs.k7_bound(B, S, DI, N, 2, False)
+    bounds = {tag: cs.k7_bound(b, s, DI, N, 2, state)
+              for tag, b, s, state in shapes}
     bb, bby = cs.k7_bwd_bound(B, S, DI, N, 2)
-    ck = torch.empty((B, -(-S // 64), DI, N), dtype=torch.float32,
-                     device="cuda")
+    cks = {}
+    for name, lib in libs.items():
+        every = lib.repro_mamba_checkpoint_every()
+        cks[name] = torch.empty((B, -(-S // every), DI, N),
+                                dtype=torch.float32, device="cuda")
+        print(f"{name}: checkpoints every {every} steps", flush=True)
     for turn, names in enumerate((list(libs), list(libs)[::-1])):
         for name in names:
-            lib = libs[name]
-            err = cs.check_mamba(torch, name, fwd(lib, ck), args)
-            berr = cs.check_mamba_bwd(torch, name, bwd(lib, ck), args, dy,
-                                      None)
-            ms = cs.time_ms(torch, lambda: fwd(lib), (), 20)
+            lib, ck = libs[name], cks[name]
+            err = berr = float("nan")
+            got = fwd(lib, args, ck)
+            g = bwd(lib, ck)
+            if turn == 0 and name not in K7_TIMED_ONLY:
+                cs.check(all(torch.equal(u, v) for u, v in zip(
+                    fwd(lib, args), got)),
+                    f"{name}: other bits with checkpoints")
+                err = cs.check_mamba(torch, name, got, args)
+                cs.check(all(torch.equal(u, v) for u, v in zip(
+                    g, bwd(lib, ck))),
+                    f"{name}: two backward calls give other bits")
+                berr = cs.check_mamba_bwd(torch, name, g, args, dy, None)
+            del got, g
+            times = {tag: cs.time_ms(torch, lambda a=inputs[tag]: fwd(lib, a),
+                                     (), 20 if tag != "decode" else 200)
+                     for tag, _, _, _ in shapes}
             bms = cs.time_ms(torch, lambda: bwd(lib, ck), (), 10)
-            print(f"{name}: K7 B={B} S={S} d_inner={DI} N={N} bf16 turn "
-                  f"{turn}: forward {ms:.5f} ms (bound {fb:.5f} by {fby}, "
-                  f"{100 * fb / ms:.1f}%; max |err| {err:.3g}), backward "
-                  f"{bms:.5f} ms (bound {bb:.5f} by {bby}, "
-                  f"{100 * bb / bms:.1f}%; max |err| {berr:.3g})",
-                  flush=True)
+            parts = [f"{tag} forward {times[tag]:.5f} ms "
+                     f"({100 * bounds[tag][0] / times[tag]:.1f}% of "
+                     f"{bounds[tag][0]:.5f} by {bounds[tag][1]})"
+                     for tag, _, _, _ in shapes]
+            print(f"{name}: K7 d_inner={DI} N={N} bf16 turn {turn}: "
+                  f"{'; '.join(parts)}; train backward {bms:.5f} ms "
+                  f"({100 * bb / bms:.1f}% of {bb:.5f} by {bby}); max |err| "
+                  f"{err:.3g} / {berr:.3g}", flush=True)
+    torch.cuda.empty_cache()
 
 
 #: Edits of K1 and K2's source (csrc/partition.cu) that make each variant.
@@ -1717,7 +1883,10 @@ TABLES = (("segment_matmul", K4_VARIANTS),
           ("flash_attention", K5BWD_WHISPER),
           ("variants/flash_attention_window_first", K5_WINDOW_FIRST),
           ("flash_attention", K5_WINDOW_NOW),
-          ("mamba_scan", K7_VARIANTS))
+          ("variants/mamba_scan_first", K7_VARIANTS),
+          ("variants/mamba_scan_first", K7_FIRST_SPLIT),
+          ("mamba_scan", K7_NOW),
+          ("mamba_scan", K7_NOW_SPLIT))
 
 
 def main() -> int:

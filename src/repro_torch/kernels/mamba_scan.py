@@ -24,19 +24,25 @@ runs the plain version, :func:`repro_torch.kernels.ref.mamba_scan`.
 Bound on an H100: ``B S DI N`` exponentials at the multi-function unit's
 rate (16 a clock an SM) and about 5 float32 operations an entry, or x,
 delta, B and C read and y written once, whichever is longer: the
-exponentials, at Hymba-1.5B's shapes.  Design: a block of 8 channels of
-one batch row, 16 lanes a channel (one a state), the state in registers
-for the whole walk; chunks of 16 steps loaded before their arithmetic, and
-the sums over n by one transposed butterfly a chunk; the source note in
-the ``.cu`` file has the details.
+exponentials, at Hymba-1.5B's shapes.  Design: a block of 32 channels of
+one batch row, 4 lanes a channel and 4 states a lane, the state in
+registers for the whole walk; each chunk's inputs read once a block into a
+shared-memory ring by cp.async, a chunk ahead; ``da = ex2(delta a log2
+e)`` (one instruction of that unit) and ``h = fma(da, h, (delta B) x)``;
+the sums over n by one transposed butterfly a chunk.  The bits differ from
+the plain version within ``chip_smoke.check_mamba``'s envelope; the source
+note in the ``.cu`` file has the details.
 
 The backward, :func:`mamba_scan_bwd` (two launches of the same source:
 the recurrence walked backwards chunk by chunk from the forward's
-checkpoints, every ``CHECKPOINT_EVERY`` steps, then a pass that adds the
-per-block partial sums over d, and those over b, in a fixed order; no
-atomics, so two calls give the same bits): dx in x's dtype, ddelta, dB,
-dC, da, dd_skip and dh0 in float32.  :func:`mamba_scan_ad` is the autograd
-function the model calls.
+checkpoints, every ``CHECKPOINT_EVERY`` steps, each chunk's states and
+decays recomputed into registers once, its decays by one ex2 with a
+correction so their error does not grow with ``|delta a|``; dB and dC
+summed over d in a block, then in a cluster of blocks through distributed
+shared memory, then a pass that adds the clusters' partials, and those
+over b, in a fixed order; no atomics, so two calls give the same bits):
+dx in x's dtype, ddelta, dB, dC, da, dd_skip and dh0 in float32.
+:func:`mamba_scan_ad` is the autograd function the model calls.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ from . import _build, ref
 MAX_STATE = 16
 
 #: Steps between the forward's checkpoints (``kCk`` in the source).
-CHECKPOINT_EVERY = 64
+CHECKPOINT_EVERY = 16
 
 #: Launches of the backward a call.
 BWD_LAUNCHES = 2
