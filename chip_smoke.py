@@ -636,12 +636,19 @@ HYBRID_ARCH = "hymba-1.5b"
 HYBRID_PROMPT, HYBRID_TRAIN_S = (1100, 2048), 2048
 #: K5's window checks: at Hymba's width, bf16 on wgmma through the model's
 #: views, the timed shape (B, H, KV, S, window) and the edges (windows 1,
-#: 63, 64, 65, 1,023 and past S; 5, 1 and 5 query heads a KV head); on the
-#: fma route (B, H, KV, S, hd, dtype, window): hd 16 and float32.
+#: 63, 64, 65, 1,023 and past S; 5, 1 and 5 query heads a KV head), then
+#: those of the window form's blocks of packed heads (the library's
+#: ``window_wgs``): S not a multiple of 64 or of a block's rows, rep 5
+#: split 3 + 2 or 2 + 2 + 1 over a block's warpgroups, rep 2 (a block's
+#: units across two row tiles) and rep 1 (three row tiles of one head), at
+#: three and two warpgroups a block; on the fma route (B, H, KV, S, hd,
+#: dtype, window): hd 16 and float32.
 HYBRID_K5 = (4, 25, 5, 2048, 1024)
 HYBRID_K5_EDGES = ((1, 5, 1, 300, 1), (1, 5, 1, 300, 63), (1, 5, 1, 300, 64),
                    (1, 5, 1, 300, 65), (2, 10, 2, 1100, 1023),
-                   (1, 5, 5, 700, 5000))
+                   (1, 5, 5, 700, 5000), (2, 10, 2, 1000, 65),
+                   (4, 8, 4, 1500, 127), (8, 16, 16, 700, 100),
+                   (1, 10, 2, 333, 200))
 HYBRID_K5_FMA = ((2, 4, 2, 200, 16, "float32", 8),
                  (2, 4, 2, 200, 16, "bfloat16", 5),
                  (2, 5, 1, 300, 64, "float32", 70))
@@ -6777,7 +6784,9 @@ def hybrid_kernel_phase(torch, k5, k7):
     ``check_flash_bwd``'s wgmma bound, two calls the same bits; the
     planted "window + 1" and "no window" faults beyond those bounds, both
     directions, at the timed shape and at window 63; the ``fma`` route
-    (hd 16 and float32, ``HYBRID_K5_FMA``) alike within its bounds.  At
+    (hd 16 and float32, ``HYBRID_K5_FMA``) alike within its bounds; the
+    wgmma cases at both warpgroup counts a block (``k5.window_wgs``, the
+    library's own choice).  At
     the timed shape K5 forward and backward are timed beside ``k5_bound``
     / ``k5_bwd_bound`` (the windowed pairs), the plain versions and SDPA
     with the window as a boolean mask.
@@ -6803,11 +6812,16 @@ def hybrid_kernel_phase(torch, k5, k7):
                                         for c in HYBRID_K5_EDGES]
     cases += [(B, H, KV, S, w, getattr(torch, dt), d)
               for B, H, KV, S, d, dt, w in HYBRID_K5_FMA]
+    counts = set()
     for i, (B, H, KV, S, window, dtype, d) in enumerate(cases):
         q, k, v, out, lse, dout, route = hybrid_k5_case(
             torch, k5, 1100 + 4 * i, B, H, KV, S, window, dtype, d)
         what = (f"flash_attention ({d}, {d}) {q.dtype} B={B} H={H} KV={KV} "
                 f"S={S} window={window}")
+        if route == "wgmma":
+            wgs = k5.window_wgs(B, H, KV, S, q.device)
+            counts.add(wgs)
+            what += f" ({wgs} warpgroups a block)"
         scale = d ** -0.5
         kw = dict(causal=True, scale=scale, window=window)
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
@@ -6886,13 +6900,16 @@ def hybrid_kernel_phase(torch, k5, k7):
     check(faults == tried == 8,
           f"hybrid kernels: {faults} of the {tried} planted K5 window "
           f"faults went beyond the bounds")
+    check(counts == {2, 3}, f"hybrid kernels: the window's wgmma cases ran "
+                            f"at {sorted(counts)} warpgroups a block only")
     log(f"hybrid kernels: flash_attention with a window, causal, at "
         f"{[c[:5] for c in cases]} (B, H, KV, S, window): forward within "
         f"check_flash's bound (max |err| {errs['flash_attention']:.3g}), "
         f"lse within check_lse's, views the bits of their copies; backward "
         f"within check_flash_bwd's (max |err| "
         f"{errs['flash_attention_bwd']:.3g}), two calls the same bits; "
-        f"{faults} planted window faults beyond the bounds")
+        f"{faults} planted window faults beyond the bounds; wgmma at 2 and 3 "
+        f"warpgroups a block")
 
     faults, tried = 0, 0
     for i, (B, S, DI, N, state) in enumerate(HYBRID_K7):

@@ -543,11 +543,21 @@ def k5_whisper(torch, cs, _build) -> None:
 #: K5 as it stood before the sliding window
 #: (``csrc/variants/flash_attention_window_first.cu``), whole.
 K5_WINDOW_FIRST = {"before the window": {}}
-#: Edits of K5's source that keep the window's mask but skip no tile: the
-#: overlap forward's walks, dkv's query tiles and dq's key tiles start
-#: (end) where a call without a window does (what skipping saves).
-K5_WINDOW_NOW = {
-    "as is, no tile skipped": {
+#: K5's sliding window as PR 33 built it
+#: (``csrc/variants/flash_attention_window_pr33.cu``: the forward's and dq's
+#: blocks own 192 consecutive rows of one head on a 4- and a 2-stage ring,
+#: edge tiles masked score by score, the forward twice), whole and with one
+#: edit each: what paces it.  Its overlap ring at 8 stages (every (64, 64)
+#: forward; only windowed calls are timed on it), dq's ring at 4, and its
+#: window's mask kept with no tile skipped (every walk from tile 0, dkv's
+#: query walks to S).
+K5_WINDOW_PR33 = {
+    "PR 33's window": {},
+    "PR 33's window, an 8-stage forward ring": {
+        "constexpr int kOStages = 4;": "constexpr int kOStages = 8;"},
+    "PR 33's window, a 4-stage dq ring": {
+        "constexpr int kBStages = 2;": "constexpr int kBStages = 4;"},
+    "PR 33's window, no tile skipped": {
         "const int j_lo = kWin ? max(0, q0 - window + 1) / 64 : 0;":
         "const int j_lo = 0;",
         "  const int j_own = kWin && row_lo < S\n"
@@ -563,55 +573,118 @@ K5_WINDOW_NOW = {
         "      if constexpr (kWin) live = live && q0 < kw0 + kRows - 1 + window;":
         "      if constexpr (kWin) live = live && true;"},
 }
+#: Edits of PR 33's window that take one cost away (wrong numbers, timed
+#: only): the forward's second masking pass; every consumer warpgroup of
+#: the forward's and dq's blocks on the block's first rows (their walks
+#: coincide: no skew, no idle steps).
+K5_WINDOW_PR33_SPLIT = {
+    "PR 33's window, one masking pass": {
+        "  if (edge) {\n#pragma unroll\n    for (int i = 0; i < 32; ++i)\n"
+        "      if (masked(i)) sc[i] = 0.0f;\n  }\n": ""},
+    "PR 33's window, warpgroups on one walk": {
+        "  const int row_lo = q0 + 64 * wg;\n"
+        "  const int r0 = row_lo + 16 * (warp % 4) + lane / 4;\n"
+        "  const int n_own":
+        "  const int row_lo = q0;\n"
+        "  const int r0 = row_lo + 16 * (warp % 4) + lane / 4;\n"
+        "  const int n_own",
+        "  const int row_lo = q0 + kRows * wg;": "  const int row_lo = q0;"},
+}
+#: Edits of K5's source that undo one lever of the window's redesign, or
+#: try another constant: the window's mask kept with no tile skipped
+#: (every unit's walk from tile 0, dkv's query walks to S); the forward's
+#: second masking pass kept; the forward's and dq's grids a block a block
+#: of units (not one block an SM taking them in turn); the forward's and
+#: dq's rings at 6 and 4 stages (not 4 and 2; every (64, 64) call, only
+#: windowed ones timed); dkv's at 4 (not 3).
+K5_WINDOW_NOW = {
+    "as is, no tile skipped": {
+        "    return max(0, 64 * t - window + 1) / 64;": "    return 0;",
+        "    if constexpr (kWin)\n      it.n_q = (min(":
+        "    if constexpr (false)\n      it.n_q = (min(",
+        "      if constexpr (kWin) live = live && q0 < kw0 + kRows - 1 + window;":
+        "      if constexpr (kWin) live = live && true;"},
+    "as is, two masking passes": {"  if (edge && !exact) {": "  if (edge) {"},
+    "as is, a block a block of units": {
+        "  return min(blocks, static_cast<long long>(sm_count(device)));":
+        "  return blocks;"},
+    "as is, deeper rings": {
+        "constexpr int kOStages = 4;": "constexpr int kOStages = 6;",
+        "constexpr int kBStages = 2;": "constexpr int kBStages = 4;"},
+    "as is, dkv on a 4-stage ring": {
+        "static constexpr int kKVStages = kOwnKeys ? 3 : kBStages;":
+        "static constexpr int kKVStages = kOwnKeys ? 4 : kBStages;"},
+}
+#: The window's kernels by the names the profiler gives them.
+K5_WINDOW_KERNELS = ("flash_wgmma", "flash_bwd_prep", "flash_bwd_dkv_wgmma",
+                     "flash_bwd_dq_wgmma")
+#: ptxas's lines of the window's instantiations only.
+WINDOW_ONLY = "Li64ELi64ELb1E"
 
 
-def hybrid_qkv(torch, cs, seed: int):
-    """bf16 q, k, v at Hymba's (64, 64), ``chip_smoke.HYBRID_K5``'s B, H,
-    KV and S, through the model's ``[B, S, H, hd]`` views."""
-    B, H, KV, S, _ = cs.HYBRID_K5
-    return tuple(cs.randn(torch, seed + i, (B, S, n, 64),
+def hybrid_qkv(torch, cs, seed: int, S=None):
+    """bf16 q, k, v at Hymba's (64, 64), ``chip_smoke.HYBRID_K5``'s B, H
+    and KV (and S unless given), through the model's ``[B, S, H, hd]``
+    views."""
+    B, H, KV, S0, _ = cs.HYBRID_K5
+    return tuple(cs.randn(torch, seed + i, (B, S or S0, n, 64),
                           torch.bfloat16).transpose(1, 2)
                  for i, n in enumerate((H, KV, KV)))
 
 
 def k5_window(torch, cs, _build) -> None:
-    """K5's sliding window at Hymba's (64, 64): calls without a window held
-    bit for bit to the source before the window at every wgmma
-    width (``mla_bit_cases``, forward out and lse and backward dq, dk,
-    dv), and timed against it in turns without a window at Whisper's
-    encoder (B 4, H 16, S = T = 1,500, full) and at Hymba's shape (causal);
-    then at ``chip_smoke.HYBRID_K5`` (B 4, H 25, KV 5, S 2,048,
-    window 1,024) the source as it is, windowed and without a window
-    (causal over all 2,048 keys), and windowed with no tile skipped
-    (``K5_WINDOW_NOW``), forward and backward, each held to
-    ``check_flash`` / ``check_flash_bwd`` with the window and timed in
-    turns beside ``k5_bound`` / ``k5_bwd_bound`` of the windowed pairs and
-    SDPA with the window as a boolean mask."""
+    """K5's sliding window at Hymba's (64, 64): the source as it is
+    against PR 33's window (``csrc/variants/flash_attention_window_pr33.cu``,
+    the same source without a window as PR 34's).  Calls without a window
+    held bit for bit to PR 33's source and to the source before the window
+    at every wgmma width (``mla_bit_cases``) and at Whisper's shapes,
+    forward out and lse and backward dq, dk, dv, and timed against PR 33's
+    in turns at Whisper's encoder and at Hymba's shape (full causal).  Then
+    windowed, at the train shape (``chip_smoke.HYBRID_K5``: B 4, H 25, KV
+    5, S 2,048, window 1,024), the serve's S 1,907 and windows 63 and 65 at
+    S 2,048: each source whole, with one lever undone (``K5_WINDOW_NOW``)
+    or one edit (``K5_WINDOW_PR33``), and PR 33's with one cost taken away
+    (``K5_WINDOW_PR33_SPLIT``, wrong numbers: timed only), forward and
+    backward in turns (every variant, then every variant in reverse
+    order), each held to ``check_flash`` / ``check_lse`` /
+    ``check_flash_bwd`` with the window (the timed-only ones not), beside
+    ``k5_bound`` / ``k5_bwd_bound`` of the windowed pairs, SDPA with the
+    window as a boolean mask and, for the two sources whole, the card's
+    own time of each kernel (profiler)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
-    # ptxas's lines for every kernel of both sources: the window's
-    # argument may move registers and spills at the other widths too.
     first = k5_lib(build(_build, "variants/flash_attention_window_first",
-                         K5_WINDOW_FIRST, "flash")[
+                         K5_WINDOW_FIRST, WINDOW_ONLY)[
         "before the window"], False)
     libs = {n: k5_lib(lib) for n, lib in build(
+        _build, "variants/flash_attention_window_pr33",
+        {**K5_WINDOW_PR33, **K5_WINDOW_PR33_SPLIT}, WINDOW_ONLY).items()}
+    libs.update({n: k5_lib(lib) for n, lib in build(
         _build, "flash_attention", {"as is": {}, **K5_WINDOW_NOW},
-        "flash").items()}
-    now = libs["as is"]
+        WINDOW_ONLY).items()})
+    now, pr33 = libs["as is"], libs["PR 33's window"]
+    timed_only = set(K5_WINDOW_PR33_SPLIT)
     for dk, dv in ((128, 128), (96, 64), (192, 128), (64, 64)):
-        for what, q, k, v, causal in mla_bit_cases(torch, cs, dk, dv):
-            got, want = (k5_fwd(torch, cs, _build, lib, q, k, v, causal,
-                                True) for lib in (now, first))
+        cases = mla_bit_cases(torch, cs, dk, dv)
+        if (dk, dv) == (64, 64):
+            for name, S, T, causal in whisper_shapes(cs, False):
+                q, k, v = whisper_qkv(torch, cs, 1340, 2, 16, S, T)
+                cases.append((f"(64, 64) Whisper's {name}", q, k, v, causal))
+        for what, q, k, v, causal in cases:
+            got = k5_fwd(torch, cs, _build, now, q, k, v, causal, True)
             dout = cs.randn(torch, 9, got[0].shape, torch.float32)
-            gb, wb = (k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v,
-                             got[0], dout, got[1], causal)
-                      for lib in (now, first))
-            print(f"K5 {what} without a window: forward out and lse "
-                  f"{bits_word(torch, got, want)}, backward dq, dk, dv "
-                  f"{bits_word(torch, gb, wb)} the source before the window",
+            gb = k5_bwd(torch, cs, _build, now, "wgmma", q, k, v, got[0],
+                        dout, got[1], causal)
+            words = []
+            for name, lib in (("PR 33's", pr33), ("before the window", first)):
+                want = k5_fwd(torch, cs, _build, lib, q, k, v, causal, True)
+                wb = k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v, got[0],
+                            dout, got[1], causal)
+                words.append(f"forward {bits_word(torch, got, want)}, "
+                             f"backward {bits_word(torch, gb, wb)} {name}")
+            print(f"K5 {what} without a window: {'; '.join(words)}",
                   flush=True)
-    # Calls without a window, the source before it against as is, in
-    # turns: at Whisper's encoder and at Hymba's shape (full causal).
+    # Calls without a window, PR 33's source against as is, in turns.
     for name, B, H, KV, S, causal in (("Whisper's encoder", 4, 16, 16, 1500,
                                        False),
                                       ("Hymba's shape", *cs.HYBRID_K5[:4],
@@ -622,8 +695,8 @@ def k5_window(torch, cs, _build) -> None:
         out, lse = kfa.flash_attention(q, k, v, causal=causal,
                                        return_lse=True)
         dout = cs.randn(torch, 1323, out.shape, torch.float32)
-        libs2 = (("before the window", first), ("as is", now))
-        for turn, order in enumerate((libs2, libs2[::-1])):
+        pair = (("PR 33's window", pr33), ("as is", now))
+        for turn, order in enumerate((pair, pair[::-1], pair, pair[::-1])):
             for n, lib in order:
                 ms = cs.time_ms(torch, lambda *a: k5_fwd(
                     torch, cs, _build, lib, *a, causal), (q, k, v), 20)
@@ -635,50 +708,67 @@ def k5_window(torch, cs, _build) -> None:
                       f"forward {ms:.5f} ms, backward {bms:.5f} ms",
                       flush=True)
         del q, k, v, out, lse, dout
-    B, H, KV, S, W = cs.HYBRID_K5
-    q, k, v = hybrid_qkv(torch, cs, 1300)
+    B, H, KV, S0, W0 = cs.HYBRID_K5
     scale = 64 ** -0.5
-    mask = cs.window_mask(torch, S, W, q.device)
-    sdpa_ms = cs.time_ms(torch, lambda *a: F.scaled_dot_product_attention(
-        *a, attn_mask=mask, enable_gqa=True), (q, k, v), 20)
-    out, lse = kfa.flash_attention(q, k, v, scale=scale, return_lse=True,
-                                   window=W)
-    dout = cs.randn(torch, 1303, out.shape, torch.float32)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                          enable_gqa=True)
-    sdpa_bwd_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
-        sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (), 20)
-    turns = [("as is", W), ("as is, no window", None),
-             ("as is, no tile skipped", W)]
-    shape = f"(64, 64) B={B} H={H} KV={KV} S=T={S} causal"
-    for turn, names in enumerate((turns, turns[::-1])):
-        for n, win in names:
-            lib = libs[n.replace(", no window", "")]
-            o, l_ = k5_fwd(torch, cs, _build, lib, q, k, v, True, True, win)
-            err = cs.check_flash(torch, n, o, q, k, v, True, scale, win)
-            ms = cs.time_ms(torch, lambda *a: k5_fwd(
-                torch, cs, _build, lib, *a, True, False, win), (q, k, v), 20)
-            g = k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v, o, dout,
-                       l_, True, win)
-            berr = cs.check_flash_bwd(torch, n, g, q, k, v, o, dout, True,
-                                      scale, "wgmma", win)
-            bms = cs.time_ms(torch, lambda *a: k5_bwd(
-                torch, cs, _build, lib, "wgmma", *a, True, win),
-                (q, k, v, o, dout, l_), 10)
-            fb, fby = cs.k5_bound(B, H, KV, S, S, 64, True, 2, None, win)
-            bb, bby = cs.k5_bwd_bound(B, H, KV, S, S, 64, True, 2, "wgmma",
-                                      None, win)
-            print(f"{n}: K5 {shape} window {win} turn {turn}: forward "
-                  f"{ms:.5f} ms (bound {fb:.5f} by {fby}, "
-                  f"{100 * fb / ms:.1f}%; max |err| {err:.3g}), backward "
-                  f"{bms:.5f} ms (bound {bb:.5f} by {bby}, "
-                  f"{100 * bb / bms:.1f}%; max |err| {berr:.3g}); SDPA with "
-                  f"the window as a mask {sdpa_ms:.5f} ms, its backward "
-                  f"{sdpa_bwd_ms:.5f} ms", flush=True)
-            del o, l_, g
-    del q, k, v, out, lse, dout, qg, kg, vg, sdpa
-    torch.cuda.empty_cache()
+    for shape_name, S, W in (("train", S0, W0), ("serve", 1907, W0),
+                             ("window 63", S0, 63), ("window 65", S0, 65)):
+        q, k, v = hybrid_qkv(torch, cs, 1300, S)
+        mask = cs.window_mask(torch, S, W, q.device)
+        sdpa_ms = cs.time_ms(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, attn_mask=mask, enable_gqa=True), (q, k, v), 20)
+        out, lse = kfa.flash_attention(q, k, v, scale=scale,
+                                       return_lse=True, window=W)
+        dout = cs.randn(torch, 1303, out.shape, torch.float32)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+        sdpa_bwd_ms = cs.time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), dout.to(sdpa.dtype), retain_graph=True), (),
+            10)
+        fb, fby = cs.k5_bound(B, H, KV, S, S, 64, True, 2, None, W)
+        bb, bby = cs.k5_bwd_bound(B, H, KV, S, S, 64, True, 2, "wgmma",
+                                  None, W)
+        names = [n for n in libs if n != "as is"] + ["as is"]
+        if shape_name != "train":     # the levers at the train shape only
+            names = ["PR 33's window", "as is"]
+        shape = f"(64, 64) {shape_name} B={B} H={H} KV={KV} S=T={S} causal"
+        for turn, order in enumerate((names, names[::-1])):
+            for n in order:
+                lib = libs[n]
+                o, l_ = k5_fwd(torch, cs, _build, lib, q, k, v, True, True, W)
+                g = k5_bwd(torch, cs, _build, lib, "wgmma", q, k, v, o, dout,
+                           l_, True, W)
+                tail = ""
+                if n not in timed_only:
+                    err = cs.check_flash(torch, n, o, q, k, v, True, scale, W)
+                    cs.check_lse(torch, n, l_, q, k, v, True, scale, W)
+                    berr = cs.check_flash_bwd(torch, n, g, q, k, v, o, dout,
+                                              True, scale, "wgmma", W)
+                    tail = f"; max |err| {err:.3g} / {berr:.3g}"
+                ms = cs.time_ms(torch, lambda *a: k5_fwd(
+                    torch, cs, _build, lib, *a, True, False, W), (q, k, v),
+                    20)
+                bms = cs.time_ms(torch, lambda *a: k5_bwd(
+                    torch, cs, _build, lib, "wgmma", *a, True, W),
+                    (q, k, v, o, dout, l_), 10)
+                if n in ("as is", "PR 33's window"):
+                    dev = kernel_ms(torch, lambda *a: (
+                        k5_fwd(torch, cs, _build, lib, *a[:3], True, False,
+                               W),
+                        k5_bwd(torch, cs, _build, lib, "wgmma", *a, True,
+                               W)), (q, k, v, o, dout, l_), 10,
+                        K5_WINDOW_KERNELS)
+                    tail += "; device " + ", ".join(
+                        f"{k_} {t:.5f}" for k_, t in dev.items())
+                print(f"{n}: K5 {shape} window {W} turn {turn}: forward "
+                      f"{ms:.5f} ms (bound {fb:.5f} by {fby}, "
+                      f"{100 * fb / ms:.1f}%), backward {bms:.5f} ms (bound "
+                      f"{bb:.5f} by {bby}, {100 * bb / bms:.1f}%); SDPA with "
+                      f"the window as a mask {sdpa_ms:.5f} ms, its backward "
+                      f"{sdpa_bwd_ms:.5f} ms{tail}", flush=True)
+                del o, l_, g
+        del q, k, v, out, lse, dout, qg, kg, vg, sdpa, mask
+        torch.cuda.empty_cache()
 
 
 #: Edits of K7's first design (csrc/variants/mamba_scan_first.cu) that
@@ -1882,6 +1972,8 @@ TABLES = (("segment_matmul", K4_VARIANTS),
           ("variants/flash_attention_whisper_first", K5BWD_SPLIT),
           ("flash_attention", K5BWD_WHISPER),
           ("variants/flash_attention_window_first", K5_WINDOW_FIRST),
+          ("variants/flash_attention_window_pr33", K5_WINDOW_PR33),
+          ("variants/flash_attention_window_pr33", K5_WINDOW_PR33_SPLIT),
           ("flash_attention", K5_WINDOW_NOW),
           ("variants/mamba_scan_first", K7_VARIANTS),
           ("variants/mamba_scan_first", K7_FIRST_SPLIT),

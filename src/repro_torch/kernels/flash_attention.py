@@ -25,8 +25,10 @@ stops seeing keys ``j <= i - window``, the mask of
 ``repro.models.attention``, ``attention.py:95-96``), on the ``fma`` route
 and on ``wgmma`` at (64, 64), Hymba-1.5B's width; the kernels skip the
 tiles wholly outside every row's window, so a window costs about ``S
-window`` pairs, not ``S^2 / 2``.  A window at the other ``wgmma`` widths,
-or without ``causal``, raises ``ValueError``.
+window`` pairs, not ``S^2 / 2`` (on ``wgmma`` by the window form: a
+block's warpgroups own the same rows of the query heads of one KV head,
+so their key walks coincide).  A window at the other ``wgmma`` widths, or
+without ``causal``, raises ``ValueError``.
 
 For CUDA tensors the wrapper launches a kernel of
 ``csrc/flash_attention.cu`` (built at first use) on the current stream, or
@@ -145,8 +147,25 @@ def _library() -> ctypes.CDLL:
             [ptr] * 10 + [i32] * 7 + [ctypes.c_float] + [i32] * 3
             + [ctypes.POINTER(ctypes.c_longlong), i32, i32, ptr])
         lib.repro_flash_attention_bwd.restype = i32
+        lib.repro_k5_window_wgs.argtypes = [i32] * 5
+        lib.repro_k5_window_wgs.restype = i32
         _lib = lib
     return _lib
+
+
+def window_wgs(B: int, H: int, KV: int, S: int,
+               device: Optional[torch.device] = None) -> int:
+    """The consumer warpgroups (2 or 3) a block of the window forms takes
+    for a windowed call of B, H query heads, KV heads and S rows at (64,
+    64) on ``device`` (the current card by default), as the library
+    chooses them."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    lib = _library()
+    got = lib.repro_k5_window_wgs(B, H, KV, S,
+                                  _build.device_and_stream(dev)[0])
+    if got < 0:
+        raise ValueError(f"no windowed call takes B={B} H={H} KV={KV} S={S}")
+    return got
 
 
 def _strides(t: torch.Tensor):

@@ -13,19 +13,23 @@ JAX and ~1e-7 here); the windowed output differs from the full one beyond
 that.
 
 Then the kernels' walks over tiles, emulated in numpy with the index
-arithmetic of ``csrc/flash_attention.cu``: the (64, 64) overlap forward
-(blocks of 2 or 3 warpgroups of 64 rows, 64-key tiles; the block's walk
-from the tile holding its first row's first key, each warpgroup's own
-tiles from its first row's), ``flash_bwd_dkv_wgmma``'s items (128 keys,
+arithmetic of ``csrc/flash_attention.cu``: the (64, 64) window forward
+``flash_window`` and ``dq_window`` (blocks of 2 or 3 warpgroups, each a
+unit of 64 query rows of one head, the rep heads of a KV head packed into
+consecutive units; 64-key tiles on one ring per block, each unit's walk
+from its first row's first key up to its diagonal),
+``flash_bwd_dkv_wgmma``'s window items (128 keys,
 64-query tiles up to the last query that sees the item's last key, a
-warpgroup skipping tiles past its keys' windows), ``flash_bwd_dq_wgmma``
-(64-key tiles from the block's first row's first key, a warpgroup skipping
-tiles below its windows) and the fma kernels (64 x 64 tiles): every
-visible (query, key) pair is multiplied by the tile walk that owns it,
-no tile is multiplied whose pairs are all masked, the ring walks in a
-block are the same for its producer and consumers, and a tile the kernel
-does not mask (not an edge tile) holds no masked pair.
+warpgroup skipping tiles past its keys' windows) and the fma kernels (64 x
+64 tiles): every visible (query, key) pair is multiplied by the tile walk
+that owns it, once for each query head, no tile is multiplied whose pairs
+are all masked, and a tile the kernel does not mask (not an edge tile)
+holds no masked pair.  Last, dkv's items at Hymba's train shape scheduled
+on the card's SMs: the grid's own order already ends as soon as any
+schedule of whole 128-key items can.
 """
+import heapq
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,41 +136,63 @@ def _cdiv(a, b):
 def _check_tile(vis, rows, keys, edge, what):
     """A multiplied tile: some pair visible; and a tile the kernel does not
     mask (edge False) holds no masked pair among its real rows and keys."""
-    sub = vis[np.ix_(rows, keys)]
+    sub = vis[rows, keys] if isinstance(rows, slice) else vis[np.ix_(rows,
+                                                                     keys)]
     assert sub.any(), f"{what}: a wholly masked tile is multiplied"
     if not edge:
         assert sub.all(), f"{what}: a tile with masked pairs is not masked"
 
 
-def _fwd_overlap(S, W, wgs):
-    """flash_overlap's walks: covered pairs."""
-    T, BM = S, 64 * wgs
+def _first(t, W):
+    """WinUnits::first_tile: the key tile of row tile t's first row's
+    first key."""
+    return max(0, 64 * t - W + 1) // 64
+
+
+def _win_blocks(S, rep, wgs):
+    """The window forms' blocks of one (b, KV head): each its units (row
+    tile t, head hh), one a consumer warpgroup: wgs consecutive units u =
+    t rep + hh."""
+    n_t = _cdiv(S, 64)
+    return [[(u // rep, u % rep) for u in range(u0, min(u0 + wgs,
+                                                        rep * n_t))]
+            for u0 in range(0, rep * n_t, wgs)]
+
+
+def _rows(t, S):
+    return slice(64 * t, min(64 * t + 64, S))
+
+
+def _keys(j, T):
+    return slice(64 * j, min(64 * j + 64, T))
+
+
+def _window_walks(S, W, wgs, rep=1):
+    """flash_window's and dq_window's walks (the same): a block's ring
+    walks key tiles first(t_lo) up to t_hi, each warpgroup multiplying its
+    own first(t)..t; covered pairs [rep, S, S].  A block's row tiles lie
+    at most one apart where rep >= wgs - 1."""
+    T = S
     vis = _visible(S, W)
-    cov = np.zeros((S, S), int)
-    for q0 in range(0, S, BM):
-        n_kv = _cdiv(min(T, q0 + BM), 64)
-        j_lo = max(0, q0 - W + 1) // 64
-        walk = list(range(j_lo, n_kv))
-        for wg in range(wgs):
-            row_lo = q0 + 64 * wg
-            n_own = j_lo if row_lo >= S else min(n_kv, row_lo // 64 + 1)
-            j_own = max(j_lo, max(0, row_lo - W + 1) // 64) if row_lo < S \
-                else j_lo
-            own = list(range(j_own, n_own))
-            assert set(own) <= set(walk)
-            rows = np.arange(row_lo, min(row_lo + 64, S))
-            for j in own:
-                k0 = 64 * j
-                keys = np.arange(k0, min(k0 + 64, T))
-                edge = (k0 + 64 > T or k0 + 63 > row_lo
-                        or k0 <= row_lo + 63 - W)
-                _check_tile(vis, rows, keys, edge, f"fwd S={S} W={W} wg={wg}")
-                cov[np.ix_(rows, keys)] += vis[np.ix_(rows, keys)]
+    cov = np.zeros((rep, S, S), np.int8)
+    for blk in _win_blocks(S, rep, wgs):
+        t_lo, t_hi = blk[0][0], blk[-1][0]
+        assert t_hi - t_lo <= (1 if rep >= wgs - 1 else wgs - 1)
+        for t, hh in blk:
+            for j in range(_first(t_lo, W), t_hi + 1):
+                if not _first(t, W) <= j <= t:
+                    continue
+                edge = j == t or 64 * j <= 64 * t + 63 - W
+                _check_tile(vis, _rows(t, S), _keys(j, T), edge,
+                            f"window S={S} W={W} t={t}")
+                cov[hh, _rows(t, S), _keys(j, T)] += vis[_rows(t, S),
+                                                         _keys(j, T)]
     return cov
 
 
 def _dkv_wgmma(S, W):
-    """flash_bwd_dkv_wgmma's items at (64, 64) (kOwnKeys, 128 keys)."""
+    """flash_bwd_dkv_wgmma's window items at (64, 64) (kOwnKeys, 128 keys,
+    each warpgroup its own 64): covered pairs."""
     T = S
     vis = _visible(S, W)
     cov = np.zeros((S, S), int)
@@ -184,33 +210,6 @@ def _dkv_wgmma(S, W):
                 rows = np.arange(q0, min(q0 + 64, S))
                 edge = q0 < kw0 + 63 or q0 + 63 >= kw0 + W
                 _check_tile(vis, rows, keys, edge, f"dkv S={S} W={W}")
-                cov[np.ix_(rows, keys)] += vis[np.ix_(rows, keys)]
-    return cov
-
-
-def _dq_wgmma(S, W, wgs):
-    """flash_bwd_dq_wgmma at (64, 64): blocks of wgs x 64 queries over the
-    padded rows, 64-key tiles from j_lo."""
-    T = S
-    Sp = _cdiv(S, 128) * 128
-    vis = _visible(S, W)
-    cov = np.zeros((S, S), int)
-    for q0 in range(0, Sp, 64 * wgs):
-        n_kv = _cdiv(min(T, q0 + 64 * wgs), 64)
-        j_lo = max(0, q0 - W + 1) // 64
-        for wg in range(wgs):
-            row_lo = q0 + 64 * wg
-            rows = np.arange(row_lo, min(row_lo + 64, S))
-            for j in range(j_lo, n_kv):
-                k0 = 64 * j
-                if k0 > row_lo + 63 or k0 + 63 <= row_lo - W:
-                    continue
-                if len(rows) == 0:
-                    continue
-                keys = np.arange(k0, min(k0 + 64, T))
-                edge = (k0 + 63 > row_lo or k0 + 64 > T
-                        or k0 <= row_lo + 63 - W)
-                _check_tile(vis, rows, keys, edge, f"dq S={S} W={W}")
                 cov[np.ix_(rows, keys)] += vis[np.ix_(rows, keys)]
     return cov
 
@@ -241,10 +240,15 @@ def _fma_rows(S, W):
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1100, 2048])
 @pytest.mark.parametrize("W", [1, 63, 64, 65, 1023, 1024, 5000])
 def test_tile_walks_cover_every_visible_pair_once(S, W):
+    """At 2 and 3 warpgroups, for each query head of rep 5 (Hymba's), rep
+    2 (a block's units across two row tiles) and rep 1 (a block's rows two
+    tiles apart)."""
     want = _visible(S, W).astype(int)
     for wgs in (2, 3):
-        np.testing.assert_array_equal(_fwd_overlap(S, W, wgs), want)
-        np.testing.assert_array_equal(_dq_wgmma(S, W, wgs), want)
+        for rep in (5, 2, 1):
+            cov = _window_walks(S, W, wgs, rep)
+            assert np.array_equal(cov, np.broadcast_to(want, cov.shape)), (
+                f"wgs={wgs} rep={rep}")
     np.testing.assert_array_equal(_dkv_wgmma(S, W), want)
     by_q, by_k = _fma_rows(S, W)
     np.testing.assert_array_equal(by_q, want)
@@ -252,21 +256,51 @@ def test_tile_walks_cover_every_visible_pair_once(S, W):
 
 
 def test_a_window_cuts_the_walk():
-    """At Hymba's S 2,048 and window 1,024 the overlap forward multiplies
-    about S W of the S^2 / 2 causal pairs' tiles: its tiles number under
-    80% of the causal walk's."""
-    S, W = 2048, 1024
+    """At Hymba's S 2,048, window 1,024 and rep 5, flash_window multiplies
+    about S W of the S^2 / 2 causal pairs' tiles (under 80% of a causal
+    walk's), and its ring loads under 5% more tiles than its warpgroups
+    multiply (the blocks whose units span two row tiles), at the three
+    consumer warpgroups a block window_wgs takes there."""
+    S, W, rep, wgs = 2048, 1024, 5, 3
+    own = walked = causal = 0
+    for blk in _win_blocks(S, rep, wgs):
+        t_lo, t_hi = blk[0][0], blk[-1][0]
+        walked += t_hi + 1 - _first(t_lo, W)
+        for t, _ in blk:
+            own += t + 1 - _first(t, W)
+            causal += t + 1
+    assert own < 0.8 * causal
+    assert walked * wgs < 1.05 * own
 
-    def tiles(W):
-        n = 0
-        for q0 in range(0, S, 192):
-            j_lo = max(0, q0 - W + 1) // 64 if W else 0
-            for wg in range(3):
-                row_lo = q0 + 64 * wg
-                if row_lo >= S:
-                    continue
-                n_own = min(_cdiv(min(S, q0 + 192), 64), row_lo // 64 + 1)
-                j_own = max(j_lo, max(0, row_lo - W + 1) // 64) if W else 0
-                n += n_own - j_own
-        return n
-    assert tiles(W) < 0.8 * tiles(0)
+
+def _dkv_items(S, W, rep):
+    """flash_bwd_dkv_wgmma's window items of one (b, KV head) in grid
+    order (key block y): each one's query-tile steps, rep n_q (its two
+    warpgroups walk them side by side)."""
+    return [rep * _cdiv(min(S, k0 + 127 + W) - k0, 64)
+            for k0 in range(0, S, 128)]
+
+
+def _list_schedule(jobs, sms):
+    """The makespan of jobs taken in order, each by the first SM free."""
+    free = [0] * sms
+    for job in jobs:
+        heapq.heapreplace(free, free[0] + job)
+    return max(free)
+
+
+def test_dkv_grid_order_already_meets_its_item_bound():
+    """At Hymba's train shape (B 4, KV 5, rep 5, S 2,048, window 1,024) on
+    132 SMs (an H100 SXM's), one dkv block an SM: the grid's own order
+    (key block by key block, the heaviest items first) ends when the two
+    heaviest items that must share an SM end, so no schedule of whole
+    items (a persistent grid taking them heaviest first) ends sooner; the
+    tail's loss against perfect balance is what 128-key items cost."""
+    B, KV, rep, S, W, sms = 4, 5, 5, 2048, 1024, 132
+    per = _dkv_items(S, W, rep)
+    in_order = [n for n in per for _ in range(B * KV)]
+    heaviest = sorted(in_order, reverse=True)
+    bound = max(heaviest[sms - 1] + heaviest[sms], sum(in_order) / sms)
+    assert _list_schedule(in_order, sms) == bound == 2 * 18 * rep
+    assert _list_schedule(heaviest, sms) == bound
+    assert 1.09 < bound / (sum(in_order) / sms) < 1.11
